@@ -1,0 +1,20 @@
+"""socioreasoner_tpu_torch — the PyTorch/CUDA port of socioreasoner_tpu.
+
+The JAX package beside it is the reference: this package keeps its module
+paths and public names so each counterpart is easy to find, and its tests hold
+every module against the JAX function on the same inputs.
+
+Layer map (the slice ported so far):
+  ops                     — attention references + hand-written Hopper kernels
+                            (csrc/*.cu, built by ops/_build.py at first use)
+  models/qwen2_5_vl       — ViT, text decoder, full model, weight bridge
+  generation              — DecodeEngine, sampling, GenerateServer
+  datasets                — stage-1 collator
+  distributed             — batch_image_embeds, TorchDecodeStrategy
+
+It imports torch and never jax. Host-only modules of the JAX package
+(config, datasets.processor/socioseg, protocol, configs) are imported as they
+are: they import no jax.
+"""
+
+__version__ = "0.1.0"

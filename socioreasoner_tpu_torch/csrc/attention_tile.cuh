@@ -1,0 +1,186 @@
+// Shared pieces of the two tiled attention kernels (flash_prefill.cu and
+// flash_segmented.cu): one CTA of 4 warps owns a 64-row query tile, walks
+// 64-key tiles of K/V through shared memory, computes S = Q K^T and O += P V
+// on the tensor cores with bf16 WMMA (f32 accumulation), and keeps the online
+// softmax state (row max m, row sum l, unnormalised O) in shared memory.
+//
+// Each warp owns 16 of the 64 query rows for the whole kernel: it computes
+// their scores, their softmax and their slice of O, so within a key tile the
+// warps only meet at the K/V loads (__syncthreads) and otherwise synchronise
+// with __syncwarp.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace socio {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kRows = 64;              // query rows per CTA
+constexpr int kCols = 64;              // keys per K/V tile
+constexpr int kWarps = 4;              // each warp owns 16 query rows
+constexpr int kThreads = kWarps * 32;
+constexpr float kNegInf = -1e30f;      // masked logit (the Pallas kernels' NEG_INF)
+
+// Padded shared-memory row strides (elements). A 16x16 WMMA load reads 16
+// rows at one column; with unpadded 128- or 256-byte rows those rows share
+// banks, so every row gets 16 extra bytes. WMMA wants bf16 strides in
+// multiples of 8 and f32 strides in multiples of 4.
+template <int D> struct Ld {
+  static constexpr int qkv = D + 8;        // bf16 Q, K, V rows
+  static constexpr int o = D + 4;          // f32 O rows
+  static constexpr int s = kCols + 4;      // f32 score rows
+  static constexpr int p = kCols + 8;      // bf16 probability rows
+};
+
+// Dynamic shared memory layout for head dim D. Every offset, and every
+// 16-row step inside a region, is a multiple of 32 bytes, as WMMA fragment
+// pointers require.
+template <int D>
+struct TileSmem {
+  static constexpr size_t q = 0;                                     // bf16 [kRows][Ld::qkv]
+  static constexpr size_t k = q + size_t(kRows) * Ld<D>::qkv * 2;    // bf16 [kCols][Ld::qkv]
+  static constexpr size_t v = k + size_t(kCols) * Ld<D>::qkv * 2;    // bf16 [kCols][Ld::qkv]
+  static constexpr size_t s = v + size_t(kCols) * Ld<D>::qkv * 2;    // f32  [kRows][Ld::s]
+  static constexpr size_t p = s + size_t(kRows) * Ld<D>::s * 4;      // bf16 [kRows][Ld::p]
+  static constexpr size_t o = p + size_t(kRows) * Ld<D>::p * 2;      // f32  [kRows][Ld::o]
+  static constexpr size_t m = o + size_t(kRows) * Ld<D>::o * 4;      // f32  [kRows]
+  static constexpr size_t l = m + kRows * 4;                         // f32  [kRows]
+  static constexpr size_t segq = l + kRows * 4;                      // i32  [kRows]
+  static constexpr size_t segk = segq + kRows * 4;                   // i32  [kCols]
+  static constexpr size_t bytes = segk + kCols * 4;
+};
+
+// Copy 64 rows of D bf16 values into shared memory (row stride Ld::qkv) with
+// 16-byte vector loads. row_ptr(r) gives the global row or nullptr, which
+// stores zeros: rows past the valid range never feed garbage (NaN * 0) into
+// the tensor-core products.
+template <int D, typename RowPtr>
+__device__ __forceinline__ void load_rows(bf16* dst, RowPtr row_ptr) {
+  constexpr int kVec = D / 8;
+  static_assert(kRows * kVec % kThreads == 0, "whole vectors per thread");
+  // unrolled: every thread issues all its loads before the first store
+#pragma unroll
+  for (int it = 0; it < kRows * kVec / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i / kVec, c = i % kVec;
+    const bf16* src = row_ptr(r);
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (src != nullptr) val = reinterpret_cast<const uint4*>(src)[c];
+    reinterpret_cast<uint4*>(dst + r * Ld<D>::qkv)[c] = val;
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void init_state(float* O, float* m, float* l) {
+  for (int i = threadIdx.x; i < kRows * Ld<D>::o; i += kThreads) O[i] = 0.f;
+  for (int i = threadIdx.x; i < kRows; i += kThreads) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+}
+
+// S[warp rows][0:kCols] = Q[warp rows] @ K^T (raw logits, f32).
+template <int D>
+__device__ __forceinline__ void scores_tile(const bf16* Qs, const bf16* Ks, float* Ss, int warp) {
+  using namespace nvcuda;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kCols / 16];
+#pragma unroll
+  for (int n = 0; n < kCols / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+    wmma::load_matrix_sync(a, Qs + warp * 16 * Ld<D>::qkv + kk * 16, Ld<D>::qkv);
+#pragma unroll
+    for (int n = 0; n < kCols / 16; ++n) {
+      // K^T as a column-major (D x kCols) matrix is K row-major
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+      wmma::load_matrix_sync(b, Ks + n * 16 * Ld<D>::qkv + kk * 16, Ld<D>::qkv);
+      wmma::mma_sync(acc[n], a, b, acc[n]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < kCols / 16; ++n)
+    wmma::store_matrix_sync(Ss + warp * 16 * Ld<D>::s + n * 16, acc[n], Ld<D>::s,
+                            wmma::mem_row_major);
+}
+
+// Online-softmax update of the warp's 16 rows, one row at a time: lane l
+// takes columns l and l + 32 (consecutive lanes on consecutive words, so no
+// bank conflicts) and the row max and sum are warp shuffles. Masked logits
+// give p = 0 (never exp(0)), so a row with no valid key anywhere ends with
+// l == 0 and its output is 0, as in the Pallas kernels.
+// valid(r, c) says whether query row r may see key column c of this tile.
+template <int D, typename Valid>
+__device__ __forceinline__ void softmax_tile(const float* Ss, bf16* Ps, float* Os, float* m_s,
+                                             float* l_s, int warp, float scale, Valid valid) {
+  static_assert(kCols == 64, "two columns per lane");
+  const int lane = threadIdx.x & 31;
+  for (int i = 0; i < 16; ++i) {
+    const int r = warp * 16 + i;
+    const float* srow = Ss + r * Ld<D>::s;
+    const float s0 = valid(r, lane) ? srow[lane] * scale : kNegInf;
+    const float s1 = valid(r, lane + 32) ? srow[lane + 32] * scale : kNegInf;
+    float mx = fmaxf(s0, s1);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_old = m_s[r];
+    const float m_new = fmaxf(m_old, mx);
+    const float p0 = s0 > 0.5f * kNegInf ? __expf(s0 - m_new) : 0.f;
+    const float p1 = s1 > 0.5f * kNegInf ? __expf(s1 - m_new) : 0.f;
+    Ps[r * Ld<D>::p + lane] = __float2bfloat16(p0);
+    Ps[r * Ld<D>::p + lane + 32] = __float2bfloat16(p1);
+    float sum = p0 + p1;
+    // every lane has read m_old before any lane leaves this reduction
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const float corr = __expf(m_old - m_new);
+    float* orow = Os + r * Ld<D>::o;
+    for (int d = lane; d < D; d += 32) orow[d] *= corr;
+    if (lane == 0) {
+      m_s[r] = m_new;
+      l_s[r] = l_s[r] * corr + sum;
+    }
+  }
+}
+
+// O[warp rows] += P[warp rows] @ V, accumulating on the tensor cores straight
+// into the f32 O tile in shared memory.
+template <int D>
+__device__ __forceinline__ void pv_tile(const bf16* Ps, const bf16* Vs, float* Os, int warp) {
+  using namespace nvcuda;
+#pragma unroll
+  for (int n = 0; n < D / 16; ++n) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::load_matrix_sync(acc, Os + warp * 16 * Ld<D>::o + n * 16, Ld<D>::o,
+                           wmma::mem_row_major);
+#pragma unroll
+    for (int kk = 0; kk < kCols / 16; ++kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+      wmma::load_matrix_sync(a, Ps + warp * 16 * Ld<D>::p + kk * 16, Ld<D>::p);
+      wmma::load_matrix_sync(b, Vs + kk * 16 * Ld<D>::qkv + n * 16, Ld<D>::qkv);
+      wmma::mma_sync(acc, a, b, acc);
+    }
+    wmma::store_matrix_sync(Os + warp * 16 * Ld<D>::o + n * 16, acc, Ld<D>::o,
+                            wmma::mem_row_major);
+  }
+}
+
+// out row r = O[r] / l[r] (0 where l == 0), written as bf16 to row_ptr(r)
+// unless that is nullptr.
+template <int D, typename RowPtr>
+__device__ __forceinline__ void write_rows(const float* Os, const float* l_s, RowPtr row_ptr) {
+  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    bf16* dst = row_ptr(r);
+    if (dst == nullptr) continue;
+    const float l = l_s[r];
+    dst[d] = __float2bfloat16(Os[r * Ld<D>::o + d] / (l == 0.f ? 1.f : l));
+  }
+}
+
+}  // namespace socio

@@ -1,0 +1,126 @@
+"""Qwen2.5-VL text decoder (Qwen2 architecture + M-RoPE) in PyTorch.
+
+The counterpart of socioreasoner_tpu/models/qwen2_5_vl/text.py, for dense
+bf16/f32 weights:
+  * without a cache, causal attention over the input runs through
+    dense_attention (the JAX package's use_flash=False path);
+  * with a cache (the decode engine), each layer writes its new K/V rows into
+    the stacked (layers, B, Lmax, Hkv, D) buffers IN PLACE — the JAX package
+    donates those buffers and XLA updates them in place — then a multi-token
+    pass (prefill) runs the flash prefill kernel over the local sequence and a
+    one-token pass (decode) runs the paged decode kernel on the stacked cache
+    at the layer index.
+
+MoE layers, context/pipeline/tensor parallelism and quantized weights are
+not ported yet and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from socioreasoner_tpu.models.qwen2_5_vl.config import TextConfig
+
+from ...ops.attention import dense_attention
+from ...ops.decode_attention import paged_decode_attention
+from ...ops.flash_attention import flash_attention
+from ...ops.norms import rms_norm, swiglu
+from .rope import apply_rotary
+
+
+def check_supported(cfg: TextConfig, params: Dict) -> None:
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "MoE decoder layers are not ported yet (ROADMAP: the rest of the surface)")
+    if not params["layers"]["q_w"].is_floating_point():
+        raise NotImplementedError(
+            "quantized decoder weights are not ported yet (ROADMAP: quantized serving)")
+
+
+def _qkv(cfg: TextConfig, p: Dict, h: torch.Tensor):
+    B, L, _ = h.shape
+    H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    q = (h @ p["q_w"] + p["q_b"]).reshape(B, L, H, D)
+    k = (h @ p["k_w"] + p["k_b"]).reshape(B, L, Hkv, D)
+    v = (h @ p["v_w"] + p["v_b"]).reshape(B, L, Hkv, D)
+    if cfg.use_qk_norm:    # qwen3: per-head RMS norm before rotary
+        q = rms_norm(q, p["q_norm"], cfg.rms_norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.rms_norm_eps)
+    return q, k, v
+
+
+def decoder_layer(cfg: TextConfig, p: Dict, x, cos, sin, attention_mask,
+                  q_positions):
+    """One uncached layer: causal dense attention over the input."""
+    B, L, _ = x.shape
+    q, k, v = _qkv(cfg, p, rms_norm(x, p["input_ln"], cfg.rms_norm_eps))
+    q, k = apply_rotary(q, k, cos, sin)
+    out = dense_attention(q, k, v, causal=True, attention_mask=attention_mask,
+                          q_positions=q_positions)
+    x = x + out.reshape(B, L, -1) @ p["o_w"]
+    h2 = rms_norm(x, p["post_ln"], cfg.rms_norm_eps)
+    return x + swiglu(h2, p["gate_w"], p["up_w"], p["down_w"])
+
+
+def _decoder_cached_unrolled(cfg: TextConfig, params: Dict, x, cos, sin,
+                             cache: Dict, cache_positions):
+    """Cache-mode decoder. Writes each layer's K/V rows into cache["k"] /
+    cache["v"] in place and returns (x, cache) with the same buffers."""
+    B, L, _ = x.shape
+    k_all, v_all = cache["k"], cache["v"]
+    kv_valid = cache["kv_valid"]
+    lengths = kv_valid.sum(dim=-1, dtype=torch.int32)
+    bidx = torch.arange(B, device=x.device)[:, None]
+    pos = cache_positions.long()
+    for i in range(cfg.num_hidden_layers):
+        p = {key: arr[i] for key, arr in params["layers"].items()}
+        q, k, v = _qkv(cfg, p, rms_norm(x, p["input_ln"], cfg.rms_norm_eps))
+        q, k = apply_rotary(q, k, cos, sin)
+        k_all[i, bidx, pos] = k.to(k_all.dtype)
+        v_all[i, bidx, pos] = v.to(v_all.dtype)
+        if L > 1:
+            # prefill into a fresh cache: attention over the local sequence only
+            out = flash_attention(q, k, v, kv_valid[:, :L], causal=True)
+        else:
+            # decode: the kernel reads only each slot's valid cache prefix
+            out = paged_decode_attention(q[:, 0], k_all, v_all, lengths,
+                                         layer=i)[:, None]
+        x = x + out.reshape(B, L, -1) @ p["o_w"]
+        h2 = rms_norm(x, p["post_ln"], cfg.rms_norm_eps)
+        x = x + swiglu(h2, p["gate_w"], p["up_w"], p["down_w"])
+    return x, cache
+
+
+def text_decoder(
+    cfg: TextConfig,
+    params: Dict,                      # {"layers": stacked dict, "final_ln": ...}
+    inputs_embeds: torch.Tensor,       # (B, L, hidden)
+    cos: torch.Tensor,                 # (B, L, head_dim)
+    sin: torch.Tensor,
+    attention_mask: Optional[torch.Tensor] = None,  # (B, L)
+    q_positions: Optional[torch.Tensor] = None,     # (B, L) absolute (for causal)
+    cache: Optional[Dict] = None,      # {"k","v": (layers,B,Lmax,Hkv,D), "kv_valid": (B,Lmax)}
+    cache_positions: Optional[torch.Tensor] = None,
+    cp=None,
+    pp=None,
+    tp=None,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Returns (B, L, hidden) final hidden states (post final norm) + the cache
+    (updated in place) or None."""
+    check_supported(cfg, params)
+    if cp is not None or pp is not None or tp is not None:
+        raise NotImplementedError(
+            "context / pipeline / tensor parallelism is not ported yet "
+            "(ROADMAP: multi-GPU)")
+    if cache is None:
+        x = inputs_embeds
+        for i in range(cfg.num_hidden_layers):
+            p = {key: arr[i] for key, arr in params["layers"].items()}
+            x = decoder_layer(cfg, p, x, cos, sin, attention_mask, q_positions)
+        new_cache = None
+    else:
+        x, new_cache = _decoder_cached_unrolled(
+            cfg, params, inputs_embeds, cos, sin, cache, cache_positions)
+    return rms_norm(x, params["final_ln"], cfg.rms_norm_eps), new_cache

@@ -1,0 +1,107 @@
+"""Build and load the port's CUDA kernels.
+
+All sources in ``socioreasoner_tpu_torch/csrc`` compile with ``nvcc`` for
+``sm_90a`` into ONE shared library with a plain C interface, loaded through
+ctypes. The library lands in ``socioreasoner_tpu_torch/_build/`` under a name
+that hashes the sources and flags, so an edited source rebuilds and an
+unchanged one loads the existing file. Nothing is built at import time: the
+first kernel launch calls :func:`library`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+
+# C entry points and their argument types: every pointer and the stream as
+# c_void_p (a bare Python int would be cut to 32 bits).
+SIGNATURES = {
+    "socio_flash_prefill_bf16":
+        [_P] * 5 + [_I] * 6 + [_LL] * 12 + [_I, _F, _P],
+    "socio_flash_segmented_bf16":
+        [_P] * 7 + [_I] * 3 + [_LL] * 8 + [_F, _P],
+    "socio_paged_decode_bf16":
+        [_P] * 7 + [_I] * 6 + [_LL] * 10 + [_F, _P],
+}
+
+
+def sources():
+    return sorted(list(CSRC_DIR.glob("*.cu")) + list(CSRC_DIR.glob("*.cuh")))
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libsocio_attention_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> "tuple[Path, float]":
+    """Compile the library if it is missing; returns (path, seconds spent)."""
+    out = library_path()
+    if out.exists():
+        return out, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sources() if s.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if verbose:              # ptxas register / shared-memory report
+        print(proc.stderr, end="", file=sys.stderr)
+    os.replace(tmp, out)          # atomic: a concurrent loader sees all or nothing
+    return out, seconds
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry reported a CUDA error (a refused launch never runs,
+    and a later synchronize would not report it)."""
+    if rc != 0:
+        raise RuntimeError(f"{name} failed with CUDA error {rc}")
