@@ -12,9 +12,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 the kernel and of the plain version on the bf16 tensors.
   4. engine   — DecodeEngine greedy stream (kernels) against a teacher-forced
                 uncached forward (dense attention) at Qwen2.5-VL-3B head dims.
-  5. main     — Qwen2.5-VL-3B at full width with random bf16 weights answers
+  5. train_parity — one GRPO train step with the trainable flash kernels
+                against one with dense attention, from identical bf16 params
+                at Qwen2.5-VL-3B widths with 2 layers.
+  6. main     — Qwen2.5-VL-3B at full width with random bf16 weights answers
                 four SocioSeg stage-1 requests (768x768 map + satellite tiles)
-                through TorchDecodeStrategy's server; every kernel must launch.
+                through TorchDecodeStrategy's server; kernels 1-3 must launch.
+  7. train    — the GRPO actor path at full width and depth on the main
+                phase's params: a rollout of one tile x 4 samples through the
+                server, postprocess to 2304 tokens, reference and old
+                log-probs, group-normalised rewards and advantages, three
+                PPO train steps, model_update and a greedy request with the
+                trained weights; kernels 4-6 must launch.
 
 TF32 is off for matmuls and convolutions, so float32 references are full
 float32. Imports nothing of JAX. The last line is the device summary
@@ -33,6 +42,12 @@ from pathlib import Path
 import numpy as np
 
 KERNEL_TOL = 2e-2       # max-abs, bf16 output rounding at |out| up to ~4
+LSE_TOL = 1e-3          # max-abs of the f32 log-sum-exp (logits of size ~10)
+# dq/dk/dv max-abs error as a share of each gradient's max-abs: the outputs
+# are bf16 (2^-9 relative rounding) and the kernels round p and ds to bf16
+# before their products, as the Pallas kernels do; over sums of thousands of
+# such terms the error stays a few tenths of a percent of the largest element
+GRAD_REL_TOL = 2e-2
 GAP_TOL = 0.05          # a greedy flip is a tie when the top-2 gap is below this
 
 
@@ -205,22 +220,89 @@ def phase_kernels():
         "max_abs_err": max(errs), "ms": timing[0], "plain_ms": timing[1]})
     emit({"phase": "kernel", **results[-1]})
     torch.cuda.empty_cache()
+    results.extend(_train_kernels(randn))
     return results
 
 
-def phase_engine():
-    """DecodeEngine greedy (kernels) vs a teacher-forced uncached forward
-    (dense attention), 2 text layers at 3B head dims, bf16."""
+def _train_kernels(randn):
+    """Kernels 4-6 at the train shape (B=4, L=2304, 16/2 heads x 128, causal,
+    kv lengths 2304, 2080, 1000, 1) against their plain versions in f32 on
+    the same bf16 values. The backward kernels get the plain lse and delta,
+    so each kernel is held alone."""
     import torch
+    from socioreasoner_tpu_torch.ops import flash_attention_bwd as fb
+
+    B, L = 4, 2304
+    q, k, v, do = randn(B, L, 16, 128), randn(B, L, 2, 128), randn(B, L, 2, 128), \
+        randn(B, L, 16, 128)
+    lens = torch.tensor([2304, 2080, 1000, 1], dtype=torch.int32, device=q.device)
+    shape = "B=4 L=2304 H=16 Hkv=2 D=128 causal kv_len=2304,2080,1000,1"
+    out, lse = fb.flash_attention_fwd_lse(q, k, v, lens)
+    ref_out, ref_lse = fb.flash_attention_fwd_lse_reference(q.float(), k.float(),
+                                                            v.float(), lens)
+    err = _check("train fwd out", out, ref_out)
+    lse_err = (lse - ref_lse).abs().max().item()
+    if not lse_err <= LSE_TOL:
+        raise AssertionError(f"train fwd lse: max_abs_err {lse_err} > {LSE_TOL}")
+    results = [{
+        "name": "flash_attention_fwd_lse", "route": "cuda",
+        "source": "socioreasoner_tpu_torch/csrc/flash_train_fwd.cu",
+        "replaces": "socioreasoner_tpu/ops/flash_attention_bwd.py:32", "shape": shape,
+        "max_abs_err": err, "lse_max_abs_err": lse_err,
+        "ms": cuda_ms(lambda: fb.flash_attention_fwd_lse(q, k, v, lens)),
+        "plain_ms": cuda_ms(lambda: fb.flash_attention_fwd_lse_reference(q, k, v, lens),
+                            n=10)}]
+    emit({"phase": "kernel", **results[-1]})
+    del out, lse
+
+    delta = (do.float() * ref_out).sum(-1).transpose(1, 2).contiguous()
+    got = {"dq": fb.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, lens)}
+    got["dk"], got["dv"] = fb.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, lens)
+    want = dict(zip(("dq", "dk", "dv"), fb.flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), do.float(), ref_lse, delta, lens)))
+    errs = {}
+    for g in ("dq", "dk", "dv"):
+        scale = want[g].abs().max().item()
+        errs[g] = (got[g].float() - want[g]).abs().max().item()
+        finite = bool(torch.isfinite(got[g].float()).all())
+        if not finite or not errs[g] <= GRAD_REL_TOL * scale:
+            raise AssertionError(f"train {g}: max_abs_err {errs[g]} > {GRAD_REL_TOL} x "
+                                 f"{scale} (finite={finite})")
+        errs[g + "_rel"] = errs[g] / scale
+    del got, want
+    # the plain backward computes dq, dk and dv together: its time stands
+    # beside each of the two backward kernels
+    plain_bwd = cuda_ms(lambda: fb.flash_attention_bwd_reference(
+        q, k, v, do, ref_lse, delta, lens), n=10)
+    note = "plain_ms is the whole plain backward (dq, dk and dv)"
+    results.append({
+        "name": "flash_attention_bwd_dq", "route": "cuda",
+        "source": "socioreasoner_tpu_torch/csrc/flash_train_bwd.cu",
+        "replaces": "socioreasoner_tpu/ops/flash_attention_bwd.py:75", "shape": shape,
+        "max_abs_err": errs["dq"], "rel_err": errs["dq_rel"],
+        "ms": cuda_ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, lens)),
+        "plain_ms": plain_bwd, "note": note})
+    emit({"phase": "kernel", **results[-1]})
+    results.append({
+        "name": "flash_attention_bwd_dkv", "route": "cuda",
+        "source": "socioreasoner_tpu_torch/csrc/flash_train_bwd.cu",
+        "replaces": "socioreasoner_tpu/ops/flash_attention_bwd.py:111", "shape": shape,
+        "max_abs_err": max(errs["dk"], errs["dv"]),
+        "rel_err": max(errs["dk_rel"], errs["dv_rel"]),
+        "dk_max_abs_err": errs["dk"], "dv_max_abs_err": errs["dv"],
+        "ms": cuda_ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, lens)),
+        "plain_ms": plain_bwd, "note": note})
+    emit({"phase": "kernel", **results[-1]})
+    torch.cuda.empty_cache()
+    return results
+
+
+def _short_3b_config(vocab: int = 8192):
+    """Qwen2.5-VL-3B text widths (hidden 2048, 16/2 heads x 128) with 2 text
+    layers, a small vocabulary and a token ViT."""
     from socioreasoner_tpu.models.qwen2_5_vl.config import (
         Qwen25VLConfig, TextConfig, VisionConfig)
-    from socioreasoner_tpu_torch.generation.engine import DecodeEngine, Request
-    from socioreasoner_tpu_torch.generation.sampling import SamplingParams
-    from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
-    from socioreasoner_tpu_torch.models.qwen2_5_vl.rope import get_rope_index
-
-    vocab = 8192
-    config = Qwen25VLConfig(
+    return Qwen25VLConfig(
         vision=VisionConfig(depth=1, hidden_size=64, intermediate_size=128,
                             num_heads=4, out_hidden_size=2048, window_size=28,
                             fullatt_block_indexes=(0,)),
@@ -232,6 +314,19 @@ def phase_engine():
         image_token_id=vocab - 3, video_token_id=vocab - 2,
         vision_start_token_id=vocab - 4, bos_token_id=0, eos_token_id=1,
         pad_token_id=0)
+
+
+def phase_engine():
+    """DecodeEngine greedy (kernels) vs a teacher-forced uncached forward
+    (dense attention), 2 text layers at 3B head dims, bf16."""
+    import torch
+    from socioreasoner_tpu_torch.generation.engine import DecodeEngine, Request
+    from socioreasoner_tpu_torch.generation.sampling import SamplingParams
+    from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
+    from socioreasoner_tpu_torch.models.qwen2_5_vl.rope import get_rope_index
+
+    config = _short_3b_config()
+    vocab = config.text.vocab_size
     dev = torch.device("cuda")
     params = qmodel.init_params(config, torch.Generator(device=dev).manual_seed(7),
                                 dtype=torch.bfloat16, device=dev,
@@ -305,30 +400,71 @@ def _stage1_batch(config, n_tiles: int, tile_px: int, img_cfg, prompt_length: in
     return collator(features)
 
 
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _serve(strategy, requests, dev, timeout=600):
+    """Each request (keyword dicts of GenerateRequestType.ADD, without id and
+    callback) through the strategy's server, then ALIVE_CHECK and STOP.
+    Returns (outputs in request order, wall s from the first ADD, alive)."""
+    import threading
+    from socioreasoner_tpu_torch.generation.server import GenerateRequestType
+
+    strategy.start_server()
+    done, lock, finished = {}, threading.Lock(), threading.Event()
+
+    def callback(out):
+        with lock:
+            done[out.request_id] = out
+            if len(done) == len(requests):
+                finished.set()
+
+    t0 = time.perf_counter()
+    for i, req in enumerate(requests):
+        strategy.add_request(GenerateRequestType.ADD,
+                             {**req, "request_id": i, "callback": callback})
+    ok = finished.wait(timeout=timeout)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    alive = strategy.add_request(GenerateRequestType.ALIVE_CHECK, None)["alive"]
+    strategy.stop_server()
+    if not ok or len(done) != len(requests):
+        raise AssertionError(f"only {len(done)} of {len(requests)} requests finished")
+    return [done[i] for i in range(len(requests))], wall, alive
+
+
+def _check_outputs(config, outs):
+    for o in outs:
+        if o.finish_reason not in ("stop", "length") or not o.output_ids:
+            raise AssertionError(f"request {o.request_id}: {o.finish_reason} {o.meta}")
+        if not all(0 <= t < config.text.vocab_size for t in o.output_ids):
+            raise AssertionError(f"request {o.request_id}: token out of range")
+
+
 def run_main_path(config, params, dev, *, n_tiles=4, tile_px=768, img_cfg=None,
                   buckets=(2048, 2560), max_new=64, decode_chunk=16):
     """Stage-1 requests through the port's user-facing path: collator →
     batch_image_embeds (ViT) → TorchDecodeStrategy server (ADD ×n, then
     ALIVE_CHECK and STOP). Returns (outputs, engine, stats)."""
-    import threading
     import torch
     from socioreasoner_tpu.datasets.processor import ImageProcessorConfig
     from socioreasoner_tpu_torch.distributed.torch_strategies import (
         TorchDecodeStrategy, batch_image_embeds)
     from socioreasoner_tpu_torch.generation.sampling import SamplingParams
-    from socioreasoner_tpu_torch.generation.server import GenerateRequestType
 
     img_cfg = img_cfg or ImageProcessorConfig(defer_patchify=True)
     batch = _stage1_batch(config, n_tiles, tile_px, img_cfg, buckets[-1])
     attn = np.asarray(batch.batch["attention_mask"])
     ids = np.asarray(batch.batch["input_ids"])
     pos = np.asarray(batch.batch["position_ids"])
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     with torch.no_grad():
-        sync()
+        _sync(dev)
         t_vit = time.perf_counter()
         embeds = batch_image_embeds(config, params, batch, image_config=img_cfg)
-        sync()
+        _sync(dev)
         vit_ms = (time.perf_counter() - t_vit) * 1e3 / n_tiles
 
         strategy = TorchDecodeStrategy()
@@ -336,36 +472,12 @@ def run_main_path(config, params, dev, *, n_tiles=4, tile_px=768, img_cfg=None,
             "max_slots": n_tiles, "prefill_buckets": tuple(buckets),
             "max_len": buckets[-1] + max_new, "decode_chunk": decode_chunk,
             "device": dev})
-        strategy.start_server()
-        done, lock, finished = {}, threading.Lock(), threading.Event()
-
-        def callback(out):
-            with lock:
-                done[out.request_id] = out
-                if len(done) == n_tiles:
-                    finished.set()
-
         sp = SamplingParams(temperature=0.0, do_sample=False, max_new_tokens=max_new)
-        t_gen = time.perf_counter()
-        for i in range(n_tiles):
-            valid = attn[i] == 1
-            strategy.add_request(GenerateRequestType.ADD, {
-                "request_id": i, "prompt_ids": ids[i][valid].tolist(),
-                "sampling": sp, "image_embeds": embeds[i],
-                "position_ids": pos[i][:, valid], "callback": callback})
-        ok = finished.wait(timeout=600)
-        sync()
-        gen_s = time.perf_counter() - t_gen
-        alive = strategy.add_request(GenerateRequestType.ALIVE_CHECK, None)["alive"]
-        strategy.stop_server()
-    if not ok or len(done) != n_tiles:
-        raise AssertionError(f"only {len(done)} of {n_tiles} requests finished")
-    outs = [done[i] for i in range(n_tiles)]
-    for o in outs:
-        if o.finish_reason not in ("stop", "length") or not o.output_ids:
-            raise AssertionError(f"request {o.request_id}: {o.finish_reason} {o.meta}")
-        if not all(0 <= t < config.text.vocab_size for t in o.output_ids):
-            raise AssertionError(f"request {o.request_id}: token out of range")
+        outs, gen_s, alive = _serve(strategy, [
+            {"prompt_ids": ids[i][attn[i] == 1].tolist(), "sampling": sp,
+             "image_embeds": embeds[i], "position_ids": pos[i][:, attn[i] == 1]}
+            for i in range(n_tiles)], dev)
+    _check_outputs(config, outs)
     for e in embeds:
         if tuple(e.shape[1:]) != (config.text.hidden_size,) or \
                 not bool(torch.isfinite(e.float()).all()):
@@ -389,7 +501,7 @@ def run_main_path(config, params, dev, *, n_tiles=4, tile_px=768, img_cfg=None,
 def phase_main():
     """Qwen2.5-VL-3B at full width: ViT + server-mode decode of 4 stage-1
     requests, twice; returns the kernels' launch counts over the second
-    (measured) pass."""
+    (measured) pass, the config and the params."""
     import torch
     from socioreasoner_tpu.models.qwen2_5_vl.config import Qwen25VLConfig
     from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
@@ -422,7 +534,248 @@ def phase_main():
     missing = [n for n, c in launches.items() if c <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    return launches
+    return launches, config, params
+
+
+# ------------------------------------------------------------- training
+
+def _train_kernel_fns():
+    from socioreasoner_tpu_torch.ops import flash_attention_bwd as fb
+    return (fb.flash_attention_fwd_lse, fb.flash_attention_bwd_dq,
+            fb.flash_attention_bwd_dkv)
+
+
+def _clone(tree):
+    return {k: _clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+# train_parity bounds, kernels against dense attention in bf16. The two
+# paths round attention differently (the kernel rounds unnormalised p to
+# bf16, dense rounds the normalised probabilities; both round the output), a
+# ~2^-9 relative difference per element that reaches the logits through two
+# layers and the head.
+PARITY_LOSS_TOL = 1e-3      # max-abs on the PPO loss (terms of size ~1)
+PARITY_NORM_TOL = 2e-2      # relative, on the pre-clip grad norm
+PARITY_LP_TOL = 0.1         # max-abs on a response token's log-prob (~ -9)
+PARITY_LP_MEAN_TOL = 1e-2   # mean-abs over the response tokens
+
+
+def phase_train_parity():
+    """One make_train_step with the kernels and one with allow_flash=False
+    (dense attention) from identical bf16 params and the same GRPO batch, at
+    Qwen2.5-VL-3B widths with 2 layers: loss, grad norm and the log-probs
+    after the step."""
+    import torch
+    from socioreasoner_tpu_torch.distributed import trainer as T
+    from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
+    from socioreasoner_tpu_torch.pipeline.losses import PPOLossConfig
+
+    config = _short_3b_config()
+    dev = torch.device("cuda")
+    params = qmodel.init_params(config, torch.Generator(device=dev).manual_seed(9),
+                                dtype=torch.bfloat16, device=dev, with_vision=False)
+    rng = np.random.default_rng(9)
+    B, L = 4, 2304
+    lens = np.array([2304, 2080, 1000, 600])
+    cols = np.arange(L)[None]
+    attn = (cols < lens[:, None]).astype(np.int64)
+    ids = np.where(attn == 1, rng.integers(2, config.text.vocab_size - 8, (B, L)), 0)
+    resp = ((cols >= lens[:, None] - 256) & (attn == 1)).astype(np.int64)
+    pos = np.broadcast_to(np.clip(np.cumsum(attn, -1) - 1, 0, None)[:, None], (B, 3, L))
+    batch = {k: torch.as_tensor(np.ascontiguousarray(v), device=dev) for k, v in {
+        "input_ids": ids, "attention_mask": attn, "position_ids": pos,
+        "response_mask": resp}.items()}
+    mask = batch["response_mask"][:, 1:].float()
+    old = T.make_logprob_step(config)(params, batch)["log_probs"]
+    batch["old_log_probs"] = old
+    batch["ref_log_probs"] = old + 0.1 * mask * torch.as_tensor(
+        rng.normal(size=(B, L - 1)), dtype=torch.float32, device=dev)
+    batch["advantages"] = mask * torch.as_tensor(rng.normal(size=(B, L - 1)),
+                                                 dtype=torch.float32, device=dev)
+    res = {}
+    for flash in (True, False):
+        opt = T.make_optimizer()
+        state = T.TrainState.create(_clone(params), opt)
+        fns = _train_kernel_fns()
+        before = [fn.launches for fn in fns]
+        step = T.make_train_step(config, PPOLossConfig(), opt, allow_flash=flash)
+        state, metrics = step(state, batch)
+        lp = T.make_logprob_step(config, allow_flash=flash)(state.params, batch)["log_probs"]
+        res[flash] = (metrics["actor_train/loss"].item(),
+                      metrics["actor_train/grad_norm"].item(), lp,
+                      [fn.launches - b for fn, b in zip(fns, before)])
+        del state
+    (loss_k, norm_k, lp_k, n_k), (loss_d, norm_d, lp_d, n_d) = res[True], res[False]
+    diff = (lp_k - lp_d).abs() * mask
+    out = {"phase": "train_parity", "shape": f"B={B} L={L} kv_len={lens.tolist()}, "
+           "3B widths, 2 layers, vocab 8192, bf16",
+           "loss_kernels": loss_k, "loss_dense": loss_d,
+           "grad_norm_kernels": norm_k, "grad_norm_dense": norm_d,
+           "logprob_max_abs_diff": diff.max().item(),
+           "logprob_mean_abs_diff": (diff.sum() / mask.sum()).item(),
+           "launches_kernels": n_k, "launches_dense": n_d,
+           "bounds": {"loss_abs": PARITY_LOSS_TOL, "grad_norm_rel": PARITY_NORM_TOL,
+                      "logprob_max_abs": PARITY_LP_TOL,
+                      "logprob_mean_abs": PARITY_LP_MEAN_TOL},
+           "bounds_why": "bf16: the kernel rounds unnormalised p, dense attention the "
+                         "normalised probabilities; ~2^-9 relative per attention "
+                         "output, through 2 layers and the head"}
+    emit(out)
+    ok = (abs(loss_k - loss_d) <= PARITY_LOSS_TOL
+          and abs(norm_k - norm_d) <= PARITY_NORM_TOL * norm_d
+          and out["logprob_max_abs_diff"] <= PARITY_LP_TOL
+          and out["logprob_mean_abs_diff"] <= PARITY_LP_MEAN_TOL
+          and min(n_k) > 0 and max(n_d) == 0
+          and np.isfinite([loss_k, norm_k]).all())
+    if not ok:
+        raise AssertionError(f"train parity out of bounds: {out}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def run_train_path(config, params, dev, *, tile_px=768, img_cfg=None, n=4,
+                   max_new=64, prompt_length=2048, sequence_length=2304, steps=3,
+                   decode_chunk=16, seed=0):
+    """The GRPO actor path through the port's strategies, as the SocioSeg
+    pipeline's stage-1 half runs it: one tile x n sampled rollouts through
+    TorchDecodeStrategy's server → postprocess_generate → reference log-probs
+    (TorchInferStrategy, its own copy of the weights) and old log-probs
+    (TorchTrainStrategy) → seeded response rewards, group_reward_norm,
+    apply_kl_penalty, compute_advantage("grpo") → `steps` train steps
+    (make_optimizer defaults, remat, chunked head) → model_update → one
+    greedy request with the trained weights. Returns stats; raises on a
+    failed check."""
+    import torch
+    from socioreasoner_tpu.datasets.processor import ImageProcessorConfig
+    from socioreasoner_tpu.protocol import BatchProto
+    from socioreasoner_tpu_torch.distributed.strategy import ParamStore
+    from socioreasoner_tpu_torch.distributed.torch_strategies import (
+        TorchDecodeStrategy, TorchInferStrategy, TorchTrainStrategy, batch_image_embeds)
+    from socioreasoner_tpu_torch.generation.sampling import SamplingParams
+    from socioreasoner_tpu_torch.pipeline.losses import PPOLossConfig
+    from socioreasoner_tpu_torch.utils import functionals as F
+
+    img_cfg = img_cfg or ImageProcessorConfig(defer_patchify=True)
+    tile = _stage1_batch(config, 1, tile_px, img_cfg, prompt_length)
+    ids = np.asarray(tile.batch["input_ids"])
+    attn = np.asarray(tile.batch["attention_mask"])
+    pos = np.asarray(tile.batch["position_ids"])
+    store = ParamStore()
+    with torch.no_grad():
+        embeds = batch_image_embeds(config, params, tile, image_config=img_cfg)
+        decode = TorchDecodeStrategy(param_store=store)
+        decode.initialize(config, params, engine_kwargs={
+            "max_slots": n, "prefill_buckets": (prompt_length,),
+            "max_len": prompt_length + max_new, "decode_chunk": decode_chunk,
+            "device": dev})
+        valid = attn[0] == 1
+        sampled = SamplingParams(temperature=1.0, do_sample=True, max_new_tokens=max_new)
+        request = {"prompt_ids": ids[0][valid].tolist(), "image_embeds": embeds[0],
+                   "position_ids": pos[0][:, valid]}
+        outs, rollout_s, _ = _serve(decode, [dict(request, sampling=sampled)] * n, dev)
+    _check_outputs(config, outs)
+
+    # [left-padded prompt | right-padded response] rows → the train layout
+    resp_len = max(len(o.output_ids) for o in outs)
+    rows = np.full((n, ids.shape[1] + resp_len), config.pad_token_id, np.int64)
+    rows[:, :ids.shape[1]] = ids[0]
+    for i, o in enumerate(outs):
+        rows[i, ids.shape[1]:ids.shape[1] + len(o.output_ids)] = o.output_ids
+    post = F.postprocess_generate(
+        input_ids=ids, attention_mask=attn, position_ids=pos, output=rows,
+        num_return_sequences=n, sequence_length=sequence_length,
+        eos_token_id=config.eos_token_id, pad_token_id=config.pad_token_id)
+    batch = BatchProto.from_dict(
+        tensors={k: post[k] for k in ("input_ids", "attention_mask", "position_ids",
+                                      "response_mask")},
+        meta={"image_embeds": torch.cat([embeds[0]] * n)})
+
+    fns = _train_kernel_fns()
+    for fn in fns:
+        fn.launches = 0
+    reference = TorchInferStrategy(param_store=store)
+    reference.initialize(config, _clone({k: v for k, v in params.items() if k != "vision"}))
+    train = TorchTrainStrategy(param_store=store)
+    train.initialize(config, params, PPOLossConfig())
+    _sync(dev)
+    t0 = time.perf_counter()
+    ref_lp = reference.compute_log_probs(batch)["log_probs"]
+    _sync(dev)
+    t1 = time.perf_counter()
+    old_lp = train.compute_log_probs(batch)["log_probs"]
+    _sync(dev)
+    t2 = time.perf_counter()
+
+    # rewards: seeded (the SocioSeg reward needs SAM2 masks, not ported yet)
+    rewards = torch.as_tensor(np.random.default_rng(seed).random(n), dtype=torch.float32)
+    t = {k: torch.as_tensor(v) for k, v in post.items()}
+    resp = t["response_mask"][:, 1:]
+    token_rewards, current_kl = F.apply_kl_penalty(
+        F.group_reward_norm(rewards, n), t["attention_mask"], t["position_ids"], resp,
+        torch.as_tensor(old_lp), torch.as_tensor(ref_lp), kl_coef=0.0)
+    adv = F.compute_advantage(token_rewards, resp, adv_estimator="grpo")["advantages"]
+    batch.batch.update(advantages=adv.numpy(), old_log_probs=old_lp, ref_log_probs=ref_lp)
+
+    step_ms, metrics = [], []
+    for _ in range(steps):
+        _sync(dev)
+        t_step = time.perf_counter()
+        metrics.append(train.train_step(batch))
+        _sync(dev)
+        step_ms.append((time.perf_counter() - t_step) * 1e3)
+    launches = {fn.__name__: fn.launches for fn in fns}
+    new_lp = train.compute_log_probs(batch)["log_probs"]
+    ref_after = reference.compute_log_probs(batch)["log_probs"]
+    mask = post["response_mask"][:, 1:] == 1
+    moved = float(np.abs(new_lp - old_lp)[mask].max())
+    for i, m in enumerate(metrics):
+        if not (np.isfinite(m["actor_train/loss"]) and np.isfinite(m["actor_train/grad_norm"])
+                and m["actor_train/grad_norm"] > 0):
+            raise AssertionError(f"train step {i}: loss or grad_norm not finite and > 0: {m}")
+    if not moved > 0:
+        raise AssertionError("the actor's log-probs did not move in the train steps")
+    if not np.array_equal(ref_after, ref_lp):
+        raise AssertionError("the reference policy's log-probs changed")
+
+    # hand-off: the trained weights serve the next rollout
+    train.model_update()
+    decode.model_update()
+    if decode.engine.params["embed"] is not train.params["embed"]:
+        raise AssertionError("model_update did not hand the trained weights to the engine")
+    with torch.no_grad():
+        greedy = SamplingParams(temperature=0.0, do_sample=False, max_new_tokens=max_new)
+        answer, _, alive = _serve(decode, [dict(request, sampling=greedy)], dev)
+    _check_outputs(config, answer)
+
+    valid_tokens = int(post["attention_mask"].sum())
+    step_s = float(np.median(step_ms)) / 1e3
+    return {"rollout_s": rollout_s, "response_lens": [len(o.output_ids) for o in outs],
+            "train_batch": list(post["input_ids"].shape), "valid_tokens": valid_tokens,
+            "ref_logprob_ms": (t1 - t0) * 1e3, "logprob_ms": (t2 - t1) * 1e3,
+            "train_step_ms": step_ms, "train_tok_s": valid_tokens / step_s,
+            "train_padded_tok_s": post["input_ids"].size / step_s,
+            "current_kl": float(current_kl),
+            "loss": [m["actor_train/loss"] for m in metrics],
+            "grad_norm": [m["actor_train/grad_norm"] for m in metrics],
+            "logprob_max_abs_move": moved, "launches": launches,
+            "handoff_tokens": len(answer[0].output_ids), "alive": alive}
+
+
+def phase_train(config, params):
+    """The GRPO actor path at full width and depth on the main phase's bf16
+    params; returns the launch counts of kernels 4-6 over it."""
+    import torch
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stats = run_train_path(config, params, dev)
+    emit({"phase": "train", "model": "Qwen2.5-VL-3B (36 layers), random bf16 weights, "
+          "AdamW (make_optimizer defaults), remat, chunked head", **stats,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30})
+    missing = [k for k, c in stats["launches"].items() if c <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the train path: {missing}")
+    return stats["launches"]
 
 
 def main() -> int:
@@ -443,7 +796,9 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels()
     phase_engine()
-    launches = phase_main()
+    phase_train_parity()
+    launches, config, params = phase_main()
+    launches.update(phase_train(config, params))
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
     emit({"kernels": kernels})

@@ -4,13 +4,20 @@ The JAX package beside it is the reference: this package keeps its module
 paths and public names so each counterpart is easy to find, and its tests hold
 every module against the JAX function on the same inputs.
 
-Layer map (the slice ported so far):
+Layer map (the slices ported so far: stage-1 serving, the GRPO actor path):
   ops                     — attention references + hand-written Hopper kernels
-                            (csrc/*.cu, built by ops/_build.py at first use)
-  models/qwen2_5_vl       — ViT, text decoder, full model, weight bridge
+                            (csrc/*.cu, built by ops/_build.py at first use),
+                            the trainable flash attention (autograd Function)
+  models/qwen2_5_vl       — ViT, text decoder (remat, trainable flash), full
+                            model, weight bridge
   generation              — DecodeEngine, sampling, GenerateServer
   datasets                — stage-1 collator
-  distributed             — batch_image_embeds, TorchDecodeStrategy
+  utils/functionals       — RL math (advantages, KL, aggregation) + host helpers
+  pipeline/losses         — PPO/GRPO policy loss, value loss
+  distributed             — ParamStore and strategy bases, the train/logprob
+                            steps and optimizer (trainer), batch_image_embeds,
+                            TorchTrainStrategy / TorchInferStrategy /
+                            TorchDecodeStrategy
 
 It imports torch and never jax. Host-only modules of the JAX package
 (config, datasets.processor/socioseg, protocol, configs) are imported as they

@@ -183,4 +183,97 @@ __device__ __forceinline__ void write_rows(const float* Os, const float* l_s, Ro
   }
 }
 
+// Causal (or full) attention of q (B, Lq, H, D) over k/v (B, Lk, Hkv, D) with
+// one valid KV length per batch row, read through the tensors' strides. One
+// CTA serves all rep = H / Hkv q heads of one kv head (GQA folded as in the
+// Pallas grid): its 64 query rows are 64 / rep tokens x rep heads, so each K/V
+// tile feeds rep heads at once. Shared by the prefill kernel and the training
+// forward, which also writes the per-row log-sum-exp.
+struct GqaArgs {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* o;
+  float* lse;          // (B, H, Lq) f32 log-sum-exp of the scaled logits, or nullptr
+  const int* kv_lens;  // (B,)
+  int Lq, Lk, Hkv, rep, causal;
+  long long sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh;
+  float scale;
+};
+
+// The CTA for (blockIdx.x = token tile, blockIdx.y = b * Hkv + g).
+template <int D>
+__device__ __forceinline__ void gqa_attention_cta(const GqaArgs& a, unsigned char* smem) {
+  using L = TileSmem<D>;
+  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
+  float* Ss = reinterpret_cast<float*>(smem + L::s);
+  bf16* Ps = reinterpret_cast<bf16*>(smem + L::p);
+  float* Os = reinterpret_cast<float*>(smem + L::o);
+  float* m_s = reinterpret_cast<float*>(smem + L::m);
+  float* l_s = reinterpret_cast<float*>(smem + L::l);
+
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.y / a.Hkv;
+  const int g = blockIdx.y % a.Hkv;
+  const int rep = a.rep;
+  const int toks = kRows / rep;           // query tokens in this CTA
+  const int t0 = blockIdx.x * toks;
+  const int kv_len = min(max(a.kv_lens[b], 0), a.Lk);
+
+  // query row r = token t0 + r / rep, q head g * rep + r % rep (HF GQA order)
+  load_rows<D>(Qs, [&](int r) -> const bf16* {
+    const int t = t0 + r / rep;
+    if (t >= a.Lq) return nullptr;
+    return a.q + b * a.sqb + t * a.sqt + (g * rep + r % rep) * a.sqh;
+  });
+  init_state<D>(Os, m_s, l_s);
+
+  int k_hi = kv_len;
+  if (a.causal) k_hi = min(k_hi, min(t0 + toks, a.Lq));   // early exit at the diagonal
+  const int n_tiles = (k_hi + kCols - 1) / kCols;
+  __syncthreads();
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int key0 = j * kCols;
+    load_rows<D>(Ks, [&](int r) -> const bf16* {
+      const int key = key0 + r;
+      return key < k_hi ? a.k + b * a.skb + key * a.skt + g * a.skh : nullptr;
+    });
+    load_rows<D>(Vs, [&](int r) -> const bf16* {
+      const int key = key0 + r;
+      return key < k_hi ? a.v + b * a.svb + key * a.svt + g * a.svh : nullptr;
+    });
+    __syncthreads();
+    scores_tile<D>(Qs, Ks, Ss, warp);
+    __syncwarp();
+    softmax_tile<D>(Ss, Ps, Os, m_s, l_s, warp, a.scale, [&](int r, int c) {
+      const int t = t0 + r / rep;
+      const int key = key0 + c;
+      return t < a.Lq && key < kv_len && (!a.causal || key <= t);
+    });
+    __syncwarp();
+    pv_tile<D>(Ps, Vs, Os, warp);
+    __syncthreads();
+  }
+  __syncthreads();
+  write_rows<D>(Os, l_s, [&](int r) -> bf16* {
+    const int t = t0 + r / rep;
+    if (t >= a.Lq) return nullptr;
+    return a.o + b * a.sob + t * a.sot + (g * rep + r % rep) * a.soh;
+  });
+  if (a.lse != nullptr) {
+    // lse = m + log(l); a row that saw no key keeps m = kNegInf and l = 0,
+    // and gets kNegInf, as the Pallas kernel's m + log(lsafe) does
+    const long long H = (long long)a.Hkv * rep;
+    for (int r = threadIdx.x; r < kRows; r += kThreads) {
+      const int t = t0 + r / rep;
+      if (t >= a.Lq) continue;
+      const float l = l_s[r];
+      a.lse[(b * H + g * rep + r % rep) * a.Lq + t] = l == 0.f ? kNegInf : m_s[r] + logf(l);
+    }
+  }
+}
+
 }  // namespace socio

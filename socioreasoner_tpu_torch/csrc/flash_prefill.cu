@@ -16,88 +16,20 @@
 // one CTA serves all `rep` q heads of one kv head, so its 64 query rows are
 // 64 / rep tokens x rep heads and each K/V tile feeds rep heads at once.
 // The (B, L, H, D) tensors are read through their strides, so the TPU
-// wrapper's transposes are gone.
+// wrapper's transposes are gone. The CTA body (gqa_attention_cta) is shared
+// with the training forward, flash_train_fwd.cu.
 #include "attention_tile.cuh"
 
 namespace socio {
 
-struct PrefillArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  bf16* o;
-  const int* kv_lens;  // (B,)
-  int Lq, Lk, Hkv, rep, causal;
-  long long sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh;
-  float scale;
-};
-
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_prefill_kernel(PrefillArgs a) {
+__global__ void __launch_bounds__(kThreads) flash_prefill_kernel(GqaArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  using L = TileSmem<D>;
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
-  float* Ss = reinterpret_cast<float*>(smem + L::s);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::p);
-  float* Os = reinterpret_cast<float*>(smem + L::o);
-  float* m_s = reinterpret_cast<float*>(smem + L::m);
-  float* l_s = reinterpret_cast<float*>(smem + L::l);
-
-  const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.y / a.Hkv;
-  const int g = blockIdx.y % a.Hkv;
-  const int rep = a.rep;
-  const int toks = kRows / rep;           // query tokens in this CTA
-  const int t0 = blockIdx.x * toks;
-  const int kv_len = min(max(a.kv_lens[b], 0), a.Lk);
-
-  // query row r = token t0 + r / rep, q head g * rep + r % rep (HF GQA order)
-  load_rows<D>(Qs, [&](int r) -> const bf16* {
-    const int t = t0 + r / rep;
-    if (t >= a.Lq) return nullptr;
-    return a.q + b * a.sqb + t * a.sqt + (g * rep + r % rep) * a.sqh;
-  });
-  init_state<D>(Os, m_s, l_s);
-
-  int k_hi = kv_len;
-  if (a.causal) k_hi = min(k_hi, min(t0 + toks, a.Lq));   // early exit at the diagonal
-  const int n_tiles = (k_hi + kCols - 1) / kCols;
-  __syncthreads();
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int key0 = j * kCols;
-    load_rows<D>(Ks, [&](int r) -> const bf16* {
-      const int key = key0 + r;
-      return key < k_hi ? a.k + b * a.skb + key * a.skt + g * a.skh : nullptr;
-    });
-    load_rows<D>(Vs, [&](int r) -> const bf16* {
-      const int key = key0 + r;
-      return key < k_hi ? a.v + b * a.svb + key * a.svt + g * a.svh : nullptr;
-    });
-    __syncthreads();
-    scores_tile<D>(Qs, Ks, Ss, warp);
-    __syncwarp();
-    softmax_tile<D>(Ss, Ps, Os, m_s, l_s, warp, a.scale, [&](int r, int c) {
-      const int t = t0 + r / rep;
-      const int key = key0 + c;
-      return t < a.Lq && key < kv_len && (!a.causal || key <= t);
-    });
-    __syncwarp();
-    pv_tile<D>(Ps, Vs, Os, warp);
-    __syncthreads();
-  }
-  __syncthreads();
-  write_rows<D>(Os, l_s, [&](int r) -> bf16* {
-    const int t = t0 + r / rep;
-    if (t >= a.Lq) return nullptr;
-    return a.o + b * a.sob + t * a.sot + (g * rep + r % rep) * a.soh;
-  });
+  gqa_attention_cta<D>(a, smem);
 }
 
 template <int D>
-static int launch_prefill(const PrefillArgs& a, int B, cudaStream_t stream) {
+static int launch_prefill(const GqaArgs& a, int B, cudaStream_t stream) {
   const size_t smem = TileSmem<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(flash_prefill_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -120,10 +52,10 @@ extern "C" int socio_flash_prefill_bf16(
     int causal, float scale, void* stream) {
   using namespace socio;
   if (Hkv <= 0 || H % Hkv != 0 || kRows % (H / Hkv) != 0) return (int)cudaErrorInvalidValue;
-  PrefillArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<bf16*>(o),
-                static_cast<const int*>(kv_lens), Lq, Lk, Hkv, H / Hkv, causal,
-                sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh, scale};
+  GqaArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+            static_cast<const bf16*>(v), static_cast<bf16*>(o), nullptr,
+            static_cast<const int*>(kv_lens), Lq, Lk, Hkv, H / Hkv, causal,
+            sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 80: return launch_prefill<80>(a, B, s);

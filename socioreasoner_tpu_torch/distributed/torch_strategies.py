@@ -1,15 +1,24 @@
-"""The decode strategy of the port: image embeddings + DecodeEngine + server.
+"""Concrete strategies of the port: torch_train / torch_infer / torch_decode.
 
-The counterpart of the decode side of
-socioreasoner_tpu/distributed/jax_strategies.py: `batch_image_embeds` runs the
-ViT once per sample, and `TorchDecodeStrategy` (the JaxDecodeStrategy role)
-serves generation in batch mode (`generate`) or through the request server
-(`start_server` / `add_request` / `stop_server`).
+The counterpart of socioreasoner_tpu/distributed/jax_strategies.py without a
+mesh: `batch_image_embeds` runs the ViT once per sample; `TorchTrainStrategy`
+(the JaxTrainStrategy role) runs the GRPO train and logprob steps;
+`TorchInferStrategy` (JaxInferStrategy) is the frozen reference policy;
+`TorchDecodeStrategy` (JaxDecodeStrategy) serves generation in batch mode
+(`generate`) or through the request server. All share one ParamStore:
+`model_update` hands the trainer's weights to the decode engine under
+"rollout".
+
+The trainer updates its weights in place (trainer.py). A decode engine that
+holds the same tensors -- the usual case, since model_update hands them over
+without a copy -- therefore sees every update, and model_update is a swap of
+the same tensors; rollouts must not run during train_step. The reference
+policy must be given its own copy of the weights.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -21,6 +30,11 @@ from ..generation.engine import DecodeEngine, Request
 from ..generation.sampling import SamplingParams
 from ..generation.server import GenerateServer
 from ..models.qwen2_5_vl.vision import run_vision, run_vision_u8
+from ..pipeline.losses import PPOLossConfig
+from .strategy import InferenceStrategy, ParamStore, TrainStrategy
+from .trainer import TrainState, make_logprob_step, make_optimizer, make_train_step
+
+_CHECKPOINTS = "checkpoints are not ported yet (ROADMAP: the rest of the surface)"
 
 
 @torch.no_grad()
@@ -46,28 +60,165 @@ def batch_image_embeds(config: Qwen25VLConfig, params, batch: BatchProto,
     return out
 
 
-class TorchDecodeStrategy:
+def _to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def _micro_batched_log_probs(logprob_step: Callable, params, batch: BatchProto,
+                             worker_config, device) -> Dict[str, np.ndarray]:
+    """Forward in micro-batches of worker_config.infer_batch_size rows (all
+    rows when unset), slicing the packed image embeddings by each sample's
+    row count (meta["image_embeds_rows"], else equal rows per sample)."""
+    n = len(batch)
+    mb = getattr(worker_config, "infer_batch_size", 0) or n
+    img = batch.meta.get("image_embeds")
+    rows = batch.meta.get("image_embeds_rows")
+    if img is not None and rows is None:
+        rows = np.full(n, img.shape[0] // max(n, 1), np.int64)
+    offs = None if rows is None else np.concatenate(
+        [[0], np.cumsum(np.asarray(rows, np.int64))])
+    outs: Dict[str, list] = {}
+    for start in range(0, n, mb):
+        chunk = batch.slice(start, start + mb)
+        k0 = len(chunk)
+        device_batch = _to_device(chunk.batch, device)
+        if img is not None and offs[start + k0] > offs[start]:
+            device_batch["image_embeds"] = torch.as_tensor(
+                img[offs[start]:offs[start + k0]], device=device)
+        out = logprob_step(params, device_batch)
+        for k, v in out.items():
+            outs.setdefault(k, []).append(v.float().cpu().numpy()[:k0])
+    return {k: np.concatenate(v, axis=0) for k, v in outs.items()}
+
+
+class TorchTrainStrategy(TrainStrategy):
+    """The actor-train backend (the JaxTrainStrategy role) on one GPU."""
+
+    strategy_name = "torch_train"
+
+    def initialize(self, model_config: Qwen25VLConfig, params,
+                   loss_cfg: Optional[PPOLossConfig] = None,
+                   training_args=None, param_store: Optional[ParamStore] = None,
+                   checkpoint_dir: Optional[str] = None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError("a train mesh is not ported yet (ROADMAP: multi-GPU)")
+        if checkpoint_dir is not None:
+            raise NotImplementedError(_CHECKPOINTS)
+        self.model_config = model_config
+        if param_store is not None:
+            self.param_store = param_store
+        ta = training_args
+        self.grad_accum_steps = max(
+            1, int(getattr(ta, "gradient_accumulation_steps", 1) or 1))
+        self.optimizer = make_optimizer(
+            lr=getattr(ta, "learning_rate", 1e-6),
+            weight_decay=getattr(ta, "weight_decay", 0.0),
+            b1=getattr(ta, "adam_beta1", 0.9), b2=getattr(ta, "adam_beta2", 0.999),
+            max_grad_norm=getattr(ta, "max_grad_norm", 1.0),
+            warmup_steps=getattr(ta, "warmup_steps", 0),
+            total_steps=getattr(ta, "max_steps", None) or None,
+            schedule=getattr(ta, "lr_scheduler_type", "constant"),
+            gradient_accumulation_steps=self.grad_accum_steps)
+        self.state = TrainState.create(params, self.optimizer)
+        self.loss_cfg = loss_cfg or PPOLossConfig()
+        self.device = params["embed"].device
+        self._train_step = make_train_step(model_config, self.loss_cfg, self.optimizer)
+        self._logprob_step = make_logprob_step(model_config)
+        self.param_store.put("actor", self.state.params)
+
+    @property
+    def params(self):
+        return self.state.params
+
+    def train_step(self, batch: BatchProto, loss_func: Callable = None) -> Dict[str, float]:
+        device_batch = _to_device(batch.batch, self.device)
+        if "image_embeds" in batch.meta:
+            device_batch["image_embeds"] = torch.as_tensor(batch.meta["image_embeds"],
+                                                           device=self.device)
+        self.state, metrics = self._train_step(self.state, device_batch)
+        self.param_store.put("actor", self.state.params)
+        values = torch.stack([v.float() for v in metrics.values()]).tolist()
+        return dict(zip(metrics, values))
+
+    def forward_step(self, batch: BatchProto, forward_func: Callable = None):
+        return self.compute_log_probs(batch)
+
+    def compute_log_probs(self, batch: BatchProto) -> Dict[str, np.ndarray]:
+        return _micro_batched_log_probs(self._logprob_step, self.state.params, batch,
+                                        self.worker_config, self.device)
+
+    def model_update(self, *args, **kwargs):
+        """Expose the current weights to the rollout engine."""
+        self.param_store.put("rollout", self.state.params)
+
+    def save_checkpoint(self, *args, **kwargs):
+        raise NotImplementedError(_CHECKPOINTS)
+
+    def load_checkpoint(self, *args, **kwargs):
+        raise NotImplementedError(_CHECKPOINTS)
+
+
+class TorchInferStrategy(InferenceStrategy):
+    """Frozen-policy forward backend (the JaxInferStrategy role): the
+    reference log-probs. Give it its own copy of the weights."""
+
+    strategy_name = "torch_infer"
+
+    def initialize(self, model_config: Qwen25VLConfig, params,
+                   param_store: Optional[ParamStore] = None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError("an infer mesh is not ported yet (ROADMAP: multi-GPU)")
+        self.model_config = model_config
+        if param_store is not None:
+            self.param_store = param_store
+        self._params = params
+        self.device = params["embed"].device
+        self._logprob_step = make_logprob_step(model_config)
+
+    @property
+    def params(self):
+        return self._params
+
+    def compute_log_probs(self, batch: BatchProto) -> Dict[str, np.ndarray]:
+        return _micro_batched_log_probs(self._logprob_step, self._params, batch,
+                                        self.worker_config, self.device)
+
+    def forward_step(self, batch: BatchProto, forward_func: Callable = None):
+        return self.compute_log_probs(batch)
+
+
+class TorchDecodeStrategy(InferenceStrategy):
     """Rollout backend: continuous-batching engine + request-level server."""
 
     strategy_name = "torch_decode"
 
-    def initialize(self, model_config: Qwen25VLConfig, params,
-                   engine_kwargs: Optional[Dict] = None):
+    def initialize(self, model_config: Qwen25VLConfig, params=None,
+                   engine_kwargs: Optional[Dict] = None,
+                   param_store: Optional[ParamStore] = None):
+        """Serve `params`, or the param store's "rollout" weights when None."""
         self.model_config = model_config
+        if param_store is not None:
+            self.param_store = param_store
+        if params is not None:
+            self.param_store.put("rollout", params)
         self.engine_kwargs = dict(engine_kwargs or {})
-        self.engine = DecodeEngine(model_config, params, **self.engine_kwargs)
+        self.engine = DecodeEngine(model_config, self.param_store.get("rollout"),
+                                   **self.engine_kwargs)
         self.server: Optional[GenerateServer] = None
 
-    def model_update(self, params):
-        """Swap in new weights; only while the engine is idle (in-flight
-        slots hold KV computed with the old weights)."""
+    def model_update(self, params=None):
+        """Swap in new weights -- `params`, or the param store's "rollout"
+        weights when None -- only while the engine is idle (in-flight slots
+        hold KV computed with the old weights)."""
         if self.engine.has_work():
             raise RuntimeError(
                 "model_update while the decode engine has in-flight or waiting "
                 f"requests ({self.engine.num_running()} running, "
                 f"{self.engine.num_waiting()} waiting); drain/stop generation "
                 "before swapping weights")
-        self.engine.set_params(params)
+        if params is not None:
+            self.param_store.put("rollout", params)
+        self.engine.set_params(self.param_store.get("rollout"))
 
     # ------------------------------------------------------------- batch mode
     def generate(self, batch: BatchProto, generating_args) -> np.ndarray:

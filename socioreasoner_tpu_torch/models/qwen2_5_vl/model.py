@@ -54,12 +54,15 @@ def forward(
     image_embeds: Optional[torch.Tensor] = None,  # precomputed (S_img, hidden)
     cache: Optional[Dict] = None,
     cache_positions: Optional[torch.Tensor] = None,
+    remat: bool = False,
     logits: bool = True,
+    use_flash: bool = False,
     cp=None,
     pp=None,
     tp=None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Returns (logits or hidden, cache). A given cache is updated in place."""
+    """Returns (logits or hidden, cache). A given cache is updated in place.
+    remat and use_flash apply to the uncached decoder (see text_decoder)."""
     tcfg = config.text
     embeds = params["embed"][input_ids]
 
@@ -81,7 +84,8 @@ def forward(
     # equal t-positions, so masking by position value would be bidirectional.
     hidden, new_cache = text_decoder(
         tcfg, params, embeds, cos, sin, attention_mask, q_positions=None,
-        cache=cache, cache_positions=cache_positions, cp=cp, pp=pp, tp=tp)
+        cache=cache, cache_positions=cache_positions, remat=remat,
+        use_flash=use_flash, cp=cp, pp=pp, tp=tp)
     if not logits:
         return hidden, new_cache
     return head_logits(params, hidden), new_cache

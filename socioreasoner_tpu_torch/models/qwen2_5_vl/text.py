@@ -3,7 +3,10 @@
 The counterpart of socioreasoner_tpu/models/qwen2_5_vl/text.py, for dense
 bf16/f32 weights:
   * without a cache, causal attention over the input runs through
-    dense_attention (the JAX package's use_flash=False path);
+    dense_attention, or with use_flash through flash_attention_trainable
+    (the trainable kernels: forward with lse, dq, dk/dv) over the valid
+    prefix lengths attention_mask.sum(-1); remat recomputes each decoder
+    layer in the backward (torch.utils.checkpoint, as jax.checkpoint);
   * with a cache (the decode engine), each layer writes its new K/V rows into
     the stacked (layers, B, Lmax, Hkv, D) buffers IN PLACE — the JAX package
     donates those buffers and XLA updates them in place — then a multi-token
@@ -20,12 +23,14 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from socioreasoner_tpu.models.qwen2_5_vl.config import TextConfig
 
 from ...ops.attention import dense_attention
 from ...ops.decode_attention import paged_decode_attention
 from ...ops.flash_attention import flash_attention
+from ...ops.flash_attention_bwd import flash_attention_trainable
 from ...ops.norms import rms_norm, swiglu
 from .rope import apply_rotary
 
@@ -52,13 +57,20 @@ def _qkv(cfg: TextConfig, p: Dict, h: torch.Tensor):
 
 
 def decoder_layer(cfg: TextConfig, p: Dict, x, cos, sin, attention_mask,
-                  q_positions):
-    """One uncached layer: causal dense attention over the input."""
+                  q_positions, use_flash: bool = False):
+    """One uncached layer: causal attention over the input (the trainable
+    flash kernels with use_flash, else dense)."""
     B, L, _ = x.shape
     q, k, v = _qkv(cfg, p, rms_norm(x, p["input_ln"], cfg.rms_norm_eps))
     q, k = apply_rotary(q, k, cos, sin)
-    out = dense_attention(q, k, v, causal=True, attention_mask=attention_mask,
-                          q_positions=q_positions)
+    if use_flash:
+        # the valid prefix of each right-padded row (the postprocessed train
+        # batch's layout); all keys without a mask
+        lens = None if attention_mask is None else attention_mask.sum(-1)
+        out = flash_attention_trainable(q, k, v, lens, True)
+    else:
+        out = dense_attention(q, k, v, causal=True, attention_mask=attention_mask,
+                              q_positions=q_positions)
     x = x + out.reshape(B, L, -1) @ p["o_w"]
     h2 = rms_norm(x, p["post_ln"], cfg.rms_norm_eps)
     return x + swiglu(h2, p["gate_w"], p["up_w"], p["down_w"])
@@ -103,6 +115,8 @@ def text_decoder(
     q_positions: Optional[torch.Tensor] = None,     # (B, L) absolute (for causal)
     cache: Optional[Dict] = None,      # {"k","v": (layers,B,Lmax,Hkv,D), "kv_valid": (B,Lmax)}
     cache_positions: Optional[torch.Tensor] = None,
+    remat: bool = False,
+    use_flash: bool = False,
     cp=None,
     pp=None,
     tp=None,
@@ -115,10 +129,22 @@ def text_decoder(
             "context / pipeline / tensor parallelism is not ported yet "
             "(ROADMAP: multi-GPU)")
     if cache is None:
+        # unbind, not arr[i]: the backward of one unbind stacks the layers'
+        # grads into the stacked leaf once, where each arr[i] would add a
+        # zero-filled full-stack tensor per layer
+        layers = {key: arr.unbind(0) for key, arr in params["layers"].items()}
+
+        def layer(i, x):
+            p = {key: arrs[i] for key, arrs in layers.items()}
+            return decoder_layer(cfg, p, x, cos, sin, attention_mask, q_positions,
+                                 use_flash)
+
         x = inputs_embeds
         for i in range(cfg.num_hidden_layers):
-            p = {key: arr[i] for key, arr in params["layers"].items()}
-            x = decoder_layer(cfg, p, x, cos, sin, attention_mask, q_positions)
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(layer, i, x, use_reentrant=False)
+            else:
+                x = layer(i, x)
         new_cache = None
     else:
         x, new_cache = _decoder_cached_unrolled(

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 All sources in ``socioreasoner_tpu_torch/csrc`` compile with ``nvcc`` for
-``sm_90a`` into ONE shared library with a plain C interface, loaded through
-ctypes. The library lands in ``socioreasoner_tpu_torch/_build/`` under a name
+``sm_90a`` (one nvcc process per ``.cu`` file, all started together) and link
+into ONE shared library with a plain C interface, loaded through ctypes. The
+library lands in ``socioreasoner_tpu_torch/_build/`` under a name
 that hashes the sources and flags, so an edited source rebuilds and an
 unchanged one loads the existing file. Nothing is built at import time: the
 first kernel launch calls :func:`library`.
@@ -24,7 +25,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +41,12 @@ SIGNATURES = {
         [_P] * 7 + [_I] * 3 + [_LL] * 8 + [_F, _P],
     "socio_paged_decode_bf16":
         [_P] * 7 + [_I] * 6 + [_LL] * 10 + [_F, _P],
+    "socio_flash_train_fwd_bf16":
+        [_P] * 6 + [_I] * 6 + [_LL] * 12 + [_I, _F, _P],
+    "socio_flash_train_dq_bf16":
+        [_P] * 8 + [_I] * 6 + [_LL] * 15 + [_I, _F, _P],
+    "socio_flash_train_dkv_bf16":
+        [_P] * 9 + [_I] * 6 + [_LL] * 18 + [_I, _F, _P],
 }
 
 
@@ -75,15 +82,29 @@ def build(verbose: bool = False) -> "tuple[Path, float]":
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources() if s.suffix == ".cu"]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in (s for s in sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    logs = [p.communicate()[1] for p in procs]       # waits for each
+    failed = [f"{p.args[-1]}:\n{err}" for p, err in zip(procs, logs) if p.returncode]
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            failed.append(f"link:\n{link.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     if verbose:              # ptxas register / shared-memory report
-        print(proc.stderr, end="", file=sys.stderr)
+        print("".join(logs), end="", file=sys.stderr)
     os.replace(tmp, out)          # atomic: a concurrent loader sees all or nothing
     return out, seconds
 

@@ -14,15 +14,18 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from socioreasoner_tpu.ops import attention as j_attn
 from socioreasoner_tpu.ops import decode_attention as j_dec
 from socioreasoner_tpu.ops import flash_attention as j_fa
+from socioreasoner_tpu.ops import flash_attention_bwd as j_fab
 from socioreasoner_tpu.ops import norms as j_norms
 from socioreasoner_tpu_torch.ops import attention as t_attn
 from socioreasoner_tpu_torch.ops import decode_attention as t_dec
 from socioreasoner_tpu_torch.ops import flash_attention as t_fa
+from socioreasoner_tpu_torch.ops import flash_attention_bwd as t_fab
 from socioreasoner_tpu_torch.ops import norms as t_norms
 
 TOL = 1e-5
@@ -124,6 +127,70 @@ def test_flash_attention_reference_zero_length_rows():
     out = t_fa.flash_attention_reference(q, k, v, mask, causal=True)
     assert torch.count_nonzero(out[1]) == 0
     assert torch.count_nonzero(out[0]) > 0
+
+
+# ------------------------------------------------------ trainable flash
+
+@pytest.mark.parametrize("L,Hkv,causal,lens", [
+    (128, 2, True, [128, 64]),        # GQA
+    (128, 4, False, [128, 64]),       # non-causal
+    (128, 4, True, [128, 64]),
+    (100, 2, True, [100, 0]),         # L not a multiple of the block; an empty row
+])
+def test_flash_trainable_matches_pallas_vjp(L, Hkv, causal, lens):
+    """The plain forward (out, lse) and backward (by the kernels' formula),
+    and the autograd of flash_attention_trainable on CPU tensors, against the
+    JAX custom VJP with its Pallas kernels in interpret mode (blocks 64)."""
+    rng = np.random.default_rng(8)
+    B, H, D = 2, 4, 64
+    q, k, v = _randn(rng, B, L, H, D), _randn(rng, B, L, Hkv, D), _randn(rng, B, L, Hkv, D)
+    g = _randn(rng, B, L, H, D)
+    jlens = jnp.asarray(np.array(lens, np.float32))
+    f = lambda q_, k_, v_: j_fab.flash_attention_trainable(   # noqa: E731
+        q_, k_, v_, jlens, causal, 64, 64, True)
+    want, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want_grads = vjp(jnp.asarray(g))
+    _, res = j_fab._fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jlens, causal,
+                        64, 64, True)
+    want_lse = np.asarray(res[5])[:, :L, 0].reshape(B, H, L)
+
+    tq, tk, tv, tg = (torch.as_tensor(x) for x in (q, k, v, g))
+    tlens = torch.tensor(lens)
+    out, lse = t_fab.flash_attention_fwd_lse_reference(tq, tk, tv, tlens, causal)
+    _close(out, want)
+    _close(lse, want_lse)
+    if 0 in lens:                    # an empty row: out 0, lse NEG_INF
+        assert torch.count_nonzero(out[lens.index(0)]) == 0
+        assert (lse[lens.index(0)] == t_fab.NEG_INF).all()
+    delta = (tg * out).sum(-1).transpose(1, 2).contiguous()
+    for got, w in zip(t_fab.flash_attention_bwd_reference(tq, tk, tv, tg, lse, delta,
+                                                          tlens, causal), want_grads):
+        _close(got, w)
+
+    counts = [fn.launches for fn in (t_fab.flash_attention_fwd_lse, t_fab.flash_attention_bwd_dq,
+                                     t_fab.flash_attention_bwd_dkv)]
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    t_fab.flash_attention_trainable(*leaves, tlens, causal).backward(tg)
+    for leaf, w in zip(leaves, want_grads):
+        _close(leaf.grad, w)
+    assert counts == [fn.launches for fn in (t_fab.flash_attention_fwd_lse,      # CPU: no
+                                             t_fab.flash_attention_bwd_dq,        # launch
+                                             t_fab.flash_attention_bwd_dkv)]
+
+
+@pytest.mark.parametrize("bad", ["kv_heads", "lens", "do", "lse"])
+def test_trainable_wrapper_shape_checks(bad):
+    q, kv = torch.zeros(2, 8, 4, 16), torch.zeros(2, 8, 2, 16)
+    lens, stats = torch.tensor([8, 3]), torch.zeros(2, 4, 8)
+    calls = {
+        "kv_heads": lambda: t_fab.flash_attention_fwd_lse(q, torch.zeros(2, 8, 3, 16),
+                                                          torch.zeros(2, 8, 3, 16)),
+        "lens": lambda: t_fab.flash_attention_fwd_lse(q, kv, kv, lens[:1]),
+        "do": lambda: t_fab.flash_attention_bwd_dq(q, kv, kv, q[:, :7], stats, stats, lens),
+        "lse": lambda: t_fab.flash_attention_bwd_dkv(q, kv, kv, q, stats[:, :2], stats, lens),
+    }
+    with pytest.raises(ValueError, match="shapes do not fit"):
+        calls[bad]()
 
 
 # ------------------------------------------------------------ segmented
@@ -299,3 +366,25 @@ def test_cuda_paged_decode_matches_plain(cuda):
         want = t_dec.paged_decode_attention_reference(q.float(), kc[layer].float(),
                                                       vc[layer].float(), lens)
         assert (got.float() - want).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_cuda_flash_trainable_matches_plain(cuda):
+    """Kernels 4-6 against the plain versions in f32 on the same bf16 values,
+    with one empty row; the backward kernels get the plain lse and delta."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    B, L = 3, 200
+    q, k, v, do = (_bf16(gen, B, L, h, 128) for h in (16, 2, 2, 16))
+    lens = torch.tensor([200, 77, 0], dtype=torch.int32, device=cuda)
+    out, lse = t_fab.flash_attention_fwd_lse(q, k, v, lens)
+    ref_out, ref_lse = t_fab.flash_attention_fwd_lse_reference(q.float(), k.float(),
+                                                                v.float(), lens)
+    assert (out.float() - ref_out).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    delta = (do.float() * ref_out).sum(-1).transpose(1, 2).contiguous()
+    got = (t_fab.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, lens),
+           *t_fab.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, lens))
+    want = t_fab.flash_attention_bwd_reference(q.float(), k.float(), v.float(), do.float(),
+                                               ref_lse, delta, lens)
+    for g, w in zip(got, want):
+        assert (g.float() - w).abs().max().item() <= 2e-2 * w.abs().max().item()
