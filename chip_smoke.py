@@ -15,15 +15,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
   5. train_parity — one GRPO train step with the trainable flash kernels
                 against one with dense attention, from identical bf16 params
                 at Qwen2.5-VL-3B widths with 2 layers.
-  6. main     — Qwen2.5-VL-3B at full width with random bf16 weights answers
+  6. quant_parity — at Qwen2.5-VL-3B widths with 2 layers: the quantized
+                engine (single-copy int8 weights, int8 KV cache, w8a8
+                prefill) greedy against a teacher-forced cache-mode forward
+                on the same int8 tree (bf16 cache, no w8a8); one int4
+                request; logit figures of each quantized stack against bf16.
+  7. main     — Qwen2.5-VL-3B at full width with random bf16 weights answers
                 four SocioSeg stage-1 requests (768x768 map + satellite tiles)
                 through TorchDecodeStrategy's server; kernels 1-3 must launch.
-  7. train    — the GRPO actor path at full width and depth on the main
+  8. train    — the GRPO actor path at full width and depth on the main
                 phase's params: a rollout of one tile x 4 samples through the
                 server, postprocess to 2304 tokens, reference and old
                 log-probs, group-normalised rewards and advantages, three
                 PPO train steps, model_update and a greedy request with the
                 trained weights; kernels 4-6 must launch.
+  9. main_quant — the main phase's four requests with every quantization
+                knob on (single-copy int8 weights, int8 ViT, int8 KV cache,
+                w8a8 prefill), the image embeddings from the strategy's int8
+                vision tree; kernels 1, 2 and 3q must launch, kernel 3 not;
+                plus the quantized stacks' logit figures at full depth.
+  10. row_writer — kernel 7's own path: one decode step's K/V row writes
+                into the stacked cache at the diagnostic script's shape (36
+                layers, 24 slots, Lalloc 1536), held against the indexed
+                assignment.
 
 TF32 is off for matmuls and convolutions, so float32 references are full
 float32. Imports nothing of JAX. The last line is the device summary
@@ -70,6 +84,40 @@ def cuda_ms(fn, n: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, n: int = 20) -> float:
+    """Median of n CUDA-event timings of one replay of fn() captured as a
+    CUDA graph: fn's device work without the host's launch time."""
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):          # warm-up off the default stream
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, n)
+
+
+def device_ms(fn, kernels, n: int = 5) -> float:
+    """Device time of one fn() in the CUDA kernels whose names contain one
+    of `kernels` ("" for all), from torch.profiler over n calls after a
+    warm-up call: the kernels' own time, without the host's launch time.
+    Only device events count (a runtime call carries its kernels' time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and any(k in e.key for k in kernels))
+    return us / n / 1e3
 
 
 # ------------------------------------------------------------------ phases
@@ -210,18 +258,129 @@ def phase_kernels():
                 q, kc, vc, lengths, layer=i) for i in range(36)]
             plain = lambda: [da.paged_decode_attention_reference(   # noqa: E731
                 q, kc, vc, lengths, layer=i) for i in range(36)]
-            timing = (cuda_ms(sweep) / 36, cuda_ms(plain, n=10) / 36)
+            timing = (cuda_ms(sweep) / 36, cuda_ms(plain, n=10) / 36,
+                      device_ms(sweep, ("paged_decode",)) / 36)
         del kc, vc
     results.append({
         "name": "paged_decode_attention", "route": "cuda",
         "source": "socioreasoner_tpu_torch/csrc/paged_decode.cu",
         "replaces": "socioreasoner_tpu/ops/decode_attention.py:36",
         "shape": f"cache (36, 4|8, {Lalloc}, 2, 128), ms per layer at S=4",
-        "max_abs_err": max(errs), "ms": timing[0], "plain_ms": timing[1]})
+        "max_abs_err": max(errs), "ms": timing[0], "plain_ms": timing[1],
+        "device_ms": timing[2]})
     emit({"phase": "kernel", **results[-1]})
     torch.cuda.empty_cache()
+    results.append(_int8_decode_kernel(randn, Lalloc))
     results.extend(_train_kernels(randn))
+    results.append(_row_writer_kernel(randn))
     return results
+
+
+def _int8_decode_kernel(randn, Lalloc):
+    """Kernel 3q at the main phase's decode shape: the stacked int8 cache
+    (36, S, Lalloc, 2, 128) with f32 scales (36, S, 2, Lalloc) from
+    quantize_kv, against the plain version (dequantize_kv + dense
+    attention) in f32 on the same codes and scales."""
+    import torch
+    from socioreasoner_tpu_torch.ops import decode_attention as da
+
+    errs, timing = [], None
+    for slots, lens in ((4, [0, 1, 1500, Lalloc - 3]),
+                        (8, [0, 1, 2, 63, 64, 65, 2016, Lalloc - 1])):
+        caches = []
+        for _ in range(2):
+            code, scale = da.quantize_kv(randn(36 * slots, Lalloc, 2, 128))
+            caches.append(code.reshape(36, slots, Lalloc, 2, 128))
+            caches.append(scale.reshape(36, slots, Lalloc, 2).transpose(-1, -2).contiguous())
+            del code, scale
+        kc, ks, vc, vs = caches
+        q = randn(slots, 16, 128)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=q.device)
+        for layer in (0, 17, 35):
+            run = lambda: da.paged_decode_attention(   # noqa: E731
+                q, kc, vc, lengths, ks, vs, layer=layer)
+            ref = lambda: da.paged_decode_attention_int8_reference(   # noqa: E731
+                q.float(), kc, vc, lengths, ks, vs, layer=layer)
+            errs.append(_check(f"int8 decode S={slots} layer={layer}", run(), ref()))
+        if slots == 4:
+            # per layer, over a sweep of all 36 layers (208 MB of codes)
+            sweep = lambda: [da.paged_decode_attention(   # noqa: E731
+                q, kc, vc, lengths, ks, vs, layer=i) for i in range(36)]
+            plain = lambda: [da.paged_decode_attention_int8_reference(   # noqa: E731
+                q, kc, vc, lengths, ks, vs, layer=i) for i in range(36)]
+            timing = (cuda_ms(sweep) / 36, cuda_ms(plain, n=10) / 36,
+                      device_ms(sweep, ("paged_decode",)) / 36)
+        del kc, ks, vc, vs, caches
+    torch.cuda.empty_cache()
+    out = {"name": "paged_decode_attention_int8", "route": "cuda",
+           "source": "socioreasoner_tpu_torch/csrc/paged_decode.cu",
+           "replaces": "socioreasoner_tpu/ops/decode_attention.py:36",
+           "shape": f"int8 cache (36, 4|8, {Lalloc}, 2, 128) + f32 scales, "
+                    "ms per layer at S=4",
+           "max_abs_err": max(errs), "ms": timing[0], "plain_ms": timing[1],
+           "device_ms": timing[2]}
+    emit({"phase": "kernel", **out})
+    return out
+
+
+ROW_WRITER_SHAPE = (36, 24, 1536, 2, 128)   # scripts/profile_decode2.py:17-18, 33-36
+
+
+def _row_writer_kernel(randn):
+    """Kernel 7 at the diagnostic script's shape: one layer's rows written
+    at positions that include both ends of the cache and three out of
+    range, against the plain version (must be equal: it is a copy), and
+    every other row untouched; then both timed over all 36 layers for k
+    and v, the script's own comparison."""
+    import torch
+    from socioreasoner_tpu_torch.ops import cache_write as cw
+
+    L, S, Lalloc = ROW_WRITER_SHAPE[:3]
+    k0, v0 = randn(*ROW_WRITER_SHAPE), randn(*ROW_WRITER_SHAPE)
+    knew, vnew = randn(S, 1, 2, 128), randn(S, 1, 2, 128)
+    pos_np = np.random.default_rng(7).integers(0, Lalloc, S)
+    pos_np[:5] = [0, Lalloc - 1, -1, Lalloc, 100000]
+    positions = torch.as_tensor(pos_np, dtype=torch.int32, device=k0.device)
+    layer = 17
+    kk, vk = cw.write_rows(k0.clone(), v0.clone(), knew, vnew, positions, layer)
+    kp, vp = cw.write_rows_reference(k0.clone(), v0.clone(), knew, vnew, positions, layer)
+    if not (torch.equal(kk, kp) and torch.equal(vk, vp)):
+        raise AssertionError("write_rows differs from its plain version")
+    valid = (pos_np >= 0) & (pos_np < Lalloc)
+    want = torch.zeros(L, S, Lalloc, dtype=torch.bool, device=k0.device)
+    want[layer, torch.as_tensor(np.flatnonzero(valid)), torch.as_tensor(pos_np[valid])] = True
+    for got, old in ((kk, k0), (vk, v0)):
+        if not torch.equal((got != old).any(-1).any(-1), want):
+            raise AssertionError("write_rows changed rows other than the written ones")
+    del kk, vk, kp, vp
+    # the script's comparison: all 36 layers, k and v, every slot at 520
+    positions = torch.full((S,), 520, dtype=torch.int32, device=k0.device)
+    bidx = torch.arange(S, device=k0.device)[:, None]
+    pos2 = positions.long()[:, None]
+
+    def kernel_sweep():
+        for i in range(L):
+            cw.write_rows(k0, v0, knew, vnew, positions, i)
+
+    def plain_sweep():
+        for i in range(L):
+            k0[i, bidx, pos2] = knew
+            v0[i, bidx, pos2] = vnew
+
+    out = {"name": "write_rows", "route": "cuda",
+           "source": "socioreasoner_tpu_torch/csrc/cache_write.cu",
+           "replaces": "scripts/profile_decode2.py:50",
+           "shape": f"caches {ROW_WRITER_SHAPE} bf16, rows (24, 1, 2, 128), "
+                    "ms per sweep of 36 layers x (k and v) replayed as one CUDA graph "
+                    "(the script times one jitted loop); eager_ms with the host's launches",
+           "max_abs_err": 0.0, "ms": graph_ms(kernel_sweep), "plain_ms": graph_ms(plain_sweep),
+           "eager_ms": cuda_ms(kernel_sweep), "plain_eager_ms": cuda_ms(plain_sweep),
+           "device_ms": device_ms(kernel_sweep, ("write_rows",)),
+           "plain_device_ms": device_ms(plain_sweep, ("",))}
+    emit({"phase": "kernel", **out})
+    del k0, v0
+    torch.cuda.empty_cache()
+    return out
 
 
 def _train_kernels(randn):
@@ -444,10 +603,18 @@ def _check_outputs(config, outs):
             raise AssertionError(f"request {o.request_id}: token out of range")
 
 
+# quantized serving: the int8 single-copy weights that examples/infer/rlvr_tpu.yaml
+# ships, with the int8 ViT, the int8 KV cache and w8a8 prefill on as well
+QUANT_ENGINE_KWARGS = {"weight_quant": "int8", "single_copy_quant": True,
+                       "kv_quant": "int8", "act_quant": "int8", "vit_quant": "int8"}
+
+
 def run_main_path(config, params, dev, *, n_tiles=4, tile_px=768, img_cfg=None,
-                  buckets=(2048, 2560), max_new=64, decode_chunk=16):
-    """Stage-1 requests through the port's user-facing path: collator →
-    batch_image_embeds (ViT) → TorchDecodeStrategy server (ADD ×n, then
+                  buckets=(2048, 2560), max_new=64, decode_chunk=16, engine_extra=None):
+    """Stage-1 requests through the port's user-facing path:
+    TorchDecodeStrategy.initialize (which quantizes the served tree under
+    `engine_extra`'s strategy knobs) → collator → batch_image_embeds (ViT,
+    on the strategy's tree) → the strategy's server (ADD ×n, then
     ALIVE_CHECK and STOP). Returns (outputs, engine, stats)."""
     import torch
     from socioreasoner_tpu.datasets.processor import ImageProcessorConfig
@@ -462,16 +629,18 @@ def run_main_path(config, params, dev, *, n_tiles=4, tile_px=768, img_cfg=None,
     pos = np.asarray(batch.batch["position_ids"])
     with torch.no_grad():
         _sync(dev)
-        t_vit = time.perf_counter()
-        embeds = batch_image_embeds(config, params, batch, image_config=img_cfg)
-        _sync(dev)
-        vit_ms = (time.perf_counter() - t_vit) * 1e3 / n_tiles
-
+        t_init = time.perf_counter()
         strategy = TorchDecodeStrategy()
         strategy.initialize(config, params, engine_kwargs={
             "max_slots": n_tiles, "prefill_buckets": tuple(buckets),
             "max_len": buckets[-1] + max_new, "decode_chunk": decode_chunk,
-            "device": dev})
+            "device": dev, **(engine_extra or {})})
+        _sync(dev)
+        t_vit = time.perf_counter()
+        embeds = batch_image_embeds(config, strategy.param_store.get("rollout"), batch,
+                                    image_config=img_cfg)
+        _sync(dev)
+        vit_ms = (time.perf_counter() - t_vit) * 1e3 / n_tiles
         sp = SamplingParams(temperature=0.0, do_sample=False, max_new_tokens=max_new)
         outs, gen_s, alive = _serve(strategy, [
             {"prompt_ids": ids[i][attn[i] == 1].tolist(), "sampling": sp,
@@ -486,6 +655,7 @@ def run_main_path(config, params, dev, *, n_tiles=4, tile_px=768, img_cfg=None,
     n_tokens = sum(len(o.output_ids) for o in outs)
     stats = {"prompt_lens": attn.sum(axis=1).tolist(),
              "image_rows": [int(e.shape[0]) for e in embeds],
+             "strategy_init_s": t_vit - t_init,
              "vit_ms_per_tile": vit_ms,
              "prefill_ms": engine.prefill_device_time * 1e3,
              "prefill_calls": sum(engine.prefill_hist.values()),
@@ -494,14 +664,22 @@ def run_main_path(config, params, dev, *, n_tiles=4, tile_px=768, img_cfg=None,
              "decode_tok_s": (n_tokens - n_tiles) / max(engine.decode_time, 1e-9),
              "request_wall_s": gen_s, "steps_executed": engine.steps_executed,
              "host_syncs": engine.host_syncs, "alive": alive,
-             "finish": [o.finish_reason for o in outs]}
+             "finish": [o.finish_reason for o in outs],
+             # what the server holds: the served tree (ViT included) and the
+             # KV cache with its scales
+             "served_weights_gb": _tree_bytes(strategy.param_store.get("rollout")) / 2**30,
+             "kv_cache_gb": sum(c.nbytes for c in engine.caches.values()) / 2**30}
     return outs, engine, stats
+
+
+def _tree_bytes(tree) -> int:
+    return sum(_tree_bytes(v) if isinstance(v, dict) else v.nbytes for v in tree.values())
 
 
 def phase_main():
     """Qwen2.5-VL-3B at full width: ViT + server-mode decode of 4 stage-1
     requests, twice; returns the kernels' launch counts over the second
-    (measured) pass, the config and the params."""
+    (measured) pass, the config, the params and the pass's stats."""
     import torch
     from socioreasoner_tpu.models.qwen2_5_vl.config import Qwen25VLConfig
     from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
@@ -527,14 +705,13 @@ def phase_main():
         fn.launches = 0
     _, _, stats = run_main_path(config, params, dev)
     launches = {fn.__name__: fn.launches for fn in kernels}
+    stats["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 2**30
     emit({"phase": "main", "model": "Qwen2.5-VL-3B (36 layers, ViT depth 32), "
-          "random bf16 weights", "init_s": init_s, **stats,
-          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
-          "launches": launches})
+          "random bf16 weights", "init_s": init_s, **stats, "launches": launches})
     missing = [n for n, c in launches.items() if c <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    return launches, config, params
+    return launches, config, params, stats
 
 
 # ------------------------------------------------------------- training
@@ -778,6 +955,218 @@ def phase_train(config, params):
     return stats["launches"]
 
 
+# ------------------------------------------------------------ quantization
+
+# quant_parity's bound on a greedy flip, from int8 rounding. A rounding
+# moves a value by at most half a code, amax/254 of its row; uniform in that
+# interval, it gives a product a relative RMS error of (amax/rms)/(127 x
+# sqrt(12)), about 1.1% for rows of a few thousand near-Gaussian values
+# (amax/rms ~ 4.5). The engine's path has 18 roundings the reference lacks
+# (the w8a8 activations of 7 products and the K and V codes, in each of 2
+# layers); in quadrature ~4.8% of the logits' RMS, and a difference of two
+# logits moves by sqrt(2) of that, ~6.7%. At three standard deviations a
+# flip is a tie when the top-2 gap is below 0.2 x the RMS of the logits.
+QUANT_GAP_REL = 0.2
+
+
+def _cache_forward(config, params, ids_np, dev, act_quant=False, last_only=False):
+    """(B, P) prompts through the cache-mode forward (the path that serves
+    quantized trees) into a fresh cache of the params' dtype: f32 logits at
+    every position, or at the last one."""
+    import torch
+    from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
+    from socioreasoner_tpu_torch.models.qwen2_5_vl.rope import get_rope_index
+    t = config.text
+    B, P = ids_np.shape
+    pos, _ = get_rope_index(config, ids_np, None, np.ones((B, P), np.int64))
+    shape = (t.num_hidden_layers, B, P, t.num_key_value_heads, t.head_dim)
+    dt = params["embed"].dtype
+    cache = {"k": torch.zeros(shape, dtype=dt, device=dev),
+             "v": torch.zeros(shape, dtype=dt, device=dev),
+             "kv_valid": torch.ones((B, P), dtype=torch.int32, device=dev)}
+    with torch.no_grad():
+        hidden, _ = qmodel.forward(
+            config, params, torch.as_tensor(ids_np, device=dev),
+            torch.as_tensor(pos, device=dev), None, cache=cache,
+            cache_positions=torch.arange(P, device=dev)[None].expand(B, P),
+            logits=False, act_quant=act_quant)
+        if last_only:
+            hidden = hidden[:, -1]
+        return qmodel.head_logits(params, hidden).float()
+
+
+def quant_figures(config, params, dev, *, n_prompts=4, prompt_len=256, seed=0):
+    """scripts/quant_accuracy.py's figures of each quantized stack against the
+    float tree: last-position logit cosine, max relative error (max |diff| /
+    max |ref|) and top-1 agreement over seeded prompts. Random weights: the
+    figures carry no bound."""
+    from socioreasoner_tpu_torch.ops.quant import quantize_decode_params
+    ids = np.random.default_rng(seed).integers(10, config.text.vocab_size - 10,
+                                               size=(n_prompts, prompt_len))
+    ref = _cache_forward(config, params, ids, dev, last_only=True)
+    out = {}
+    for name, mode, a8 in (("int8w", "int8", False), ("int8w+w8a8", "int8", True),
+                           ("int4w", "int4", False)):
+        got = _cache_forward(config, quantize_decode_params(params, mode=mode), ids, dev,
+                             act_quant=a8, last_only=True)
+        a, b = got.double().flatten(), ref.double().flatten()
+        out[name] = {"logit_cos": float(a @ b / (a.norm() * b.norm())),
+                     "logit_rel_err": float((got - ref).abs().max() / ref.abs().max()),
+                     "top1_agree": float((got.argmax(-1) == ref.argmax(-1)).double().mean())}
+    return out
+
+
+def run_quant_parity(config, params, dev, *, max_new=16, prompt_lens=(37, 61, 120),
+                     decode_chunk=4, figure_prompt=256):
+    """The quantized engine (single-copy int8 weights, int8 KV cache, w8a8
+    prefill) greedy against a teacher-forced cache-mode forward on the same
+    int8 tree with a float cache and no w8a8 (a flip only where the top-2
+    gap is below QUANT_GAP_REL x the logits' RMS); one greedy request of an
+    int4 (hybrid) engine; the quantized stacks' logit figures. Returns
+    stats; raises on a failed check."""
+    import torch
+    from socioreasoner_tpu_torch.generation.engine import DecodeEngine, Request
+    from socioreasoner_tpu_torch.generation.sampling import SamplingParams
+    from socioreasoner_tpu_torch.ops.quant import quantize_decode_params
+
+    vocab = config.text.vocab_size
+    text = {k: v for k, v in params.items() if k != "vision"}
+    qtree = quantize_decode_params(text, mode="int8")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(2, vocab - 8, size=n).tolist() for n in prompt_lens]
+    sp = SamplingParams(temperature=0.0, do_sample=False, max_new_tokens=max_new)
+    kw = dict(max_slots=4, max_len=256, decode_chunk=decode_chunk,
+              prefill_buckets=(64, 128), device=dev)
+    engine = DecodeEngine(config, qtree, weight_quant="int8", kv_quant="int8",
+                          act_quant="int8", **kw)
+    if engine.params_q is not None or engine.caches["k"].dtype != torch.int8:
+        raise AssertionError("the quantized engine is not single-copy with an int8 cache")
+    outs = engine.generate([Request(request_id=i, prompt_ids=p, sampling=sp)
+                            for i, p in enumerate(prompts)])
+    _check_outputs(config, outs)
+    flips, failures = [], []
+    for r, prompt in enumerate(prompts):
+        got = list(outs[r].output_ids)
+        logits = _cache_forward(config, qtree, np.array([prompt + got[:-1]]), dev)[0]
+        for step, tok in enumerate(got):
+            row = logits[len(prompt) - 1 + step]
+            top2 = torch.topk(row, 2)
+            gap = float(top2.values[0] - top2.values[1])
+            bound = QUANT_GAP_REL * float(row.square().mean().sqrt())
+            if tok != int(top2.indices[0]):
+                if tok == int(top2.indices[1]) and gap < bound:
+                    flips.append((r, step, gap, bound))
+                else:
+                    failures.append((r, step, tok, int(top2.indices[0]), gap, bound))
+    int4 = DecodeEngine(config, text, weight_quant="int4", **kw)
+    if int4.params_q["layers"]["q_w"].dtype != torch.uint8:
+        raise AssertionError("the int4 engine holds no nibble-packed weights")
+    ans = int4.generate([Request(request_id=0, prompt_ids=prompts[0], sampling=sp)])[0]
+    _check_outputs(config, [ans])
+    return {"requests": len(prompts), "tokens": sum(len(o.output_ids) for o in outs),
+            "steps_executed": engine.steps_executed, "tie_flips": flips,
+            "failures": failures, "int4_tokens": len(ans.output_ids),
+            "figures": quant_figures(config, text, dev, prompt_len=figure_prompt)}
+
+
+def phase_quant_parity():
+    import torch
+    from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
+    config = _short_3b_config()
+    dev = torch.device("cuda")
+    params = qmodel.init_params(config, torch.Generator(device=dev).manual_seed(5),
+                                dtype=torch.bfloat16, device=dev, with_vision=False)
+    stats = run_quant_parity(config, params, dev)
+    emit({"phase": "quant_parity", "model": "Qwen2.5-VL-3B widths, 2 layers, vocab 8192, "
+          "random bf16 weights", "gap_bound": f"{QUANT_GAP_REL} x RMS of the logits",
+          **stats})
+    if stats["failures"]:
+        raise AssertionError(f"quantized greedy diverged beyond ties: {stats['failures']}")
+    del params
+    torch.cuda.empty_cache()
+
+
+MAIN_KEYS = ("vit_ms_per_tile", "prefill_ms", "decode_s", "decode_tok_s", "request_wall_s",
+             "steps_executed", "host_syncs", "max_memory_allocated_gb", "served_weights_gb",
+             "kv_cache_gb")
+
+
+def phase_main_quant(config, params, main_stats):
+    """The main phase's requests with QUANT_ENGINE_KWARGS, twice (the second
+    pass measured), beside the main phase's figures; then the quantized
+    stacks' logit figures at full depth. The bf16 tree stays as it was:
+    the strategy quantizes copies. Returns the int8 decode kernel's launch
+    count over the measured pass."""
+    import torch
+    from socioreasoner_tpu_torch.ops import decode_attention as da
+    from socioreasoner_tpu_torch.ops import flash_attention as fa
+    from socioreasoner_tpu_torch.ops.quant import QUANT_KEYS, VISION_QUANT_KEYS
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    _, _, warm = run_main_path(config, params, dev, engine_extra=QUANT_ENGINE_KWARGS)
+    emit({"phase": "main_quant_warmup", "vit_ms_per_tile": warm["vit_ms_per_tile"],
+          "prefill_ms": warm["prefill_ms"], "decode_s": warm["decode_s"]})
+    kernels = (fa.flash_attention_segmented, fa.flash_attention,
+               da.paged_decode_attention, da.paged_decode_attention_int8)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels:
+        fn.launches = 0
+    _, engine, stats = run_main_path(config, params, dev, engine_extra=QUANT_ENGINE_KWARGS)
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    stats["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    floats = [params["layers"][k] for k in QUANT_KEYS if k in params["layers"]] + \
+        [params["vision"]["blocks"][k] for k in VISION_QUANT_KEYS
+         if k in params["vision"]["blocks"]]
+    if any(t.dtype != torch.bfloat16 for t in floats):
+        raise AssertionError("the quantized strategy changed the bf16 tree")
+    if engine.params_q is not None or engine.params["layers"]["q_w"].dtype != torch.int8:
+        raise AssertionError("the engine does not serve the single-copy int8 tree")
+    del engine
+    torch.cuda.empty_cache()
+    figures = quant_figures(config, {k: v for k, v in params.items() if k != "vision"}, dev)
+    emit({"phase": "main_quant", "model": "Qwen2.5-VL-3B (36 layers, ViT depth 32), "
+          "random weights (the main phase's, after the train phase's steps), served as "
+          "int8 single-copy weights, int8 ViT, int8 KV cache, w8a8 prefill", **stats,
+          "main": {k: main_stats[k] for k in MAIN_KEYS}, "launches": launches,
+          "figures_depth36": figures})
+    missing = [n for n in ("flash_attention_segmented", "flash_attention",
+                           "paged_decode_attention_int8") if launches[n] <= 0]
+    if missing or launches["paged_decode_attention"]:
+        raise AssertionError(f"main_quant launches: {launches}")
+    return {"paged_decode_attention_int8": launches["paged_decode_attention_int8"]}
+
+
+def phase_row_writer():
+    """Kernel 7's path: one decode step's new K/V rows written into every
+    layer of the stacked cache at the diagnostic script's shape and
+    positions (24 slots at row 520), held against the indexed assignment
+    the engine uses. Returns write_rows' launch count over the step."""
+    import torch
+    from socioreasoner_tpu_torch.ops import cache_write as cw
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    L, S = ROW_WRITER_SHAPE[:2]
+    k_all = torch.zeros(ROW_WRITER_SHAPE, dtype=torch.bfloat16, device=dev)
+    v_all = torch.zeros_like(k_all)
+    rows = torch.randn((L, 2, S, 1, 2, 128), generator=gen, device=dev).to(torch.bfloat16)
+    positions = torch.full((S,), 520, dtype=torch.int32, device=dev)
+    cw.write_rows.launches = 0
+    for i in range(L):
+        cw.write_rows(k_all, v_all, rows[i, 0], rows[i, 1], positions, i)
+    launches = cw.write_rows.launches
+    k_ref, v_ref = torch.zeros_like(k_all), torch.zeros_like(v_all)
+    k_ref[:, :, 520] = rows[:, 0, :, 0]
+    v_ref[:, :, 520] = rows[:, 1, :, 0]
+    equal = torch.equal(k_all, k_ref) and torch.equal(v_all, v_ref)
+    emit({"phase": "row_writer", "shape": list(ROW_WRITER_SHAPE), "launches": launches,
+          "equal_to_indexed_assignment": equal})
+    if not equal or launches != L:
+        raise AssertionError("the row writer's decode step is wrong")
+    return {"write_rows": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -797,8 +1186,12 @@ def main() -> int:
     kernels = phase_kernels()
     phase_engine()
     phase_train_parity()
-    launches, config, params = phase_main()
+    phase_quant_parity()
+    launches, config, params, main_stats = phase_main()
     launches.update(phase_train(config, params))
+    launches.update(phase_main_quant(config, params, main_stats))
+    del params
+    launches.update(phase_row_writer())
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
     emit({"kernels": kernels})

@@ -1,14 +1,17 @@
 // Decode attention over the slot KV cache: one query token per slot.
 //
 // Replaces the Pallas kernel socioreasoner_tpu/ops/decode_attention.py
-// `_decode_kernel` (bf16 cache branch, reached through
-// `paged_decode_attention`). Semantics kept: q (S, H, D) against slot s's
-// cache prefix lengths[s]; GQA inside the kernel; the block loop clamped to
-// [1, Lalloc / kBlock] blocks; a masked key gets p = 0; zero length gives 0;
-// q is scaled by D^-0.5 in f32 and both products run in f32.
+// `_decode_kernel`, both branches (reached through `paged_decode_attention`):
+// the bf16 cache (kernel 3) and the int8 cache with f32 per-token, per-kv-head
+// scales stored transposed as (S, Hkv, Lalloc) (kernel 3q, quantized=True).
+// Semantics kept: q (S, H, D) against slot s's cache prefix lengths[s]; GQA
+// inside the kernel; the block loop clamped to [1, Lalloc / kBlock] blocks; a
+// masked key gets p = 0; zero length gives 0; q is scaled by D^-0.5 in f32
+// and both products run in f32; the output is in q's dtype (bf16).
 //
-// What bounds it on the H100: bytes. Per layer it reads len x Hkv x D x 2 x 2
-// bytes of K/V per slot and does ~2 FLOPs per byte per q head, far below the
+// What bounds it on the H100: bytes. Per layer it reads len x Hkv x D x 2
+// bytes of K and V per slot (bf16: 2 bytes an element; int8: 1, plus 8 bytes
+// of scales per row) and does ~2 FLOPs per byte per q head, far below the
 // card's ~295 FLOP/byte balance point. The design reads only the
 // ceil(len / kBlock) blocks a slot needs (never the whole allocated cache),
 // reads each K/V row once for the rep q heads that share it, stages K/V
@@ -18,9 +21,17 @@
 // heads is 8-16 CTAs on 132 SMs), so the blocks of each slot are split over
 // n_split CTAs (flash-decoding): each writes an unnormalised partial (m, l,
 // acc) and a second small kernel merges the partials of a (slot, q head).
+//
+// The int8 branch dequantises inside the kernel and folds the scales into
+// the products instead of scaling every element: a logit is (q . k_int) x
+// ks[key], and the value row is v_int x vs[key] as it is accumulated into
+// p x v. The 64 scales of one (slot, kv head, block) are contiguous in the
+// transposed layout and are staged with the block.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace socio {
 
@@ -33,23 +44,29 @@ constexpr float kDecNegInf = -1e30f;
 
 struct DecodeArgs {
   const bf16* q;        // (S, H, D)
-  const bf16* k;        // (S, Lalloc, Hkv, D) view of one layer
-  const bf16* v;
+  const void* k;        // (S, Lalloc, Hkv, D) view of one layer, bf16 or int8
+  const void* v;
+  const float* ks;      // int8 only: (S, Hkv, Lalloc) view of one layer
+  const float* vs;
   float* part_acc;      // (n_split, S, H, D) unnormalised partial outputs
   float* part_ml;       // (n_split, S, H, 2) partial row max and row sum
   const int* lengths;   // (S,)
   int S, Hkv, rep, Lalloc;
   long long sqs, sqh, sks, skt, skh, svs, svt, svh;
+  long long skss, sksh, svss, svsh;
   float scale;
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kDecThreads) paged_decode_kernel(DecodeArgs a) {
   static_assert(D == kDecThreads, "one thread per head dim");
-  // +2 bf16 per K row: a warp reading 32 different rows at the same dim then
-  // hits 32 different banks
-  __shared__ __align__(16) bf16 k_s[kBlock][D + 2];
-  __shared__ __align__(16) bf16 v_s[kBlock][D];
+  constexpr bool kQuant = std::is_same<T, int8_t>::value;
+  // +4 bytes per K row: a warp reading 32 different rows at the same column
+  // then hits 32 different banks (bf16: 65 words a row, int8: 33)
+  constexpr int kRowBytes = D * (int)sizeof(T) + 4;
+  __shared__ __align__(16) unsigned char k_s[kBlock * kRowBytes];
+  __shared__ __align__(16) T v_s[kBlock][D];
+  __shared__ float ks_s[kBlock], vs_s[kBlock];   // int8 only
   __shared__ float q_s[kMaxRep][D];
   __shared__ float p_s[kMaxRep][kBlock];
   __shared__ float m_s[kMaxRep], l_s[kMaxRep], c_s[kMaxRep];
@@ -81,11 +98,11 @@ __global__ void __launch_bounds__(kDecThreads) paged_decode_kernel(DecodeArgs a)
   for (int h = 0; h < kMaxRep; ++h) acc[h] = 0.f;
   __syncthreads();
 
-  const bf16* kbase = a.k + s * a.sks + g * a.skh;
-  const bf16* vbase = a.v + s * a.svs + g * a.svh;
+  const T* kbase = static_cast<const T*>(a.k) + s * a.sks + g * a.skh;
+  const T* vbase = static_cast<const T*>(a.v) + s * a.svs + g * a.svh;
   for (int j = j_lo; j < j_hi; ++j) {
     const int key0 = j * kBlock;
-    constexpr int kVec = D / 8;
+    constexpr int kVec = D * (int)sizeof(T) / 16;     // 16-byte vectors per row
     // unrolled: every thread issues all its loads before the first store
 #pragma unroll
     for (int it = 0; it < kBlock * kVec / kDecThreads; ++it) {
@@ -98,9 +115,17 @@ __global__ void __launch_bounds__(kDecThreads) paged_decode_kernel(DecodeArgs a)
         vv = reinterpret_cast<const uint4*>(vbase + key * a.svt)[c];
       }
       // the padded K row is only 4-byte aligned: store it as four words
-      uint32_t* kd = reinterpret_cast<uint32_t*>(&k_s[r][c * 8]);
+      uint32_t* kd = reinterpret_cast<uint32_t*>(k_s + r * kRowBytes + c * 16);
       kd[0] = kv.x; kd[1] = kv.y; kd[2] = kv.z; kd[3] = kv.w;
       reinterpret_cast<uint4*>(&v_s[r][0])[c] = vv;
+    }
+    if constexpr (kQuant) {
+      if (tid < kBlock) {
+        const int key = key0 + tid;
+        const bool ok = key < len;
+        ks_s[tid] = ok ? a.ks[s * a.skss + g * a.sksh + key] : 0.f;
+        vs_s[tid] = ok ? a.vs[s * a.svss + g * a.svsh + key] : 0.f;
+      }
     }
     __syncthreads();
 
@@ -111,13 +136,32 @@ __global__ void __launch_bounds__(kDecThreads) paged_decode_kernel(DecodeArgs a)
       float sc[kMaxRep / 2];
 #pragma unroll
       for (int hh = 0; hh < kMaxRep / 2; ++hh) sc[hh] = 0.f;
-      const __nv_bfloat162* krow = reinterpret_cast<const __nv_bfloat162*>(&k_s[c][0]);
-      for (int d2 = 0; d2 < D / 2; ++d2) {
-        const float2 kf = __bfloat1622float2(krow[d2]);
+      if constexpr (kQuant) {
+        const char4* krow = reinterpret_cast<const char4*>(k_s + c * kRowBytes);
+        for (int d4 = 0; d4 < D / 4; ++d4) {
+          const char4 kc = krow[d4];
+          const float k0 = kc.x, k1 = kc.y, k2 = kc.z, k3 = kc.w;
 #pragma unroll
-        for (int hh = 0; hh < kMaxRep / 2; ++hh) {
-          const int h = hg + 2 * hh;
-          if (h < rep) sc[hh] += q_s[h][2 * d2] * kf.x + q_s[h][2 * d2 + 1] * kf.y;
+          for (int hh = 0; hh < kMaxRep / 2; ++hh) {
+            const int h = hg + 2 * hh;
+            if (h < rep) {
+              const float* qh = &q_s[h][4 * d4];
+              sc[hh] += qh[0] * k0 + qh[1] * k1 + qh[2] * k2 + qh[3] * k3;
+            }
+          }
+        }
+#pragma unroll
+        for (int hh = 0; hh < kMaxRep / 2; ++hh) sc[hh] *= ks_s[c];
+      } else {
+        const __nv_bfloat162* krow =
+            reinterpret_cast<const __nv_bfloat162*>(k_s + c * kRowBytes);
+        for (int d2 = 0; d2 < D / 2; ++d2) {
+          const float2 kf = __bfloat1622float2(krow[d2]);
+#pragma unroll
+          for (int hh = 0; hh < kMaxRep / 2; ++hh) {
+            const int h = hg + 2 * hh;
+            if (h < rep) sc[hh] += q_s[h][2 * d2] * kf.x + q_s[h][2 * d2 + 1] * kf.y;
+          }
         }
       }
       const bool valid = key0 + c < len;
@@ -159,7 +203,12 @@ __global__ void __launch_bounds__(kDecThreads) paged_decode_kernel(DecodeArgs a)
     for (int h = 0; h < kMaxRep; ++h)
       if (h < rep) acc[h] *= c_s[h];
     for (int c = 0; c < kBlock; ++c) {
-      const float vf = __bfloat162float(v_s[c][tid]);
+      float vf;
+      if constexpr (kQuant) {
+        vf = (float)v_s[c][tid] * vs_s[c];
+      } else {
+        vf = __bfloat162float(v_s[c][tid]);
+      }
 #pragma unroll
       for (int h = 0; h < kMaxRep; ++h)
         if (h < rep) acc[h] += p_s[h][c] * vf;
@@ -197,6 +246,22 @@ __global__ void __launch_bounds__(D) paged_decode_merge_kernel(
   o[s * sos + h * soh + threadIdx.x] = __float2bfloat16(den == 0.f ? 0.f : num / den);
 }
 
+template <typename T>
+int launch_paged_decode(const DecodeArgs& a, bf16* o, int H, int n_split,
+                        long long sos, long long soh, cudaStream_t st) {
+  paged_decode_kernel<T, kDecThreads><<<dim3(a.Hkv, a.S, n_split), kDecThreads, 0, st>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  paged_decode_merge_kernel<kDecThreads><<<a.S * H, kDecThreads, 0, st>>>(
+      a.part_acc, a.part_ml, o, n_split, a.S, H, sos, soh);
+  return (int)cudaGetLastError();
+}
+
+inline bool bad_shape(int H, int Hkv, int D, int Lalloc, int n_split) {
+  return D != kDecThreads || Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxRep ||
+         Lalloc % kBlock != 0 || Lalloc <= 0 || n_split < 1;
+}
+
 }  // namespace socio
 
 extern "C" int socio_paged_decode_bf16(
@@ -207,19 +272,31 @@ extern "C" int socio_paged_decode_bf16(
     long long svs, long long svt, long long svh,
     long long sos, long long soh, float scale, void* stream) {
   using namespace socio;
-  if (D != kDecThreads || Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxRep ||
-      Lalloc % kBlock != 0 || Lalloc <= 0 || n_split < 1)
-    return (int)cudaErrorInvalidValue;
-  DecodeArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-               static_cast<const bf16*>(v), static_cast<float*>(part_acc),
+  if (bad_shape(H, Hkv, D, Lalloc, n_split)) return (int)cudaErrorInvalidValue;
+  DecodeArgs a{static_cast<const bf16*>(q), k, v, nullptr, nullptr,
+               static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+               static_cast<const int*>(lengths), S, Hkv, H / Hkv, Lalloc,
+               sqs, sqh, sks, skt, skh, svs, svt, svh, 0, 0, 0, 0, scale};
+  return launch_paged_decode<bf16>(a, static_cast<bf16*>(o), H, n_split, sos, soh,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int socio_paged_decode_int8(
+    const void* q, const void* k, const void* v, const void* ks, const void* vs,
+    void* o, const void* lengths, void* part_acc, void* part_ml,
+    int S, int H, int Hkv, int D, int Lalloc, int n_split,
+    long long sqs, long long sqh,
+    long long sks, long long skt, long long skh,
+    long long svs, long long svt, long long svh,
+    long long skss, long long sksh, long long svss, long long svsh,
+    long long sos, long long soh, float scale, void* stream) {
+  using namespace socio;
+  if (bad_shape(H, Hkv, D, Lalloc, n_split)) return (int)cudaErrorInvalidValue;
+  DecodeArgs a{static_cast<const bf16*>(q), k, v, static_cast<const float*>(ks),
+               static_cast<const float*>(vs), static_cast<float*>(part_acc),
                static_cast<float*>(part_ml), static_cast<const int*>(lengths),
-               S, Hkv, H / Hkv, Lalloc, sqs, sqh, sks, skt, skh, svs, svt, svh, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  paged_decode_kernel<kDecThreads><<<dim3(Hkv, S, n_split), kDecThreads, 0, st>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  paged_decode_merge_kernel<kDecThreads><<<S * H, kDecThreads, 0, st>>>(
-      static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
-      static_cast<bf16*>(o), n_split, S, H, sos, soh);
-  return (int)cudaGetLastError();
+               S, Hkv, H / Hkv, Lalloc, sqs, sqh, sks, skt, skh, svs, svt, svh,
+               skss, sksh, svss, svsh, scale};
+  return launch_paged_decode<int8_t>(a, static_cast<bf16*>(o), H, n_split, sos, soh,
+                                     static_cast<cudaStream_t>(stream));
 }

@@ -7,7 +7,9 @@ mesh: `batch_image_embeds` runs the ViT once per sample; `TorchTrainStrategy`
 `TorchDecodeStrategy` (JaxDecodeStrategy) serves generation in batch mode
 (`generate`) or through the request server. All share one ParamStore:
 `model_update` hands the trainer's weights to the decode engine under
-"rollout".
+"rollout". With `single_copy_quant` / `vit_quant` the decode strategy keeps a
+quantized copy of the rollout tree in the store instead (and quantizes again
+on every model_update); the trainer's float tree is never modified.
 
 The trainer updates its weights in place (trainer.py). A decode engine that
 holds the same tensors -- the usual case, since model_update hands them over
@@ -30,6 +32,8 @@ from ..generation.engine import DecodeEngine, Request
 from ..generation.sampling import SamplingParams
 from ..generation.server import GenerateServer
 from ..models.qwen2_5_vl.vision import run_vision, run_vision_u8
+from ..ops.quant import (params_prequantized, quantize_decode_params,
+                         quantize_vision_params, vision_prequantized)
 from ..pipeline.losses import PPOLossConfig
 from .strategy import InferenceStrategy, ParamStore, TrainStrategy
 from .trainer import TrainState, make_logprob_step, make_optimizer, make_train_step
@@ -195,16 +199,41 @@ class TorchDecodeStrategy(InferenceStrategy):
     def initialize(self, model_config: Qwen25VLConfig, params=None,
                    engine_kwargs: Optional[Dict] = None,
                    param_store: Optional[ParamStore] = None):
-        """Serve `params`, or the param store's "rollout" weights when None."""
+        """Serve `params`, or the param store's "rollout" weights when None.
+
+        engine_kwargs may carry two strategy knobs besides the engine's:
+        `single_copy_quant` (needs `weight_quant`) stores a quantized copy of
+        the rollout tree, which the engine then serves for prefill and decode
+        alike; `vit_quant` ("int8") stores an int8 copy of its vision
+        subtree, from which the pipelines compute image embeddings."""
         self.model_config = model_config
         if param_store is not None:
             self.param_store = param_store
         if params is not None:
             self.param_store.put("rollout", params)
         self.engine_kwargs = dict(engine_kwargs or {})
+        self._single_copy = self.engine_kwargs.pop("single_copy_quant", False)
+        self._vit_quant = self.engine_kwargs.pop("vit_quant", None)
+        if self._single_copy and not self.engine_kwargs.get("weight_quant"):
+            raise ValueError("single_copy_quant requires weight_quant")
+        if self._single_copy or self._vit_quant:
+            self._quantize_store()
         self.engine = DecodeEngine(model_config, self.param_store.get("rollout"),
                                    **self.engine_kwargs)
         self.server: Optional[GenerateServer] = None
+
+    @torch.no_grad()
+    def _quantize_store(self):
+        """Replace the store's rollout tree by its quantized copy. The copy
+        shares the float leaves that stay float; the tree it was made from
+        (the trainer's, after a model_update) is left as it was."""
+        tree = self.param_store.get("rollout")
+        if self._single_copy and not params_prequantized(tree):
+            tree = quantize_decode_params(tree, mode=self.engine_kwargs["weight_quant"])
+        if (self._vit_quant and "vision" in tree
+                and not vision_prequantized(tree["vision"])):
+            tree = dict(tree, vision=quantize_vision_params(tree["vision"]))
+        self.param_store.put("rollout", tree)
 
     def model_update(self, params=None):
         """Swap in new weights -- `params`, or the param store's "rollout"
@@ -218,6 +247,8 @@ class TorchDecodeStrategy(InferenceStrategy):
                 "before swapping weights")
         if params is not None:
             self.param_store.put("rollout", params)
+        if self._single_copy or self._vit_quant:
+            self._quantize_store()
         self.engine.set_params(self.param_store.get("rollout"))
 
     # ------------------------------------------------------------- batch mode

@@ -1,7 +1,6 @@
 """DecodeEngine — continuous-batching autoregressive decoder in PyTorch.
 
-The counterpart of socioreasoner_tpu/generation/engine.py (single device,
-dense weights, bf16 or f32 KV cache):
+The counterpart of socioreasoner_tpu/generation/engine.py on one device:
 
   * Slot-based KV cache: one stacked (layers, S slots, Lalloc, Hkv, D)
     tensor each for k and v. Admission and release are host bookkeeping.
@@ -19,9 +18,16 @@ dense weights, bf16 or f32 KV cache):
     that slot's KV rows instead of prefilling.
   * Per-slot sampling parameters as tensors; random draws from one
     torch.Generator seeded by `seed`.
+  * Quantized serving (ops/quant.py), as the JAX engine: `weight_quant`
+    int8/int4 keeps a quantized `params_q` copy for decode beside the float
+    tree (HYBRID), or serves a pre-quantized tree for prefill and decode
+    alike (SINGLE-COPY, detected with params_prequantized); `act_quant`
+    runs prefill w8a8 on the int8 tree; `kv_quant="int8"` keeps int8
+    caches with f32 per-token scales (L, S, Hkv, Lalloc), read by the int8
+    decode kernel; `decode_inner` splits a chunk into chained inner loops
+    with one token readback.
 
-Not ported yet (ROADMAP): meshes / tensor parallelism, weight and KV
-quantization, w8a8 prefill and chained inner decode dispatches.
+Not ported yet (ROADMAP): meshes / tensor parallelism.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from socioreasoner_tpu.models.qwen2_5_vl.config import Qwen25VLConfig
 
 from ..models.qwen2_5_vl import model as qmodel
 from ..models.qwen2_5_vl.text import check_supported
+from ..ops.quant import params_prequantized, quantize_decode_params
 from .sampling import SamplingParams, sample_tokens
 
 
@@ -96,18 +103,38 @@ class DecodeEngine:
     #                  tokens only lose the in-chunk early exit
 
     def __init__(self, config: Qwen25VLConfig, params, *, max_slots: int = 8,
-                 max_len: int = 8192, decode_chunk: int = 16,
+                 max_len: int = 8192, decode_chunk: int = 16, decode_inner: int = 0,
                  prefill_buckets: Tuple[int, ...] = (128, 256, 512, 1024, 2048, 4096),
                  image_buckets: Tuple[int, ...] = (0, 512, 1024, 2048, 4096,
                                                    8192, 16384),
                  cache_dtype: torch.dtype = torch.bfloat16,
+                 kv_quant: Optional[str] = None, weight_quant: Optional[str] = None,
                  max_prefill_batch: Optional[int] = None, seed: int = 0,
                  device=None, prefill_batch_sizes: Optional[Tuple[int, ...]] = None,
-                 prefix_fork: bool = True):
-        check_supported(config.text, params)
+                 prefix_fork: bool = True, act_quant: Optional[str] = None):
+        if weight_quant not in (None, "int8", "int4"):
+            raise ValueError(f"weight_quant must be None, 'int8' or 'int4', "
+                             f"got {weight_quant!r}")
+        if act_quant not in (None, "int8"):
+            raise ValueError(f"act_quant must be None or 'int8', got {act_quant!r}")
+        if act_quant and weight_quant != "int8":
+            raise ValueError("act_quant='int8' requires weight_quant='int8' "
+                             "(w8a8 runs on the int8 weight tree)")
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"kv_quant must be None or 'int8', got {kv_quant!r}")
+        if decode_inner and decode_chunk % decode_inner:
+            raise ValueError(f"decode_chunk={decode_chunk} must be a "
+                             f"multiple of decode_inner={decode_inner}")
+        check_supported(config.text)
         self.config = config
+        self.weight_quant = weight_quant
+        self.act_quant = bool(act_quant)
+        self.kv_quant = kv_quant
+        self.decode_inner = decode_inner
         self.device = torch.device(device) if device is not None else params["embed"].device
         self.params = self._to_device(params)
+        self.params_q = None              # HYBRID mode's quantized decode copy
+        self._derive_params_q()
         self.S = max_slots
         self.Lmax = max_len
         self.decode_chunk = decode_chunk
@@ -125,12 +152,18 @@ class DecodeEngine:
         # decode_chunk slack: a chunk may overshoot max_len before the host
         # notices; rounded up to 256 so the decode kernel's blocks tile it
         self.Lalloc = -(-(max_len + decode_chunk) // 256) * 256
+        if kv_quant == "int8":
+            cache_dtype = torch.int8
         self.caches = {
             "k": torch.zeros((L, self.S, self.Lalloc, Hkv, D), dtype=cache_dtype,
                              device=self.device),
             "v": torch.zeros((L, self.S, self.Lalloc, Hkv, D), dtype=cache_dtype,
                              device=self.device),
         }
+        if kv_quant == "int8":
+            for name in ("k_scale", "v_scale"):
+                self.caches[name] = torch.zeros((L, self.S, Hkv, self.Lalloc),
+                                                dtype=torch.float32, device=self.device)
         self.lengths = np.zeros(self.S, np.int32)         # host copy
         self.next_pos = np.zeros(self.S, np.int32)        # next M-RoPE position value
         self.last_token = np.zeros(self.S, np.int32)
@@ -160,11 +193,22 @@ class DecodeEngine:
             return {k: self._to_device(v) for k, v in params.items()}
         return params.to(self.device)
 
+    def _derive_params_q(self):
+        """SINGLE-COPY (a pre-quantized tree) serves prefill and decode from
+        self.params; HYBRID (weight_quant on a float tree) derives the
+        quantized decode copy."""
+        if params_prequantized(self.params):
+            self.params_q = None
+        elif self.weight_quant:
+            with torch.no_grad():
+                self.params_q = quantize_decode_params(self.params, mode=self.weight_quant)
+
     # ------------------------------------------------------------------ public
     def set_params(self, params):
-        """Swap in new weights. The caller drains the engine first."""
-        check_supported(self.config.text, params)
+        """Swap in new weights and derive the quantized decode copy again.
+        The caller drains the engine first."""
         self.params = self._to_device(params)
+        self._derive_params_q()
         # prefixes cached under the OLD weights must never fork under the new
         self._prefix_registry.clear()
 
@@ -510,8 +554,16 @@ class DecodeEngine:
     def _decode_chunk(self) -> List[EngineOutput]:
         if self._dev_dirty or self._dev_state is None:
             self._refresh_dev_state()
-        toks, steps = self._decode_loop(self.decode_chunk)
-        toks = toks.cpu().numpy()         # the only token download per chunk
+        n = self.decode_chunk
+        inner = self.decode_inner or n
+        # chained inner loops (decode_inner), their tokens concatenated on
+        # the device: the early exit carries over through the device state
+        segs, steps = [], 0
+        for _ in range(-(-n // inner)):
+            seg, s_i = self._decode_loop(inner)
+            segs.append(seg[:, :s_i])
+            steps += s_i
+        toks = torch.cat(segs, dim=1).cpu().numpy()   # the only token download per chunk
         self.host_syncs += 1
         self.steps_executed += steps
         # host mirrors advance arithmetically (the device did lengths+steps);
@@ -543,30 +595,39 @@ class DecodeEngine:
         Lyr = cfg.text.num_hidden_layers
         Hkv, D = cfg.text.num_key_value_heads, cfg.text.head_dim
         attn_t = torch.as_tensor(attn, device=dev)
-        local = {
-            "k": torch.zeros((Lyr, Bp, bucket, Hkv, D), dtype=self.caches["k"].dtype,
-                             device=dev),
-            "v": torch.zeros((Lyr, Bp, bucket, Hkv, D), dtype=self.caches["v"].dtype,
-                             device=dev),
-            "kv_valid": attn_t,
-        }
+        local = {name: torch.zeros((Lyr, Bp, bucket, Hkv, D), dtype=self.caches[name].dtype,
+                                   device=dev) for name in ("k", "v")}
+        if self.kv_quant:
+            for name in ("k_scale", "v_scale"):
+                local[name] = torch.zeros((Lyr, Bp, Hkv, bucket), dtype=torch.float32,
+                                          device=dev)
+        local["kv_valid"] = attn_t
         cache_positions = torch.arange(bucket, device=dev)[None].expand(Bp, bucket)
+        # w8a8 prefill in HYBRID mode runs on the int8 copy (in SINGLE-COPY
+        # mode self.params is the int8 tree already)
+        params = (self.params_q if self.act_quant and self.params_q is not None
+                  else self.params)
         # logits=False: only each row's LAST position feeds sampling
         hidden, local = qmodel.forward(
-            cfg, self.params, torch.as_tensor(ids, device=dev),
+            cfg, params, torch.as_tensor(ids, device=dev),
             torch.as_tensor(pos, device=dev), None, image_embeds=image_embeds,
-            cache=local, cache_positions=cache_positions, logits=False)
+            cache=local, cache_positions=cache_positions, logits=False,
+            act_quant=self.act_quant)
         rows = torch.arange(Bp, device=dev)
         last_hidden = hidden[rows, torch.as_tensor(Ps - 1, device=dev)]
-        tok = sample_tokens(qmodel.head_logits(self.params, last_hidden), self._gen,
+        tok = sample_tokens(qmodel.head_logits(params, last_hidden), self._gen,
                             torch.as_tensor(temps, device=dev),
                             torch.as_tensor(top_ps, device=dev),
                             torch.as_tensor(top_ks, device=dev))
-        # (L, S, Lalloc, Hkv, D) ← (L, B, bucket, …); padded rows are dropped
+        # (L, S, Lalloc, Hkv, D) ← (L, B, bucket, …) and scales (L, S, Hkv,
+        # Lalloc) ← (L, B, Hkv, bucket); padded rows are dropped
         slot_idx = torch.as_tensor(slots, device=dev)
         B = len(slots)
-        for name in ("k", "v"):
-            self.caches[name][:, slot_idx, :bucket] = local[name][:, :B]
+        for name, cache in self.caches.items():
+            if name in ("k", "v"):
+                cache[:, slot_idx, :bucket] = local[name][:, :B]
+            else:
+                cache[:, slot_idx, :, :bucket] = local[name][:, :B]
         return tok
 
     @torch.no_grad()
@@ -589,15 +650,16 @@ class DecodeEngine:
         toks = torch.zeros((S, n_steps), dtype=torch.int32, device=dev)
         kv_pos = torch.arange(self.Lalloc, device=dev)
         pad = torch.full_like(last_token, cfg.pad_token_id)
+        params = self.params_q if self.params_q is not None else self.params
         steps = 0
         while steps < n_steps:
             self.host_syncs += 1
             if not bool(running.any()):
                 break
             pos = next_pos[:, None, None].expand(S, 3, 1)
-            cache = {"k": self.caches["k"], "v": self.caches["v"],
-                     "kv_valid": (kv_pos[None, :] < (lengths + 1)[:, None]).to(torch.int32)}
-            logits, _ = qmodel.forward(cfg, self.params, last_token[:, None], pos, None,
+            cache = dict(self.caches,
+                         kv_valid=(kv_pos[None, :] < (lengths + 1)[:, None]).to(torch.int32))
+            logits, _ = qmodel.forward(cfg, params, last_token[:, None], pos, None,
                                        cache=cache, cache_positions=lengths[:, None])
             tok = sample_tokens(logits[:, 0], self._gen, st["temps"], st["top_ps"],
                                 st["top_ks"])

@@ -6,7 +6,9 @@ The JAX tree is a nest of dicts whose leaves are arrays in (in, out) layout;
 the port keeps the same nesting, names and layout, so both sides compute the
 same function. The numpy conversion is done by the caller (the port imports
 no jax); bfloat16 leaves are widened to float32 on the host before they become
-tensors of `dtype`.
+tensors of `dtype`. A quantized tree (ops/quant.py layouts) keeps its int8
+and uint8 codes as integer tensors and its `*_scale` leaves in float32, as
+the JAX package keeps them.
 """
 
 from __future__ import annotations
@@ -19,16 +21,19 @@ import torch
 
 def params_from_numpy(tree: Dict[str, Any], device=None,
                       dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
-    """Nested dict of numpy arrays → the same nest of `dtype` tensors."""
+    """Nested dict of numpy arrays → the same nest of tensors: float leaves
+    as `dtype`, `*_scale` leaves as float32, int8/uint8 codes unchanged."""
     out = {}
     for name, leaf in tree.items():
         if isinstance(leaf, dict):
             out[name] = params_from_numpy(leaf, device, dtype)
+            continue
+        arr = np.asarray(leaf)
+        if arr.dtype in (np.int8, np.uint8):
+            out[name] = torch.as_tensor(np.array(arr), device=device)
+        elif np.issubdtype(arr.dtype, np.floating) or arr.dtype.name == "bfloat16":
+            want = torch.float32 if name.endswith("_scale") else dtype
+            out[name] = torch.as_tensor(arr.astype(np.float32), device=device).to(want)
         else:
-            arr = np.asarray(leaf)
-            if not np.issubdtype(arr.dtype, np.floating) and arr.dtype.name != "bfloat16":
-                raise NotImplementedError(
-                    f"{name}: {arr.dtype} leaves (quantized weights) are not "
-                    "ported yet (ROADMAP: quantized serving)")
-            out[name] = torch.as_tensor(arr.astype(np.float32), device=device).to(dtype)
+            raise NotImplementedError(f"{name}: {arr.dtype} leaves are not supported")
     return out

@@ -16,6 +16,7 @@ import torch
 
 from socioreasoner_tpu.models.qwen2_5_vl.config import Qwen25VLConfig
 
+from ...ops.quant import head_logits
 from .rope import make_inv_freq, mrope_channel_axis, mrope_cos_sin
 from .text import text_decoder
 from .vision import vision_tower
@@ -35,14 +36,6 @@ def scatter_image_embeds(input_ids: torch.Tensor, token_embeds: torch.Tensor,
     return flat.reshape(B, L, -1)
 
 
-def head_logits(params: Dict, hidden: torch.Tensor) -> torch.Tensor:
-    """LM head projection (tied to the embedding when there is no lm_head)."""
-    head = params.get("lm_head")
-    if head is not None:
-        return hidden @ head
-    return hidden @ params["embed"].T
-
-
 def forward(
     config: Qwen25VLConfig,
     params: Dict,
@@ -60,9 +53,11 @@ def forward(
     cp=None,
     pp=None,
     tp=None,
+    act_quant: bool = False,            # w8a8 matmuls on the cached multi-token pass
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (logits or hidden, cache). A given cache is updated in place.
-    remat and use_flash apply to the uncached decoder (see text_decoder)."""
+    remat and use_flash apply to the uncached decoder, act_quant to the
+    cached one (see text_decoder)."""
     tcfg = config.text
     embeds = params["embed"][input_ids]
 
@@ -85,7 +80,7 @@ def forward(
     hidden, new_cache = text_decoder(
         tcfg, params, embeds, cos, sin, attention_mask, q_positions=None,
         cache=cache, cache_positions=cache_positions, remat=remat,
-        use_flash=use_flash, cp=cp, pp=pp, tp=tp)
+        use_flash=use_flash, cp=cp, pp=pp, tp=tp, act_quant=act_quant)
     if not logits:
         return hidden, new_cache
     return head_logits(params, hidden), new_cache

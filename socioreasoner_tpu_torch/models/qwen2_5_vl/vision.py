@@ -1,15 +1,18 @@
 """Qwen2.5-VL vision tower (ViT with window attention) in PyTorch.
 
 The counterpart of socioreasoner_tpu/models/qwen2_5_vl/vision.py for the
-qwen2.5 variant (RMSNorm + SwiGLU + window attention; the qwen2 variant and
-int8 tower weights raise NotImplementedError):
+qwen2.5 variant (RMSNorm + SwiGLU + window attention; the qwen2 variant
+raises NotImplementedError), with bf16/f32 or int8 tower weights:
   * the Conv3d patch embed is one matmul (its kernel equals its stride);
   * window attention is segment-masked attention over the packed sequence:
     patches are permuted into window-contiguous order on the host, and every
     block attends under a per-patch segment-id equality mask through the
     segmented flash kernel (ops/flash_attention.py) — window ids in window
     layers, per-image ids in the full-attention layers;
-  * blocks run in a Python loop over the stacked (depth, ...) parameters.
+  * blocks run in a Python loop over the stacked (depth, ...) parameters;
+  * a tower quantized by ops/quant.quantize_vision_params (int8 block and
+    merger matmuls, float patch embed) runs every block and merger matmul
+    w8a8, biases added after the product, as the JAX tower does.
 
 Host bookkeeping (permutation, rope tables, segment ids) lives in rope.py.
 """
@@ -27,17 +30,15 @@ from socioreasoner_tpu.models.qwen2_5_vl.config import VisionConfig
 from ...ops.flash_attention import (flash_attention_segmented, seg_block_sizes,
                                     seg_max_span_blocks)
 from ...ops.norms import rms_norm, swiglu
+from ...ops.quant import matmul_q
 from . import rope as rope_mod
 
 
-def _check_supported(cfg: VisionConfig, params: Dict) -> None:
+def _check_supported(cfg: VisionConfig) -> None:
     if cfg.variant != "qwen2_5":
         raise NotImplementedError(
             f"the {cfg.variant} ViT variant is not ported yet "
             "(ROADMAP: the rest of the surface)")
-    if not params["patch_embed_w"].is_floating_point():
-        raise NotImplementedError(
-            "quantized ViT weights are not ported yet (ROADMAP: quantized serving)")
 
 
 def vision_block(cfg: VisionConfig, p: Dict, x: torch.Tensor, cos: torch.Tensor,
@@ -46,8 +47,9 @@ def vision_block(cfg: VisionConfig, p: Dict, x: torch.Tensor, cos: torch.Tensor,
     """One ViT block. x: (S, hidden); seg: (S,) attention segment ids."""
     S = x.shape[0]
     H, D = cfg.num_heads, cfg.head_dim
+    a8 = p["qkv_w"].dtype == torch.int8         # an int8 tower runs w8a8
     h = rms_norm(x, p["norm1"], cfg.rms_norm_eps)
-    qkv = h @ p["qkv_w"] + p["qkv_b"]                      # (S, 3*hidden)
+    qkv = matmul_q(h, p, "qkv_w", a8) + p["qkv_b"]          # (S, 3*hidden)
     q, k, v = qkv.reshape(S, 3, H, D).unbind(1)            # (S, H, D) views
     # rotary (cos/sin are (S, D)); float32 rotation like HF
     q32, k32 = q.float(), k.float()
@@ -57,8 +59,12 @@ def vision_block(cfg: VisionConfig, p: Dict, x: torch.Tensor, cos: torch.Tensor,
     bq, bk = seg_block_sizes(S)
     attn = flash_attention_segmented(q, k, v, seg, block_q=bq, block_k=bk,
                                      max_span_blocks=max_span_blocks)
-    x = x + (attn.reshape(S, H * D) @ p["proj_w"] + p["proj_b"])
+    x = x + (matmul_q(attn.reshape(S, H * D), p, "proj_w", a8) + p["proj_b"])
     h2 = rms_norm(x, p["norm2"], cfg.rms_norm_eps)
+    if a8:
+        act = (F.silu((matmul_q(h2, p, "gate_w", True) + p["gate_b"]).float())
+               * (matmul_q(h2, p, "up_w", True) + p["up_b"]).float())
+        return x + (matmul_q(act.to(h2.dtype), p, "down_w", True) + p["down_b"])
     return x + swiglu(h2, p["gate_w"], p["up_w"], p["down_w"],
                       p["gate_b"], p["up_b"], p["down_b"])
 
@@ -76,7 +82,7 @@ def vision_tower(
 ) -> torch.Tensor:
     """Returns (S // spatial_merge_unit, out_hidden) merged embeddings, still in
     window order (the caller applies the inverse permutation)."""
-    _check_supported(cfg, params)
+    _check_supported(cfg)
     x = (patches @ params["patch_embed_w"]).to(patches.dtype)
     blocks = params["blocks"]
     for i, is_full in enumerate(np.asarray(is_full_layer).tolist()):
@@ -86,10 +92,11 @@ def vision_tower(
 
     # merger: norm then merge spatial_merge_unit patches → MLP
     h = rms_norm(x, params["merger_ln_q"], cfg.rms_norm_eps)
+    a8 = params["merger_fc1_w"].dtype == torch.int8
     h = h.reshape(-1, cfg.spatial_merge_unit * cfg.hidden_size)
-    h = h @ params["merger_fc1_w"] + params["merger_fc1_b"]
+    h = matmul_q(h, params, "merger_fc1_w", a8) + params["merger_fc1_b"]
     h = F.gelu(h, approximate="none")
-    return h @ params["merger_fc2_w"] + params["merger_fc2_b"]
+    return matmul_q(h, params, "merger_fc2_w", a8) + params["merger_fc2_b"]
 
 
 def _window_layout(cfg: VisionConfig, grid_thw: np.ndarray):
