@@ -8,8 +8,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
   2. build    — nvcc builds the kernel library from socioreasoner_tpu_torch/csrc.
   3. kernels  — each CUDA kernel against its plain PyTorch version at the
                 shapes of the main path: the error against the plain version
-                run in f32 on the same bf16 values, and CUDA-event timings of
-                the kernel and of the plain version on the bf16 tensors.
+                run in f32 on the same bf16 values, CUDA-event timings of the
+                kernel, of the plain version on the bf16 tensors and of the
+                one library call that computes the same function (where one
+                exists; the port never calls it), and the kernel's bound
+                (bytes over the memory rate or operations over the bf16
+                peak, whichever is larger); kernels 1 and 2 also at edge
+                shapes, with their device time and host time a launch.
   4. engine   — DecodeEngine greedy stream (kernels) against a teacher-forced
                 uncached forward (dense attention) at Qwen2.5-VL-3B head dims.
   5. train_parity — one GRPO train step with the trainable flash kernels
@@ -56,6 +61,13 @@ from pathlib import Path
 import numpy as np
 
 KERNEL_TOL = 2e-2       # max-abs, bf16 output rounding at |out| up to ~4
+# Kernels 1 and 2 are also held row by row: in each (query row, head) the
+# max-abs error is at most ROW_TOL of that row's largest |reference| (a row
+# that sees no key gives exactly 0). Over a full ViT layer's 2916 keys an
+# output is ~0.03, so KERNEL_TOL alone would pass a kernel that dropped or
+# doubled a k tile (a change of ~20% of a row); bf16 rounding of P and of
+# the output moves a row by a few 2^-9 of its largest element.
+ROW_TOL = 2e-2
 LSE_TOL = 1e-3          # max-abs of the f32 log-sum-exp (logits of size ~10)
 # dq/dk/dv max-abs error as a share of each gradient's max-abs: the outputs
 # are bf16 (2^-9 relative rounding) and the kernels round p and ds to bf16
@@ -99,6 +111,13 @@ def graph_ms(fn, n: int = 20) -> float:
     with torch.cuda.graph(graph):
         fn()
     return cuda_ms(graph.replay, n)
+
+
+def graph_call_ms(fn, reps: int = 10) -> float:
+    """Device time of one fn() from a CUDA graph of `reps` calls back to back
+    (the graph's own launch cost spread over them): kernels 1 and 2 report it
+    as their device_ms."""
+    return graph_ms(lambda: [fn() for _ in range(reps)]) / reps
 
 
 def device_ms(fn, kernels, n: int = 5) -> float:
@@ -159,10 +178,179 @@ def _check(name, got, want):
     return err
 
 
-def phase_kernels():
-    """Each kernel against its plain version at the main path's shapes."""
+def _check_rows(name, got, want):
+    """_check, and each (query row, head) of an attention output held to
+    ROW_TOL of its own largest |want|. Returns (max-abs error, the largest
+    row ratio)."""
     import torch
-    from socioreasoner_tpu.models.qwen2_5_vl.config import VisionConfig
+    diff = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+    ratio = (diff / scale).max().item()
+    if not ratio <= ROW_TOL:
+        raise AssertionError(f"{name}: a row's error is {ratio} of its largest |value| "
+                             f"> {ROW_TOL}")
+    return _check(name, got, want), ratio
+
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense): a kernel's
+# bound is the larger of its bytes over the memory rate and its operations
+# over the bf16 tensor-core rate, each input byte read once and each output
+# byte written once, the operations those of this run's data.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+
+
+def bound(nbytes: float, flops: float):
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _seg_pairs(seg_np) -> int:
+    """(query, key) pairs a segment-id mask keeps: the sum of squared
+    segment lengths."""
+    _, counts = np.unique(np.asarray(seg_np), return_counts=True)
+    return int((counts.astype(np.int64) ** 2).sum())
+
+
+def _causal_pairs(Lq: int, lens, causal: bool = True) -> int:
+    """(query, key) pairs of a prefix mask of kv_len keys per batch row,
+    under a causal mask: row t sees min(kv_len, t + 1) keys."""
+    t = np.arange(Lq)
+    return int(sum((np.minimum(int(n), t + 1) if causal else np.full(Lq, int(n))).sum()
+                   for n in lens))
+
+
+def host_us(fn, n: int = 50) -> float:
+    """Host microseconds a call of fn() takes to return (its launch cost),
+    over n calls queued behind one synchronisation."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _row(name, source, replaces, shape, err, ms, plain_ms, bound_ms, bound_by, library_ms,
+         library, **extra):
+    """One kernel's record, in the keys of the kernels line."""
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+            "library_ms": library_ms, "library": library,
+            "library_ratio": None if library_ms is None else ms / library_ms, **extra}
+
+
+def _edge_checks(randn):
+    """Kernels 1 and 2 at edge shapes against their plain versions in f32.
+    Returns, for each, the largest (max-abs error, row ratio) over its
+    cases."""
+    import torch
+    from socioreasoner_tpu_torch.ops import flash_attention as fa
+    dev = torch.device("cuda")
+    worst = lambda a, b: (max(a[0], b[0]), max(a[1], b[1]))   # noqa: E731
+    seg_err = (0.0, 0.0)
+    rng = np.random.default_rng(1)
+    for S, H, D, kind in ((200, 4, 80, "runs"), (129, 2, 128, "runs"), (300, 2, 80, "single"),
+                          (1000, 4, 128, "single"), (333, 3, 80, "dense"),
+                          (4100, 2, 128, "two")):
+        if kind == "runs":        # random nondecreasing ids, runs of 1-70 tokens
+            seg_np = np.repeat(np.arange(S), rng.integers(1, 70, S))[:S]
+        elif kind == "single":    # one token per segment
+            seg_np = np.arange(S)
+        elif kind == "two":       # two long segments (the full layers' shape)
+            seg_np = (np.arange(S) >= 1700).astype(np.int64)
+        else:                     # arbitrary ids: the dense-safe path
+            seg_np = rng.integers(0, 5, S)
+        q, k, v = randn(S, H, D), randn(S, H, D), randn(S, H, D)
+        seg = torch.as_tensor(seg_np.astype(np.int32))
+        span = None if kind == "dense" else fa.seg_max_span_blocks(seg_np, 128, 128)
+        got = fa.flash_attention_segmented(q, k, v, seg, max_span_blocks=span)
+        want = fa.flash_attention_segmented_reference(q.float(), k.float(), v.float(), seg)
+        seg_err = worst(seg_err, _check_rows(f"segmented edge S={S} D={D} {kind}", got, want))
+    pre_err = (0.0, 0.0)
+    for B, Lq, D, causal in ((1, 1, 128, True), (4, 63, 128, True), (4, 129, 80, True),
+                             (1, 2048, 128, True), (4, 129, 128, False), (1, 63, 80, False)):
+        q, k, v = randn(B, Lq, 16, D), randn(B, Lq, 2, D), randn(B, Lq, 2, D)
+        lens = [Lq, 0, 1, max(Lq // 2, 1)][:B]
+        mask = (torch.arange(Lq, device=dev)[None]
+                < torch.tensor(lens, device=dev)[:, None]).to(torch.int32)
+        got = fa.flash_attention(q, k, v, mask, causal=causal)
+        want = fa.flash_attention_reference(q.float(), k.float(), v.float(), mask,
+                                            causal=causal)
+        pre_err = worst(pre_err, _check_rows(
+            f"prefill edge B={B} Lq={Lq} D={D} causal={causal}", got, want))
+    return seg_err, pre_err
+
+
+def _prefill_bounds_check() -> int:
+    """fa.prefill_tile_bounds, the host copy of kernel 2's k-tile formula
+    that the CPU tests check, against the C++ formula itself
+    (socio_prefill_tile_bounds runs prefill_k_tiles on the host), over the
+    CPU tests' grid and out-of-range kv_len. Returns the cases compared."""
+    import ctypes
+    from socioreasoner_tpu_torch.ops import _build
+    from socioreasoner_tpu_torch.ops import flash_attention as fa
+    lib = _build.library()
+    out = (ctypes.c_int * 2)()
+    n = 0
+    for Lq in (1, 63, 129, 200, 2048):
+        for rep in (1, 2, 8):
+            toks = fa.KERNEL_Q_TILE // rep
+            for causal in (True, False):
+                for Lk in sorted({Lq, Lq + 37}):
+                    for kv_len in sorted({-1, 0, 1, Lk // 2, Lk, Lk + 5}):
+                        for tt in range(-(-Lq // toks)):
+                            _build.check(lib.socio_prefill_tile_bounds(
+                                tt, kv_len, Lq, Lk, rep, int(causal), ctypes.addressof(out)),
+                                "socio_prefill_tile_bounds")
+                            host = fa.prefill_tile_bounds(tt, kv_len, Lq, Lk, rep, causal)
+                            if tuple(out) != host:
+                                raise AssertionError(
+                                    f"prefill_tile_bounds{(tt, kv_len, Lq, Lk, rep, causal)} "
+                                    f"= {host}, the kernel's formula gives {tuple(out)}")
+                            n += 1
+    return n
+
+
+def _window_library(q, k, v, seg_np):
+    """One library call of segment-wise attention over the window layers'
+    segments, with the layout copy it needs: varlen flash attention on
+    cu_seqlens from the ids where torch has it, else SDPA on a jagged nested
+    tensor of the windows. Returns (fn, name)."""
+    import torch
+    import torch.nn.functional as F
+    _, counts = np.unique(seg_np, return_counts=True)
+    cu = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int32,
+                         device=q.device)
+    longest = int(counts.max())
+    try:
+        from torch.nn.attention.varlen import varlen_attn
+    except ImportError:
+        varlen_attn = None
+    if varlen_attn is not None:
+        return (lambda: varlen_attn(q, k, v, cu, cu, longest, longest),
+                "torch.nn.attention.varlen.varlen_attn")
+    offsets = cu.long()
+
+    def nested():
+        qn, kn, vn = (torch.nested.nested_tensor_from_jagged(x, offsets).transpose(1, 2)
+                      for x in (q, k, v))
+        return F.scaled_dot_product_attention(qn, kn, vn)
+    return nested, "scaled_dot_product_attention on a jagged nested tensor"
+
+
+def phase_kernels():
+    """Each kernel against its plain version at the main path's shapes, with
+    its bound and the time of the one library call that computes the same
+    function (a yardstick the port never calls)."""
+    import torch
+    import torch.nn.functional as F
+    from socioreasoner_tpu_torch.models.qwen2_5_vl.config import VisionConfig
     from socioreasoner_tpu_torch.models.qwen2_5_vl.rope import vision_window_index
     from socioreasoner_tpu_torch.ops import decode_attention as da
     from socioreasoner_tpu_torch.ops import flash_attention as fa
@@ -174,31 +362,44 @@ def phase_kernels():
         return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
 
     results = []
+    seg_edge, pre_edge = _edge_checks(randn)
 
     # segmented: two 756x756 images (the resize of a 768-px tile), 16 x 80
     vcfg = VisionConfig()
     grid = np.array([[1, 54, 54], [1, 54, 54]])
     _, window_seg, full_seg = vision_window_index(grid, vcfg)
-    S = len(window_seg)
-    q, k, v = randn(S, 16, 80), randn(S, 16, 80), randn(S, 16, 80)
+    S, H, D = len(window_seg), 16, 80
+    q, k, v = randn(S, H, D), randn(S, H, D), randn(S, H, D)
     bq, bk = fa.seg_block_sizes(S)
     maxk = max(fa.seg_max_span_blocks(window_seg, bq, bk),
                fa.seg_max_span_blocks(full_seg, bq, bk))
-    errs, times = [], {}
+    errs, layer = [], {}
     for seg_np, span in ((window_seg, maxk), (full_seg, maxk), (window_seg, None)):
-        seg = torch.as_tensor(seg_np, device=dev)
+        seg = torch.as_tensor(seg_np)
+        # as the ViT calls it: the plan built once for all its layers
+        make_plan = lambda: fa.seg_plan(   # noqa: E731
+            seg, H, dev, block_q=bq, block_k=bk, max_span_blocks=span)
+        plan = make_plan()
         run = lambda: fa.flash_attention_segmented(   # noqa: E731
-            q, k, v, seg, block_q=bq, block_k=bk, max_span_blocks=span)
+            q, k, v, seg, block_q=bq, block_k=bk, max_span_blocks=span, plan=plan)
         ref = lambda: fa.flash_attention_segmented_reference(   # noqa: E731
             q.float(), k.float(), v.float(), seg)
-        errs.append(_check(f"segmented span={span}", run(), ref()))
+        errs.append(_check_rows(f"segmented span={span}", run(), ref()))
         if span is not None:
             plain = lambda: fa.flash_attention_segmented_reference(   # noqa: E731
                 q, k, v, seg)
-            times[seg_np is full_seg] = (cuda_ms(run), cuda_ms(plain, n=10))
-    # per tile: the tower's 28 window layers and 4 full-attention layers
-    n_full = len(vcfg.fullatt_block_indexes)
-    n_win = vcfg.depth - n_full
+            full = seg_np is full_seg
+            if full:   # the two images as two batch rows of one SDPA call
+                qb, kb, vb = (x.reshape(2, S // 2, H, D).transpose(1, 2) for x in (q, k, v))
+                lib = lambda: F.scaled_dot_product_attention(qb, kb, vb)   # noqa: E731
+                lib_name = "scaled_dot_product_attention (2, 16, 2916, 80)"
+            else:
+                lib, lib_name = _window_library(q, k, v, seg_np)
+            layer[full] = {"ms": cuda_ms(run), "plain_ms": cuda_ms(plain, n=10),
+                           "device_ms": graph_call_ms(run),
+                           "library_ms": cuda_ms(lib), "library": lib_name,
+                           "host_us": host_us(run), "plan_us": host_us(make_plan, n=10),
+                           "bound": bound(4 * S * H * D * 2, 4 * D * H * _seg_pairs(seg_np))}
     try:
         fa.flash_attention_segmented(q, k, v, torch.as_tensor(full_seg),
                                      block_q=bq, block_k=bk,
@@ -207,34 +408,61 @@ def phase_kernels():
         pass
     else:
         raise AssertionError("an underestimated max_span_blocks did not raise")
-    results.append({
-        "name": "flash_attention_segmented", "route": "cuda",
-        "source": "socioreasoner_tpu_torch/csrc/flash_segmented.cu",
-        "replaces": "socioreasoner_tpu/ops/flash_attention.py:95",
-        "shape": f"S={S} H=16 D=80, ms per tile = {n_win} window + {n_full} full layers",
-        "window_ms": times[False][0], "full_ms": times[True][0],
-        "max_abs_err": max(errs),
-        "ms": n_win * times[False][0] + n_full * times[True][0],
-        "plain_ms": n_win * times[False][1] + n_full * times[True][1]})
+    # per tile: the tower's 28 window layers and 4 full-attention layers
+    n_full = len(vcfg.fullatt_block_indexes)
+    n_win = vcfg.depth - n_full
+    win, full = layer[False], layer[True]
+    per_tile = lambda key: n_win * win[key] + n_full * full[key]   # noqa: E731
+    tile_bound = n_win * win["bound"][0] + n_full * full["bound"][0]
+    results.append(_row(
+        "flash_attention_segmented", "socioreasoner_tpu_torch/csrc/flash_segmented.cu",
+        "socioreasoner_tpu/ops/flash_attention.py:95",
+        f"S={S} H=16 D=80, ms per tile = {n_win} window + {n_full} full layers",
+        max(e for e, _ in errs), per_tile("ms"), per_tile("plain_ms"), tile_bound,
+        # the window layers' bytes outweigh the full layers' operations
+        "bytes" if n_win * win["bound"][0] >= n_full * full["bound"][0] else "operations",
+        per_tile("library_ms"), f"{n_win} x {win['library']} + {n_full} x {full['library']}",
+        window=win, full_layer=full, device_ms=per_tile("device_ms"),
+        max_row_ratio=max(r for _, r in errs), edge_max_abs_err=seg_edge[0],
+        edge_max_row_ratio=seg_edge[1]))
     emit({"phase": "kernel", **results[-1]})
 
-    # prefill: B=2, L=2048 bucket, 16 q / 2 kv heads, D=128, kv lens {2016, 1}
-    B, L = 2, 2048
-    q, k, v = randn(B, L, 16, 128), randn(B, L, 2, 128), randn(B, L, 2, 128)
-    mask = torch.zeros(B, L, dtype=torch.int32, device=dev)
-    mask[0, :2016] = 1
-    mask[1, :1] = 1
-    run = lambda: fa.flash_attention(q, k, v, mask, causal=True)   # noqa: E731
-    ref = lambda: fa.flash_attention_reference(   # noqa: E731
-        q.float(), k.float(), v.float(), mask, causal=True)
-    err = _check("prefill", run(), ref())
-    plain = lambda: fa.flash_attention_reference(q, k, v, mask, causal=True)   # noqa: E731
-    results.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "socioreasoner_tpu_torch/csrc/flash_prefill.cu",
-        "replaces": "socioreasoner_tpu/ops/flash_attention.py:37",
-        "shape": "B=2 L=2048 H=16 Hkv=2 D=128 kv_len=2016,1",
-        "max_abs_err": err, "ms": cuda_ms(run), "plain_ms": cuda_ms(plain, n=10)})
+    # prefill: 16 q / 2 kv heads, D=128, the L=2048 bucket; checked and timed
+    # at B=2 with kv lens {2016, 1}, and at the main phase's prefill (four
+    # 2016-token prompts)
+    def prefill_case(lens):
+        B, L = len(lens), 2048
+        q, k, v = randn(B, L, 16, 128), randn(B, L, 2, 128), randn(B, L, 2, 128)
+        mask = (torch.arange(L, device=dev)[None]
+                < torch.tensor(lens, device=dev)[:, None]).to(torch.int32)
+        run = lambda: fa.flash_attention(q, k, v, mask, causal=True)   # noqa: E731
+        err, ratio = _check_rows(f"prefill kv_len={lens}", run(), fa.flash_attention_reference(
+            q.float(), k.float(), v.float(), mask, causal=True))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        return {"err": err, "ratio": ratio, "ms": cuda_ms(run), "device_ms": graph_call_ms(run),
+                "library_ms": cuda_ms(lib), "host_us": host_us(run),
+                "bound": bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                               4 * 128 * 16 * _causal_pairs(L, lens)),
+                "plain": lambda: fa.flash_attention_reference(q, k, v, mask, causal=True)}
+
+    check, main = prefill_case([2016, 1]), prefill_case([2016] * 4)
+    results.append(_row(
+        "flash_attention", "socioreasoner_tpu_torch/csrc/flash_prefill.cu",
+        "socioreasoner_tpu/ops/flash_attention.py:37",
+        "B=2 L=2048 H=16 Hkv=2 D=128 kv_len=2016,1", check["err"], check["ms"],
+        cuda_ms(check["plain"], n=10), *check["bound"], check["library_ms"],
+        "scaled_dot_product_attention(is_causal=True, enable_gqa=True) on (B, H, L, D) "
+        "views; it differs from the kernel only on rows past kv_len, which the engine "
+        "discards", device_ms=check["device_ms"], host_us=check["host_us"],
+        max_row_ratio=check["ratio"],
+        main_prefill={"shape": "B=4 L=2048 kv_len=2016 x 4, one layer of the main phase's "
+                               "prefill", **{key: main[key] for key in (
+                                   "err", "ratio", "ms", "device_ms", "library_ms")},
+                      "bound_ms": main["bound"][0], "bound_by": main["bound"][1]},
+        edge_max_abs_err=pre_edge[0], edge_max_row_ratio=pre_edge[1],
+        bounds_checked=_prefill_bounds_check()))
     emit({"phase": "kernel", **results[-1]})
 
     # decode: the stacked 36-layer cache of the main phase (max_len 2624)
@@ -245,12 +473,12 @@ def phase_kernels():
         kc, vc = randn(36, slots, Lalloc, 2, 128), randn(36, slots, Lalloc, 2, 128)
         q = randn(slots, 16, 128)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-        for layer in (0, 17, 35):
+        for layer_i in (0, 17, 35):
             run = lambda: da.paged_decode_attention(   # noqa: E731
-                q, kc, vc, lengths, layer=layer)
+                q, kc, vc, lengths, layer=layer_i)
             ref = lambda: da.paged_decode_attention_reference(   # noqa: E731
-                q.float(), kc[layer].float(), vc[layer].float(), lengths)
-            errs.append(_check(f"decode S={slots} layer={layer}", run(), ref()))
+                q.float(), kc[layer_i].float(), vc[layer_i].float(), lengths)
+            errs.append(_check(f"decode S={slots} layer={layer_i}", run(), ref()))
         if slots == 4:
             # per layer, over a sweep of all 36 layers: 415 MB of cache, so
             # each layer's blocks come from HBM as in the decode step, not L2
@@ -258,16 +486,26 @@ def phase_kernels():
                 q, kc, vc, lengths, layer=i) for i in range(36)]
             plain = lambda: [da.paged_decode_attention_reference(   # noqa: E731
                 q, kc, vc, lengths, layer=i) for i in range(36)]
+            # the library call: one query per slot over the layer's cache view
+            # with a boolean length mask (rows of length 0 give NaN there)
+            keep = (torch.arange(Lalloc, device=dev)[None] < lengths[:, None])[:, None, None]
+            q4 = q[:, :, None]
+            lib = lambda: [F.scaled_dot_product_attention(   # noqa: E731
+                q4, kc[i].transpose(1, 2), vc[i].transpose(1, 2), attn_mask=keep,
+                enable_gqa=True) for i in range(36)]
+            n_keys = sum(lens)
             timing = (cuda_ms(sweep) / 36, cuda_ms(plain, n=10) / 36,
-                      device_ms(sweep, ("paged_decode",)) / 36)
+                      device_ms(sweep, ("paged_decode",)) / 36, cuda_ms(lib, n=10) / 36,
+                      bound(2 * (2 * q.numel()) + n_keys * 2 * 2 * 128 * 2,
+                            4 * 128 * 16 * n_keys))
         del kc, vc
-    results.append({
-        "name": "paged_decode_attention", "route": "cuda",
-        "source": "socioreasoner_tpu_torch/csrc/paged_decode.cu",
-        "replaces": "socioreasoner_tpu/ops/decode_attention.py:36",
-        "shape": f"cache (36, 4|8, {Lalloc}, 2, 128), ms per layer at S=4",
-        "max_abs_err": max(errs), "ms": timing[0], "plain_ms": timing[1],
-        "device_ms": timing[2]})
+    results.append(_row(
+        "paged_decode_attention", "socioreasoner_tpu_torch/csrc/paged_decode.cu",
+        "socioreasoner_tpu/ops/decode_attention.py:36",
+        f"cache (36, 4|8, {Lalloc}, 2, 128), ms per layer at S=4", max(errs), timing[0],
+        timing[1], *timing[4], timing[3],
+        "scaled_dot_product_attention(enable_gqa=True), one query per slot, boolean "
+        "length mask, per layer", device_ms=timing[2]))
     emit({"phase": "kernel", **results[-1]})
     torch.cuda.empty_cache()
     results.append(_int8_decode_kernel(randn, Lalloc))
@@ -308,17 +546,19 @@ def _int8_decode_kernel(randn, Lalloc):
                 q, kc, vc, lengths, ks, vs, layer=i) for i in range(36)]
             plain = lambda: [da.paged_decode_attention_int8_reference(   # noqa: E731
                 q, kc, vc, lengths, ks, vs, layer=i) for i in range(36)]
+            # int8 codes and an f32 scale per (key, kv head), for K and V
+            n_keys = sum(lens)
             timing = (cuda_ms(sweep) / 36, cuda_ms(plain, n=10) / 36,
-                      device_ms(sweep, ("paged_decode",)) / 36)
+                      device_ms(sweep, ("paged_decode",)) / 36,
+                      bound(2 * (2 * q.numel()) + n_keys * 2 * 2 * (128 + 4),
+                            4 * 128 * 16 * n_keys))
         del kc, ks, vc, vs, caches
     torch.cuda.empty_cache()
-    out = {"name": "paged_decode_attention_int8", "route": "cuda",
-           "source": "socioreasoner_tpu_torch/csrc/paged_decode.cu",
-           "replaces": "socioreasoner_tpu/ops/decode_attention.py:36",
-           "shape": f"int8 cache (36, 4|8, {Lalloc}, 2, 128) + f32 scales, "
-                    "ms per layer at S=4",
-           "max_abs_err": max(errs), "ms": timing[0], "plain_ms": timing[1],
-           "device_ms": timing[2]}
+    out = _row("paged_decode_attention_int8", "socioreasoner_tpu_torch/csrc/paged_decode.cu",
+               "socioreasoner_tpu/ops/decode_attention.py:36",
+               f"int8 cache (36, 4|8, {Lalloc}, 2, 128) + f32 scales, ms per layer at S=4",
+               max(errs), timing[0], timing[1], *timing[3], None,
+               "none: no single call dequantizes and attends", device_ms=timing[2])
     emit({"phase": "kernel", **out})
     return out
 
@@ -367,16 +607,18 @@ def _row_writer_kernel(randn):
             k0[i, bidx, pos2] = knew
             v0[i, bidx, pos2] = vnew
 
-    out = {"name": "write_rows", "route": "cuda",
-           "source": "socioreasoner_tpu_torch/csrc/cache_write.cu",
-           "replaces": "scripts/profile_decode2.py:50",
-           "shape": f"caches {ROW_WRITER_SHAPE} bf16, rows (24, 1, 2, 128), "
-                    "ms per sweep of 36 layers x (k and v) replayed as one CUDA graph "
-                    "(the script times one jitted loop); eager_ms with the host's launches",
-           "max_abs_err": 0.0, "ms": graph_ms(kernel_sweep), "plain_ms": graph_ms(plain_sweep),
-           "eager_ms": cuda_ms(kernel_sweep), "plain_eager_ms": cuda_ms(plain_sweep),
-           "device_ms": device_ms(kernel_sweep, ("write_rows",)),
-           "plain_device_ms": device_ms(plain_sweep, ("",))}
+    # per layer and cache: the new rows read once and written once
+    out = _row("write_rows", "socioreasoner_tpu_torch/csrc/cache_write.cu",
+               "scripts/profile_decode2.py:50",
+               f"caches {ROW_WRITER_SHAPE} bf16, rows (24, 1, 2, 128), ms per sweep of 36 "
+               "layers x (k and v) replayed as one CUDA graph (the script times one jitted "
+               "loop); eager_ms with the host's launches",
+               0.0, graph_ms(kernel_sweep), graph_ms(plain_sweep),
+               *bound(L * 2 * 2 * knew.numel() * 2, 0), None,
+               "none beyond the two index_put_ calls, which are its plain version",
+               eager_ms=cuda_ms(kernel_sweep), plain_eager_ms=cuda_ms(plain_sweep),
+               device_ms=device_ms(kernel_sweep, ("write_rows",)),
+               plain_device_ms=device_ms(plain_sweep, ("",)))
     emit({"phase": "kernel", **out})
     del k0, v0
     torch.cuda.empty_cache()
@@ -389,6 +631,7 @@ def _train_kernels(randn):
     the same bf16 values. The backward kernels get the plain lse and delta,
     so each kernel is held alone."""
     import torch
+    import torch.nn.functional as F
     from socioreasoner_tpu_torch.ops import flash_attention_bwd as fb
 
     B, L = 4, 2304
@@ -403,14 +646,24 @@ def _train_kernels(randn):
     lse_err = (lse - ref_lse).abs().max().item()
     if not lse_err <= LSE_TOL:
         raise AssertionError(f"train fwd lse: max_abs_err {lse_err} > {LSE_TOL}")
-    results = [{
-        "name": "flash_attention_fwd_lse", "route": "cuda",
-        "source": "socioreasoner_tpu_torch/csrc/flash_train_fwd.cu",
-        "replaces": "socioreasoner_tpu/ops/flash_attention_bwd.py:32", "shape": shape,
-        "max_abs_err": err, "lse_max_abs_err": lse_err,
-        "ms": cuda_ms(lambda: fb.flash_attention_fwd_lse(q, k, v, lens)),
-        "plain_ms": cuda_ms(lambda: fb.flash_attention_fwd_lse_reference(q, k, v, lens),
-                            n=10)}]
+    # the library calls take the kv heads expanded to the 16 q heads (made
+    # here, outside the timing) in (B, H, L, D) views; they differ from the
+    # kernels only on rows past kv_len
+    qt, dot = q.transpose(1, 2), do.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(8, dim=2).transpose(1, 2) for x in (k, v))
+    pairs = 16 * _causal_pairs(L, lens.tolist())       # (query head, key) pairs
+    f32_rows = B * 16 * L * 4                          # one f32 per (b, head, row)
+    qkv_bytes = 2 * (q.numel() + k.numel() + v.numel())
+    fwd_lib = lambda: torch.ops.aten._scaled_dot_product_flash_attention(   # noqa: E731
+        qt, kt, vt, is_causal=True)
+    results = [_row(
+        "flash_attention_fwd_lse", "socioreasoner_tpu_torch/csrc/flash_train_fwd.cu",
+        "socioreasoner_tpu/ops/flash_attention_bwd.py:32", shape, err,
+        cuda_ms(lambda: fb.flash_attention_fwd_lse(q, k, v, lens)),
+        cuda_ms(lambda: fb.flash_attention_fwd_lse_reference(q, k, v, lens), n=10),
+        *bound(qkv_bytes + 2 * q.numel() + f32_rows, 4 * 128 * pairs),
+        cuda_ms(fwd_lib), "torch.ops.aten._scaled_dot_product_flash_attention(is_causal=True), "
+        "which also returns the lse", lse_max_abs_err=lse_err)]
     emit({"phase": "kernel", **results[-1]})
     del out, lse
 
@@ -429,28 +682,33 @@ def _train_kernels(randn):
                                  f"{scale} (finite={finite})")
         errs[g + "_rel"] = errs[g] / scale
     del got, want
-    # the plain backward computes dq, dk and dv together: its time stands
-    # beside each of the two backward kernels
+    # the plain backward computes dq, dk and dv together, and so does the
+    # library's (SDPA's autograd backward): each time stands beside both
+    # backward kernels
     plain_bwd = cuda_ms(lambda: fb.flash_attention_bwd_reference(
         q, k, v, do, ref_lse, delta, lens), n=10)
+    leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, dot, retain_graph=True))
+    del lib_out, leaves
+    lib_name = "scaled_dot_product_attention(is_causal=True) autograd backward (dq, dk, dv)"
     note = "plain_ms is the whole plain backward (dq, dk and dv)"
-    results.append({
-        "name": "flash_attention_bwd_dq", "route": "cuda",
-        "source": "socioreasoner_tpu_torch/csrc/flash_train_bwd.cu",
-        "replaces": "socioreasoner_tpu/ops/flash_attention_bwd.py:75", "shape": shape,
-        "max_abs_err": errs["dq"], "rel_err": errs["dq_rel"],
-        "ms": cuda_ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, lens)),
-        "plain_ms": plain_bwd, "note": note})
+    bwd_in = qkv_bytes + 2 * do.numel() + 2 * f32_rows     # q, k, v, do, lse, delta
+    results.append(_row(
+        "flash_attention_bwd_dq", "socioreasoner_tpu_torch/csrc/flash_train_bwd.cu",
+        "socioreasoner_tpu/ops/flash_attention_bwd.py:75", shape, errs["dq"],
+        cuda_ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, lens)),
+        plain_bwd, *bound(bwd_in + 2 * q.numel(), 6 * 128 * pairs), lib_bwd, lib_name,
+        rel_err=errs["dq_rel"], note=note))
     emit({"phase": "kernel", **results[-1]})
-    results.append({
-        "name": "flash_attention_bwd_dkv", "route": "cuda",
-        "source": "socioreasoner_tpu_torch/csrc/flash_train_bwd.cu",
-        "replaces": "socioreasoner_tpu/ops/flash_attention_bwd.py:111", "shape": shape,
-        "max_abs_err": max(errs["dk"], errs["dv"]),
-        "rel_err": max(errs["dk_rel"], errs["dv_rel"]),
-        "dk_max_abs_err": errs["dk"], "dv_max_abs_err": errs["dv"],
-        "ms": cuda_ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, lens)),
-        "plain_ms": plain_bwd, "note": note})
+    results.append(_row(
+        "flash_attention_bwd_dkv", "socioreasoner_tpu_torch/csrc/flash_train_bwd.cu",
+        "socioreasoner_tpu/ops/flash_attention_bwd.py:111", shape,
+        max(errs["dk"], errs["dv"]),
+        cuda_ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, lens)),
+        plain_bwd, *bound(bwd_in + 2 * (k.numel() + v.numel()), 8 * 128 * pairs),
+        lib_bwd, lib_name, rel_err=max(errs["dk_rel"], errs["dv_rel"]),
+        dk_max_abs_err=errs["dk"], dv_max_abs_err=errs["dv"], note=note))
     emit({"phase": "kernel", **results[-1]})
     torch.cuda.empty_cache()
     return results
@@ -459,7 +717,7 @@ def _train_kernels(randn):
 def _short_3b_config(vocab: int = 8192):
     """Qwen2.5-VL-3B text widths (hidden 2048, 16/2 heads x 128) with 2 text
     layers, a small vocabulary and a token ViT."""
-    from socioreasoner_tpu.models.qwen2_5_vl.config import (
+    from socioreasoner_tpu_torch.models.qwen2_5_vl.config import (
         Qwen25VLConfig, TextConfig, VisionConfig)
     return Qwen25VLConfig(
         vision=VisionConfig(depth=1, hidden_size=64, intermediate_size=128,
@@ -533,8 +791,8 @@ def phase_engine():
 def _stage1_batch(config, n_tiles: int, tile_px: int, img_cfg, prompt_length: int):
     """n synthetic map+sat tiles (as bench.py makes them) → stage-1 batch."""
     from PIL import Image
-    from socioreasoner_tpu.datasets.processor import SimpleTokenizer, SocioProcessor
-    from socioreasoner_tpu.datasets.socioseg import encode_sample
+    from socioreasoner_tpu_torch.datasets.processor import SimpleTokenizer, SocioProcessor
+    from socioreasoner_tpu_torch.datasets.socioseg import encode_sample
     from socioreasoner_tpu_torch.datasets.collator import SocioSegCollator
 
     rng = np.random.default_rng(0)
@@ -617,7 +875,7 @@ def run_main_path(config, params, dev, *, n_tiles=4, tile_px=768, img_cfg=None,
     on the strategy's tree) → the strategy's server (ADD ×n, then
     ALIVE_CHECK and STOP). Returns (outputs, engine, stats)."""
     import torch
-    from socioreasoner_tpu.datasets.processor import ImageProcessorConfig
+    from socioreasoner_tpu_torch.datasets.processor import ImageProcessorConfig
     from socioreasoner_tpu_torch.distributed.torch_strategies import (
         TorchDecodeStrategy, batch_image_embeds)
     from socioreasoner_tpu_torch.generation.sampling import SamplingParams
@@ -681,7 +939,7 @@ def phase_main():
     requests, twice; returns the kernels' launch counts over the second
     (measured) pass, the config, the params and the pass's stats."""
     import torch
-    from socioreasoner_tpu.models.qwen2_5_vl.config import Qwen25VLConfig
+    from socioreasoner_tpu_torch.models.qwen2_5_vl.config import Qwen25VLConfig
     from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
     from socioreasoner_tpu_torch.ops import decode_attention as da
     from socioreasoner_tpu_torch.ops import flash_attention as fa
@@ -823,8 +1081,8 @@ def run_train_path(config, params, dev, *, tile_px=768, img_cfg=None, n=4,
     greedy request with the trained weights. Returns stats; raises on a
     failed check."""
     import torch
-    from socioreasoner_tpu.datasets.processor import ImageProcessorConfig
-    from socioreasoner_tpu.protocol import BatchProto
+    from socioreasoner_tpu_torch.datasets.processor import ImageProcessorConfig
+    from socioreasoner_tpu_torch.protocol import BatchProto
     from socioreasoner_tpu_torch.distributed.strategy import ParamStore
     from socioreasoner_tpu_torch.distributed.torch_strategies import (
         TorchDecodeStrategy, TorchInferStrategy, TorchTrainStrategy, batch_image_embeds)

@@ -1,5 +1,5 @@
-// Shared pieces of the two tiled attention kernels (flash_prefill.cu and
-// flash_segmented.cu): one CTA of 4 warps owns a 64-row query tile, walks
+// The tiled attention CTA of the training forward (flash_train_fwd.cu):
+// one CTA of 4 warps owns a 64-row query tile, walks
 // 64-key tiles of K/V through shared memory, computes S = Q K^T and O += P V
 // on the tensor cores with bf16 WMMA (f32 accumulation), and keeps the online
 // softmax state (row max m, row sum l, unnormalised O) in shared memory.
@@ -187,8 +187,7 @@ __device__ __forceinline__ void write_rows(const float* Os, const float* l_s, Ro
 // one valid KV length per batch row, read through the tensors' strides. One
 // CTA serves all rep = H / Hkv q heads of one kv head (GQA folded as in the
 // Pallas grid): its 64 query rows are 64 / rep tokens x rep heads, so each K/V
-// tile feeds rep heads at once. Shared by the prefill kernel and the training
-// forward, which also writes the per-row log-sum-exp.
+// tile feeds rep heads at once; it also writes the per-row log-sum-exp.
 struct GqaArgs {
   const bf16* q;
   const bf16* k;

@@ -5,42 +5,26 @@
 // (B, Lq, H, D) against k/v (B, Lk, Hkv, D); one valid KV length per batch row
 // (contiguous-prefix mask); causal or full; the D^-0.5 scale on the f32
 // logits; bf16 matmul inputs with f32 accumulation; rows with no valid key
-// give 0.
+// give 0; every row < Lq is written.
 //
 // What bounds it on the H100: at the engine's prefill shapes (B = 1-4,
-// L = 2048, 16 q / 2 kv heads, D = 128) it is tensor-core work, ~34 GFLOP per
-// layer causal at B = 2, while K/V of one (batch, kv head) is only 1 MiB and sits in
-// L2. The design therefore spends its effort on the tensor cores (bf16 WMMA for
-// both products) and on never computing above the diagonal: a CTA stops at the
-// last key its last query row may see. GQA is folded as in the Pallas grid:
-// one CTA serves all `rep` q heads of one kv head, so its 64 query rows are
-// 64 / rep tokens x rep heads and each K/V tile feeds rep heads at once.
-// The (B, L, H, D) tensors are read through their strides, so the TPU
-// wrapper's transposes are gone. The CTA body (gqa_attention_cta) is shared
-// with the training forward, flash_train_fwd.cu.
-#include "attention_tile.cuh"
-
-namespace socio {
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_prefill_kernel(GqaArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  gqa_attention_cta<D>(a, smem);
-}
-
-template <int D>
-static int launch_prefill(const GqaArgs& a, int B, cudaStream_t stream) {
-  const size_t smem = TileSmem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_prefill_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int toks = kRows / a.rep;
-  dim3 grid((a.Lq + toks - 1) / toks, B * a.Hkv);
-  flash_prefill_kernel<D><<<grid, kThreads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace socio
+// L = 2048, 16 q / 2 kv heads, D = 128) it is tensor-core work, ~17 GFLOP per
+// layer causal at B = 2 (17 us at the bf16 peak), while its 38 MB of
+// Q/K/V/O take 11 us at the memory rate.
+//
+// The design (attention_sm90.cuh): GQA is folded as in the Pallas grid, so a
+// 128-row work item is 128 / rep tokens x the rep q heads of one kv head --
+// the rep heads are contiguous in (B, L, H, D), so one 4-D TMA box
+// (64 columns x rep heads x 128 / rep tokens) lands them in that order -- and
+// every K/V tile feeds all rep heads. Items are (batch, kv head, token tile),
+// the last token tiles first; each reads its batch row's kv_len on the
+// device, stops at the last key its last token may see (tiles above the
+// diagonal are never loaded) and masks only the tiles that reach past its
+// first token or past kv_len. TMA fills rows past Lq or Lk with zeros; the
+// mask still decides. Persistent warp-specialised CTAs, TMA into a
+// multi-stage mbarrier ring, S/P/O in registers through wgmma. The training
+// forward (flash_train_fwd.cu) keeps the earlier CTA in attention_tile.cuh.
+#include "attention_sm90.cuh"
 
 extern "C" int socio_flash_prefill_bf16(
     const void* q, const void* k, const void* v, void* o, const void* kv_lens,
@@ -50,16 +34,49 @@ extern "C" int socio_flash_prefill_bf16(
     long long svb, long long svt, long long svh,
     long long sob, long long sot, long long soh,
     int causal, float scale, void* stream) {
-  using namespace socio;
-  if (Hkv <= 0 || H % Hkv != 0 || kRows % (H / Hkv) != 0) return (int)cudaErrorInvalidValue;
-  GqaArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-            static_cast<const bf16*>(v), static_cast<bf16*>(o), nullptr,
-            static_cast<const int*>(kv_lens), Lq, Lk, Hkv, H / Hkv, causal,
-            sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh, scale};
+  using namespace socio90;
+  if (Hkv <= 0 || H % Hkv != 0 || kBM % (H / Hkv) != 0 || (D != 80 && D != 128))
+    return (int)cudaErrorInvalidValue;
+  const int rep = H / Hkv;
+  const int toks = kBM / rep;
+  FwdParams p{};
+  p.o = static_cast<bf16*>(o);
+  p.sob = sob;
+  p.sot = sot;
+  p.soh = soh;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  p.kv_lens = static_cast<const int*>(kv_lens);
+  p.B = B;
+  p.Lq = Lq;
+  p.Lk = Lk;
+  p.Hkv = Hkv;
+  p.rep = rep;
+  p.causal = causal;
+  p.n_ttiles = (Lq + toks - 1) / toks;
+  p.n_items = p.n_ttiles * B * Hkv;
+  // (D, heads, tokens, B) views; q boxes of rep heads x 128 / rep tokens,
+  // k/v boxes of one kv head x 128 keys
+  const long long qdims[4] = {D, H, Lq, B}, kdims[4] = {D, Hkv, Lk, B};
+  const long long qs[4] = {1, sqh, sqt, sqb}, ks[4] = {1, skh, skt, skb},
+                  vs[4] = {1, svh, svt, svb};
+  int qbox[4] = {0, rep, toks, 1}, kbox[4] = {0, 1, kBN, 1}, vbox[4] = {0, 1, kBN, 1};
+  int rc = encode_pair(&p.q_main, &p.q_tail, q, 4, qdims, qs, qbox, D);
+  if (rc == 0) rc = encode_pair(&p.k_main, &p.k_tail, k, 4, kdims, ks, kbox, D);
+  if (rc == 0) rc = encode_pair(&p.v_main, &p.v_tail, v, 4, kdims, vs, vbox, D);
+  if (rc != 0) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 80: return launch_prefill<80>(a, B, s);
-    case 128: return launch_prefill<128>(a, B, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return D == 80 ? launch<80, false>(p, s) : launch<128, false>(p, s);
+}
+
+// The k-tile bounds the kernel gives token tile t_tile, by the device's own
+// formula run on the host: out = {k tiles visited, k tiles left unmasked}.
+extern "C" int socio_prefill_tile_bounds(int t_tile, int kv_len, int Lq, int Lk, int rep,
+                                         int causal, void* out) {
+  using namespace socio90;
+  if (rep <= 0 || kBM % rep != 0) return (int)cudaErrorInvalidValue;
+  const int toks = kBM / rep;
+  const int2 n = prefill_k_tiles(t_tile * toks, toks, kv_len, Lq, Lk, causal);
+  static_cast<int*>(out)[0] = n.x;
+  static_cast<int*>(out)[1] = n.y;
+  return 0;
 }

@@ -3,129 +3,56 @@
 // Replaces the Pallas kernel socioreasoner_tpu/ops/flash_attention.py
 // `_seg_kernel` (reached through `flash_attention_segmented`). Semantics kept:
 // q, k, v (S, H, D), non-causal; query i sees key j iff seg[i] == seg[j];
-// the D^-0.5 scale on the f32 logits; bf16 matmul inputs with f32
-// accumulation; rows with no valid key give 0.
+// padded rows and keys carry the sentinels -1 / -2 and never match; the
+// D^-0.5 scale on the f32 logits; bf16 matmul inputs with f32 accumulation;
+// rows with no valid key give 0; every row < S is written.
 //
-// What bounds it on the H100: the ViT's four full-attention layers. At two
-// 756x756 images (S = 5832, 16 heads, D = 80) each is ~87 GFLOP of
-// block-diagonal work, while one head's K/V is under 1 MiB and stays in L2;
-// the 28 window layers (64-patch windows) are small. So it is tensor-core
-// work that must skip what the mask removes: the CTA visits only the k tiles
-// in [kstart[i], kend[i]] that the wrapper derives from the (nondecreasing)
-// segment ids -- the same bound the Pallas kernel gets through scalar
-// prefetch -- and runs both products on the tensor cores with bf16 WMMA.
-// D = 80 is five 16-wide WMMA steps, so it needs no padding. For arbitrary
-// ids the wrapper passes the full range and the mask alone decides.
-#include "attention_tile.cuh"
-
-namespace socio {
-
-struct SegArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  bf16* o;
-  const int* seg;     // (S,)
-  const int* kstart;  // (ceil(S / kRows),) first k tile of each q tile
-  const int* kend;    // last k tile (inclusive)
-  int S;
-  long long sqt, sqh, skt, skh, svt, svh, sot, soh;
-  float scale;
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_segmented_kernel(SegArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  using L = TileSmem<D>;
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
-  float* Ss = reinterpret_cast<float*>(smem + L::s);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::p);
-  float* Os = reinterpret_cast<float*>(smem + L::o);
-  float* m_s = reinterpret_cast<float*>(smem + L::m);
-  float* l_s = reinterpret_cast<float*>(smem + L::l);
-  int* segq = reinterpret_cast<int*>(smem + L::segq);
-  int* segk = reinterpret_cast<int*>(smem + L::segk);
-
-  const int warp = threadIdx.x >> 5;
-  const int h = blockIdx.y;
-  const int iq = blockIdx.x;
-  const int t0 = iq * kRows;
-
-  load_rows<D>(Qs, [&](int r) -> const bf16* {
-    const int t = t0 + r;
-    return t < a.S ? a.q + t * a.sqt + h * a.sqh : nullptr;
-  });
-  for (int r = threadIdx.x; r < kRows; r += kThreads) {
-    const int t = t0 + r;
-    segq[r] = t < a.S ? a.seg[t] : -1;   // padding sentinels -1 / -2 never match
-  }
-  init_state<D>(Os, m_s, l_s);
-  const int j_lo = a.kstart[iq];
-  const int j_hi = a.kend[iq];
-  __syncthreads();
-
-  for (int j = j_lo; j <= j_hi; ++j) {
-    const int key0 = j * kCols;
-    load_rows<D>(Ks, [&](int r) -> const bf16* {
-      const int key = key0 + r;
-      return key < a.S ? a.k + key * a.skt + h * a.skh : nullptr;
-    });
-    load_rows<D>(Vs, [&](int r) -> const bf16* {
-      const int key = key0 + r;
-      return key < a.S ? a.v + key * a.svt + h * a.svh : nullptr;
-    });
-    for (int c = threadIdx.x; c < kCols; c += kThreads) {
-      const int key = key0 + c;
-      segk[c] = key < a.S ? a.seg[key] : -2;
-    }
-    __syncthreads();
-    scores_tile<D>(Qs, Ks, Ss, warp);
-    __syncwarp();
-    softmax_tile<D>(Ss, Ps, Os, m_s, l_s, warp, a.scale, [&](int r, int c) {
-      return t0 + r < a.S && key0 + c < a.S && segq[r] == segk[c];
-    });
-    __syncwarp();
-    pv_tile<D>(Ps, Vs, Os, warp);
-    __syncthreads();
-  }
-  __syncthreads();
-  write_rows<D>(Os, l_s, [&](int r) -> bf16* {
-    const int t = t0 + r;
-    return t < a.S ? a.o + t * a.sot + h * a.soh : nullptr;
-  });
-}
-
-template <int D>
-static int launch_segmented(const SegArgs& a, int H, cudaStream_t stream) {
-  const size_t smem = TileSmem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_segmented_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.S + kRows - 1) / kRows, H);
-  flash_segmented_kernel<D><<<grid, kThreads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace socio
+// What bounds it on the H100, at two 756x756 images (S = 5832, 16 heads,
+// D = 80): the four full-attention layers are tensor-core work (~87 GFLOP of
+// block-diagonal attention each, 88 us at the bf16 peak); the 28 window
+// layers (windows of 64, 48, 36 patches) are memory-bound (59.7 MB of
+// Q/K/V/O each, 17.8 us at 3.35 TB/s) and do almost no arithmetic.
+//
+// The design (attention_sm90.cuh): persistent warp-specialised CTAs, one per
+// SM, walk a work list of (head, q tile) items that the wrapper builds on the
+// host from the segment ids (ops/flash_attention.py seg_tile_plan; the ViT
+// builds one plan per id array for all its layers). A q tile starts at a
+// segment start and packs whole segments up to 128 rows, so a window
+// layer's tile needs one 128-key tile holding
+// exactly its own keys; a longer segment (a full layer's image) is cut into
+// 128-row tiles that each walk the whole segment, and the k tiles inside it
+// are evaluated without a mask. The producer warp streams Q/K/V with TMA, so
+// a window layer's next item loads while the current one computes; S, P and
+// O stay in registers (wgmma). For arbitrary ids the plan visits every k
+// tile and the mask alone decides (the dense-safe path).
+#include "attention_sm90.cuh"
 
 extern "C" int socio_flash_segmented_bf16(
     const void* q, const void* k, const void* v, void* o, const void* seg,
-    const void* kstart, const void* kend, int S, int H, int D,
+    const void* work, const void* tiles, int S, int H, int D, int n_items,
     long long sqt, long long sqh, long long skt, long long skh,
     long long svt, long long svh, long long sot, long long soh,
     float scale, void* stream) {
-  using namespace socio;
-  SegArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-            static_cast<const bf16*>(v), static_cast<bf16*>(o),
-            static_cast<const int*>(seg), static_cast<const int*>(kstart),
-            static_cast<const int*>(kend), S,
-            sqt, sqh, skt, skh, svt, svh, sot, soh, scale};
+  using namespace socio90;
+  if (D != 80 && D != 128) return (int)cudaErrorInvalidValue;
+  FwdParams p{};
+  p.o = static_cast<bf16*>(o);
+  p.sot = sot;
+  p.soh = soh;
+  p.n_items = n_items;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  p.seg = static_cast<const int*>(seg);
+  p.work = static_cast<const int*>(work);
+  p.tiles = static_cast<const int4*>(tiles);
+  p.S = S;
+  // (D, H, S) views of q, k, v; boxes of 1 head x 128 rows
+  const long long dims[3] = {D, H, S};
+  const long long qs[3] = {1, sqh, sqt}, ks[3] = {1, skh, skt}, vs[3] = {1, svh, svt};
+  int qbox[3] = {0, 1, kBM}, kbox[3] = {0, 1, kBN}, vbox[3] = {0, 1, kBN};
+  int rc = encode_pair(&p.q_main, &p.q_tail, q, 3, dims, qs, qbox, D);
+  if (rc == 0) rc = encode_pair(&p.k_main, &p.k_tail, k, 3, dims, ks, kbox, D);
+  if (rc == 0) rc = encode_pair(&p.v_main, &p.v_tail, v, 3, dims, vs, vbox, D);
+  if (rc != 0) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 80: return launch_segmented<80>(a, H, s);
-    case 128: return launch_segmented<128>(a, H, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return D == 80 ? launch<80, true>(p, s) : launch<128, true>(p, s);
 }

@@ -13,11 +13,10 @@ from typing import Any, Dict, List, Sequence
 
 import numpy as np
 
-from socioreasoner_tpu.datasets.processor import SocioProcessor
-from socioreasoner_tpu.models.qwen2_5_vl.config import Qwen25VLConfig
-from socioreasoner_tpu.protocol import BatchProto
-
+from ..models.qwen2_5_vl.config import Qwen25VLConfig
 from ..models.qwen2_5_vl.rope import get_rope_index
+from ..protocol import BatchProto
+from .processor import SocioProcessor
 
 
 def left_pad(ids: Sequence[int], length: int, pad_id: int) -> np.ndarray:

@@ -16,8 +16,8 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from socioreasoner_tpu.configs.worker_config import WorkerConfig
-from socioreasoner_tpu.protocol import BatchProto
+from ..configs.worker_config import WorkerConfig
+from ..protocol import BatchProto
 
 from ..utils.functionals import entropy_from_logits, log_probs_from_logits
 

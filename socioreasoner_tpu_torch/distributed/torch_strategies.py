@@ -25,16 +25,15 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from socioreasoner_tpu.models.qwen2_5_vl.config import Qwen25VLConfig
-from socioreasoner_tpu.protocol import BatchProto
-
 from ..generation.engine import DecodeEngine, Request
 from ..generation.sampling import SamplingParams
 from ..generation.server import GenerateServer
+from ..models.qwen2_5_vl.config import Qwen25VLConfig
 from ..models.qwen2_5_vl.vision import run_vision, run_vision_u8
 from ..ops.quant import (params_prequantized, quantize_decode_params,
                          quantize_vision_params, vision_prequantized)
 from ..pipeline.losses import PPOLossConfig
+from ..protocol import BatchProto
 from .strategy import InferenceStrategy, ParamStore, TrainStrategy
 from .trainer import TrainState, make_logprob_step, make_optimizer, make_train_step
 

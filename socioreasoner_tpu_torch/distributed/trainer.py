@@ -36,9 +36,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from socioreasoner_tpu.models.qwen2_5_vl.config import Qwen25VLConfig
-
 from ..models.qwen2_5_vl import model as qmodel
+from ..models.qwen2_5_vl.config import Qwen25VLConfig
 from ..pipeline.losses import PPOLossConfig, ppo_policy_loss
 
 HEAD_CHUNK = 256

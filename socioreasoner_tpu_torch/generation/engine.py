@@ -40,9 +40,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from socioreasoner_tpu.models.qwen2_5_vl.config import Qwen25VLConfig
-
 from ..models.qwen2_5_vl import model as qmodel
+from ..models.qwen2_5_vl.config import Qwen25VLConfig
 from ..models.qwen2_5_vl.text import check_supported
 from ..ops.quant import params_prequantized, quantize_decode_params
 from .sampling import SamplingParams, sample_tokens

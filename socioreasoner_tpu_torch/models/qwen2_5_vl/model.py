@@ -14,9 +14,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from socioreasoner_tpu.models.qwen2_5_vl.config import Qwen25VLConfig
-
 from ...ops.quant import head_logits
+from .config import Qwen25VLConfig
+from .convert import param_device
 from .rope import make_inv_freq, mrope_channel_axis, mrope_cos_sin
 from .text import text_decoder
 from .vision import vision_tower
@@ -91,11 +91,12 @@ def forward(
 def init_params(config: Qwen25VLConfig, generator: torch.Generator,
                 dtype=torch.float32, device=None, with_vision: bool = True) -> Dict:
     """Random init at the JAX init_params shapes (N(0, 0.02) weights, unit
-    norms, zero biases), drawn from `generator` on its device."""
+    norms, zero biases) on `device` (the GPU unless one is named), drawn
+    from `generator`, which must live on that device."""
     if config.text.n_experts:
         raise NotImplementedError(
             "MoE parameters are not ported yet (ROADMAP: the rest of the surface)")
-    device = torch.device(device) if device is not None else generator.device
+    device = param_device(device)
     t, v = config.text, config.vision
 
     def dense(shape, scale=0.02):

@@ -17,7 +17,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from socioreasoner_tpu.models.qwen2_5_vl.config import Qwen25VLConfig, VisionConfig
+from .config import Qwen25VLConfig, VisionConfig
 
 
 # ----------------------------------------------------------- host: rope index

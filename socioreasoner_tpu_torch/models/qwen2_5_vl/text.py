@@ -29,14 +29,13 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from socioreasoner_tpu.models.qwen2_5_vl.config import TextConfig
-
 from ...ops.attention import dense_attention
 from ...ops.decode_attention import paged_decode_attention, quantize_kv
 from ...ops.flash_attention import flash_attention
 from ...ops.flash_attention_bwd import flash_attention_trainable
 from ...ops.norms import rms_norm, swiglu
 from ...ops.quant import matmul_q, params_prequantized
+from .config import TextConfig
 from .rope import apply_rotary
 
 

@@ -25,13 +25,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from socioreasoner_tpu.models.qwen2_5_vl.config import VisionConfig
-
-from ...ops.flash_attention import (flash_attention_segmented, seg_block_sizes,
-                                    seg_max_span_blocks)
+from ...ops.flash_attention import (SegPlan, flash_attention_segmented, seg_block_sizes,
+                                    seg_max_span_blocks, seg_plan)
 from ...ops.norms import rms_norm, swiglu
 from ...ops.quant import matmul_q
 from . import rope as rope_mod
+from .config import VisionConfig
 
 
 def _check_supported(cfg: VisionConfig) -> None:
@@ -43,8 +42,9 @@ def _check_supported(cfg: VisionConfig) -> None:
 
 def vision_block(cfg: VisionConfig, p: Dict, x: torch.Tensor, cos: torch.Tensor,
                  sin: torch.Tensor, seg: torch.Tensor,
-                 max_span_blocks: int = None) -> torch.Tensor:
-    """One ViT block. x: (S, hidden); seg: (S,) attention segment ids."""
+                 max_span_blocks: int = None, plan: SegPlan = None) -> torch.Tensor:
+    """One ViT block. x: (S, hidden); seg: (S,) attention segment ids; plan:
+    the attention kernel's plan for seg (seg_plan), built once per tower."""
     S = x.shape[0]
     H, D = cfg.num_heads, cfg.head_dim
     a8 = p["qkv_w"].dtype == torch.int8         # an int8 tower runs w8a8
@@ -58,7 +58,7 @@ def vision_block(cfg: VisionConfig, p: Dict, x: torch.Tensor, cos: torch.Tensor,
     k = (k32 * c + rope_mod.rotate_half(k32) * s).to(x.dtype)
     bq, bk = seg_block_sizes(S)
     attn = flash_attention_segmented(q, k, v, seg, block_q=bq, block_k=bk,
-                                     max_span_blocks=max_span_blocks)
+                                     max_span_blocks=max_span_blocks, plan=plan)
     x = x + (matmul_q(attn.reshape(S, H * D), p, "proj_w", a8) + p["proj_b"])
     h2 = rms_norm(x, p["norm2"], cfg.rms_norm_eps)
     if a8:
@@ -85,10 +85,17 @@ def vision_tower(
     _check_supported(cfg)
     x = (patches @ params["patch_embed_w"]).to(patches.dtype)
     blocks = params["blocks"]
+    plans = {}
+    if x.is_cuda:     # the kernel's plans, one per id array for all the layers
+        bq, bk = seg_block_sizes(x.shape[0])
+        plans = {full: seg_plan(seg, cfg.num_heads, x.device, block_q=bq, block_k=bk,
+                                max_span_blocks=max_span_blocks)
+                 for full, seg in ((False, window_seg), (True, full_seg))}
     for i, is_full in enumerate(np.asarray(is_full_layer).tolist()):
         p = {key: arr[i] for key, arr in blocks.items()}
         seg = full_seg if is_full else window_seg
-        x = vision_block(cfg, p, x, cos, sin, seg, max_span_blocks=max_span_blocks)
+        x = vision_block(cfg, p, x, cos, sin, seg, max_span_blocks=max_span_blocks,
+                         plan=plans.get(is_full))
 
     # merger: norm then merge spatial_merge_unit patches → MLP
     h = rms_norm(x, params["merger_ln_q"], cfg.rms_norm_eps)
@@ -153,7 +160,8 @@ def _run_tower(cfg: VisionConfig, params: Dict, patches: torch.Tensor,
         cfg, params, patches,
         torch.as_tensor(tables["cos"], device=dev),
         torch.as_tensor(tables["sin"], device=dev),
-        torch.as_tensor(wseg, device=dev), torch.as_tensor(fseg, device=dev),
+        # the ids stay on the host: the kernel's plans are built from them
+        torch.as_tensor(wseg), torch.as_tensor(fseg),
         tables["is_full_layer"], max_span_blocks=span)
     out = out[torch.as_tensor(tables["inv_perm"], device=dev)]
     return out.to(dtype) if dtype is not None else out

@@ -37,8 +37,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     "socio_flash_prefill_bf16":
         [_P] * 5 + [_I] * 6 + [_LL] * 12 + [_I, _F, _P],
+    "socio_prefill_tile_bounds":
+        [_I] * 6 + [_P],
     "socio_flash_segmented_bf16":
-        [_P] * 7 + [_I] * 3 + [_LL] * 8 + [_F, _P],
+        [_P] * 7 + [_I] * 4 + [_LL] * 8 + [_F, _P],
     "socio_paged_decode_bf16":
         [_P] * 7 + [_I] * 6 + [_LL] * 10 + [_F, _P],
     "socio_paged_decode_int8":

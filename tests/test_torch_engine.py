@@ -1,13 +1,18 @@
 """The port's serving stack against the JAX package's: DecodeEngine greedy
 streams and step counts, prefix fork, image requests, the request server,
-sampling, the stage-1 collator and the decode strategy; plus a subprocess
-check that no port module imports jax.
+sampling, the stage-1 collator and the decode strategy; plus checks that no
+port module imports jax or the JAX package (a subprocess, and the source).
+JAX-package config objects are copied field for field into the port's own
+classes (`_port`) before they reach a port function.
 
 Float32 at Qwen25VLConfig.tiny(). Greedy decoding must agree token for token
 (the JAX engine runs with sampler_exact=True, as the port always does);
 sampled streams are compared by distribution only.
 """
 
+import ast
+import dataclasses
+import importlib
 import os
 import subprocess
 import sys
@@ -28,6 +33,8 @@ from socioreasoner_tpu.generation import engine as j_engine
 from socioreasoner_tpu.generation.sampling import SamplingParams as JSampling
 from socioreasoner_tpu.models.qwen2_5_vl import model as j_model
 from socioreasoner_tpu.models.qwen2_5_vl.config import Qwen25VLConfig
+from socioreasoner_tpu_torch.datasets import processor as t_processor
+from socioreasoner_tpu_torch.datasets.socioseg import encode_sample as t_encode_sample
 from socioreasoner_tpu_torch.generation import engine as t_engine
 from socioreasoner_tpu_torch.generation.sampling import SamplingParams, sample_tokens
 from socioreasoner_tpu_torch.generation.server import GenerateRequestType, GenerateServer
@@ -36,12 +43,23 @@ from socioreasoner_tpu_torch.models.qwen2_5_vl.convert import params_from_numpy
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _port(obj):
+    """The port's own copy of a JAX-package dataclass (a config, a
+    BatchProto), field for field."""
+    mod = importlib.import_module(type(obj).__module__.replace(
+        "socioreasoner_tpu.", "socioreasoner_tpu_torch.", 1))
+    cls = getattr(mod, type(obj).__name__)
+    return cls(**{f.name: _port(getattr(obj, f.name))
+                  if dataclasses.is_dataclass(getattr(obj, f.name)) else getattr(obj, f.name)
+                  for f in dataclasses.fields(obj) if f.init})
+
+
 @pytest.fixture(scope="module")
 def setup():
     config = Qwen25VLConfig.tiny()
     jp = j_model.init_params(config, jax.random.key(7), dtype=jnp.float32,
                              with_vision=True)
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     return config, jp, tp
 
 
@@ -54,7 +72,7 @@ def _run_both(config, jp, tp, specs, engine_kw, image_embeds=None):
     (request_id, prompt_ids, sampling kwargs, position_ids or None)."""
     je = j_engine.DecodeEngine(config, jp, cache_dtype=jnp.float32,
                                sampler_exact=True, **engine_kw)
-    te = t_engine.DecodeEngine(config, tp, cache_dtype=torch.float32, **engine_kw)
+    te = t_engine.DecodeEngine(_port(config), tp, cache_dtype=torch.float32, **engine_kw)
     emb_j = emb_t = None
     if image_embeds is not None:
         emb_j, emb_t = jnp.asarray(image_embeds), torch.as_tensor(image_embeds)
@@ -131,7 +149,7 @@ def test_engine_image_request_matches_jax(setup):
 
 def test_server_add_abort_stop_alive(setup):
     config, _, tp = setup
-    engine = t_engine.DecodeEngine(config, tp, max_slots=2, max_len=64, decode_chunk=2,
+    engine = t_engine.DecodeEngine(_port(config), tp, max_slots=2, max_len=64, decode_chunk=2,
                                    prefill_buckets=(16,), cache_dtype=torch.float32)
     server = GenerateServer(engine)
     server.start()
@@ -202,18 +220,23 @@ def test_collator_and_image_embeds_match_jax(setup):
     from socioreasoner_tpu_torch.distributed.torch_strategies import batch_image_embeds
     img_cfg = ImageProcessorConfig(min_pixels=56 * 56, max_pixels=56 * 56 * 4,
                                    defer_patchify=True)
-    feats = [encode_sample(t, img_cfg) for t in _tiles(2)]
     proc = SocioProcessor(SimpleTokenizer(config.text.vocab_size), img_cfg,
                           image_token_id=config.image_token_id)
-    jb = JCollator(proc, config, prompt_length=512)(feats)
-    tb = TCollator(proc, config, prompt_length=512)(feats)
+    jb = JCollator(proc, config, prompt_length=512)(
+        [encode_sample(t, img_cfg) for t in _tiles(2)])
+    t_img_cfg, t_config = _port(img_cfg), _port(config)
+    t_proc = t_processor.SocioProcessor(
+        t_processor.SimpleTokenizer(config.text.vocab_size), t_img_cfg,
+        image_token_id=config.image_token_id)
+    tb = TCollator(t_proc, t_config, prompt_length=512)(
+        [t_encode_sample(t, t_img_cfg) for t in _tiles(2)])
     assert sorted(tb.batch.keys()) == sorted(jb.batch.keys())
     for key in jb.batch.keys():
         np.testing.assert_array_equal(np.asarray(tb.batch[key]), np.asarray(jb.batch[key]))
     for a, b in zip(tb.non_tensor["map_grid_thw"], jb.non_tensor["map_grid_thw"]):
         np.testing.assert_array_equal(a, b)
     want = j_embeds(config, jp, jb, prefix="map_", image_config=img_cfg)
-    got = batch_image_embeds(config, tp, tb, prefix="map_", image_config=img_cfg)
+    got = batch_image_embeds(t_config, tp, tb, prefix="map_", image_config=t_img_cfg)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=0)
 
@@ -222,8 +245,8 @@ def test_decode_strategy_generate_layout(setup):
     """TorchDecodeStrategy.generate: [left-padded prompt | response] rows,
     n per prompt, greedy responses equal to the engine's."""
     config, _, tp = setup
-    from socioreasoner_tpu.protocol import BatchProto
     from socioreasoner_tpu_torch.distributed.torch_strategies import TorchDecodeStrategy
+    from socioreasoner_tpu_torch.protocol import BatchProto
 
     class Args:
         temperature, top_p, top_k, max_new_tokens = 0.0, 1.0, 0, 5
@@ -233,7 +256,7 @@ def test_decode_strategy_generate_layout(setup):
     attn = (ids != 0).astype(np.int64)
     batch = BatchProto.from_dict(tensors={"input_ids": ids, "attention_mask": attn})
     strat = TorchDecodeStrategy()
-    strat.initialize(config, tp, engine_kwargs=dict(
+    strat.initialize(_port(config), tp, engine_kwargs=dict(
         max_slots=4, max_len=64, decode_chunk=4, prefill_buckets=(16,),
         cache_dtype=torch.float32))
     out = strat.generate(batch, Args())
@@ -242,8 +265,8 @@ def test_decode_strategy_generate_layout(setup):
     assert (out[0, 5:] == out[1, 5:]).all()          # greedy siblings agree
     assert strat.engine.forked_requests == 2
     # new weights: the fork registry is dropped, so the repeat prefills again
-    strat.model_update(params_from_numpy({k: v for k, v in
-                                          _numpy_tree(tp).items()}))
+    strat.model_update(params_from_numpy({k: v for k, v in _numpy_tree(tp).items()},
+                                         device="cpu"))
     again = strat.generate(batch, Args())
     np.testing.assert_array_equal(again, out)
     assert strat.engine.prefill_rows == 4
@@ -253,8 +276,9 @@ def test_chip_smoke_main_path_on_cpu():
     """chip_smoke's main path (collator → ViT embeds → server-mode decode),
     rehearsed at a tiny config on CPU tensors (the kernels' plain versions)."""
     import chip_smoke
-    from socioreasoner_tpu.models.qwen2_5_vl.config import TextConfig, VisionConfig
     from socioreasoner_tpu_torch.models.qwen2_5_vl import model as t_model
+    from socioreasoner_tpu_torch.models.qwen2_5_vl.config import (
+        Qwen25VLConfig, TextConfig, VisionConfig)
     config = Qwen25VLConfig(
         vision=VisionConfig(depth=2, hidden_size=64, intermediate_size=128,
                             num_heads=4, out_hidden_size=64, window_size=28,
@@ -262,9 +286,9 @@ def test_chip_smoke_main_path_on_cpu():
         text=TextConfig(hidden_size=64, intermediate_size=128, num_hidden_layers=2,
                         num_attention_heads=4, num_key_value_heads=2, head_dim=16,
                         mrope_section=(2, 3, 3)))
-    params = t_model.init_params(config, torch.Generator().manual_seed(0))
-    img_cfg = ImageProcessorConfig(min_pixels=56 * 56, max_pixels=56 * 56 * 4,
-                                   defer_patchify=True)
+    params = t_model.init_params(config, torch.Generator().manual_seed(0), device="cpu")
+    img_cfg = t_processor.ImageProcessorConfig(min_pixels=56 * 56, max_pixels=56 * 56 * 4,
+                                               defer_patchify=True)
     outs, engine, stats = chip_smoke.run_main_path(
         config, params, torch.device("cpu"), n_tiles=2, tile_px=96, img_cfg=img_cfg,
         buckets=(512, 1024), max_new=5, decode_chunk=4)
@@ -280,7 +304,8 @@ def _numpy_tree(tree):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without pulling in jax."""
+    """Every module of the port, and chip_smoke, imports without pulling in
+    jax or any module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import socioreasoner_tpu_torch as pkg\n"
@@ -288,10 +313,56 @@ def test_port_imports_no_jax():
         "assert len(names) >= 20, names\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'socioreasoner_tpu' or m.startswith('socioreasoner_tpu.'))\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def _port_sources():
+    pkg = os.path.join(REPO, "socioreasoner_tpu_torch")
+    files = [os.path.join(root, f) for root, _, names in os.walk(pkg)
+             for f in names if f.endswith(".py")]
+    return sorted(files) + [os.path.join(REPO, "chip_smoke.py")]
+
+
+def _jax_package_imports(path):
+    """(line, module) of every import of socioreasoner_tpu or a module of it
+    in the file, at any depth (function-level imports included)."""
+    found = []
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        found += [(node.lineno, n) for n in names
+                  if n == "socioreasoner_tpu" or n.startswith("socioreasoner_tpu.")]
+    return found
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    files = _port_sources()
+    assert len(files) >= 30
+    bad = {os.path.relpath(f, REPO): hits for f in files if (hits := _jax_package_imports(f))}
+    assert not bad, bad
+
+
+def test_jax_package_import_finder_sees_every_form(tmp_path):
+    """The AST check catches module-level, function-level and aliased
+    imports, and leaves the port's own package alone."""
+    src = tmp_path / "m.py"
+    src.write_text("import socioreasoner_tpu_torch.ops\n"
+                   "from socioreasoner_tpu_torch import protocol\n"
+                   "import socioreasoner_tpu.protocol as p\n"
+                   "def f():\n"
+                   "    from socioreasoner_tpu.models import llm\n"
+                   "    import socioreasoner_tpu\n")
+    assert _jax_package_imports(str(src)) == [
+        (3, "socioreasoner_tpu.protocol"), (5, "socioreasoner_tpu.models"),
+        (6, "socioreasoner_tpu")]

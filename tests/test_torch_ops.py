@@ -221,9 +221,9 @@ def test_flash_segmented_matches_pallas(name):
 
 
 def test_seg_span_helpers_match_jax():
-    """Host span helper equals the JAX one, and the torch form of the shared
-    bound formula (what the CUDA wrapper computes on the device) equals numpy."""
-    from socioreasoner_tpu.models.qwen2_5_vl.config import VisionConfig
+    """The host span helper and the per-block bound formula (the kernel
+    plan's k-tile ranges) equal the JAX wrapper's, in numpy and in jnp."""
+    from socioreasoner_tpu_torch.models.qwen2_5_vl.config import VisionConfig
     from socioreasoner_tpu_torch.models.qwen2_5_vl.rope import vision_window_index
     _, wseg, fseg = vision_window_index(np.array([[1, 54, 54], [1, 20, 36]]), VisionConfig())
     for seg in (wseg, fseg, _seg_case("block_sparse")[0]):
@@ -232,10 +232,11 @@ def test_seg_span_helpers_match_jax():
         for bq, bk in ((64, 64), (512, 256), (128, 64)):
             assert t_fa.seg_max_span_blocks(seg, bq, bk) == j_fa.seg_max_span_blocks(seg, bq, bk)
             nq = -(-S // bq)
-            a = t_fa._seg_kv_bounds(seg, S, nq, bq, bk, np)
-            b = t_fa._seg_kv_bounds(torch.as_tensor(seg), S, nq, bq, bk, torch)
-            np.testing.assert_array_equal(a[0], b[0].numpy())
-            np.testing.assert_array_equal(a[1], b[1].numpy())
+            got = t_fa._seg_kv_bounds(seg, S, nq, bq, bk)
+            for xp in (np, jnp):
+                want = j_fa._seg_kv_bounds(xp.asarray(seg), S, nq, bq, bk, xp)
+                np.testing.assert_array_equal(got[0], np.asarray(want[0]))
+                np.testing.assert_array_equal(got[1], np.asarray(want[1]))
 
 
 def test_flash_segmented_underestimated_span_raises():

@@ -10,7 +10,9 @@ max-abs bounds (float32 rounding through a few layers). Greedy engine
 streams and steps_executed must be identical.
 """
 
+import dataclasses
 import functools
+import importlib
 
 import numpy as np
 import pytest
@@ -30,7 +32,21 @@ from socioreasoner_tpu_torch.generation import engine as t_engine
 from socioreasoner_tpu_torch.generation.sampling import SamplingParams
 from socioreasoner_tpu_torch.models.qwen2_5_vl import model as t_model
 from socioreasoner_tpu_torch.models.qwen2_5_vl import vision as t_vision
-from socioreasoner_tpu_torch.models.qwen2_5_vl.convert import params_from_numpy
+from socioreasoner_tpu_torch.models.qwen2_5_vl import convert
+
+# the tests' trees live on the CPU (the entry point places them on the GPU
+# unless a device is named)
+params_from_numpy = functools.partial(convert.params_from_numpy, device="cpu")
+
+
+def _port(obj):
+    """The port's own copy of a JAX-package config dataclass, field for field."""
+    mod = importlib.import_module(type(obj).__module__.replace(
+        "socioreasoner_tpu.", "socioreasoner_tpu_torch.", 1))
+    cls = getattr(mod, type(obj).__name__)
+    return cls(**{f.name: _port(getattr(obj, f.name))
+                  if dataclasses.is_dataclass(getattr(obj, f.name)) else getattr(obj, f.name)
+                  for f in dataclasses.fields(obj) if f.init})
 from socioreasoner_tpu_torch.ops import decode_attention as t_dec
 from socioreasoner_tpu_torch.ops import quant as tq
 
@@ -303,7 +319,7 @@ def test_cached_decoder_quantized_matches_jax(setup, jax_flash_interpret, mode, 
     jf, js, jc = _cached_forward(j_model.forward, config, jq_tree, ids, kv_quant,
                                  act_quant, jnp, use_flash=True)
     with torch.no_grad():
-        tf, ts, tc = _cached_forward(t_model.forward, config, tp, ids, kv_quant,
+        tf, ts, tc = _cached_forward(t_model.forward, _port(config), tp, ids, kv_quant,
                                      act_quant, torch)
     np.testing.assert_allclose(tf, jf, atol=TOL, rtol=0)
     np.testing.assert_allclose(ts, js, atol=TOL, rtol=0)
@@ -323,7 +339,7 @@ def test_uncached_decoder_refuses_quantized_tree(setup):
     ids = torch.ones(1, 4, dtype=torch.long)
     pos = torch.zeros(1, 3, 4, dtype=torch.long)
     with pytest.raises(NotImplementedError, match="cache path"):
-        t_model.forward(config, tp, ids, pos)
+        t_model.forward(_port(config), tp, ids, pos)
 
 
 def test_int8_vit_matches_jax(setup):
@@ -339,7 +355,7 @@ def test_int8_vit_matches_jax(setup):
     patches = rng.normal(size=(int(grid.prod(-1).sum()), cfg.patch_input_dim)).astype(np.float32)
     want = j_vision.run_vision(cfg, qv, patches, grid)
     with torch.no_grad():
-        got = t_vision.run_vision(cfg, params_from_numpy(_np_tree(qv)), patches, grid)
+        got = t_vision.run_vision(_port(cfg), params_from_numpy(_np_tree(qv)), patches, grid)
     _close(got, want)
     full = j_vision.run_vision(cfg, jp["vision"], patches, grid)
     assert np.abs(np.asarray(want) - np.asarray(full)).max() > 1e-4   # really quantized
@@ -378,7 +394,7 @@ def test_engine_quantized_greedy_matches_jax(setup, jax_flash_interpret, case):
     prompts = [rng.integers(2, 200, size=n).tolist() for n in (5, 9, 14)]
     specs = [(0, prompts[0], 7), (1, prompts[1], 3), (2, prompts[2], 11), (3, prompts[0], 6)]
     je = j_engine.DecodeEngine(config, tree, cache_dtype=jnp.float32, sampler_exact=True, **kw)
-    te = t_engine.DecodeEngine(config, tp, cache_dtype=torch.float32, **kw)
+    te = t_engine.DecodeEngine(_port(config), tp, cache_dtype=torch.float32, **kw)
     assert (te.params_q is None) == (je.params_q is None)
     jo = je.generate([j_engine.Request(request_id=i, prompt_ids=p, sampling=JSampling(**_greedy(m)))
                       for i, p, m in specs])
@@ -405,14 +421,14 @@ def test_engine_argument_errors_match_jax(setup, kw):
     with pytest.raises(ValueError) as jerr:
         j_engine.DecodeEngine(config, jp, **base, **kw)
     with pytest.raises(ValueError) as terr:
-        t_engine.DecodeEngine(config, params_from_numpy(_np_tree(jp)), **base, **kw)
+        t_engine.DecodeEngine(_port(config), params_from_numpy(_np_tree(jp)), **base, **kw)
     assert str(terr.value) == str(jerr.value)
 
 
 def test_engine_set_params_rederives_quantized_copy(setup):
     config, jp = setup
     tp = params_from_numpy(_np_tree({k: v for k, v in jp.items() if k != "vision"}))
-    engine = t_engine.DecodeEngine(config, tp, max_slots=2, max_len=64,
+    engine = t_engine.DecodeEngine(_port(config), tp, max_slots=2, max_len=64,
                                    prefill_buckets=(16,), weight_quant="int8")
     assert engine.params_q["layers"]["q_w"].dtype == torch.int8
     doubled = dict(tp, layers={k: v * 2 for k, v in tp["layers"].items()})
@@ -437,7 +453,7 @@ def test_decode_strategy_single_copy_and_vit_quant(setup):
     strat = TorchDecodeStrategy(param_store=store)
     kw = dict(max_slots=2, max_len=64, decode_chunk=4, prefill_buckets=(16,),
               cache_dtype=torch.float32)
-    strat.initialize(config, tp, engine_kwargs=dict(
+    strat.initialize(_port(config), tp, engine_kwargs=dict(
         kw, weight_quant="int8", single_copy_quant=True, vit_quant="int8"))
     tree = store.get("rollout")
     assert tq.params_prequantized(tree) and tq.vision_prequantized(tree["vision"])
@@ -458,15 +474,16 @@ def test_decode_strategy_single_copy_and_vit_quant(setup):
     assert len(outs[0].output_ids) == 3
     with pytest.raises(ValueError, match="single_copy_quant"):
         TorchDecodeStrategy(param_store=ParamStore()).initialize(
-            config, tp, engine_kwargs=dict(kw, single_copy_quant=True))
+            _port(config), tp, engine_kwargs=dict(kw, single_copy_quant=True))
 
 
 def test_chip_smoke_quant_paths_on_cpu():
     """chip_smoke's quant_parity and main_quant paths, rehearsed at a tiny
     config on CPU tensors (the kernels' plain versions)."""
     import chip_smoke
-    from socioreasoner_tpu.datasets.processor import ImageProcessorConfig
-    from socioreasoner_tpu.models.qwen2_5_vl.config import TextConfig, VisionConfig
+    from socioreasoner_tpu_torch.datasets.processor import ImageProcessorConfig
+    from socioreasoner_tpu_torch.models.qwen2_5_vl.config import (
+        Qwen25VLConfig, TextConfig, VisionConfig)
     config = Qwen25VLConfig(
         vision=VisionConfig(depth=2, hidden_size=64, intermediate_size=120,
                             num_heads=4, out_hidden_size=64, window_size=28,
@@ -475,7 +492,7 @@ def test_chip_smoke_quant_paths_on_cpu():
                         num_attention_heads=4, num_key_value_heads=2, head_dim=16,
                         mrope_section=(2, 3, 3)))
     dev = torch.device("cpu")
-    params = t_model.init_params(config, torch.Generator().manual_seed(0))
+    params = t_model.init_params(config, torch.Generator().manual_seed(0), device=dev)
     stats = chip_smoke.run_quant_parity(config, params, dev, max_new=6, prompt_lens=(9, 14),
                                         decode_chunk=4, figure_prompt=12)
     assert stats["failures"] == [] and stats["tokens"] == 12

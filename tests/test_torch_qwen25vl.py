@@ -1,11 +1,14 @@
 """The port's Qwen2.5-VL (socioreasoner_tpu_torch.models.qwen2_5_vl) against
 the JAX package's, on one JAX init_params tree bridged with params_from_numpy.
+Port functions get the port's own config objects, copied field for field
+(`_port`).
 
 Float32 throughout at Qwen25VLConfig.tiny(); the bound is max-abs 1e-4 on
 logits and ViT embeddings (float32 rounding accumulated over the layers).
 """
 
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -20,13 +23,24 @@ from socioreasoner_tpu.datasets.processor import (ImageProcessorConfig,
 from socioreasoner_tpu.models.qwen2_5_vl import model as j_model
 from socioreasoner_tpu.models.qwen2_5_vl import rope as j_rope
 from socioreasoner_tpu.models.qwen2_5_vl import vision as j_vision
-from socioreasoner_tpu.models.qwen2_5_vl.config import Qwen25VLConfig, TextConfig
+from socioreasoner_tpu.models.qwen2_5_vl.config import Qwen25VLConfig
 from socioreasoner_tpu_torch.models.qwen2_5_vl import model as t_model
 from socioreasoner_tpu_torch.models.qwen2_5_vl import rope as t_rope
+from socioreasoner_tpu_torch.models.qwen2_5_vl import config as t_config
 from socioreasoner_tpu_torch.models.qwen2_5_vl import vision as t_vision
 from socioreasoner_tpu_torch.models.qwen2_5_vl.convert import params_from_numpy
 
 TOL = 1e-4
+
+
+def _port(obj):
+    """The port's own copy of a JAX-package config dataclass, field for field."""
+    mod = importlib.import_module(type(obj).__module__.replace(
+        "socioreasoner_tpu.", "socioreasoner_tpu_torch.", 1))
+    cls = getattr(mod, type(obj).__name__)
+    return cls(**{f.name: _port(getattr(obj, f.name))
+                  if dataclasses.is_dataclass(getattr(obj, f.name)) else getattr(obj, f.name)
+                  for f in dataclasses.fields(obj) if f.init})
 
 
 @pytest.fixture(scope="module")
@@ -34,7 +48,7 @@ def setup():
     config = Qwen25VLConfig.tiny()
     jp = j_model.init_params(config, jax.random.key(3), dtype=jnp.float32,
                              with_vision=True)
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     return config, jp, tp
 
 
@@ -77,13 +91,13 @@ def test_rope_host_helpers_match_jax(setup):
     grid = np.array([[1, 8, 12], [1, 6, 6]])
     ids = np.array([[5, 6] + [config.image_token_id] * 24 + [7]
                     + [config.image_token_id] * 9 + [8, 9]])
-    for got, want in zip(t_rope.get_rope_index(config, ids, grid),
+    for got, want in zip(t_rope.get_rope_index(_port(config), ids, grid),
                          j_rope.get_rope_index(config, ids, grid)):
         np.testing.assert_array_equal(got, want)
-    for got, want in zip(t_rope.vision_window_index(grid, config.vision),
+    for got, want in zip(t_rope.vision_window_index(grid, _port(config.vision)),
                          j_rope.vision_window_index(grid, config.vision)):
         np.testing.assert_array_equal(got, want)
-    for got, want in zip(t_rope.vision_rope_cos_sin(grid, config.vision),
+    for got, want in zip(t_rope.vision_rope_cos_sin(grid, _port(config.vision)),
                          j_rope.vision_rope_cos_sin(grid, config.vision)):
         np.testing.assert_array_equal(got, want)
 
@@ -92,7 +106,7 @@ def test_rope_host_helpers_match_jax(setup):
 
 def test_init_params_shapes_match_jax(setup):
     config, jp, _ = setup
-    tp = t_model.init_params(config, torch.Generator().manual_seed(0))
+    tp = t_model.init_params(_port(config), torch.Generator().manual_seed(0), device="cpu")
     jshapes = jax.tree.map(lambda a: tuple(a.shape), jp)
 
     def shapes(tree):
@@ -107,7 +121,7 @@ def test_vision_tower_matches_jax(setup):
     out = process_images(_images(np.random.default_rng(1)), cfg)
     want = j_vision.run_vision(config.vision, jp["vision"], out["pixel_values"],
                                out["image_grid_thw"])
-    got = t_vision.run_vision(config.vision, tp["vision"], out["pixel_values"],
+    got = t_vision.run_vision(_port(config.vision), tp["vision"], out["pixel_values"],
                               out["image_grid_thw"])
     assert got.shape == want.shape
     _close(got, want)
@@ -119,8 +133,8 @@ def test_run_vision_u8_matches_jax(setup):
     out = process_images(_images(np.random.default_rng(2)), cfg)
     want = j_vision.run_vision_u8(config.vision, jp["vision"], out["pixel_u8"],
                                   out["image_grid_thw"], cfg)
-    got = t_vision.run_vision_u8(config.vision, tp["vision"], out["pixel_u8"],
-                                 out["image_grid_thw"], cfg)
+    got = t_vision.run_vision_u8(_port(config.vision), tp["vision"], out["pixel_u8"],
+                                 out["image_grid_thw"], _port(cfg))
     _close(got, want)
 
 
@@ -144,7 +158,7 @@ def test_forward_logits_match_jax(setup):
     embeds = rng.normal(size=(n_img, config.text.hidden_size)).astype(np.float32)
     want, _ = j_model.forward(config, jp, jnp.asarray(ids), jnp.asarray(pos),
                               jnp.asarray(attn), image_embeds=jnp.asarray(embeds))
-    got, _ = t_model.forward(config, tp, torch.as_tensor(ids), torch.as_tensor(pos),
+    got, _ = t_model.forward(_port(config), tp, torch.as_tensor(ids), torch.as_tensor(pos),
                              torch.as_tensor(attn), image_embeds=torch.as_tensor(embeds))
     assert got.shape == want.shape
     _close(got, want)
@@ -164,9 +178,9 @@ def test_forward_with_vision_inputs_matches_jax(setup):
                               jnp.asarray(attn),
                               vision_inputs={k: jnp.asarray(v) for k, v in prep.items()})
     vi = {k: torch.as_tensor(v) for k, v in
-          t_vision.vision_host_inputs(config.vision, out["pixel_values"],
+          t_vision.vision_host_inputs(_port(config.vision), out["pixel_values"],
                                       out["image_grid_thw"]).items()}
-    got, _ = t_model.forward(config, tp, torch.as_tensor(ids), torch.as_tensor(pos),
+    got, _ = t_model.forward(_port(config), tp, torch.as_tensor(ids), torch.as_tensor(pos),
                              torch.as_tensor(attn), vision_inputs=vi)
     _close(got, want)
 
@@ -189,6 +203,7 @@ def test_prefill_then_cached_decode_matches_uncached(setup):
     """A prefill into a stacked cache plus N one-token cached steps (the
     kernels' plain versions on CPU) reproduce the uncached forward's logits."""
     config, _, tp = setup
+    config = _port(config)
     t = config.text
     rng = np.random.default_rng(6)
     B, P, N = 2, 11, 4
@@ -220,13 +235,14 @@ def test_prefill_then_cached_decode_matches_uncached(setup):
 
 def test_unported_features_raise(setup):
     config, _, tp = setup
+    config = _port(config)
     ids = torch.zeros(1, 4, dtype=torch.long)
     pos = torch.zeros(1, 3, 4, dtype=torch.long)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_model.forward(config, tp, ids, pos, cp=object())
-    moe = Qwen25VLConfig(text=TextConfig(n_experts=4))
+    moe = t_config.Qwen25VLConfig(text=t_config.TextConfig(n_experts=4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_model.init_params(moe, torch.Generator())
+        t_model.init_params(moe, torch.Generator(), device="cpu")
     qwen2 = dataclasses.replace(config.vision, variant="qwen2")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_vision.vision_tower(qwen2, tp["vision"], None, None, None, None, None, ())

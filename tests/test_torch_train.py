@@ -9,6 +9,9 @@ rounding of a few hundred terms), 1e-5 relative for the model steps (float32
 rounding through two decoder layers and the head).
 """
 
+import dataclasses
+import functools
+import importlib
 from types import SimpleNamespace
 
 import numpy as np
@@ -28,7 +31,22 @@ from socioreasoner_tpu.protocol import BatchProto
 from socioreasoner_tpu.utils import functionals as JF
 from socioreasoner_tpu_torch.distributed import torch_strategies as TS
 from socioreasoner_tpu_torch.distributed import trainer as TT
-from socioreasoner_tpu_torch.models.qwen2_5_vl.convert import params_from_numpy
+from socioreasoner_tpu_torch.models.qwen2_5_vl import convert
+from socioreasoner_tpu_torch.protocol import BatchProto as TBatchProto
+
+# the tests' trees live on the CPU (the entry point places them on the GPU
+# unless a device is named)
+params_from_numpy = functools.partial(convert.params_from_numpy, device="cpu")
+
+
+def _port(obj):
+    """The port's own copy of a JAX-package config dataclass, field for field."""
+    mod = importlib.import_module(type(obj).__module__.replace(
+        "socioreasoner_tpu.", "socioreasoner_tpu_torch.", 1))
+    cls = getattr(mod, type(obj).__name__)
+    return cls(**{f.name: _port(getattr(obj, f.name))
+                  if dataclasses.is_dataclass(getattr(obj, f.name)) else getattr(obj, f.name)
+                  for f in dataclasses.fields(obj) if f.init})
 from socioreasoner_tpu_torch.pipeline import losses as TL
 from socioreasoner_tpu_torch.utils import functionals as TF
 
@@ -356,7 +374,7 @@ def steps():
     jbatch = {**{k: jnp.asarray(v) for k, v in batch.items()}, "image_embeds": jnp.asarray(img)}
     topt = TT.make_optimizer(lr=LR, weight_decay=0.01, eps=1e-4)
     tstate = TT.TrainState.create(params_from_numpy(np_params), topt)
-    tstep = TT.make_train_step(config, TL.PPOLossConfig(), topt)
+    tstep = TT.make_train_step(_port(config), TL.PPOLossConfig(), topt)
     tbatch = {**{k: torch.as_tensor(v) for k, v in batch.items()}, "image_embeds": torch.as_tensor(img)}
     out = []
     for _ in range(2):
@@ -391,7 +409,7 @@ def test_logprob_step_matches_jax(steps):
     jbatch = {**{k: jnp.asarray(v) for k, v in batch.items()}, "image_embeds": jnp.asarray(img)}
     want = jax.jit(JT.make_logprob_step(config))(jax.tree.map(jnp.asarray, np_params), jbatch)
     tbatch = {**{k: torch.as_tensor(v) for k, v in batch.items()}, "image_embeds": torch.as_tensor(img)}
-    got = TT.make_logprob_step(config)(params_from_numpy(np_params), tbatch)
+    got = TT.make_logprob_step(_port(config))(params_from_numpy(np_params), tbatch)
     for k in ("log_probs", "entropy"):
         np.testing.assert_allclose(_np(got[k]), np.asarray(want[k]), rtol=1e-5, atol=1e-5)
 
@@ -433,7 +451,7 @@ def test_strategy_token_ops_match_jax():
 
 
 def test_unported_train_options_raise():
-    config = Qwen25VLConfig.tiny()
+    config = _port(Qwen25VLConfig.tiny())
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         TT._model_log_probs(config, {}, {"input_ids": None}, remat=False, cp=object())
     strat = TS.TorchTrainStrategy()
@@ -461,8 +479,7 @@ def test_strategies_through_model_update_match_jax():
     batch_np, img = _grpo_batch(config, seed=1)
     targs = SimpleNamespace(learning_rate=LR, weight_decay=0.01)
     prompts = np.array([[0, 0, 5, 6, 7, 8], [9, 10, 11, 12, 13, 14]])
-    gen_batch = BatchProto.from_dict(tensors={"input_ids": prompts,
-                                              "attention_mask": (prompts != 0).astype(np.int64)})
+    gen_tensors = {"input_ids": prompts, "attention_mask": (prompts != 0).astype(np.int64)}
     engine_kw = dict(max_slots=2, max_len=64, decode_chunk=4, prefill_buckets=(16,))
 
     def run(side):
@@ -471,20 +488,23 @@ def test_strategies_through_model_update_match_jax():
             store = JS.ParamStore()
             train, infer, decode = JS.JaxTrainStrategy(), JS.JaxInferStrategy(), JS.JaxDecodeStrategy()
             kw = dict(engine_kw, cache_dtype=jnp.float32, sampler_exact=True)
+            cfg, Proto = config, BatchProto
         else:
             params, ref_params = params_from_numpy(np_params), params_from_numpy(np_params)
             store = TS.ParamStore()
             train, infer, decode = TS.TorchTrainStrategy(), TS.TorchInferStrategy(), TS.TorchDecodeStrategy()
             kw = dict(engine_kw, cache_dtype=torch.float32)
+            cfg, Proto = _port(config), TBatchProto
         # the rollout engine starts from its own copy of the initial weights
         decode_init = jax.tree.map(jnp.array, np_params) if side == "jax" else \
             params_from_numpy(np_params)
-        decode.initialize(config, decode_init, param_store=store, engine_kwargs=kw)
-        train.initialize(config, params, JL.PPOLossConfig() if side == "jax" else TL.PPOLossConfig(),
+        decode.initialize(cfg, decode_init, param_store=store, engine_kwargs=kw)
+        train.initialize(cfg, params, JL.PPOLossConfig() if side == "jax" else TL.PPOLossConfig(),
                          training_args=targs, param_store=store)
-        infer.initialize(config, ref_params, param_store=store)
-        batch = BatchProto.from_dict(tensors={k: v.copy() for k, v in batch_np.items()},
-                                     meta={"image_embeds": img})
+        infer.initialize(cfg, ref_params, param_store=store)
+        batch = Proto.from_dict(tensors={k: v.copy() for k, v in batch_np.items()},
+                                meta={"image_embeds": img})
+        gen_batch = Proto.from_dict(tensors=gen_tensors)
         ref_lp = infer.compute_log_probs(batch)["log_probs"]
         old_lp = train.compute_log_probs(batch)["log_probs"]
         metrics = train.train_step(batch)
@@ -516,9 +536,10 @@ def test_chip_smoke_train_path_on_cpu():
     model_update → greedy request), rehearsed at a tiny config on CPU
     tensors (the kernels' plain versions)."""
     import chip_smoke
-    from socioreasoner_tpu.datasets.processor import ImageProcessorConfig
-    from socioreasoner_tpu.models.qwen2_5_vl.config import TextConfig, VisionConfig
+    from socioreasoner_tpu_torch.datasets.processor import ImageProcessorConfig
     from socioreasoner_tpu_torch.models.qwen2_5_vl import model as t_model
+    from socioreasoner_tpu_torch.models.qwen2_5_vl.config import (
+        Qwen25VLConfig, TextConfig, VisionConfig)
     config = Qwen25VLConfig(
         vision=VisionConfig(depth=2, hidden_size=64, intermediate_size=128,
                             num_heads=4, out_hidden_size=64, window_size=28,
@@ -526,7 +547,7 @@ def test_chip_smoke_train_path_on_cpu():
         text=TextConfig(hidden_size=64, intermediate_size=128, num_hidden_layers=2,
                         num_attention_heads=4, num_key_value_heads=2, head_dim=16,
                         mrope_section=(2, 3, 3)))
-    params = t_model.init_params(config, torch.Generator().manual_seed(0))
+    params = t_model.init_params(config, torch.Generator().manual_seed(0), device="cpu")
     img_cfg = ImageProcessorConfig(min_pixels=56 * 56, max_pixels=56 * 56 * 4,
                                    defer_patchify=True)
     stats = chip_smoke.run_train_path(
