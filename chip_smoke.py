@@ -13,8 +13,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 one library call that computes the same function (where one
                 exists; the port never calls it), and the kernel's bound
                 (bytes over the memory rate or operations over the bf16
-                peak, whichever is larger); kernels 1 and 2 also at edge
-                shapes, with their device time and host time a launch.
+                peak, whichever is larger); kernels 1, 2, 4 and 6 also at
+                edge shapes and row by row, with their device time and host
+                time a launch; kernel 6's plan and its determinism.
   4. engine   — DecodeEngine greedy stream (kernels) against a teacher-forced
                 uncached forward (dense attention) at Qwen2.5-VL-3B head dims.
   5. train_parity — one GRPO train step with the trainable flash kernels
@@ -61,7 +62,7 @@ from pathlib import Path
 import numpy as np
 
 KERNEL_TOL = 2e-2       # max-abs, bf16 output rounding at |out| up to ~4
-# Kernels 1 and 2 are also held row by row: in each (query row, head) the
+# Kernels 1, 2 and 4 are also held row by row: in each (query row, head) the
 # max-abs error is at most ROW_TOL of that row's largest |reference| (a row
 # that sees no key gives exactly 0). Over a full ViT layer's 2916 keys an
 # output is ~0.03, so KERNEL_TOL alone would pass a kernel that dropped or
@@ -74,6 +75,14 @@ LSE_TOL = 1e-3          # max-abs of the f32 log-sum-exp (logits of size ~10)
 # before their products, as the Pallas kernels do; over sums of thousands of
 # such terms the error stays a few tenths of a percent of the largest element
 GRAD_REL_TOL = 2e-2
+# Kernel 6's dk and dv are held to GRAD_REL_TOL of the largest |reference|
+# of the two together (both sum the same p weights; on unit-variance inputs
+# their terms are of one size), and row by row, each (key row, kv head) to
+# ROW_TOL of its largest |reference| but never of less than GRAD_ROW_FLOOR of
+# that joint largest: where ds = p (dP - delta) scale cancels, the reference
+# is f32 rounding noise itself (a batch row of kv_len 1, or Lq = 1, sees one
+# key, so p = 1 and dP = delta for every query, and dk is 0 exactly).
+GRAD_ROW_FLOOR = 1e-3
 GAP_TOL = 0.05          # a greedy flip is a tie when the top-2 gap is below this
 
 
@@ -178,13 +187,13 @@ def _check(name, got, want):
     return err
 
 
-def _check_rows(name, got, want):
-    """_check, and each (query row, head) of an attention output held to
-    ROW_TOL of its own largest |want|. Returns (max-abs error, the largest
-    row ratio)."""
+def _check_rows(name, got, want, floor=0.0):
+    """_check, and each row (the last dim) held to ROW_TOL of its own largest
+    |want|, or of `floor` where that is more. Returns (max-abs error, the
+    largest row ratio)."""
     import torch
     diff = (got.float() - want.float()).abs().amax(-1)
-    scale = want.float().abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+    scale = want.float().abs().amax(-1).clamp_min(max(floor, torch.finfo(torch.float32).tiny))
     ratio = (diff / scale).max().item()
     if not ratio <= ROW_TOL:
         raise AssertionError(f"{name}: a row's error is {ratio} of its largest |value| "
@@ -245,10 +254,72 @@ def _row(name, source, replaces, shape, err, ms, plain_ms, bound_ms, bound_by, l
             "library_ratio": None if library_ms is None else ms / library_ms, **extra}
 
 
+def _check_grad(name, got, want, scale):
+    """A gradient held to GRAD_REL_TOL of `scale` (the largest |reference| of
+    dk and dv together) and row by row (ROW_TOL, GRAD_ROW_FLOOR of `scale`).
+    Returns (max-abs error, its share of `scale`, the largest row ratio)."""
+    import torch
+    err = (got.float() - want.float()).abs().max().item()
+    finite = bool(torch.isfinite(got.float()).all())
+    if not finite or not err <= GRAD_REL_TOL * scale:
+        raise AssertionError(f"{name}: max_abs_err {err} > {GRAD_REL_TOL} x {scale} "
+                             f"(finite={finite})")
+    scale = max(scale, torch.finfo(torch.float32).tiny)
+    ratio = _check_rows(name, got / scale, want / scale, GRAD_ROW_FLOOR)[1]
+    return err, err / scale, ratio
+
+
+# Kernels 4 and 6 at edge shapes: (B, Lq, H, Hkv, causal, kv lens, piece cap
+# or None for the plan's own)
+TRAIN_EDGES = ((1, 1, 16, 2, True, [1], None), (2, 63, 16, 2, True, [63, 0], None),
+               (2, 65, 16, 2, False, [65, 1], None), (3, 129, 16, 16, True, [129, 1, 0], None),
+               (2, 129, 16, 16, False, [129, 64], 1), (2, 200, 16, 2, True, [200, 77], 1),
+               (1, 2304, 16, 2, True, [2304], None))
+
+
+def _train_edge_checks(randn):
+    """Kernels 4 and 6 at TRAIN_EDGES against their plain versions in f32 on
+    the same bf16 values, row by row (kernel 6 gets the plain lse and
+    delta). Returns (kernel 4's largest max-abs error, row ratio and lse
+    error; kernel 6's largest share of the gradients' largest value and row
+    ratio; the split tiles of each case's plan)."""
+    import torch
+    from socioreasoner_tpu_torch.ops import flash_attention_bwd as fb
+    dev = torch.device("cuda")
+    fwd, dkv, splits = [0.0, 0.0, 0.0], [0.0, 0.0], []
+    for B, Lq, H, Hkv, causal, lens, cap in TRAIN_EDGES:
+        q, k, v, do = randn(B, Lq, H, 128), randn(B, Lq, Hkv, 128), randn(B, Lq, Hkv, 128), \
+            randn(B, Lq, H, 128)
+        lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+        tag = f"B={B} Lq={Lq} H={H}/{Hkv} causal={causal} kv_len={lens}"
+        out, lse = fb.flash_attention_fwd_lse(q, k, v, lt, causal=causal)
+        ref_out, ref_lse = fb.flash_attention_fwd_lse_reference(q.float(), k.float(), v.float(),
+                                                                lt, causal)
+        err, ratio = _check_rows(f"train fwd edge {tag}", out, ref_out)
+        lse_err = (lse - ref_lse).abs().max().item()
+        if not lse_err <= LSE_TOL:
+            raise AssertionError(f"train fwd edge {tag}: lse max_abs_err {lse_err} > {LSE_TOL}")
+        fwd = [max(fwd[0], err), max(fwd[1], ratio), max(fwd[2], lse_err)]
+        delta = (do.float() * ref_out).sum(-1).transpose(1, 2).contiguous()
+        plan = fb.dkv_plan(lt, B, Lq, Lq, H, Hkv, causal, dev, cap=cap)
+        splits.append(plan.counters.numel() // 2)
+        got = fb.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, lt, causal=causal,
+                                         plan=plan)
+        want = fb.flash_attention_bwd_reference(q.float(), k.float(), v.float(), do.float(),
+                                                ref_lse, delta, lt, causal)[1:]
+        scale = max(w.abs().max().item() for w in want)
+        for name, g, w in zip(("dk", "dv"), got, want):
+            _, rel, ratio = _check_grad(f"train {name} edge {tag}", g, w, scale)
+            dkv = [max(dkv[0], rel), max(dkv[1], ratio)]
+    if not (0 in splits and max(splits) > 0):
+        raise AssertionError(f"the edge plans split no key tile, or every case: {splits}")
+    return fwd, dkv, splits
+
+
 def _edge_checks(randn):
-    """Kernels 1 and 2 at edge shapes against their plain versions in f32.
-    Returns, for each, the largest (max-abs error, row ratio) over its
-    cases."""
+    """Kernels 1, 2, 4 and 6 at edge shapes against their plain versions in
+    f32. Returns, for kernels 1 and 2, the largest (max-abs error, row ratio)
+    over their cases, and _train_edge_checks' figures."""
     import torch
     from socioreasoner_tpu_torch.ops import flash_attention as fa
     dev = torch.device("cuda")
@@ -284,7 +355,7 @@ def _edge_checks(randn):
                                             causal=causal)
         pre_err = worst(pre_err, _check_rows(
             f"prefill edge B={B} Lq={Lq} D={D} causal={causal}", got, want))
-    return seg_err, pre_err
+    return seg_err, pre_err, _train_edge_checks(randn)
 
 
 def _prefill_bounds_check() -> int:
@@ -362,7 +433,7 @@ def phase_kernels():
         return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
 
     results = []
-    seg_edge, pre_edge = _edge_checks(randn)
+    seg_edge, pre_edge, train_edge = _edge_checks(randn)
 
     # segmented: two 756x756 images (the resize of a 768-px tile), 16 x 80
     vcfg = VisionConfig()
@@ -509,7 +580,7 @@ def phase_kernels():
     emit({"phase": "kernel", **results[-1]})
     torch.cuda.empty_cache()
     results.append(_int8_decode_kernel(randn, Lalloc))
-    results.extend(_train_kernels(randn))
+    results.extend(_train_kernels(randn, train_edge))
     results.append(_row_writer_kernel(randn))
     return results
 
@@ -625,11 +696,14 @@ def _row_writer_kernel(randn):
     return out
 
 
-def _train_kernels(randn):
+def _train_kernels(randn, edge):
     """Kernels 4-6 at the train shape (B=4, L=2304, 16/2 heads x 128, causal,
     kv lengths 2304, 2080, 1000, 1) against their plain versions in f32 on
-    the same bf16 values. The backward kernels get the plain lse and delta,
-    so each kernel is held alone."""
+    the same bf16 values, kernels 4 and 6 also row by row; the backward
+    kernels get the plain lse and delta, so each kernel is held alone.
+    Kernel 6 runs on a plan built once, as the train step builds it, and two
+    of its calls must agree bit for bit. `edge`: _train_edge_checks'
+    figures."""
     import torch
     import torch.nn.functional as F
     from socioreasoner_tpu_torch.ops import flash_attention_bwd as fb
@@ -639,10 +713,11 @@ def _train_kernels(randn):
         randn(B, L, 16, 128)
     lens = torch.tensor([2304, 2080, 1000, 1], dtype=torch.int32, device=q.device)
     shape = "B=4 L=2304 H=16 Hkv=2 D=128 causal kv_len=2304,2080,1000,1"
+    fwd_edge, dkv_edge, edge_splits = edge
     out, lse = fb.flash_attention_fwd_lse(q, k, v, lens)
     ref_out, ref_lse = fb.flash_attention_fwd_lse_reference(q.float(), k.float(),
                                                             v.float(), lens)
-    err = _check("train fwd out", out, ref_out)
+    err, ratio = _check_rows("train fwd out", out, ref_out)
     lse_err = (lse - ref_lse).abs().max().item()
     if not lse_err <= LSE_TOL:
         raise AssertionError(f"train fwd lse: max_abs_err {lse_err} > {LSE_TOL}")
@@ -656,20 +731,42 @@ def _train_kernels(randn):
     qkv_bytes = 2 * (q.numel() + k.numel() + v.numel())
     fwd_lib = lambda: torch.ops.aten._scaled_dot_product_flash_attention(   # noqa: E731
         qt, kt, vt, is_causal=True)
+    run_fwd = lambda: fb.flash_attention_fwd_lse(q, k, v, lens)   # noqa: E731
     results = [_row(
         "flash_attention_fwd_lse", "socioreasoner_tpu_torch/csrc/flash_train_fwd.cu",
-        "socioreasoner_tpu/ops/flash_attention_bwd.py:32", shape, err,
-        cuda_ms(lambda: fb.flash_attention_fwd_lse(q, k, v, lens)),
+        "socioreasoner_tpu/ops/flash_attention_bwd.py:32", shape, err, cuda_ms(run_fwd),
         cuda_ms(lambda: fb.flash_attention_fwd_lse_reference(q, k, v, lens), n=10),
         *bound(qkv_bytes + 2 * q.numel() + f32_rows, 4 * 128 * pairs),
         cuda_ms(fwd_lib), "torch.ops.aten._scaled_dot_product_flash_attention(is_causal=True), "
-        "which also returns the lse", lse_max_abs_err=lse_err)]
+        "which also returns the lse", device_ms=graph_call_ms(run_fwd),
+        host_us=host_us(run_fwd), max_row_ratio=ratio, lse_max_abs_err=lse_err,
+        edge_max_abs_err=fwd_edge[0], edge_max_row_ratio=fwd_edge[1],
+        edge_lse_max_abs_err=fwd_edge[2])]
     emit({"phase": "kernel", **results[-1]})
     del out, lse
 
     delta = (do.float() * ref_out).sum(-1).transpose(1, 2).contiguous()
+    # kernel 6's plan, built once for the shape as the train step builds it
+    # for its 36 layers
+    make_plan = lambda: fb.dkv_plan(lens, B, L, L, 16, 2, True, q.device)   # noqa: E731
+    plan = make_plan()
+    items = plan.items.cpu().numpy()
+    per_cta = np.add.reduceat(items[:, 6], plan.cta_start.cpu().numpy()[:-1])
+    plan_info = {"items": len(items), "ctas": plan.n_cta, "pairs": int(items[:, 6].sum()),
+                 "even_share": float(items[:, 6].sum()) / plan.n_cta,
+                 "heaviest_piece": int(items[:, 6].max()), "busiest_cta": int(per_cta.max()),
+                 "split_tiles": plan.counters.numel() // 2,
+                 "workspace_bytes": plan.workspace.numel() * 4,
+                 "plan_us": host_us(make_plan, n=10)}
+    emit({"phase": "dkv_plan", "shape": shape, **plan_info})
+    run_dkv = lambda: fb.flash_attention_bwd_dkv(   # noqa: E731
+        q, k, v, do, ref_lse, delta, lens, plan=plan)
     got = {"dq": fb.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, lens)}
-    got["dk"], got["dv"] = fb.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, lens)
+    got["dk"], got["dv"] = run_dkv()
+    again = run_dkv()
+    if not (torch.equal(again[0], got["dk"]) and torch.equal(again[1], got["dv"])):
+        raise AssertionError("kernel 6: two calls on the same inputs differ")
+    del again
     want = dict(zip(("dq", "dk", "dv"), fb.flash_attention_bwd_reference(
         q.float(), k.float(), v.float(), do.float(), ref_lse, delta, lens)))
     errs = {}
@@ -681,6 +778,8 @@ def _train_kernels(randn):
             raise AssertionError(f"train {g}: max_abs_err {errs[g]} > {GRAD_REL_TOL} x "
                                  f"{scale} (finite={finite})")
         errs[g + "_rel"] = errs[g] / scale
+    scale = max(want["dk"].abs().max().item(), want["dv"].abs().max().item())
+    dkv_ratio = max(_check_grad(f"train {g}", got[g], want[g], scale)[2] for g in ("dk", "dv"))
     del got, want
     # the plain backward computes dq, dk and dv together, and so does the
     # library's (SDPA's autograd backward): each time stands beside both
@@ -702,13 +801,16 @@ def _train_kernels(randn):
         rel_err=errs["dq_rel"], note=note))
     emit({"phase": "kernel", **results[-1]})
     results.append(_row(
-        "flash_attention_bwd_dkv", "socioreasoner_tpu_torch/csrc/flash_train_bwd.cu",
+        "flash_attention_bwd_dkv", "socioreasoner_tpu_torch/csrc/flash_train_dkv_sm90.cu",
         "socioreasoner_tpu/ops/flash_attention_bwd.py:111", shape,
-        max(errs["dk"], errs["dv"]),
-        cuda_ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, lens)),
+        max(errs["dk"], errs["dv"]), cuda_ms(run_dkv),
         plain_bwd, *bound(bwd_in + 2 * (k.numel() + v.numel()), 8 * 128 * pairs),
         lib_bwd, lib_name, rel_err=max(errs["dk_rel"], errs["dv_rel"]),
-        dk_max_abs_err=errs["dk"], dv_max_abs_err=errs["dv"], note=note))
+        dk_max_abs_err=errs["dk"], dv_max_abs_err=errs["dv"], max_row_ratio=dkv_ratio,
+        device_ms=graph_call_ms(run_dkv), host_us=host_us(run_dkv), plan=plan_info,
+        bit_equal_twice=True, edge_max_rel_err=dkv_edge[0], edge_max_row_ratio=dkv_edge[1],
+        edge_split_tiles=edge_splits, note=note + "; ms with the plan built once, as the "
+        "train step builds it (plan_us apart)"))
     emit({"phase": "kernel", **results[-1]})
     torch.cuda.empty_cache()
     return results
@@ -1087,6 +1189,7 @@ def run_train_path(config, params, dev, *, tile_px=768, img_cfg=None, n=4,
     from socioreasoner_tpu_torch.distributed.torch_strategies import (
         TorchDecodeStrategy, TorchInferStrategy, TorchTrainStrategy, batch_image_embeds)
     from socioreasoner_tpu_torch.generation.sampling import SamplingParams
+    from socioreasoner_tpu_torch.ops import flash_attention_bwd as fb
     from socioreasoner_tpu_torch.pipeline.losses import PPOLossConfig
     from socioreasoner_tpu_torch.utils import functionals as F
 
@@ -1184,6 +1287,13 @@ def run_train_path(config, params, dev, *, tile_px=768, img_cfg=None, n=4,
 
     valid_tokens = int(post["attention_mask"].sum())
     step_s = float(np.median(step_ms)) / 1e3
+    # the dk/dv kernel's workspace for this batch's lengths (its plan, as
+    # the text decoder builds it once a forward)
+    t_cfg = config.text
+    n_slots = fb.dkv_tile_plan(post["attention_mask"].sum(-1), sequence_length,
+                               sequence_length, t_cfg.num_key_value_heads,
+                               t_cfg.num_attention_heads // t_cfg.num_key_value_heads,
+                               True)[3]
     return {"rollout_s": rollout_s, "response_lens": [len(o.output_ids) for o in outs],
             "train_batch": list(post["input_ids"].shape), "valid_tokens": valid_tokens,
             "ref_logprob_ms": (t1 - t0) * 1e3, "logprob_ms": (t2 - t1) * 1e3,
@@ -1193,6 +1303,7 @@ def run_train_path(config, params, dev, *, tile_px=768, img_cfg=None, n=4,
             "loss": [m["actor_train/loss"] for m in metrics],
             "grad_norm": [m["actor_train/grad_norm"] for m in metrics],
             "logprob_max_abs_move": moved, "launches": launches,
+            "dkv_workspace_bytes": n_slots * fb.DKV_SLOT_FLOATS * 4,
             "handoff_tokens": len(answer[0].output_ids), "alive": alive}
 
 

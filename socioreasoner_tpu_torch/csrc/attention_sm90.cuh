@@ -1,5 +1,7 @@
 // One Hopper forward-attention CTA, shared by the prefill kernel
-// (flash_prefill.cu) and the ViT's segment-masked kernel (flash_segmented.cu).
+// (flash_prefill.cu), the training forward (flash_train_fwd.cu), which adds
+// the per-row log-sum-exp, and the ViT's segment-masked kernel
+// (flash_segmented.cu).
 //
 // A CTA is persistent: it walks work items (q tiles of 128 rows) blockIdx.x,
 // blockIdx.x + gridDim.x, ... and is warp specialised into three warpgroups:
@@ -20,7 +22,9 @@
 //                           with V from shared memory (transposed operand).
 //                           O stays in f32 registers over the whole key loop;
 //                           the epilogue divides by l (0 where l == 0) and
-//                           stores bf16 straight from registers.
+//                           stores bf16 straight from registers; given an
+//                           lse pointer (kernel 4) it also writes each row's
+//                           m * scale + ln(l), NEG_INF where l == 0.
 //
 // setmaxnreg moves registers from the producer (24) to the consumers (240).
 //
@@ -37,20 +41,17 @@
 // on the host (kernel 1) or from kv_len (kernel 2) to be valid throughout.
 #pragma once
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90_common.cuh"
 
 namespace socio90 {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kBM = 128;         // query rows per work item (2 consumer warpgroups x 64)
 constexpr int kBN = 128;         // keys per K/V tile
 
 constexpr int kQBufs = 2;        // Q ring depth (the next item's Q loads early)
 constexpr int kThreads = 384;    // 2 consumer warpgroups + 1 producer warpgroup
+constexpr float kNegInf = -1e30f;   // lse of a row with no valid key (the Pallas NEG_INF)
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared-memory layout for head dim D (offsets from a 1024-byte-aligned base;
 // a 128-byte swizzle repeats every 1024 bytes, so every operand tile starts on
@@ -85,8 +86,10 @@ struct FwdParams {
   long long sob, sot, soh;   // output strides (elements); sob unused by kernel 1
   int n_items;
   float scale_log2;          // D^-0.5 * log2(e)
-  // kernel 2 (GQA prefill): q (B, Lq, H, D), k/v (B, Lk, Hkv, D)
+  // kernels 2 and 4 (GQA prefill, training forward): q (B, Lq, H, D), k/v
+  // (B, Lk, Hkv, D)
   const int* kv_lens;        // (B,)
+  float* lse;                // (B, H, Lq) f32 log-sum-exp (kernel 4), or nullptr
   int B, Lq, Lk, Hkv, rep, causal, n_ttiles;
   // kernel 1 (segmented ViT): q/k/v (S, H, D)
   const int* seg;            // (S,) segment ids
@@ -96,146 +99,6 @@ struct FwdParams {
   const int4* tiles;
   int S;
 };
-
-// ------------------------------------------------------------------ PTX
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait for the phase of parity `parity` to complete. A wait of ~10 s (2^35
-// clocks; an item takes microseconds) means a broken pipeline: trap (a
-// launch error) instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 35)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle (1 = 128 B, 3 = 32 B).
-constexpr int kSw128 = 1;
-constexpr int kSw32 = 3;
-
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              int swizzle) {
-  uint64_t d = (addr & 0x3FFFF) >> 4;
-  d |= uint64_t((lbo >> 4) & 0x3FFF) << 16;
-  d |= uint64_t((sbo >> 4) & 0x3FFF) << 32;
-  d |= uint64_t(swizzle) << 62;
-  return d;
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pin accumulator registers in program order around the asynchronous wgmma
-// (the compiler must not move reads or writes of them across the wait).
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory,
-// both K-major (the reduction dim contiguous).
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D[64 x 64] += A[64 x 16] B[16 x 64], A (bf16 pairs) from registers, B from
-// shared memory MN-major (transposed: the N dim contiguous).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// The same with N = 16 (the 16-column tail of D = 80).
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // ------------------------------------------------------------ work items
 
@@ -366,16 +229,6 @@ __device__ __forceinline__ void producer(const FwdParams& p, uint32_t base) {
 }
 
 // ------------------------------------------------------------- consumer
-
-// Keep registers that an in-flight wgmma reads (its A fragments) alive, and
-// in program order, up to this point.
-template <int N>
-__device__ __forceinline__ void reg_keep(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
-}
 
 // One consumer warpgroup's 64 rows; the two consumer warpgroups of a CTA
 // overlap each other's products and softmax.
@@ -589,8 +442,16 @@ __device__ __forceinline__ void consumer(const FwdParams& p, uint32_t base, int 
         if (r < it.rows) dst = p.o + (it.t0 + r) * p.sot + it.head * p.soh;
       } else {
         const int t = it.t0 + r / p.rep;
-        if (t < p.Lq)
-          dst = p.o + it.b * p.sob + t * p.sot + (it.head * p.rep + r % p.rep) * p.soh;
+        const int h = it.head * p.rep + r % p.rep;
+        if (t < p.Lq) {
+          dst = p.o + it.b * p.sob + t * p.sot + h * p.soh;
+          // m is a raw logit (its scale folded into the exp2) and the quad's
+          // lsum sums exp2(s * scale_log2 - m * scale_log2): in natural-log
+          // units lse = m * scale + ln(lsum); one lane of the quad writes it
+          if (p.lse != nullptr && (lane & 3) == 0)
+            p.lse[((long long)it.b * p.Hkv * p.rep + h) * p.Lq + t] =
+                lsum == 0.f ? kNegInf : m[i] * p.scale_log2 * kLn2 + logf(lsum);
+        }
       }
       if (dst == nullptr) continue;
 #pragma unroll
@@ -642,75 +503,6 @@ __global__ void __launch_bounds__(kThreads, 1) attention_sm90_kernel(const __gri
 
 // ------------------------------------------------------------------ host
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API call: fetched once through the
-// runtime, so the library needs no link against libcuda.
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
-constexpr int kErrEncode = 1000;   // + CUresult: a tensor map the driver refused
-
-// A bf16 tensor map of `rank` dims (innermost first; strides in elements for
-// dims 1..rank-1) with a box of `box` elements, 128- or 32-byte swizzle.
-// Out-of-range elements of a box are filled with zeros.
-inline int encode_map(CUtensorMap* map, const void* ptr, int rank, const long long* dims,
-                      const long long* strides, const int* box, bool swizzle128) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return kErrEncode;
-  cuuint64_t gdim[5], gstride[4];
-  cuuint32_t bdim[5], estride[5];
-  for (int i = 0; i < rank; ++i) {
-    gdim[i] = static_cast<cuuint64_t>(dims[i]);
-    bdim[i] = static_cast<cuuint32_t>(box[i]);
-    estride[i] = 1;
-    if (i > 0) gstride[i - 1] = static_cast<cuuint64_t>(strides[i]) * 2;
-  }
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), gdim,
-                  gstride, bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
-}
-
-// The main-chunk (64 columns) and, for D % 64 == 16, the tail map of one
-// tensor; `box` is the box with its innermost extent left to fill.
-inline int encode_pair(CUtensorMap* main_map, CUtensorMap* tail_map, const void* ptr, int rank,
-                       const long long* dims, const long long* strides, int* box, int D) {
-  box[0] = 64;
-  int rc = encode_map(main_map, ptr, rank, dims, strides, box, true);
-  if (rc == 0 && D % 64 != 0) {
-    box[0] = D % 64;
-    rc = encode_map(tail_map, ptr, rank, dims, strides, box, false);
-  }
-  return rc;
-}
-
-inline int num_sms() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
 // One persistent CTA per SM (at most one per item).
 template <int D, bool kSeg>
 int launch(const FwdParams& p, cudaStream_t stream) {
@@ -727,5 +519,19 @@ int launch(const FwdParams& p, cudaStream_t stream) {
   attention_sm90_kernel<D, kSeg><<<grid, kThreads, Layout<D>::smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
+
+// Kernels 2 and 4: GQA attention of q (B, Lq, H, D) over k/v (B, Lk, Hkv, D)
+// (strides in elements), writing o and, where lse is given, the per-row
+// log-sum-exp (B, H, Lq). GQA is folded as in the Pallas grid: a 128-row item
+// is 128 / rep tokens x the rep q heads of one kv head, one 4-D TMA box
+// (64 columns x rep heads x 128 / rep tokens), since the rep heads are
+// contiguous in (B, L, H, D). Defined in flash_prefill.cu, the one file that
+// instantiates the kernel for it.
+int launch_gqa(const void* q, const void* k, const void* v, void* o, float* lse,
+               const void* kv_lens, int B, int Lq, int Lk, int H, int Hkv, int D,
+               long long sqb, long long sqt, long long sqh, long long skb, long long skt,
+               long long skh, long long svb, long long svt, long long svh,
+               long long sob, long long sot, long long soh, int causal, float scale,
+               cudaStream_t stream);
 
 }  // namespace socio90

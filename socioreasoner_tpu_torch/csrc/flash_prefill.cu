@@ -23,18 +23,17 @@
 // first token or past kv_len. TMA fills rows past Lq or Lk with zeros; the
 // mask still decides. Persistent warp-specialised CTAs, TMA into a
 // multi-stage mbarrier ring, S/P/O in registers through wgmma. The training
-// forward (flash_train_fwd.cu) keeps the earlier CTA in attention_tile.cuh.
+// forward (flash_train_fwd.cu) launches the same instance with an lse output.
 #include "attention_sm90.cuh"
 
-extern "C" int socio_flash_prefill_bf16(
-    const void* q, const void* k, const void* v, void* o, const void* kv_lens,
-    int B, int Lq, int Lk, int H, int Hkv, int D,
-    long long sqb, long long sqt, long long sqh,
-    long long skb, long long skt, long long skh,
-    long long svb, long long svt, long long svh,
-    long long sob, long long sot, long long soh,
-    int causal, float scale, void* stream) {
-  using namespace socio90;
+namespace socio90 {
+
+int launch_gqa(const void* q, const void* k, const void* v, void* o, float* lse,
+               const void* kv_lens, int B, int Lq, int Lk, int H, int Hkv, int D,
+               long long sqb, long long sqt, long long sqh, long long skb, long long skt,
+               long long skh, long long svb, long long svt, long long svh,
+               long long sob, long long sot, long long soh, int causal, float scale,
+               cudaStream_t stream) {
   if (Hkv <= 0 || H % Hkv != 0 || kBM % (H / Hkv) != 0 || (D != 80 && D != 128))
     return (int)cudaErrorInvalidValue;
   const int rep = H / Hkv;
@@ -46,6 +45,7 @@ extern "C" int socio_flash_prefill_bf16(
   p.soh = soh;
   p.scale_log2 = scale * 1.4426950408889634f;
   p.kv_lens = static_cast<const int*>(kv_lens);
+  p.lse = lse;
   p.B = B;
   p.Lq = Lq;
   p.Lk = Lk;
@@ -64,8 +64,22 @@ extern "C" int socio_flash_prefill_bf16(
   if (rc == 0) rc = encode_pair(&p.k_main, &p.k_tail, k, 4, kdims, ks, kbox, D);
   if (rc == 0) rc = encode_pair(&p.v_main, &p.v_tail, v, 4, kdims, vs, vbox, D);
   if (rc != 0) return rc;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 80 ? launch<80, false>(p, s) : launch<128, false>(p, s);
+  return D == 80 ? launch<80, false>(p, stream) : launch<128, false>(p, stream);
+}
+
+}  // namespace socio90
+
+extern "C" int socio_flash_prefill_bf16(
+    const void* q, const void* k, const void* v, void* o, const void* kv_lens,
+    int B, int Lq, int Lk, int H, int Hkv, int D,
+    long long sqb, long long sqt, long long sqh,
+    long long skb, long long skt, long long skh,
+    long long svb, long long svt, long long svh,
+    long long sob, long long sot, long long soh,
+    int causal, float scale, void* stream) {
+  return socio90::launch_gqa(q, k, v, o, nullptr, kv_lens, B, Lq, Lk, H, Hkv, D, sqb, sqt, sqh,
+                             skb, skt, skh, svb, svt, svh, sob, sot, soh, causal, scale,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // The k-tile bounds the kernel gives token tile t_tile, by the device's own

@@ -1,38 +1,27 @@
-// Training backward of flash attention: dq (one kernel) and dk/dv (another).
+// Training backward of flash attention: dq.
 //
-// Replaces the Pallas kernels socioreasoner_tpu/ops/flash_attention_bwd.py
-// `_dq_kernel` and `_dkv_kernel` (reached through `_flash_bwd_rule`, the VJP
-// of `flash_attention_trainable`). Both recompute the probabilities from the
+// Replaces the Pallas kernel socioreasoner_tpu/ops/flash_attention_bwd.py
+// `_dq_kernel` (reached through `_flash_bwd_rule`, the VJP of
+// `flash_attention_trainable`). It recomputes the probabilities from the
 // forward's per-row log-sum-exp instead of storing them, by the Pallas
 // kernels' formula:
 //   p  = exp(q k^T * scale - lse)  where the mask holds, else 0
 //   ds = p * (dO v^T - delta) * scale,   delta = rowsum(dO * O) (f32, given)
-//   dq = ds k          dk = ds^T q          dv = p^T dO
-// with bf16 operands and f32 accumulators: ds is rounded to bf16 before ds k
-// and ds^T q, p before p^T dO, as the Pallas kernels cast them. The mask is
-// key < kv_len and, when causal, key <= query index. Query rows >= kv_len are
-// real rows: they attend to the keys < kv_len and feed dk/dv (no kv_len clamp
-// on the q side, as in `_dkv_kernel`).
+//   dq = ds k
+// with bf16 operands and f32 accumulators: ds is rounded to bf16 before ds k,
+// as the Pallas kernel casts it. The mask is key < kv_len and, when causal,
+// key <= query index. The dk/dv half of the backward is kernel 6
+// (flash_train_dkv_sm90.cu).
 //
-// What bounds them on the H100: at the train shape (B = 4, L = 2304, 16 q / 2
-// kv heads, D = 128) the backward is ~2.5x the forward's tensor-core work
-// (five 64x64x128 products per tile pair against two) over the same ~100 MB
-// of operands, so both are tensor-core bound. The design keeps every
-// intermediate out of device memory (S, dP, P and dS live in shared memory
-// for one tile pair) and avoids cross-CTA reductions:
-//   * dq: one CTA per (batch, q head, 64-row q tile) loops over the K/V tiles
-//     up to the causal diagonal and ceil(kv_len / 64); its dq tile is
-//     accumulated in shared memory by that CTA alone.
-//   * dk/dv: one CTA per (batch, kv head, 64-key tile) loops over the rep =
-//     H / Hkv q heads of its kv head and, for each, over the q tiles from the
-//     causal start to the last row. The Pallas wrapper repeats K/V to all
-//     heads and sums dk/dv over each group afterwards; here the group sum
-//     happens in the CTA's accumulators, so there is no repeat, no second
-//     pass and no atomics. The grid puts the key tile on blockIdx.y, so the
-//     CTAs with the most q tiles (the first key tiles) are scheduled first.
-// Each warp owns 16 rows of the CTA's tile (query rows for dq, key rows for
-// dk/dv) through all products, as in the forward (attention_tile.cuh), so the
-// warps only meet at the tile loads.
+// What bounds it on the H100: at the train shape (B = 4, L = 2304, 16 q / 2
+// kv heads, D = 128) it does three 64x64x128 products per tile pair over the
+// same ~100 MB of operands as the forward, so it is tensor-core bound. The
+// design keeps every intermediate out of device memory (S, dP and dS live in
+// shared memory for one tile pair) and avoids cross-CTA reductions: one CTA
+// per (batch, q head, 64-row q tile) loops over the K/V tiles up to the
+// causal diagonal and ceil(kv_len / 64); its dq tile is accumulated in shared
+// memory by that CTA alone. Each warp owns 16 query rows through all
+// products, so the warps only meet at the tile loads.
 #include "attention_tile.cuh"
 
 namespace socio {
@@ -45,19 +34,17 @@ struct BwdArgs {
   const float* lse;    // (B, H, Lq)
   const float* delta;  // (B, H, Lq)
   bf16* dq;
-  bf16* dk;
-  bf16* dv;
   const int* kv_lens;  // (B,)
   int Lq, Lk, H, Hkv, causal;
   long long sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sdob, sdot, sdoh;
-  long long sdqb, sdqt, sdqh, sdkb, sdkt, sdkh, sdvb, sdvt, sdvh;
+  long long sdqb, sdqt, sdqh;
   float scale;
 };
 
-// Shared memory of both kernels: two bf16 row tiles that stay (A0, A1: Q and
-// dO for dq, K and V for dk/dv), two that stream (B0, B1), the f32 score and
-// dP tiles, the bf16 P and dS tiles, two f32 accumulators and the per-row lse
-// and delta. Offsets and 16-row steps are multiples of 32 bytes (WMMA).
+// Shared memory: two bf16 row tiles that stay (A0, A1: Q and dO), two that
+// stream (B0, B1: K and V), the f32 score and dP tiles, the bf16 dS tile, the
+// f32 dq accumulator and the per-row lse and delta. Offsets and 16-row steps
+// are multiples of 32 bytes (WMMA).
 template <int D>
 struct BwdSmem {
   static constexpr size_t tile = size_t(kRows) * Ld<D>::qkv * 2;
@@ -67,11 +54,9 @@ struct BwdSmem {
   static constexpr size_t b1 = b0 + tile;
   static constexpr size_t s = b1 + tile;                            // f32 [kRows][Ld::s]
   static constexpr size_t dp = s + size_t(kRows) * Ld<D>::s * 4;    // f32 [kRows][Ld::s]
-  static constexpr size_t p = dp + size_t(kRows) * Ld<D>::s * 4;    // bf16 [kRows][Ld::p]
-  static constexpr size_t ds = p + size_t(kRows) * Ld<D>::p * 2;    // bf16 [kRows][Ld::p]
+  static constexpr size_t ds = dp + size_t(kRows) * Ld<D>::s * 4;   // bf16 [kRows][Ld::p]
   static constexpr size_t acc0 = ds + size_t(kRows) * Ld<D>::p * 2; // f32 [kRows][Ld::o]
-  static constexpr size_t acc1 = acc0 + size_t(kRows) * Ld<D>::o * 4;
-  static constexpr size_t lse = acc1 + size_t(kRows) * Ld<D>::o * 4;  // f32 [kRows]
+  static constexpr size_t lse = acc0 + size_t(kRows) * Ld<D>::o * 4;  // f32 [kRows]
   static constexpr size_t delta = lse + kRows * 4;                  // f32 [kRows]
   static constexpr size_t bytes = delta + kRows * 4;
 };
@@ -181,98 +166,6 @@ __global__ void __launch_bounds__(kThreads) flash_train_dq_kernel(BwdArgs a) {
   });
 }
 
-// -------------------------------------------------------------------- dk/dv
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_train_dkv_kernel(BwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  using L = BwdSmem<D>;
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::a0);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::a1);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::b0);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + L::b1);
-  float* Ss = reinterpret_cast<float*>(smem + L::s);     // S^T: rows = keys, cols = q rows
-  float* dPs = reinterpret_cast<float*>(smem + L::dp);   // dP^T
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::p);       // P^T
-  bf16* dSs = reinterpret_cast<bf16*>(smem + L::ds);     // dS^T
-  float* dKs = reinterpret_cast<float*>(smem + L::acc0);
-  float* dVs = reinterpret_cast<float*>(smem + L::acc1);
-  float* lse_s = reinterpret_cast<float*>(smem + L::lse);
-  float* delta_s = reinterpret_cast<float*>(smem + L::delta);
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x / a.Hkv;
-  const int g = blockIdx.x % a.Hkv;
-  const int rep = a.H / a.Hkv;
-  const int key0 = blockIdx.y * kCols;
-  const int kv_len = min(max(a.kv_lens[b], 0), a.Lk);
-
-  load_rows<D>(Ks, [&](int r) -> const bf16* {
-    const int key = key0 + r;
-    return key < kv_len ? a.k + b * a.skb + key * a.skt + g * a.skh : nullptr;
-  });
-  load_rows<D>(Vs, [&](int r) -> const bf16* {
-    const int key = key0 + r;
-    return key < kv_len ? a.v + b * a.svb + key * a.svt + g * a.svh : nullptr;
-  });
-  zero_acc<D>(dKs);
-  zero_acc<D>(dVs);
-
-  // causal: only q tiles at or after this key tile ((jk * bk) // bq); a tile
-  // of keys that are all >= kv_len gets dk = dv = 0 without a loop
-  const int i_lo = a.causal ? key0 / kRows : 0;
-  const int i_hi = key0 < kv_len ? (a.Lq + kRows - 1) / kRows : i_lo;
-
-  for (int hh = 0; hh < rep; ++hh) {
-    const int h = g * rep + hh;
-    const long long bh = (long long)b * a.H + h;
-    for (int i = i_lo; i < i_hi; ++i) {
-      const int q0 = i * kRows;
-      __syncthreads();                    // every warp is done with the last Q/dO tile
-      load_rows<D>(Qs, [&](int r) -> const bf16* {
-        const int t = q0 + r;
-        return t < a.Lq ? a.q + b * a.sqb + t * a.sqt + h * a.sqh : nullptr;
-      });
-      load_rows<D>(dOs, [&](int r) -> const bf16* {
-        const int t = q0 + r;
-        return t < a.Lq ? a.dO + b * a.sdob + t * a.sdot + h * a.sdoh : nullptr;
-      });
-      load_row_stats(a, bh, q0, lse_s, delta_s);
-      __syncthreads();
-      scores_tile<D>(Ks, Qs, Ss, warp);   // S^T  = K Q^T   (warp's 16 keys)
-      scores_tile<D>(Vs, dOs, dPs, warp); // dP^T = V dO^T
-      __syncwarp();
-      for (int e = 0; e < 16; ++e) {
-        const int kr = warp * 16 + e;
-        const int key = key0 + kr;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int c = lane + 32 * half;
-          const int t = q0 + c;
-          const bool valid = t < a.Lq && key < kv_len && (!a.causal || key <= t);
-          const float p = valid ? __expf(Ss[kr * Ld<D>::s + c] * a.scale - lse_s[c]) : 0.f;
-          const float ds = p * (dPs[kr * Ld<D>::s + c] - delta_s[c]) * a.scale;
-          Ps[kr * Ld<D>::p + c] = __float2bfloat16(p);
-          dSs[kr * Ld<D>::p + c] = __float2bfloat16(ds);
-        }
-      }
-      __syncwarp();
-      pv_tile<D>(Ps, dOs, dVs, warp);     // dV += P^T dO
-      pv_tile<D>(dSs, Qs, dKs, warp);     // dK += dS^T Q
-    }
-  }
-  __syncthreads();
-  store_acc<D>(dKs, [&](int r) -> bf16* {
-    const int key = key0 + r;
-    return key < a.Lk ? a.dk + b * a.sdkb + key * a.sdkt + g * a.sdkh : nullptr;
-  });
-  store_acc<D>(dVs, [&](int r) -> bf16* {
-    const int key = key0 + r;
-    return key < a.Lk ? a.dv + b * a.sdvb + key * a.sdvt + g * a.sdvh : nullptr;
-  });
-}
-
 template <typename Kernel>
 static int launch(Kernel kernel, dim3 grid, const BwdArgs& a, void* stream) {
   const size_t smem = BwdSmem<128>::bytes;
@@ -304,32 +197,9 @@ extern "C" int socio_flash_train_dq_bf16(
   BwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
             static_cast<const bf16*>(v), static_cast<const bf16*>(dO),
             static_cast<const float*>(lse), static_cast<const float*>(delta),
-            static_cast<bf16*>(dq), nullptr, nullptr, static_cast<const int*>(kv_lens),
+            static_cast<bf16*>(dq), static_cast<const int*>(kv_lens),
             Lq, Lk, H, Hkv, causal,
             sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sdob, sdot, sdoh,
-            sdqb, sdqt, sdqh, 0, 0, 0, 0, 0, 0, scale};
+            sdqb, sdqt, sdqh, scale};
   return launch(flash_train_dq_kernel<128>, dim3((Lq + kRows - 1) / kRows, B * H), a, stream);
-}
-
-extern "C" int socio_flash_train_dkv_bf16(
-    const void* q, const void* k, const void* v, const void* dO, const void* lse,
-    const void* delta, void* dk, void* dv, const void* kv_lens,
-    int B, int Lq, int Lk, int H, int Hkv, int D,
-    long long sqb, long long sqt, long long sqh,
-    long long skb, long long skt, long long skh,
-    long long svb, long long svt, long long svh,
-    long long sdob, long long sdot, long long sdoh,
-    long long sdkb, long long sdkt, long long sdkh,
-    long long sdvb, long long sdvt, long long sdvh,
-    int causal, float scale, void* stream) {
-  using namespace socio;
-  if (!supported(H, Hkv, D)) return (int)cudaErrorInvalidValue;
-  BwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-            static_cast<const bf16*>(v), static_cast<const bf16*>(dO),
-            static_cast<const float*>(lse), static_cast<const float*>(delta),
-            nullptr, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-            static_cast<const int*>(kv_lens), Lq, Lk, H, Hkv, causal,
-            sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sdob, sdot, sdoh,
-            0, 0, 0, sdkb, sdkt, sdkh, sdvb, sdvt, sdvh, scale};
-  return launch(flash_train_dkv_kernel<128>, dim3(B * Hkv, (Lk + kCols - 1) / kCols), a, stream);
 }

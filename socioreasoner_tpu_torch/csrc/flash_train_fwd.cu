@@ -5,31 +5,30 @@
 // `flash_attention_trainable`). Semantics kept: q (B, L, H, D) against k/v
 // (B, L, Hkv, D) with K/V heads repeated to all H q heads; one valid KV length
 // per batch row; causal by sequence index; the D^-0.5 scale on the f32
-// logits; bf16 matmul inputs with f32 accumulation; lse = m + log(l) in f32.
-// A row with kv_len = 0 gives out 0 and lse -1e30; query rows >= kv_len still
-// attend to the keys < kv_len.
+// logits; bf16 matmul inputs with f32 accumulation; out in q's dtype and
+// lse = m * scale + ln(l) in f32, (B, H, L). A row with no valid key gives out
+// 0 and lse -1e30 (the Pallas NEG_INF); query rows >= kv_len still attend to
+// the keys < kv_len.
 //
 // What bounds it on the H100: at the train shape (B = 4, L = 2304, 16 q / 2
-// kv heads, D = 128) one causal layer is ~87 GFLOP against ~85 MB of q, k, v,
-// out and lse traffic, so it is tensor-core work by three orders of magnitude.
-// It runs the same CTA as the prefill kernel (gqa_attention_cta in
-// attention_tile.cuh): the repeat of K/V to all heads is folded into the grid
-// (one CTA serves the 8 q heads of a kv head, so each K/V tile read feeds 8
-// heads), the causal loop stops at the CTA's last token, and the tensors are
-// read through their (B, L, H, D) strides, so the TPU wrapper's repeat,
-// transposes and padding are gone. The only addition is the lse row it
-// writes to (B, H, L) for the two backward kernels (flash_train_bwd.cu).
-#include "attention_tile.cuh"
-
-namespace socio {
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_train_fwd_kernel(GqaArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  gqa_attention_cta<D>(a, smem);
-}
-
-}  // namespace socio
+// kv heads, D = 128, kv lengths 2304/2080/1000/1) it does 5.8e10 FLOP of
+// tensor-core work (0.059 ms at the bf16 peak) against ~85 MB of q, k, v,
+// out and lse (0.025 ms at the memory rate): tensor-core bound.
+//
+// The design: this is kernel 2's instance of the Hopper CTA
+// (attention_sm90.cuh, launched by launch_gqa) with an lse epilogue --
+// persistent warp-specialised CTAs over (batch row, kv head, token tile)
+// items, the last token tiles first and the (batch row, kv head) order
+// rotated per token tile, each item reading its kv_len on the device
+// (prefill_k_tiles) and stopping at its last token's diagonal; one producer
+// warp keeps TMA loads of Q and of the K/V ring in flight; two consumer
+// warpgroups run S = Q K^T and O += P V on wgmma with S, P and O in
+// registers. The CTA keeps m as a raw logit and sums exp2 with the scale
+// folded into log2(e), so the epilogue converts back to natural-log units;
+// one lane of each quad writes its row's lse. The GQA fold reads each K/V
+// tile once for the rep = 8 q heads of a kv head, so the TPU wrapper's
+// repeat, transposes and padding are gone.
+#include "attention_sm90.cuh"
 
 extern "C" int socio_flash_train_fwd_bf16(
     const void* q, const void* k, const void* v, void* o, void* lse, const void* kv_lens,
@@ -39,19 +38,8 @@ extern "C" int socio_flash_train_fwd_bf16(
     long long svb, long long svt, long long svh,
     long long sob, long long sot, long long soh,
     int causal, float scale, void* stream) {
-  using namespace socio;
-  if (D != 128 || Hkv <= 0 || H % Hkv != 0 || kRows % (H / Hkv) != 0)
-    return (int)cudaErrorInvalidValue;
-  GqaArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-            static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse),
-            static_cast<const int*>(kv_lens), Lq, Lk, Hkv, H / Hkv, causal,
-            sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh, scale};
-  const size_t smem = TileSmem<128>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_train_fwd_kernel<128>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int toks = kRows / a.rep;
-  dim3 grid((Lq + toks - 1) / toks, B * Hkv);
-  flash_train_fwd_kernel<128><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  if (D != 128) return (int)cudaErrorInvalidValue;
+  return socio90::launch_gqa(q, k, v, o, static_cast<float*>(lse), kv_lens, B, Lq, Lk, H, Hkv,
+                             D, sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh,
+                             causal, scale, static_cast<cudaStream_t>(stream));
 }

@@ -32,7 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from ...ops.attention import dense_attention
 from ...ops.decode_attention import paged_decode_attention, quantize_kv
 from ...ops.flash_attention import flash_attention
-from ...ops.flash_attention_bwd import flash_attention_trainable
+from ...ops.flash_attention_bwd import dkv_plan, flash_attention_trainable
 from ...ops.norms import rms_norm, swiglu
 from ...ops.quant import matmul_q, params_prequantized
 from .config import TextConfig
@@ -58,9 +58,10 @@ def _qkv(cfg: TextConfig, p: Dict, h: torch.Tensor):
 
 
 def decoder_layer(cfg: TextConfig, p: Dict, x, cos, sin, attention_mask,
-                  q_positions, use_flash: bool = False):
+                  q_positions, use_flash: bool = False, plan=None):
     """One uncached layer: causal attention over the input (the trainable
-    flash kernels with use_flash, else dense)."""
+    flash kernels with use_flash, else dense; `plan` is the dk/dv kernel's
+    dkv_plan for the mask's lengths)."""
     B, L, _ = x.shape
     q, k, v = _qkv(cfg, p, rms_norm(x, p["input_ln"], cfg.rms_norm_eps))
     q, k = apply_rotary(q, k, cos, sin)
@@ -68,7 +69,7 @@ def decoder_layer(cfg: TextConfig, p: Dict, x, cos, sin, attention_mask,
         # the valid prefix of each right-padded row (the postprocessed train
         # batch's layout); all keys without a mask
         lens = None if attention_mask is None else attention_mask.sum(-1)
-        out = flash_attention_trainable(q, k, v, lens, True)
+        out = flash_attention_trainable(q, k, v, lens, True, plan)
     else:
         out = dense_attention(q, k, v, causal=True, attention_mask=attention_mask,
                               q_positions=q_positions)
@@ -166,11 +167,19 @@ def text_decoder(
         # grads into the stacked leaf once, where each arr[i] would add a
         # zero-filled full-stack tensor per layer
         layers = {key: arr.unbind(0) for key, arr in params["layers"].items()}
+        plan = None
+        if use_flash and torch.is_grad_enabled():
+            # the dk/dv kernel's work list: one host read of the lengths for
+            # all layers' backward passes
+            B, L = inputs_embeds.shape[:2]
+            plan = dkv_plan(None if attention_mask is None else attention_mask.sum(-1),
+                            B, L, L, cfg.num_attention_heads, cfg.num_key_value_heads, True,
+                            inputs_embeds.device)
 
         def layer(i, x):
             p = {key: arrs[i] for key, arrs in layers.items()}
             return decoder_layer(cfg, p, x, cos, sin, attention_mask, q_positions,
-                                 use_flash)
+                                 use_flash, plan)
 
         x = inputs_embeds
         for i in range(cfg.num_hidden_layers):

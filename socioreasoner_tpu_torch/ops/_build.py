@@ -52,7 +52,7 @@ SIGNATURES = {
     "socio_flash_train_dq_bf16":
         [_P] * 8 + [_I] * 6 + [_LL] * 15 + [_I, _F, _P],
     "socio_flash_train_dkv_bf16":
-        [_P] * 9 + [_I] * 6 + [_LL] * 18 + [_I, _F, _P],
+        [_P] * 12 + [_I] * 7 + [_LL] * 18 + [_I, _F, _P],
 }
 
 

@@ -176,3 +176,50 @@ def test_row_tolerance_passes_rounding_and_fails_a_lost_tile(N, D):
             got, want = _rounded_attention(N, 128, D, seed=N, **fault)
             with pytest.raises(AssertionError, match="a row's error"):
                 chip_smoke._check_rows("fault", got, want)
+
+
+def _rounded_dkv(rows, D, seed, fault=None):
+    """dk and dv of one 128-key tile over `rows` query rows (q heads x
+    tokens, 2304 tokens a head) as kernel 6 rounds them (bf16 inputs, p and
+    ds rounded to bf16 before their products, f32 sums, bf16 outputs),
+    optionally with the first 64-row q tile or the first q head's rows
+    dropped or counted twice, and the f32 references."""
+    g = torch.Generator().manual_seed(seed)
+    q, do = (torch.randn(rows, D, generator=g).bfloat16().float() for _ in range(2))
+    k, v = (torch.randn(KT, D, generator=g).bfloat16().float() for _ in range(2))
+    scale = D ** -0.5
+    s = q @ k.T * scale
+    # each row's other 2176 keys weigh as much again as these 128, 17 times
+    lse = torch.logsumexp(s, -1, keepdim=True) + np.log(18.0)
+    p = torch.exp(s - lse)
+    dp = do @ v.T
+    delta = 18 * (p * dp).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    w = torch.ones(rows, 1)
+    if fault is not None:
+        kind, span = fault
+        w[:{"q_tile": 64, "q_head": min(rows, 2304)}[span]] = {"lost": 0.0, "doubled": 2.0}[kind]
+    got = ((w * ds.bfloat16().float()).T @ q).bfloat16(), ((w * p.bfloat16().float()).T @ do
+                                                           ).bfloat16()
+    return got, (ds.T @ q, p.T @ do)
+
+
+@pytest.mark.parametrize("rows", [8 * 64, 8 * 2304])
+def test_row_tolerance_passes_dkv_rounding_and_fails_a_lost_q_tile(rows):
+    """chip_smoke holds kernel 6's dk and dv row by row (each key row) to
+    ROW_TOL: its rounding of p and ds to bf16 and f32 sums over up to 2304
+    tokens x 8 q heads stay well inside, and a q tile or a q head dropped or
+    counted twice lies outside."""
+    import chip_smoke
+    got, want = _rounded_dkv(rows, 128, seed=rows)
+    scale = max(w.abs().max().item() for w in want)
+    for name, g, w in zip(("dk", "dv"), got, want):
+        assert chip_smoke._check_grad(name, g, w, scale)[2] < chip_smoke.ROW_TOL / 2
+    for fault in [(kind, span) for kind in ("lost", "doubled") for span in ("q_tile", "q_head")]:
+        got, want = _rounded_dkv(rows, 128, seed=rows, fault=fault)
+        for name, g, w in zip(("dk", "dv"), got, want):
+            with pytest.raises(AssertionError):
+                chip_smoke._check_grad(name, g, w, scale)
+            # the row check fails on its own, before the gradient-wide one
+            with pytest.raises(AssertionError, match="a row's error"):
+                chip_smoke._check_rows(name, g / scale, w / scale, chip_smoke.GRAD_ROW_FLOOR)
