@@ -13,9 +13,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 one library call that computes the same function (where one
                 exists; the port never calls it), and the kernel's bound
                 (bytes over the memory rate or operations over the bf16
-                peak, whichever is larger); kernels 1, 2, 4 and 6 also at
-                edge shapes and row by row, with their device time and host
-                time a launch; kernel 6's plan and its determinism.
+                peak, whichever is larger); kernels 1, 2, 4, 5 and 6 also at
+                edge shapes (GQA ratios 1, 5, 7 and 8 among them) and row by
+                row, with their device time and host time a launch; the
+                host copies of kernel 2's tile bounds and of the GQA work
+                items against the C++ formulas; kernel 6's plan, its refusal
+                of other kv lengths (a child process that must fail with a
+                CUDA error) and, with kernel 5, determinism.
   4. engine   — DecodeEngine greedy stream (kernels) against a teacher-forced
                 uncached forward (dense attention) at Qwen2.5-VL-3B head dims.
   5. train_parity — one GRPO train step with the trainable flash kernels
@@ -269,24 +273,29 @@ def _check_grad(name, got, want, scale):
     return err, err / scale, ratio
 
 
-# Kernels 4 and 6 at edge shapes: (B, Lq, H, Hkv, causal, kv lens, piece cap
-# or None for the plan's own)
+# Kernels 4-6 at edge shapes: (B, Lq, H, Hkv, causal, kv lens, piece cap or
+# None for the plan's own); GQA ratios 8, 1, 5 (Qwen2.5-VL-32B's 40 / 8
+# heads) and 7 (-7B's 28 / 4), the last two leaving rows of the kernels'
+# 128-row items idle
 TRAIN_EDGES = ((1, 1, 16, 2, True, [1], None), (2, 63, 16, 2, True, [63, 0], None),
                (2, 65, 16, 2, False, [65, 1], None), (3, 129, 16, 16, True, [129, 1, 0], None),
                (2, 129, 16, 16, False, [129, 64], 1), (2, 200, 16, 2, True, [200, 77], 1),
-               (1, 2304, 16, 2, True, [2304], None))
+               (1, 2304, 16, 2, True, [2304], None), (2, 200, 40, 8, True, [200, 77], None),
+               (1, 129, 28, 4, False, [129], None))
 
 
 def _train_edge_checks(randn):
-    """Kernels 4 and 6 at TRAIN_EDGES against their plain versions in f32 on
-    the same bf16 values, row by row (kernel 6 gets the plain lse and
-    delta). Returns (kernel 4's largest max-abs error, row ratio and lse
-    error; kernel 6's largest share of the gradients' largest value and row
-    ratio; the split tiles of each case's plan)."""
+    """Kernels 4-6 at TRAIN_EDGES against their plain versions in f32 on
+    the same bf16 values, row by row (kernels 5 and 6 get the plain lse and
+    delta; dq is held to the largest |reference| of dq, dk and dv together,
+    since where every query sees one key ds cancels and dq is 0 exactly).
+    Returns (kernel 4's largest max-abs error, row ratio and lse error;
+    kernel 5's and kernel 6's largest share of the gradients' largest value
+    and row ratio; the split tiles of each case's plan)."""
     import torch
     from socioreasoner_tpu_torch.ops import flash_attention_bwd as fb
     dev = torch.device("cuda")
-    fwd, dkv, splits = [0.0, 0.0, 0.0], [0.0, 0.0], []
+    fwd, dq, dkv, splits = [0.0, 0.0, 0.0], [0.0, 0.0], [0.0, 0.0], []
     for B, Lq, H, Hkv, causal, lens, cap in TRAIN_EDGES:
         q, k, v, do = randn(B, Lq, H, 128), randn(B, Lq, Hkv, 128), randn(B, Lq, Hkv, 128), \
             randn(B, Lq, H, 128)
@@ -306,14 +315,18 @@ def _train_edge_checks(randn):
         got = fb.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, lt, causal=causal,
                                          plan=plan)
         want = fb.flash_attention_bwd_reference(q.float(), k.float(), v.float(), do.float(),
-                                                ref_lse, delta, lt, causal)[1:]
-        scale = max(w.abs().max().item() for w in want)
-        for name, g, w in zip(("dk", "dv"), got, want):
+                                                ref_lse, delta, lt, causal)
+        scale = max(w.abs().max().item() for w in want[1:])
+        for name, g, w in zip(("dk", "dv"), got, want[1:]):
             _, rel, ratio = _check_grad(f"train {name} edge {tag}", g, w, scale)
             dkv = [max(dkv[0], rel), max(dkv[1], ratio)]
+        got_dq = fb.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, lt, causal=causal)
+        _, rel, ratio = _check_grad(f"train dq edge {tag}", got_dq, want[0],
+                                    max(scale, want[0].abs().max().item()))
+        dq = [max(dq[0], rel), max(dq[1], ratio)]
     if not (0 in splits and max(splits) > 0):
         raise AssertionError(f"the edge plans split no key tile, or every case: {splits}")
-    return fwd, dkv, splits
+    return fwd, dq, dkv, splits
 
 
 def _edge_checks(randn):
@@ -344,9 +357,14 @@ def _edge_checks(randn):
         want = fa.flash_attention_segmented_reference(q.float(), k.float(), v.float(), seg)
         seg_err = worst(seg_err, _check_rows(f"segmented edge S={S} D={D} {kind}", got, want))
     pre_err = (0.0, 0.0)
-    for B, Lq, D, causal in ((1, 1, 128, True), (4, 63, 128, True), (4, 129, 80, True),
-                             (1, 2048, 128, True), (4, 129, 128, False), (1, 63, 80, False)):
-        q, k, v = randn(B, Lq, 16, D), randn(B, Lq, 2, D), randn(B, Lq, 2, D)
+    # (B, Lq, D, causal, H, Hkv): GQA ratios 8 and, leaving rows of the
+    # 128-row items idle, 5 and 7
+    for B, Lq, D, causal, H, Hkv in ((1, 1, 128, True, 16, 2), (4, 63, 128, True, 16, 2),
+                                     (4, 129, 80, True, 16, 2), (1, 2048, 128, True, 16, 2),
+                                     (4, 129, 128, False, 16, 2), (1, 63, 80, False, 16, 2),
+                                     (2, 200, 128, True, 40, 8), (3, 129, 128, False, 28, 4),
+                                     (2, 150, 80, True, 14, 2)):
+        q, k, v = randn(B, Lq, H, D), randn(B, Lq, Hkv, D), randn(B, Lq, Hkv, D)
         lens = [Lq, 0, 1, max(Lq // 2, 1)][:B]
         mask = (torch.arange(Lq, device=dev)[None]
                 < torch.tensor(lens, device=dev)[:, None]).to(torch.int32)
@@ -354,23 +372,35 @@ def _edge_checks(randn):
         want = fa.flash_attention_reference(q.float(), k.float(), v.float(), mask,
                                             causal=causal)
         pre_err = worst(pre_err, _check_rows(
-            f"prefill edge B={B} Lq={Lq} D={D} causal={causal}", got, want))
+            f"prefill edge B={B} Lq={Lq} H={H}/{Hkv} D={D} causal={causal}", got, want))
     return seg_err, pre_err, _train_edge_checks(randn)
 
 
 def _prefill_bounds_check() -> int:
-    """fa.prefill_tile_bounds, the host copy of kernel 2's k-tile formula
-    that the CPU tests check, against the C++ formula itself
-    (socio_prefill_tile_bounds runs prefill_k_tiles on the host), over the
+    """fa.prefill_tile_bounds and fa.gqa_work_item, the host copies of the
+    k-tile formula and the work items of kernels 2, 4 and 5 that the CPU
+    tests check, against the C++ formulas themselves (socio_prefill_tile_bounds
+    runs prefill_k_tiles and socio_gqa_item gqa_item on the host), over the
     CPU tests' grid and out-of-range kv_len. Returns the cases compared."""
     import ctypes
     from socioreasoner_tpu_torch.ops import _build
     from socioreasoner_tpu_torch.ops import flash_attention as fa
     lib = _build.library()
-    out = (ctypes.c_int * 2)()
+    out = (ctypes.c_int * 4)()
     n = 0
+    for B, Lq, Hkv in ((1, 1, 1), (3, 200, 2), (2, 129, 3), (4, 2304, 2)):
+        for rep in (1, 2, 5, 7, 8):
+            toks = fa.KERNEL_Q_TILE // rep
+            for item in range(-(-Lq // toks) * B * Hkv):
+                _build.check(lib.socio_gqa_item(item, B, Lq, Hkv, rep, ctypes.addressof(out)),
+                             "socio_gqa_item")
+                host = (*fa.gqa_work_item(item, B, Lq, Hkv, rep), toks)
+                if tuple(out) != host:
+                    raise AssertionError(f"gqa_work_item{(item, B, Lq, Hkv, rep)} = {host}, "
+                                         f"the kernels' formula gives {tuple(out)}")
+                n += 1
     for Lq in (1, 63, 129, 200, 2048):
-        for rep in (1, 2, 8):
+        for rep in (1, 2, 5, 7, 8):
             toks = fa.KERNEL_Q_TILE // rep
             for causal in (True, False):
                 for Lk in sorted({Lq, Lq + 37}):
@@ -380,10 +410,10 @@ def _prefill_bounds_check() -> int:
                                 tt, kv_len, Lq, Lk, rep, int(causal), ctypes.addressof(out)),
                                 "socio_prefill_tile_bounds")
                             host = fa.prefill_tile_bounds(tt, kv_len, Lq, Lk, rep, causal)
-                            if tuple(out) != host:
+                            if tuple(out)[:2] != host:
                                 raise AssertionError(
                                     f"prefill_tile_bounds{(tt, kv_len, Lq, Lk, rep, causal)} "
-                                    f"= {host}, the kernel's formula gives {tuple(out)}")
+                                    f"= {host}, the kernel's formula gives {tuple(out)[:2]}")
                             n += 1
     return n
 
@@ -699,11 +729,11 @@ def _row_writer_kernel(randn):
 def _train_kernels(randn, edge):
     """Kernels 4-6 at the train shape (B=4, L=2304, 16/2 heads x 128, causal,
     kv lengths 2304, 2080, 1000, 1) against their plain versions in f32 on
-    the same bf16 values, kernels 4 and 6 also row by row; the backward
-    kernels get the plain lse and delta, so each kernel is held alone.
-    Kernel 6 runs on a plan built once, as the train step builds it, and two
-    of its calls must agree bit for bit. `edge`: _train_edge_checks'
-    figures."""
+    the same bf16 values, row by row; the backward kernels get the plain lse
+    and delta, so each kernel is held alone. Kernel 6 runs on a plan built
+    once, as the train step builds it, and must refuse a plan built for other
+    kv lengths; two calls of kernel 5 and two of kernel 6 must agree bit for
+    bit. `edge`: _train_edge_checks' figures."""
     import torch
     import torch.nn.functional as F
     from socioreasoner_tpu_torch.ops import flash_attention_bwd as fb
@@ -713,7 +743,7 @@ def _train_kernels(randn, edge):
         randn(B, L, 16, 128)
     lens = torch.tensor([2304, 2080, 1000, 1], dtype=torch.int32, device=q.device)
     shape = "B=4 L=2304 H=16 Hkv=2 D=128 causal kv_len=2304,2080,1000,1"
-    fwd_edge, dkv_edge, edge_splits = edge
+    fwd_edge, dq_edge, dkv_edge, edge_splits = edge
     out, lse = fb.flash_attention_fwd_lse(q, k, v, lens)
     ref_out, ref_lse = fb.flash_attention_fwd_lse_reference(q.float(), k.float(),
                                                             v.float(), lens)
@@ -761,7 +791,11 @@ def _train_kernels(randn, edge):
     emit({"phase": "dkv_plan", "shape": shape, **plan_info})
     run_dkv = lambda: fb.flash_attention_bwd_dkv(   # noqa: E731
         q, k, v, do, ref_lse, delta, lens, plan=plan)
-    got = {"dq": fb.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, lens)}
+    run_dq = lambda: fb.flash_attention_bwd_dq(   # noqa: E731
+        q, k, v, do, ref_lse, delta, lens)
+    got = {"dq": run_dq()}
+    if not torch.equal(run_dq(), got["dq"]):
+        raise AssertionError("kernel 5: two calls on the same inputs differ")
     got["dk"], got["dv"] = run_dkv()
     again = run_dkv()
     if not (torch.equal(again[0], got["dk"]) and torch.equal(again[1], got["dv"])):
@@ -780,6 +814,7 @@ def _train_kernels(randn, edge):
         errs[g + "_rel"] = errs[g] / scale
     scale = max(want["dk"].abs().max().item(), want["dv"].abs().max().item())
     dkv_ratio = max(_check_grad(f"train {g}", got[g], want[g], scale)[2] for g in ("dk", "dv"))
+    dq_ratio = _check_grad("train dq", got["dq"], want["dq"], want["dq"].abs().max().item())[2]
     del got, want
     # the plain backward computes dq, dk and dv together, and so does the
     # library's (SDPA's autograd backward): each time stands beside both
@@ -794,11 +829,12 @@ def _train_kernels(randn, edge):
     note = "plain_ms is the whole plain backward (dq, dk and dv)"
     bwd_in = qkv_bytes + 2 * do.numel() + 2 * f32_rows     # q, k, v, do, lse, delta
     results.append(_row(
-        "flash_attention_bwd_dq", "socioreasoner_tpu_torch/csrc/flash_train_bwd.cu",
-        "socioreasoner_tpu/ops/flash_attention_bwd.py:75", shape, errs["dq"],
-        cuda_ms(lambda: fb.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, lens)),
+        "flash_attention_bwd_dq", "socioreasoner_tpu_torch/csrc/flash_train_dq_sm90.cu",
+        "socioreasoner_tpu/ops/flash_attention_bwd.py:75", shape, errs["dq"], cuda_ms(run_dq),
         plain_bwd, *bound(bwd_in + 2 * q.numel(), 6 * 128 * pairs), lib_bwd, lib_name,
-        rel_err=errs["dq_rel"], note=note))
+        rel_err=errs["dq_rel"], max_row_ratio=dq_ratio, device_ms=graph_call_ms(run_dq),
+        host_us=host_us(run_dq), bit_equal_twice=True, edge_max_rel_err=dq_edge[0],
+        edge_max_row_ratio=dq_edge[1], note=note))
     emit({"phase": "kernel", **results[-1]})
     results.append(_row(
         "flash_attention_bwd_dkv", "socioreasoner_tpu_torch/csrc/flash_train_dkv_sm90.cu",
@@ -809,11 +845,52 @@ def _train_kernels(randn, edge):
         dk_max_abs_err=errs["dk"], dv_max_abs_err=errs["dv"], max_row_ratio=dkv_ratio,
         device_ms=graph_call_ms(run_dkv), host_us=host_us(run_dkv), plan=plan_info,
         bit_equal_twice=True, edge_max_rel_err=dkv_edge[0], edge_max_row_ratio=dkv_edge[1],
-        edge_split_tiles=edge_splits, note=note + "; ms with the plan built once, as the "
-        "train step builds it (plan_us apart)"))
+        edge_split_tiles=edge_splits, plan_mismatch=_dkv_plan_mismatch(),
+        note=note + "; ms with the plan built once, as the train step builds it (plan_us "
+        "apart)"))
     emit({"phase": "kernel", **results[-1]})
     torch.cuda.empty_cache()
     return results
+
+
+# Kernel 6 on a plan built for kv lengths [8, 3], called with [8, 3] and
+# then with [8, 5]: the second call must end in a CUDA error (the kernel's
+# trap), which leaves the process's CUDA context unusable, so it runs in a
+# child process of its own.
+PLAN_MISMATCH_CHILD = """
+import json, torch
+from socioreasoner_tpu_torch.ops import flash_attention_bwd as fb
+dev = torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(0)
+q, do = (torch.randn(2, 8, 4, 128, generator=g, device=dev).bfloat16() for _ in range(2))
+k, v = (torch.randn(2, 8, 2, 128, generator=g, device=dev).bfloat16() for _ in range(2))
+stats = torch.zeros(2, 4, 8, device=dev)
+plan = fb.dkv_plan(torch.tensor([8, 3]), 2, 8, 8, 4, 2, True, dev)
+for lens in ([8, 3], [8, 5]):
+    try:
+        fb.flash_attention_bwd_dkv(q, k, v, do, stats, stats,
+                                   torch.tensor(lens, dtype=torch.int32, device=dev), plan=plan)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        print(json.dumps({"lens": lens, "error": str(e).splitlines()[0]}))
+        raise SystemExit(0 if lens == [8, 5] else 4)
+raise SystemExit(3)
+"""
+
+
+def _dkv_plan_mismatch() -> str:
+    """Runs PLAN_MISMATCH_CHILD from the repository's root; returns the
+    CUDA error of its mismatched call, raises unless the matching call ran
+    and the mismatched one failed with a CUDA error."""
+    child = subprocess.run([sys.executable, "-c", PLAN_MISMATCH_CHILD],
+                           cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                           timeout=300)
+    lines = child.stdout.strip().splitlines()
+    result = json.loads(lines[-1]) if lines else {}
+    if child.returncode != 0 or "CUDA" not in result.get("error", ""):
+        raise AssertionError(f"kernel 6 on a plan for other kv lengths: exit "
+                             f"{child.returncode}, {result}, {child.stderr[-2000:]}")
+    return result["error"]
 
 
 def _short_3b_config(vocab: int = 8192):

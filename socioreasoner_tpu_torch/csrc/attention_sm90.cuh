@@ -1,7 +1,8 @@
 // One Hopper forward-attention CTA, shared by the prefill kernel
 // (flash_prefill.cu), the training forward (flash_train_fwd.cu), which adds
 // the per-row log-sum-exp, and the ViT's segment-masked kernel
-// (flash_segmented.cu).
+// (flash_segmented.cu). The training dq kernel (flash_train_dq_sm90.cu)
+// walks the same GQA work items (gqa_item, resolve_gqa, prefill_k_tiles).
 //
 // A CTA is persistent: it walks work items (q tiles of 128 rows) blockIdx.x,
 // blockIdx.x + gridDim.x, ... and is warp specialised into three warpgroups:
@@ -34,6 +35,12 @@
 // k-steps over two pairs of descriptors, and PV one n64 and one n16 wgmma.
 // Nothing is padded in device memory.
 //
+// GQA (kernels 2 and 4) folds the rep = H / Hkv q heads of a kv head into an
+// item: floor(128 / rep) tokens x rep heads, rows r = token * rep + head. For
+// a rep that does not divide 128 (5, 7, ...) rows rep * floor(128 / rep) ..
+// 127 are idle: no TMA box reaches them, the kernel zeroes them in both Q
+// buffers once at its start, and the epilogue never stores them.
+//
 // Semantics (those of the Pallas kernels): bf16 matmul inputs with f32
 // accumulation; the D^-0.5 scale applied to the f32 logits; a masked logit
 // gives p = 0, never exp(0); a row with no valid key gives 0. The mask is
@@ -65,7 +72,7 @@ struct Layout {
   static constexpr uint32_t kv_chunk = kBN * 64 * 2;
   static constexpr uint32_t q_tail = kMain * q_chunk;    // offset of the Q tail
   static constexpr uint32_t kv_tail = kMain * kv_chunk;
-  static constexpr uint32_t q_bytes = kBM * D * 2;       // TMA bytes of a Q tile
+  static constexpr uint32_t q_bytes = kBM * D * 2;       // bytes of a full Q tile
   static constexpr uint32_t kv_bytes = kBN * D * 2;      // of a K (or V) tile
   static constexpr uint32_t q_buf = (q_bytes + 1023) / 1024 * 1024;
   static constexpr uint32_t kv_buf = (kv_bytes + 1023) / 1024 * 1024;
@@ -86,6 +93,7 @@ struct FwdParams {
   long long sob, sot, soh;   // output strides (elements); sob unused by kernel 1
   int n_items;
   float scale_log2;          // D^-0.5 * log2(e)
+  int q_rows;                // rows of a Q tile that TMA fills: 128 (kernel 1), rep * toks
   // kernels 2 and 4 (GQA prefill, training forward): q (B, Lq, H, D), k/v
   // (B, Lk, Hkv, D)
   const int* kv_lens;        // (B,)
@@ -114,6 +122,23 @@ struct Item {
   int kv_len;    // kernel 2
 };
 
+// The (batch row, kv head, first token) of GQA work item `item` (kernels 2, 4
+// and 5) over token tiles of `toks` tokens: the last token tiles (the most
+// keys under a causal mask) come first, so the round-robin over persistent
+// CTAs ends on light items; within a token tile the (batch row, kv head)
+// order rotates from one token tile to the next, so that a CTA, which takes
+// every gridDim.x-th item, does not meet the same batch row (and its kv_len)
+// in all its items. Compiled for the host too: socio_gqa_item exports it,
+// so that the host's copy (ops/flash_attention.py gqa_work_item) is held to
+// it.
+__host__ __device__ __forceinline__ int3 gqa_item(int item, int B, int Hkv, int n_ttiles,
+                                                  int toks) {
+  const int bg_n = B * Hkv;
+  const int row = item / bg_n;
+  const int bg = (item + row) % bg_n;
+  return make_int3(bg / Hkv, bg % Hkv, (n_ttiles - 1 - row) * toks);
+}
+
 // Kernel 2's k range for the token tile of `toks` tokens from t0: it visits
 // k tiles 0 .. x - 1 and evaluates the mask only on tiles >= y (the tiles
 // before reach neither past its first token nor past kv_len). Compiled for
@@ -130,6 +155,27 @@ __host__ __device__ __forceinline__ int2 prefill_k_tiles(int t0, int toks, int k
     k_free = k_free < t0 + 1 ? k_free : t0 + 1;
   }
   return make_int2((k_hi + kBN - 1) / kBN, k_free / kBN);
+}
+
+// A GQA item of the launch `p` (FwdParams here, the dq kernel's own Params
+// there: both name kv_lens, B, Lq, Lk, Hkv, rep, causal and n_ttiles).
+template <class P>
+__device__ __forceinline__ Item resolve_gqa(const P& p, int item) {
+  Item it;
+  const int toks = kBM / p.rep;
+  const int3 w = gqa_item(item, p.B, p.Hkv, p.n_ttiles, toks);
+  it.b = w.x;
+  it.head = w.y;
+  it.t0 = w.z;
+  it.rows = kBM;
+  it.k0 = 0;
+  it.kv_len = min(max(p.kv_lens[it.b], 0), p.Lk);
+  const int2 n = prefill_k_tiles(it.t0, toks, it.kv_len, p.Lq, p.Lk, p.causal);
+  it.lo = 0;
+  it.hi = n.x - 1;
+  it.nm_lo = 0;
+  it.nm_hi = n.y - 1;
+  return it;
 }
 
 template <bool kSeg>
@@ -150,27 +196,7 @@ __device__ __forceinline__ Item resolve(const FwdParams& p, int item) {
     it.nm_hi = u.y;
     it.kv_len = 0;
   } else {
-    // the last token tiles (the most keys under a causal mask) come first,
-    // so the round-robin over persistent CTAs ends on light items; within a
-    // token tile the (batch row, kv head) order rotates from one token tile
-    // to the next, so that a CTA, which takes every gridDim.x-th item, does
-    // not meet the same batch row (and its kv_len) in all its items
-    const int bg_n = p.B * p.Hkv;
-    const int row = item / bg_n;
-    const int tt = p.n_ttiles - 1 - row;
-    const int bg = (item + row) % bg_n;
-    const int toks = kBM / p.rep;
-    it.b = bg / p.Hkv;
-    it.head = bg % p.Hkv;
-    it.t0 = tt * toks;
-    it.rows = kBM;
-    it.k0 = 0;
-    it.kv_len = min(max(p.kv_lens[it.b], 0), p.Lk);
-    const int2 n = prefill_k_tiles(it.t0, toks, it.kv_len, p.Lq, p.Lk, p.causal);
-    it.lo = 0;
-    it.hi = n.x - 1;
-    it.nm_lo = 0;
-    it.nm_hi = n.y - 1;
+    it = resolve_gqa(p, item);
   }
   return it;
 }
@@ -187,7 +213,7 @@ __device__ __forceinline__ void producer(const FwdParams& p, uint32_t base) {
     const Item it = resolve<kSeg>(p, item);
     const uint32_t q_full = bars + 8 * qs, q_empty = bars + 8 * (kQBufs + qs);
     mbar_wait(q_empty, qph ^ 1);
-    mbar_expect_tx(q_full, L::q_bytes);
+    mbar_expect_tx(q_full, p.q_rows * D * 2);    // the box's rows, idle ones excluded
     const uint32_t qb = base + qs * L::q_buf;
 #pragma unroll
     for (int c = 0; c <= L::kMain; ++c) {
@@ -443,7 +469,7 @@ __device__ __forceinline__ void consumer(const FwdParams& p, uint32_t base, int 
       } else {
         const int t = it.t0 + r / p.rep;
         const int h = it.head * p.rep + r % p.rep;
-        if (t < p.Lq) {
+        if (r < p.q_rows && t < p.Lq) {      // idle rows and rows past Lq: no store
           dst = p.o + it.b * p.sob + t * p.sot + h * p.soh;
           // m is a raw logit (its scale folded into the exp2) and the quad's
           // lsum sums exp2(s * scale_log2 - m * scale_log2): in natural-log
@@ -490,6 +516,14 @@ __global__ void __launch_bounds__(kThreads, 1) attention_sm90_kernel(const __gri
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  // the idle rows of both Q buffers: zeros for good (no TMA box reaches them)
+  for (int s = 0; s < kQBufs; ++s) {
+    const uint32_t qb = base + s * L::q_buf;
+    for (int c = 0; c < L::kMain; ++c)
+      zero_smem(qb + c * L::q_chunk + p.q_rows * 128, (kBM - p.q_rows) * 128);
+    if constexpr (L::kTail != 0) zero_smem(qb + L::q_tail + p.q_rows * 32, (kBM - p.q_rows) * 32);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // before wgmma reads them
   __syncthreads();
   const int wg = threadIdx.x >> 7;
   if (wg == 2) {
@@ -523,10 +557,10 @@ int launch(const FwdParams& p, cudaStream_t stream) {
 // Kernels 2 and 4: GQA attention of q (B, Lq, H, D) over k/v (B, Lk, Hkv, D)
 // (strides in elements), writing o and, where lse is given, the per-row
 // log-sum-exp (B, H, Lq). GQA is folded as in the Pallas grid: a 128-row item
-// is 128 / rep tokens x the rep q heads of one kv head, one 4-D TMA box
-// (64 columns x rep heads x 128 / rep tokens), since the rep heads are
-// contiguous in (B, L, H, D). Defined in flash_prefill.cu, the one file that
-// instantiates the kernel for it.
+// is floor(128 / rep) tokens x the rep q heads of one kv head, one 4-D TMA
+// box (64 columns x rep heads x floor(128 / rep) tokens), since the rep heads
+// are contiguous in (B, L, H, D); any rep up to 128. Defined in
+// flash_prefill.cu, the one file that instantiates the kernel for it.
 int launch_gqa(const void* q, const void* k, const void* v, void* o, float* lse,
                const void* kv_lens, int B, int Lq, int Lk, int H, int Hkv, int D,
                long long sqb, long long sqt, long long sqh, long long skb, long long skt,

@@ -13,10 +13,12 @@
 // Q/K/V/O take 11 us at the memory rate.
 //
 // The design (attention_sm90.cuh): GQA is folded as in the Pallas grid, so a
-// 128-row work item is 128 / rep tokens x the rep q heads of one kv head --
-// the rep heads are contiguous in (B, L, H, D), so one 4-D TMA box
-// (64 columns x rep heads x 128 / rep tokens) lands them in that order -- and
-// every K/V tile feeds all rep heads. Items are (batch, kv head, token tile),
+// 128-row work item is floor(128 / rep) tokens x the rep q heads of one kv
+// head -- the rep heads are contiguous in (B, L, H, D), so one 4-D TMA box
+// (64 columns x rep heads x floor(128 / rep) tokens) lands them in that
+// order -- and every K/V tile feeds all rep heads. Any rep up to 128 is
+// taken: where rep does not divide 128 the rows past rep * floor(128 / rep)
+// stay idle (zero, never stored). Items are (batch, kv head, token tile),
 // the last token tiles first; each reads its batch row's kv_len on the
 // device, stops at the last key its last token may see (tiles above the
 // diagonal are never loaded) and masks only the tiles that reach past its
@@ -34,11 +36,12 @@ int launch_gqa(const void* q, const void* k, const void* v, void* o, float* lse,
                long long skh, long long svb, long long svt, long long svh,
                long long sob, long long sot, long long soh, int causal, float scale,
                cudaStream_t stream) {
-  if (Hkv <= 0 || H % Hkv != 0 || kBM % (H / Hkv) != 0 || (D != 80 && D != 128))
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kBM || (D != 80 && D != 128))
     return (int)cudaErrorInvalidValue;
   const int rep = H / Hkv;
   const int toks = kBM / rep;
   FwdParams p{};
+  p.q_rows = rep * toks;
   p.o = static_cast<bf16*>(o);
   p.sob = sob;
   p.sot = sot;
@@ -54,7 +57,7 @@ int launch_gqa(const void* q, const void* k, const void* v, void* o, float* lse,
   p.causal = causal;
   p.n_ttiles = (Lq + toks - 1) / toks;
   p.n_items = p.n_ttiles * B * Hkv;
-  // (D, heads, tokens, B) views; q boxes of rep heads x 128 / rep tokens,
+  // (D, heads, tokens, B) views; q boxes of rep heads x floor(128 / rep) tokens,
   // k/v boxes of one kv head x 128 keys
   const long long qdims[4] = {D, H, Lq, B}, kdims[4] = {D, Hkv, Lk, B};
   const long long qs[4] = {1, sqh, sqt, sqb}, ks[4] = {1, skh, skt, skb},
@@ -87,10 +90,26 @@ extern "C" int socio_flash_prefill_bf16(
 extern "C" int socio_prefill_tile_bounds(int t_tile, int kv_len, int Lq, int Lk, int rep,
                                          int causal, void* out) {
   using namespace socio90;
-  if (rep <= 0 || kBM % rep != 0) return (int)cudaErrorInvalidValue;
+  if (rep <= 0 || rep > kBM) return (int)cudaErrorInvalidValue;
   const int toks = kBM / rep;
   const int2 n = prefill_k_tiles(t_tile * toks, toks, kv_len, Lq, Lk, causal);
   static_cast<int*>(out)[0] = n.x;
   static_cast<int*>(out)[1] = n.y;
+  return 0;
+}
+
+// GQA work item `item` of kernels 2, 4 and 5 at (B, Lq, Hkv, rep), by the
+// device's own formula run on the host: out = {batch row, kv head, first
+// token, tokens}.
+extern "C" int socio_gqa_item(int item, int B, int Lq, int Hkv, int rep, void* out) {
+  using namespace socio90;
+  if (rep <= 0 || rep > kBM || B <= 0 || Hkv <= 0) return (int)cudaErrorInvalidValue;
+  const int toks = kBM / rep;
+  const int3 w = gqa_item(item, B, Hkv, (Lq + toks - 1) / toks, toks);
+  int* o = static_cast<int*>(out);
+  o[0] = w.x;
+  o[1] = w.y;
+  o[2] = w.z;
+  o[3] = toks;
   return 0;
 }

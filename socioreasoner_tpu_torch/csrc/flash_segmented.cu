@@ -40,6 +40,7 @@ extern "C" int socio_flash_segmented_bf16(
   p.sot = sot;
   p.soh = soh;
   p.n_items = n_items;
+  p.q_rows = kBM;
   p.scale_log2 = scale * 1.4426950408889634f;
   p.seg = static_cast<const int*>(seg);
   p.work = static_cast<const int*>(work);

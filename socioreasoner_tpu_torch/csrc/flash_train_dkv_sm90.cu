@@ -57,6 +57,10 @@
 //   * The mask is evaluated only on the pairs that need it: the two q tiles on
 //     the causal diagonal, the key tile holding kv_len (or Lk), and the q tile
 //     holding Lq. Every mbarrier wait traps after ~10 s instead of hanging.
+//   * The plan was built on the host from some kv lengths; the call passes
+//     its own. Each item's kv_len is held to clamp(kv_lens[b], 0, Lk) on the
+//     device, and a difference traps (a launch error), so a plan built for
+//     other lengths never gives dk/dv silently, at no host synchronisation.
 #include "sm90_common.cuh"
 
 namespace socio90 {
@@ -100,6 +104,7 @@ struct Params {
   int* counters;             // (2 x split tiles,) arrival counts, 0 between launches
   const int4* items;         // (n_items, 3) int4: dkv_tile_plan's 12 fields, in CTA order
   const int* cta_start;      // (grid + 1,) CTA c walks items cta_start[c] .. cta_start[c+1] - 1
+  const int* kv_lens;        // (B,) the call's lengths, which the plan's must equal
   int Lq, Lk, H, rep, causal;
   float scale, scale_log2;   // D^-0.5 and D^-0.5 * log2(e)
 };
@@ -209,6 +214,7 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base, volatil
 
   for (int idx = p.cta_start[blockIdx.x]; idx < p.cta_start[blockIdx.x + 1]; ++idx) {
     const Item it = load_item(p, idx);
+    if (it.kv_len != min(max(p.kv_lens[it.b], 0), p.Lk)) __trap();   // a plan for other lengths
     const int k0 = it.kt * kBK;
     const int key0 = k0 + krow;
     float dk[kD / 64][32], dv[kD / 64][32];
@@ -404,7 +410,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 extern "C" int socio_flash_train_dkv_bf16(
     const void* q, const void* k, const void* v, const void* dO, const void* lse,
     const void* delta, void* dk, void* dv, const void* items, const void* cta_start,
-    void* ws, void* counters, int n_cta,
+    void* ws, void* counters, const void* kv_lens, int n_cta,
     int B, int Lq, int Lk, int H, int Hkv, int D,
     long long sqb, long long sqt, long long sqh,
     long long skb, long long skt, long long skh,
@@ -440,6 +446,7 @@ extern "C" int socio_flash_train_dkv_bf16(
   p.counters = static_cast<int*>(counters);
   p.items = static_cast<const int4*>(items);
   p.cta_start = static_cast<const int*>(cta_start);
+  p.kv_lens = static_cast<const int*>(kv_lens);
   p.Lq = Lq;
   p.Lk = Lk;
   p.H = H;

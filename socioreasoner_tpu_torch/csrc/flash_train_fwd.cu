@@ -26,8 +26,9 @@
 // registers. The CTA keeps m as a raw logit and sums exp2 with the scale
 // folded into log2(e), so the epilogue converts back to natural-log units;
 // one lane of each quad writes its row's lse. The GQA fold reads each K/V
-// tile once for the rep = 8 q heads of a kv head, so the TPU wrapper's
-// repeat, transposes and padding are gone.
+// tile once for the rep = 8 q heads of a kv head (any rep up to 128: a
+// rep that does not divide 128 leaves rows of the 128-row tile idle), so
+// the TPU wrapper's repeat, transposes and padding are gone.
 #include "attention_sm90.cuh"
 
 extern "C" int socio_flash_train_fwd_bf16(

@@ -1,6 +1,7 @@
 // PTX helpers and host-side tensor-map encoding shared by the Hopper kernels:
-// the forward-attention CTA (attention_sm90.cuh: kernels 1, 2 and 4) and the
-// training dk/dv kernel (flash_train_dkv_sm90.cu: kernel 6).
+// the forward-attention CTA (attention_sm90.cuh: kernels 1, 2 and 4), the
+// training dq kernel (flash_train_dq_sm90.cu: kernel 5) and the training
+// dk/dv kernel (flash_train_dkv_sm90.cu: kernel 6).
 #pragma once
 
 #include <cuda.h>
@@ -86,6 +87,14 @@ __device__ __forceinline__ float2 lds_f2(uint32_t addr) {
   float2 v;
   asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
   return v;
+}
+
+// Zero `bytes` (a multiple of 16) of shared memory from `addr`, spread over
+// the CTA's threads. A wgmma reading them afterwards needs
+// fence.proxy.async.shared::cta and a barrier between.
+__device__ __forceinline__ void zero_smem(uint32_t addr, int bytes) {
+  for (int o = 16 * threadIdx.x; o < bytes; o += 16 * blockDim.x)
+    asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(addr + o), "r"(0) : "memory");
 }
 
 // Barrier `id` (1..15) over `threads` threads (a multiple of 32).

@@ -58,17 +58,16 @@ def _qkv(cfg: TextConfig, p: Dict, h: torch.Tensor):
 
 
 def decoder_layer(cfg: TextConfig, p: Dict, x, cos, sin, attention_mask,
-                  q_positions, use_flash: bool = False, plan=None):
+                  q_positions, use_flash: bool = False, plan=None, lens=None):
     """One uncached layer: causal attention over the input (the trainable
-    flash kernels with use_flash, else dense; `plan` is the dk/dv kernel's
-    dkv_plan for the mask's lengths)."""
+    flash kernels with use_flash over `lens`, the valid prefix of each
+    right-padded row -- the postprocessed train batch's layout -- or all
+    keys when None, else dense; `plan` is the dk/dv kernel's dkv_plan for
+    `lens`)."""
     B, L, _ = x.shape
     q, k, v = _qkv(cfg, p, rms_norm(x, p["input_ln"], cfg.rms_norm_eps))
     q, k = apply_rotary(q, k, cos, sin)
     if use_flash:
-        # the valid prefix of each right-padded row (the postprocessed train
-        # batch's layout); all keys without a mask
-        lens = None if attention_mask is None else attention_mask.sum(-1)
         out = flash_attention_trainable(q, k, v, lens, True, plan)
     else:
         out = dense_attention(q, k, v, causal=True, attention_mask=attention_mask,
@@ -167,19 +166,21 @@ def text_decoder(
         # grads into the stacked leaf once, where each arr[i] would add a
         # zero-filled full-stack tensor per layer
         layers = {key: arr.unbind(0) for key, arr in params["layers"].items()}
-        plan = None
-        if use_flash and torch.is_grad_enabled():
-            # the dk/dv kernel's work list: one host read of the lengths for
-            # all layers' backward passes
-            B, L = inputs_embeds.shape[:2]
-            plan = dkv_plan(None if attention_mask is None else attention_mask.sum(-1),
-                            B, L, L, cfg.num_attention_heads, cfg.num_key_value_heads, True,
-                            inputs_embeds.device)
+        # the flash kernels' kv lengths, and the dk/dv kernel's work list
+        # built from the same lengths: one host read for all layers' backward
+        # passes
+        lens = plan = None
+        if use_flash:
+            lens = None if attention_mask is None else attention_mask.sum(-1)
+            if torch.is_grad_enabled():
+                B, L = inputs_embeds.shape[:2]
+                plan = dkv_plan(lens, B, L, L, cfg.num_attention_heads,
+                                cfg.num_key_value_heads, True, inputs_embeds.device)
 
         def layer(i, x):
             p = {key: arrs[i] for key, arrs in layers.items()}
             return decoder_layer(cfg, p, x, cos, sin, attention_mask, q_positions,
-                                 use_flash, plan)
+                                 use_flash, plan, lens)
 
         x = inputs_embeds
         for i in range(cfg.num_hidden_layers):

@@ -39,6 +39,8 @@ SIGNATURES = {
         [_P] * 5 + [_I] * 6 + [_LL] * 12 + [_I, _F, _P],
     "socio_prefill_tile_bounds":
         [_I] * 6 + [_P],
+    "socio_gqa_item":
+        [_I] * 5 + [_P],
     "socio_flash_segmented_bf16":
         [_P] * 7 + [_I] * 4 + [_LL] * 8 + [_F, _P],
     "socio_paged_decode_bf16":
@@ -52,7 +54,7 @@ SIGNATURES = {
     "socio_flash_train_dq_bf16":
         [_P] * 8 + [_I] * 6 + [_LL] * 15 + [_I, _F, _P],
     "socio_flash_train_dkv_bf16":
-        [_P] * 12 + [_I] * 7 + [_LL] * 18 + [_I, _F, _P],
+        [_P] * 13 + [_I] * 7 + [_LL] * 18 + [_I, _F, _P],
 }
 
 

@@ -30,9 +30,8 @@ import torch
 from . import _build
 from .attention import dense_attention
 
-KERNEL_TILE = 64        # query rows and keys per CTA tile of the training kernels
-KERNEL_Q_TILE = 128     # query rows per work item of kernels 1 and 2 (2 warpgroups x 64)
-KERNEL_K_TILE = 128     # keys per K/V tile of kernels 1 and 2
+KERNEL_Q_TILE = 128     # query rows per work item of kernels 1, 2, 4 and 5 (2 warpgroups x 64)
+KERNEL_K_TILE = 128     # keys per K/V tile of kernels 1, 2, 4 and 5
 KERNEL_HEAD_DIMS = (80, 128)     # the ViT's and the text decoder's
 
 
@@ -90,9 +89,10 @@ def flash_attention(
     *,
     causal: bool = True,
 ) -> torch.Tensor:
-    """Flash attention with GQA kv heads folded into the kernel. Returns
-    (B, Lq, H, D). The kernel reads each batch row's valid prefix length,
-    sum(attention_mask), on the device."""
+    """Flash attention with GQA kv heads folded into the kernel (any ratio
+    H / Hkv up to KERNEL_Q_TILE). Returns (B, Lq, H, D). The kernel reads
+    each batch row's valid prefix length, sum(attention_mask), on the
+    device."""
     B, Lq, H, D = q.shape
     Lk, Hkv = k.size(1), k.size(2)
     check_shapes("flash_attention",
@@ -103,7 +103,7 @@ def flash_attention(
     if q.is_cpu:
         return flash_attention_reference(q, k, v, attention_mask, causal=causal)
     check_kernel_inputs("flash_attention", q, k, v)
-    if D not in KERNEL_HEAD_DIMS or H % Hkv or KERNEL_Q_TILE % (H // Hkv):
+    if D not in KERNEL_HEAD_DIMS or H % Hkv or H // Hkv > KERNEL_Q_TILE:
         raise ValueError(f"flash_attention kernel: unsupported H={H} Hkv={Hkv} D={D}")
     kv_lens = _kv_lens(attention_mask, B, Lk, q.device).contiguous()
     out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
@@ -125,7 +125,7 @@ def prefill_tile_bounds(t_tile: int, kv_len: int, Lq: int, Lk: int, rep: int,
     """Kernel 2's bounds for one work item, a host copy of `prefill_k_tiles`
     in csrc/attention_sm90.cuh (the kernel computes them on the device from
     kv_len; chip_smoke.py holds this copy to the C++ formula through
-    socio_prefill_tile_bounds): a token tile of KERNEL_Q_TILE / rep tokens
+    socio_prefill_tile_bounds): a token tile of KERNEL_Q_TILE // rep tokens
     visits k tiles 0 .. n_tiles - 1 and evaluates the mask only on tiles
     >= n_free (the tiles before reach neither past its first token nor past
     kv_len). Returns (n_tiles, n_free)."""
@@ -137,6 +137,22 @@ def prefill_tile_bounds(t_tile: int, kv_len: int, Lq: int, Lk: int, rep: int,
         k_hi = min(k_hi, min(t0 + toks, Lq))
         k_free = min(k_free, t0 + 1)
     return -(-k_hi // KERNEL_K_TILE), k_free // KERNEL_K_TILE
+
+
+def gqa_work_item(item: int, B: int, Lq: int, Hkv: int, rep: int) -> "tuple[int, int, int]":
+    """Work item `item` of kernels 2, 4 and 5, a host copy of `gqa_item` in
+    csrc/attention_sm90.cuh (chip_smoke.py holds it to the C++ formula
+    through socio_gqa_item): the (batch row, kv head, first token) of a token
+    tile of KERNEL_Q_TILE // rep tokens x the rep q heads of the kv head,
+    row r holding token t0 + r // rep of q head g * rep + r % rep. Items run
+    over n_ttiles * B * Hkv, the last token tiles first, the (batch row, kv
+    head) order rotated by one from one token tile to the next."""
+    toks = KERNEL_Q_TILE // rep
+    n_ttiles = -(-Lq // toks)
+    bg_n = B * Hkv
+    row = item // bg_n
+    bg = (item + row) % bg_n
+    return bg // Hkv, bg % Hkv, (n_ttiles - 1 - row) * toks
 
 
 # ------------------------------------------------------- segmented (ViT)

@@ -8,15 +8,20 @@ The counterpart of socioreasoner_tpu/ops/flash_attention_bwd.py:
                              csrc/flash_train_fwd.cu, the Pallas
                              `_fwd_kernel`): kernel 2's TMA + wgmma CTA
                              (csrc/attention_sm90.cuh) with an lse epilogue
-  flash_attention_bwd_dq   — dq (kernel 5, csrc/flash_train_bwd.cu,
-                             `_dq_kernel`)
+  flash_attention_bwd_dq   — dq (kernel 5, csrc/flash_train_dq_sm90.cu,
+                             `_dq_kernel`): kernel 4's work items and
+                             warp-specialised TMA + wgmma CTA, with S, dP
+                             and dS in registers and dQ += dS K in place of
+                             O += P V
   flash_attention_bwd_dkv  — dk and dv, summed over each GQA group (kernel 6,
                              csrc/flash_train_dkv_sm90.cu, `_dkv_kernel`): a
                              warp-specialised TMA + wgmma kernel over a work
                              list built here (dkv_tile_plan: 128-key tiles
                              whose (q head, 64-row q tile) pairs are cut into
                              pieces of at most an even share of the SMs, the
-                             pieces of a split tile added in piece order)
+                             pieces of a split tile added in piece order;
+                             the kernel traps where the plan's lengths are
+                             not the call's kv_lens)
   flash_attention_trainable — the autograd Function over the three: the
                              forward saves out (q's dtype) and lse (f32); the
                              backward computes delta = rowsum(dO * O) in f32
@@ -29,7 +34,9 @@ The counterpart of socioreasoner_tpu/ops/flash_attention_bwd.py:
 Conventions of the JAX kernels, kept by the kernels and the plain versions:
 the mask is key < kv_len (a contiguous valid prefix per batch row) and, when
 causal, key <= query index; rows with no valid key give out 0 and lse NEG_INF;
-query rows >= kv_len are real rows that attend to the keys < kv_len.
+query rows >= kv_len are real rows that attend to the keys < kv_len. The
+kernels take any GQA ratio rep = H / Hkv up to KERNEL_Q_TILE (a 128-row item
+holds floor(128 / rep) tokens x rep heads).
 
 Each wrapper takes its plain PyTorch version (``*_reference``) for tensors on
 the CPU and launches its CUDA kernel for tensors on a GPU, or raises; there is
@@ -45,7 +52,7 @@ import torch
 
 from . import _build
 from .attention import NEG_INF, repeat_kv
-from .flash_attention import KERNEL_Q_TILE, KERNEL_TILE, check_kernel_inputs, check_shapes
+from .flash_attention import KERNEL_Q_TILE, check_kernel_inputs, check_shapes
 
 TRAIN_HEAD_DIMS = (128,)      # the text decoder's head dim
 
@@ -192,6 +199,7 @@ class DkvPlan(NamedTuple):
     counters: torch.Tensor    # (2 x split tiles,) int32 arrival counts, 0 between launches
     key: tuple                # the (B, Lq, Lk, H, Hkv, causal) it was built for
     n_cta: int
+    lens: tuple               # the kv lengths it was built for, clipped to [0, Lk], on the host
 
 
 def dkv_plan(kv_lens: Optional[torch.Tensor], B: int, Lq: int, Lk: int, H: int, Hkv: int,
@@ -200,12 +208,13 @@ def dkv_plan(kv_lens: Optional[torch.Tensor], B: int, Lq: int, Lk: int, H: int, 
     on `device`, with its workspace and zeroed arrival counters. Reads
     kv_lens on the host (a GPU tensor is copied, a synchronisation), so a
     caller that runs many layers over the same lengths builds it once and
-    passes it as `plan=`; the kernel then reads the lengths from the plan.
-    One launch at a time may use a plan (the launch that used the counters
-    resets them)."""
+    passes it as `plan=`; the kernel reads the lengths from the plan and
+    traps where they are not the call's (the CPU path raises). One launch at
+    a time may use a plan (the launch that used the counters resets
+    them)."""
     device = torch.device(device)
-    lens = (np.full(B, Lk) if kv_lens is None
-            else torch.as_tensor(kv_lens).detach().to("cpu").numpy())
+    lens = np.clip(np.full(B, Lk) if kv_lens is None
+                   else torch.as_tensor(kv_lens).detach().to("cpu").numpy(), 0, Lk)
     n_sm = (torch.cuda.get_device_properties(device).multi_processor_count
             if device.type == "cuda" else N_SM)
     items, cta_start, n_split, n_slots = dkv_tile_plan(lens, Lq, Lk, Hkv, H // Hkv, causal,
@@ -214,7 +223,8 @@ def dkv_plan(kv_lens: Optional[torch.Tensor], B: int, Lq: int, Lk: int, H: int, 
                    torch.as_tensor(cta_start, device=device),
                    torch.empty((n_slots, DKV_SLOT_FLOATS), dtype=torch.float32, device=device),
                    torch.zeros(2 * n_split, dtype=torch.int32, device=device),
-                   (B, Lq, Lk, H, Hkv, bool(causal)), len(cta_start) - 1)
+                   (B, Lq, Lk, H, Hkv, bool(causal)), len(cta_start) - 1,
+                   tuple(int(n) for n in lens.reshape(-1)))
 
 
 def flash_attention_bwd_dkv_by_plan(q, k, v, do, lse, delta, items, causal: bool = True):
@@ -259,10 +269,10 @@ def flash_attention_bwd_dkv_by_plan(q, k, v, do, lse, delta, items, causal: bool
 
 # ---------------------------------------------------------------- kernels
 
-def _check(name: str, q, k, v, kv_lens, *more, q_tile: Optional[int] = None) -> None:
-    """Shapes, then (for GPU tensors) what the CUDA kernel reads: bf16
-    operands, D in TRAIN_HEAD_DIMS and, for a kernel that folds the rep =
-    H / Hkv q heads of a kv head into its q tile, rep dividing q_tile."""
+def _check(name: str, q, k, v, kv_lens, *more) -> None:
+    """Shapes (H % Hkv == 0), then (for GPU tensors) what the CUDA kernel
+    reads: bf16 operands, D in TRAIN_HEAD_DIMS and a GQA ratio H / Hkv of
+    at most KERNEL_Q_TILE (the q heads of a kv head fit one 128-row item)."""
     B, Lq, H, D = q.shape
     check_shapes(name, k.dim() == 4 and k.shape == v.shape and k.shape[0] == B
                  and k.shape[3] == D and H % k.shape[2] == 0
@@ -272,7 +282,7 @@ def _check(name: str, q, k, v, kv_lens, *more, q_tile: Optional[int] = None) -> 
     if q.device.type != "cpu":
         check_kernel_inputs(name, q, k, v, *(t for t, s in more if len(s) == 4))
         Hkv = k.shape[2]
-        if D not in TRAIN_HEAD_DIMS or (q_tile is not None and q_tile % (H // Hkv)):
+        if D not in TRAIN_HEAD_DIMS or H // Hkv > KERNEL_Q_TILE:
             raise ValueError(f"{name} kernel: unsupported H={H} Hkv={Hkv} D={D}")
         for t, s in more:
             if len(s) == 3 and (t.device != q.device or t.dtype != torch.float32
@@ -290,7 +300,7 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (B, Lq, H, D), k/v (B, Lk, Hkv, D), kv_lens (B,) → (out (B, Lq, H, D),
     lse (B, H, Lq) f32)."""
-    _check("flash_attention_fwd_lse", q, k, v, kv_lens, q_tile=KERNEL_Q_TILE)
+    _check("flash_attention_fwd_lse", q, k, v, kv_lens)
     if q.device.type == "cpu":
         return flash_attention_fwd_lse_reference(q, k, v, kv_lens, causal)
     B, Lq, H, D = q.shape
@@ -316,7 +326,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, kv_lens=None, *,
     B, Lq, H, D = q.shape
     stats = (B, H, Lq)
     _check("flash_attention_bwd_dq", q, k, v, kv_lens,
-           (do, q.shape), (lse, stats), (delta, stats), q_tile=KERNEL_TILE)
+           (do, q.shape), (lse, stats), (delta, stats))
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, do, lse, delta, kv_lens, causal)[0]
     Lk, Hkv = k.shape[1], k.shape[2]
@@ -326,7 +336,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, kv_lens=None, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), lens.data_ptr(), B, Lq, Lk, H, Hkv, D,
         *_strides(q, k, v, do, dq), int(causal), D ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        torch._C._cuda_getCurrentRawStream(q.get_device()))
     _build.check(rc, "socio_flash_train_dq_bf16")
     flash_attention_bwd_dq.launches += 1
     return dq
@@ -335,25 +345,35 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, kv_lens=None, *,
 flash_attention_bwd_dq.launches = 0
 
 
-def _check_plan(plan: DkvPlan, key: tuple, q) -> None:
+def _check_plan(plan: DkvPlan, key: tuple, q, lens: torch.Tensor) -> None:
+    """The plan's shape and device against the call's and, for CPU tensors,
+    its kv lengths (on a GPU the kernel compares them, without a host
+    synchronisation)."""
     if plan.key != key or plan.items.get_device() != q.get_device():
         raise ValueError(f"flash_attention_bwd_dkv: a plan for (B, Lq, Lk, H, Hkv, causal) "
                          f"{plan.key} on {plan.items.device}, given {key} on {q.device}")
+    if q.device.type == "cpu":
+        given = tuple(lens.clamp(0, key[2]).tolist())
+        if given != plan.lens:
+            raise ValueError(f"flash_attention_bwd_dkv: a plan for kv lengths {plan.lens}, "
+                             f"given {given}")
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_lens=None, *, causal: bool = True,
                             plan: Optional[DkvPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv), each (B, Lk, Hkv, D): the GQA group sum happens in the
     kernel. `plan`: dkv_plan's plan for these kv_lens and shapes (built here,
-    a host synchronisation, when None); the kernel takes the lengths from it."""
+    a host synchronisation, when None); the kernel takes the lengths from it
+    and traps where they are not kv_lens."""
     B, Lq, H, D = q.shape
     stats = (B, H, Lq)
     _check("flash_attention_bwd_dkv", q, k, v, kv_lens,
            (do, q.shape), (lse, stats), (delta, stats))
     Lk, Hkv = k.shape[1], k.shape[2]
     key = (B, Lq, Lk, H, Hkv, bool(causal))
+    lens = _lens(kv_lens, B, Lk, q.device)
     if plan is not None:
-        _check_plan(plan, key, q)
+        _check_plan(plan, key, q, lens)
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, do, lse, delta, kv_lens, causal)[1:]
     if plan is None:
@@ -364,7 +384,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_lens=None, *, causal: bo
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), plan.items.data_ptr(),
         plan.cta_start.data_ptr(), plan.workspace.data_ptr(), plan.counters.data_ptr(),
-        plan.n_cta, B, Lq, Lk, H, Hkv, D, *_strides(q, k, v, do, dk, dv), int(causal),
+        lens.data_ptr(), plan.n_cta, B, Lq, Lk, H, Hkv, D, *_strides(q, k, v, do, dk, dv), int(causal),
         D ** -0.5, torch._C._cuda_getCurrentRawStream(q.get_device()))
     _build.check(rc, "socio_flash_train_dkv_bf16")
     flash_attention_bwd_dkv.launches += 1

@@ -82,7 +82,7 @@ def test_seg_tile_plan_cases(case):
 
 
 @pytest.mark.parametrize("Lq", [1, 63, 129, 200, 2048])
-@pytest.mark.parametrize("rep", [1, 2, 8])
+@pytest.mark.parametrize("rep", [1, 2, 5, 7, 8])
 @pytest.mark.parametrize("causal", [True, False])
 def test_prefill_tile_bounds(Lq, rep, causal):
     toks = QT // rep
@@ -100,6 +100,28 @@ def test_prefill_tile_bounds(Lq, rep, causal):
                 assert 0 <= n_free <= n_tiles
                 for j in range(n_free):
                     assert seen[:, j * KT:(j + 1) * KT].all()
+
+
+@pytest.mark.parametrize("rep", [1, 2, 5, 7, 8])
+@pytest.mark.parametrize("B,Lq,Hkv", [(1, 1, 1), (3, 200, 2), (2, 129, 3)])
+def test_gqa_work_items_cover_every_row_once(rep, B, Lq, Hkv):
+    """The work items of kernels 2, 4 and 5 (gqa_work_item, the host copy
+    of the kernels' formula): each (batch row, q head, token) in exactly one
+    active row of one item, rows rep * (128 // rep) .. 127 idle, the token
+    tiles from the last to the first."""
+    toks = QT // rep
+    n_items = -(-Lq // toks) * B * Hkv
+    covered = np.zeros((B, Hkv * rep, Lq), np.int64)
+    firsts = []
+    for item in range(n_items):
+        b, g, t0 = t_fa.gqa_work_item(item, B, Lq, Hkv, rep)
+        assert 0 <= b < B and 0 <= g < Hkv and t0 % toks == 0 and 0 <= t0 < Lq
+        for r in range(toks * rep):
+            if t0 + r // rep < Lq:
+                covered[b, g * rep + r % rep, t0 + r // rep] += 1
+        firsts.append(t0)
+    assert (covered == 1).all()
+    assert firsts == sorted(firsts, reverse=True)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -223,3 +245,39 @@ def test_row_tolerance_passes_dkv_rounding_and_fails_a_lost_q_tile(rows):
             # the row check fails on its own, before the gradient-wide one
             with pytest.raises(AssertionError, match="a row's error"):
                 chip_smoke._check_rows(name, g / scale, w / scale, chip_smoke.GRAD_ROW_FLOOR)
+
+
+def _rounded_dq(rows, N, D, seed, fault=None):
+    """dq of `rows` query rows over N keys as kernel 5 rounds it (bf16
+    inputs, ds rounded to bf16 before ds k, f32 sums, bf16 output),
+    optionally with one 128-key tile or one 64-key half of a tile (the
+    kernel's step) dropped or counted twice, and the f32 reference."""
+    g = torch.Generator().manual_seed(seed)
+    q, do = (torch.randn(rows, D, generator=g).bfloat16().float() for _ in range(2))
+    k, v = (torch.randn(N, D, generator=g).bfloat16().float() for _ in range(2))
+    scale = D ** -0.5
+    s = q @ k.T * scale
+    p = torch.exp(s - torch.logsumexp(s, -1, keepdim=True))
+    dp = do @ v.T
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * scale
+    w = torch.ones(1, N)
+    if fault is not None:
+        kind, span = fault
+        w[:, KT:KT + {"tile": KT, "half": KT // 2}[span]] = {"lost": 0.0, "doubled": 2.0}[kind]
+    return ((w * ds.bfloat16().float()) @ k).bfloat16(), ds @ k
+
+
+@pytest.mark.parametrize("N", [200, 2304])
+def test_row_tolerance_passes_dq_rounding_and_fails_a_lost_key_tile(N):
+    """chip_smoke holds kernel 5's dq row by row (each query row of a head)
+    to ROW_TOL: its rounding of ds to bf16 and f32 sums over up to 2304 keys
+    stay well inside, and a 128-key tile or a 64-key half dropped or counted
+    twice lies outside."""
+    import chip_smoke
+    got, want = _rounded_dq(128, N, 128, seed=N)
+    scale = want.abs().max().item()
+    assert chip_smoke._check_grad("dq", got, want, scale)[2] < chip_smoke.ROW_TOL / 2
+    for fault in [(kind, span) for kind in ("lost", "doubled") for span in ("tile", "half")]:
+        got, want = _rounded_dq(128, N, 128, seed=N, fault=fault)
+        with pytest.raises(AssertionError, match="a row's error"):
+            chip_smoke._check_rows("dq", got / scale, want / scale, chip_smoke.GRAD_ROW_FLOOR)

@@ -141,8 +141,23 @@ def test_flash_trainable_matches_pallas_vjp(L, Hkv, causal, lens):
     """The plain forward (out, lse) and backward (by the kernels' formula),
     and the autograd of flash_attention_trainable on CPU tensors, against the
     JAX custom VJP with its Pallas kernels in interpret mode (blocks 64)."""
+    _trainable_vs_pallas_vjp(L, 4, Hkv, causal, lens)
+
+
+@pytest.mark.parametrize("L,H,Hkv,causal,lens", [
+    (100, 10, 2, True, [100, 37]),    # rep 5: 25 tokens a kernel item, 3 idle rows
+    (72, 14, 2, False, [72, 0]),      # rep 7: 18 tokens a kernel item, 2 idle rows
+])
+def test_flash_trainable_matches_pallas_vjp_any_rep(L, H, Hkv, causal, lens):
+    """test_flash_trainable_matches_pallas_vjp at GQA ratios that do not
+    divide the kernels' 128-row item (Qwen2.5-VL-32B's 5, -7B's 7), which the
+    Pallas kernels take."""
+    _trainable_vs_pallas_vjp(L, H, Hkv, causal, lens)
+
+
+def _trainable_vs_pallas_vjp(L, H, Hkv, causal, lens):
     rng = np.random.default_rng(8)
-    B, H, D = 2, 4, 64
+    B, D = 2, 64
     q, k, v = _randn(rng, B, L, H, D), _randn(rng, B, L, Hkv, D), _randn(rng, B, L, Hkv, D)
     g = _randn(rng, B, L, H, D)
     jlens = jnp.asarray(np.array(lens, np.float32))
@@ -370,12 +385,15 @@ def test_cuda_paged_decode_matches_plain(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_flash_trainable_matches_plain(cuda):
+@pytest.mark.parametrize("H,Hkv", [(16, 2), (40, 8), (28, 4)])
+def test_cuda_flash_trainable_matches_plain(cuda, H, Hkv):
     """Kernels 4-6 against the plain versions in f32 on the same bf16 values,
-    with one empty row; the backward kernels get the plain lse and delta."""
+    with one empty row, at GQA ratios 8, 5 and 7 (the last two leave rows of
+    the kernels' 128-row items idle); the backward kernels get the plain lse
+    and delta."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     B, L = 3, 200
-    q, k, v, do = (_bf16(gen, B, L, h, 128) for h in (16, 2, 2, 16))
+    q, k, v, do = (_bf16(gen, B, L, h, 128) for h in (H, Hkv, Hkv, H))
     lens = torch.tensor([200, 77, 0], dtype=torch.int32, device=cuda)
     out, lse = t_fab.flash_attention_fwd_lse(q, k, v, lens)
     ref_out, ref_lse = t_fab.flash_attention_fwd_lse_reference(q.float(), k.float(),
@@ -389,3 +407,4 @@ def test_cuda_flash_trainable_matches_plain(cuda):
                                                ref_lse, delta, lens)
     for g, w in zip(got, want):
         assert (g.float() - w).abs().max().item() <= 2e-2 * w.abs().max().item()
+

@@ -77,7 +77,7 @@ def _check_plan(lens, Lq, Lk, Hkv, rep, causal, cap=None):
 
 
 @pytest.mark.parametrize("shape", ["train", "check"])
-@pytest.mark.parametrize("rep", [1, 2, 8])
+@pytest.mark.parametrize("rep", [1, 2, 5, 7, 8])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("kv_len", ["0", "1", "Lq", "odd"])
 def test_dkv_tile_plan_covers_every_pair_once(shape, rep, causal, kv_len):
@@ -102,11 +102,12 @@ def test_dkv_tile_plan_balances_the_check_shape():
     assert int((items[:, F["np"]] == 0).sum()) == 56
 
 
-@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 65, 8), (3, 129, 2), (1, 2304, 8)])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 65, 8), (3, 129, 2), (1, 2304, 8),
+                                   (2, 200, 5), (1, 129, 7)])
 @pytest.mark.parametrize("cap", [None, 1, 7])
 def test_dkv_tile_plan_edges(shape, cap):
-    """chip_smoke's edge shapes (Lq 1, 65, 129, 2304; rep 1, 2, 8) with the
-    plan's own cap and with forced splits."""
+    """chip_smoke's edge shapes (Lq 1, 65, 129, 200, 2304; rep 1, 2, 5, 7,
+    8) with the plan's own cap and with forced splits."""
     B, L, rep = shape
     _check_plan([L, 1, 0][:B], L, L, 2, rep, True, cap)
     _check_plan([L, 1, 0][:B], L, L, 2, rep, False, cap)
@@ -156,3 +157,22 @@ def test_dkv_plan_is_checked_against_the_call():
     leaves = [t.clone().requires_grad_(True) for t in (q, kv, kv)]
     fb.flash_attention_trainable(*leaves, lens, True, plan).sum().backward()
     assert all(leaf.grad is not None for leaf in leaves)
+
+
+def test_dkv_plan_refuses_other_kv_lengths():
+    """A plan built for kv lengths [8, 3] refuses a call over [8, 5] (on the
+    GPU the kernel traps on the same difference), and takes lengths that
+    clip to the same values."""
+    plan = fb.dkv_plan(torch.tensor([8, 3]), 2, 8, 8, 4, 2, True, "cpu")
+    assert plan.lens == (8, 3)
+    q, kv, stats = torch.zeros(2, 8, 4, 16), torch.zeros(2, 8, 2, 16), torch.zeros(2, 4, 8)
+    with pytest.raises(ValueError, match="a plan for kv lengths"):
+        fb.flash_attention_bwd_dkv(q, kv, kv, q, stats, stats, torch.tensor([8, 5]), plan=plan)
+    leaves = [t.clone().requires_grad_(True) for t in (q, kv, kv)]
+    out = fb.flash_attention_trainable(*leaves, torch.tensor([8, 5]), True, plan)
+    with pytest.raises(ValueError, match="a plan for kv lengths"):
+        out.sum().backward()
+    fb.flash_attention_bwd_dkv(q, kv, kv, q, stats, stats, torch.tensor([12, 3]), plan=plan)
+    full = fb.dkv_plan(None, 2, 8, 8, 4, 2, True, "cpu")
+    assert full.lens == (8, 8)
+    fb.flash_attention_bwd_dkv(q, kv, kv, q, stats, stats, None, plan=full)
