@@ -15,7 +15,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 (bytes over the memory rate or operations over the bf16
                 peak, whichever is larger); kernels 1, 2, 4, 5 and 6 also at
                 edge shapes (GQA ratios 1, 5, 7 and 8 among them) and row by
-                row, with their device time and host time a launch; the
+                row, with their device time and host time a launch; kernels
+                3 and 3q row by row at 4, 8 and 32 slots (a zero-length slot
+                exactly 0, two calls bit-equal), timed at 4 and 32; the
                 host copies of kernel 2's tile bounds and of the GQA work
                 items against the C++ formulas; kernel 6's plan, its refusal
                 of other kv lengths (a child process that must fail with a
@@ -66,7 +68,7 @@ from pathlib import Path
 import numpy as np
 
 KERNEL_TOL = 2e-2       # max-abs, bf16 output rounding at |out| up to ~4
-# Kernels 1, 2 and 4 are also held row by row: in each (query row, head) the
+# Kernels 1-4 are also held row by row: in each (query row, head) the
 # max-abs error is at most ROW_TOL of that row's largest |reference| (a row
 # that sees no key gives exactly 0). Over a full ViT layer's 2916 keys an
 # output is ~0.03, so KERNEL_TOL alone would pass a kernel that dropped or
@@ -567,101 +569,129 @@ def phase_kernels():
     emit({"phase": "kernel", **results[-1]})
 
     # decode: the stacked 36-layer cache of the main phase (max_len 2624)
-    Lalloc = -(-(2560 + 64 + 16) // 256) * 256
-    errs, timing = [], None
-    for slots, lens in ((4, [0, 1, 1500, Lalloc - 3]),
-                        (8, [0, 1, 2, 63, 64, 65, 2016, Lalloc - 1])):
-        kc, vc = randn(36, slots, Lalloc, 2, 128), randn(36, slots, Lalloc, 2, 128)
-        q = randn(slots, 16, 128)
-        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-        for layer_i in (0, 17, 35):
-            run = lambda: da.paged_decode_attention(   # noqa: E731
-                q, kc, vc, lengths, layer=layer_i)
-            ref = lambda: da.paged_decode_attention_reference(   # noqa: E731
-                q.float(), kc[layer_i].float(), vc[layer_i].float(), lengths)
-            errs.append(_check(f"decode S={slots} layer={layer_i}", run(), ref()))
-        if slots == 4:
-            # per layer, over a sweep of all 36 layers: 415 MB of cache, so
-            # each layer's blocks come from HBM as in the decode step, not L2
-            sweep = lambda: [da.paged_decode_attention(   # noqa: E731
-                q, kc, vc, lengths, layer=i) for i in range(36)]
-            plain = lambda: [da.paged_decode_attention_reference(   # noqa: E731
-                q, kc, vc, lengths, layer=i) for i in range(36)]
-            # the library call: one query per slot over the layer's cache view
-            # with a boolean length mask (rows of length 0 give NaN there)
-            keep = (torch.arange(Lalloc, device=dev)[None] < lengths[:, None])[:, None, None]
-            q4 = q[:, :, None]
-            lib = lambda: [F.scaled_dot_product_attention(   # noqa: E731
-                q4, kc[i].transpose(1, 2), vc[i].transpose(1, 2), attn_mask=keep,
-                enable_gqa=True) for i in range(36)]
-            n_keys = sum(lens)
-            timing = (cuda_ms(sweep) / 36, cuda_ms(plain, n=10) / 36,
-                      device_ms(sweep, ("paged_decode",)) / 36, cuda_ms(lib, n=10) / 36,
-                      bound(2 * (2 * q.numel()) + n_keys * 2 * 2 * 128 * 2,
-                            4 * 128 * 16 * n_keys))
-        del kc, vc
-    results.append(_row(
-        "paged_decode_attention", "socioreasoner_tpu_torch/csrc/paged_decode.cu",
-        "socioreasoner_tpu/ops/decode_attention.py:36",
-        f"cache (36, 4|8, {Lalloc}, 2, 128), ms per layer at S=4", max(errs), timing[0],
-        timing[1], *timing[4], timing[3],
-        "scaled_dot_product_attention(enable_gqa=True), one query per slot, boolean "
-        "length mask, per layer", device_ms=timing[2]))
-    emit({"phase": "kernel", **results[-1]})
-    torch.cuda.empty_cache()
-    results.append(_int8_decode_kernel(randn, Lalloc))
+    results.extend(_decode_kernels(randn, -(-(2560 + 64 + 16) // 256) * 256))
     results.extend(_train_kernels(randn, train_edge))
     results.append(_row_writer_kernel(randn))
     return results
 
 
-def _int8_decode_kernel(randn, Lalloc):
-    """Kernel 3q at the main phase's decode shape: the stacked int8 cache
-    (36, S, Lalloc, 2, 128) with f32 scales (36, S, 2, Lalloc) from
-    quantize_kv, against the plain version (dequantize_kv + dense
-    attention) in f32 on the same codes and scales."""
+# Kernels 3 and 3q: (slots, lengths) of the checks. S=4 is the main phase's
+# decode (prompts of 2016 tokens and fewer); S=8 the edges of a block; S=32
+# the production slot count (examples/infer/rlvr_tpu.yaml:25) with mixed
+# lengths. The first and the last are timed.
+DECODE_CASES = ((4, (0, 1, 1500, -3)), (8, (0, 1, 2, 63, 64, 65, 2016, -1)),
+                (32, (0, 1, 64, -1) + tuple((97 * i) % 2816 for i in range(1, 29))))
+
+
+def _decode_caches(randn, slots, Lalloc, quant):
+    """The stacked 36-layer caches (k, v) or, for kernel 3q, (k codes, v
+    codes, k scales, v scales) from quantize_kv, scales (36, S, 2, Lalloc)."""
+    from socioreasoner_tpu_torch.ops import decode_attention as da
+    if not quant:
+        return randn(36, slots, Lalloc, 2, 128), randn(36, slots, Lalloc, 2, 128)
+    codes, scales = [], []
+    for _ in range(2):
+        code, scale = da.quantize_kv(randn(36 * slots, Lalloc, 2, 128))
+        codes.append(code.reshape(36, slots, Lalloc, 2, 128))
+        scales.append(scale.reshape(36, slots, Lalloc, 2).transpose(-1, -2).contiguous())
+        del code, scale
+    return (*codes, *scales)
+
+
+def _decode_kernels(randn, Lalloc):
+    """Kernels 3 (bf16 cache) and 3q (int8 codes with f32 scales) over the
+    stacked cache (36, S, Lalloc, 2, 128) at DECODE_CASES: each (slot, q head)
+    row against the plain version in f32 on the same values (ROW_TOL; a
+    zero-length slot exactly 0) at layers 0, 17 and 35, two calls bit-equal;
+    per layer over a sweep of all 36 layers (a layer's blocks come from HBM as
+    in the decode step, not L2): ms, device ms from a CUDA graph of the sweep
+    (the torch.profiler figure beside it), host us a call, the plain
+    version's and the library call's ms, the bound."""
     import torch
+    import torch.nn.functional as F
     from socioreasoner_tpu_torch.ops import decode_attention as da
 
-    errs, timing = [], None
-    for slots, lens in ((4, [0, 1, 1500, Lalloc - 3]),
-                        (8, [0, 1, 2, 63, 64, 65, 2016, Lalloc - 1])):
-        caches = []
-        for _ in range(2):
-            code, scale = da.quantize_kv(randn(36 * slots, Lalloc, 2, 128))
-            caches.append(code.reshape(36, slots, Lalloc, 2, 128))
-            caches.append(scale.reshape(36, slots, Lalloc, 2).transpose(-1, -2).contiguous())
-            del code, scale
-        kc, ks, vc, vs = caches
-        q = randn(slots, 16, 128)
-        lengths = torch.tensor(lens, dtype=torch.int32, device=q.device)
-        for layer in (0, 17, 35):
-            run = lambda: da.paged_decode_attention(   # noqa: E731
-                q, kc, vc, lengths, ks, vs, layer=layer)
-            ref = lambda: da.paged_decode_attention_int8_reference(   # noqa: E731
-                q.float(), kc, vc, lengths, ks, vs, layer=layer)
-            errs.append(_check(f"int8 decode S={slots} layer={layer}", run(), ref()))
-        if slots == 4:
-            # per layer, over a sweep of all 36 layers (208 MB of codes)
-            sweep = lambda: [da.paged_decode_attention(   # noqa: E731
-                q, kc, vc, lengths, ks, vs, layer=i) for i in range(36)]
-            plain = lambda: [da.paged_decode_attention_int8_reference(   # noqa: E731
-                q, kc, vc, lengths, ks, vs, layer=i) for i in range(36)]
-            # int8 codes and an f32 scale per (key, kv head), for K and V
-            n_keys = sum(lens)
-            timing = (cuda_ms(sweep) / 36, cuda_ms(plain, n=10) / 36,
-                      device_ms(sweep, ("paged_decode",)) / 36,
-                      bound(2 * (2 * q.numel()) + n_keys * 2 * 2 * (128 + 4),
-                            4 * 128 * 16 * n_keys))
-        del kc, ks, vc, vs, caches
-    torch.cuda.empty_cache()
-    out = _row("paged_decode_attention_int8", "socioreasoner_tpu_torch/csrc/paged_decode.cu",
-               "socioreasoner_tpu/ops/decode_attention.py:36",
-               f"int8 cache (36, 4|8, {Lalloc}, 2, 128) + f32 scales, ms per layer at S=4",
-               max(errs), timing[0], timing[1], *timing[3], None,
-               "none: no single call dequantizes and attends", device_ms=timing[2])
-    emit({"phase": "kernel", **out})
-    return out
+    dev = torch.device("cuda")
+    rows = []
+    for quant in (False, True):
+        name = "paged_decode_attention_int8" if quant else "paged_decode_attention"
+        plain_fn = (da.paged_decode_attention_int8_reference if quant
+                    else da.paged_decode_attention_reference)
+        errs, ratios, timed = [], [], {}
+        for slots, lens in DECODE_CASES:
+            lens = [n % Lalloc if n < 0 else n for n in lens]
+            caches = _decode_caches(randn, slots, Lalloc, quant)
+            k, v, scales = caches[0], caches[1], caches[2:]
+            q = randn(slots, 16, 128)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            for layer in (0, 17, 35):
+                got = da.paged_decode_attention(q, k, v, lengths, *scales, layer=layer)
+                tag = f"{name} S={slots} layer={layer}"
+                if not torch.equal(got, da.paged_decode_attention(q, k, v, lengths, *scales,
+                                                                  layer=layer)):
+                    raise AssertionError(f"{tag}: two calls on the same inputs differ")
+                if got[lengths == 0].any():
+                    raise AssertionError(f"{tag}: a zero-length slot is not 0")
+                if quant:
+                    want = plain_fn(q.float(), k, v, lengths, *scales, layer=layer)
+                else:
+                    want = plain_fn(q.float(), k[layer].float(), v[layer].float(), lengths)
+                err, ratio = _check_rows(tag, got, want)
+                errs.append(err)
+                ratios.append(ratio)
+            if slots in (4, 32):
+                sweep = lambda: [da.paged_decode_attention(   # noqa: E731
+                    q, k, v, lengths, *scales, layer=i) for i in range(36)]
+                plain = lambda: [plain_fn(q, k, v, lengths, *scales, layer=i)   # noqa: E731
+                                 for i in range(36)]
+                n_keys = sum(lens)
+                # q read and the output written (bf16), and each valid key's K
+                # and V rows of both kv heads once: bf16, or int8 codes and an
+                # f32 scale a row
+                row_bytes = 128 + 4 if quant else 128 * 2
+                figures = {
+                    "lengths": lens, "n_split": da.decode_plan(
+                        q, k, v, lengths, *scales, stacked=True).n_split,
+                    "ms": cuda_ms(sweep) / 36, "device_ms": graph_call_ms(sweep, reps=1) / 36,
+                    "profiler_device_ms": device_ms(sweep, ("paged_decode",)) / 36,
+                    "host_us": host_us(lambda: da.paged_decode_attention(
+                        q, k, v, lengths, *scales, layer=17)),
+                    "plain_ms": cuda_ms(plain, n=10) / 36,
+                    "bound": bound(2 * (2 * q.numel()) + n_keys * 2 * 2 * row_bytes,
+                                   4 * 128 * 16 * n_keys)}
+                if not quant:
+                    # the library call: one query per slot over the layer's
+                    # cache view with a boolean length mask (rows of length 0
+                    # give NaN there)
+                    keep = (torch.arange(Lalloc, device=dev)[None]
+                            < lengths[:, None])[:, None, None]
+                    q4 = q[:, :, None]
+                    figures["library_ms"] = cuda_ms(lambda: [F.scaled_dot_product_attention(
+                        q4, k[i].transpose(1, 2), v[i].transpose(1, 2), attn_mask=keep,
+                        enable_gqa=True) for i in range(36)], n=10) / 36
+                timed[slots] = figures
+            del caches, k, v, scales
+            torch.cuda.empty_cache()
+        main, prod = timed[4], timed[32]
+        kind = "int8 cache + f32 scales" if quant else "cache"
+        rows.append(_row(
+            name, "socioreasoner_tpu_torch/csrc/paged_decode.cu",
+            "socioreasoner_tpu/ops/decode_attention.py:36",
+            f"{kind} (36, 4|8|32, {Lalloc}, 2, 128), 16 q heads, ms per layer at S=4",
+            max(errs), main["ms"], main["plain_ms"], *main["bound"],
+            main.get("library_ms"),
+            "none: no single call dequantizes and attends" if quant else
+            "scaled_dot_product_attention(enable_gqa=True), one query per slot, boolean "
+            "length mask, per layer",
+            device_ms=main["device_ms"], profiler_device_ms=main["profiler_device_ms"],
+            host_us=main["host_us"], n_split=main["n_split"], max_row_ratio=max(ratios),
+            bit_equal_twice=True,
+            slots32={key: prod[key] for key in ("lengths", "n_split", "ms", "device_ms",
+                                                "profiler_device_ms", "host_us", "plain_ms")}
+            | {"bound_ms": prod["bound"][0], "bound_by": prod["bound"][1],
+               "library_ms": prod.get("library_ms")}))
+        emit({"phase": "kernel", **rows[-1]})
+    return rows
 
 
 ROW_WRITER_SHAPE = (36, 24, 1536, 2, 128)   # scripts/profile_decode2.py:17-18, 33-36

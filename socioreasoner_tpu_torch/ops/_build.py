@@ -43,10 +43,10 @@ SIGNATURES = {
         [_I] * 5 + [_P],
     "socio_flash_segmented_bf16":
         [_P] * 7 + [_I] * 4 + [_LL] * 8 + [_F, _P],
-    "socio_paged_decode_bf16":
-        [_P] * 7 + [_I] * 6 + [_LL] * 10 + [_F, _P],
-    "socio_paged_decode_int8":
-        [_P] * 9 + [_I] * 6 + [_LL] * 14 + [_F, _P],
+    "socio_paged_decode_encode":
+        [_I] + [_P] * 4,
+    "socio_paged_decode":
+        [_I] + [_P] * 6 + [_I, _P, _P],
     "socio_write_rows_bf16":
         [_P] * 5 + [_I] * 3 + [_LL] * 6 + [_P],
     "socio_flash_train_fwd_bf16":

@@ -371,17 +371,41 @@ def test_cuda_flash_segmented_matches_plain(cuda):
         assert (got.float() - want).abs().max().item() <= 2e-2
 
 
+def assert_decode_rows(got, want, lens, tol=2e-2):
+    """Kernel 3/3q's output against the plain version in f32: each (slot,
+    head) row within `tol` of its own largest |value| (and 2e-2 max-abs), a
+    zero-length slot exactly 0."""
+    diff = (got.float() - want).abs()
+    assert diff.max().item() <= 2e-2
+    ratio = diff.amax(-1) / want.abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+    live = lens.to(got.device) > 0
+    assert ratio[live].max().item() <= tol
+    assert not got[~live].any()
+
+
+# (S, H, Hkv, lengths): the GQA ratios 8, 5 (Qwen2.5-VL-32B's 40 / 8 heads) and
+# 7 (-7B's 28 / 4), and the production slot count 32 with mixed lengths
+DECODE_CASES = [(5, 16, 2, [0, 1, 63, 300, 512]),
+                (32, 16, 2, [0, 1, 64, 511] + [(37 * i) % 513 for i in range(28)]),
+                (6, 40, 8, [0, 1, 64, 65, 511, 512]),
+                (6, 28, 4, [512, 300, 0, 1, 129, 63])]
+
+
 @pytest.mark.cuda
-def test_cuda_paged_decode_matches_plain(cuda):
+@pytest.mark.parametrize("S,H,Hkv,lengths", DECODE_CASES)
+def test_cuda_paged_decode_matches_plain(cuda, S, H, Hkv, lengths):
     gen = torch.Generator(device=cuda).manual_seed(2)
-    kc, vc = _bf16(gen, 3, 5, 512, 2, 128), _bf16(gen, 3, 5, 512, 2, 128)
-    q = _bf16(gen, 5, 16, 128)
-    lens = torch.tensor([0, 1, 63, 300, 512], dtype=torch.int32, device=cuda)
+    kc, vc = _bf16(gen, 3, S, 512, Hkv, 128), _bf16(gen, 3, S, 512, Hkv, 128)
+    q = _bf16(gen, S, H, 128)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    n = t_dec.paged_decode_attention.launches
     for layer in range(3):
         got = t_dec.paged_decode_attention(q, kc, vc, lens, layer=layer)
         want = t_dec.paged_decode_attention_reference(q.float(), kc[layer].float(),
                                                       vc[layer].float(), lens)
-        assert (got.float() - want).abs().max().item() <= 2e-2
+        assert_decode_rows(got, want, lens)
+        assert torch.equal(t_dec.paged_decode_attention(q, kc, vc, lens, layer=layer), got)
+    assert t_dec.paged_decode_attention.launches == n + 6
 
 
 @pytest.mark.cuda

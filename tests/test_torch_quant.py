@@ -49,8 +49,9 @@ def _port(obj):
                   for f in dataclasses.fields(obj) if f.init})
 from socioreasoner_tpu_torch.ops import decode_attention as t_dec
 from socioreasoner_tpu_torch.ops import quant as tq
+from test_torch_ops import DECODE_CASES, assert_decode_rows
 
-TOL = 1e-4          # max-abs on f32 logits / embeddings (as test_torch_qwen25vl)
+TOL = 1e-4         # max-abs on f32 logits / embeddings (as test_torch_qwen25vl)
 
 
 def _np_tree(tree):
@@ -525,24 +526,29 @@ def cuda():
 
 
 @pytest.mark.cuda
-def test_cuda_paged_decode_int8_matches_plain(cuda):
+@pytest.mark.parametrize("S,H,Hkv,lengths", DECODE_CASES)
+def test_cuda_paged_decode_int8_matches_plain(cuda, S, H, Hkv, lengths):
     """Kernel 3q against the plain version in f32 on the same codes and
-    scales, at every layer of a stacked cache; lengths 0, 1, partial blocks
-    and the full cache (bf16 output: 2e-2 max-abs, as the bf16 kernel)."""
+    scales, at every layer of a stacked cache, row by row (bf16 output, as
+    the bf16 kernel); lengths 0, 1, partial blocks and the full cache; GQA
+    ratios 8, 5 and 7; 5, 6 and 32 slots; two calls bit-equal."""
     gen = torch.Generator(device=cuda).manual_seed(4)
-    code, scale = t_dec.quantize_kv(torch.randn(3 * 5, 512, 2, 128, generator=gen, device=cuda))
-    kc = code.reshape(3, 5, 512, 2, 128)
-    ks = scale.reshape(3, 5, 512, 2).transpose(-1, -2).contiguous()
+    code, scale = t_dec.quantize_kv(torch.randn(3 * S, 512, Hkv, 128, generator=gen,
+                                                device=cuda))
+    kc = code.reshape(3, S, 512, Hkv, 128)
+    ks = scale.reshape(3, S, 512, Hkv).transpose(-1, -2).contiguous()
     vc, vs = kc.flip(2).contiguous(), ks.flip(-1).contiguous()
-    q = torch.randn(5, 16, 128, generator=gen, device=cuda).to(torch.bfloat16)
-    lens = torch.tensor([0, 1, 63, 300, 512], dtype=torch.int32, device=cuda)
+    q = torch.randn(S, H, 128, generator=gen, device=cuda).to(torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
     n = t_dec.paged_decode_attention_int8.launches
     for layer in range(3):
         got = t_dec.paged_decode_attention(q, kc, vc, lens, ks, vs, layer=layer)
         want = t_dec.paged_decode_attention_int8_reference(q.float(), kc, vc, lens, ks, vs,
                                                            layer=layer)
-        assert (got.float() - want).abs().max().item() <= 2e-2
-    assert t_dec.paged_decode_attention_int8.launches == n + 3
+        assert_decode_rows(got, want, lens)
+        assert torch.equal(t_dec.paged_decode_attention(q, kc, vc, lens, ks, vs, layer=layer),
+                           got)
+    assert t_dec.paged_decode_attention_int8.launches == n + 6
 
 
 @pytest.mark.cuda
