@@ -46,7 +46,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 w8a8 prefill), the image embeddings from the strategy's int8
                 vision tree; kernels 1, 2 and 3q must launch, kernel 3 not;
                 plus the quantized stacks' logit figures at full depth.
-  10. row_writer — kernel 7's own path: one decode step's K/V row writes
+  10. two_stage — SocioSegInferPipeline.run() at full width: Qwen2.5-VL-3B
+                (the main phase's tree, served as int8 single-copy weights
+                with examples/infer/rlvr_tpu.yaml's knobs) and SAM2-hiera-
+                large with random bf16 weights over four 768x768 tiles, cut
+                to rollout_batch_size 4, response_length 64,
+                infer_batch_size 4; after a sequential pass (the ViT ms of
+                each stage), run() measured: tiles/s, the engine's figures,
+                4 PNGs and 2 texts a tile and iou_acc.txt; kernels 1-3 must
+                launch in run().
+  11. sam2    — on the same pipeline, _segment of the four tiles with a
+                crafted stage-1 answer (boxes), then a stage-2 answer (boxes
+                and points): one encode a tile over both (stage 2 hits the
+                cache), (768, 768) uint8 masks, an all-zero mask for an
+                answer without answer tags; encoder ms a tile, decoder ms a
+                prompt batch; one tile in bf16 against f32.
+  12. row_writer — kernel 7's own path: one decode step's K/V row writes
                 into the stacked cache at the diagnostic script's shape (36
                 layers, 24 slots, Lalloc 1536), held against the indexed
                 assignment.
@@ -997,13 +1012,9 @@ def phase_engine():
         raise AssertionError(f"engine greedy diverged beyond ties: {failures}")
 
 
-def _stage1_batch(config, n_tiles: int, tile_px: int, img_cfg, prompt_length: int):
-    """n synthetic map+sat tiles (as bench.py makes them) → stage-1 batch."""
+def _synthetic_tiles(n_tiles: int, tile_px: int):
+    """n synthetic map+sat tiles with a gt mask and ids (as bench.py makes them)."""
     from PIL import Image
-    from socioreasoner_tpu_torch.datasets.processor import SimpleTokenizer, SocioProcessor
-    from socioreasoner_tpu_torch.datasets.socioseg import encode_sample
-    from socioreasoner_tpu_torch.datasets.collator import SocioSegCollator
-
     rng = np.random.default_rng(0)
     tiles = []
     for i in range(n_tiles):
@@ -1018,11 +1029,23 @@ def _stage1_batch(config, n_tiles: int, tile_px: int, img_cfg, prompt_length: in
             "mask": Image.fromarray(mask),
             "question": "residential area",
         })
-    features = [encode_sample(t, img_cfg) for t in tiles]
-    processor = SocioProcessor(SimpleTokenizer(config.text.vocab_size), img_cfg,
-                               image_token_id=config.image_token_id)
-    collator = SocioSegCollator(processor, config, prompt_length=prompt_length,
-                                out_prefix="")
+    return tiles
+
+
+def _processor(config, img_cfg):
+    from socioreasoner_tpu_torch.datasets.processor import SimpleTokenizer, SocioProcessor
+    return SocioProcessor(SimpleTokenizer(config.text.vocab_size), img_cfg,
+                          image_token_id=config.image_token_id)
+
+
+def _stage1_batch(config, n_tiles: int, tile_px: int, img_cfg, prompt_length: int):
+    """n synthetic map+sat tiles → stage-1 batch."""
+    from socioreasoner_tpu_torch.datasets.socioseg import encode_sample
+    from socioreasoner_tpu_torch.datasets.collator import SocioSegCollator
+
+    features = [encode_sample(t, img_cfg) for t in _synthetic_tiles(n_tiles, tile_px)]
+    collator = SocioSegCollator(_processor(config, img_cfg), config,
+                                prompt_length=prompt_length, out_prefix="")
     return collator(features)
 
 
@@ -1140,7 +1163,11 @@ def run_main_path(config, params, dev, *, n_tiles=4, tile_px=768, img_cfg=None,
 
 
 def _tree_bytes(tree) -> int:
-    return sum(_tree_bytes(v) if isinstance(v, dict) else v.nbytes for v in tree.values())
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.nbytes
 
 
 def phase_main():
@@ -1613,6 +1640,291 @@ def phase_main_quant(config, params, main_stats):
     return {"paged_decode_attention_int8": launches["paged_decode_attention_int8"]}
 
 
+# ------------------------------------------------------- two-stage pipeline
+
+# examples/infer/rlvr_tpu.yaml:14-28, set in code: the decode strategy's knobs
+INFER_STRATEGY = {"kv_quant": None, "weight_quant": "int8", "single_copy_quant": True,
+                  "act_quant": None, "prefix_fork": True}
+# the two_stage phase's cuts of the yaml's scale (rollout_batch_size 250,
+# response_length 2048, infer_batch_size 16)
+TWO_STAGE_CUTS = {"rollout_batch_size": 4, "response_length": 64, "infer_batch_size": 4}
+# crafted answers in the 756×756 space of the resized tile (as
+# tests/test_infer_pipeline_e2e.py:106-118 crafts them)
+S1_ANSWER = ('<think>two blocks</think><answer>[{"bbox_2d": [100, 120, 400, 380]}, '
+             '{"bbox_2d": [420, 60, 700, 300]}]</answer>')
+S2_ANSWER = ('<think>points</think><answer>[{"bbox_2d": [100, 120, 400, 380], '
+             '"points": [[200, 200], [300, 330]]}, {"bbox_2d": [420, 60, 700, 300], '
+             '"points": [[560, 180]]}]</answer>')
+# sam2's bf16-against-f32 bounds on one tile: the share of mask pixels (the
+# sign of every multimask logit) that must agree, and the IoU scores' max-abs
+SAM2_PIXEL_AGREE = 0.99
+SAM2_IOU_TOL = 2e-2
+
+
+def socioseg_infer_config(out_dir: str, *, rollout_batch_size: int, response_length: int,
+                          infer_batch_size: int, prompt_length: int = 4096):
+    """SocioSegConfig with examples/infer/rlvr_tpu.yaml's settings set in
+    code (seed 42, track_with stdout, no checkpoints, prompt_length 4096,
+    top_p 0.8, temperature 1.0, one sample a prompt, INFER_STRATEGY), at the
+    given scale; output under out_dir."""
+    from socioreasoner_tpu_torch.configs.rlvr_config import SocioSegConfig
+    cfg = SocioSegConfig(exp_name="qwen2_5_vl_3B_socioseg_infer", seed=42,
+                         output_dir=out_dir, track_with="stdout", save_steps=-1,
+                         rollout_batch_size=rollout_batch_size,
+                         prompt_length=prompt_length, response_length=response_length)
+    ga = cfg.actor_infer.generating_args
+    ga.max_new_tokens, ga.top_p, ga.temperature = cfg.response_length, 0.8, 1.0
+    ga.num_return_sequences = 1
+    cfg.actor_infer.strategy_args.strategy_name = "jax_decode"
+    cfg.actor_infer.strategy_args.strategy_config = dict(INFER_STRATEGY)
+    cfg.actor_infer.infer_batch_size = infer_batch_size
+    cfg.seg_infer.strategy_args.strategy_name = "seg_infer"
+    return cfg
+
+
+def build_two_stage(config, params, sam_config, sam_params, out_dir, *, n_tiles=4,
+                    tile_px=768, img_cfg=None, prompt_length=4096, **cuts):
+    """SocioSegInferPipeline over n synthetic tiles, built as the entry
+    script builds it (default_engine_kwargs of the config)."""
+    from socioreasoner_tpu_torch.datasets.processor import ImageProcessorConfig
+    from socioreasoner_tpu_torch.datasets.socioseg import encode_sample
+    from socioreasoner_tpu_torch.pipeline.rlvr.build import default_engine_kwargs
+    from socioreasoner_tpu_torch.pipeline.rlvr.socioseg_infer_pipeline import (
+        SocioSegInferPipeline)
+
+    img_cfg = img_cfg or ImageProcessorConfig(defer_patchify=True)
+    cfg = socioseg_infer_config(out_dir, prompt_length=prompt_length,
+                                **{**TWO_STAGE_CUTS, **cuts})
+    dataset = [encode_sample(t, img_cfg) for t in _synthetic_tiles(n_tiles, tile_px)]
+    return SocioSegInferPipeline(
+        cfg, model_config=config, policy_params=params, sam_config=sam_config,
+        sam_params=sam_params, processor=_processor(config, img_cfg), dataset=dataset,
+        engine_kwargs=default_engine_kwargs(cfg))
+
+
+def run_two_stage(pipeline, dev, kernels=()):
+    """A sequential _two_stage pass (warm-up, and the breakdown: the ViT
+    calls of each stage timed between device syncs, its wall and engine
+    figures), then run() with the config's overlapped restage, measured, the
+    `kernels`' launch counts set to 0 just before it and read just after;
+    the outputs checked (4 PNGs and 2 texts a tile, iou_acc.txt equal to the
+    returned giou_acc). Returns stats."""
+    import os
+    from socioreasoner_tpu_torch.pipeline.rlvr import socioseg_infer_pipeline as sip
+    from socioreasoner_tpu_torch.pipeline.rlvr.parsing import parse_bboxes
+
+    cfg = pipeline.pipeline_config
+    n = len(pipeline.dataset)
+    vit = {"map_": [], "": []}
+    plain_embeds = sip.batch_image_embeds
+
+    def timed_embeds(config, params, batch, prefix="", image_config=None):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = plain_embeds(config, params, batch, prefix=prefix, image_config=image_config)
+        _sync(dev)
+        vit[prefix].append(((time.perf_counter() - t0) * 1e3, len(batch)))
+        return out
+
+    engine = pipeline.actor_infer.engine
+
+    def engine_counts():
+        return (engine.prefill_device_time, engine.decode_time, engine.steps_executed,
+                engine.prefill_rows, engine.host_syncs, sum(engine.prefill_hist.values()))
+
+    sip.batch_image_embeds = timed_embeds
+    cfg.overlap_restage = False
+    before = engine_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    try:
+        seq = pipeline._two_stage(pipeline.dataset)
+    finally:
+        sip.batch_image_embeds = plain_embeds
+        cfg.overlap_restage = True
+    seq_wall = time.perf_counter() - t0
+    seq_d = [a - b for a, b in zip(engine_counts(), before)]
+
+    for fn in kernels:
+        fn.launches = 0
+    before = engine_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    giou_acc = pipeline.run()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    d = [a - b for a, b in zip(engine_counts(), before)]
+
+    res = pipeline.result_dir
+    files = {sub: sorted(os.listdir(os.path.join(res, sub)))
+             for sub in ("stage1", "stage2", "render1", "render2")}
+    ids = [str(r["id"]) for r in pipeline.dataset]
+    want = {"stage1": sorted([f"{i}.png" for i in ids] + [f"{i}.txt" for i in ids]),
+            "render1": sorted(f"{i}.png" for i in ids)}
+    want["stage2"], want["render2"] = want["stage1"], want["render1"]
+    if files != want:
+        raise AssertionError(f"result files {files} != {want}")
+    with open(os.path.join(res, "iou_acc.txt")) as f:
+        written = float(f.read())
+    if written != giou_acc or not 0.0 <= giou_acc <= 1.0:
+        raise AssertionError(f"iou_acc.txt {written} != giou_acc {giou_acc}")
+    timer = pipeline.state.log_history[-1]["time/two_stage"]
+    return {"tiles": n, "tiles_per_s": n / wall, "run_wall_s": wall,
+            "per_tile_wall_s": wall / n, "two_stage_timer_s": timer,
+            "vit_ms_per_tile_s1": sum(t for t, _ in vit["map_"]) / n,
+            "vit_ms_per_tile_s2": sum(t for t, _ in vit[""]) / n,
+            "prefill_ms": d[0] * 1e3, "decode_s": d[1], "steps_executed": d[2],
+            "prefill_rows": d[3], "host_syncs": d[4], "prefill_calls": d[5],
+            # the sequential pass (the ViT timed between syncs) beside run()'s
+            "sequential": {"wall_s": seq_wall, "prefill_ms": seq_d[0] * 1e3,
+                           "decode_s": seq_d[1], "steps_executed": seq_d[2],
+                           "prefill_calls": seq_d[5]},
+            "giou_acc": giou_acc, "files_written": sum(len(v) for v in files.values()) + 1,
+            # answers with a box in the sequential pass: on random weights
+            # none, so SegStrategy returns empty masks without encoding
+            "s1_answers_with_boxes": sum(bool(parse_bboxes(t)) for t in seq["map_texts"]),
+            "launches": launches}
+
+
+def _float_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _float_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_float_tree(v) for v in tree]
+    return tree.float()
+
+
+def run_sam2_checks(pipeline, dev, *, reps=3):
+    """SAM2 through the pipeline's SegStrategy: _segment of every tile with
+    S1_ANSWER, then S2_ANSWER; the encoder must run once a tile over both
+    (stage 2 hits the cache), the masks be (768, 768) uint8, and an answer
+    without answer tags give an all-zero mask. Then the encoder's ms a tile
+    and the decoder's ms a prompt batch (medians of `reps`), and one tile in
+    the tree's dtype against an f32 copy of it. Returns stats."""
+    import statistics
+    import torch
+    from socioreasoner_tpu_torch.models.sam2.model import Sam2Predictor, predict_masks
+    from socioreasoner_tpu_torch.distributed.seg_strategy import SEG_INPUT_SIZE, SEG_OUTPUT_SIZE
+    from socioreasoner_tpu_torch.pipeline.rlvr.parsing import parse_visual_prompts_s2
+
+    seg = pipeline.seg_infer
+    pred = seg.predictor
+    seg.clear_embed_cache()
+    batch = pipeline.collator(pipeline.dataset)
+    n = len(batch)
+    encoded = []
+    plain_set_images = pred.set_images
+
+    def counting(images):
+        encoded.append(len(images))
+        return plain_set_images(images)
+
+    pred.set_images = counting
+    try:
+        m1 = pipeline._segment(batch, [S1_ANSWER] * n, stage=1)
+        m2 = pipeline._segment(batch, [S2_ANSWER] * n, stage=2)
+        empty = pipeline._segment_idxs(batch, [0], ["no answer tags at all"], stage=2)
+    finally:
+        pred.set_images = plain_set_images
+    for m in m1 + m2 + empty:
+        if m.shape != SEG_OUTPUT_SIZE or m.dtype != np.uint8:
+            raise AssertionError(f"a mask of {m.shape} {m.dtype}")
+    if sum(encoded) != n:
+        raise AssertionError(f"the encoder ran over {encoded} tiles for {n} tiles, two stages")
+    if empty[0].any():
+        raise AssertionError("an answer without answer tags gave a non-empty mask")
+
+    images = [im.resize(SEG_INPUT_SIZE) for im in batch.non_tensor["seg_image"]]
+    prompts = [parse_visual_prompts_s2(S2_ANSWER)] * n
+
+    def timed(fn):
+        times = []
+        for _ in range(reps):
+            _sync(dev)
+            t0 = time.perf_counter()
+            fn()
+            _sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    encoder_ms = timed(lambda: pred.set_images(images)) / n
+    emb = pred._embeddings
+    decoder_ms = timed(lambda: pred.predict_objects_mask_batch(prompts, SEG_OUTPUT_SIZE,
+                                                               embeddings=emb))
+
+    # one tile in the tree's dtype against an f32 copy of the same values
+    ref = Sam2Predictor(pred.config, _float_tree(pred.params))
+    outs = []
+    for p in (pred, ref):
+        p.set_images(images[:1])
+        pts, lbl, boxes, valid = p.prompt_tensors(prompts[:1])
+        with torch.no_grad():
+            masks, iou = predict_masks(p.config, p.params, p._embeddings, p.image_pe,
+                                       pts, lbl, boxes, multimask_output=True)
+        outs.append((masks.float(), iou.float(),
+                     p._union_masks(masks, iou, valid, SEG_OUTPUT_SIZE)[0]))
+    (mb, ib, ub), (mf, i_f, uf) = outs
+    agree = ((mb > 0) == (mf > 0)).float().mean().item()
+    iou_err = (ib - i_f).abs().max().item()
+    stats = {"tiles": n, "encoded_tiles": sum(encoded), "encoder_calls": len(encoded),
+             "s1_mask_px": [int(m.sum()) for m in m1], "s2_mask_px": [int(m.sum()) for m in m2],
+             "encoder_ms_per_tile": encoder_ms, "decoder_ms_per_batch": decoder_ms,
+             "decoder_batch": f"{n} tiles x {len(prompts[0])} objects",
+             "dtype": str(pred.dtype), "mask_pixels_agree_f32": agree,
+             "union_pixels_agree_f32": float((ub == uf).mean()),
+             "iou_max_abs_err_f32": iou_err,
+             "mask_logit_max_abs": mf.abs().max().item()}
+    del ref
+    if not (agree >= SAM2_PIXEL_AGREE and iou_err <= SAM2_IOU_TOL):
+        raise AssertionError(f"SAM2 {pred.dtype} against f32: {stats}")
+    return stats
+
+
+def phase_two_stage(config, params):
+    """SocioSegInferPipeline.run() at full width: Qwen2.5-VL-3B (the main
+    phase's bf16 tree, served by the strategy as its int8 single-copy tree)
+    and SAM2-hiera-large with random bf16 weights, four 768² tiles, into a
+    temporary directory; then the sam2 phase on the same pipeline. Returns
+    the launch counts of kernels 1-3 over run()."""
+    import tempfile
+    import torch
+    from socioreasoner_tpu_torch.models.sam2 import model as smodel
+    from socioreasoner_tpu_torch.models.sam2.config import Sam2Config
+    from socioreasoner_tpu_torch.ops import decode_attention as da
+    from socioreasoner_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    sam_config = Sam2Config.large()
+    sam_params = smodel.init_params(sam_config, torch.Generator(device=dev).manual_seed(1),
+                                    dtype=torch.bfloat16, device=dev)
+    kernels = (fa.flash_attention_segmented, fa.flash_attention, da.paged_decode_attention)
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        pipeline = build_two_stage(config, params, sam_config, sam_params, out_dir)
+        _sync(dev)
+        build_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        stats = run_two_stage(pipeline, dev, kernels)
+        emit({"phase": "two_stage",
+              "model": "Qwen2.5-VL-3B (36 layers, ViT depth 32) served as int8 single-copy "
+                       "weights + SAM2-hiera-large, random bf16 weights",
+              "cuts": {"rollout_batch_size": "250 -> 4", "response_length": "2048 -> 64",
+                       "infer_batch_size": "16 -> 4"},
+              "strategy_config": INFER_STRATEGY, "build_s": build_s, **stats,
+              "sam2_params_gb": _tree_bytes(sam_params) / 2**30,
+              "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30})
+        missing = [k for k, c in stats["launches"].items() if c <= 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the two-stage pass: {missing}")
+        torch.cuda.reset_peak_memory_stats()
+        sam = run_sam2_checks(pipeline, dev)
+        emit({"phase": "sam2", "model": "SAM2-hiera-large, random bf16 weights", **sam,
+              "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30})
+    return stats["launches"]
+
+
 def phase_row_writer():
     """Kernel 7's path: one decode step's new K/V rows written into every
     layer of the stacked cache at the diagnostic script's shape and
@@ -1666,10 +1978,13 @@ def main() -> int:
     launches, config, params, main_stats = phase_main()
     launches.update(phase_train(config, params))
     launches.update(phase_main_quant(config, params, main_stats))
+    two_stage = phase_two_stage(config, params)
     del params
     launches.update(phase_row_writer())
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
+        if kern["name"] in two_stage:
+            kern["launches_two_stage"] = two_stage[kern["name"]]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

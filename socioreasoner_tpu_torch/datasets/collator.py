@@ -1,4 +1,5 @@
-"""Stage-1 collator: per-sample multimodal processing → left-padded BatchProto.
+"""SocioSeg collators: per-sample multimodal processing → left-padded BatchProto,
+for stage 1 (SocioSegCollator) and the stage-2 restage (collate_restage).
 
 The counterpart of socioreasoner_tpu/datasets/collator.py (which imports the
 JAX package's rope module). Numeric keys come out as one numpy batch
@@ -74,3 +75,17 @@ class SocioSegCollator:
             if features and key in features[0]:
                 non_tensors[key] = [f[key] for f in features]
         return BatchProto.from_dict(tensors=tensors, non_tensors=non_tensors)
+
+
+def collate_restage(
+    processor: SocioProcessor, model_config: Qwen25VLConfig,
+    prompts: List[str], image_pairs: List[List], prompt_length: int,
+    out_prefix: str = "",
+) -> BatchProto:
+    """Stage-2 restage collation (the host hot path, ref pipeline :726-840):
+    re-tokenize rendered prompts + images into a fresh left-padded batch."""
+    collator = SocioSegCollator(processor, model_config, prompt_length,
+                                prompt_key="prompt", image_key="image",
+                                out_prefix=out_prefix)
+    feats = [{"prompt": p, "image": imgs} for p, imgs in zip(prompts, image_pairs)]
+    return collator(feats)

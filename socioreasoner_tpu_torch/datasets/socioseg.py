@@ -1,28 +1,29 @@
 """SocioSeg sample encoding and prompt formats, for the port.
 
 The port's own copy of the host half of socioreasoner_tpu/datasets/socioseg.py
-that stage-1 serving and training need (the port imports nothing of the JAX
-package):
+that the two-stage pipeline and training need (the port imports nothing of
+the JAX package):
   format_stage1_prompt / format_stage2_prompt — the prompt templates
   count_components / extract_gt_bboxes        — GT mask components and boxes
   encode_sample                               — one raw tile → pipeline columns
   load_socioseg_dir                           — the on-disk tile layout
+  render_visual_prompt                        — the stage-2 restage render
 
 The JAX package counts components with its native host library
 (csrc/socio_host.cpp, union-find); here scipy.ndimage.label with 8-connectivity
 gives the same components, numbered in the same raster order of their first
-pixel. The HF-hub builder and the stage-2 render stay in the JAX package until
-stage 2 is ported.
+pixel. The HF-hub dataset loading stays in the JAX package until the
+loaders are ported.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Sequence, Union
 
 import numpy as np
-from PIL import Image
+from PIL import Image, ImageDraw
 
 from .processor import ImageProcessorConfig, build_chat_text, resize_image
 
@@ -156,3 +157,49 @@ def load_socioseg_dir(root: str, split: str = "train") -> List[Dict[str, Any]]:
             "question": q.get("question", q) if isinstance(q, dict) else q,
         })
     return samples
+
+
+# ------------------------------------------------------------------ rendering
+
+def render_visual_prompt(bboxes_json: str, images: Sequence[Image.Image],
+                         mask: Union[np.ndarray, Image.Image]) -> List[Image.Image]:
+    """Draw stage-1 bboxes (blue, width 2) + 40%-alpha red mask overlay onto the
+    map/sat pair for the stage-2 prompt (ref render_image :378-449)."""
+    overlay = None
+    try:
+        mask_arr = np.asarray(mask.convert("L") if isinstance(mask, Image.Image) else mask)
+        if images:
+            w0, h0 = images[0].size
+            m = np.asarray(Image.fromarray(mask_arr.astype(np.uint8)).resize(
+                (w0, h0), Image.Resampling.NEAREST)) > 0
+            rgba = np.zeros((h0, w0, 4), np.uint8)
+            rgba[m] = [255, 0, 0, int(255 * 0.4)]
+            overlay = Image.fromarray(rgba, "RGBA")
+    except Exception:
+        overlay = None
+
+    boxes: List[List[float]] = []
+    try:
+        data = json.loads(bboxes_json)
+        if isinstance(data, list):
+            boxes = [it["bbox_2d"] for it in data
+                     if isinstance(it, dict) and len(it.get("bbox_2d", [])) == 4]
+    except (json.JSONDecodeError, TypeError):
+        boxes = []
+
+    out = []
+    for image in images:
+        img = image.copy().convert("RGBA")
+        if boxes:
+            draw = ImageDraw.Draw(img)
+            for b in boxes:
+                try:
+                    draw.rectangle([(b[0], b[1]), (b[2], b[3])], outline="blue", width=2)
+                except Exception:
+                    continue
+        if overlay is not None:
+            ov = overlay if overlay.size == img.size else overlay.resize(
+                img.size, Image.Resampling.LANCZOS)
+            img = Image.alpha_composite(img, ov)
+        out.append(img.convert("RGB"))
+    return out

@@ -1,16 +1,18 @@
-"""Weight bridge from the JAX package's parameter pytree to the port's.
+"""Weight bridge from the JAX package's parameter pytrees to the port's.
 
     params = params_from_numpy(jax.tree.map(np.asarray, jax_params), device, dtype)
 
 (device defaults to the GPU).
 
-The JAX tree is a nest of dicts whose leaves are arrays in (in, out) layout;
-the port keeps the same nesting, names and layout, so both sides compute the
-same function. The numpy conversion is done by the caller (the port imports
-no jax); bfloat16 leaves are widened to float32 on the host before they become
-tensors of `dtype`. A quantized tree (ops/quant.py layouts) keeps its int8
-and uint8 codes as integer tensors and its `*_scale` leaves in float32, as
-the JAX package keeps them.
+The JAX trees are nests of dicts (and, in SAM2's tree, lists: blocks, convs,
+layers, hidden, hyper_mlps) whose leaves are arrays in the JAX layouts
+((in, out) linears, HWIO conv kernels); the port keeps the same nesting,
+names and layouts, so both sides compute the same function. The numpy
+conversion is done by the caller (the port imports no jax); bfloat16 leaves
+are widened to float32 on the host before they become tensors of `dtype`. A
+quantized tree (ops/quant.py layouts) keeps its int8 and uint8 codes as
+integer tensors and its `*_scale` leaves in float32, as the JAX package
+keeps them.
 """
 
 from __future__ import annotations
@@ -34,21 +36,23 @@ def param_device(device=None) -> torch.device:
 
 def params_from_numpy(tree: Dict[str, Any], device=None,
                       dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
-    """Nested dict of numpy arrays → the same nest of tensors on `device`
-    (the GPU unless one is named): float leaves as `dtype`, `*_scale` leaves
-    as float32, int8/uint8 codes unchanged."""
-    device = param_device(device)
-    out = {}
-    for name, leaf in tree.items():
-        if isinstance(leaf, dict):
-            out[name] = params_from_numpy(leaf, device, dtype)
-            continue
-        arr = np.asarray(leaf)
-        if arr.dtype in (np.int8, np.uint8):
-            out[name] = torch.as_tensor(np.array(arr), device=device)
-        elif np.issubdtype(arr.dtype, np.floating) or arr.dtype.name == "bfloat16":
-            want = torch.float32 if name.endswith("_scale") else dtype
-            out[name] = torch.as_tensor(arr.astype(np.float32), device=device).to(want)
-        else:
-            raise NotImplementedError(f"{name}: {arr.dtype} leaves are not supported")
-    return out
+    """Nest of dicts and lists of numpy arrays → the same nest of tensors on
+    `device` (the GPU unless one is named): float leaves as `dtype`,
+    `*_scale` leaves as float32, int8/uint8 codes unchanged."""
+    return _convert("", tree, param_device(device), dtype)
+
+
+def _convert(name: str, leaf, device: torch.device, dtype: torch.dtype):
+    if isinstance(leaf, dict):
+        return {k: _convert(k, v, device, dtype) for k, v in leaf.items()}
+    if isinstance(leaf, (list, tuple)):
+        return [_convert(name, v, device, dtype) for v in leaf]
+    arr = np.asarray(leaf)
+    if arr.dtype in (np.int8, np.uint8):
+        return torch.as_tensor(np.array(arr), device=device)
+    if arr.dtype.name == "bfloat16":
+        arr = arr.astype(np.float32)
+    if np.issubdtype(arr.dtype, np.floating):
+        want = torch.float32 if name.endswith("_scale") else dtype
+        return torch.tensor(arr, device=device).to(want)
+    raise NotImplementedError(f"{name}: {arr.dtype} leaves are not supported")

@@ -195,3 +195,142 @@ def test_load_socioseg_dir_matches_jax(tmp_path):
     for split in ("train", "val", "test"):
         assert t_seg.load_socioseg_dir(str(tmp_path), split) == \
             j_seg.load_socioseg_dir(str(tmp_path), split)
+
+
+# ------------------------------------------- the two-stage pipeline's host copies
+
+from socioreasoner_tpu.configs import rlvr_config as j_rlvr  # noqa: E402
+from socioreasoner_tpu.configs import validation as j_validation  # noqa: E402
+from socioreasoner_tpu.pipeline.rlvr import evaluation as j_eval  # noqa: E402
+from socioreasoner_tpu.pipeline.rlvr import parsing as j_parsing  # noqa: E402
+from socioreasoner_tpu.pipeline.rlvr.rewards import socioseg as j_rewards  # noqa: E402
+from socioreasoner_tpu.utils import metrics as j_metrics  # noqa: E402
+from socioreasoner_tpu_torch.configs import rlvr_config as t_rlvr  # noqa: E402
+from socioreasoner_tpu_torch.configs import validation as t_validation  # noqa: E402
+from socioreasoner_tpu_torch.pipeline.rlvr import evaluation as t_eval  # noqa: E402
+from socioreasoner_tpu_torch.pipeline.rlvr import parsing as t_parsing  # noqa: E402
+from socioreasoner_tpu_torch.pipeline.rlvr.rewards import socioseg as t_rewards  # noqa: E402
+from socioreasoner_tpu_torch.utils import metrics as t_metrics  # noqa: E402
+
+ANSWERS = [
+    '<think>a</think><answer>[{"bbox_2d": [1, 2, 30, 40]}, {"bbox_2d": [5, 5, 9]}]</answer>',
+    '<think>b</think> <answer>[{"bbox_2d": [1, 2, 30, 40], "points": [[3, 4], [5, 6]]},'
+    ' {"bbox_2d": [7, 8, 9, 10], "points": [[1]]}, "junk", {"points": [[1, 2]]}]</answer>',
+    '<answer>{"bbox_2d": [1, 2, 3, 4]}</answer>', '<answer>[{"bbox_2d": [1, 2</answer>',
+    "no answer tags at all", '<|im_end|><think>t</think><answer>[]</answer><|endoftext|>',
+    '<think>x</think><answer>[{"bbox_2d": [0, 0, 1, 1], "points": 5}]</answer>',
+]
+
+
+def _parsing_case():
+    for text in ANSWERS:
+        for fn in ("strip_special_tokens", "parse_answer_text", "parse_visual_prompts_s1",
+                   "parse_visual_prompts_s2", "parse_bboxes", "has_think_answer_format"):
+            assert getattr(t_parsing, fn)(text) == getattr(j_parsing, fn)(text), (fn, text)
+
+
+def _masks(seed, n=6, px=64):
+    rng = np.random.default_rng(seed)
+    out = [(rng.random((px, px)) > t).astype(np.uint8) for t in rng.uniform(0.2, 0.9, n)]
+    return out + [np.zeros((px, px), np.uint8)] * 2
+
+
+def _evaluation_case():
+    masks, gts = _masks(0), _masks(1)
+    got = [t_eval.compute_giou(m, g * 255) for m, g in zip(masks, gts)]
+    want = [j_eval.compute_giou(m, g * 255) for m, g in zip(masks, gts)]
+    assert got == want and got[-1] == 1.0
+    tags = ["cityA", "cityB", "", "cityA", "lvl2", "cityB", "", "cityA"]
+    assert t_eval.grouped_giou(got, tags) == j_eval.grouped_giou(want, tags)
+    assert t_eval.grouped_giou([], []) == j_eval.grouped_giou([], [])
+
+
+def _mask_iou_case():
+    masks, gts = _masks(2), _masks(3)
+    pairs = list(zip(masks, gts)) + [(masks[0], masks[0][:32]), (masks[0].tolist(), gts[0]),
+                                     (masks[1] * 7, gts[1].astype(bool))]
+    for a, b in pairs:
+        for empty in (0.0, 1.0):
+            assert t_rewards.mask_iou(a, b, empty) == j_rewards.mask_iou(a, b, empty)
+
+
+def _config_pair(mod, strategy_config=None, **kw):
+    cfg = mod.SocioSegConfig(rollout_batch_size=4, prompt_length=4096, response_length=64,
+                             **kw)
+    cfg.actor_infer.strategy_args.strategy_name = "jax_decode"
+    cfg.actor_infer.strategy_args.strategy_config = strategy_config
+    cfg.seg_infer.strategy_args.strategy_name = "seg_infer"
+    cfg.seg_infer.strategy_args.strategy_config = {"seg_encode_batch": 4, "seg_embed_cache": 0}
+    return cfg
+
+
+YAML_KNOBS = {"kv_quant": None, "weight_quant": "int8", "single_copy_quant": True,
+              "act_quant": None, "prefix_fork": True}
+STRATEGY_CONFIGS = [
+    YAML_KNOBS, {"weight_quant": "int4"}, {"bogus_knob": 1}, {"kv_quant": "int4"},
+    {"single_copy_quant": True}, {"act_quant": "int8", "weight_quant": "int4"},
+    {"dp_size": 2}, {"dp_size": 2, "tensor_model_parallel_size": 2}, None,
+]
+
+
+def _configs_case():
+    for overlap in (True, False):
+        got = _config_pair(t_rlvr, YAML_KNOBS, overlap_restage=overlap, restage_group_size=3)
+        want = _config_pair(j_rlvr, YAML_KNOBS, overlap_restage=overlap, restage_group_size=3)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert got.sequence_length == want.sequence_length == 4160
+        assert got.num_return_sequences == want.num_return_sequences
+    for mod in (t_rlvr, j_rlvr):          # ${var} strings resolve the same way
+        ga = mod.RLVRConfig().actor_infer.generating_args
+        assert ga.max_new_tokens == 512
+    interp = {k: "${response_length}" for k in ("max_new_tokens",)}
+    got, want = (mod.RLVRConfig(response_length=99, actor_infer=wmod.WorkerConfig(
+        generating_args=wmod.GeneratingArguments(**interp)))
+        for mod, wmod in ((t_rlvr, t_worker), (j_rlvr, j_worker)))
+    assert got.actor_infer.generating_args.max_new_tokens == \
+        want.actor_infer.generating_args.max_new_tokens == 99
+    for sc in STRATEGY_CONFIGS:
+        for n in (1, 4):
+            outcome = []
+            for mod, vmod in ((t_rlvr, t_validation), (j_rlvr, j_validation)):
+                try:
+                    vmod.validate_config(_config_pair(mod, sc), n_devices=n)
+                    outcome.append(None)
+                except ValueError as e:
+                    outcome.append(str(e))
+            assert outcome[0] == outcome[1], (sc, n, outcome)
+
+
+def _metrics_case():
+    def drive(mod):
+        mm = mod.MetricsManager()
+        mm.add_metric("a", 1.5)
+        mm.add_metric("a", 2.5)
+        mm.add_metrics({"b": np.arange(4.0), "c": 3})
+        mm.add_domain_metrics("cityA", {"iou": [0.5, 0.25]})
+        mm.add_time("step", 1.25)
+        mm.add_time("step", 0.5)
+        mm.add_token_throughput("", 1000, 2.0, n_chips=4, dp_size=2)
+        mm.add_token_throughput("s2_", 10, 0.0)
+        with mm.timer("t"):
+            pass
+        first = mm.reduce(reset=False)
+        return first, mm.reduce(), mm.reduce()
+    got, want = drive(t_metrics), drive(j_metrics)
+    assert [sorted(g) for g in got] == [sorted(w) for w in want]
+    for g, w in zip(got, want):
+        g.pop("time/t", None), w.pop("time/t", None)
+        assert g == w
+
+
+HOST_COPIES = {"parsing": _parsing_case, "evaluation": _evaluation_case,
+               "mask_iou": _mask_iou_case, "configs": _configs_case,
+               "metrics": _metrics_case}
+
+
+@pytest.mark.parametrize("copy", sorted(HOST_COPIES))
+def test_pipeline_host_copies_match_jax(copy):
+    """parsing, compute_giou/grouped_giou, mask_iou, SocioSegConfig with
+    validate_config, MetricsManager: the port's copies against the
+    originals on the same inputs."""
+    HOST_COPIES[copy]()
