@@ -314,6 +314,11 @@ def test_chip_smoke_two_stage_and_sam2_on_cpu():
         assert stats["prefill_rows"] == 8 and stats["launches"] == {}
         assert stats["sequential"]["prefill_calls"] >= 2 and stats["prefill_calls"] >= 2
         assert stats["vit_ms_per_tile_s1"] > 0 and stats["vit_ms_per_tile_s2"] > 0
+        assert stats["cache_lalloc"] == engine.Lalloc and len(stats["s2_prompt_lens"]) == 4
+        assert max(stats["s1_prompt_lens"]) < min(stats["s2_prompt_lens"]) <= 1024
+        decode = chip_smoke.profile_decode_chunk(engine, cpu, max(stats["s2_prompt_lens"]))
+        assert decode["steps"] == decode["profiled_steps"] == engine.decode_chunk
+        assert decode["ms_per_step"] > 0 and not engine.has_work()
         sam = chip_smoke.run_sam2_checks(pipeline, cpu, reps=1)
     assert sam["encoded_tiles"] == 4 and sam["encoder_calls"] == 1
     assert sam["dtype"] == "torch.bfloat16" and sam["mask_pixels_agree_f32"] < 1.0
