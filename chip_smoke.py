@@ -16,10 +16,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 peak, whichever is larger); kernels 1, 2, 4, 5 and 6 also at
                 edge shapes (GQA ratios 1, 5, 7 and 8 among them) and row by
                 row, with their device time and host time a launch; kernel 2
-                also at the two_stage phase's stage-2 prefill (L=4096); kernels
-                3 and 3q row by row at 4, 8 and 32 slots (a zero-length slot
-                exactly 0, two calls bit-equal), timed at 4 and 32, and kernel
-                3 at the two_stage phase's cache (Lalloc 4352); the
+                also at the two_stage phase's stage-2 prefill (L=4096) and at
+                each prefill bucket of the grpo phase; kernels 3 and 3q row by
+                row at 4, 8 and 32 slots (a zero-length slot exactly 0, two
+                calls bit-equal), timed at 4 and 32, and kernel 3 at the
+                two_stage phase's cache (Lalloc 4352) and the grpo phase's (24
+                slots); kernels 4-6 at the grpo phase's train micro-batch
+                (B=2, L=4160) and kernel 4 at its log-prob chunk (B=8); the
                 host copies of kernel 2's tile bounds and of the GQA work
                 items against the C++ formulas; kernel 6's plan, its refusal
                 of other kv lengths (a child process that must fail with a
@@ -66,7 +69,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 cache), (768, 768) uint8 masks, an all-zero mask for an
                 answer without answer tags; encoder ms a tile, decoder ms a
                 prompt batch; one tile in bf16 against f32.
-  12. row_writer — kernel 7's own path: one decode step's K/V row writes
+  12. grpo    — SocioSegPipeline.run(), GRPO over both stages with the
+                SocioSeg rule reward, at full width with
+                examples/train/rlvr_tpu.yaml's settings (n = 8, int8
+                single-copy rollout weights, prefix fork, generate_opt_level
+                1, backward_batch_size 8 over 4 accumulation steps, the k3
+                KL loss, the reward worker_cls) on the main phase's tree, a
+                copy of it as the reference, and SAM2-hiera-large; two 768²
+                tiles, cut to response_length 64, two steps and a validation.
+                Pass 1 through the real engine: kernels 1-6 must launch, at
+                the prefill buckets, cache and train shapes the kernels phase
+                checked (GRPO_PREFILL, GRPO_SLOTS/GRPO_LALLOC, GRPO_TRAIN),
+                the metrics finite, the reference's log-probs fixed. Pass 2,
+                one step through crafted answers: SAM2 masks, rewards that
+                differ in each group and equal compute_socioseg_rewards
+                recomputed from the pass's texts and masks, grad_norm > 0,
+                the actor's log-probs moved and the reference's not;
+                kernels 4-6 must launch. Peak memory < 80 GB.
+  13. row_writer — kernel 7's own path: one decode step's K/V row writes
                 into the stacked cache at the diagnostic script's shape (36
                 layers, 24 slots, Lalloc 1536), held against the indexed
                 assignment.
@@ -176,15 +196,20 @@ def device_ms(fn, kernels, n: int = 5) -> float:
 
 # ------------------------------------------------------------------ phases
 
+def _smi_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi failed: {smi.stderr.strip()}")
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi failed: {smi.stderr.strip()}", flush=True)
+    print(_smi_line(), flush=True)
     cap = torch.cuda.get_device_capability(0)
     name = torch.cuda.get_device_name(0)
     emit({"phase": "device", "name": name, "capability": list(cap),
@@ -559,8 +584,12 @@ def phase_kernels():
         mask = (torch.arange(L, device=dev)[None]
                 < torch.tensor(lens, device=dev)[:, None]).to(torch.int32)
         run = lambda: fa.flash_attention(q, k, v, mask, causal=True)   # noqa: E731
-        err, ratio = _check_rows(f"prefill kv_len={lens}", run(), fa.flash_attention_reference(
-            q.float(), k.float(), v.float(), mask, causal=True))
+        # the f32 reference a batch row at a time: at B=16, L=4096 its
+        # scores alone would take 17 GB
+        err, ratio = _check_rows(f"prefill kv_len={lens}", run(), torch.cat([
+            fa.flash_attention_reference(q[b:b + 1].float(), k[b:b + 1].float(),
+                                         v[b:b + 1].float(), mask[b:b + 1], causal=True)
+            for b in range(B)]))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
             qt, kt, vt, is_causal=True, enable_gqa=True)
@@ -578,7 +607,8 @@ def phase_kernels():
     check, main = prefill_case([2016, 1]), prefill_case([2016] * 4)
     L2, n2 = TWO_STAGE_PREFILL["L"], TWO_STAGE_PREFILL["kv_len"]
     stage2 = {B: prefill_case([n2] * B, L2) for B in TWO_STAGE_PREFILL["batches"]}
-    cases = (check, main, *stage2.values())
+    grpo = {(B, L): prefill_case(_grpo_prefill_lens(B, L), L) for B, L in GRPO_PREFILL}
+    cases = (check, main, *stage2.values(), *grpo.values())
     results.append(_row(
         "flash_attention", "socioreasoner_tpu_torch/csrc/flash_prefill.cu",
         "socioreasoner_tpu/ops/flash_attention.py:37",
@@ -595,12 +625,19 @@ def phase_kernels():
                                                   "layer of the two_stage phase's stage-2 "
                                                   "prefill")
                            for B, case in stage2.items()},
+        # each (B, L) bucket the grpo phase's engine may prefill
+        grpo_prefill={f"B{B}_L{L}": summary(case, f"B={B} L={L} kv_len="
+                                                  f"{_grpo_prefill_lens(B, L)}")
+                      for (B, L), case in grpo.items()},
         edge_max_abs_err=pre_edge[0], edge_max_row_ratio=pre_edge[1],
         bounds_checked=_prefill_bounds_check()))
     emit({"phase": "kernel", **results[-1]})
 
     results.extend(_decode_kernels(randn))
     results.extend(_train_kernels(randn, train_edge))
+    for row, grpo_cases in zip(results[-3:], _grpo_train_kernels(randn)):
+        row["grpo"] = grpo_cases
+        emit({"phase": "kernel_grpo_shapes", "name": row["name"], **grpo_cases})
     results.append(_row_writer_kernel(randn))
     return results
 
@@ -614,18 +651,46 @@ TWO_STAGE_PREFILL = {"L": 4096, "kv_len": 2155, "batches": (4, 2)}
 TWO_STAGE_LALLOC = 4352
 # the main phase's cache: max_len 2560 + 64, decode_chunk 16
 MAIN_LALLOC = -(-(2560 + 64 + 16) // 256) * 256
+# The grpo phase's attention shapes, checked in phase_kernels and held to
+# that phase's pass over the real engine. Prefill (B, L) buckets: stage-1
+# prompts of 2016 tokens at L=2048, one or two distinct prompts a prefill
+# (the 8 samples of a prompt fork its prefill); stage-2 prompts of ~2155 at
+# L=4096, a restage group of 8 or up to 11 waiting requests (16,384 image
+# rows) a prefill, padded to a batch bucket. The cache: 24 slots
+# (actor_infer.infer_batch_size) of sequence_length 4096 + 64 with
+# decode_chunk 64, Lalloc 4352. Training at sequence_length 4160: micro-
+# batches of backward_batch_size 8 / gradient_accumulation_steps 4 = 2
+# rows (kernels 4-6) and log-prob chunks of infer_batch_size 8 (kernel 4),
+# the kv lengths those of a stage-1 (2016 + 64) and a stage-2 (~2155 + 64)
+# sample; 4160 is no multiple of 128, so each row ends in a 64-token tile.
+GRPO_PREFILL = ((1, 2048), (2, 2048), (1, 4096), (2, 4096), (4, 4096), (8, 4096),
+                (16, 4096))
+GRPO_SLOTS = 24
+GRPO_LALLOC = TWO_STAGE_LALLOC
+GRPO_TRAIN = {"L": 4160, "train_batch": 2, "logprob_batch": 8, "kv_lens": (2080, 2219)}
+
+
+def _grpo_prefill_lens(B: int, L: int):
+    """kv lengths of a grpo prefill bucket: its prompts, and a padded row
+    (one valid token) where B > 1."""
+    n = 2016 if L == 2048 else TWO_STAGE_PREFILL["kv_len"]
+    return [n] * (B - 1) + [1] if B > 1 else [n]
+
 
 # Kernels 3 and 3q: (case, slots, Lalloc, lengths) of the checks. "main" is
 # the main phase's decode (prompts of 2016 tokens and fewer); "edges" the
 # edges of a block; "slots32" the production slot count
 # (examples/infer/rlvr_tpu.yaml:25) with mixed lengths; "two_stage" that
-# phase's bf16 cache with an idle slot and stage-1 and stage-2 lengths (kernel
-# 3 only: the phase runs no int8 cache). All but "edges" are timed.
+# phase's bf16 cache with an idle slot and stage-1 and stage-2 lengths, and
+# "grpo" the grpo phase's 24-slot cache likewise (kernel 3 only: neither
+# phase runs an int8 cache). All but "edges" are timed.
 DECODE_CASES = (
     ("main", 4, MAIN_LALLOC, (0, 1, 1500, -3)),
     ("edges", 8, MAIN_LALLOC, (0, 1, 2, 63, 64, 65, 2016, -1)),
     ("slots32", 32, MAIN_LALLOC, (0, 1, 64, -1) + tuple((97 * i) % 2816 for i in range(1, 29))),
-    ("two_stage", 4, TWO_STAGE_LALLOC, (0, 2079, 2155, 2218)))
+    ("two_stage", 4, TWO_STAGE_LALLOC, (0, 2079, 2155, 2218)),
+    ("grpo", GRPO_SLOTS, GRPO_LALLOC, (0, 1, 2016, 2017, 2040, 2079, 2080, 2155, 2156, 2180,
+                                       2218, 2219) + tuple(2016 + 9 * i for i in range(12))))
 
 
 def _decode_caches(randn, slots, Lalloc, quant):
@@ -664,7 +729,7 @@ def _decode_kernels(randn):
                     else da.paged_decode_attention_reference)
         errs, ratios, timed = [], [], {}
         for case, slots, Lalloc, lens in DECODE_CASES:
-            if quant and case == "two_stage":
+            if quant and case in ("two_stage", "grpo"):
                 continue
             lens = [n % Lalloc if n < 0 else n for n in lens]
             caches = _decode_caches(randn, slots, Lalloc, quant)
@@ -729,8 +794,9 @@ def _decode_kernels(randn):
         main = timed["main"]
         kind = "int8 cache + f32 scales" if quant else "cache"
         shapes = f"(36, 4|8|32, {MAIN_LALLOC}, 2, 128)" + (
-            "" if quant else f" and (36, 4, {TWO_STAGE_LALLOC}, 2, 128)")
-        extra = {} if quant else {"two_stage": summary(timed["two_stage"])}
+            "" if quant else f" and (36, 4|{GRPO_SLOTS}, {TWO_STAGE_LALLOC}, 2, 128)")
+        extra = {} if quant else {"two_stage": summary(timed["two_stage"]),
+                                  "grpo": summary(timed["grpo"])}
         rows.append(_row(
             name, "socioreasoner_tpu_torch/csrc/paged_decode.cu",
             "socioreasoner_tpu/ops/decode_attention.py:36",
@@ -934,6 +1000,89 @@ def _train_kernels(randn, edge):
     emit({"phase": "kernel", **results[-1]})
     torch.cuda.empty_cache()
     return results
+
+
+def _grpo_train_kernels(randn):
+    """Kernels 4-6 at the grpo phase's train micro-batch (B=2, L=4160) and
+    kernel 4 at its log-prob chunk (B=8), kv lengths of stage-1 and stage-2
+    samples (GRPO_TRAIN), against their plain versions in f32 a batch row at
+    a time, row by row (kernel 6 on a plan built once, against the joint
+    scale of dk and dv with GRAD_ROW_FLOOR), each timed with its bound and
+    library call. Returns one dict of cases for each of kernels 4, 5, 6."""
+    import torch
+    import torch.nn.functional as F
+    from socioreasoner_tpu_torch.ops import flash_attention_bwd as fb
+
+    dev = torch.device("cuda")
+    L = GRPO_TRAIN["L"]
+    out = ({}, {}, {})
+    for B, backward in ((GRPO_TRAIN["train_batch"], True),
+                        (GRPO_TRAIN["logprob_batch"], False)):
+        lens_l = [GRPO_TRAIN["kv_lens"][b % 2] - 3 * (b // 2) for b in range(B)]
+        lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+        q, k, v, do = randn(B, L, 16, 128), randn(B, L, 2, 128), randn(B, L, 2, 128), \
+            randn(B, L, 16, 128)
+        tag = f"B={B} L={L} H=16 Hkv=2 D=128 causal kv_len={lens_l}"
+        refs = [fb.flash_attention_fwd_lse_reference(
+            q[b:b + 1].float(), k[b:b + 1].float(), v[b:b + 1].float(), lens[b:b + 1])
+            for b in range(B)]
+        ref_out, ref_lse = torch.cat([r[0] for r in refs]), torch.cat([r[1] for r in refs])
+        del refs
+        run_fwd = lambda: fb.flash_attention_fwd_lse(q, k, v, lens)   # noqa: E731
+        got, lse = run_fwd()
+        err, ratio = _check_rows(f"grpo train fwd {tag}", got, ref_out)
+        lse_err = (lse - ref_lse).abs().max().item()
+        if not lse_err <= LSE_TOL:
+            raise AssertionError(f"grpo train fwd {tag}: lse max_abs_err {lse_err} > {LSE_TOL}")
+        del got, lse
+        qt, dot = q.transpose(1, 2), do.transpose(1, 2)
+        kt, vt = (x.repeat_interleave(8, dim=2).transpose(1, 2) for x in (k, v))
+        pairs = 16 * _causal_pairs(L, lens_l)
+        f32_rows = B * 16 * L * 4
+        qkv_bytes = 2 * (q.numel() + k.numel() + v.numel())
+        case = "train_micro_batch" if backward else "logprob_chunk"
+        out[0][case] = {
+            "shape": tag, "err": err, "ratio": ratio, "lse_err": lse_err,
+            "ms": cuda_ms(run_fwd), "device_ms": graph_call_ms(run_fwd),
+            "library_ms": cuda_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                qt, kt, vt, is_causal=True)),
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(qkv_bytes + 2 * q.numel() + f32_rows, 4 * 128 * pairs)))}
+        if not backward:
+            continue
+        delta = (do.float() * ref_out).sum(-1).transpose(1, 2).contiguous()
+        plan = fb.dkv_plan(lens, B, L, L, 16, 2, True, dev)
+        run_dq = lambda: fb.flash_attention_bwd_dq(   # noqa: E731
+            q, k, v, do, ref_lse, delta, lens)
+        run_dkv = lambda: fb.flash_attention_bwd_dkv(   # noqa: E731
+            q, k, v, do, ref_lse, delta, lens, plan=plan)
+        got = (run_dq(), *run_dkv())
+        want = [torch.cat(g) for g in zip(*(fb.flash_attention_bwd_reference(
+            q[b:b + 1].float(), k[b:b + 1].float(), v[b:b + 1].float(), do[b:b + 1].float(),
+            ref_lse[b:b + 1], delta[b:b + 1], lens[b:b + 1]) for b in range(B)))]
+        scale = max(w.abs().max().item() for w in want[1:])
+        dq_err = _check_grad(f"grpo train dq {tag}", got[0], want[0],
+                             want[0].abs().max().item())
+        dkv_err = [_check_grad(f"grpo train {name} {tag}", g, w, scale)
+                   for name, g, w in zip(("dk", "dv"), got[1:], want[1:])]
+        del got, want
+        leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+        lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, dot, retain_graph=True))
+        del lib_out, leaves
+        bwd_in = qkv_bytes + 2 * do.numel() + 2 * f32_rows
+        for i, (run, err_t, out_bytes, ops) in enumerate((
+                (run_dq, [dq_err], 2 * q.numel(), 6 * 128 * pairs),
+                (run_dkv, dkv_err, 2 * (k.numel() + v.numel()), 8 * 128 * pairs)), start=1):
+            out[i][case] = {
+                "shape": tag, "err": max(e[0] for e in err_t),
+                "rel_err": max(e[1] for e in err_t), "ratio": max(e[2] for e in err_t),
+                "ms": cuda_ms(run), "device_ms": graph_call_ms(run),
+                "library_ms": lib_bwd, "library": "SDPA autograd backward, dq+dk+dv",
+                **dict(zip(("bound_ms", "bound_by"), bound(bwd_in + out_bytes, ops)))}
+        del plan
+    torch.cuda.empty_cache()
+    return out
 
 
 # Kernel 6 on a plan built for kv lengths [8, 3], called with [8, 3] and
@@ -1352,8 +1501,10 @@ def run_train_path(config, params, dev, *, tile_px=768, img_cfg=None, n=4,
     (TorchTrainStrategy) → seeded response rewards, group_reward_norm,
     apply_kl_penalty, compute_advantage("grpo") → `steps` train steps
     (make_optimizer defaults, remat, chunked head) → model_update → one
-    greedy request with the trained weights. Returns stats; raises on a
-    failed check."""
+    greedy request with the trained weights. The seeded rewards keep this
+    phase's figures comparable with its earlier runs; the SocioSeg reward
+    over both stages runs in the grpo phase (run_grpo_path). Returns stats;
+    raises on a failed check."""
     import torch
     from socioreasoner_tpu_torch.datasets.processor import ImageProcessorConfig
     from socioreasoner_tpu_torch.protocol import BatchProto
@@ -1416,7 +1567,7 @@ def run_train_path(config, params, dev, *, tile_px=768, img_cfg=None, n=4,
     _sync(dev)
     t2 = time.perf_counter()
 
-    # rewards: seeded (the SocioSeg reward needs SAM2 masks, not ported yet)
+    # rewards: seeded, as in this phase's earlier runs
     rewards = torch.as_tensor(np.random.default_rng(seed).random(n), dtype=torch.float32)
     t = {k: torch.as_tensor(v) for k, v in post.items()}
     resp = t["response_mask"][:, 1:]
@@ -2020,6 +2171,366 @@ def phase_two_stage(config, params):
     return stats["launches"]
 
 
+# ------------------------------------------------------------ GRPO pipeline
+
+# examples/train/rlvr_tpu.yaml:73-79, set in code: the decode strategy's knobs
+TRAIN_STRATEGY = {"kv_quant": None, "weight_quant": "int8", "single_copy_quant": True,
+                  "act_quant": None, "prefix_fork": True}
+# the grpo phase's cuts of the yaml's scale (rollout_batch_size 128,
+# response_length 2048, steps from 10 epochs, eval and save every 20 steps)
+GRPO_CUTS = {"rollout_batch_size": 2, "response_length": 64, "max_steps": 2, "eval_steps": 2}
+# the yaml's reward worker_cls; the pipeline resolves it by class name
+REWARD_WORKER_CLS = "socioreasoner_tpu.pipeline.base_worker.SocioSegRuleRewardWorker"
+
+
+def socioseg_train_config(out_dir: str, *, rollout_batch_size: int, response_length: int,
+                          max_steps: int, eval_steps: int, prompt_length: int = 4096):
+    """SocioSegConfig with examples/train/rlvr_tpu.yaml's settings set in
+    code (n = 8, top_p 0.99, top_k 100, temperature 0.99, TRAIN_STRATEGY,
+    generate_opt_level 1, lr 1e-6, weight decay 1e-2, backward_batch_size 8,
+    gradient_accumulation_steps 4, the k3 KL loss at 5e-3, reward and
+    advantage clip 10, the rule reward's worker_cls) at the given scale,
+    tracked to stdout, no checkpoints; output under out_dir."""
+    from socioreasoner_tpu_torch.configs.rlvr_config import SocioSegConfig
+    from socioreasoner_tpu_torch.configs.worker_config import WorkerConfig
+    cfg = SocioSegConfig(
+        exp_name="qwen2_5_vl_3B_socioseg_tpu", seed=42, output_dir=out_dir,
+        track_with="stdout", save_steps=-1, eval_steps=eval_steps, max_steps=max_steps,
+        rollout_batch_size=rollout_batch_size, num_return_sequences_in_group=8,
+        is_num_return_sequences_expand=True, prompt_length=prompt_length,
+        response_length=response_length, generate_opt_level=1, ppo_epochs=1,
+        reward_clip=10, advantage_clip=10.0, whiten_advantages=False, init_kl_coef=0.0,
+        adv_estimator="grpo", use_kl_loss=True, kl_loss_coef=5e-3,
+        rewards={"socioseg_rule": WorkerConfig(worker_cls=REWARD_WORKER_CLS, world_size=16,
+                                               infer_batch_size=4)})
+    at = cfg.actor_train
+    ta = at.training_args
+    ta.learning_rate, ta.weight_decay, ta.warmup_steps = 1e-6, 1e-2, 0
+    ta.per_device_train_batch_size, ta.gradient_accumulation_steps = 2, 4
+    ta.num_train_epochs = 10
+    at.strategy_args.strategy_name = "jax_train"
+    at.infer_batch_size, at.backward_batch_size = 8, 8
+    ai = cfg.actor_infer
+    ga = ai.generating_args
+    ga.max_new_tokens, ga.top_p, ga.top_k, ga.temperature = response_length, 0.99, 100, 0.99
+    ga.num_return_sequences = cfg.num_return_sequences_in_group
+    ai.strategy_args.strategy_name = "jax_decode"
+    ai.strategy_args.strategy_config = dict(TRAIN_STRATEGY)
+    ai.infer_batch_size = 24
+    cfg.seg_infer.strategy_args.strategy_name = "seg_infer"
+    cfg.seg_infer.strategy_args.strategy_config = {"seg_encode_batch": 8}
+    cfg.seg_infer.infer_batch_size = 32
+    cfg.reference.strategy_args.strategy_name = "jax_infer"
+    cfg.reference.infer_batch_size = 8
+    return cfg
+
+
+def build_grpo(config, params, sam_config, sam_params, out_dir, *, n_tiles=2, tile_px=768,
+               img_cfg=None, processor=None, prompt_length=4096, **cuts):
+    """SocioSegPipeline over n synthetic tiles (also its validation split),
+    built as the entry script builds it (default_engine_kwargs of the
+    config), with `processor` or a SimpleTokenizer one of the config. The
+    reference is `params` without the ViT (it reads the rollout's image
+    embeddings), which the pipeline copies: the trainer updates `params` in
+    place."""
+    from socioreasoner_tpu_torch.datasets.processor import ImageProcessorConfig
+    from socioreasoner_tpu_torch.datasets.socioseg import encode_sample
+    from socioreasoner_tpu_torch.pipeline.rlvr.build import default_engine_kwargs
+    from socioreasoner_tpu_torch.pipeline.rlvr.socioseg_pipeline import SocioSegPipeline
+
+    img_cfg = img_cfg or ImageProcessorConfig(defer_patchify=True)
+    cfg = socioseg_train_config(out_dir, prompt_length=prompt_length, **{**GRPO_CUTS, **cuts})
+    dataset = [encode_sample(t, img_cfg) for t in _synthetic_tiles(n_tiles, tile_px)]
+    return SocioSegPipeline(
+        cfg, model_config=config, policy_params=params,
+        reference_params={k: v for k, v in params.items() if k != "vision"},
+        sam_config=sam_config, sam_params=sam_params,
+        processor=processor or _processor(config, img_cfg), dataset=dataset,
+        val_dataset=dataset, engine_kwargs=default_engine_kwargs(cfg))
+
+
+def grpo_answers(n_samples: int, n: int):
+    """Crafted (stage-1, stage-2) answers, one a sample, in the 756 x 756
+    space of the resized tile, that differ within each group of n: a box at
+    the synthetic tiles' gt region (153-383, 192-383 of a 768-px tile)
+    shifted by the sample, a second box or another place, points inside
+    their box or on its edge, with or without think tags, and one answer a
+    group that does not parse."""
+    s1, s2 = [], []
+    for k in range(n_samples):
+        j = k % n
+        if j == n - 1:
+            s1.append('<think>x</think><answer>[{"bbox_2d": [1, 2</answer>')
+            s2.append("no answer tags")
+            continue
+        d = 6 * j
+        boxes = [[40 + d, 500, 300, 740]] if j % 4 == 3 else [[153 + d, 192, 383, 383 - d]]
+        if j % 2:
+            boxes.append([420, 60 + d, 700, 300])
+        pts = [[[(b[0] + b[2]) // 2 + 5 * t, (b[1] + b[3]) // 2] for t in range(j % 3 + 1)]
+               for b in boxes]
+        if j % 4 == 2:
+            pts[0][0] = [boxes[0][0], pts[0][0][1]]        # on the box's left edge
+        think = "" if j == 5 else f"<think>sample {j}</think>"
+        s1.append(f"{think}<answer>{json.dumps([{'bbox_2d': b} for b in boxes])}</answer>")
+        s2.append(f"{think}<answer>" + json.dumps(
+            [{"bbox_2d": b, "points": p} for b, p in zip(boxes, pts)]) + "</answer>")
+    return s1, s2
+
+
+class ScriptedDecodeWorker:
+    """A decode worker that answers each request at once with the tokens of
+    a crafted answer: stage-1 sample k with s1[k], stage 2 with s2[k] (the
+    overlapped rollout's ("s1" | "s2", k, worker) ids, or the scheduler's
+    (prompt, sample, worker))."""
+
+    def __init__(self, tokenizer, s1, s2, n: int):
+        self.s1 = [list(tokenizer.encode(a)) for a in s1]
+        self.s2 = [list(tokenizer.encode(a)) for a in s2]
+        self.n = n
+
+    def start_server(self, data=None):
+        pass
+
+    def stop_server(self):
+        pass
+
+    def add_request(self, command, data):
+        from types import SimpleNamespace
+        if command.name != "ADD":
+            return {"alive": True} if command.name == "ALIVE_CHECK" else None
+        rid = data["request_id"]
+        if rid[0] == "s2":
+            ids = self.s2[rid[1]]
+        else:
+            ids = self.s1[rid[1] if rid[0] == "s1" else rid[0] * self.n + rid[1]]
+        data["callback"](SimpleNamespace(request_id=rid, output_ids=list(ids),
+                                         finish_reason="stop"))
+
+
+def run_grpo_path(config, params, sam_config, sam_params, out_dir, dev, *, kernels=(),
+                  n_tiles=2, tile_px=768, img_cfg=None, processor=None, prompt_length=4096,
+                  **cuts):
+    """SocioSegPipeline.run() through the port's entry points, twice on one
+    pipeline (build_grpo). Pass 1, the real engine: every step of the
+    yaml's GRPO loop for GRPO_CUTS' max_steps, validation included, the
+    `kernels`' launch counts set to 0 just before and read just after. Pass
+    2, the reward flow: one more step with the decode group replaced by
+    ScriptedDecodeWorker, so that SAM2 masks and non-zero rewards flow, the
+    rewards held to compute_socioseg_rewards recomputed from the pass's own
+    texts and masks. Across both: the reference's log-probs on the first
+    map batch never move, the actor's move in pass 2. Returns stats; raises
+    on a failed check."""
+    from socioreasoner_tpu_torch.pipeline.rlvr.parsing import parse_bboxes
+    from socioreasoner_tpu_torch.pipeline.rlvr.rewards.socioseg import (
+        compute_socioseg_rewards)
+    from socioreasoner_tpu_torch.runtime.generate_scheduler import LocalGenerateGroup
+
+    pipe = build_grpo(config, params, sam_config, sam_params, out_dir, n_tiles=n_tiles,
+                      tile_px=tile_px, img_cfg=img_cfg, processor=processor,
+                      prompt_length=prompt_length, **cuts)
+    cfg = pipe.pipeline_config
+    n = cfg.num_return_sequences
+    engine = pipe.actor_infer.engine
+    shapes = {"train": set(), "logprob": set()}
+    seen = {"train_s": [], "rollouts": [], "rewards": [], "ref": []}
+
+    def record(kind, step_fn):
+        def wrapped(*args):
+            shapes[kind].add(tuple(args[-1]["input_ids"].shape))
+            return step_fn(*args)
+        return wrapped
+
+    actor, reference = pipe.actor_train, pipe.reference
+    actor._train_step = record("train", actor._train_step)
+    actor._logprob_step = record("logprob", actor._logprob_step)
+    reference._logprob_step = record("logprob", reference._logprob_step)
+    plain = {name: getattr(pipe, name) for name in ("_train_stage", "_rollout",
+                                                    "_compute_rewards")}
+    ref_lp = reference.compute_log_probs
+
+    def train_stage(*args):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = plain["_train_stage"](*args)
+        _sync(dev)
+        seen["train_s"].append(time.perf_counter() - t0)
+        return out
+
+    def rollout(*args):
+        seen["rollouts"].append(plain["_rollout"](*args))
+        return seen["rollouts"][-1]
+
+    def compute_rewards(*args):
+        seen["rewards"].append((args, plain["_compute_rewards"](*args)))
+        return seen["rewards"][-1][1]
+
+    def reference_log_probs(batch):
+        out = ref_lp(batch)
+        if not seen["ref"]:
+            seen["ref"] = [batch, out["log_probs"]]
+        return out
+
+    pipe._train_stage, pipe._rollout, pipe._compute_rewards = train_stage, rollout, \
+        compute_rewards
+    reference.compute_log_probs = reference_log_probs
+
+    # ---- pass 1: the real engine
+    for fn in kernels:
+        fn.launches = 0
+    _sync(dev)
+    t0 = time.perf_counter()
+    metrics = pipe.run()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    history = list(pipe.state.log_history)
+    bad = sorted(k for h in history for k, v in h.items()
+                 if isinstance(v, float) and not np.isfinite(v))
+    stage_keys = [f"{s}/{k}" for s in ("map", "sat") for k in (
+        "critic/kl", "critic/reward_mean", "actor_train/total_loss", "actor_train/pg_loss",
+        "actor_train/kl_loss", "actor_train/grad_norm")]
+    missing = [k for k in stage_keys + ["val_iou/mean"] if k not in metrics]
+    if pipe.state.step != cfg.max_steps or bad or missing:
+        raise AssertionError(f"grpo pass 1: step {pipe.state.step} of {cfg.max_steps}, "
+                             f"not finite {bad}, missing {missing}")
+    batch0, ref0 = seen["ref"]
+    if not np.array_equal(ref_lp(batch0)["log_probs"], ref0):
+        raise AssertionError("the reference policy's log-probs changed in pass 1")
+    timers = ("step", "rollout", "logprobs", "rewards", "model_update", "validation")
+    pass1 = {
+        "wall_s": wall, "steps": pipe.state.step,
+        "step_wall_s": [h["time/step"] for h in history],
+        "timers_s": [{k: h[f"time/{k}"] for k in timers if f"time/{k}" in h} for h in history],
+        "train_s_per_stage": list(seen["train_s"]),
+        "actor_infer_tps": [h["system/actor_infer/tps"] for h in history],
+        "actor_train_tps": [h["system/actor_train/tps"] for h in history],
+        "engine_steps": engine.steps_executed, "prefill_rows": engine.prefill_rows,
+        "forked_requests": engine.forked_requests,
+        "prefill_buckets": sorted({(key[0], key[1]) for key in engine.prefill_hist}),
+        "cache_slots": engine.S, "cache_lalloc": engine.Lalloc,
+        "train_shapes": sorted(shapes["train"]), "logprob_shapes": sorted(shapes["logprob"]),
+        # tokens a response, per step and stage: (fewest, most)
+        "response_lens": [{stage: [int(x) for x in (lens.min(), lens.max())] for stage, lens in (
+            (s, (r[f"seqs{s[-1]}"][:, cfg.prompt_length:] != config.pad_token_id).sum(1))
+            for s in ("s1", "s2"))} for r in seen["rollouts"]],
+        "metrics": {k: metrics[k] for k in stage_keys + sorted(
+            k for k in metrics if k.startswith("val_iou/"))},
+        "launches": launches}
+
+    # ---- pass 2: crafted answers through SAM2, the reward and the train steps
+    rows = pipe.dataset[:cfg.rollout_batch_size]
+    worker = ScriptedDecodeWorker(pipe.processor.tokenizer,
+                                  *grpo_answers(len(rows) * n, n), n)
+    saved = (pipe.decode_replicas, pipe.decode_group)
+    pipe.decode_replicas = [worker]
+    pipe.decode_group = pipe.generate_scheduler.cluster = LocalGenerateGroup([worker])
+    actor0 = actor.compute_log_probs(batch0)["log_probs"]
+    cfg.max_steps = pipe.state.step + 1
+    for fn in kernels:
+        fn.launches = 0
+    try:
+        metrics2 = pipe.run()
+    finally:
+        pipe.decode_replicas, pipe.decode_group = saved
+        pipe.generate_scheduler.cluster = saved[1]
+    launches2 = {fn.__name__: fn.launches for fn in kernels}
+    ro = seen["rollouts"][-1]
+    (expanded, map_texts, sat_texts, map_masks, sat_masks, bbox_texts), got = seen["rewards"][-1]
+    want = compute_socioseg_rewards(
+        map_responses=map_texts, sat_responses=sat_texts, map_masks=map_masks,
+        sat_masks=sat_masks,
+        gt_masks=[np.asarray(m.convert("L")) for m in expanded.non_tensor["gt_mask"]],
+        gt_bbox_texts=[str(t) for t in expanded.non_tensor["gt_bbox"]],
+        stage1_bbox_texts=bbox_texts)
+    keys = ("map_response_level_rewards", "sat_response_level_rewards", "seg_iou_rewards")
+    recomputed = all(np.array_equal(got[k], want[k]) for k in keys) \
+        and got["metrics"] == want["metrics"]
+    with_boxes = [k for k, t in enumerate(map_texts) if parse_bboxes(t)]
+    masks_ok = all(ro["map_masks"][k].any() and ro["sat_masks"][k].any() for k in with_boxes) \
+        and not any(ro["sat_masks"][k].any() for k in range(len(map_texts))
+                    if k not in with_boxes)
+    groups = {k: got[k].reshape(-1, n) for k in keys[:2]}
+    differ = all((g != 0).any() and all(len(set(r.tolist())) > 1 for r in g)
+                 for g in groups.values())
+    actor1 = actor.compute_log_probs(batch0)["log_probs"]
+    mask = np.asarray(batch0.batch["response_mask"])[:, 1:] == 1
+    moved = float(np.abs(actor1 - actor0)[mask].max())
+    ref_same = np.array_equal(ref_lp(batch0)["log_probs"], ref0)
+    grad_norms = [metrics2[f"{s}/actor_train/grad_norm"] for s in ("map", "sat")]
+    pass2 = {
+        "step_wall_s": pipe.state.log_history[-1]["time/step"],
+        "rewards": {k: got[k].tolist() for k in keys},
+        "reward_means": got["metrics"], "recomputed_equal": recomputed,
+        "mask_px_s1": [int(m.sum()) for m in ro["map_masks"]],
+        "mask_px_s2": [int(m.sum()) for m in ro["sat_masks"]],
+        "grad_norm": grad_norms, "actor_logprob_max_abs_move": moved,
+        "reference_logprobs_unchanged": ref_same,
+        "metrics": {k: metrics2[k] for k in stage_keys}, "launches": launches2}
+    if not (recomputed and masks_ok and differ and min(grad_norms) > 0 and moved > 0
+            and ref_same and np.isfinite(list(pass2["metrics"].values())).all()):
+        raise AssertionError(f"grpo pass 2 (crafted answers): {pass2}")
+    return {"tiles": len(rows), "samples_per_step": len(rows) * n, "pass1": pass1,
+            "pass2": pass2}
+
+
+def phase_grpo(config, params):
+    """SocioSegPipeline.run() at full width: the main phase's Qwen2.5-VL-3B
+    tree as the policy (trained in place), a copy of it as the reference,
+    the yaml's int8 single-copy rollout weights, SAM2-hiera-large with
+    random bf16 weights, two 768² tiles x n = 8; kernels 1-6 must launch in
+    pass 1 at the shapes the kernels phase checked, kernels 4-6 in pass 2.
+    Returns the launch counts of pass 1."""
+    import gc
+    import tempfile
+    import torch
+    from socioreasoner_tpu_torch.models.sam2 import model as smodel
+    from socioreasoner_tpu_torch.models.sam2.config import Sam2Config
+    from socioreasoner_tpu_torch.ops import decode_attention as da
+    from socioreasoner_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sam_config = Sam2Config.large()
+    sam_params = smodel.init_params(sam_config, torch.Generator(device=dev).manual_seed(2),
+                                    dtype=torch.bfloat16, device=dev)
+    kernels = (fa.flash_attention_segmented, fa.flash_attention, da.paged_decode_attention,
+               *_train_kernel_fns())
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        stats = run_grpo_path(config, params, sam_config, sam_params, out_dir, dev,
+                              kernels=kernels)
+        phase_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    p1, p2 = stats["pass1"], stats["pass2"]
+    emit({"phase": "grpo", "card": _smi_line(),
+          "model": "Qwen2.5-VL-3B (36 layers, ViT depth 32) trained in bf16, rolled out as "
+                   "int8 single-copy weights + SAM2-hiera-large, random bf16 weights",
+          "cuts": {"rollout_batch_size": "128 -> 2", "response_length": "2048 -> 64",
+                   "max_steps": "10 epochs -> 2", "eval_steps": "20 -> 2",
+                   "save_steps": "20 -> -1", "track_with": "tensorboard -> stdout"},
+          "strategy_config": TRAIN_STRATEGY, "phase_s": phase_s,
+          "max_memory_allocated_gb": peak, **stats})
+    missing = [k for k, c in p1["launches"].items() if c <= 0] + \
+        [k for k in ("flash_attention_fwd_lse", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv") if p2["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the grpo path: {missing}")
+    L = GRPO_TRAIN["L"]
+    left = ([b for b in p1["prefill_buckets"] if tuple(b) not in GRPO_PREFILL]
+            + ([] if (p1["cache_slots"], p1["cache_lalloc"]) == (GRPO_SLOTS, GRPO_LALLOC)
+               else ["cache"])
+            + [s for s in p1["train_shapes"] if s != (GRPO_TRAIN["train_batch"], L)]
+            + [s for s in p1["logprob_shapes"] if s != (GRPO_TRAIN["logprob_batch"], L)])
+    if left:
+        raise AssertionError(f"the grpo pass left the checked shapes: {left}")
+    if not peak < 80:
+        raise AssertionError(f"the grpo phase peaked at {peak} GiB")
+    return p1["launches"]
+
+
 def phase_row_writer():
     """Kernel 7's path: one decode step's new K/V rows written into every
     layer of the stacked cache at the diagnostic script's shape and
@@ -2074,12 +2585,15 @@ def main() -> int:
     launches.update(phase_train(config, params))
     launches.update(phase_main_quant(config, params, main_stats))
     two_stage = phase_two_stage(config, params)
+    grpo = phase_grpo(config, params)
     del params
     launches.update(phase_row_writer())
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
         if kern["name"] in two_stage:
             kern["launches_two_stage"] = two_stage[kern["name"]]
+        if kern["name"] in grpo:
+            kern["launches_grpo"] = grpo[kern["name"]]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -14,13 +14,16 @@ on every model_update); the trainer's float tree is never modified.
 The trainer updates its weights in place (trainer.py). A decode engine that
 holds the same tensors -- the usual case, since model_update hands them over
 without a copy -- therefore sees every update, and model_update is a swap of
-the same tensors; rollouts must not run during train_step. The reference
-policy must be given its own copy of the weights.
+the same tensors; rollouts must not run during train_step, and a rollout
+that must see the weights of an earlier update after later train steps
+needs `model_update(snapshot=True)`, which gives the engine its own copy of
+what it shares (`copy_shared`). The reference policy must be given its own
+copy of the weights.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -61,6 +64,36 @@ def batch_image_embeds(config: Qwen25VLConfig, params, batch: BatchProto,
         elif pv is not None:
             out[i] = run_vision(config.vision, params["vision"], pv, grid_col[i])
     return out
+
+
+def _storages(tree, out: set) -> set:
+    if isinstance(tree, Mapping):
+        for v in tree.values():
+            _storages(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _storages(v, out)
+    elif isinstance(tree, torch.Tensor):
+        out.add(tree.untyped_storage().data_ptr())
+    return out
+
+
+@torch.no_grad()
+def copy_shared(tree, other):
+    """`tree` with a clone of every tensor that shares storage with a tensor
+    of `other`, and the same tensor object elsewhere (lists and dicts
+    rebuilt)."""
+    shared = _storages(other, set())
+
+    def walk(t):
+        if isinstance(t, Mapping):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        if isinstance(t, torch.Tensor) and t.untyped_storage().data_ptr() in shared:
+            return t.clone()
+        return t
+    return walk(tree)
 
 
 def _to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
@@ -234,10 +267,19 @@ class TorchDecodeStrategy(InferenceStrategy):
             tree = dict(tree, vision=quantize_vision_params(tree["vision"]))
         self.param_store.put("rollout", tree)
 
-    def model_update(self, params=None):
+    def model_update(self, *args, params=None, snapshot: bool = False):
         """Swap in new weights -- `params`, or the param store's "rollout"
         weights when None -- only while the engine is idle (in-flight slots
-        hold KV computed with the old weights)."""
+        hold KV computed with the old weights). Positional arguments (the
+        pipeline's step) are ignored, as the JAX strategies ignore them.
+
+        With `snapshot`, the engine serves its own copy of every tensor it
+        would share with the published tree: the trainer updates its weights
+        in place, and a rollout after later train steps must see the weights
+        of this update. Of a quantized tree only the float leaves it shares
+        are copied; the codes are new tensors already."""
+        if params is not None and not isinstance(params, Mapping):
+            raise TypeError(f"params must be a mapping of weights, got {type(params).__name__}")
         if self.engine.has_work():
             raise RuntimeError(
                 "model_update while the decode engine has in-flight or waiting "
@@ -246,8 +288,12 @@ class TorchDecodeStrategy(InferenceStrategy):
                 "before swapping weights")
         if params is not None:
             self.param_store.put("rollout", params)
+        published = self.param_store.get("rollout")
         if self._single_copy or self._vit_quant:
             self._quantize_store()
+        if snapshot:
+            self.param_store.put("rollout", copy_shared(self.param_store.get("rollout"),
+                                                        published))
         self.engine.set_params(self.param_store.get("rollout"))
 
     # ------------------------------------------------------------- batch mode

@@ -18,7 +18,6 @@ through the decode server.
 
 from __future__ import annotations
 
-import json
 import os
 import queue
 import threading
@@ -31,7 +30,6 @@ from ...configs.rlvr_config import SocioSegConfig
 from ...configs.validation import validate_config
 from ...datasets.collator import SocioSegCollator, collate_restage
 from ...datasets.processor import SocioProcessor
-from ...datasets.socioseg import format_stage2_prompt, render_visual_prompt
 from ...distributed.seg_strategy import SegStrategy
 from ...distributed.strategy import ParamStore
 from ...distributed.torch_strategies import batch_image_embeds
@@ -43,10 +41,9 @@ from ...protocol import BatchProto
 from ...runtime.generate_scheduler import LocalGenerateGroup
 from ..base_pipeline import BasePipeline
 from .evaluation import compute_giou
-from .parsing import (parse_bboxes, parse_visual_prompts_s1, parse_visual_prompts_s2,
-                      strip_special_tokens)
+from .parsing import parse_visual_prompts_s1, parse_visual_prompts_s2, strip_special_tokens
 from .rewards.socioseg import mask_iou
-from .socioseg_pipeline import _build_decode_replicas
+from .socioseg_pipeline import _build_decode_replicas, _restage
 
 
 def _gt_768(gt_mask) -> np.ndarray:
@@ -116,11 +113,11 @@ class SocioSegInferPipeline(BasePipeline):
         s1_masks = self._segment(batch, map_texts, stage=1)
         s2_prompts, s2_images, bbox_texts = [], [], []
         for i, row in enumerate(rows):
-            btxt = json.dumps([{"bbox_2d": b} for b in parse_bboxes(map_texts[i])])
+            btxt, rendered, prompt = _restage(map_texts[i], row["question"],
+                                              (row["image_map"], row["image_sat"]), s1_masks[i])
             bbox_texts.append(btxt)
-            s2_images.append(render_visual_prompt(
-                btxt, [row["image_map"], row["image_sat"]], s1_masks[i]))
-            s2_prompts.append(format_stage2_prompt(row["question"], btxt))
+            s2_images.append(rendered)
+            s2_prompts.append(prompt)
         s2_batch = collate_restage(self.processor, self.model_config,
                                    s2_prompts, s2_images, cfg.prompt_length)
         gen2 = BatchProto.from_dict(tensors={
@@ -244,13 +241,11 @@ class SocioSegInferPipeline(BasePipeline):
         s2_prompts, imgs = [], []
         for i, m in zip(idxs, masks):
             s1_masks[i] = m
-            btxt = json.dumps([{"bbox_2d": b} for b in parse_bboxes(map_texts[i])])
-            bbox_texts[i] = btxt
-            rendered = render_visual_prompt(
-                btxt, [rows[i]["image_map"], rows[i]["image_sat"]], m)
-            s2_images[i] = rendered
-            s2_prompts.append(format_stage2_prompt(rows[i]["question"], btxt))
-            imgs.append(rendered)
+            bbox_texts[i], s2_images[i], prompt = _restage(
+                map_texts[i], rows[i]["question"], (rows[i]["image_map"], rows[i]["image_sat"]),
+                m)
+            s2_prompts.append(prompt)
+            imgs.append(s2_images[i])
         s2_batch = collate_restage(self.processor, self.model_config,
                                    s2_prompts, imgs, cfg.prompt_length)
         embeds2 = self._embeds(s2_batch, "")

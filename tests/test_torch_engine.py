@@ -265,8 +265,8 @@ def test_decode_strategy_generate_layout(setup):
     assert (out[0, 5:] == out[1, 5:]).all()          # greedy siblings agree
     assert strat.engine.forked_requests == 2
     # new weights: the fork registry is dropped, so the repeat prefills again
-    strat.model_update(params_from_numpy({k: v for k, v in _numpy_tree(tp).items()},
-                                         device="cpu"))
+    strat.model_update(params=params_from_numpy({k: v for k, v in _numpy_tree(tp).items()},
+                                                device="cpu"))
     again = strat.generate(batch, Args())
     np.testing.assert_array_equal(again, out)
     assert strat.engine.prefill_rows == 4
@@ -311,8 +311,15 @@ def test_port_imports_no_jax():
         "import socioreasoner_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "assert len(names) >= 20, names\n"
+        "new = {'utils.kl_controller', 'utils.worker_state', 'pipeline.base_pipeline',\n"
+        "       'pipeline.base_worker', 'pipeline.rlvr.rewards.socioseg',\n"
+        "       'runtime.generate_scheduler', 'pipeline.rlvr.socioseg_pipeline'}\n"
+        "assert {pkg.__name__ + '.' + n for n in new} <= set(names), names\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
+        "for f in ('phase_grpo', 'run_grpo_path', 'build_grpo', 'socioseg_train_config',\n"
+        "          'grpo_answers', 'ScriptedDecodeWorker', '_grpo_train_kernels'):\n"
+        "    assert callable(getattr(chip_smoke, f)), f\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'socioreasoner_tpu' or m.startswith('socioreasoner_tpu.'))\n"
         "assert not bad, bad\n"
@@ -349,6 +356,11 @@ def _jax_package_imports(path):
 def test_port_sources_import_nothing_of_the_jax_package():
     files = _port_sources()
     assert len(files) >= 30
+    rel = {os.path.relpath(f, REPO) for f in files}
+    assert {"socioreasoner_tpu_torch/utils/kl_controller.py",
+            "socioreasoner_tpu_torch/pipeline/base_worker.py",
+            "socioreasoner_tpu_torch/pipeline/rlvr/socioseg_pipeline.py",
+            "socioreasoner_tpu_torch/runtime/generate_scheduler.py", "chip_smoke.py"} <= rel
     bad = {os.path.relpath(f, REPO): hits for f in files if (hits := _jax_package_imports(f))}
     assert not bad, bad
 

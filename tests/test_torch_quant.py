@@ -464,7 +464,7 @@ def test_decode_strategy_single_copy_and_vit_quant(setup):
     tp2 = {k: v for k, v in tp.items()}
     tp2["layers"] = {k: v * 0.5 for k, v in tp["layers"].items()}
     before = tp2["layers"]["q_w"].clone()
-    strat.model_update(tp2)
+    strat.model_update(params=tp2)
     tree2 = store.get("rollout")
     assert tree2 is not tp2 and tq.params_prequantized(tree2)
     assert strat.engine.params["layers"]["q_w"].dtype == torch.int8
