@@ -5,11 +5,13 @@ Tiny Qwen2.5-VL and tiny SAM2 (the configs of
 tests/test_train_pipeline_e2e.py) in float32, JAX and port weights from one
 seed through the weight bridges; a decode worker that answers each sample
 with its own crafted stage-1 and stage-2 text, so that SAM2 masks flow and
-the rewards differ within a group; two steps on both sides, overlapped and
-sequential: the texts, masks and reward arrays equal, the metrics within
-float32 rounding and the trained weights within 1e-5 of each leaf's scale.
-Then the repairs of the weight flow: the step argument, the rollout weights
-between updates, the reference's own weights. The real tiny engines, the
+the rewards differ within a group; two steps on both sides, overlapped
+(with a validation after the second step) and sequential (the yaml's int8
+single-copy rollout weights, updated every second step): the texts, masks
+and reward arrays equal, the metrics within float32 rounding, the trained
+weights within 1e-5 of each leaf's scale, and the engine's weights those of
+the JAX pipeline's last update. Then the other repairs of the weight flow:
+the step argument and the reference's own weights. The real tiny engines, the
 checkpoint resume, the reward worker_cls and chip_smoke's grpo phase are in
 tests/test_torch_grpo_engine.py.
 """
@@ -265,16 +267,28 @@ def _assert_rollouts_equal(got, want):
         np.testing.assert_array_equal(got[key], np.asarray(want[key]), err_msg=key)
 
 
-@pytest.fixture(scope="module", params=[True, False], ids=["overlapped", "sequential"])
+# The two scripted runs, each also a case of the weight-flow repair: the
+# overlapped one validates after its second step's training (the rollout
+# weights must be those of that step's update); the sequential one runs the
+# yaml's int8 single-copy rollout weights and updates them every second step
+# (the second step rolls out on the first step's weights, its float leaves
+# included).
+SCRIPTED = {"overlapped": dict(overlap=True, val=True, eval_steps=2),
+            "sequential": dict(overlap=False, quant=True, frequency=2)}
+
+
+@pytest.fixture(scope="module", params=sorted(SCRIPTED))
 def scripted(request, tmp_path_factory):
-    return _run_pair(tmp_path_factory.mktemp("scripted"), overlap=request.param)
+    return request.param, _run_pair(tmp_path_factory.mktemp("scripted"),
+                                     **SCRIPTED[request.param])
 
 
 def test_scripted_rollouts_and_rewards_match_jax(scripted):
     """Two steps: the same texts, masks and sequences each step, and every
     reward array equal; SAM2 masks flow and the rewards differ within a
     group."""
-    (_, jseen, _), (_, tseen, _) = scripted["jax"], scripted["port"]
+    _, out = scripted
+    (_, jseen, _), (_, tseen, _) = out["jax"], out["port"]
     assert len(tseen["rollouts"]) == len(jseen["rollouts"]) == 2
     for got, want in zip(tseen["rollouts"], jseen["rollouts"]):
         _assert_rollouts_equal(got, want)
@@ -299,7 +313,8 @@ def test_scripted_metrics_and_params_match_jax(scripted):
     within float32 rounding (rtol 1e-5, atol 1e-6, as the train steps are
     held), the same metric keys, and the trained weights after two steps
     within 1e-5 of each leaf's scale."""
-    (jpipe, _, jm), (tpipe, _, tm) = scripted["jax"], scripted["port"]
+    _, out = scripted
+    (jpipe, _, jm), (tpipe, _, tm) = out["jax"], out["port"]
     assert tpipe.state.step == jpipe.state.step == 2
     assert set(tm) == set(jm)
     for stage in ("map", "sat"):
@@ -326,34 +341,30 @@ def _leaves(tree, prefix=""):
             yield prefix + k, v
 
 
-@pytest.mark.parametrize("case", [
-    dict(frequency=2), dict(frequency=2, quant=True),
-    dict(frequency=1, val=True, eval_steps=1, max_steps=1)],
-    ids=["every_2_steps", "every_2_steps_int8_single_copy", "validation_after_training"])
-def test_rollout_weights_are_those_of_the_last_update(tmp_path, case):
-    """model_update_frequency 2 (the second step rolls out without an
-    update), and validation after a step's training: the decode engine's
-    weights, every float leaf it shares with the trainer included, equal
-    the JAX pipeline's rollout tree of the last update, not the trainer's
-    weights after the steps since; the int8 codes equal the JAX codes."""
-    out = _run_pair(tmp_path, **case)
+def test_rollout_weights_are_those_of_the_last_update(scripted):
+    """After the scripted runs -- validation after the second step's
+    training, and int8 single-copy weights updated every second step -- the
+    decode engine's weights, every float leaf it shares with the trainer
+    included, equal the JAX pipeline's rollout tree of the last update, not
+    the trainer's weights after the steps since; the int8 codes equal the
+    JAX codes."""
+    name, out = scripted
     (jpipe, _, jm), (tpipe, _, tm) = out["jax"], out["port"]
     engine = tpipe.actor_infer.engine.params
-    want = jax.tree.map(np.asarray, jpipe.param_store.get("rollout"))
-    assert sorted(n for n, _ in _leaves(engine)) == sorted(n for n, _ in _leaves(want))
+    want = dict(_leaves(jax.tree.map(np.asarray, jpipe.param_store.get("rollout"))))
+    assert sorted(n for n, _ in _leaves(engine)) == sorted(want)
     floats = {n: t for n, t in _leaves(engine) if t.is_floating_point()}
     codes = {n: t for n, t in _leaves(engine) if not t.is_floating_point()}
-    _assert_params_close(floats, {n: want_leaf for n, want_leaf in _leaves(want)
-                                  if n in floats})
-    for name, t in codes.items():
-        np.testing.assert_array_equal(t.numpy(), dict(_leaves(want))[name], err_msg=name)
-    assert bool(codes) == bool(case.get("quant"))
+    _assert_params_close(floats, {n: want[n] for n in floats})
+    for leaf, t in codes.items():
+        np.testing.assert_array_equal(t.numpy(), want[leaf], err_msg=leaf)
+    assert bool(codes) == SCRIPTED[name].get("quant", False)
     trainer = dict(_leaves(tpipe.actor_train.params))
     moved = [n for n, t in floats.items() if n in trainer and not torch.equal(t, trainer[n])]
     assert "embed" in moved and len(moved) > len(floats) // 2
     ptrs = {t.untyped_storage().data_ptr() for t in trainer.values()}
     assert not any(t.untyped_storage().data_ptr() in ptrs for t in floats.values())
-    if case.get("val"):
+    if SCRIPTED[name].get("val"):
         assert "val_iou/mean" in tm and tm["val_iou/mean"] == jm["val_iou/mean"]
 
 
