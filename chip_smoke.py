@@ -86,7 +86,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 recomputed from the pass's texts and masks, grad_norm > 0,
                 the actor's log-probs moved and the reference's not;
                 kernels 4-6 must launch. Peak memory < 80 GB.
-  13. row_writer — kernel 7's own path: one decode step's K/V row writes
+  13. entry   — the system started as users start it: the main phase's
+                tree (trained by the grpo phase) written with the port's
+                save_pretrained (BF16 shards, config.json) beside an offline
+                byte-level HF tokenizer and read back bit for bit; a
+                SocioSeg directory of 768² tiles (4 test, 2 train); then
+                both entry scripts' main() on examples/{infer,train}/
+                rlvr_tpu.yaml overlaid with those paths and the two_stage
+                and grpo phases' cuts (the train run: one step, the
+                pipeline state saved after it, a jsonl tracker). Every
+                policy tree the build functions read must equal the exported one
+                (checksums); the infer run must write iou_acc.txt and 4
+                PNGs and 2 texts a tile with kernels 1-3 launched, the
+                train run finish its step with finite metrics, the tracker
+                file and the pipeline checkpoint, kernels 1-6 launched, both
+                at the shapes the kernels phase checked. Then a
+                TorchTrainStrategy checkpoint round trip at 3B widths with 2
+                layers: params and optimizer state restored bit for bit, the
+                resumed step against the uninterrupted one. Peak < 80 GB.
+  14. row_writer — kernel 7's own path: one decode step's K/V row writes
                 into the stacked cache at the diagnostic script's shape (36
                 layers, 24 slots, Lalloc 1536), held against the indexed
                 assignment.
@@ -98,10 +116,12 @@ float32. Imports nothing of JAX. The last line is the device summary
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1418,23 +1438,19 @@ PARITY_LP_TOL = 0.1         # max-abs on a response token's log-prob (~ -9)
 PARITY_LP_MEAN_TOL = 1e-2   # mean-abs over the response tokens
 
 
-def phase_train_parity():
-    """One make_train_step with the kernels and one with allow_flash=False
-    (dense attention) from identical bf16 params and the same GRPO batch, at
-    Qwen2.5-VL-3B widths with 2 layers: loss, grad norm and the log-probs
-    after the step."""
+PARITY_LENS = (2304, 2080, 1000, 600)   # valid tokens a row; L is the first
+
+
+def parity_batch(config, params, dev, lens=PARITY_LENS, seed=9):
+    """A GRPO batch of random tokens as device tensors: rows of `lens` valid
+    tokens right-padded to lens[0], the last 256 of each the response, old
+    log-probs from a log-prob step on `params`, reference log-probs and
+    advantages drawn around them."""
     import torch
     from socioreasoner_tpu_torch.distributed import trainer as T
-    from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
-    from socioreasoner_tpu_torch.pipeline.losses import PPOLossConfig
-
-    config = _short_3b_config()
-    dev = torch.device("cuda")
-    params = qmodel.init_params(config, torch.Generator(device=dev).manual_seed(9),
-                                dtype=torch.bfloat16, device=dev, with_vision=False)
-    rng = np.random.default_rng(9)
-    B, L = 4, 2304
-    lens = np.array([2304, 2080, 1000, 600])
+    rng = np.random.default_rng(seed)
+    lens = np.asarray(lens)
+    B, L = len(lens), int(lens[0])
     cols = np.arange(L)[None]
     attn = (cols < lens[:, None]).astype(np.int64)
     ids = np.where(attn == 1, rng.integers(2, config.text.vocab_size - 8, (B, L)), 0)
@@ -1450,6 +1466,27 @@ def phase_train_parity():
         rng.normal(size=(B, L - 1)), dtype=torch.float32, device=dev)
     batch["advantages"] = mask * torch.as_tensor(rng.normal(size=(B, L - 1)),
                                                  dtype=torch.float32, device=dev)
+    return batch
+
+
+def phase_train_parity():
+    """One make_train_step with the kernels and one with allow_flash=False
+    (dense attention) from identical bf16 params and the same GRPO batch, at
+    Qwen2.5-VL-3B widths with 2 layers: loss, grad norm and the log-probs
+    after the step."""
+    import torch
+    from socioreasoner_tpu_torch.distributed import trainer as T
+    from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
+    from socioreasoner_tpu_torch.pipeline.losses import PPOLossConfig
+
+    config = _short_3b_config()
+    dev = torch.device("cuda")
+    params = qmodel.init_params(config, torch.Generator(device=dev).manual_seed(9),
+                                dtype=torch.bfloat16, device=dev, with_vision=False)
+    lens = PARITY_LENS
+    batch = parity_batch(config, params, dev, lens)
+    B, L = len(lens), lens[0]
+    mask = batch["response_mask"][:, 1:].float()
     res = {}
     for flash in (True, False):
         opt = T.make_optimizer()
@@ -1465,7 +1502,7 @@ def phase_train_parity():
         del state
     (loss_k, norm_k, lp_k, n_k), (loss_d, norm_d, lp_d, n_d) = res[True], res[False]
     diff = (lp_k - lp_d).abs() * mask
-    out = {"phase": "train_parity", "shape": f"B={B} L={L} kv_len={lens.tolist()}, "
+    out = {"phase": "train_parity", "shape": f"B={B} L={L} kv_len={list(lens)}, "
            "3B widths, 2 layers, vocab 8192, bf16",
            "loss_kernels": loss_k, "loss_dense": loss_d,
            "grad_norm_kernels": norm_k, "grad_norm_dense": norm_d,
@@ -1915,7 +1952,6 @@ def run_two_stage(pipeline, dev, kernels=()):
     to 0 just before it and read just after; the outputs checked (4 PNGs and
     2 texts a tile, iou_acc.txt equal to the returned giou_acc). Returns
     stats."""
-    import os
     from socioreasoner_tpu_torch.datasets.collator import collate_restage
     from socioreasoner_tpu_torch.datasets.socioseg import format_stage2_prompt
     from socioreasoner_tpu_torch.pipeline.rlvr.parsing import parse_bboxes
@@ -1955,18 +1991,8 @@ def run_two_stage(pipeline, dev, kernels=()):
     launches = {fn.__name__: fn.launches for fn in kernels}
     d = [a - b for a, b in zip(engine_counts(), before)]
 
-    res = pipeline.result_dir
-    files = {sub: sorted(os.listdir(os.path.join(res, sub)))
-             for sub in ("stage1", "stage2", "render1", "render2")}
-    ids = [str(r["id"]) for r in pipeline.dataset]
-    want = {"stage1": sorted([f"{i}.png" for i in ids] + [f"{i}.txt" for i in ids]),
-            "render1": sorted(f"{i}.png" for i in ids)}
-    want["stage2"], want["render2"] = want["stage1"], want["render1"]
-    if files != want:
-        raise AssertionError(f"result files {files} != {want}")
-    with open(os.path.join(res, "iou_acc.txt")) as f:
-        written = float(f.read())
-    if written != giou_acc or not 0.0 <= giou_acc <= 1.0:
+    written, n_files = check_infer_outputs(pipeline)
+    if written != giou_acc:
         raise AssertionError(f"iou_acc.txt {written} != giou_acc {giou_acc}")
     timer = pipeline.state.log_history[-1]["time/two_stage"]
     return {"tiles": n, "tiles_per_s": n / wall, "run_wall_s": wall,
@@ -1982,11 +2008,32 @@ def run_two_stage(pipeline, dev, kernels=()):
             "sequential": {"wall_s": seq_wall, "prefill_ms": seq_d[0] * 1e3,
                            "decode_s": seq_d[1], "steps_executed": seq_d[2],
                            "prefill_calls": seq_d[5]},
-            "giou_acc": giou_acc, "files_written": sum(len(v) for v in files.values()) + 1,
+            "giou_acc": giou_acc, "files_written": n_files,
             # answers with a box in the sequential pass: on random weights
             # none, so SegStrategy returns empty masks without encoding
             "s1_answers_with_boxes": sum(bool(parse_bboxes(t)) for t in seq["map_texts"]),
             "launches": launches}
+
+
+def check_infer_outputs(pipeline):
+    """The files of SocioSegInferPipeline.run(): 4 PNGs and 2 texts a tile
+    (stage1/stage2 mask and answer, render1/render2) and iou_acc.txt, which
+    must hold a giou in [0, 1]. Returns (that giou, the number of files)."""
+    import os
+    res = pipeline.result_dir
+    files = {sub: sorted(os.listdir(os.path.join(res, sub)))
+             for sub in ("stage1", "stage2", "render1", "render2")}
+    ids = [str(r["id"]) for r in pipeline.dataset]
+    want = {"stage1": sorted([f"{i}.png" for i in ids] + [f"{i}.txt" for i in ids]),
+            "render1": sorted(f"{i}.png" for i in ids)}
+    want["stage2"], want["render2"] = want["stage1"], want["render1"]
+    if files != want:
+        raise AssertionError(f"result files {files} != {want}")
+    with open(os.path.join(res, "iou_acc.txt")) as f:
+        written = float(f.read())
+    if not 0.0 <= written <= 1.0:
+        raise AssertionError(f"iou_acc.txt holds {written}")
+    return written, sum(len(v) for v in files.values()) + 1
 
 
 def _float_tree(tree):
@@ -2531,6 +2578,432 @@ def phase_grpo(config, params):
     return p1["launches"]
 
 
+# ------------------------------------------------------------- entry scripts
+
+# examples/{infer,train}/rlvr_tpu.yaml as users start them, cut in scale as
+# the two_stage and grpo phases cut them (rollout_batch_size 250 -> 4 and
+# 128 -> 2, response_length 2048 -> 64, infer_batch_size 16 -> 4); the
+# train run takes one step (10 epochs -> 1 step), saves the pipeline state
+# after it (save_steps 20 -> 1) and logs to a jsonl file (tensorboard ->
+# file: the card has no tensorboardX). The train entry builds no
+# validation split, as in the JAX package.
+ENTRY_INFER_CUTS = {"rollout_batch_size": 4, "response_length": 64,
+                    "actor_infer": {"infer_batch_size": 4}}
+ENTRY_TRAIN_CUTS = {"rollout_batch_size": 2, "response_length": 64, "max_steps": 1,
+                    "save_steps": 1, "track_with": "file"}
+ENTRY_TILES = {"test": 4, "train": 2}
+ENTRY_TIMERS = ("step", "rollout", "logprobs", "rewards", "model_update")
+
+
+def _bytes_to_unicode():
+    """GPT-2's byte → printable character table of byte-level BPE."""
+    bs = list(range(33, 127)) + list(range(161, 173)) + list(range(174, 256))
+    cs = bs[:]
+    extra = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + extra)
+            extra += 1
+    return dict(zip(bs, map(chr, cs)))
+
+
+def write_byte_tokenizer(path, special, vocab_size):
+    """An HF tokenizer (tokenizer.json + tokenizer_config.json) built offline
+    with `tokenizers`: byte-level BPE without merges, byte b at id b + 3 and
+    the special tokens at the ids `special` names, so it encodes as
+    SimpleTokenizer does; every other id below vocab_size is a filler token,
+    so any id the model samples decodes."""
+    import os
+    from tokenizers import AddedToken, Tokenizer, decoders, models, pre_tokenizers
+    chars = _bytes_to_unicode()
+    vocab = {chars[b]: b + 3 for b in range(256)}
+    vocab.update(special)
+    used = set(vocab.values())
+    vocab.update({f"<|r{i}|>": i for i in range(vocab_size) if i not in used})
+    tok = Tokenizer(models.BPE(vocab=vocab, merges=[]))
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False, use_regex=False)
+    tok.decoder = decoders.ByteLevel()
+    tok.add_special_tokens([AddedToken(t, special=True, normalized=False) for t in special])
+    os.makedirs(path, exist_ok=True)
+    tok.save(os.path.join(path, "tokenizer.json"))
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast", "eos_token": "<|im_end|>",
+                   "pad_token": "<|endoftext|>", "clean_up_tokenization_spaces": False}, f)
+
+
+def write_socioseg_dir(root, tile_px):
+    """load_socioseg_dir's layout of _synthetic_tiles, ENTRY_TILES of each
+    split: root/<split>/<id>/{map.png,sat.png,mask.png,question.json}."""
+    import os
+    tiles = _synthetic_tiles(max(ENTRY_TILES.values()), tile_px)
+    for split, n in ENTRY_TILES.items():
+        for t in tiles[:n]:
+            d = os.path.join(root, split, t["id"])
+            os.makedirs(d, exist_ok=True)
+            for key in ("map", "sat", "mask"):
+                t[key].save(os.path.join(d, f"{key}.png"))
+            with open(os.path.join(d, "question.json"), "w") as f:
+                json.dump({"question": t["question"]}, f)
+
+
+def write_entry_yaml(example, path, *overlays):
+    """examples/<example> through the port's load_yaml, with `overlays`
+    merged over it, written to `path` as JSON (which is YAML)."""
+    from socioreasoner_tpu_torch.configs.loader import _deep_merge, load_yaml
+    data = load_yaml(str(Path(__file__).resolve().parent / "examples" / example))
+    for overlay in overlays:
+        data = _deep_merge(data, overlay)
+    with open(path, "w") as f:
+        json.dump(data, f, indent=1)
+
+
+def _checksum(t):
+    """[sum of the bit patterns, sum weighted by position] of a tensor,
+    computed where it lives."""
+    import torch
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    flat = t.detach().reshape(-1).view(ints[t.element_size()])
+    s = w = 0
+    chunk = 1 << 26
+    for i in range(0, flat.numel(), chunk):
+        part = flat[i:i + chunk].to(torch.int64)
+        pos = torch.arange(i, i + part.numel(), device=part.device) % 65521 + 1
+        s += int(part.sum())
+        w += int((part * pos).sum())
+    return [s, w]
+
+
+def tree_checksums(tree):
+    """{leaf path: _checksum} of a nest of tensors."""
+    from socioreasoner_tpu_torch.utils.checkpoint import flatten
+    return {path: _checksum(t) for path, t in flatten(tree).items()}
+
+
+def export_main_tree(config, params, export_dir, dev):
+    """The main phase's tree through the port's save_pretrained into
+    export_dir (BF16 shards + config.json) and the tokenizer beside it; read
+    back once with load_pretrained and held to the tree leaf by leaf
+    (torch.equal). Returns stats and the tree's checksums, against which
+    the entry scripts' reads are held once the tree is gone."""
+    import os
+    import torch
+    from socioreasoner_tpu_torch.datasets.processor import QWEN_SPECIAL_TOKENS
+    from socioreasoner_tpu_torch.models.qwen2_5_vl import export, loader
+    from socioreasoner_tpu_torch.utils.checkpoint import flatten
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    export.save_pretrained(config, params, export_dir)
+    export_s = time.perf_counter() - t0
+    gb = sum(os.path.getsize(os.path.join(export_dir, f)) for f in os.listdir(export_dir)
+             if f.endswith(".safetensors")) / 1e9
+    special = (QWEN_SPECIAL_TOKENS if config.text.vocab_size > max(QWEN_SPECIAL_TOKENS.values())
+               else _TINY_SPECIAL)
+    write_byte_tokenizer(export_dir, special, config.text.vocab_size)
+    sums = tree_checksums(params)
+    t0 = time.perf_counter()
+    config2, back = loader.load_pretrained(export_dir, dtype=torch.bfloat16, device=dev)
+    _sync(dev)
+    load_s = time.perf_counter() - t0
+    flat, flat_back = flatten(params), flatten(back)
+    mismatch = [k for k, v in flat.items()
+                if k not in flat_back or not torch.equal(v, flat_back[k])]
+    mismatch += sorted(set(flat_back) - set(flat))
+    if config2 != config or mismatch or tree_checksums(back) != sums:
+        raise AssertionError(f"the exported tree did not read back bit for bit: {mismatch}")
+    del back
+    return {"export_s": export_s, "export_gb": gb, "export_gb_per_s": gb / export_s,
+            "read_back_s": load_s, "read_back_gb_per_s": gb / load_s,
+            "shards": sorted(f for f in os.listdir(export_dir) if f.endswith(".safetensors"))
+            }, sums
+
+
+# Qwen special tokens at Qwen25VLConfig.tiny()'s ids, for a tiny rehearsal
+_TINY_SPECIAL = {"<|endoftext|>": 0, "<|im_end|>": 1, "<|im_start|>": 300,
+                 "<|vision_start|>": 508, "<|image_pad|>": 509, "<|video_pad|>": 510,
+                 "<|vision_end|>": 511}
+
+
+@contextlib.contextmanager
+def _patched(module, name, make):
+    """module.name replaced by make(plain) inside the block."""
+    plain = getattr(module, name)
+    setattr(module, name, make(plain))
+    try:
+        yield
+    finally:
+        setattr(module, name, plain)
+
+
+def run_entry_path(export_dir, data_dir, out_dir, dev, *, want_sums, kernels=(),
+                   infer_overlay=None, train_overlay=None):
+    """Both entry scripts' main() on examples/{infer,train}/rlvr_tpu.yaml,
+    overlaid with the paths under out_dir (pretrain = export_dir, with its
+    tokenizer; dataset_dir = data_dir; SAM2's path stays the yaml's, which is
+    no directory, so a random SAM2-hiera-large), the ENTRY cuts and the
+    given overlays: the infer entry over the test split, then the train
+    entry for one step. Every policy tree the build functions read is held to
+    want_sums; the `kernels`' launch counts are set to 0 just before each
+    main() and read just after; the engines' prefill buckets and caches and
+    the train and log-prob batch shapes are recorded. Checks the infer
+    files, the finite train metrics, the tracker's jsonl and the pipeline
+    checkpoint. Returns stats."""
+    import gc
+    import os
+    import torch
+    from socioreasoner_tpu_torch.distributed import torch_strategies as ts
+    from socioreasoner_tpu_torch.examples import start_rlvr_socioseg_pipeline as train_entry
+    from socioreasoner_tpu_torch.examples import (
+        start_rlvr_socioseg_pipeline_infer as infer_entry)
+    from socioreasoner_tpu_torch.pipeline.rlvr import build
+
+    reads, builds = [], {}
+    shapes = {"train": set(), "logprob": set()}
+
+    def load_policy(plain):
+        def run(*args, **kwargs):
+            _sync(dev)
+            t0 = time.perf_counter()
+            model_config, params = plain(*args, **kwargs)
+            _sync(dev)
+            s = time.perf_counter() - t0
+            gb = _tree_bytes(params) / 1e9
+            reads.append({"s": s, "gb": gb, "gb_per_s": gb / s,
+                          "bit_equal": tree_checksums(params) == want_sums})
+            return model_config, params
+        return run
+
+    def timed(name):
+        def make(plain):
+            def run(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = plain(*args, **kwargs)
+                _sync(dev)
+                builds[name] = time.perf_counter() - t0
+                return out
+            return run
+        return make
+
+    def recording(kind):
+        def make(plain):
+            def factory(*args, **kwargs):
+                step = plain(*args, **kwargs)
+
+                def run(*step_args):
+                    shapes[kind].add(tuple(step_args[-1]["input_ids"].shape))
+                    return step(*step_args)
+                return run
+            return factory
+        return make
+
+    paths = {"pretrain": export_dir, "actor_train": {"data_args": {"dataset_dir": data_dir}}}
+    yaml_dir = os.path.join(out_dir, "yaml")
+    os.makedirs(yaml_dir, exist_ok=True)
+    infer_out, train_out = os.path.join(out_dir, "infer"), os.path.join(out_dir, "train")
+    write_entry_yaml("infer/rlvr_tpu.yaml", os.path.join(yaml_dir, "infer.yaml"), paths, {
+        "output_dir": infer_out,
+        "checkpoint_config": {"output_dir": os.path.join(infer_out, "checkpoint")}},
+        ENTRY_INFER_CUTS, infer_overlay or {})
+    write_entry_yaml("train/rlvr_tpu.yaml", os.path.join(yaml_dir, "train.yaml"), paths, {
+        "output_dir": train_out, "logging_dir": os.path.join(train_out, "logs"),
+        "tracker_kwargs": {"log_dir": os.path.join(train_out, "tracker")},
+        "checkpoint_config": {"output_dir": os.path.join(train_out, "checkpoint")}},
+        ENTRY_TRAIN_CUTS, train_overlay or {})
+    argv = ["--config_path", yaml_dir] + (["--device", "cpu"] if dev.type == "cpu" else [])
+    out = {}
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_patched(build, "load_policy", load_policy))
+        stack.enter_context(_patched(build, "build_infer_pipeline", timed("infer")))
+        stack.enter_context(_patched(build, "build_train_pipeline", timed("train")))
+        stack.enter_context(_patched(ts, "make_train_step", recording("train")))
+        stack.enter_context(_patched(ts, "make_logprob_step", recording("logprob")))
+
+        # ---- infer entry
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        pipe = infer_entry.main(argv + ["--config_name", "infer.yaml"])
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        giou, n_files = check_infer_outputs(pipe)
+        engine = pipe.actor_infer.engine
+        run_s = wall - builds["infer"]
+        out["infer"] = {
+            "main_s": wall, "build_s": builds["infer"], "run_s": run_s,
+            "tiles": len(pipe.dataset), "tiles_per_s": len(pipe.dataset) / run_s,
+            "tokenizer": type(pipe.processor.tokenizer).__name__,
+            "prefill_buckets": sorted({key[1] for key in engine.prefill_hist}),
+            "cache_lalloc": engine.Lalloc, "giou_acc": giou, "files_written": n_files,
+            "launches": launches}
+        del pipe, engine
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # ---- train entry
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        pipe = train_entry.main(argv + ["--config_name", "train.yaml"])
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in kernels}
+    cfg = pipe.pipeline_config
+    history = list(pipe.state.log_history)
+    bad = sorted(k for h in history for k, v in h.items()
+                 if isinstance(v, float) and not np.isfinite(v))
+    with open(os.path.join(train_out, "tracker", "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    ckpt = os.path.join(train_out, "pipeline", "checkpoint-1", "state.json")
+    if (pipe.state.step != 1 or len(history) != 1 or bad or len(logged) != 1
+            or logged[0]["step"] != 0 or not os.path.exists(ckpt)):
+        raise AssertionError(f"the train entry: step {pipe.state.step}, {len(history)} "
+                             f"records, not finite {bad}, {len(logged)} tracker lines, "
+                             f"checkpoint {os.path.exists(ckpt)}")
+    engine = pipe.actor_infer.engine
+    h = history[-1]
+    out["train"] = {
+        "main_s": wall, "build_s": builds["train"], "run_s": wall - builds["train"],
+        "samples": cfg.rollout_batch_size * cfg.num_return_sequences,
+        "step_wall_s": h["time/step"],
+        "timers_s": {k: h[f"time/{k}"] for k in ENTRY_TIMERS if f"time/{k}" in h},
+        "metrics": {k: h[k] for k in sorted(h) if k.endswith(("/grad_norm", "/total_loss",
+                                                              "/reward_mean"))},
+        "prefill_buckets": sorted({(key[0], key[1]) for key in engine.prefill_hist}),
+        "cache_slots": engine.S, "cache_lalloc": engine.Lalloc,
+        "train_shapes": sorted(shapes["train"]), "logprob_shapes": sorted(shapes["logprob"]),
+        "tracker_lines": len(logged), "launches": launches}
+    out["reads"] = reads
+    del pipe, engine
+    gc.collect()
+    if not reads or not all(r["bit_equal"] for r in reads) or len(reads) != 3:
+        raise AssertionError(f"the build functions' reads of the exported tree: {reads}")
+    return out
+
+
+def checkpoint_round_trip(config, params, batch, dev, ckpt_dir, *, steps_before=3):
+    """TorchTrainStrategy checkpoints: a strategy on a copy of `params`
+    (gradient accumulation 2, so that the accumulator and its counters
+    carry across) takes steps_before steps on `batch` and saves; a fresh
+    strategy on another copy loads that checkpoint, and its params and
+    optimizer state must equal the first's bit for bit; then each takes one
+    more step. Returns the resumed and the uninterrupted step's loss and
+    grad norm, and the save and load times."""
+    from types import SimpleNamespace
+    import torch
+    from socioreasoner_tpu_torch.distributed.torch_strategies import TorchTrainStrategy
+    from socioreasoner_tpu_torch.protocol import BatchProto
+    from socioreasoner_tpu_torch.utils.checkpoint import flatten
+
+    proto = BatchProto.from_dict(tensors={k: v.cpu().numpy() for k, v in batch.items()})
+    args = SimpleNamespace(learning_rate=1e-5, weight_decay=0.01,
+                           gradient_accumulation_steps=2)
+
+    def strategy():
+        s = TorchTrainStrategy()
+        s.initialize(config, _clone(params), training_args=args, checkpoint_dir=ckpt_dir)
+        return s
+
+    first = strategy()
+    for _ in range(steps_before):
+        first.train_step(proto)
+    _sync(dev)
+    t0 = time.perf_counter()
+    first.save_checkpoint(steps_before, meta={"step": steps_before}, wait=True)
+    save_s = time.perf_counter() - t0
+    second = strategy()
+    t0 = time.perf_counter()
+    meta = second.load_checkpoint()
+    _sync(dev)
+    load_s = time.perf_counter() - t0
+    a, b = flatten(first._checkpoint_tree()), flatten(second._checkpoint_tree())
+    differ = [k for k in a if not (torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+                                   else a[k] == b[k])]
+    if meta != {"step": steps_before} or sorted(a) != sorted(b) or differ \
+            or second.params["embed"].device != params["embed"].device:
+        raise AssertionError(f"the checkpoint did not restore bit for bit: {differ[:5]}")
+    m1, m2 = first.train_step(proto), second.train_step(proto)
+    keys = ("actor_train/loss", "actor_train/grad_norm")
+    return {"uninterrupted": {k: m1[k] for k in keys}, "resumed": {k: m2[k] for k in keys},
+            "bit_equal": m1 == m2 and all(torch.equal(x, y) for x, y in zip(
+                flatten(first.params).values(), flatten(second.params).values())),
+            "state_gb": sum(v.nbytes for v in a.values() if isinstance(v, torch.Tensor)) / 1e9,
+            "save_s": save_s, "load_s": load_s, "optimizer_count": b["opt_state/count"],
+            "mini_step": b.get("opt_state/mini_step")}
+
+
+def phase_entry(export_dir, export_stats, want_sums, work_dir):
+    """The system started as users start it: the two entry scripts on the
+    yamls of examples/, the policy read from the main phase's exported tree
+    (export_main_tree), at full width; kernels 1-3 must launch in the infer
+    run and 1-6 in the train run, at the shapes the kernels phase checked
+    (the two_stage and grpo phases' buckets and caches, GRPO_TRAIN). Then
+    the model-checkpoint round trip at 3B widths with 2 layers. Returns the
+    launch counts over both runs."""
+    import gc
+    import os
+    import torch
+    from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
+    from socioreasoner_tpu_torch.ops import decode_attention as da
+    from socioreasoner_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels = (fa.flash_attention_segmented, fa.flash_attention, da.paged_decode_attention,
+               *_train_kernel_fns())
+    data_dir = os.path.join(work_dir, "socioseg")
+    write_socioseg_dir(data_dir, 768)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = run_entry_path(export_dir, data_dir, os.path.join(work_dir, "runs"), dev,
+                           want_sums=want_sums, kernels=kernels)
+    entry_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    inf, tr = stats["infer"], stats["train"]
+    L = GRPO_TRAIN["L"]
+    left = ([k.__name__ for k in kernels[:3] if inf["launches"][k.__name__] <= 0]
+            + [k.__name__ for k in kernels if tr["launches"][k.__name__] <= 0]
+            + ([] if inf["prefill_buckets"] == [2048, TWO_STAGE_PREFILL["L"]]
+               and inf["cache_lalloc"] == TWO_STAGE_LALLOC else ["infer shapes"])
+            + [b for b in tr["prefill_buckets"] if tuple(b) not in GRPO_PREFILL]
+            + ([] if (tr["cache_slots"], tr["cache_lalloc"]) == (GRPO_SLOTS, GRPO_LALLOC)
+               else ["train cache"])
+            + [s for s in tr["train_shapes"] if s != (GRPO_TRAIN["train_batch"], L)]
+            + [s for s in tr["logprob_shapes"] if s != (GRPO_TRAIN["logprob_batch"], L)])
+
+    config = _short_3b_config()
+    params = qmodel.init_params(config, torch.Generator(device=dev).manual_seed(9),
+                                dtype=torch.bfloat16, device=dev, with_vision=False)
+    round_trip = checkpoint_round_trip(config, params, parity_batch(config, params, dev),
+                                       dev, os.path.join(work_dir, "ckpt"))
+    uninterrupted, resumed = round_trip["uninterrupted"], round_trip["resumed"]
+    held = "bit_equal" if round_trip["bit_equal"] else "train_parity tolerances"
+    emit({"phase": "entry", "card": _smi_line(),
+          "model": "Qwen2.5-VL-3B (36 layers, ViT depth 32), the main phase's bf16 tree "
+                   "exported and read back; SAM2-hiera-large random bf16",
+          "yamls": ["examples/infer/rlvr_tpu.yaml", "examples/train/rlvr_tpu.yaml"],
+          "cuts": {"infer": ENTRY_INFER_CUTS, "train": ENTRY_TRAIN_CUTS},
+          "tokenizer": inf["tokenizer"], **export_stats, **stats, "entry_s": entry_s,
+          "max_memory_allocated_gb": peak,
+          "checkpoint_round_trip": {"model": "3B widths, 2 layers, vocab 8192, bf16",
+                                    **round_trip, "held": held}})
+    if left:
+        raise AssertionError(f"the entry runs left the checked kernels or shapes: {left}")
+    if not peak < 80:
+        raise AssertionError(f"the entry phase peaked at {peak} GiB")
+    if not round_trip["bit_equal"] and not (
+            abs(resumed["actor_train/loss"] - uninterrupted["actor_train/loss"])
+            <= PARITY_LOSS_TOL
+            and abs(resumed["actor_train/grad_norm"] - uninterrupted["actor_train/grad_norm"])
+            <= PARITY_NORM_TOL * uninterrupted["actor_train/grad_norm"]):
+        raise AssertionError(f"the resumed step left the uninterrupted one: {round_trip}")
+    return {k.__name__: inf["launches"].get(k.__name__, 0) + tr["launches"][k.__name__]
+            for k in kernels}
+
+
 def phase_row_writer():
     """Kernel 7's path: one decode step's new K/V rows written into every
     layer of the stacked cache at the diagnostic script's shape and
@@ -2586,7 +3059,12 @@ def main() -> int:
     launches.update(phase_main_quant(config, params, main_stats))
     two_stage = phase_two_stage(config, params)
     grpo = phase_grpo(config, params)
-    del params
+    with tempfile.TemporaryDirectory() as work_dir:
+        export_dir = str(Path(work_dir) / "qwen2_5_vl_3b")
+        export_stats, sums = export_main_tree(config, params, export_dir,
+                                              torch.device("cuda"))
+        del params
+        entry = phase_entry(export_dir, export_stats, sums, work_dir)
     launches.update(phase_row_writer())
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
@@ -2594,6 +3072,8 @@ def main() -> int:
             kern["launches_two_stage"] = two_stage[kern["name"]]
         if kern["name"] in grpo:
             kern["launches_grpo"] = grpo[kern["name"]]
+        if kern["name"] in entry:
+            kern["launches_entry"] = entry[kern["name"]]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

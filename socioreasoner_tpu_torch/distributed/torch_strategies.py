@@ -19,6 +19,10 @@ that must see the weights of an earlier update after later train steps
 needs `model_update(snapshot=True)`, which gives the engine its own copy of
 what it shares (`copy_shared`). The reference policy must be given its own
 copy of the weights.
+
+TorchTrainStrategy checkpoints its params, optimizer state (moments, the
+update count, the gradient-accumulation buffer and counters) and step
+through utils/checkpoint.py when initialized with a checkpoint_dir.
 """
 
 from __future__ import annotations
@@ -37,11 +41,9 @@ from ..ops.quant import (params_prequantized, quantize_decode_params,
                          quantize_vision_params, vision_prequantized)
 from ..pipeline.losses import PPOLossConfig
 from ..protocol import BatchProto
+from ..utils.checkpoint import CheckpointManager
 from .strategy import InferenceStrategy, ParamStore, TrainStrategy
 from .trainer import TrainState, make_logprob_step, make_optimizer, make_train_step
-
-_CHECKPOINTS = "checkpoints are not ported yet (ROADMAP: the rest of the surface)"
-
 
 @torch.no_grad()
 def batch_image_embeds(config: Qwen25VLConfig, params, batch: BatchProto,
@@ -131,6 +133,7 @@ class TorchTrainStrategy(TrainStrategy):
     """The actor-train backend (the JaxTrainStrategy role) on one GPU."""
 
     strategy_name = "torch_train"
+    ckpt: Optional[CheckpointManager] = None
 
     def initialize(self, model_config: Qwen25VLConfig, params,
                    loss_cfg: Optional[PPOLossConfig] = None,
@@ -138,8 +141,6 @@ class TorchTrainStrategy(TrainStrategy):
                    checkpoint_dir: Optional[str] = None, mesh=None):
         if mesh is not None:
             raise NotImplementedError("a train mesh is not ported yet (ROADMAP: multi-GPU)")
-        if checkpoint_dir is not None:
-            raise NotImplementedError(_CHECKPOINTS)
         self.model_config = model_config
         if param_store is not None:
             self.param_store = param_store
@@ -161,6 +162,7 @@ class TorchTrainStrategy(TrainStrategy):
         self._train_step = make_train_step(model_config, self.loss_cfg, self.optimizer)
         self._logprob_step = make_logprob_step(model_config)
         self.param_store.put("actor", self.state.params)
+        self.ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
 
     @property
     def params(self):
@@ -187,11 +189,28 @@ class TorchTrainStrategy(TrainStrategy):
         """Expose the current weights to the rollout engine."""
         self.param_store.put("rollout", self.state.params)
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError(_CHECKPOINTS)
+    def _checkpoint_tree(self) -> Dict:
+        return {"params": self.state.params, "opt_state": self.state.opt_state,
+                "step": self.state.step}
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError(_CHECKPOINTS)
+    def save_checkpoint(self, step: int, meta: Optional[Dict] = None, wait: bool = False):
+        """Checkpoint the params and optimizer state at `step` (nothing
+        without a checkpoint_dir, as in the JAX strategy)."""
+        if self.ckpt:
+            self.ckpt.save(step, self._checkpoint_tree(), meta=meta, wait=wait)
+
+    def load_checkpoint(self, step: Optional[int] = None) -> Optional[Dict]:
+        """Restore the params and optimizer state of `step` (the latest when
+        None) onto the current tensors' devices and dtypes, and publish the
+        params as "actor"; returns the checkpoint's meta."""
+        if not self.ckpt:
+            return None
+        restored, meta = self.ckpt.restore(step, like=self._checkpoint_tree())
+        if restored is not None:
+            self.state = TrainState(params=restored["params"],
+                                    opt_state=restored["opt_state"], step=restored["step"])
+            self.param_store.put("actor", self.state.params)
+        return meta
 
 
 class TorchInferStrategy(InferenceStrategy):

@@ -59,7 +59,10 @@ def forward(
     remat and use_flash apply to the uncached decoder, act_quant to the
     cached one (see text_decoder)."""
     tcfg = config.text
-    embeds = params["embed"][input_ids]
+    # F.embedding, not params["embed"][input_ids]: the indexing backward
+    # accumulates the rows' gradients in a run-dependent order, the embedding
+    # backward in a fixed one, so that a train step repeats bit for bit
+    embeds = torch.nn.functional.embedding(input_ids, params["embed"])
 
     if image_embeds is None and vision_inputs is not None:
         vi = vision_inputs

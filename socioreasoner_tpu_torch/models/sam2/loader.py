@@ -4,7 +4,8 @@ The counterpart of socioreasoner_tpu/models/sam2/loader.py: maps HF
 `Sam2Model` tensor names into the tree of model.py, which keeps the JAX
 package's layouts. Conv kernels go torch OIHW → HWIO; ConvTranspose2d
 (in, out, kh, kw) → (kh, kw, out, in); linears transpose to (in, out).
-Loading a checkpoint from disk waits for the port's safetensors reader.
+`load_pretrained` reads a checkpoint directory through
+utils/safetensors_io.py.
 """
 
 from __future__ import annotations
@@ -12,9 +13,9 @@ from __future__ import annotations
 import re
 from typing import Dict, Iterator, Tuple
 
-import numpy as np
 import torch
 
+from ...utils.safetensors_io import iter_safetensors
 from .config import Sam2Config
 from .model import init_params
 from ..qwen2_5_vl.convert import param_device
@@ -29,13 +30,12 @@ def _set(tree: Dict, path, value):
     expect = node[path[-1]]
     if tuple(expect.shape) != tuple(value.shape):
         raise ValueError(f"{path}: shape {value.shape} != expected {tuple(expect.shape)}")
-    node[path[-1]] = torch.as_tensor(np.ascontiguousarray(value)).to(
-        device=expect.device, dtype=expect.dtype)
+    node[path[-1]] = torch.empty_like(expect).copy_(value)
 
 
-def load_params(config: Sam2Config, tensors: Iterator[Tuple[str, np.ndarray]],
+def load_params(config: Sam2Config, tensors: Iterator[Tuple[str, torch.Tensor]],
                 dtype=torch.float32, device=None) -> Dict:
-    """(name, array) pairs of an HF Sam2Model → the port's tree of `dtype`
+    """(name, tensor) pairs of an HF Sam2Model → the port's tree of `dtype`
     tensors on `device` (the GPU unless one is named). Leaves the pairs do
     not name keep a seeded random init; memory_* and other video-only
     tensors are skipped."""
@@ -44,10 +44,10 @@ def load_params(config: Sam2Config, tensors: Iterator[Tuple[str, np.ndarray]],
                          dtype=dtype, device=device)
 
     def conv_hwio(a):       # (O, I, kh, kw) → (kh, kw, I, O)
-        return np.transpose(a, (2, 3, 1, 0))
+        return a.permute(2, 3, 1, 0)
 
     def convT_hwio(a):      # (I, O, kh, kw) → (kh, kw, O, I) for transpose_kernel=True
-        return np.transpose(a, (2, 3, 1, 0))
+        return a.permute(2, 3, 1, 0)
 
     def ffn2_path(base, rest, arr):
         name_map = {"proj_in.weight": ("fc1_w", True), "proj_in.bias": ("fc1_b", False),
@@ -74,7 +74,7 @@ def load_params(config: Sam2Config, tensors: Iterator[Tuple[str, np.ndarray]],
         _set(params, base + [key], arr.T if kind == "weight" else arr)
 
     for name, arr in tensors:
-        arr = np.asarray(arr)
+        arr = torch.as_tensor(arr)
         # ---------------- hiera backbone
         if name.startswith("vision_encoder.backbone."):
             rest = name[len("vision_encoder.backbone."):]
@@ -213,7 +213,13 @@ def load_from_torch_state_dict(config: Sam2Config, state_dict, dtype=torch.float
                                device=None) -> Dict:
     """An HF Sam2Model state dict → the port's tree (float64 on the host
     on the way, so no precision is lost before the cast to `dtype`)."""
-    def gen():
-        for k, v in state_dict.items():
-            yield k, v.detach().to("cpu", torch.float64).numpy()
-    return load_params(config, gen(), dtype, device)
+    return load_params(config, ((k, v.detach().to("cpu", torch.float64))
+                                for k, v in state_dict.items()), dtype, device)
+
+
+def load_pretrained(path: str, config: Sam2Config = None, dtype=torch.bfloat16,
+                    device=None):
+    """(config, tree) of an HF Sam2Model checkpoint directory; the config
+    is SAM2-hiera-large unless one is given, as in the JAX package."""
+    config = config or Sam2Config.large()
+    return config, load_params(config, iter_safetensors(path), dtype, device)

@@ -454,11 +454,12 @@ def test_unported_train_options_raise():
     config = _port(Qwen25VLConfig.tiny())
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         TT._model_log_probs(config, {}, {"input_ids": None}, remat=False, cp=object())
+    for kwargs in ({"pp": object()}, {"vp_mesh": object()}):
+        with pytest.raises(NotImplementedError, match="multi-GPU"):
+            TT._model_log_probs(config, {}, {"input_ids": None}, remat=False, **kwargs)
     strat = TS.TorchTrainStrategy()
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         strat.initialize(config, {}, mesh=object())
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        strat.save_checkpoint(1)
 
 
 # ---------------------------------------------------------------- strategies
