@@ -23,6 +23,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 two_stage phase's cache (Lalloc 4352) and the grpo phase's (24
                 slots); kernels 4-6 at the grpo phase's train micro-batch
                 (B=2, L=4160) and kernel 4 at its log-prob chunk (B=8); the
+                rlvr phase's shapes: kernel 1 at one 756² image, kernel 2
+                at its prefill buckets (L=256 and 1024), kernel 3 at its two
+                caches, kernels 4-6 at its train batches (B=32 L=512, B=8
+                L=1152) and kernel 4 at its log-prob chunks; the
                 host copies of kernel 2's tile bounds and of the GQA work
                 items against the C++ formulas; kernel 6's plan, its refusal
                 of other kv lengths (a child process that must fail with a
@@ -31,7 +35,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 uncached forward (dense attention) at Qwen2.5-VL-3B head dims.
   5. train_parity — one GRPO train step with the trainable flash kernels
                 against one with dense attention, from identical bf16 params
-                at Qwen2.5-VL-3B widths with 2 layers.
+                at Qwen2.5-VL-3B widths with 2 layers; then the ViT trained
+                through the model call (vision_inputs) at 3B ViT widths cut
+                to 4 blocks, one 448² tile: every block's qkv_w gradient
+                non-zero, each ViT leaf's gradient norm in bf16 within 2% of
+                f32's, and the segmented kernel's wrapper refusing a q that
+                requires grad.
   6. quant_parity — at Qwen2.5-VL-3B widths with 2 layers: the quantized
                 engine (single-copy int8 weights, int8 KV cache, w8a8
                 prefill) greedy against a teacher-forced cache-mode forward
@@ -86,7 +95,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 recomputed from the pass's texts and masks, grad_norm > 0,
                 the actor's log-probs moved and the reference's not;
                 kernels 4-6 must launch. Peak memory < 80 GB.
-  13. entry   — the system started as users start it: the main phase's
+  13. rlvr    — the generic RLVR slice on the main phase's tree:
+                RLVRPipeline.run() over a jsonl of math prompts read with
+                datasets.loader.get_dataset, the dynamic sampler on (4
+                prompts x 8 samples, 256 new tokens, 32 running requests,
+                2 additional prompts, a query filter that rejects the first
+                finished group), two steps through the real engine (kernels
+                2-6), then a step of crafted answers, half of each group
+                right (rewards equal to compute_math_rewards recomputed on
+                the texts, critic/score_mean 0.5, the actor moved, kernels
+                4-6); then MathVLMPipeline.run() for a step of 2 prompts x 4
+                samples, one 768² image each (kernels 1-6, kernel 1 32 times
+                a tile). A frozen reference, each pass at the shapes the
+                kernels phase checked (RLVR_*, MATH_VLM_*), peak < 80 GB.
+  14. entry   — the system started as users start it: the main phase's
                 tree (trained by the grpo phase) written with the port's
                 save_pretrained (BF16 shards, config.json) beside an offline
                 byte-level HF tokenizer and read back bit for bit; a
@@ -104,7 +126,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 TorchTrainStrategy checkpoint round trip at 3B widths with 2
                 layers: params and optimizer state restored bit for bit, the
                 resumed step against the uninterrupted one. Peak < 80 GB.
-  14. row_writer — kernel 7's own path: one decode step's K/V row writes
+  15. row_writer — kernel 7's own path: one decode step's K/V row writes
                 into the stacked cache at the diagnostic script's shape (36
                 layers, 24 slots, Lalloc 1536), held against the indexed
                 assignment.
@@ -118,6 +140,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -443,6 +466,37 @@ def _edge_checks(randn):
     return seg_err, pre_err, _train_edge_checks(randn)
 
 
+def _one_image_seg_checks(randn):
+    """Kernel 1 at the rlvr phase's MathVLM tower call, one 756² image
+    (S = 2916), window and full-layer ids on the plans the tower builds, row
+    by row against the plain version in f32; timed with its bound."""
+    import torch
+    from socioreasoner_tpu_torch.models.qwen2_5_vl.config import VisionConfig
+    from socioreasoner_tpu_torch.models.qwen2_5_vl.rope import vision_window_index
+    from socioreasoner_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    _, window_seg, full_seg = vision_window_index(np.array(MATH_VLM_GRID), VisionConfig())
+    S, H, D = len(window_seg), 16, 80
+    q, k, v = randn(S, H, D), randn(S, H, D), randn(S, H, D)
+    bq, bk = fa.seg_block_sizes(S)
+    span = max(fa.seg_max_span_blocks(window_seg, bq, bk),
+               fa.seg_max_span_blocks(full_seg, bq, bk))
+    out = {"S": S}
+    for name, seg_np in (("window", window_seg), ("full", full_seg)):
+        seg = torch.as_tensor(seg_np)
+        plan = fa.seg_plan(seg, H, dev, block_q=bq, block_k=bk, max_span_blocks=span)
+        run = lambda: fa.flash_attention_segmented(   # noqa: E731
+            q, k, v, seg, block_q=bq, block_k=bk, max_span_blocks=span, plan=plan)
+        err, ratio = _check_rows(f"segmented one image {name}", run(),
+                                 fa.flash_attention_segmented_reference(
+                                     q.float(), k.float(), v.float(), seg))
+        b_ms, b_by = bound(4 * S * H * D * 2, 4 * D * H * _seg_pairs(seg_np))
+        out[name] = {"err": err, "ratio": ratio, "ms": cuda_ms(run),
+                     "device_ms": graph_call_ms(run), "bound_ms": b_ms, "bound_by": b_by}
+    return out
+
+
 def _prefill_bounds_check() -> int:
     """fa.prefill_tile_bounds and fa.gqa_work_item, the host copies of the
     k-tile formula and the work items of kernels 2, 4 and 5 that the CPU
@@ -568,6 +622,7 @@ def phase_kernels():
                            "library_ms": cuda_ms(lib), "library": lib_name,
                            "host_us": host_us(run), "plan_us": host_us(make_plan, n=10),
                            "bound": bound(4 * S * H * D * 2, 4 * D * H * _seg_pairs(seg_np))}
+    one_image = _one_image_seg_checks(randn)
     try:
         fa.flash_attention_segmented(q, k, v, torch.as_tensor(full_seg),
                                      block_q=bq, block_k=bk,
@@ -592,7 +647,7 @@ def phase_kernels():
         per_tile("library_ms"), f"{n_win} x {win['library']} + {n_full} x {full['library']}",
         window=win, full_layer=full, device_ms=per_tile("device_ms"),
         max_row_ratio=max(r for _, r in errs), edge_max_abs_err=seg_edge[0],
-        edge_max_row_ratio=seg_edge[1]))
+        edge_max_row_ratio=seg_edge[1], math_vlm_one_image=one_image))
     emit({"phase": "kernel", **results[-1]})
 
     # prefill: 16 q / 2 kv heads, D=128; checked and timed at the L=2048
@@ -628,7 +683,9 @@ def phase_kernels():
     L2, n2 = TWO_STAGE_PREFILL["L"], TWO_STAGE_PREFILL["kv_len"]
     stage2 = {B: prefill_case([n2] * B, L2) for B in TWO_STAGE_PREFILL["batches"]}
     grpo = {(B, L): prefill_case(_grpo_prefill_lens(B, L), L) for B, L in GRPO_PREFILL}
-    cases = (check, main, *stage2.values(), *grpo.values())
+    rlvr = {(B, L): prefill_case(_rlvr_prefill_lens(B, L), L)
+            for B, L in RLVR_PREFILL + MATH_VLM_PREFILL}
+    cases = (check, main, *stage2.values(), *grpo.values(), *rlvr.values())
     results.append(_row(
         "flash_attention", "socioreasoner_tpu_torch/csrc/flash_prefill.cu",
         "socioreasoner_tpu/ops/flash_attention.py:37",
@@ -649,15 +706,21 @@ def phase_kernels():
         grpo_prefill={f"B{B}_L{L}": summary(case, f"B={B} L={L} kv_len="
                                                   f"{_grpo_prefill_lens(B, L)}")
                       for (B, L), case in grpo.items()},
+        # each (B, L) bucket the rlvr phase's two pipelines may prefill
+        rlvr_prefill={f"B{B}_L{L}": summary(case, f"B={B} L={L} kv_len="
+                                                  f"{_rlvr_prefill_lens(B, L)}")
+                      for (B, L), case in rlvr.items()},
         edge_max_abs_err=pre_edge[0], edge_max_row_ratio=pre_edge[1],
         bounds_checked=_prefill_bounds_check()))
     emit({"phase": "kernel", **results[-1]})
 
     results.extend(_decode_kernels(randn))
     results.extend(_train_kernels(randn, train_edge))
-    for row, grpo_cases in zip(results[-3:], _grpo_train_kernels(randn)):
-        row["grpo"] = grpo_cases
-        emit({"phase": "kernel_grpo_shapes", "name": row["name"], **grpo_cases})
+    for phase, spec in (("grpo", GRPO_TRAIN), ("rlvr", RLVR_TRAIN),
+                        ("math_vlm", MATH_VLM_TRAIN)):
+        for row, cases in zip(results[-3:], _phase_train_kernels(randn, spec)):
+            row[phase] = cases
+            emit({"phase": f"kernel_{phase}_shapes", "name": row["name"], **cases})
     results.append(_row_writer_kernel(randn))
     return results
 
@@ -697,6 +760,36 @@ def _grpo_prefill_lens(B: int, L: int):
     return [n] * (B - 1) + [1] if B > 1 else [n]
 
 
+# The rlvr phase's attention shapes, checked in phase_kernels and held to that
+# phase's passes over the real engine. RLVRPipeline, text only: chat-templated
+# math prompts of RLVR_PROMPT_TOKENS tokens or fewer in the prompt_length
+# bucket of 256, one to four distinct prompts a prefill (the 8 samples of a
+# group fork its prefill; max_running_requests 32 holds four groups), padded to
+# a batch bucket; a cache of 32 slots of sequence_length 256 + 256 with
+# decode_chunk 64 (Lalloc 768); one train step over the 4 x 8 samples at
+# sequence_length 512 (kernels 4-6) and log-prob chunks of 8 (kernel 4).
+# MathVLMPipeline: one 768² image a prompt (a 756² resize: one tower call of
+# S = 2916, kernel 1), prompts of MATH_VLM_KV tokens in the bucket of 1024,
+# one or two distinct prompts a prefill, 8 slots of 1024 + 128 (Lalloc 1280),
+# train and log-prob batches of 8 at 1152.
+RLVR_PROMPT_TOKENS = 141      # write_math_jsonl's prompts: 135-141 tokens
+RLVR_PREFILL = ((1, 256), (2, 256), (4, 256))
+RLVR_SLOTS, RLVR_LALLOC = 32, 768
+RLVR_TRAIN = {"L": 512, "train_batch": 32, "logprob_batch": 8, "kv_lens": (397, 391)}
+MATH_VLM_GRID = [[1, 54, 54]]
+MATH_VLM_KV = 941             # 729 image rows and the templated question
+MATH_VLM_PREFILL = ((1, 1024), (2, 1024))
+MATH_VLM_SLOTS, MATH_VLM_LALLOC = 8, 1280
+MATH_VLM_TRAIN = {"L": 1152, "train_batch": 8, "logprob_batch": 8, "kv_lens": (1069, 1040)}
+
+
+def _rlvr_prefill_lens(B: int, L: int):
+    """kv lengths of an rlvr-phase prefill bucket: its prompts, 3 tokens
+    apart, and a padded row (one valid token) where B > 1."""
+    n = MATH_VLM_KV if L == 1024 else RLVR_PROMPT_TOKENS
+    return [n - 3 * i for i in range(B - 1)] + [1] if B > 1 else [n]
+
+
 # Kernels 3 and 3q: (case, slots, Lalloc, lengths) of the checks. "main" is
 # the main phase's decode (prompts of 2016 tokens and fewer); "edges" the
 # edges of a block; "slots32" the production slot count
@@ -710,7 +803,11 @@ DECODE_CASES = (
     ("slots32", 32, MAIN_LALLOC, (0, 1, 64, -1) + tuple((97 * i) % 2816 for i in range(1, 29))),
     ("two_stage", 4, TWO_STAGE_LALLOC, (0, 2079, 2155, 2218)),
     ("grpo", GRPO_SLOTS, GRPO_LALLOC, (0, 1, 2016, 2017, 2040, 2079, 2080, 2155, 2156, 2180,
-                                       2218, 2219) + tuple(2016 + 9 * i for i in range(12))))
+                                       2218, 2219) + tuple(2016 + 9 * i for i in range(12))),
+    ("rlvr", RLVR_SLOTS, RLVR_LALLOC, (0, 1, 63, 64, 65, 100, 127, 128, 129, 140, 200, 255,
+                                       256, 257, 300, 383, 384, 385, 396, 400, 511, 512, 513,
+                                       639, 640, 641, 700, 703, 704, 705, 767, 768)),
+    ("math_vlm", MATH_VLM_SLOTS, MATH_VLM_LALLOC, (0, 941, 942, 980, 1040, 1068, 1069, 1280)))
 
 
 def _decode_caches(randn, slots, Lalloc, quant):
@@ -749,7 +846,7 @@ def _decode_kernels(randn):
                     else da.paged_decode_attention_reference)
         errs, ratios, timed = [], [], {}
         for case, slots, Lalloc, lens in DECODE_CASES:
-            if quant and case in ("two_stage", "grpo"):
+            if quant and case in ("two_stage", "grpo", "rlvr", "math_vlm"):
                 continue
             lens = [n % Lalloc if n < 0 else n for n in lens]
             caches = _decode_caches(randn, slots, Lalloc, quant)
@@ -814,9 +911,11 @@ def _decode_kernels(randn):
         main = timed["main"]
         kind = "int8 cache + f32 scales" if quant else "cache"
         shapes = f"(36, 4|8|32, {MAIN_LALLOC}, 2, 128)" + (
-            "" if quant else f" and (36, 4|{GRPO_SLOTS}, {TWO_STAGE_LALLOC}, 2, 128)")
-        extra = {} if quant else {"two_stage": summary(timed["two_stage"]),
-                                  "grpo": summary(timed["grpo"])}
+            "" if quant else f", (36, 4|{GRPO_SLOTS}, {TWO_STAGE_LALLOC}, 2, 128), "
+            f"(36, {RLVR_SLOTS}, {RLVR_LALLOC}, 2, 128) and "
+            f"(36, {MATH_VLM_SLOTS}, {MATH_VLM_LALLOC}, 2, 128)")
+        extra = {} if quant else {case: summary(timed[case]) for case in (
+            "two_stage", "grpo", "rlvr", "math_vlm")}
         rows.append(_row(
             name, "socioreasoner_tpu_torch/csrc/paged_decode.cu",
             "socioreasoner_tpu/ops/decode_attention.py:36",
@@ -1022,23 +1121,23 @@ def _train_kernels(randn, edge):
     return results
 
 
-def _grpo_train_kernels(randn):
-    """Kernels 4-6 at the grpo phase's train micro-batch (B=2, L=4160) and
-    kernel 4 at its log-prob chunk (B=8), kv lengths of stage-1 and stage-2
-    samples (GRPO_TRAIN), against their plain versions in f32 a batch row at
-    a time, row by row (kernel 6 on a plan built once, against the joint
-    scale of dk and dv with GRAD_ROW_FLOOR), each timed with its bound and
-    library call. Returns one dict of cases for each of kernels 4, 5, 6."""
+def _phase_train_kernels(randn, spec):
+    """Kernels 4-6 at a phase's train micro-batch and kernel 4 at its
+    log-prob chunk (`spec`: GRPO_TRAIN, RLVR_TRAIN or MATH_VLM_TRAIN: L, the
+    two batch sizes, and two kv lengths that the rows alternate, each pair
+    of rows 3 shorter), against their plain versions in f32 a batch row at a
+    time, row by row (kernel 6 on a plan built once, against the joint scale
+    of dk and dv with GRAD_ROW_FLOOR), each timed with its bound and library
+    call. Returns one dict of cases for each of kernels 4, 5, 6."""
     import torch
     import torch.nn.functional as F
     from socioreasoner_tpu_torch.ops import flash_attention_bwd as fb
 
     dev = torch.device("cuda")
-    L = GRPO_TRAIN["L"]
+    L = spec["L"]
     out = ({}, {}, {})
-    for B, backward in ((GRPO_TRAIN["train_batch"], True),
-                        (GRPO_TRAIN["logprob_batch"], False)):
-        lens_l = [GRPO_TRAIN["kv_lens"][b % 2] - 3 * (b // 2) for b in range(B)]
+    for B, backward in ((spec["train_batch"], True), (spec["logprob_batch"], False)):
+        lens_l = [spec["kv_lens"][b % 2] - 3 * (b // 2) for b in range(B)]
         lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
         q, k, v, do = randn(B, L, 16, 128), randn(B, L, 2, 128), randn(B, L, 2, 128), \
             randn(B, L, 16, 128)
@@ -1050,10 +1149,10 @@ def _grpo_train_kernels(randn):
         del refs
         run_fwd = lambda: fb.flash_attention_fwd_lse(q, k, v, lens)   # noqa: E731
         got, lse = run_fwd()
-        err, ratio = _check_rows(f"grpo train fwd {tag}", got, ref_out)
+        err, ratio = _check_rows(f"train fwd {tag}", got, ref_out)
         lse_err = (lse - ref_lse).abs().max().item()
         if not lse_err <= LSE_TOL:
-            raise AssertionError(f"grpo train fwd {tag}: lse max_abs_err {lse_err} > {LSE_TOL}")
+            raise AssertionError(f"train fwd {tag}: lse max_abs_err {lse_err} > {LSE_TOL}")
         del got, lse
         qt, dot = q.transpose(1, 2), do.transpose(1, 2)
         kt, vt = (x.repeat_interleave(8, dim=2).transpose(1, 2) for x in (k, v))
@@ -1081,9 +1180,9 @@ def _grpo_train_kernels(randn):
             q[b:b + 1].float(), k[b:b + 1].float(), v[b:b + 1].float(), do[b:b + 1].float(),
             ref_lse[b:b + 1], delta[b:b + 1], lens[b:b + 1]) for b in range(B)))]
         scale = max(w.abs().max().item() for w in want[1:])
-        dq_err = _check_grad(f"grpo train dq {tag}", got[0], want[0],
+        dq_err = _check_grad(f"train dq {tag}", got[0], want[0],
                              want[0].abs().max().item())
-        dkv_err = [_check_grad(f"grpo train {name} {tag}", g, w, scale)
+        dkv_err = [_check_grad(f"train {name} {tag}", g, w, scale)
                    for name, g, w in zip(("dk", "dv"), got[1:], want[1:])]
         del got, want
         leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
@@ -1526,6 +1625,136 @@ def phase_train_parity():
         raise AssertionError(f"train parity out of bounds: {out}")
     del params
     torch.cuda.empty_cache()
+    vit = run_vit_grad_check(_vit_parity_config(), dev)
+    emit({"phase": "train_parity_vit", **vit})
+    torch.cuda.empty_cache()
+
+
+def _named_leaves(tree, prefix=""):
+    """(name, tensor) of every leaf of a nested dict, in insertion order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def _vit_parity_config():
+    """_short_3b_config with the Qwen2.5-VL-3B ViT (hidden 1280, 16 heads x
+    80, window 112) cut to 4 blocks, the last a full-attention layer."""
+    import dataclasses
+    from socioreasoner_tpu_torch.models.qwen2_5_vl.config import VisionConfig
+    return dataclasses.replace(_short_3b_config(), vision=VisionConfig(
+        depth=4, fullatt_block_indexes=(3,)))
+
+
+def run_vit_grad_check(config, dev, *, tile_px=448, text_tokens=128, seed=9):
+    """The ViT trained through the model call (vision_inputs), as full ViT
+    finetuning runs it: one tile of tile_px² in row 0 of a GRPO batch of two
+    rows, one train step in bf16 (the trainer's kernels in the decoder) and
+    one in f32 (dense decoder attention) from the same weights, each with an
+    optimizer that keeps the step's gradients. Every block's qkv_w gradient
+    in bf16 must be there and not zero, and every ViT leaf's gradient norm
+    within PARITY_NORM_TOL of f32's; on the GPU, the segmented kernel's
+    wrapper must refuse a q that requires grad. Returns the figures; raises
+    on a failed check."""
+    import torch
+    from PIL import Image
+    from socioreasoner_tpu_torch.datasets.processor import (ImageProcessorConfig,
+                                                             process_images)
+    from socioreasoner_tpu_torch.distributed import trainer as T
+    from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
+    from socioreasoner_tpu_torch.models.qwen2_5_vl.vision import vision_host_inputs
+    from socioreasoner_tpu_torch.ops import flash_attention as fa
+    from socioreasoner_tpu_torch.pipeline.losses import PPOLossConfig
+
+    class KeepGrads(T.Optimizer):
+        def __init__(self):
+            super().__init__(schedule=lambda count: 0.0)
+
+        def init(self, params):
+            return {}
+
+        def update(self, grads, state, params):
+            state["grads"] = list(grads)
+
+    rng = np.random.default_rng(seed)
+    pix = process_images(
+        [Image.fromarray(rng.integers(0, 255, (tile_px, tile_px, 3), dtype=np.uint8))],
+        ImageProcessorConfig(min_pixels=tile_px * tile_px, max_pixels=tile_px * tile_px))
+    host = vision_host_inputs(config.vision, pix["pixel_values"], pix["image_grid_thw"])
+    n_img = len(host["inv_perm"])
+    L = 1 + n_img + text_tokens
+    lens = np.array([L, L - 40])
+    cols = np.arange(L)[None]
+    attn = (cols < lens[:, None]).astype(np.int64)
+    ids = np.where(attn == 1, rng.integers(2, config.text.vocab_size - 8, (2, L)), 0)
+    ids[0, 1:1 + n_img] = config.image_token_id
+    pos = np.broadcast_to(np.clip(np.cumsum(attn, -1) - 1, 0, None)[:, None], (2, 3, L))
+    resp = ((cols >= lens[:, None] - 64) & (attn == 1)).astype(np.int64)
+    base = {k: torch.as_tensor(np.ascontiguousarray(v), device=dev) for k, v in {
+        "input_ids": ids, "attention_mask": attn, "position_ids": pos,
+        "response_mask": resp}.items()}
+    mask = base["response_mask"][:, 1:].float()
+    noise = [torch.as_tensor(rng.normal(size=(2, L - 1)), dtype=torch.float32, device=dev)
+             for _ in range(2)]
+    params = qmodel.init_params(config, torch.Generator(device=dev).manual_seed(seed),
+                                dtype=torch.bfloat16, device=dev)
+    names = [name for name, _ in _named_leaves(params["vision"], "vision/")]
+    results = {}
+    for dtype, flash in ((torch.bfloat16, True), (torch.float32, False)):
+        tree = _clone(params) if dtype == torch.bfloat16 else _float_tree(params)
+        vi = {k: torch.as_tensor(host[k], device=dev) for k in (
+            "cos", "sin", "window_seg", "full_seg", "inv_perm")}
+        vi["patches"] = torch.as_tensor(host["patches"], device=dev).to(dtype)
+        vi["is_full_layer"] = host["is_full_layer"]
+        batch = dict(base, vision_inputs=vi)
+        old = T.make_logprob_step(config, allow_flash=flash)(tree, batch)["log_probs"]
+        batch.update(old_log_probs=old, ref_log_probs=old + 0.1 * mask * noise[0],
+                     advantages=mask * noise[1])
+        opt = KeepGrads()
+        state = T.TrainState.create(tree, opt)
+        state, metrics = T.make_train_step(config, PPOLossConfig(), opt,
+                                           allow_flash=flash)(state, batch)
+        leaves = T.tree_leaves(state.params)
+        grads = dict(zip((id(t) for t in leaves), state.opt_state["grads"]))
+        vit = {name: grads[id(t)] for name, t in _named_leaves(state.params["vision"],
+                                                                "vision/")}
+        results[dtype] = (metrics["actor_train/loss"].item(), vit)
+        del state, tree
+    loss_b, g_b = results[torch.bfloat16]
+    loss_f, g_f = results[torch.float32]
+    missing = [k for k in names if g_b[k] is None or g_f[k] is None]
+    if missing:
+        raise AssertionError(f"ViT leaves without a gradient: {missing}")
+    qkv = g_b["vision/blocks/qkv_w"].float().abs().flatten(1).amax(1)
+    norms = {k: (g_b[k].float().norm().item(), g_f[k].float().norm().item()) for k in names}
+    rel = {k: abs(b - f) / f for k, (b, f) in norms.items() if f > 0}
+    refused = None
+    if dev.type == "cuda":
+        S = 256
+        q, k, v = (torch.randn(S, 16, 80, device=dev).to(torch.bfloat16) for _ in range(3))
+        before = fa.flash_attention_segmented.launches
+        try:
+            fa.flash_attention_segmented(q.requires_grad_(), k, v,
+                                         torch.zeros(S, dtype=torch.int32))
+        except RuntimeError:
+            refused = fa.flash_attention_segmented.launches == before
+        else:
+            refused = False
+    out = {"shape": f"one {tile_px}² tile, {len(host['patches'])} patches ({n_img} merged "
+                    f"rows) in row 0 of B=2 L={L}; ViT 1280 x 16 heads x 80, "
+                    f"{config.vision.depth} blocks (full-attention {list(config.vision.fullatt_block_indexes)}); "
+                    "2 text layers at 3B widths, vocab 8192",
+           "loss_bf16": loss_b, "loss_f32": loss_f,
+           "qkv_w_grad_max_abs_per_block": qkv.tolist(),
+           "vit_grad_norms_bf16_f32": norms, "max_rel_norm_diff": max(rel.values()),
+           "bound_rel_norm": PARITY_NORM_TOL, "kernel_refused_grad": refused}
+    if not (bool((qkv > 0).all()) and len(rel) == len(names)
+            and max(rel.values()) <= PARITY_NORM_TOL and refused in (None, True)
+            and abs(loss_b - loss_f) <= PARITY_LOSS_TOL):
+        raise AssertionError(f"the ViT's gradient through the model call: {out}")
+    return out
 
 
 def run_train_path(config, params, dev, *, tile_px=768, img_cfg=None, n=4,
@@ -2578,6 +2807,379 @@ def phase_grpo(config, params):
     return p1["launches"]
 
 
+# ------------------------------------------------------------- generic RLVR
+
+# the rlvr phase's cuts: RLVRPipeline for 2 steps of 4 prompts x 8 samples at
+# response_length 256, the dynamic sampler with its flow-control knobs and a
+# query filter that rejects the first finished group; MathVLMPipeline for one
+# step of 2 prompts x 4 samples at response_length 128, one 768² image each
+RLVR_CUTS = {"max_steps": 2, "rollout_batch_size": 4, "num_return_sequences_in_group": 8,
+             "prompt_length": 256, "response_length": 256, "is_use_additional_prompts": True,
+             "max_running_requests": 32, "max_additional_running_prompts": 2}
+MATH_VLM_CUTS = {"max_steps": 1, "rollout_batch_size": 2, "num_return_sequences_in_group": 4,
+                 "prompt_length": 1024, "response_length": 128}
+RLVR_TIMERS = ("step", "generate", "logprobs", "train")
+MATH_PROMPT = "What is {a} + {b}? Think it through, then give the sum in <answer> </answer> tags."
+MATH_PROMPT_RE = re.compile(r"What is (\d+) \+ (\d+)\?")
+
+
+def write_math_jsonl(path, n=24, seed=0):
+    """n math prompts, each with a tag and a ground truth, as a jsonl file."""
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for _ in range(n):
+            a, b = (int(x) for x in rng.integers(1, 10 ** rng.integers(1, 5), size=2))
+            f.write(json.dumps({"prompt": MATH_PROMPT.format(a=a, b=b),
+                                "ground_truth": str(a + b), "tag": "math"}) + "\n")
+
+
+def rlvr_config(out_dir: str, **cuts):
+    """RLVRConfig with the train yaml's optimisation settings (lr 1e-6,
+    weight decay 1e-2, the k3 KL loss at 5e-3, reward and advantage clip 10,
+    sampling at temperature 0.99, top_p 0.99, top_k 100) at the given cuts,
+    log-prob chunks of 8, tracked to stdout, no checkpoints."""
+    from socioreasoner_tpu_torch.configs.rlvr_config import RLVRConfig
+    cfg = RLVRConfig(exp_name="qwen2_5_vl_3B_rlvr_math", seed=42, output_dir=out_dir,
+                     track_with="stdout", save_steps=-1, adv_estimator="grpo",
+                     use_kl_loss=True, kl_loss_coef=5e-3, reward_clip=10, advantage_clip=10.0,
+                     init_kl_coef=0.0, **cuts)
+    ta = cfg.actor_train.training_args
+    ta.learning_rate, ta.weight_decay, ta.warmup_steps = 1e-6, 1e-2, 0
+    cfg.actor_train.infer_batch_size = cfg.reference.infer_batch_size = 8
+    ga = cfg.actor_infer.generating_args
+    ga.max_new_tokens, ga.top_p, ga.top_k, ga.temperature = cfg.response_length, 0.99, 100, 0.99
+    ga.num_return_sequences = cfg.num_return_sequences_in_group
+    return cfg
+
+
+def rlvr_engine_kwargs(cfg, slots: int, prompt_bucket: int):
+    return {"max_slots": slots, "max_len": cfg.sequence_length, "decode_chunk": 64,
+            "prefill_buckets": (prompt_bucket,),
+            "image_buckets": (0, 512, 1024, 2048, 4096, 8192, 16384)}
+
+
+class MathAnswerWorker:
+    """A decode worker that answers each request of the dynamic sampler at
+    once: sample j of a "What is a + b?" prompt with the right sum in
+    <answer> tags for even j and a wrong one for odd j."""
+
+    def __init__(self, tokenizer):
+        self.tok = tokenizer
+
+    def answer(self, prompt_ids, j):
+        a, b = (int(x) for x in MATH_PROMPT_RE.search(
+            self.tok.decode(list(map(int, prompt_ids)))).groups())
+        text = (f"<think>sample {j}</think><answer>{a + b}</answer>" if j % 2 == 0
+                else f"<think>sample {j}</think><answer>{a + b + j}</answer>")
+        return list(self.tok.encode(text))
+
+    def start_server(self, data=None):
+        pass
+
+    def stop_server(self):
+        pass
+
+    def add_request(self, command, data):
+        from types import SimpleNamespace
+        if command.name != "ADD":
+            return {"alive": True}
+        rid = data["request_id"]
+        data["callback"](SimpleNamespace(request_id=rid, finish_reason="stop",
+                                         output_ids=self.answer(data["prompt_ids"], rid[1])))
+
+
+def _shape_recorder(pipe):
+    """Wrap the pipeline's train and log-prob steps to record their (B, L),
+    and the tokens and response tokens of the train batches."""
+    shapes = {"train": set(), "logprob": set(), "train_tokens": [], "response_tokens": []}
+
+    def record(kind, step_fn):
+        def wrapped(*args):
+            batch = args[-1]
+            shapes[kind].add(tuple(batch["input_ids"].shape))
+            if kind == "train":
+                shapes["train_tokens"].append(int(batch["attention_mask"].sum()))
+                shapes["response_tokens"].append(int((batch["response_mask"] > 0).sum()))
+            return step_fn(*args)
+        return wrapped
+    actor, reference = pipe.actor_train, pipe.reference
+    actor._train_step = record("train", actor._train_step)
+    actor._logprob_step = record("logprob", actor._logprob_step)
+    reference._logprob_step = record("logprob", reference._logprob_step)
+    return shapes
+
+
+def _first_reference_log_probs(pipe):
+    """Record the reference's first log-prob batch and its output: [batch,
+    log_probs], filled by the pipeline's first call."""
+    seen = []
+    plain = pipe.reference.compute_log_probs
+
+    def compute_log_probs(batch):
+        out = plain(batch)
+        if not seen:
+            seen.extend([batch, out["log_probs"]])
+        return out
+    pipe.reference.compute_log_probs = compute_log_probs
+    return seen
+
+
+def _rlvr_figures(pipe, history, shapes, launches, wall):
+    engine = pipe.actor_infer.engine
+    return {
+        "wall_s": wall, "steps": len(history),
+        "timers_s": [{k: h.get(f"time/{k}") for k in RLVR_TIMERS} for h in history],
+        "actor_infer_tps": [h.get("system/actor_infer/tps") for h in history],
+        "actor_train_tps": [h.get("system/actor_train/tps") for h in history],
+        "prefill_buckets": sorted({(key[0], key[1]) for key in engine.prefill_hist}),
+        "prefill_rows": engine.prefill_rows, "forked_requests": engine.forked_requests,
+        "engine_steps": engine.steps_executed,
+        "cache_slots": engine.S, "cache_lalloc": engine.Lalloc,
+        "train_shapes": sorted(shapes["train"]), "logprob_shapes": sorted(shapes["logprob"]),
+        "launches": launches}
+
+
+def _left_shapes(fig, prefill, slots, lalloc, train):
+    """What of a pass left the shapes the kernels phase checked."""
+    return ([b for b in fig["prefill_buckets"] if tuple(b) not in prefill]
+            + ([] if (fig["cache_slots"], fig["cache_lalloc"]) == (slots, lalloc)
+               or not fig["prefill_buckets"] else ["cache"])
+            + [s for s in fig["train_shapes"] if s != (train["train_batch"], train["L"])]
+            + [s for s in fig["logprob_shapes"] if s != (train["logprob_batch"], train["L"])])
+
+
+def run_rlvr_path(config, params, out_dir, dev, *, kernels=(), processor=None, **cuts):
+    """RLVRPipeline.run() through the port's entry points on a jsonl of math
+    prompts read with datasets.loader.get_dataset, the dynamic sampler on.
+    Pass 1, the real engine, RLVR_CUTS' steps with a query filter that
+    rejects the first finished group. Pass 2, one more step with the decode
+    group replaced by MathAnswerWorker (half of each group right): the
+    scheduler's rewards equal compute_math_rewards recomputed on the
+    pipeline's texts, critic/score_mean 0.5, the actor's log-probs moved.
+    The reference's log-probs never move. `kernels`' launch counts are set
+    to 0 before each pass and read after it. Returns stats; raises on a
+    failed check."""
+    import os
+    from socioreasoner_tpu_torch.configs.worker_config import DataArguments
+    from socioreasoner_tpu_torch.datasets.loader import get_dataset
+    from socioreasoner_tpu_torch.pipeline.rlvr.rewards.math_rule import compute_math_rewards
+    from socioreasoner_tpu_torch.pipeline.rlvr.rlvr_pipeline import RLVRPipeline
+    from socioreasoner_tpu_torch.runtime.generate_scheduler import LocalGenerateGroup
+
+    cfg = rlvr_config(out_dir, **{**RLVR_CUTS, **cuts})
+    path = os.path.join(out_dir, "math.jsonl")
+    write_math_jsonl(path)
+    dataset = get_dataset(DataArguments(file_name=path))
+    finished = []
+
+    def query_filter(row, outputs):
+        """Reject the first finished group; a replacement is pulled."""
+        finished.append(row["prompt"])
+        return len(finished) > 1
+
+    processor = processor or _processor(config, None)
+    pipe = RLVRPipeline(cfg, model_config=config, policy_params=params,
+                        reference_params={k: v for k, v in params.items() if k != "vision"},
+                        processor=processor, dataset=dataset, query_filter=query_filter,
+                        engine_kwargs=rlvr_engine_kwargs(cfg, RLVR_SLOTS, cfg.prompt_length))
+    shapes = _shape_recorder(pipe)
+    ref_seen = _first_reference_log_probs(pipe)
+    seen = {"batches": [], "texts": []}
+    get_batch, decode = pipe.sampler.get_batch, pipe._decode
+
+    def recording_get_batch(*args):
+        batch = get_batch(*args)
+        seen["batches"].append((dict(batch.meta), list(batch.non_tensor["ground_truth"])))
+        return batch
+
+    def recording_decode(post):
+        seen["texts"].append(decode(post))
+        return seen["texts"][-1]
+
+    pipe.sampler.get_batch, pipe._decode = recording_get_batch, recording_decode
+
+    # ---- pass 1: the real engine
+    for fn in kernels:
+        fn.launches = 0
+    _sync(dev)
+    t0 = time.perf_counter()
+    metrics = pipe.run()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    history = list(pipe.state.log_history)
+    pass1 = _rlvr_figures(pipe, history, shapes,
+                          {fn.__name__: fn.launches for fn in kernels}, wall)
+    first = history[0]
+    pass1.update(
+        scheduler=[{k: h[k] for k in h if k.startswith("scheduler/")} for h in history],
+        metrics={k: metrics[k] for k in ("actor_train/total_loss", "actor_train/grad_norm",
+                                         "critic/kl", "critic/reward_mean",
+                                         "critic/score_mean")},
+        engine_idle=not pipe.actor_infer.engine.has_work(), rejected_first=finished[:1])
+    bad = sorted(k for h in history for k, v in h.items()
+                 if isinstance(v, float) and not np.isfinite(v))
+    if (pipe.state.step != cfg.max_steps or bad or not pass1["engine_idle"]
+            or first["scheduler/query_filter_count"] < 1
+            or first["scheduler/prompt_use_count"] < cfg.rollout_batch_size + 1):
+        raise AssertionError(f"rlvr pass 1: step {pipe.state.step} of {cfg.max_steps}, "
+                             f"not finite {bad}, {pass1}")
+    batch0, ref0 = ref_seen
+    actor0 = pipe.actor_train.compute_log_probs(batch0)["log_probs"]
+
+    # ---- pass 2: crafted answers, half of each group right
+    worker = MathAnswerWorker(pipe.processor.tokenizer)
+    saved = pipe.sampler.cluster
+    pipe.sampler.cluster = LocalGenerateGroup([worker])
+    cfg.max_steps = pipe.state.step + 1
+    for fn in kernels:
+        fn.launches = 0
+    try:
+        metrics2 = pipe.run()
+    finally:
+        pipe.sampler.cluster = saved
+    launches2 = {fn.__name__: fn.launches for fn in kernels}
+    (meta, gts), texts = seen["batches"][-1], seen["texts"][-1]
+    n = cfg.num_return_sequences
+    want = compute_math_rewards(texts, [g for g in gts for _ in range(n)])
+    recomputed = (np.array_equal(meta["response_level_rewards"], want["response_level_rewards"])
+                  and np.array_equal(meta["scores"], want["scores"]))
+    actor1 = pipe.actor_train.compute_log_probs(batch0)["log_probs"]
+    mask = np.asarray(batch0.batch["response_mask"])[:, 1:] == 1
+    pass2 = {
+        "step_wall_s": pipe.state.log_history[-1]["time/step"],
+        "rewards": meta["response_level_rewards"].tolist(), "recomputed_equal": recomputed,
+        "metrics": {k: metrics2[k] for k in ("actor_train/total_loss", "actor_train/grad_norm",
+                                             "critic/kl", "critic/reward_mean",
+                                             "critic/score_mean")},
+        "train_shapes": sorted(shapes["train"]), "logprob_shapes": sorted(shapes["logprob"]),
+        "actor_logprob_max_abs_move": float(np.abs(actor1 - actor0)[mask].max()),
+        "reference_logprobs_unchanged": np.array_equal(
+            pipe.reference.compute_log_probs(batch0)["log_probs"], ref0),
+        "launches": launches2}
+    if not (recomputed and pass2["metrics"]["critic/score_mean"] == 0.5
+            and pass2["actor_logprob_max_abs_move"] > 0
+            and pass2["reference_logprobs_unchanged"]
+            and np.isfinite(list(pass2["metrics"].values())).all()):
+        raise AssertionError(f"rlvr pass 2 (crafted answers): {pass2}")
+    return {"prompts_per_step": cfg.rollout_batch_size, "samples_per_step":
+            cfg.rollout_batch_size * n, "pass1": pass1, "pass2": pass2}
+
+
+MATH_VLM_QUESTION = "How many buildings are in this image? Count them one by one."
+
+
+def run_math_vlm_path(config, params, out_dir, dev, *, kernels=(), tile_px=768,
+                      img_cfg=None, processor=None, **cuts):
+    """MathVLMPipeline.run() for MATH_VLM_CUTS' step: 2 prompts, each one
+    synthetic tile_px² image and a counting question, 4 samples each through
+    the real engine, the image embeddings from the rollout tree's ViT on the
+    device through the log-prob and train steps, a frozen reference.
+    Random weights answer nothing right, so the advantages and the gradient
+    are 0 (the train step runs all the same). `kernels`' launch counts are
+    set to 0 just before and read just after. Returns stats; raises on a
+    failed check."""
+    from PIL import Image
+    from socioreasoner_tpu_torch.datasets.processor import ImageProcessorConfig
+    from socioreasoner_tpu_torch.pipeline.rlvr.math_vlm_pipeline import MathVLMPipeline
+
+    cfg = rlvr_config(out_dir, **{**MATH_VLM_CUTS, **cuts})
+    img_cfg = img_cfg or ImageProcessorConfig(defer_patchify=True)
+    rng = np.random.default_rng(3)
+    rows = [{"question": MATH_VLM_QUESTION, "ground_truth": str(3 + i),
+             "images": [Image.fromarray(rng.integers(0, 255, (tile_px, tile_px, 3),
+                                                     dtype=np.uint8))]}
+            for i in range(cfg.rollout_batch_size)]
+    pipe = MathVLMPipeline(cfg, model_config=config, policy_params=params,
+                           reference_params={k: v for k, v in params.items() if k != "vision"},
+                           processor=processor or _processor(config, img_cfg), dataset=rows,
+                           engine_kwargs=rlvr_engine_kwargs(cfg, MATH_VLM_SLOTS,
+                                                            cfg.prompt_length))
+    shapes = _shape_recorder(pipe)
+    ref_seen = _first_reference_log_probs(pipe)
+    for fn in kernels:
+        fn.launches = 0
+    _sync(dev)
+    t0 = time.perf_counter()
+    metrics = pipe.run()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    history = list(pipe.state.log_history)
+    fig = _rlvr_figures(pipe, history, shapes, {fn.__name__: fn.launches for fn in kernels},
+                        wall)
+    fig["metrics"] = {k: metrics[k] for k in ("actor_train/total_loss", "actor_train/grad_norm",
+                                              "critic/kl", "critic/math/accuracy")}
+    # the pipeline records no throughput (nor does the JAX one): tokens of
+    # the train batch over the generate and train timers
+    fig["actor_infer_tps"] = [shapes["response_tokens"][0] / history[0]["time/generate"]]
+    fig["actor_train_tps"] = [shapes["train_tokens"][0] / history[0]["time/train"]]
+    batch0, ref0 = ref_seen
+    fig["reference_logprobs_unchanged"] = np.array_equal(
+        pipe.reference.compute_log_probs(batch0)["log_probs"], ref0)
+    if not (pipe.state.step == cfg.max_steps
+            and fig["reference_logprobs_unchanged"]
+            and np.isfinite(list(fig["metrics"].values())).all()):
+        raise AssertionError(f"math_vlm step: {fig}")
+    return fig
+
+
+def phase_rlvr(config, params):
+    """The generic RLVR slice at full width on the main phase's Qwen2.5-VL-3B
+    tree (trained in place; a copy without the ViT as each reference):
+    RLVRPipeline with the dynamic sampler, text only (run_rlvr_path: kernels
+    2-6 must launch in pass 1 and 4-6 in pass 2), then MathVLMPipeline
+    (run_math_vlm_path: kernels 1-6, kernel 1 32 times a tile), each pass at
+    the shapes the kernels phase checked. Peak memory < 80 GB. Returns the
+    launch counts over the phase."""
+    import gc
+    import tempfile
+    import torch
+    from socioreasoner_tpu_torch.ops import decode_attention as da
+    from socioreasoner_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels = (fa.flash_attention_segmented, fa.flash_attention, da.paged_decode_attention,
+               *_train_kernel_fns())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        rlvr = run_rlvr_path(config, params, out_dir, dev, kernels=kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        vlm = run_math_vlm_path(config, params, out_dir, dev, kernels=kernels)
+    phase_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    p1, p2 = rlvr["pass1"], rlvr["pass2"]
+    emit({"phase": "rlvr", "card": _smi_line(),
+          "model": "Qwen2.5-VL-3B (36 layers, ViT depth 32) trained in bf16, random weights",
+          "cuts": {"rlvr": RLVR_CUTS, "math_vlm": MATH_VLM_CUTS},
+          "phase_s": phase_s, "max_memory_allocated_gb": peak, "rlvr": rlvr, "math_vlm": vlm})
+    emit({"phase": "rlvr_figures", "card": _smi_line(), "max_memory_allocated_gb": peak,
+          **{name: {"step_wall_s": [t["step"] for t in fig["timers_s"]],
+                    "timers_s": fig["timers_s"], "actor_infer_tps": fig["actor_infer_tps"],
+                    "actor_train_tps": fig["actor_train_tps"]}
+             for name, fig in (("rlvr", p1), ("math_vlm", vlm))}})
+    names = [k.__name__ for k in kernels]
+    missing = ([k for k in names[1:] if p1["launches"][k] <= 0]
+               + [k for k in names[3:] if p2["launches"][k] <= 0]
+               + [k for k in names if vlm["launches"][k] <= 0])
+    if missing or vlm["launches"][names[0]] != 32 * MATH_VLM_CUTS["rollout_batch_size"]:
+        raise AssertionError(f"kernels off the rlvr path: {missing}, kernel 1 launched "
+                             f"{vlm['launches'][names[0]]} times in math_vlm")
+    left = (_left_shapes(p1, RLVR_PREFILL, RLVR_SLOTS, RLVR_LALLOC, RLVR_TRAIN)
+            + _left_shapes(dict(p2, prefill_buckets=[], cache_slots=None, cache_lalloc=None),
+                           RLVR_PREFILL, RLVR_SLOTS, RLVR_LALLOC, RLVR_TRAIN)
+            + _left_shapes(vlm, MATH_VLM_PREFILL, MATH_VLM_SLOTS, MATH_VLM_LALLOC,
+                           MATH_VLM_TRAIN))
+    if left:
+        raise AssertionError(f"the rlvr phase left the checked shapes: {left}")
+    if not peak < 80:
+        raise AssertionError(f"the rlvr phase peaked at {peak} GiB")
+    return {k: p1["launches"][k] + p2["launches"][k] + vlm["launches"][k] for k in names}
+
+
 # ------------------------------------------------------------- entry scripts
 
 # examples/{infer,train}/rlvr_tpu.yaml as users start them, cut in scale as
@@ -3059,6 +3661,7 @@ def main() -> int:
     launches.update(phase_main_quant(config, params, main_stats))
     two_stage = phase_two_stage(config, params)
     grpo = phase_grpo(config, params)
+    rlvr = phase_rlvr(config, params)
     with tempfile.TemporaryDirectory() as work_dir:
         export_dir = str(Path(work_dir) / "qwen2_5_vl_3b")
         export_stats, sums = export_main_tree(config, params, export_dir,
@@ -3072,6 +3675,8 @@ def main() -> int:
             kern["launches_two_stage"] = two_stage[kern["name"]]
         if kern["name"] in grpo:
             kern["launches_grpo"] = grpo[kern["name"]]
+        if kern["name"] in rlvr:
+            kern["launches_rlvr"] = rlvr[kern["name"]]
         if kern["name"] in entry:
             kern["launches_entry"] = entry[kern["name"]]
     emit({"kernels": kernels})

@@ -6,7 +6,8 @@ every module against the JAX function on the same inputs.
 
 Layer map (the slices ported so far: stage-1 serving, the GRPO actor path,
 quantized serving, SAM2 and the two-stage infer pipeline, the GRPO
-pipeline, and the from-config start: loaders, checkpoints, entry scripts):
+pipeline, the from-config start: loaders, checkpoints, entry scripts, and
+the generic RLVR slice: RLVRPipeline with dynamic sampling, MathVLMPipeline):
   examples                — the two entry scripts (yaml → pipeline → run())
   tools/convert           — HF <-> native checkpoint CLI
   configs                 — the yaml loader and the config dataclasses
@@ -18,13 +19,22 @@ pipeline, and the from-config start: loaders, checkpoints, entry scripts):
   models/sam2             — Hiera + FPN encoder, prompt encoder, two-way mask
                             decoder, predictor, HF loader
   generation              — DecodeEngine, sampling, GenerateServer
-  datasets                — processor, SocioSeg encode_sample and stage-2
-                            render, stage-1 and restage collators
-  utils/functionals       — RL math (advantages, KL, aggregation) + host helpers
+  runtime                 — GenerateScheduler, DynamicSamplingScheduler,
+                            LocalGenerateGroup
+  datasets                — processor, SocioSeg encode_sample, stage-2
+                            render and HF builder (load_socioseg), stage-1
+                            and restage collators, the file loader and its
+                            dataset-type registry, the stratified sampler,
+                            the chat templates
+  utils/functionals       — RL math (advantages, KL, aggregation), host
+                            helpers, RunningMoments
   pipeline/losses         — PPO/GRPO policy loss, value loss
   pipeline/rlvr           — SocioSegInferPipeline (two-stage infer, run()),
-                            SocioSegPipeline (GRPO), build functions, parsing,
-                            giou, mask_iou, rule rewards
+                            SocioSegPipeline (GRPO), RLVRPipeline (multi-
+                            domain GRPO, plain or dynamic-sampling rollout),
+                            MathVLMPipeline, build functions, parsing, giou,
+                            mask_iou, run_validation, compute_data_metrics,
+                            the SocioSeg and math rule rewards
   utils                   — safetensors reader/writer, CheckpointManager,
                             trackers, metrics, WorkerState
   distributed             — ParamStore and strategy bases, the train/logprob

@@ -7,13 +7,14 @@ the JAX package):
   count_components / extract_gt_bboxes        — GT mask components and boxes
   encode_sample                               — one raw tile → pipeline columns
   load_socioseg_dir                           — the on-disk tile layout
+  make_socioseg_builder / load_socioseg       — the HF `datasets` builder of
+                                                that layout, and the loader
   render_visual_prompt                        — the stage-2 restage render
 
 The JAX package counts components with its native host library
 (csrc/socio_host.cpp, union-find); here scipy.ndimage.label with 8-connectivity
 gives the same components, numbered in the same raster order of their first
-pixel. The HF-hub dataset loading stays in the JAX package until the
-loaders are ported.
+pixel.
 """
 
 from __future__ import annotations
@@ -157,6 +158,77 @@ def load_socioseg_dir(root: str, split: str = "train") -> List[Dict[str, Any]]:
             "question": q.get("question", q) if isinstance(q, dict) else q,
         })
     return samples
+
+
+# --------------------------------------------------------- HF datasets builder
+
+def make_socioseg_builder():
+    """The HF GeneratorBasedBuilder of the SocioSeg layout: features {id,
+    problem, map_image, sat_image, mask_label}, train and validation splits
+    from `data_dir`/{train,val}, incomplete tile directories skipped. Made
+    inside a function so that HF `datasets` is imported only when used."""
+    import datasets as hfd
+
+    class SocioSegDataset(hfd.GeneratorBasedBuilder):
+        def _info(self):
+            return hfd.DatasetInfo(
+                description="SocioSeg Dataset",
+                features=hfd.Features({
+                    "id": hfd.Value("string"),
+                    "problem": hfd.Value("string"),
+                    "map_image": hfd.Image(),
+                    "sat_image": hfd.Image(),
+                    "mask_label": hfd.Image(),
+                }),
+            )
+
+        def _split_generators(self, dl_manager):
+            data_dir = self.config.data_dir
+            if not data_dir or not os.path.isdir(data_dir):
+                raise ValueError("please provide a valid data_dir")
+            return [
+                hfd.SplitGenerator(name=hfd.Split.TRAIN,
+                                   gen_kwargs={"data_dir": os.path.join(data_dir, "train")}),
+                hfd.SplitGenerator(name=hfd.Split.VALIDATION,
+                                   gen_kwargs={"data_dir": os.path.join(data_dir, "val")}),
+            ]
+
+        def _generate_examples(self, data_dir):
+            tile_dirs = sorted(d for d in os.listdir(data_dir)
+                               if os.path.isdir(os.path.join(data_dir, d)))
+            for tile_id in tile_dirs:
+                d = os.path.join(data_dir, tile_id)
+                paths = {k: os.path.join(d, f"{k}.png") for k in ("map", "sat", "mask")}
+                qpath = os.path.join(d, "question.json")
+                if not all(os.path.exists(p) for p in [qpath, *paths.values()]):
+                    continue
+                try:
+                    with open(qpath, encoding="utf-8") as f:
+                        problem = json.load(f).get("problem", "")
+                except (OSError, json.JSONDecodeError):
+                    continue
+                yield tile_id, {
+                    "id": tile_id,
+                    "problem": problem,
+                    "map_image": paths["map"],
+                    "sat_image": paths["sat"],
+                    "mask_label": paths["mask"],
+                }
+
+    return SocioSegDataset
+
+
+def load_socioseg(name_or_dir: str, split: str = "train"):
+    """SocioSeg through HF `datasets`: a local directory through the builder
+    above (no network); anything else is a hub id handed to
+    `datasets.load_dataset`, which needs network access."""
+    import datasets as hfd
+    split = {"val": "validation"}.get(split, split)
+    if os.path.isdir(name_or_dir):
+        builder = make_socioseg_builder()(data_dir=name_or_dir)
+        builder.download_and_prepare()
+        return builder.as_dataset(split=split)
+    return hfd.load_dataset(name_or_dir, split=split)
 
 
 # ------------------------------------------------------------------ rendering

@@ -66,9 +66,12 @@ def forward(
 
     if image_embeds is None and vision_inputs is not None:
         vi = vision_inputs
+        # dense, differentiable attention (use_flash=False), as in the JAX
+        # model call: this route trains the ViT
         image_embeds = vision_tower(
             config.vision, params["vision"], vi["patches"], vi["cos"], vi["sin"],
-            vi["window_seg"], vi["full_seg"], vi["is_full_layer"])[vi["inv_perm"]]
+            vi["window_seg"], vi["full_seg"], vi["is_full_layer"],
+            use_flash=False)[vi["inv_perm"]]
     if image_embeds is not None:
         embeds = scatter_image_embeds(input_ids, embeds, image_embeds.to(embeds.dtype),
                                       config.image_token_id)

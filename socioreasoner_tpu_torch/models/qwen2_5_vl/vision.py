@@ -6,9 +6,13 @@ raises NotImplementedError), with bf16/f32 or int8 tower weights:
   * the Conv3d patch embed is one matmul (its kernel equals its stride);
   * window attention is segment-masked attention over the packed sequence:
     patches are permuted into window-contiguous order on the host, and every
-    block attends under a per-patch segment-id equality mask through the
-    segmented flash kernel (ops/flash_attention.py) — window ids in window
-    layers, per-image ids in the full-attention layers;
+    block attends under a per-patch segment-id equality mask — window ids in
+    window layers, per-image ids in the full-attention layers. With
+    use_flash (the serving paths, run_vision / run_vision_u8) it goes
+    through the segmented flash kernel (ops/flash_attention.py), which has
+    no backward; without it (the default, and the model call's
+    vision_inputs route that trains the ViT) through dense attention in f32
+    softmax, differentiable, as the JAX tower's non-flash branch;
   * blocks run in a Python loop over the stacked (depth, ...) parameters;
   * a tower quantized by ops/quant.quantize_vision_params (int8 block and
     merger matmuls, float patch embed) runs every block and merger matmul
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...ops.attention import dense_attention
 from ...ops.flash_attention import (SegPlan, flash_attention_segmented, seg_block_sizes,
                                     seg_max_span_blocks, seg_plan)
 from ...ops.norms import rms_norm, swiglu
@@ -41,10 +46,12 @@ def _check_supported(cfg: VisionConfig) -> None:
 
 
 def vision_block(cfg: VisionConfig, p: Dict, x: torch.Tensor, cos: torch.Tensor,
-                 sin: torch.Tensor, seg: torch.Tensor,
+                 sin: torch.Tensor, seg: torch.Tensor, use_flash: bool = False,
                  max_span_blocks: int = None, plan: SegPlan = None) -> torch.Tensor:
     """One ViT block. x: (S, hidden); seg: (S,) attention segment ids; plan:
-    the attention kernel's plan for seg (seg_plan), built once per tower."""
+    the attention kernel's plan for seg (seg_plan), built once per tower.
+    use_flash under autograd raises on every device: the kernel it takes on
+    the GPU has no backward."""
     S = x.shape[0]
     H, D = cfg.num_heads, cfg.head_dim
     a8 = p["qkv_w"].dtype == torch.int8         # an int8 tower runs w8a8
@@ -56,9 +63,17 @@ def vision_block(cfg: VisionConfig, p: Dict, x: torch.Tensor, cos: torch.Tensor,
     c, s = cos[:, None, :], sin[:, None, :]
     q = (q32 * c + rope_mod.rotate_half(q32) * s).to(x.dtype)
     k = (k32 * c + rope_mod.rotate_half(k32) * s).to(x.dtype)
-    bq, bk = seg_block_sizes(S)
-    attn = flash_attention_segmented(q, k, v, seg, block_q=bq, block_k=bk,
-                                     max_span_blocks=max_span_blocks, plan=plan)
+    if not use_flash:
+        s_ids = seg.to(x.device)[None]
+        attn = dense_attention(q[None], k[None], v[None], segment_ids_q=s_ids,
+                               segment_ids_kv=s_ids)[0]
+    elif torch.is_grad_enabled() and q.requires_grad:
+        raise RuntimeError("vision_block: use_flash=True under autograd; the segmented "
+                           "kernel has no backward, train the ViT with use_flash=False")
+    else:
+        bq, bk = seg_block_sizes(S)
+        attn = flash_attention_segmented(q, k, v, seg, block_q=bq, block_k=bk,
+                                         max_span_blocks=max_span_blocks, plan=plan)
     x = x + (matmul_q(attn.reshape(S, H * D), p, "proj_w", a8) + p["proj_b"])
     h2 = rms_norm(x, p["norm2"], cfg.rms_norm_eps)
     if a8:
@@ -78,6 +93,7 @@ def vision_tower(
     window_seg: torch.Tensor,  # (S,) window segment ids
     full_seg: torch.Tensor,    # (S,) per-image segment ids
     is_full_layer,             # (depth,) bools — use full_seg in this layer
+    use_flash: bool = False,   # the segmented kernel (no backward) on the GPU
     max_span_blocks: int = None,   # max k-block span over BOTH seg arrays
 ) -> torch.Tensor:
     """Returns (S // spatial_merge_unit, out_hidden) merged embeddings, still in
@@ -86,7 +102,7 @@ def vision_tower(
     x = (patches @ params["patch_embed_w"]).to(patches.dtype)
     blocks = params["blocks"]
     plans = {}
-    if x.is_cuda:     # the kernel's plans, one per id array for all the layers
+    if use_flash and x.is_cuda:   # the kernel's plans, one per id array for all layers
         bq, bk = seg_block_sizes(x.shape[0])
         plans = {full: seg_plan(seg, cfg.num_heads, x.device, block_q=bq, block_k=bk,
                                 max_span_blocks=max_span_blocks)
@@ -94,8 +110,8 @@ def vision_tower(
     for i, is_full in enumerate(np.asarray(is_full_layer).tolist()):
         p = {key: arr[i] for key, arr in blocks.items()}
         seg = full_seg if is_full else window_seg
-        x = vision_block(cfg, p, x, cos, sin, seg, max_span_blocks=max_span_blocks,
-                         plan=plans.get(is_full))
+        x = vision_block(cfg, p, x, cos, sin, seg, use_flash=use_flash,
+                         max_span_blocks=max_span_blocks, plan=plans.get(is_full))
 
     # merger: norm then merge spatial_merge_unit patches → MLP
     h = rms_norm(x, params["merger_ln_q"], cfg.rms_norm_eps)
@@ -162,7 +178,7 @@ def _run_tower(cfg: VisionConfig, params: Dict, patches: torch.Tensor,
         torch.as_tensor(tables["sin"], device=dev),
         # the ids stay on the host: the kernel's plans are built from them
         torch.as_tensor(wseg), torch.as_tensor(fseg),
-        tables["is_full_layer"], max_span_blocks=span)
+        tables["is_full_layer"], use_flash=True, max_span_blocks=span)
     out = out[torch.as_tensor(tables["inv_perm"], device=dev)]
     return out.to(dtype) if dtype is not None else out
 

@@ -326,6 +326,12 @@ def flash_attention_segmented(
         if max_span_blocks is not None:
             _check_span(segment_ids.numpy(), block_q, block_k, max_span_blocks)
         return flash_attention_segmented_reference(q, k, v, segment_ids)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        # the kernel writes a fresh tensor with no autograd node: the
+        # gradient of q, k and v would be dropped without a word
+        raise RuntimeError("flash_attention_segmented: the CUDA kernel has no backward; "
+                           "a differentiable call takes the dense attention "
+                           "(vision_tower(..., use_flash=False))")
     if S == 0:
         return torch.empty_like(q)
     check_kernel_inputs("flash_attention_segmented", q, k, v)

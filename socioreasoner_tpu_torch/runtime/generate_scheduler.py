@@ -10,10 +10,16 @@ LocalGenerateGroup from socioreasoner_tpu/runtime/generate_scheduler.py:
     prompt's sibling requests once it has n, and the output re-padded and
     ordered by (prompt, sample).
   LocalGenerateGroup — the pipelines' cluster facade over the strategies.
+  DynamicSamplingScheduler — the generic RLVR pipeline's dataset-pulling
+    rollout: prompt groups streamed into the servers under flow control,
+    rewards per group as it completes, query and response filters whose
+    rejected groups are replaced by further pulls, and the ABORT of what is
+    still in flight once the target is met.
 
 One GPU serves one decode replica (data-parallel replicas wait for the
-multi-GPU slice). DynamicSamplingScheduler and RequestScheduler belong to
-the generic RLVR and agentic pipelines and are not ported yet.
+multi-GPU slice). RequestScheduler serves the agentic pipelines and waits
+for that slice. The schedulers move host ids and texts only: every CUDA
+call runs on the server's thread, and the request callbacks fire there.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from __future__ import annotations
 import itertools
 import threading
 import time
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -166,3 +172,214 @@ class LocalGenerateGroup:
     def generate(self, batch: BatchProto, generating_args):
         """Batch generate on the replica: (len(batch) * n, P + max_out) rows."""
         return self.workers[0].generate(batch, generating_args)
+
+
+class DynamicSamplingScheduler:
+    """Concurrent dataset-pulling rollout with flow control.
+
+    Streams prompts from the dataset into the decode servers, keeping many
+    prompt GROUPS (one prompt x n samples) in flight at once:
+
+      * flow control: `max_running_requests` caps the concurrent requests of
+        a worker, `max_additional_running_prompts` the groups in flight
+        beyond the target batch size;
+      * least-loaded routing, one worker a group (so that its prefix fork
+        prefills the prompt once);
+      * the domain's reward for each group as it completes, on this thread,
+        while the server's thread goes on decoding;
+      * `response_filter(row, output_ids)` drops single samples,
+        `query_filter(row, group_outputs)` drops whole groups; a rejected
+        group is REPLACED by pulling more prompts, up to
+        `max_prompt_use_factor` times the target;
+      * alive-check pings, and the ABORT of every request still in flight
+        once the target is met (the server's STOP then drains the engine);
+      * scheduler metrics, per domain too.
+
+    `is_use_additional_prompts=False` disables both filters.
+    """
+
+    def __init__(self, cluster, collate_fn: Callable, *,
+                 reward_fns: Optional[Dict[str, Callable]] = None,
+                 detokenize: Optional[Callable] = None,
+                 query_filter: Optional[Callable] = None,
+                 response_filter: Optional[Callable] = None,
+                 is_use_additional_prompts: bool = True,
+                 max_running_requests: int = 128,
+                 max_additional_running_prompts: int = 16,
+                 alive_check_interval: float = 10.0,
+                 max_prompt_use_factor: int = 10):
+        self.cluster = cluster
+        self.collate_fn = collate_fn
+        self.reward_fns = reward_fns or {}
+        self.detokenize = detokenize or (lambda ids: "")
+        if is_use_additional_prompts:
+            self.query_filter = query_filter or (lambda row, outs: True)
+            self.response_filter = response_filter or (lambda row, out: True)
+        else:
+            self.query_filter = lambda row, outs: True
+            self.response_filter = lambda row, out: True
+        self.max_running_requests = max_running_requests
+        self.max_additional_running_prompts = max_additional_running_prompts
+        self.alive_check_interval = alive_check_interval
+        self.max_prompt_use_factor = max_prompt_use_factor
+
+    def get_batch(self, dataset_iter, target_prompts: int, generating_args) -> BatchProto:
+        """The collated batch of `target_prompts` accepted prompts, with meta:
+        output, (N * n, P + max_out) right-padded sequences ordered by
+        (prompt, sample); scores and response_level_rewards, (N * n,), when
+        reward_fns are set; metrics, the scheduler's."""
+        n = generating_args.num_return_sequences
+        sp = SamplingParams.from_generating_args(generating_args)
+        workers = self.cluster.workers
+        lock = threading.Lock()
+        cond = threading.Condition(lock)
+        loads = [0] * len(workers)
+
+        groups: Dict[int, Dict] = {}        # gid -> state
+        ready: List[int] = []               # gids with all requests finished
+        accepted: List[Dict] = []
+        stats = {"query_filter_count": 0, "response_filter_count": 0,
+                 "prompt_use_count": 0, "max_inflight_prompts": 0}
+        domain_scores: Dict[str, List[float]] = {}
+        stopped = threading.Event()
+
+        def on_done(out):
+            """A request's completion, on the server's thread."""
+            gid, j, w = out.request_id
+            with cond:
+                g = groups.get(gid)
+                if g is None or stopped.is_set():
+                    return
+                loads[w] -= 1
+                g["pending"].discard((gid, j, w))
+                if out.finish_reason != "abort":
+                    g["outs"].append(out)
+                if not g["pending"]:
+                    ready.append(gid)
+                    cond.notify_all()
+
+        self.cluster.start_server()
+        gid_counter = itertools.count()
+        max_prompt_use = max(target_prompts * self.max_prompt_use_factor,
+                             target_prompts + self.max_additional_running_prompts)
+        exhausted = False
+        last_ping = time.time()
+        try:
+            while len(accepted) < target_prompts:
+                # ---- admit new prompt groups under flow control
+                while not exhausted:
+                    with lock:
+                        room_prompts = (len(groups) + len(accepted)
+                                        < target_prompts + self.max_additional_running_prompts)
+                        least = int(np.argmin(loads))
+                        room_reqs = loads[least] + n <= self.max_running_requests
+                    if not (room_prompts and room_reqs):
+                        break
+                    if stats["prompt_use_count"] >= max_prompt_use:
+                        raise RuntimeError(
+                            f"dynamic sampling used {stats['prompt_use_count']} prompts "
+                            f"without filling {target_prompts} accepted groups; "
+                            "filters too strict?")
+                    try:
+                        row = next(dataset_iter)
+                    except StopIteration:
+                        exhausted = True
+                        break
+                    stats["prompt_use_count"] += 1
+                    batch = self.collate_fn([row])
+                    gid = next(gid_counter)
+                    ids = np.asarray(batch.batch["input_ids"][0])
+                    valid = np.asarray(batch.batch["attention_mask"][0]) == 1
+                    pos = None
+                    if "position_ids" in batch.batch:
+                        pos = np.asarray(batch.batch["position_ids"][0])[:, valid]
+                    embeds = (batch.meta.get("image_embeds_list") or [None])[0]
+                    with lock:
+                        g = {"row": row, "batch": batch, "outs": [], "pending": set()}
+                        groups[gid] = g
+                        stats["max_inflight_prompts"] = max(stats["max_inflight_prompts"],
+                                                            len(groups))
+                        loads[least] += n
+                        rids = [(gid, j, least) for j in range(n)]
+                        g["pending"].update(rids)
+                    for rid in rids:
+                        workers[rid[2]].add_request(GenerateRequestType.ADD, {
+                            "request_id": rid, "prompt_ids": ids[valid].tolist(),
+                            "sampling": sp, "position_ids": pos,
+                            "image_embeds": embeds, "callback": on_done})
+
+                # ---- wait for a completed group (decoding goes on meanwhile)
+                with cond:
+                    if not ready and not groups and exhausted:
+                        break
+                    cond.wait(timeout=0.05)
+                    done_ids, ready[:] = list(ready), []
+                    done = [(gid, groups.pop(gid)) for gid in done_ids if gid in groups]
+
+                if time.time() - last_ping > self.alive_check_interval:
+                    for w in workers:
+                        w.add_request(GenerateRequestType.ALIVE_CHECK, None)
+                    last_ping = time.time()
+
+                # ---- filters and the domain's reward, while decoding goes on
+                for gid, g in done:
+                    outs = [o for o in g["outs"]
+                            if self.response_filter(g["row"], o.output_ids)]
+                    stats["response_filter_count"] += len(g["outs"]) - len(outs)
+                    if len(outs) < n:
+                        continue            # a dead group, replaced by the admit loop
+                    outs = sorted(outs, key=lambda o: o.request_id[1])[:n]
+                    domain = str(g["row"].get("domain", g["row"].get("tag", "default")))
+                    reward_out = None
+                    if self.reward_fns:
+                        fn_ = self.reward_fns.get(domain) or next(iter(self.reward_fns.values()))
+                        texts = [self.detokenize(o.output_ids) for o in outs]
+                        reward_out = fn_(texts, [g["row"]] * n)
+                        scores = np.asarray(reward_out.get(
+                            "scores", reward_out["response_level_rewards"]), np.float32)
+                        domain_scores.setdefault(domain, []).extend(scores.tolist())
+                    if not self.query_filter(g["row"], [o.output_ids for o in outs]):
+                        stats["query_filter_count"] += 1
+                        continue
+                    if len(accepted) < target_prompts:
+                        accepted.append({"batch": g["batch"], "outs": outs,
+                                         "reward": reward_out})
+        finally:
+            stopped.set()
+            with lock:
+                leftovers = [rid for g in groups.values() for rid in g["pending"]]
+            for rid in leftovers:
+                workers[rid[2]].add_request(GenerateRequestType.ABORT, {"request_id": rid})
+            self.cluster.stop_server()
+
+        if not accepted:
+            return BatchProto()
+
+        out_batch = BatchProto.concat([a["batch"] for a in accepted])
+        pad_id = out_batch.meta.get("pad_token_id", 0)
+        P = np.asarray(out_batch.batch["input_ids"]).shape[1]
+        max_out = max((len(o.output_ids) for a in accepted for o in a["outs"]), default=0)
+        N = len(accepted)
+        result = np.full((N * n, P + max_out), pad_id, np.int64)
+        for i, a in enumerate(accepted):
+            prompt_row = np.asarray(a["batch"].batch["input_ids"][0])
+            for j, o in enumerate(a["outs"]):
+                result[i * n + j, :P] = prompt_row
+                result[i * n + j, P:P + len(o.output_ids)] = o.output_ids
+        out_batch.meta["output"] = result
+        if self.reward_fns:
+            out_batch.meta["scores"] = np.concatenate([
+                np.asarray(a["reward"].get("scores", a["reward"]["response_level_rewards"]),
+                           np.float32) for a in accepted])
+            out_batch.meta["response_level_rewards"] = np.concatenate([
+                np.asarray(a["reward"]["response_level_rewards"], np.float32)
+                for a in accepted])
+        metrics = {f"scheduler/{k}": float(v) for k, v in stats.items()}
+        metrics["scheduler/collect_query_count"] = float(N)
+        for domain, vals in domain_scores.items():
+            v = np.asarray(vals, np.float32)
+            metrics[f"scheduler/{domain}/score/mean"] = float(v.mean())
+            metrics[f"scheduler/{domain}/score/max"] = float(v.max())
+            metrics[f"scheduler/{domain}/score/min"] = float(v.min())
+        out_batch.meta["metrics"] = metrics
+        return out_batch

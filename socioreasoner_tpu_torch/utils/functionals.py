@@ -354,3 +354,33 @@ def postprocess_generate(
     if prompt_id is not None:
         result["prompt_id"] = np.repeat(np.asarray(prompt_id).reshape(-1), num_return_sequences)
     return result
+
+
+# ------------------------------------------------------------------ statistics
+
+class RunningMoments:
+    """Streaming mean/std over reward batches, in float64 numpy (a copy of
+    the JAX module's), so that the running reward norm is the same number
+    in both packages."""
+
+    def __init__(self):
+        self.mean = 0.0
+        self.std = 1.0
+        self.var = 1.0
+        self.count = 1e-24
+
+    def update(self, xs: np.ndarray) -> Tuple[float, float]:
+        """Fold a batch in; returns the batch's (mean, unbiased std)."""
+        xs = np.asarray(xs, dtype=np.float64)
+        n = xs.size
+        xs_mean = xs.mean()
+        xs_var = xs.var()
+        delta = xs_mean - self.mean
+        tot = self.count + n
+        new_sum = xs_var * n
+        old_sum = self.var * self.count + delta ** 2 * self.count * n / tot
+        self.mean += delta * n / tot
+        self.var = (old_sum + new_sum) / tot
+        self.std = float(np.sqrt(self.var * tot / max(tot - 1, 1e-24)))
+        self.count = tot
+        return float(xs_mean), float(np.sqrt(xs_var * n / max(n - 1, 1)))

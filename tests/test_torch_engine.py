@@ -313,12 +313,16 @@ def test_port_imports_no_jax():
         "assert len(names) >= 20, names\n"
         "new = {'utils.kl_controller', 'utils.worker_state', 'pipeline.base_pipeline',\n"
         "       'pipeline.base_worker', 'pipeline.rlvr.rewards.socioseg',\n"
-        "       'runtime.generate_scheduler', 'pipeline.rlvr.socioseg_pipeline'}\n"
+        "       'runtime.generate_scheduler', 'pipeline.rlvr.socioseg_pipeline',\n"
+        "       'pipeline.rlvr.rlvr_pipeline', 'pipeline.rlvr.math_vlm_pipeline',\n"
+        "       'pipeline.rlvr.rewards.math_rule', 'datasets.loader', 'datasets.sampler',\n"
+        "       'datasets.chat_template'}\n"
         "assert {pkg.__name__ + '.' + n for n in new} <= set(names), names\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "for f in ('phase_grpo', 'run_grpo_path', 'build_grpo', 'socioseg_train_config',\n"
-        "          'grpo_answers', 'ScriptedDecodeWorker', '_grpo_train_kernels'):\n"
+        "          'grpo_answers', 'ScriptedDecodeWorker', '_phase_train_kernels',\n"
+        "          'phase_rlvr', 'run_rlvr_path', 'run_math_vlm_path', 'run_vit_grad_check'):\n"
         "    assert callable(getattr(chip_smoke, f)), f\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'socioreasoner_tpu' or m.startswith('socioreasoner_tpu.'))\n"
