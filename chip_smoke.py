@@ -26,7 +26,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 rlvr phase's shapes: kernel 1 at one 756² image, kernel 2
                 at its prefill buckets (L=256 and 1024), kernel 3 at its two
                 caches, kernels 4-6 at its train batches (B=32 L=512, B=8
-                L=1152) and kernel 4 at its log-prob chunks; the
+                L=1152) and kernel 4 at its log-prob chunks; kernel 2
+                at the workers phase's judge buckets (L=512); the
                 host copies of kernel 2's tile bounds and of the GQA work
                 items against the C++ formulas; kernel 6's plan, its refusal
                 of other kv lengths (a child process that must fail with a
@@ -108,7 +109,37 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 samples, one 768² image each (kernels 1-6, kernel 1 32 times
                 a tile). A frozen reference, each pass at the shapes the
                 kernels phase checked (RLVR_*, MATH_VLM_*), peak < 80 GB.
-  14. entry   — the system started as users start it: the main phase's
+  14. workers — the worker runtime, every reward, the reward model, the
+                critic, SFT and DPO at full width on the main phase's tree,
+                which must not move (checksums): (a) RLVRPipeline from a
+                yaml read with configs/loader.py whose rewards: block names
+                four reward clusters by the JAX package's dotted paths
+                (math over 2 workers, code over 2 in local subprocesses,
+                crossthinkqa, general), on a jsonl of 24 prompts, 6 a
+                domain, cut to 4 prompts x 8 and 256 new tokens on the
+                plain route: a step through the real engine (kernels 2-6),
+                then a step of crafted answers, half of each group right
+                (each domain's rewards equal its reward function called
+                directly, critic/score_mean 0.5, the domain metrics,
+                sandboxed subprocesses run, kernels 4-6), a copy of the
+                tree as the policy and the tree as the frozen reference;
+                (b) compute_llm_judge_rewards with greedy
+                TorchDecodeStrategy.generate over the tree as the judge, 8
+                prompts, 32 new tokens (kernels 2, 3), the scores equal
+                parse_judge_score of its texts; (c) RewardWorker through a
+                Cluster over TorchRewardStrategy on a copy with a seeded
+                value head, pass 2's 32 rows of 512: the reward at the eos
+                index exactly, bf16 values within RM_VALUE_TOL of f32; (d)
+                two critic steps on that copy (loss finite and falling, the
+                head and a backbone leaf moved); (e) pack_sequences of 16
+                samples of 200-1800 tokens into rows of 2048, held to a
+                recomputation, and two SFT steps in micro-batches of 2 rows
+                (loss falling); (f) two DPO steps on 4 pairs of 512 (loss
+                log 2 and margin 0 at step 1, margin > 0 at step 2). (c)-(f)
+                attend densely, as the JAX package's steps do: kernels 4-6
+                must not launch there. Each pass at the shapes the kernels
+                phase checked; peak < 80 GB.
+  15. entry   — the system started as users start it: the main phase's
                 tree (trained by the grpo phase) written with the port's
                 save_pretrained (BF16 shards, config.json) beside an offline
                 byte-level HF tokenizer and read back bit for bit; a
@@ -126,7 +157,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 TorchTrainStrategy checkpoint round trip at 3B widths with 2
                 layers: params and optimizer state restored bit for bit, the
                 resumed step against the uninterrupted one. Peak < 80 GB.
-  15. row_writer — kernel 7's own path: one decode step's K/V row writes
+  16. row_writer — kernel 7's own path: one decode step's K/V row writes
                 into the stacked cache at the diagnostic script's shape (36
                 layers, 24 slots, Lalloc 1536), held against the indexed
                 assignment.
@@ -685,7 +716,8 @@ def phase_kernels():
     grpo = {(B, L): prefill_case(_grpo_prefill_lens(B, L), L) for B, L in GRPO_PREFILL}
     rlvr = {(B, L): prefill_case(_rlvr_prefill_lens(B, L), L)
             for B, L in RLVR_PREFILL + MATH_VLM_PREFILL}
-    cases = (check, main, *stage2.values(), *grpo.values(), *rlvr.values())
+    judge = {(B, L): prefill_case(_judge_prefill_lens(B), L) for B, L in JUDGE_PREFILL}
+    cases = (check, main, *stage2.values(), *grpo.values(), *rlvr.values(), *judge.values())
     results.append(_row(
         "flash_attention", "socioreasoner_tpu_torch/csrc/flash_prefill.cu",
         "socioreasoner_tpu/ops/flash_attention.py:37",
@@ -710,6 +742,10 @@ def phase_kernels():
         rlvr_prefill={f"B{B}_L{L}": summary(case, f"B={B} L={L} kv_len="
                                                   f"{_rlvr_prefill_lens(B, L)}")
                       for (B, L), case in rlvr.items()},
+        # each (B, L) bucket the workers phase's judge may prefill
+        judge_prefill={f"B{B}_L{L}": summary(case, f"B={B} L={L} kv_len="
+                                                   f"{_judge_prefill_lens(B)}")
+                       for (B, L), case in judge.items()},
         edge_max_abs_err=pre_edge[0], edge_max_row_ratio=pre_edge[1],
         bounds_checked=_prefill_bounds_check()))
     emit({"phase": "kernel", **results[-1]})
@@ -781,6 +817,12 @@ MATH_VLM_KV = 941             # 729 image rows and the templated question
 MATH_VLM_PREFILL = ((1, 1024), (2, 1024))
 MATH_VLM_SLOTS, MATH_VLM_LALLOC = 8, 1280
 MATH_VLM_TRAIN = {"L": 1152, "train_batch": 8, "logprob_batch": 8, "kv_lens": (1069, 1040)}
+# The workers phase's RLVR passes take the RLVR_* shapes. Its judge: 8
+# chat-templated judge prompts of 412-439 tokens (JUDGE_PROMPT_TOKENS the
+# most) in the bucket of 512, prefilled up to 8 at a time, decoded in the
+# rlvr cache's shape (32 slots of max_len 512 + decode_chunk 64, Lalloc 768).
+JUDGE_PROMPT_TOKENS = 439
+JUDGE_PREFILL = tuple((B, 512) for B in (1, 2, 4, 8))
 
 
 def _rlvr_prefill_lens(B: int, L: int):
@@ -788,6 +830,12 @@ def _rlvr_prefill_lens(B: int, L: int):
     apart, and a padded row (one valid token) where B > 1."""
     n = MATH_VLM_KV if L == 1024 else RLVR_PROMPT_TOKENS
     return [n - 3 * i for i in range(B - 1)] + [1] if B > 1 else [n]
+
+
+def _judge_prefill_lens(B: int):
+    """kv lengths of a judge prefill bucket: B of its prompts, 13 tokens
+    apart, the longest JUDGE_PROMPT_TOKENS."""
+    return [JUDGE_PROMPT_TOKENS - 13 * i for i in range(B)]
 
 
 # Kernels 3 and 3q: (case, slots, Lalloc, lengths) of the checks. "main" is
@@ -3180,6 +3228,709 @@ def phase_rlvr(config, params):
     return {k: p1["launches"][k] + p2["launches"][k] + vlm["launches"][k] for k in names}
 
 
+# ------------------------------------------------------------- workers
+
+# The workers phase: the worker runtime, every reward, the reward model, the
+# critic, SFT and DPO on the main phase's tree. RLVRPipeline over a jsonl of
+# 24 prompts, 6 a domain, scored by the four reward clusters a yaml names
+# (the JAX package's dotted paths): one step of 4 prompts x 8 samples at 256
+# new tokens on the plain collate-and-generate route, then one step of
+# crafted answers; the same RLVR_* shapes as the rlvr phase.
+WORKERS_CUTS = {"max_steps": 1, "rollout_batch_size": 4, "num_return_sequences_in_group": 8,
+                "prompt_length": 256, "response_length": 256}
+WORKER_CLUSTERS = {"math": ("MathRuleRewardWorker", 2), "code": ("CodeSandboxRewardWorker", 2),
+                   "crossthinkqa": ("CrossThinkQARewardWorker", 1),
+                   "general": ("GeneralValRuleRewardWorker", 1)}
+WORKERS_TIMERS = ("step", "generate", "logprobs", "train")
+CODE_PROMPT = ("Write a Python program that defines times(n), returning n * {k}, and prints "
+               "times(n) for each integer n read from stdin. Answer in a ```python block.")
+MCQ = (("a primary color", ("green", "red", "purple", "orange"), "B"),
+       ("a mammal", ("whale", "shark", "trout", "eel"), "A"),
+       ("a prime number", ("9", "15", "21", "7"), "D"))
+CAPITALS = (("France", "Paris"), ("Japan", "Tokyo"), ("Italy", "Rome"), ("Peru", "Lima"))
+JUDGE_NEW_TOKENS = 32
+# the reward model's bf16 values against an f32 forward of the same rows:
+# max-abs over the valid positions, relative to the f32 values' max-abs
+# (bf16 rounding through 36 random layers, ~2^-8 a layer, partly cancelling)
+RM_VALUE_TOL = 0.05
+# the critic, SFT and DPO steps: AdamW at the train yaml's learning rate,
+# each on its own copy (at 1e-5 Adam's first step, a step of lr on nearly
+# every element of the 3B tree, overshoots: the critic's value loss rose
+# 0.437 → 0.628 on the same rows)
+STEP_LR = 1e-6
+SFT_SPEC = {"samples": 16, "min_len": 200, "max_len": 1800, "row": 2048, "micro": 2}
+DPO_SPEC = {"pairs": 4, "L": 512, "prompt": 128, "beta": 0.1}
+DPO_LOSS_TOL = 1e-3
+
+
+def write_workers_jsonl(path, n=24, seed=0):
+    """n prompts cycling over the four domains, each with its tag and ground
+    truth: math sums, code tasks (a stdin case and an assert case as JSON),
+    multiple-choice questions (a letter) and capitals (a city)."""
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for i in range(n):
+            tag = tuple(WORKER_CLUSTERS)[i % 4]
+            if tag == "math":
+                a, b = (int(x) for x in rng.integers(1, 10 ** rng.integers(1, 5), size=2))
+                row = {"prompt": MATH_PROMPT.format(a=a, b=b), "ground_truth": str(a + b)}
+            elif tag == "code":
+                k = int(rng.integers(3, 10))
+                row = {"prompt": CODE_PROMPT.format(k=k), "ground_truth": json.dumps(
+                    [{"input": "3\n", "output": str(3 * k)},
+                     {"assert": f"assert times(2) == {2 * k}"}])}
+            elif tag == "crossthinkqa":
+                kind, options, gt = MCQ[(i // 4) % len(MCQ)]
+                letters = " ".join(f"{c}) {o}" for c, o in zip("ABCD", options))
+                row = {"prompt": f"Which of these is {kind}? {letters}. Give the letter in "
+                                 "<answer> </answer> tags.", "ground_truth": gt}
+            else:
+                country, city = CAPITALS[(i // 4) % len(CAPITALS)]
+                row = {"prompt": f"What is the capital of {country}? Give the city in "
+                                 "<answer> </answer> tags.", "ground_truth": city}
+            f.write(json.dumps({**row, "tag": tag}) + "\n")
+
+
+def workers_answer(tag: str, ground_truth: str, j: int) -> str:
+    """Sample j's crafted answer to a prompt of `tag`: right for even j,
+    wrong for odd j (code: a program that fails both cases)."""
+    right = j % 2 == 0
+    if tag == "code":
+        k = int(json.loads(ground_truth)[0]["output"]) // 3
+        body = f"n * {k}" if right else f"n + {k}"
+        return (f"Here it is.\n```python\nimport sys\ndef times(n):\n    return {body}\n"
+                f"for line in sys.stdin:\n    print(times(int(line)))\n```")
+    if tag == "math":
+        answer = ground_truth if right else str(int(ground_truth) + j)
+    elif tag == "crossthinkqa":
+        answer = ground_truth if right else "ABCD"[("ABCD".index(ground_truth) + 1) % 4]
+    else:
+        answer = ground_truth if right else "Atlantis"
+    return f"<think>sample {j}</think><answer>{answer}</answer>"
+
+
+class CraftedGenerate:
+    """The decode strategy's batch generate, answering each sample j of row
+    i at once with workers_answer(tag, ground truth, j) and EOS: the same
+    (rows x n, P + longest) layout, the prompt left as collated."""
+
+    def __init__(self, tokenizer, eos_id: int, pad_id: int):
+        self.tok, self.eos, self.pad = tokenizer, eos_id, pad_id
+
+    def generate(self, batch, generating_args):
+        ids = np.asarray(batch.batch["input_ids"])
+        n = generating_args.num_return_sequences
+        tags, gts = batch.non_tensor["tag"], batch.non_tensor["ground_truth"]
+        rows = [list(self.tok.encode(workers_answer(str(tags[i]), str(gts[i]), j))) + [self.eos]
+                for i in range(len(ids)) for j in range(n)]
+        out = np.full((len(rows), ids.shape[1] + max(map(len, rows))), self.pad, np.int64)
+        for r, answer in enumerate(rows):
+            out[r, :ids.shape[1]] = ids[r // n]
+            out[r, ids.shape[1]:ids.shape[1] + len(answer)] = answer
+        return out
+
+
+def write_workers_yaml(path, out_dir, **cuts):
+    """The phase's pipeline config as a yaml file (JSON is YAML): the rlvr
+    phase's optimisation and sampling settings, `cuts`, and a rewards:
+    block naming WORKER_CLUSTERS by the JAX package's dotted paths."""
+    cuts = {**WORKERS_CUTS, **cuts}
+    doc = {"exp_name": "qwen2_5_vl_3B_rlvr_workers", "seed": 42, "output_dir": out_dir,
+           "track_with": "stdout", "save_steps": -1, "adv_estimator": "grpo",
+           "use_kl_loss": True, "kl_loss_coef": 5e-3, "reward_clip": 10,
+           "advantage_clip": 10.0, "init_kl_coef": 0.0, **cuts,
+           "actor_train": {"infer_batch_size": 8, "training_args": {
+               "learning_rate": 1e-6, "weight_decay": 1e-2, "warmup_steps": 0}},
+           "reference": {"infer_batch_size": 8},
+           "actor_infer": {"generating_args": {
+               "max_new_tokens": cuts["response_length"], "top_p": 0.99, "top_k": 100,
+               "temperature": 0.99, "num_return_sequences": cuts["num_return_sequences_in_group"]}},
+           "rewards": {domain: {"worker_cls": f"socioreasoner_tpu.pipeline.base_worker.{cls}",
+                                "world_size": n}
+                       for domain, (cls, n) in WORKER_CLUSTERS.items()}}
+    Path(path).write_text(json.dumps(doc, indent=1))
+
+
+def direct_rewards(domain, texts, gts):
+    """The reward function a domain's worker binds, called directly."""
+    from socioreasoner_tpu_torch.pipeline.rlvr.rewards import (code_sandbox, general_rules,
+                                                                math_rule)
+    if domain == "math":
+        return math_rule.compute_math_rewards(texts, gts)
+    if domain == "code":
+        return code_sandbox.compute_code_rewards(texts, gts)
+    if domain == "crossthinkqa":
+        return general_rules.compute_crossthink_rewards(texts, gts)
+    return general_rules.compute_general_val_scores(texts, gts, [domain] * len(texts))
+
+
+class _SandboxCounter:
+    """Counts the code sandbox's subprocesses and their seconds while on
+    (the module function wrapped; the cluster's threads call it)."""
+
+    def __init__(self):
+        import threading
+        from socioreasoner_tpu_torch.pipeline.rlvr.rewards import code_sandbox
+        self.mod, self.plain = code_sandbox, code_sandbox._run_sandboxed
+        self.lock = threading.Lock()
+        self.count, self.seconds = 0, 0.0
+
+    def __enter__(self):
+        def counted(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return self.plain(*args, **kwargs)
+            finally:
+                with self.lock:
+                    self.count += 1
+                    self.seconds += time.perf_counter() - t0
+        self.mod._run_sandboxed = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._run_sandboxed = self.plain
+
+
+def _right_aligned(batch, pad_id):
+    """The train rows of a batch (left-padded prompt | response | pad) moved
+    to the start of their row, the pads after them, every (B, L) and
+    (B, L-1) array rolled alike; advantages zero off the response."""
+    attn = np.asarray(batch["attention_mask"])
+    starts = attn.argmax(-1)
+    out = {}
+    for k in ("input_ids", "attention_mask", "position_ids", "response_mask", "advantages"):
+        v = np.asarray(batch[k])
+        out[k] = np.stack([np.roll(row, -int(s), axis=-1) for row, s in zip(v, starts)])
+    out["input_ids"][out["attention_mask"] == 0] = pad_id
+    out["advantages"] = out["advantages"] * (out["response_mask"][:, 1:] > 0)
+    return out
+
+
+def _text_tree(params):
+    """The main tree without its ViT (a new dict over the same tensors)."""
+    return {k: v for k, v in params.items() if k != "vision"}
+
+
+def _launch_counts(kernels):
+    return {fn.__name__: fn.launches for fn in kernels}
+
+
+def _reset(kernels):
+    for fn in kernels:
+        fn.launches = 0
+
+
+def run_multi_domain(config, params, out_dir, dev, *, kernels=(), processor=None, **cuts):
+    """(a) RLVRPipeline from write_workers_yaml's config read with
+    configs/loader.py, on the jsonl read with datasets.loader.get_dataset,
+    the policy a copy of the main tree's text part, the reference the main
+    tree itself. Pass 1, one step through the real engine; pass 2, one step
+    of CraftedGenerate's answers: each domain's rewards equal its reward
+    function called directly on the same texts, critic/score_mean 0.5, the
+    domain metrics present, the reference's log-probs fixed. Returns stats
+    (and pass 2's train batch and texts for the later parts); raises on a
+    failed check."""
+    import os
+    from socioreasoner_tpu_torch.configs.loader import load_config
+    from socioreasoner_tpu_torch.configs.rlvr_config import RLVRConfig
+    from socioreasoner_tpu_torch.configs.worker_config import DataArguments
+    from socioreasoner_tpu_torch.datasets.loader import get_dataset
+    from socioreasoner_tpu_torch.pipeline.rlvr.rlvr_pipeline import RLVRPipeline
+
+    yaml_path = os.path.join(out_dir, "rlvr_workers.yaml")
+    write_workers_yaml(yaml_path, out_dir, **cuts)
+    cfg = load_config(RLVRConfig, yaml_path)
+    data_path = os.path.join(out_dir, "workers.jsonl")
+    write_workers_jsonl(data_path)
+    dataset = get_dataset(DataArguments(file_name=data_path))
+    processor = processor or _processor(config, None)
+    prompt_tokens = [len(processor.tokenizer.encode(processor.apply_chat_template(r["prompt"], 0)))
+                     for r in dataset]
+    if max(prompt_tokens) > cfg.prompt_length:
+        raise AssertionError(f"workers prompts of {max(prompt_tokens)} tokens exceed "
+                             f"prompt_length {cfg.prompt_length}")
+    reference = _text_tree(params)
+    pipe = RLVRPipeline(cfg, model_config=config, policy_params=_clone(reference),
+                        reference_params=reference, processor=processor, dataset=dataset,
+                        engine_kwargs=rlvr_engine_kwargs(cfg, RLVR_SLOTS, cfg.prompt_length))
+    clusters = {d: (type(c.workers[0]).__module__ + "." + type(c.workers[0]).__name__,
+                    c.world_size) for d, c in pipe.reward_clusters.items()}
+    shapes = _shape_recorder(pipe)
+    ref_seen = _first_reference_log_probs(pipe)
+    calls = []
+    for domain, fn in list(pipe.reward_fns.items()):
+        def timed(texts, gts, fn=fn, domain=domain):
+            t0 = time.perf_counter()
+            out = fn(texts, gts)
+            calls.append({"domain": domain, "texts": list(texts), "gts": list(gts), "out": out,
+                          "s": time.perf_counter() - t0})
+            return out
+        pipe.reward_fns[domain] = timed
+    train_batches = []
+    train_step = pipe.actor_train.train_step
+
+    def recording_train_step(batch, *a):
+        train_batches.append({k: np.asarray(v) for k, v in batch.batch.items()})
+        return train_step(batch, *a)
+    pipe.actor_train.train_step = recording_train_step
+
+    def run_pass():
+        calls.clear()
+        _reset(kernels)
+        with _SandboxCounter() as sandbox:
+            _sync(dev)
+            t0 = time.perf_counter()
+            metrics = pipe.run()
+            _sync(dev)
+        hist = pipe.state.log_history[-1]
+        bad = sorted(k for k, v in hist.items() if isinstance(v, float) and not np.isfinite(v))
+        return metrics, {
+            "wall_s": time.perf_counter() - t0, "launches": _launch_counts(kernels),
+            "timers_s": {k: hist.get(f"time/{k}") for k in WORKERS_TIMERS},
+            "rewards_s": {c["domain"]: c["s"] for c in calls},
+            # RLIMIT_NPROC counts the user's processes unless the user is root
+            "sandbox": {"subprocesses": sandbox.count, "seconds": sandbox.seconds,
+                        "uid": os.getuid()},
+            "not_finite": bad}
+
+    # ---- pass 1: the real engine
+    metrics1, pass1 = run_pass()
+    engine = pipe.actor_infer.engine
+    pass1.update(prefill_buckets=sorted({(key[0], key[1]) for key in engine.prefill_hist}),
+                 cache_slots=engine.S, cache_lalloc=engine.Lalloc,
+                 train_shapes=sorted(shapes["train"]), logprob_shapes=sorted(shapes["logprob"]),
+                 domains_scored=sorted(c["domain"] for c in calls),
+                 metrics={k: metrics1[k] for k in ("actor_train/total_loss",
+                                                   "actor_train/grad_norm", "critic/kl",
+                                                   "critic/score_mean")})
+    if pipe.state.step != 1 or pass1["not_finite"] or pass1["domains_scored"] != sorted(
+            WORKER_CLUSTERS):
+        raise AssertionError(f"workers pass 1: {pass1}")
+    batch0, ref0 = ref_seen
+
+    # ---- pass 2: crafted answers, half of each group right
+    crafted = CraftedGenerate(pipe.processor.tokenizer, config.eos_token_id, config.pad_token_id)
+    plain_generate = pipe.actor_infer.generate
+    pipe.actor_infer.generate = crafted.generate
+    cfg.max_steps = pipe.state.step + 1
+    try:
+        metrics2, pass2 = run_pass()
+    finally:
+        pipe.actor_infer.generate = plain_generate
+    recomputed = {}
+    for c in calls:
+        want = direct_rewards(c["domain"], c["texts"], c["gts"])
+        recomputed[c["domain"]] = all(np.array_equal(np.asarray(c["out"][k]), want[k])
+                                      for k in ("scores", "response_level_rewards"))
+    domain_metrics = sorted(k for k in metrics2 if k.split("/", 1)[0] in WORKER_CLUSTERS)
+    pass2.update(
+        recomputed_equal=recomputed, domain_metrics=domain_metrics,
+        rewards={c["domain"]: np.asarray(c["out"]["response_level_rewards"]).tolist()
+                 for c in calls},
+        metrics={k: metrics2[k] for k in ("actor_train/total_loss", "actor_train/grad_norm",
+                                          "critic/kl", "critic/reward_mean",
+                                          "critic/score_mean")},
+        train_shapes=sorted(shapes["train"]), logprob_shapes=sorted(shapes["logprob"]),
+        reference_logprobs_unchanged=np.array_equal(
+            pipe.reference.compute_log_probs(batch0)["log_probs"], ref0))
+    want_metrics = {"math/math/accuracy", "code/code/pass_rate", "code/code/all_passed",
+                    "crossthinkqa/crossthinkqa/accuracy", "general/val/general/accuracy"}
+    if not (all(recomputed.values()) and len(recomputed) == 4
+            and pass2["metrics"]["critic/score_mean"] == 0.5
+            and want_metrics <= set(domain_metrics) and pass2["sandbox"]["subprocesses"] > 0
+            and pass2["reference_logprobs_unchanged"] and not pass2["not_finite"]):
+        raise AssertionError(f"workers pass 2 (crafted answers): {pass2}")
+    texts = {c["domain"]: (c["texts"], c["gts"]) for c in calls}
+    questions = {}
+    for row in dataset[cfg.rollout_batch_size:2 * cfg.rollout_batch_size]:
+        questions[row["tag"]] = row["prompt"]
+    stats = {"yaml": os.path.basename(yaml_path), "clusters": clusters,
+             "prompt_tokens": [min(prompt_tokens), max(prompt_tokens)], "pass1": pass1,
+             "pass2": pass2}
+    del pipe
+    return stats, train_batches[-1], texts, questions
+
+
+def run_judge(config, params, texts, questions, dev, *, kernels=(), processor=None):
+    """(b) compute_llm_judge_rewards over 8 of pass 2's answers (math,
+    crossthinkqa and general, in turn) with generate_fn = greedy
+    TorchDecodeStrategy.generate over the main tree, JUDGE_NEW_TOKENS new
+    tokens: the scores equal parse_judge_score of the returned texts."""
+    from socioreasoner_tpu_torch.configs.worker_config import GeneratingArguments, WorkerConfig
+    from socioreasoner_tpu_torch.distributed.torch_strategies import TorchDecodeStrategy
+    from socioreasoner_tpu_torch.models.qwen2_5_vl.rope import get_rope_index
+    from socioreasoner_tpu_torch.pipeline.rlvr.rewards.llm_judge import (
+        compute_llm_judge_rewards, parse_judge_score)
+    from socioreasoner_tpu_torch.protocol import BatchProto
+
+    processor = processor or _processor(config, None)
+    strategy = TorchDecodeStrategy(worker_config=WorkerConfig())
+    strategy.initialize(config, params, engine_kwargs={
+        "max_slots": RLVR_SLOTS, "max_len": 512, "decode_chunk": 64, "prefill_buckets": (512,)})
+    args = GeneratingArguments(max_new_tokens=JUDGE_NEW_TOKENS, temperature=0.0,
+                               num_return_sequences=1)
+    seen = {"prompt_tokens": [], "texts": []}
+    pad = config.pad_token_id
+
+    def generate_fn(prompts):
+        toks = [processor.tokenizer.encode(processor.apply_chat_template(p, 0)) for p in prompts]
+        seen["prompt_tokens"] = [len(t) for t in toks]
+        P = max(map(len, toks))
+        ids = np.full((len(toks), P), pad, np.int64)
+        attn = np.zeros_like(ids)
+        for i, t in enumerate(toks):
+            ids[i, P - len(t):], attn[i, P - len(t):] = t, 1
+        pos, _ = get_rope_index(config, ids, None, attn)
+        out = strategy.generate(BatchProto.from_dict(tensors={
+            "input_ids": ids, "attention_mask": attn, "position_ids": pos}), args)
+        seen["texts"] = [processor.decode(row[P:][row[P:] != pad]) for row in out]
+        return seen["texts"]
+
+    picked = [(d, i) for i in range(8) for d in ("math", "crossthinkqa", "general")][:8]
+    q = [questions[d] for d, _ in picked]
+    r = [texts[d][0][i] for d, i in picked]
+    refs = [texts[d][1][i] for d, i in picked]
+    _reset(kernels)
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = compute_llm_judge_rewards(q, r, refs, generate_fn)
+    _sync(dev)
+    engine = strategy.engine
+    stats = {"generate_s": time.perf_counter() - t0, "launches": _launch_counts(kernels),
+             "prompt_tokens": seen["prompt_tokens"], "scores": out["scores"].tolist(),
+             "judgments": seen["texts"],
+             "prefill_buckets": sorted({(key[0], key[1]) for key in engine.prefill_hist}),
+             "cache_slots": engine.S, "cache_lalloc": engine.Lalloc,
+             "scores_equal_parse": out["scores"].tolist()
+             == [parse_judge_score(t) for t in seen["texts"]]}
+    if not (stats["scores_equal_parse"] and len(seen["texts"]) == 8
+            and max(seen["prompt_tokens"]) <= JUDGE_PROMPT_TOKENS):
+        raise AssertionError(f"judge: {stats}")
+    return stats
+
+
+def run_reward_model_and_critic(config, params, batch, dev, *, kernels=()):
+    """(c) RewardWorker through a one-worker Cluster over TorchRewardStrategy
+    on a copy of the main tree's text part with a seeded value head: pass
+    2's rows, right-aligned, in micro-batches of 8; the response-level reward
+    equals the token-level one at the last valid token exactly; rows 0 and
+    1's bf16 values within RM_VALUE_TOL of an f32 value_forward. (d) Two
+    make_value_step steps on the same copy and rows, old_values the RM's,
+    returns old_values + the pass's advantages: the value loss finite and
+    falling, the grad norm finite, the value head and a backbone leaf
+    moved."""
+    import gc
+    import torch
+    from socioreasoner_tpu_torch.configs.worker_config import WorkerConfig
+    from socioreasoner_tpu_torch.distributed import trainer as TT
+    from socioreasoner_tpu_torch.distributed.torch_strategies import TorchRewardStrategy
+    from socioreasoner_tpu_torch.pipeline.base_worker import RewardWorker
+    from socioreasoner_tpu_torch.protocol import BatchProto
+    from socioreasoner_tpu_torch.runtime.cluster import Cluster
+
+    pad = config.pad_token_id
+    rows = _right_aligned(batch, pad)
+    tree = TT.add_value_head(_clone(_text_tree(params)),
+                             torch.Generator(device=dev).manual_seed(5),
+                             config.text.hidden_size)
+    wc = WorkerConfig(infer_batch_size=8)
+    strategy = TorchRewardStrategy(worker_config=wc)
+    strategy.initialize(config, tree)
+    cluster = Cluster("reward_model", RewardWorker, wc)
+    cluster.initialize(strategy=strategy)
+    data = BatchProto.from_dict(tensors={k: rows[k] for k in (
+        "input_ids", "attention_mask", "position_ids")}, meta={"pad_token_id": pad})
+    _reset(kernels)
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = cluster.compute_rewards(data)
+    _sync(dev)
+    rm_ms = 1e3 * (time.perf_counter() - t0)
+    cluster.shutdown()
+    token, resp = out.batch["token_level_rewards"], out.batch["response_level_rewards"]
+    eos = rows["attention_mask"].sum(-1) - 2
+    at_eos = bool(np.array_equal(resp, token[np.arange(len(token)), eos]))
+    valid = rows["attention_mask"][:, 1:] == 1
+    tree32 = _float_tree(tree)
+    _, value_forward = TT.make_value_step(config, TT.make_optimizer())
+    two = {k: torch.as_tensor(rows[k][:2], device=dev)
+           for k in ("input_ids", "attention_mask", "position_ids")}
+    with torch.no_grad():
+        v32 = value_forward(tree32, two).cpu().numpy()
+    del tree32
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    scale = float(np.abs(v32[valid[:2]]).max())
+    rm_err = float(np.abs(token[:2] - v32)[valid[:2]].max())
+    rm = {"ms": rm_ms, "rows": list(rows["input_ids"].shape), "launches": _launch_counts(kernels),
+          "response_equals_token_at_eos": at_eos, "eos_index": eos.tolist(),
+          "bf16_vs_f32_max_abs": rm_err, "f32_max_abs": scale,
+          "rewards": resp.tolist()}
+    if not (at_eos and rm_err <= RM_VALUE_TOL * scale and np.isfinite(token).all()):
+        raise AssertionError(f"reward model: {rm}")
+
+    # ---- (d) the critic
+    opt = TT.make_optimizer(lr=STEP_LR)
+    state = TT.TrainState.create(tree, opt)
+    value_step, _ = TT.make_value_step(config, opt)
+    device_batch = {k: torch.as_tensor(rows[k], device=dev) for k in (
+        "input_ids", "attention_mask", "position_ids", "response_mask")}
+    device_batch["old_values"] = torch.as_tensor(token, device=dev)
+    device_batch["returns"] = torch.as_tensor(token + rows["advantages"].astype(np.float32),
+                                              device=dev)
+    head0, leaf0 = tree["value_head_w"].clone(), tree["layers"]["q_b"].clone()
+    _reset(kernels)
+    steps = []
+    for _ in range(2):
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = value_step(state, device_batch)
+        _sync(dev)
+        steps.append({"ms": 1e3 * (time.perf_counter() - t0),
+                      **{k: float(v) for k, v in m.items()}})
+    critic = {"steps": steps, "launches": _launch_counts(kernels),
+              "value_head_moved": not torch.equal(tree["value_head_w"], head0),
+              "backbone_moved": not torch.equal(tree["layers"]["q_b"], leaf0)}
+    losses = [s["critic_train/value_loss"] for s in steps]
+    if not (np.isfinite(losses).all() and losses[1] < losses[0]
+            and all(np.isfinite(s["critic_train/grad_norm"]) for s in steps)
+            and critic["value_head_moved"] and critic["backbone_moved"]):
+        raise AssertionError(f"critic: {critic}")
+    return rm, critic
+
+
+def sft_samples(spec, vocab: int, seed: int = 7):
+    """spec["samples"] seeded samples of min_len-max_len tokens, the first
+    fifth of each (its prompt) out of the loss."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in rng.integers(spec["min_len"], spec["max_len"] + 1, size=spec["samples"]):
+        out.append({"input_ids": rng.integers(3, vocab - 1, size=int(n)),
+                    "loss_mask": (np.arange(n) >= n // 5).astype(np.int32)})
+    return out
+
+
+def repack(samples, max_len: int, pad_id: int):
+    """An independent first-fit-decreasing packing of `samples`: (ids, loss
+    mask, positions) a row, for holding pack_sequences to."""
+    rows, used = [], []
+    for s in sorted(samples, key=lambda s: -len(s["input_ids"])):
+        n = len(s["input_ids"])
+        r = next((i for i, u in enumerate(used) if u + n <= max_len), None)
+        if r is None:
+            rows.append((np.full(max_len, pad_id, np.int64), np.zeros(max_len, np.int32),
+                         np.ones(max_len, np.int64)))
+            used.append(0)
+            r = len(rows) - 1
+        ids, loss, pos = rows[r]
+        ids[used[r]:used[r] + n] = s["input_ids"]
+        loss[used[r]:used[r] + n] = s["loss_mask"]
+        pos[used[r]:used[r] + n] = np.arange(n)
+        used[r] += n
+    return rows
+
+
+def run_sft(config, params, dev, *, kernels=(), spec=SFT_SPEC):
+    """(e) pack_sequences over sft_samples into rows of spec["row"], held to
+    repack; then two make_sft_step steps on a fresh copy of the main tree's
+    text part, each over every row in micro-batches of spec["micro"] rows
+    (one update a step, the gradients accumulated): the loss finite and
+    lower on the second step."""
+    import torch
+    from socioreasoner_tpu_torch.distributed import trainer as TT
+    from socioreasoner_tpu_torch.distributed.sft import pack_sequences
+
+    samples = sft_samples(spec, config.text.vocab_size)
+    rows = pack_sequences(samples, spec["row"], config.pad_token_id)
+    want = repack(samples, spec["row"], config.pad_token_id)
+    packed_equal = len(rows) == len(want) and all(
+        np.array_equal(r["input_ids"], w[0]) and np.array_equal(r["loss_mask"], w[1])
+        and all(np.array_equal(r["position_ids"][a], w[2]) for a in range(3))
+        for r, w in zip(rows, want))
+    micro = [{k: torch.as_tensor(np.stack([r[k] for r in rows[i:i + spec["micro"]]]), device=dev)
+              for k in ("input_ids", "attention_mask", "position_ids", "loss_mask")}
+             for i in range(0, len(rows), spec["micro"])]
+    opt = TT.make_optimizer(lr=STEP_LR, gradient_accumulation_steps=len(micro))
+    state = TT.TrainState.create(_clone(_text_tree(params)), opt)
+    sft_step = TT.make_sft_step(config, opt)
+    tokens = int(sum(int((r["attention_mask"]).sum()) for r in rows))
+    _reset(kernels)
+    steps = []
+    for _ in range(2):
+        _sync(dev)
+        t0 = time.perf_counter()
+        ms = [sft_step(state, mb)[1] for mb in micro]
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        steps.append({"ms": 1e3 * wall, "tokens_per_s": tokens / wall,
+                      "loss": float(np.mean([float(m["sft/loss"]) for m in ms])),
+                      "grad_norm": [float(m["sft/grad_norm"]) for m in ms]})
+    sft = {"rows": len(rows), "row_len": spec["row"], "micro_batches": len(micro),
+           "tokens": tokens, "samples": [len(s["input_ids"]) for s in samples],
+           "packed_equal_recomputed": packed_equal, "steps": steps,
+           "launches": _launch_counts(kernels)}
+    del state
+    if not (packed_equal and np.isfinite([s["loss"] for s in steps]).all()
+            and steps[1]["loss"] < steps[0]["loss"]):
+        raise AssertionError(f"sft: {sft}")
+    return sft
+
+
+def dpo_batch(config, spec, dev, seed: int = 9):
+    """spec["pairs"] chosen/rejected pairs of spec["L"] tokens sharing a
+    prompt of spec["prompt"] tokens, the responses in the loss."""
+    import torch
+    rng = np.random.default_rng(seed)
+    B, L, P = spec["pairs"], spec["L"], spec["prompt"]
+    prompt = rng.integers(3, config.text.vocab_size - 1, size=(B, P))
+    batch = {}
+    for prefix in ("chosen", "rejected"):
+        ids = np.concatenate([prompt, rng.integers(3, config.text.vocab_size - 1,
+                                                   size=(B, L - P))], axis=1)
+        batch.update({f"{prefix}_input_ids": ids,
+                      f"{prefix}_attention_mask": np.ones((B, L), np.int64),
+                      f"{prefix}_position_ids": np.broadcast_to(
+                          np.arange(L)[None, None], (B, 3, L)).copy(),
+                      f"{prefix}_loss_mask": (np.arange(L)[None] >= P).repeat(B, 0)
+                      .astype(np.int32)})
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def run_dpo(config, params, dev, *, kernels=(), spec=DPO_SPEC):
+    """(f) make_dpo_step (sigmoid) on a fresh copy of the main tree's text
+    part, the reference's summed log-probs from the main tree through the
+    same forward: at step 1 the policy is the reference, so dpo/loss is
+    log 2 within DPO_LOSS_TOL and dpo/margin 0; step 2's margin on the same
+    pairs is above 0."""
+    import torch
+    from socioreasoner_tpu_torch.distributed import trainer as TT
+    from socioreasoner_tpu_torch.distributed.sft import make_dpo_step
+
+    batch = dpo_batch(config, spec, dev)
+    with torch.no_grad():
+        for prefix in ("chosen", "rejected"):
+            sub = {k: batch[f"{prefix}_{k}"] for k in ("input_ids", "attention_mask",
+                                                      "position_ids")}
+            lp, _ = TT._model_log_probs(config, params, sub, True, with_entropy=False)
+            batch[f"ref_{prefix}_logps"] = (
+                lp * batch[f"{prefix}_loss_mask"][:, 1:].float()).sum(-1)
+    opt = TT.make_optimizer(lr=STEP_LR)
+    state = TT.TrainState.create(_clone(_text_tree(params)), opt)
+    dpo_step = make_dpo_step(config, opt, beta=spec["beta"])
+    _reset(kernels)
+    steps = []
+    for _ in range(2):
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = dpo_step(state, batch)
+        _sync(dev)
+        steps.append({"ms": 1e3 * (time.perf_counter() - t0),
+                      **{k: float(v) for k, v in m.items()}})
+    dpo = {"pairs": spec["pairs"], "L": spec["L"], "steps": steps,
+           "launches": _launch_counts(kernels)}
+    del state
+    first, second = steps
+    if not (abs(first["dpo/loss"] - float(np.log(2))) <= DPO_LOSS_TOL
+            and first["dpo/margin"] == 0.0 and second["dpo/margin"] > 0
+            and np.isfinite([s["dpo/grad_norm"] for s in steps]).all()):
+        raise AssertionError(f"dpo: {dpo}")
+    return dpo
+
+
+def run_workers_path(config, params, out_dir, dev, *, kernels=(), processor=None,
+                     sft_spec=SFT_SPEC, dpo_spec=DPO_SPEC, **cuts):
+    """The workers phase's parts (a)-(f) in turn on the main tree, which
+    none of them may move (checksums before and after). Returns stats;
+    raises on a failed check."""
+    import gc
+    import torch
+
+    def free():
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    sums = tree_checksums(params)
+    multi, batch, texts, questions = run_multi_domain(
+        config, params, out_dir, dev, kernels=kernels, processor=processor, **cuts)
+    free()
+    judge = run_judge(config, params, texts, questions, dev, kernels=kernels,
+                      processor=processor)
+    free()
+    rm, critic = run_reward_model_and_critic(config, params, batch, dev, kernels=kernels)
+    free()
+    sft = run_sft(config, params, dev, kernels=kernels, spec=sft_spec)
+    free()
+    dpo = run_dpo(config, params, dev, kernels=kernels, spec=dpo_spec)
+    free()
+    unchanged = tree_checksums(params) == sums
+    if not unchanged:
+        raise AssertionError("the workers phase moved the main tree")
+    return {"rlvr": multi, "judge": judge, "reward_model": rm, "critic": critic, "sft": sft,
+            "dpo": dpo, "main_tree_unchanged": unchanged}
+
+
+def phase_workers(config, params):
+    """The workers phase at full width on the main phase's Qwen2.5-VL-3B
+    tree (run_workers_path): kernels 2-6 must launch in the RLVR pass
+    through the engine, 4-6 in the crafted pass, 2 and 3 for the judge, and
+    none of 4-6 in the reward model, critic, SFT and DPO (dense attention,
+    as in the JAX package); each pass at the shapes the kernels phase
+    checked (RLVR_*, JUDGE_PREFILL). Peak memory < 80 GB. Returns the
+    launch counts over the phase."""
+    import tempfile
+    import torch
+    from socioreasoner_tpu_torch.ops import decode_attention as da
+    from socioreasoner_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    kernels = (fa.flash_attention_segmented, fa.flash_attention, da.paged_decode_attention,
+               *_train_kernel_fns())
+    names = [k.__name__ for k in kernels]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        stats = run_workers_path(config, params, out_dir, dev, kernels=kernels)
+    phase_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    p1, p2, judge = stats["rlvr"]["pass1"], stats["rlvr"]["pass2"], stats["judge"]
+    emit({"phase": "workers", "card": _smi_line(),
+          "model": "Qwen2.5-VL-3B (36 text layers) in bf16, random weights",
+          "cuts": {"rlvr": WORKERS_CUTS, "sft": SFT_SPEC, "dpo": DPO_SPEC,
+                   "judge_new_tokens": JUDGE_NEW_TOKENS},
+          "phase_s": phase_s, "max_memory_allocated_gb": peak, **stats})
+    dense = ("reward_model", "critic", "sft", "dpo")
+    emit({"phase": "workers_figures", "card": _smi_line(), "max_memory_allocated_gb": peak,
+          "phase_s": phase_s,
+          "pass1": {k: p1[k] for k in ("wall_s", "timers_s", "rewards_s", "sandbox")},
+          "pass2": {k: p2[k] for k in ("wall_s", "timers_s", "rewards_s", "sandbox")},
+          "judge_generate_s": judge["generate_s"],
+          "reward_model_ms_32x512": stats["reward_model"]["ms"],
+          "critic_step_ms": [s["ms"] for s in stats["critic"]["steps"]],
+          "sft_step_ms": [s["ms"] for s in stats["sft"]["steps"]],
+          "sft_tokens_per_s": [s["tokens_per_s"] for s in stats["sft"]["steps"]],
+          "dpo_step_ms": [s["ms"] for s in stats["dpo"]["steps"]]})
+    missing = ([k for k in names[1:] if p1["launches"][k] <= 0]
+               + [k for k in names[3:] if p2["launches"][k] <= 0]
+               + [k for k in names[1:3] if judge["launches"][k] <= 0]
+               + [f"{part}:{k}" for part in dense for k in names[3:]
+                  if stats[part]["launches"][k] != 0])
+    if missing:
+        raise AssertionError(f"kernels off the workers path (or on a dense step): {missing}")
+    left = (_left_shapes(p1, RLVR_PREFILL, RLVR_SLOTS, RLVR_LALLOC, RLVR_TRAIN)
+            + _left_shapes(dict(p2, prefill_buckets=[], cache_slots=None, cache_lalloc=None),
+                           RLVR_PREFILL, RLVR_SLOTS, RLVR_LALLOC, RLVR_TRAIN)
+            + _left_shapes(dict(judge, train_shapes=[], logprob_shapes=[]), JUDGE_PREFILL,
+                           RLVR_SLOTS, RLVR_LALLOC, RLVR_TRAIN))
+    if left:
+        raise AssertionError(f"the workers phase left the checked shapes: {left}")
+    if not peak < 80:
+        raise AssertionError(f"the workers phase peaked at {peak} GiB")
+    parts = (p1, p2, judge, *(stats[p] for p in dense))
+    return {k: sum(p["launches"][k] for p in parts) for k in names}
+
+
 # ------------------------------------------------------------- entry scripts
 
 # examples/{infer,train}/rlvr_tpu.yaml as users start them, cut in scale as
@@ -3662,6 +4413,7 @@ def main() -> int:
     two_stage = phase_two_stage(config, params)
     grpo = phase_grpo(config, params)
     rlvr = phase_rlvr(config, params)
+    workers = phase_workers(config, params)
     with tempfile.TemporaryDirectory() as work_dir:
         export_dir = str(Path(work_dir) / "qwen2_5_vl_3b")
         export_stats, sums = export_main_tree(config, params, export_dir,
@@ -3677,6 +4429,8 @@ def main() -> int:
             kern["launches_grpo"] = grpo[kern["name"]]
         if kern["name"] in rlvr:
             kern["launches_rlvr"] = rlvr[kern["name"]]
+        # kernels 3q and 7 are on no path of the workers phase (bf16 cache)
+        kern["launches_workers"] = workers.get(kern["name"], 0)
         if kern["name"] in entry:
             kern["launches_entry"] = entry[kern["name"]]
     emit({"kernels": kernels})

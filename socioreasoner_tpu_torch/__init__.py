@@ -6,8 +6,10 @@ every module against the JAX function on the same inputs.
 
 Layer map (the slices ported so far: stage-1 serving, the GRPO actor path,
 quantized serving, SAM2 and the two-stage infer pipeline, the GRPO
-pipeline, the from-config start: loaders, checkpoints, entry scripts, and
-the generic RLVR slice: RLVRPipeline with dynamic sampling, MathVLMPipeline):
+pipeline, the from-config start: loaders, checkpoints, entry scripts, the
+generic RLVR slice: RLVRPipeline with dynamic sampling, MathVLMPipeline,
+and the worker runtime with every reward, the reward model, the critic,
+SFT and DPO):
   examples                — the two entry scripts (yaml → pipeline → run())
   tools/convert           — HF <-> native checkpoint CLI
   configs                 — the yaml loader and the config dataclasses
@@ -19,8 +21,10 @@ the generic RLVR slice: RLVRPipeline with dynamic sampling, MathVLMPipeline):
   models/sam2             — Hiera + FPN encoder, prompt encoder, two-way mask
                             decoder, predictor, HF loader
   generation              — DecodeEngine, sampling, GenerateServer
-  runtime                 — GenerateScheduler, DynamicSamplingScheduler,
-                            LocalGenerateGroup
+  runtime                 — Cluster (yaml worker_cls strings, the JAX
+                            package's paths read as the port's), the dispatch
+                            modes, Worker, GenerateScheduler,
+                            DynamicSamplingScheduler, LocalGenerateGroup
   datasets                — processor, SocioSeg encode_sample, stage-2
                             render and HF builder (load_socioseg), stage-1
                             and restage collators, the file loader and its
@@ -34,13 +38,19 @@ the generic RLVR slice: RLVRPipeline with dynamic sampling, MathVLMPipeline):
                             domain GRPO, plain or dynamic-sampling rollout),
                             MathVLMPipeline, build functions, parsing, giou,
                             mask_iou, run_validation, compute_data_metrics,
-                            the SocioSeg and math rule rewards
+                            the rewards (SocioSeg, math, code sandbox local
+                            and remote, CrossThink-QA and validation, LLM
+                            judge); pipeline/base_worker: the actor, SAM2,
+                            rule-reward, reward-model and SocioSeg workers
   utils                   — safetensors reader/writer, CheckpointManager,
                             trackers, metrics, WorkerState
-  distributed             — ParamStore and strategy bases, the train/logprob
-                            steps and optimizer (trainer), batch_image_embeds,
+  distributed             — ParamStore and strategy bases, the train/logprob,
+                            critic and SFT steps and optimizer (trainer),
+                            sequence packing and DPO (sft),
+                            batch_image_embeds, compute_image_embeds,
                             TorchTrainStrategy / TorchInferStrategy /
-                            TorchDecodeStrategy, SegStrategy (SAM2)
+                            TorchRewardStrategy / TorchDecodeStrategy,
+                            SegStrategy (SAM2), create_strategy (factory)
 
 It imports torch, never jax, and nothing of the JAX package: the host-only
 modules it needs (the Qwen2.5-VL and SAM2 configs, protocol, the configs,

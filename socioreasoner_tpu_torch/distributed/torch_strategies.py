@@ -1,9 +1,11 @@
-"""Concrete strategies of the port: torch_train / torch_infer / torch_decode.
+"""Concrete strategies of the port: torch_train / torch_infer / torch_reward /
+torch_decode.
 
 The counterpart of socioreasoner_tpu/distributed/jax_strategies.py without a
 mesh: `batch_image_embeds` runs the ViT once per sample; `TorchTrainStrategy`
 (the JaxTrainStrategy role) runs the GRPO train and logprob steps;
 `TorchInferStrategy` (JaxInferStrategy) is the frozen reference policy;
+`TorchRewardStrategy` (JaxRewardStrategy) scores with a value head;
 `TorchDecodeStrategy` (JaxDecodeStrategy) serves generation in batch mode
 (`generate`) or through the request server. All share one ParamStore:
 `model_update` hands the trainer's weights to the decode engine under
@@ -35,6 +37,7 @@ import torch
 from ..generation.engine import DecodeEngine, Request
 from ..generation.sampling import SamplingParams
 from ..generation.server import GenerateServer
+from ..models.qwen2_5_vl import model as qmodel
 from ..models.qwen2_5_vl.config import Qwen25VLConfig
 from ..models.qwen2_5_vl.vision import run_vision, run_vision_u8
 from ..ops.quant import (params_prequantized, quantize_decode_params,
@@ -43,7 +46,17 @@ from ..pipeline.losses import PPOLossConfig
 from ..protocol import BatchProto
 from ..utils.checkpoint import CheckpointManager
 from .strategy import InferenceStrategy, ParamStore, TrainStrategy
-from .trainer import TrainState, make_logprob_step, make_optimizer, make_train_step
+from .trainer import (TrainState, make_logprob_step, make_optimizer, make_train_step,
+                      value_head)
+
+
+@torch.no_grad()
+def compute_image_embeds(config: Qwen25VLConfig, params, pixel_values: np.ndarray,
+                         grid_thw: np.ndarray) -> torch.Tensor:
+    """One sample's packed images → its merged ViT embeddings (S_merged,
+    hidden), on the parameters' device."""
+    return run_vision(config.vision, params["vision"], pixel_values, grid_thw)
+
 
 @torch.no_grad()
 def batch_image_embeds(config: Qwen25VLConfig, params, batch: BatchProto,
@@ -240,6 +253,50 @@ class TorchInferStrategy(InferenceStrategy):
 
     def forward_step(self, batch: BatchProto, forward_func: Callable = None):
         return self.compute_log_probs(batch)
+
+
+class TorchRewardStrategy(InferenceStrategy):
+    """The reward-model backend (the JaxRewardStrategy role): a scalar value
+    head on the backbone (trainer.add_value_head), read in the shifted frame
+    by RewardWorker. Dense attention, as in the JAX package's strategy."""
+
+    strategy_name = "torch_reward"
+
+    def initialize(self, model_config: Qwen25VLConfig, params,
+                   param_store: Optional[ParamStore] = None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError("an infer mesh is not ported yet (ROADMAP: multi-GPU)")
+        if "value_head_w" not in params:
+            raise ValueError("torch_reward strategy needs a value head "
+                             "(trainer.add_value_head) on the params tree")
+        self.model_config = model_config
+        if param_store is not None:
+            self.param_store = param_store
+        self._params = params
+        self.device = params["embed"].device
+
+        @torch.no_grad()
+        def value_step(params: Dict, batch: Dict) -> Dict[str, torch.Tensor]:
+            hidden, _ = qmodel.forward(
+                model_config, params, batch["input_ids"], batch["position_ids"],
+                batch.get("attention_mask"), image_embeds=batch.get("image_embeds"),
+                logits=False)
+            # the value at position i scores the prefix up to i
+            return {"values": value_head(params, hidden)[:, 1:]}
+
+        self._value_step = value_step
+
+    @property
+    def params(self):
+        return self._params
+
+    def compute_values(self, batch: BatchProto) -> np.ndarray:
+        """(B, L-1) f32 values in micro-batches of infer_batch_size rows."""
+        return _micro_batched_log_probs(self._value_step, self._params, batch,
+                                        self.worker_config, self.device)["values"]
+
+    def forward_step(self, batch: BatchProto, forward_func: Callable = None):
+        return {"values": self.compute_values(batch)}
 
 
 class TorchDecodeStrategy(InferenceStrategy):

@@ -15,6 +15,12 @@ without context, pipeline or vocab parallelism:
                           flash kernels) → PPO loss → grads → optimizer
   make_logprob_step     — the forward alone under no_grad (only the forward
                           kernel runs)
+  add_value_head,       — the critic: a scalar head on the backbone's hidden
+  make_value_step         states, trained with the clipped value loss
+  make_sft_step         — next-token cross-entropy over a loss mask
+
+The critic and SFT steps (and sft.make_dpo_step) attend densely, as the JAX
+package's do: only the GRPO train and logprob steps take the flash kernels.
 
 JAX's train state is immutable; here `train_step` updates the parameters and
 the optimizer state IN PLACE and returns the same TrainState, so the trainer
@@ -247,6 +253,32 @@ def _model_log_probs(config: Qwen25VLConfig, params: Dict, batch: Dict,
 
 # ------------------------------------------------------------------ steps
 
+def _grad_step(optimizer: Optimizer, state: TrainState,
+               loss_fn: Callable[[Dict], Tuple[torch.Tensor, Dict]],
+               grad_norm_key: str) -> Tuple[torch.Tensor, Dict]:
+    """One optimizer update of `state` in place from loss_fn(params) ->
+    (loss, metrics): the gradient of every leaf (leaves the loss does not
+    reach count as zeros), the metrics detached, metrics[grad_norm_key] =
+    the global norm of the gradient before clipping. Returns (the loss, the
+    metrics)."""
+    leaves = tree_leaves(state.params)
+    flags = [p.requires_grad for p in leaves]
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            loss, metrics = loss_fn(state.params)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    finally:
+        for p, flag in zip(leaves, flags):
+            p.requires_grad_(flag)
+    metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in metrics.items()}
+    metrics[grad_norm_key] = global_norm(grads)
+    optimizer.update(list(grads), state.opt_state, state.params)
+    state.step += 1
+    return loss, metrics
+
+
 def make_train_step(config: Qwen25VLConfig, loss_cfg: PPOLossConfig,
                     optimizer: Optimizer, remat: bool = True, cp=None, pp=None,
                     vp_mesh=None, allow_flash: bool = True,
@@ -261,29 +293,19 @@ def make_train_step(config: Qwen25VLConfig, loss_cfg: PPOLossConfig,
     this call's grads before clipping) and actor_train/loss, as 0-dim
     tensors."""
 
+    def loss_fn(params: Dict, batch: Dict):
+        lp, ent = _model_log_probs(config, params, batch, remat, with_entropy=True,
+                                   use_flash=allow_flash, cp=cp, pp=pp, vp_mesh=vp_mesh,
+                                   chunk_size=chunk_size)
+        return ppo_policy_loss(
+            lp, ent, batch["old_log_probs"], batch.get("ref_log_probs"),
+            batch["advantages"], batch["response_mask"][:, 1:], loss_cfg,
+            batch.get("sample_weights"))
+
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
-        leaves = tree_leaves(state.params)
-        flags = [p.requires_grad for p in leaves]
-        for p in leaves:
-            p.requires_grad_(True)
-        try:
-            with torch.enable_grad():
-                lp, ent = _model_log_probs(config, state.params, batch, remat,
-                                           with_entropy=True, use_flash=allow_flash,
-                                           cp=cp, pp=pp, vp_mesh=vp_mesh,
-                                           chunk_size=chunk_size)
-                loss, metrics = ppo_policy_loss(
-                    lp, ent, batch["old_log_probs"], batch.get("ref_log_probs"),
-                    batch["advantages"], batch["response_mask"][:, 1:], loss_cfg,
-                    batch.get("sample_weights"))
-                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        finally:
-            for p, flag in zip(leaves, flags):
-                p.requires_grad_(flag)
-        metrics["actor_train/grad_norm"] = global_norm(grads)
+        loss, metrics = _grad_step(optimizer, state, lambda p: loss_fn(p, batch),
+                                   "actor_train/grad_norm")
         metrics["actor_train/loss"] = loss.detach()
-        optimizer.update(list(grads), state.opt_state, state.params)
-        state.step += 1
         return state, metrics
 
     return train_step
@@ -303,3 +325,72 @@ def make_logprob_step(config: Qwen25VLConfig, remat: bool = False, cp=None, pp=N
         return {"log_probs": lp * resp, "entropy": ent * resp}
 
     return logprob_step
+
+
+# ------------------------------------------------------------------ critic and SFT
+
+def value_head(params: Dict, hidden: torch.Tensor) -> torch.Tensor:
+    """(B, L, H) hidden → (B, L) values of the scalar head, computed in the
+    promoted dtype of the hidden states and the head (f32 for bf16 hidden
+    states and an f32 head), as JAX promotes `hidden @ value_head_w`."""
+    w, b = params["value_head_w"], params["value_head_b"]
+    dtype = torch.promote_types(hidden.dtype, w.dtype)
+    return (hidden.to(dtype) @ w.to(dtype) + b.to(dtype))[..., 0]
+
+
+def add_value_head(params: Dict, generator: torch.Generator, hidden_size: int,
+                   dtype: torch.dtype = torch.float32) -> Dict:
+    """`params` (a new top-level dict sharing its leaves) with a scalar value
+    head: value_head_w (hidden_size, 1) ~ N(0, 0.02) drawn from `generator`
+    on the generator's device, value_head_b zeros."""
+    device = generator.device
+    out = dict(params)
+    out["value_head_w"] = (torch.randn((hidden_size, 1), generator=generator, device=device)
+                           * 0.02).to(dtype)
+    out["value_head_b"] = torch.zeros((1,), dtype=dtype, device=device)
+    return out
+
+
+def make_value_step(config: Qwen25VLConfig, optimizer: Optimizer, value_clip: float = 0.2,
+                    loss_agg_mode: str = "seq-mean-token-sum", remat: bool = True):
+    """The critic: (value_step, value_forward). value_forward(params, batch)
+    gives the value head over the backbone's hidden states in the shifted
+    frame (B, L-1), aligned with response_mask[:, 1:]; value_step trains
+    the clipped value loss against batch["returns"] around
+    batch["old_values"] and adds critic_train/grad_norm. Dense attention,
+    as in the JAX package's step."""
+    from ..pipeline.losses import value_loss as value_loss_fn
+
+    def value_forward(params: Dict, batch: Dict) -> torch.Tensor:
+        hidden, _ = qmodel.forward(
+            config, params, batch["input_ids"], batch["position_ids"],
+            batch.get("attention_mask"), image_embeds=batch.get("image_embeds"),
+            remat=remat, logits=False)
+        return value_head(params, hidden)[:, 1:]
+
+    def value_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        def loss_fn(params):
+            return value_loss_fn(value_forward(params, batch), batch["old_values"],
+                                 batch["returns"], batch["response_mask"][:, 1:],
+                                 value_clip, loss_agg_mode)
+        _, metrics = _grad_step(optimizer, state, loss_fn, "critic_train/grad_norm")
+        return state, metrics
+
+    return value_step, value_forward
+
+
+def make_sft_step(config: Qwen25VLConfig, optimizer: Optimizer, remat: bool = True):
+    """Supervised next-token cross-entropy over batch["loss_mask"][:, 1:]:
+    sft/loss and sft/grad_norm. Dense attention, as in the JAX package's
+    step."""
+
+    def sft_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        def loss_fn(params):
+            lp, _ = _model_log_probs(config, params, batch, remat, with_entropy=False)
+            mask = batch["loss_mask"][:, 1:].float()
+            loss = -(lp * mask).sum() / (mask.sum() + 1e-8)
+            return loss, {"sft/loss": loss}
+        _, metrics = _grad_step(optimizer, state, loss_fn, "sft/grad_norm")
+        return state, metrics
+
+    return sft_step

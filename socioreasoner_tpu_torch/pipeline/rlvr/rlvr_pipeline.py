@@ -31,6 +31,7 @@ from ...models.qwen2_5_vl.config import Qwen25VLConfig
 from ...models.qwen2_5_vl.rope import get_rope_index
 from ...pipeline.losses import PPOLossConfig
 from ...protocol import BatchProto
+from ...runtime.cluster import Cluster
 from ...runtime.generate_scheduler import DynamicSamplingScheduler, LocalGenerateGroup
 from ...utils import functionals as fn
 from ...utils.functionals import RunningMoments
@@ -58,17 +59,26 @@ class RLVRPipeline(BasePipeline):
         the models run on; the trainer updates policy_params in place and the
         reference keeps its own copy of what it shares with them. Rewards:
         `reward_fns` ({domain: (texts, ground_truths) -> {"response_level_
-        rewards", "scores", "metrics"}}), else the math rule."""
+        rewards", "scores", "metrics"}}), else a Cluster of each worker_cls
+        the config's `rewards:` names, else the math rule."""
         super().__init__(pipeline_config)
         cfg = pipeline_config
         self.model_config = model_config
         self.processor = processor
         self.dataset = dataset
-        if reward_fns is None and any(wc.worker_cls for wc in (cfg.rewards or {}).values()):
-            raise NotImplementedError(
-                "reward worker clusters (rewards: worker_cls) are not ported yet (ROADMAP "
-                "queue 1, workers and reward models); pass reward_fns, or leave rewards "
-                "empty for the math rule")
+        # rewards: the callables given, else the config's reward worker
+        # clusters (rewards: {domain: worker_cls, world_size}), else the
+        # math rule
+        self.reward_clusters = {}
+        if reward_fns is None and cfg.rewards:
+            reward_fns = {}
+            for domain, wc in cfg.rewards.items():
+                if not wc.worker_cls:
+                    continue
+                cluster = Cluster(domain, wc.worker_cls, wc)
+                cluster.initialize(pipeline_config=cfg, tokenizer=processor)
+                self.reward_clusters[domain] = cluster
+                reward_fns[domain] = self._cluster_reward_fn(cluster)
         self.reward_fns = reward_fns or {
             "math": lambda resp, gts: compute_math_rewards(resp, gts)}
 
@@ -110,6 +120,20 @@ class RLVRPipeline(BasePipeline):
                 max_additional_running_prompts=cfg.max_additional_running_prompts,
                 alive_check_interval=cfg.alive_check_interval)
             self._data_iter = itertools.cycle(dataset) if dataset else iter(())
+
+    @staticmethod
+    def _cluster_reward_fn(cluster: Cluster) -> RewardFn:
+        """A reward worker cluster as a (texts, ground truths) -> dict reward
+        function; the cluster chunks the batch over its workers."""
+        def fn(texts, gts):
+            data = BatchProto.from_dict(non_tensors={
+                "response_text": [str(t) for t in texts], "ground_truth": list(gts)})
+            out = cluster.compute_rewards(data)
+            result = {k: np.asarray(v) for k, v in out.batch.items()}
+            for k, v in out.meta.items():
+                result.setdefault(k, v)
+            return result
+        return fn
 
     # ---------------------------------------------------------------- collate
     def _collate(self, rows: List[Dict]) -> BatchProto:

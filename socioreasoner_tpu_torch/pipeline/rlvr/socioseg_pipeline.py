@@ -47,11 +47,11 @@ from ...models.qwen2_5_vl.config import Qwen25VLConfig
 from ...models.sam2.config import Sam2Config
 from ...pipeline.losses import PPOLossConfig
 from ...protocol import BatchProto
+from ...runtime.cluster import Cluster
 from ...runtime.generate_scheduler import GenerateScheduler, LocalGenerateGroup
 from ...utils import functionals as fn
 from ...utils.kl_controller import get_kl_controller
 from ..base_pipeline import BasePipeline
-from ..base_worker import SocioSegRuleRewardWorker
 from .evaluation import compute_giou, grouped_giou
 from .parsing import (parse_bboxes, parse_visual_prompts_s1, parse_visual_prompts_s2,
                       strip_special_tokens)
@@ -127,17 +127,13 @@ class SocioSegPipeline(BasePipeline):
                 frequency=max(1, cfg.actor_infer.model_update_frequency))
         self.seg_infer = SegStrategy(worker_config=cfg.seg_infer)
         self.seg_infer.initialize(sam_config, sam_params)
-        # a reward worker the config names (by either package's dotted path)
-        # scores in process over the whole batch; without one the rule
-        # reward runs inline
-        self.reward_worker = None
-        for wc in (cfg.rewards or {}).values():
+        # the reward worker the config names scores through its Cluster of
+        # world_size workers; without one the rule reward runs inline
+        self.reward_cluster = None
+        for name, wc in (cfg.rewards or {}).items():
             if wc.worker_cls:
-                if wc.worker_cls.rsplit(".", 1)[-1] != SocioSegRuleRewardWorker.__name__:
-                    raise NotImplementedError(
-                        f"reward worker_cls {wc.worker_cls!r} is not ported yet (ROADMAP "
-                        "queue 1, item 4); the port has SocioSegRuleRewardWorker")
-                self.reward_worker = SocioSegRuleRewardWorker()
+                self.reward_cluster = Cluster(name, wc.worker_cls, wc)
+                self.reward_cluster.initialize(pipeline_config=cfg, tokenizer=processor)
                 break
 
         self.collator = SocioSegCollator(processor, model_config,
@@ -555,10 +551,10 @@ class SocioSegPipeline(BasePipeline):
     # ---------------------------------------------------------------- rewards
     def _compute_rewards(self, expanded: BatchProto, map_texts, sat_texts,
                          map_masks, sat_masks, bbox_texts) -> Dict:
-        """Rule rewards: through the config's reward worker when it names one
-        (over the whole batch, the means recomputed from its component
-        arrays), inline otherwise."""
-        if self.reward_worker is None:
+        """Rule rewards: through the config's reward cluster when it names
+        one (the batch chunked over its workers, the means taken over the
+        concatenated component arrays), inline otherwise."""
+        if self.reward_cluster is None:
             gt_masks = [np.asarray(m.convert("L")) if hasattr(m, "convert")
                         else np.asarray(m) for m in expanded.non_tensor["gt_mask"]]
             return compute_socioseg_rewards(
@@ -573,7 +569,7 @@ class SocioSegPipeline(BasePipeline):
             "gt_mask": list(expanded.non_tensor["gt_mask"]),
             "gt_bbox": [str(t) for t in expanded.non_tensor["gt_bbox"]],
             "bboxs_text": list(bbox_texts)})
-        out = self.reward_worker.compute_rewards_split(data)
+        out = self.reward_cluster.compute_rewards_split(data)
         rewards = {k: np.asarray(v) for k, v in out.batch.items()
                    if not k.startswith("components/")}
         rewards["metrics"] = {

@@ -305,7 +305,8 @@ def _numpy_tree(tree):
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke, imports without pulling in
-    jax or any module of the JAX package."""
+    jax or any module of the JAX package, and a Cluster built from each
+    worker_cls string of the JAX package holds the port's class."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import socioreasoner_tpu_torch as pkg\n"
@@ -316,13 +317,33 @@ def test_port_imports_no_jax():
         "       'runtime.generate_scheduler', 'pipeline.rlvr.socioseg_pipeline',\n"
         "       'pipeline.rlvr.rlvr_pipeline', 'pipeline.rlvr.math_vlm_pipeline',\n"
         "       'pipeline.rlvr.rewards.math_rule', 'datasets.loader', 'datasets.sampler',\n"
-        "       'datasets.chat_template'}\n"
+        "       'datasets.chat_template', 'runtime.dispatch', 'runtime.cluster',\n"
+        "       'runtime.worker', 'pipeline.rlvr.rewards.general_rules',\n"
+        "       'pipeline.rlvr.rewards.code_sandbox', 'pipeline.rlvr.rewards.llm_judge',\n"
+        "       'distributed.sft', 'distributed.factory'}\n"
         "assert {pkg.__name__ + '.' + n for n in new} <= set(names), names\n"
         "for n in names: importlib.import_module(n)\n"
+        "from socioreasoner_tpu_torch.configs.worker_config import WorkerConfig\n"
+        "from socioreasoner_tpu_torch.runtime.cluster import Cluster\n"
+        "for cls in ('SocioSegRuleRewardWorker', 'MathRuleRewardWorker',\n"
+        "            'CodeSandboxRewardWorker', 'CrossThinkQARewardWorker',\n"
+        "            'GeneralValRuleRewardWorker', 'RewardWorker', 'ActorWorker', 'SegWorker'):\n"
+        "    c = Cluster(cls, 'socioreasoner_tpu.pipeline.base_worker.' + cls,\n"
+        "                WorkerConfig(world_size=2))\n"
+        "    assert type(c.workers[0]).__module__ == 'socioreasoner_tpu_torch.pipeline.base_worker'\n"
+        "    c.shutdown()\n"
+        "from socioreasoner_tpu_torch.configs.loader import load_config\n"
+        "from socioreasoner_tpu_torch.configs.rlvr_config import SocioSegConfig\n"
+        "cfg = load_config(SocioSegConfig, 'examples/train/rlvr_tpu.yaml')\n"
+        "(name, wc), = cfg.rewards.items()\n"
+        "c = Cluster(name, wc.worker_cls, wc)\n"
+        "assert len(c.workers) == 16 and type(c.workers[0]).__name__ == 'SocioSegRuleRewardWorker'\n"
+        "c.shutdown()\n"
         "import chip_smoke\n"
         "for f in ('phase_grpo', 'run_grpo_path', 'build_grpo', 'socioseg_train_config',\n"
         "          'grpo_answers', 'ScriptedDecodeWorker', '_phase_train_kernels',\n"
-        "          'phase_rlvr', 'run_rlvr_path', 'run_math_vlm_path', 'run_vit_grad_check'):\n"
+        "          'phase_rlvr', 'run_rlvr_path', 'run_math_vlm_path', 'run_vit_grad_check',\n"
+        "          'phase_workers', 'run_workers_path'):\n"
         "    assert callable(getattr(chip_smoke, f)), f\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'socioreasoner_tpu' or m.startswith('socioreasoner_tpu.'))\n"

@@ -30,6 +30,7 @@ from socioreasoner_tpu.protocol import BatchProto as JBatchProto
 from socioreasoner_tpu.runtime import generate_scheduler as j_sched
 from socioreasoner_tpu.utils import kl_controller as j_kl
 from socioreasoner_tpu.utils import worker_state as j_state
+from socioreasoner_tpu_torch.configs.worker_config import WorkerConfig
 from socioreasoner_tpu_torch.distributed import torch_strategies as TS
 from socioreasoner_tpu_torch.models.qwen2_5_vl.convert import params_from_numpy
 from socioreasoner_tpu_torch.pipeline import base_worker as t_worker
@@ -200,7 +201,7 @@ def test_reward_worker_matches_jax():
                "map_mask": list(map_masks), "sat_mask": list(sat_masks),
                "gt_mask": [m * 255 for m in gt_masks], "gt_bbox": list(gt),
                "bboxs_text": list(s1_boxes)}
-    got = t_worker.SocioSegRuleRewardWorker().compute_rewards_split(
+    got = t_worker.SocioSegRuleRewardWorker(WorkerConfig()).compute_rewards_split(
         TBatchProto.from_dict(non_tensors=columns))
     # the JAX worker's method is a plain function under its dispatch marker
     want = j_worker.SocioSegRuleRewardWorker.compute_rewards_split(

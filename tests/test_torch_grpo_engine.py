@@ -67,13 +67,20 @@ def test_checkpoint_resume(tmp_path):
 
 
 def test_reward_worker_cls_matches_inline(tmp_path):
-    """The yaml's worker_cls (the JAX package's dotted path, resolved by
-    class name) scores a step as the inline reward does: the same reward
-    arrays and means; a worker_cls that is not ported raises."""
+    """The yaml's worker_cls (the JAX package's dotted path) scores a step
+    through a Cluster of 3 of the port's workers (16 samples padded to 18,
+    chunked, the pad trimmed) as the inline reward does: the same reward
+    arrays and means; a worker_cls of a module that does not exist raises
+    ImportError, as in the JAX package."""
+    from socioreasoner_tpu_torch.pipeline.base_worker import SocioSegRuleRewardWorker
     seen = {}
     for name, worker_cls in (("inline", None), ("yaml", YAML_WORKER)):
-        pipe = _build("port", str(tmp_path / name), max_steps=1, worker_cls=worker_cls)
-        assert (pipe.reward_worker is None) == (worker_cls is None)
+        pipe = _build("port", str(tmp_path / name), max_steps=1, worker_cls=worker_cls,
+                      reward_world_size=3)
+        assert (pipe.reward_cluster is None) == (worker_cls is None)
+        if worker_cls:
+            assert pipe.reward_cluster.world_size == 3
+            assert all(type(w) is SocioSegRuleRewardWorker for w in pipe.reward_cluster.workers)
         seen[name] = (_capture(pipe), pipe.run())
     (inline, im), (yaml, ym) = seen["inline"], seen["yaml"]
     got, want = yaml["rewards"][0], inline["rewards"][0]
@@ -84,7 +91,7 @@ def test_reward_worker_cls_matches_inline(tmp_path):
     assert got["metrics"] == want["metrics"]
     assert {k: v for k, v in ym.items() if k.startswith("critic/")} == \
         {k: v for k, v in im.items() if k.startswith("critic/")}
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    with pytest.raises(ImportError):
         _build("port", str(tmp_path / "other"), worker_cls="my.rewards.MathRuleRewardWorker")
 
 

@@ -138,10 +138,10 @@ def _weights():
 
 def _config(side, out_dir, *, strategy_config, max_steps=2, overlap=True, opt_level=1,
             frequency=1, eval_steps=0, save_steps=-1, resume=False,
-            worker_cls=None, greedy=False, response_length=192):
+            worker_cls=None, reward_world_size=16, greedy=False, response_length=192):
     cls, wc = (JConfig, j_wc) if side == "jax" else (SocioSegConfig, t_wc)
     rewards = {} if worker_cls is None else {
-        "socioseg_rule": wc.WorkerConfig(worker_cls=worker_cls, world_size=16,
+        "socioseg_rule": wc.WorkerConfig(worker_cls=worker_cls, world_size=reward_world_size,
                                          infer_batch_size=4)}
     cfg = cls(output_dir=out_dir, rollout_batch_size=2, prompt_length=640,
               response_length=response_length, save_steps=save_steps,

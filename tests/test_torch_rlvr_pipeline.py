@@ -342,16 +342,32 @@ def test_math_vlm_pipeline_on_the_tiny_engine(tmp_path):
 
 
 def test_rlvr_reward_workers_raise(tmp_path):
-    """The config's reward worker clusters wait for the workers' slice."""
+    """The config's `rewards:` block resolves to clusters of the port's
+    workers (the JAX package's dotted path, 2 workers), whose reward
+    function scores as compute_math_rewards does; a worker_cls of a module
+    that does not exist raises ImportError, as in the JAX package."""
     from socioreasoner_tpu_torch.configs.worker_config import WorkerConfig
-    cfg = _config("port", str(tmp_path), prompt_length=64, max_steps=1,
-                  rewards={"math": WorkerConfig(worker_cls="some.RewardWorker")})
+    from socioreasoner_tpu_torch.pipeline.base_worker import MathRuleRewardWorker
     config, weights = _weights(False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_rlvr.RLVRPipeline(cfg, model_config=_port(config),
-                            policy_params=params_from_numpy(weights, "cpu"),
-                            reference_params=params_from_numpy(weights, "cpu"),
-                            processor=None, dataset=_rows())
+
+    def build(worker_cls):
+        cfg = _config("port", str(tmp_path), prompt_length=64, max_steps=1, rewards={
+            "math": WorkerConfig(worker_cls=worker_cls, world_size=2)})
+        return t_rlvr.RLVRPipeline(cfg, model_config=_port(config),
+                                   policy_params=params_from_numpy(weights, "cpu"),
+                                   reference_params=params_from_numpy(weights, "cpu"),
+                                   processor=None, dataset=_rows())
+    pipe = build("socioreasoner_tpu.pipeline.base_worker.MathRuleRewardWorker")
+    cluster = pipe.reward_clusters["math"]
+    assert cluster.world_size == 2
+    assert all(type(w) is MathRuleRewardWorker for w in cluster.workers)
+    texts = ["<think>a</think><answer>4</answer>", "<answer>5</answer>", "4", "no"]
+    gts = ["4", "4", "4", "1"]
+    got, want = pipe.reward_fns["math"](texts, gts), t_math.compute_math_rewards(texts, gts)
+    for k in ("scores", "response_level_rewards"):
+        np.testing.assert_array_equal(got[k], want[k])
+    with pytest.raises(ImportError):
+        build("some.RewardWorker")
 
 
 def test_chip_smoke_rlvr_phase_on_cpu(tmp_path):
