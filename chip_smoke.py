@@ -27,11 +27,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 at its prefill buckets (L=256 and 1024), kernel 3 at its two
                 caches, kernels 4-6 at its train batches (B=32 L=512, B=8
                 L=1152) and kernel 4 at its log-prob chunks; kernel 2
-                at the workers phase's judge buckets (L=512); the
-                host copies of kernel 2's tile bounds and of the GQA work
-                items against the C++ formulas; kernel 6's plan, its refusal
-                of other kv lengths (a child process that must fail with a
-                CUDA error) and, with kernel 5, determinism.
+                at the workers phase's judge buckets (L=512); the families
+                phase's shapes: kernel 2 at B=4 L=512 with 32/4 and 16/16
+                heads and B=4 L=2048 with 12/2, kernel 3 over its three caches
+                (rep 8, 1, 6; 48, 8 and 28 layers), kernels 4-6 at B=2 L=2048
+                with 32/4, kernel 1 per tile of the qwen2 ViT (its full-layer
+                case in all 32 blocks); the host copies of kernel 2's tile
+                bounds and of the GQA work items against the C++ formulas;
+                kernel 6's plan, its refusal of other kv lengths (a child
+                process that must fail with a CUDA error) and, with kernel 5,
+                determinism.
   4. engine   — DecodeEngine greedy stream (kernels) against a teacher-forced
                 uncached forward (dense attention) at Qwen2.5-VL-3B head dims.
   5. train_parity — one GRPO train step with the trainable flash kernels
@@ -161,6 +166,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 into the stacked cache at the diagnostic script's shape (36
                 layers, 24 slots, Lalloc 1536), held against the indexed
                 assignment.
+  17. families — the other model families at full width, from their
+                published configs (random bf16 weights), each freed before
+                the next: (a) Qwen3-30B-A3B (qwen3_moe, 128 experts top-8,
+                48 layers, 61 GB) serves four random-token prompts of
+                300-500 tokens (one prefill at B=4 in the bucket of 512,
+                32 greedy tokens over 4 slots), each held against one
+                teacher-forced uncached forward on dense attention (a
+                mismatch is a tie where the runner-up is within GAP_TOL, or
+                where a layer's k-th and (k+1)-th router probabilities lie
+                within one bf16 ulp); (b) its width at 4 layers: two PPO
+                steps on B=2 rows of 2048 (kv 2048, 1500) with kernels 4-6
+                against dense attention (PARITY_LOSS_TOL, PARITY_NORM_TOL;
+                the router, experts and q/k norms given finite non-zero
+                gradients), then save_pretrained and llm.load_text_model bit
+                for bit; (c) Qwen1.5-MoE-A2.7B (qwen2_moe with its shared
+                expert, 16/16 heads) at 8 of 24 layers serves as (a), 16
+                tokens; (d) Qwen2-VL-2B-Instruct from an HF checkpoint the
+                phase writes (config.json, BF16 shards), loaded with
+                load_pretrained, through run_main_path over four 768² tiles
+                (the qwen2 ViT on kernel 1 in all 32 blocks, 12/2 heads),
+                its ViT on the kernel against dense attention. Every
+                launch at the shapes the kernels phase checked (kernel 2 at
+                (4, 512) with 32/4 and 16/16 heads and (4, 2048) with 12/2,
+                kernel 3 at rep 8, 1 and 6, kernels 4-6 at (2, 2048) with
+                32/4); peak < 80 GiB.
 
 TF32 is off for matmuls and convolutions, so float32 references are full
 float32. Imports nothing of JAX. The last line is the device summary
@@ -677,6 +707,12 @@ def phase_kernels():
         "bytes" if n_win * win["bound"][0] >= n_full * full["bound"][0] else "operations",
         per_tile("library_ms"), f"{n_win} x {win['library']} + {n_full} x {full['library']}",
         window=win, full_layer=full, device_ms=per_tile("device_ms"),
+        # the families phase's Qwen2-VL tower: the same tile's per-image ids
+        # (and plan) in all of its blocks
+        families_qwen2_vit={key: vcfg.depth * full[key] for key in (
+            "ms", "device_ms", "plain_ms", "library_ms")} | {
+            "shape": f"S={S} H=16 D=80, ms per tile = {vcfg.depth} full layers",
+            "bound_ms": vcfg.depth * full["bound"][0], "bound_by": full["bound"][1]},
         max_row_ratio=max(r for _, r in errs), edge_max_abs_err=seg_edge[0],
         edge_max_row_ratio=seg_edge[1], math_vlm_one_image=one_image))
     emit({"phase": "kernel", **results[-1]})
@@ -684,9 +720,9 @@ def phase_kernels():
     # prefill: 16 q / 2 kv heads, D=128; checked and timed at the L=2048
     # bucket at B=2 with kv lens {2016, 1} and at the main phase's prefill
     # (four 2016-token prompts), and at the two_stage phase's stage-2 prefill
-    def prefill_case(lens, L=2048):
+    def prefill_case(lens, L=2048, H=16, Hkv=2):
         B = len(lens)
-        q, k, v = randn(B, L, 16, 128), randn(B, L, 2, 128), randn(B, L, 2, 128)
+        q, k, v = randn(B, L, H, 128), randn(B, L, Hkv, 128), randn(B, L, Hkv, 128)
         mask = (torch.arange(L, device=dev)[None]
                 < torch.tensor(lens, device=dev)[:, None]).to(torch.int32)
         run = lambda: fa.flash_attention(q, k, v, mask, causal=True)   # noqa: E731
@@ -702,7 +738,7 @@ def phase_kernels():
         return {"err": err, "ratio": ratio, "ms": cuda_ms(run), "device_ms": graph_call_ms(run),
                 "library_ms": cuda_ms(lib), "host_us": host_us(run),
                 "bound": bound(2 * (2 * q.numel() + k.numel() + v.numel()),
-                               4 * 128 * 16 * _causal_pairs(L, lens)),
+                               4 * 128 * H * _causal_pairs(L, lens)),
                 "plain": lambda: fa.flash_attention_reference(q, k, v, mask, causal=True)}
 
     def summary(case, shape):
@@ -717,7 +753,10 @@ def phase_kernels():
     rlvr = {(B, L): prefill_case(_rlvr_prefill_lens(B, L), L)
             for B, L in RLVR_PREFILL + MATH_VLM_PREFILL}
     judge = {(B, L): prefill_case(_judge_prefill_lens(B), L) for B, L in JUDGE_PREFILL}
-    cases = (check, main, *stage2.values(), *grpo.values(), *rlvr.values(), *judge.values())
+    families = {name: prefill_case(list(lens), L, H, Hkv)
+                for name, (lens, L, H, Hkv) in FAMILY_PREFILL.items()}
+    cases = (check, main, *stage2.values(), *grpo.values(), *rlvr.values(), *judge.values(),
+             *families.values())
     results.append(_row(
         "flash_attention", "socioreasoner_tpu_torch/csrc/flash_prefill.cu",
         "socioreasoner_tpu/ops/flash_attention.py:37",
@@ -746,6 +785,10 @@ def phase_kernels():
         judge_prefill={f"B{B}_L{L}": summary(case, f"B={B} L={L} kv_len="
                                                    f"{_judge_prefill_lens(B)}")
                        for (B, L), case in judge.items()},
+        # each family's prefill in the families phase
+        families_prefill={name: summary(families[name], f"B={len(lens)} L={L} H={H} "
+                                                        f"Hkv={Hkv} kv_len={list(lens)}")
+                          for name, (lens, L, H, Hkv) in FAMILY_PREFILL.items()},
         edge_max_abs_err=pre_edge[0], edge_max_row_ratio=pre_edge[1],
         bounds_checked=_prefill_bounds_check()))
     emit({"phase": "kernel", **results[-1]})
@@ -753,7 +796,7 @@ def phase_kernels():
     results.extend(_decode_kernels(randn))
     results.extend(_train_kernels(randn, train_edge))
     for phase, spec in (("grpo", GRPO_TRAIN), ("rlvr", RLVR_TRAIN),
-                        ("math_vlm", MATH_VLM_TRAIN)):
+                        ("math_vlm", MATH_VLM_TRAIN), ("families", FAMILY_TRAIN)):
         for row, cases in zip(results[-3:], _phase_train_kernels(randn, spec)):
             row[phase] = cases
             emit({"phase": f"kernel_{phase}_shapes", "name": row["name"], **cases})
@@ -857,18 +900,51 @@ DECODE_CASES = (
                                        639, 640, 641, 700, 703, 704, 705, 767, 768)),
     ("math_vlm", MATH_VLM_SLOTS, MATH_VLM_LALLOC, (0, 941, 942, 980, 1040, 1068, 1069, 1280)))
 
+# The families phase's attention shapes, checked in phase_kernels and held to
+# the phase: four text prompts of these lengths in the prefill bucket of 512,
+# prefilled together (kernel 2 at B=4), then greedy decode over 4 slots of
+# max_len 512 + 32 with decode_chunk 16 (Lalloc 768; kernel 3); the MoE
+# train step on B=2 rows of 2048 with kv lengths 2048 and 1500 (kernels
+# 4-6, and kernel 4 for the batch's log-probs); Qwen2-VL through the main
+# phase's shapes (prefill B=4 at 2048, kv 2016; MAIN_LALLOC) with 12/2
+# heads and its ViT, full attention over each tile's two 2916-patch images
+# in all 32 blocks (kernel 1 on the per-image ids of the main phase's tile).
+FAMILY_PROMPT_LENS = (500, 433, 377, 300)
+FAMILY_BUCKET = 512
+FAMILY_MAX_NEW = {"qwen3_moe": 32, "qwen2_moe": 16}
+FAMILY_LALLOC = -(-(FAMILY_BUCKET + 32 + 16) // 256) * 256
+FAMILY_TRAIN = {"L": 2048, "train_batch": 2, "logprob_batch": 2, "kv_lens": (2048, 1500),
+                "H": 32, "Hkv": 4}
+FAMILY_TRAIN_LAYERS = 4
+FAMILY_QWEN2_MOE_LAYERS = 8
+# (name, layers, q heads, kv heads, Lalloc) of each served family's cache
+# Kernel 2's checks: (prompt lengths, bucket, q heads, kv heads) of each
+# family's one prefill; kernel 3's: each family's cache as a DECODE_CASES
+# entry with its (layers, q heads, kv heads), at lengths mid-decode
+FAMILY_PREFILL = {"qwen3_moe": (FAMILY_PROMPT_LENS, FAMILY_BUCKET, 32, 4),
+                  "qwen2_moe": (FAMILY_PROMPT_LENS, FAMILY_BUCKET, 16, 16),
+                  "qwen2_vl": ((2016,) * 4, 2048, 12, 2)}
+FAMILY_DECODE_CASES = (
+    ("qwen3_moe", 4, FAMILY_LALLOC, tuple(n + 17 for n in FAMILY_PROMPT_LENS), 48, 32, 4),
+    ("qwen2_moe", 4, FAMILY_LALLOC, tuple(n + 9 for n in FAMILY_PROMPT_LENS),
+     FAMILY_QWEN2_MOE_LAYERS, 16, 16),
+    ("qwen2_vl", 4, MAIN_LALLOC, (2049, 2048, 2017, 2079), 28, 12, 2))
 
-def _decode_caches(randn, slots, Lalloc, quant):
-    """The stacked 36-layer caches (k, v) or, for kernel 3q, (k codes, v
-    codes, k scales, v scales) from quantize_kv, scales (36, S, 2, Lalloc)."""
+
+def _decode_caches(randn, slots, Lalloc, quant, layers=36, Hkv=2):
+    """The stacked caches (k, v), (layers, S, Lalloc, Hkv, 128), or, for
+    kernel 3q, (k codes, v codes, k scales, v scales) from quantize_kv,
+    scales (layers, S, Hkv, Lalloc)."""
     from socioreasoner_tpu_torch.ops import decode_attention as da
     if not quant:
-        return randn(36, slots, Lalloc, 2, 128), randn(36, slots, Lalloc, 2, 128)
+        return (randn(layers, slots, Lalloc, Hkv, 128),
+                randn(layers, slots, Lalloc, Hkv, 128))
     codes, scales = [], []
     for _ in range(2):
-        code, scale = da.quantize_kv(randn(36 * slots, Lalloc, 2, 128))
-        codes.append(code.reshape(36, slots, Lalloc, 2, 128))
-        scales.append(scale.reshape(36, slots, Lalloc, 2).transpose(-1, -2).contiguous())
+        code, scale = da.quantize_kv(randn(layers * slots, Lalloc, Hkv, 128))
+        codes.append(code.reshape(layers, slots, Lalloc, Hkv, 128))
+        scales.append(scale.reshape(layers, slots, Lalloc, Hkv).transpose(-1, -2)
+                      .contiguous())
         del code, scale
     return (*codes, *scales)
 
@@ -893,15 +969,17 @@ def _decode_kernels(randn):
         plain_fn = (da.paged_decode_attention_int8_reference if quant
                     else da.paged_decode_attention_reference)
         errs, ratios, timed = [], [], {}
-        for case, slots, Lalloc, lens in DECODE_CASES:
-            if quant and case in ("two_stage", "grpo", "rlvr", "math_vlm"):
+        for case, slots, Lalloc, lens, *heads in DECODE_CASES + FAMILY_DECODE_CASES:
+            if quant and case in ("two_stage", "grpo", "rlvr", "math_vlm") + tuple(
+                    c[0] for c in FAMILY_DECODE_CASES):
                 continue
+            layers, H, Hkv = heads or (36, 16, 2)
             lens = [n % Lalloc if n < 0 else n for n in lens]
-            caches = _decode_caches(randn, slots, Lalloc, quant)
+            caches = _decode_caches(randn, slots, Lalloc, quant, layers, Hkv)
             k, v, scales = caches[0], caches[1], caches[2:]
-            q = randn(slots, 16, 128)
+            q = randn(slots, H, 128)
             lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-            for layer in (0, 17, 35):
+            for layer in (0, layers // 2, layers - 1):
                 got = da.paged_decode_attention(q, k, v, lengths, *scales, layer=layer)
                 tag = f"{name} {case} S={slots} Lalloc={Lalloc} layer={layer}"
                 if not torch.equal(got, da.paged_decode_attention(q, k, v, lengths, *scales,
@@ -918,24 +996,25 @@ def _decode_kernels(randn):
                 ratios.append(ratio)
             if case != "edges":
                 sweep = lambda: [da.paged_decode_attention(   # noqa: E731
-                    q, k, v, lengths, *scales, layer=i) for i in range(36)]
+                    q, k, v, lengths, *scales, layer=i) for i in range(layers)]
                 plain = lambda: [plain_fn(q, k, v, lengths, *scales, layer=i)   # noqa: E731
-                                 for i in range(36)]
+                                 for i in range(layers)]
                 n_keys = sum(lens)
                 # q read and the output written (bf16), and each valid key's K
-                # and V rows of both kv heads once: bf16, or int8 codes and an
+                # and V rows of every kv head once: bf16, or int8 codes and an
                 # f32 scale a row
                 row_bytes = 128 + 4 if quant else 128 * 2
                 figures = {
-                    "lengths": lens, "n_split": da.decode_plan(
-                        q, k, v, lengths, *scales, stacked=True).n_split,
-                    "ms": cuda_ms(sweep) / 36, "device_ms": graph_call_ms(sweep, reps=1) / 36,
-                    "profiler_device_ms": device_ms(sweep, ("paged_decode",)) / 36,
+                    "lengths": lens, "heads": f"{layers} layers, {H}/{Hkv} heads",
+                    "n_split": da.decode_plan(q, k, v, lengths, *scales, stacked=True).n_split,
+                    "ms": cuda_ms(sweep) / layers,
+                    "device_ms": graph_call_ms(sweep, reps=1) / layers,
+                    "profiler_device_ms": device_ms(sweep, ("paged_decode",)) / layers,
                     "host_us": host_us(lambda: da.paged_decode_attention(
-                        q, k, v, lengths, *scales, layer=17)),
-                    "plain_ms": cuda_ms(plain, n=10) / 36,
-                    "bound": bound(2 * (2 * q.numel()) + n_keys * 2 * 2 * row_bytes,
-                                   4 * 128 * 16 * n_keys)}
+                        q, k, v, lengths, *scales, layer=layers // 2)),
+                    "plain_ms": cuda_ms(plain, n=10) / layers,
+                    "bound": bound(2 * (2 * q.numel()) + n_keys * Hkv * 2 * row_bytes,
+                                   4 * 128 * H * n_keys)}
                 if not quant:
                     # the library call: one query per slot over the layer's
                     # cache view with a boolean length mask (rows of length 0
@@ -945,13 +1024,13 @@ def _decode_kernels(randn):
                     q4 = q[:, :, None]
                     figures["library_ms"] = cuda_ms(lambda: [F.scaled_dot_product_attention(
                         q4, k[i].transpose(1, 2), v[i].transpose(1, 2), attn_mask=keep,
-                        enable_gqa=True) for i in range(36)], n=10) / 36
+                        enable_gqa=True) for i in range(layers)], n=10) / layers
                 timed[case] = figures
             del caches, k, v, scales
             torch.cuda.empty_cache()
 
         def summary(fig):
-            return {key: fig[key] for key in ("lengths", "n_split", "ms", "device_ms",
+            return {key: fig[key] for key in ("lengths", "heads", "n_split", "ms", "device_ms",
                                               "profiler_device_ms", "host_us", "plain_ms")} \
                 | {"bound_ms": fig["bound"][0], "bound_by": fig["bound"][1],
                    "library_ms": fig.get("library_ms")}
@@ -960,10 +1039,13 @@ def _decode_kernels(randn):
         kind = "int8 cache + f32 scales" if quant else "cache"
         shapes = f"(36, 4|8|32, {MAIN_LALLOC}, 2, 128)" + (
             "" if quant else f", (36, 4|{GRPO_SLOTS}, {TWO_STAGE_LALLOC}, 2, 128), "
-            f"(36, {RLVR_SLOTS}, {RLVR_LALLOC}, 2, 128) and "
-            f"(36, {MATH_VLM_SLOTS}, {MATH_VLM_LALLOC}, 2, 128)")
+            f"(36, {RLVR_SLOTS}, {RLVR_LALLOC}, 2, 128), "
+            f"(36, {MATH_VLM_SLOTS}, {MATH_VLM_LALLOC}, 2, 128) and the families' "
+            + ", ".join(f"({c[4]}, {c[1]}, {c[2]}, {c[6]}, 128) under {c[5]} q heads"
+                        for c in FAMILY_DECODE_CASES))
         extra = {} if quant else {case: summary(timed[case]) for case in (
-            "two_stage", "grpo", "rlvr", "math_vlm")}
+            "two_stage", "grpo", "rlvr", "math_vlm")} | {"families_decode": {
+                c[0]: summary(timed[c[0]]) for c in FAMILY_DECODE_CASES}}
         rows.append(_row(
             name, "socioreasoner_tpu_torch/csrc/paged_decode.cu",
             "socioreasoner_tpu/ops/decode_attention.py:36",
@@ -1182,14 +1264,14 @@ def _phase_train_kernels(randn, spec):
     from socioreasoner_tpu_torch.ops import flash_attention_bwd as fb
 
     dev = torch.device("cuda")
-    L = spec["L"]
+    L, H, Hkv = spec["L"], spec.get("H", 16), spec.get("Hkv", 2)
     out = ({}, {}, {})
     for B, backward in ((spec["train_batch"], True), (spec["logprob_batch"], False)):
         lens_l = [spec["kv_lens"][b % 2] - 3 * (b // 2) for b in range(B)]
         lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
-        q, k, v, do = randn(B, L, 16, 128), randn(B, L, 2, 128), randn(B, L, 2, 128), \
-            randn(B, L, 16, 128)
-        tag = f"B={B} L={L} H=16 Hkv=2 D=128 causal kv_len={lens_l}"
+        q, k, v, do = randn(B, L, H, 128), randn(B, L, Hkv, 128), randn(B, L, Hkv, 128), \
+            randn(B, L, H, 128)
+        tag = f"B={B} L={L} H={H} Hkv={Hkv} D=128 causal kv_len={lens_l}"
         refs = [fb.flash_attention_fwd_lse_reference(
             q[b:b + 1].float(), k[b:b + 1].float(), v[b:b + 1].float(), lens[b:b + 1])
             for b in range(B)]
@@ -1203,9 +1285,9 @@ def _phase_train_kernels(randn, spec):
             raise AssertionError(f"train fwd {tag}: lse max_abs_err {lse_err} > {LSE_TOL}")
         del got, lse
         qt, dot = q.transpose(1, 2), do.transpose(1, 2)
-        kt, vt = (x.repeat_interleave(8, dim=2).transpose(1, 2) for x in (k, v))
-        pairs = 16 * _causal_pairs(L, lens_l)
-        f32_rows = B * 16 * L * 4
+        kt, vt = (x.repeat_interleave(H // Hkv, dim=2).transpose(1, 2) for x in (k, v))
+        pairs = H * _causal_pairs(L, lens_l)
+        f32_rows = B * H * L * 4
         qkv_bytes = 2 * (q.numel() + k.numel() + v.numel())
         case = "train_micro_batch" if backward else "logprob_chunk"
         out[0][case] = {
@@ -1218,7 +1300,7 @@ def _phase_train_kernels(randn, spec):
         if not backward:
             continue
         delta = (do.float() * ref_out).sum(-1).transpose(1, 2).contiguous()
-        plan = fb.dkv_plan(lens, B, L, L, 16, 2, True, dev)
+        plan = fb.dkv_plan(lens, B, L, L, H, Hkv, True, dev)
         run_dq = lambda: fb.flash_attention_bwd_dq(   # noqa: E731
             q, k, v, do, ref_lse, delta, lens)
         run_dkv = lambda: fb.flash_attention_bwd_dkv(   # noqa: E731
@@ -2396,10 +2478,10 @@ def run_sam2_checks(pipeline, dev, *, reps=3):
     return stats
 
 
-def profile_decode_chunk(engine, dev, prompt_len: int, seed: int = 0):
+def profile_decode_chunk(engine, dev, prompt_len, seed: int = 0):
     """The engine's decode at its full slot count: one request a slot of
-    prompt_len random text tokens (decode reads no image), admitted with the
-    first chunk; then a chunk timed between syncs, and one under
+    prompt_len random text tokens (or prompt_len[i] in slot i; decode reads
+    no image), admitted with the first chunk; then a chunk timed between syncs, and one under
     torch.profiler with device activity only: its kernels' time a step, the
     device's busy share of the chunk's wall (kernel time over wall; streams
     do not overlap in decode) and the kernels that take most of it. Returns
@@ -2415,8 +2497,9 @@ def profile_decode_chunk(engine, dev, prompt_len: int, seed: int = 0):
     # the first token comes from the prefill: three whole chunks follow it
     sp = SamplingParams(temperature=1.0, top_p=0.8, max_new_tokens=3 * engine.decode_chunk + 1)
     top = min(c.image_token_id, c.eos_token_id, 10000)
-    engine.waiting.extend(Request(("decode_profile", i), rng.integers(10, top, prompt_len)
-                                  .tolist(), sp) for i in range(engine.S))
+    lens = prompt_len if isinstance(prompt_len, (list, tuple)) else [prompt_len] * engine.S
+    engine.waiting.extend(Request(("decode_profile", i), rng.integers(10, top, n).tolist(), sp)
+                          for i, n in enumerate(lens))
     engine.step()
 
     def chunk():
@@ -4387,6 +4470,565 @@ def phase_row_writer():
     return {"write_rows": launches}
 
 
+
+# ------------------------------------------------------------- other families
+
+# Published configurations, typed in from the config.json each repository of
+# the Hugging Face hub ships (nothing is downloaded; the weights are random).
+QWEN3_30B_A3B = {     # Qwen/Qwen3-30B-A3B
+    "architectures": ["Qwen3MoeForCausalLM"], "model_type": "qwen3_moe",
+    "vocab_size": 151936, "hidden_size": 2048, "intermediate_size": 6144,
+    "num_hidden_layers": 48, "num_attention_heads": 32, "num_key_value_heads": 4,
+    "head_dim": 128, "max_position_embeddings": 40960, "rms_norm_eps": 1e-06,
+    "rope_theta": 1000000.0, "rope_scaling": None, "tie_word_embeddings": False,
+    "attention_bias": False, "num_experts": 128, "num_experts_per_tok": 8,
+    "moe_intermediate_size": 768, "norm_topk_prob": True, "decoder_sparse_step": 1,
+    "mlp_only_layers": [], "router_aux_loss_coef": 0.001, "bos_token_id": 151643,
+    "eos_token_id": 151645, "torch_dtype": "bfloat16"}
+QWEN15_MOE_A27B = {   # Qwen/Qwen1.5-MoE-A2.7B
+    "architectures": ["Qwen2MoeForCausalLM"], "model_type": "qwen2_moe",
+    "vocab_size": 151936, "hidden_size": 2048, "intermediate_size": 5632,
+    "num_hidden_layers": 24, "num_attention_heads": 16, "num_key_value_heads": 16,
+    "max_position_embeddings": 8192, "rms_norm_eps": 1e-06, "rope_theta": 1000000.0,
+    "tie_word_embeddings": False, "num_experts": 60, "num_experts_per_tok": 4,
+    "moe_intermediate_size": 1408, "shared_expert_intermediate_size": 5632,
+    "norm_topk_prob": False, "decoder_sparse_step": 1, "router_aux_loss_coef": 0.001,
+    "bos_token_id": 151643, "eos_token_id": 151643, "torch_dtype": "bfloat16"}
+QWEN2_VL_2B = {       # Qwen/Qwen2-VL-2B-Instruct
+    "architectures": ["Qwen2VLForConditionalGeneration"], "model_type": "qwen2_vl",
+    "vocab_size": 151936, "hidden_size": 1536, "intermediate_size": 8960,
+    "num_hidden_layers": 28, "num_attention_heads": 12, "num_key_value_heads": 2,
+    "max_position_embeddings": 32768, "rms_norm_eps": 1e-06, "rope_theta": 1000000.0,
+    "rope_scaling": {"type": "mrope", "mrope_section": [16, 24, 24]},
+    "tie_word_embeddings": True, "bos_token_id": 151643, "eos_token_id": 151645,
+    "vision_start_token_id": 151652, "vision_end_token_id": 151653,
+    "vision_token_id": 151654, "image_token_id": 151655, "video_token_id": 151656,
+    "vision_config": {"depth": 32, "embed_dim": 1280, "mlp_ratio": 4, "num_heads": 16,
+                      "in_chans": 3, "hidden_size": 1536, "patch_size": 14,
+                      "spatial_merge_size": 2, "spatial_patch_size": 14,
+                      "temporal_patch_size": 2},
+    "torch_dtype": "bfloat16"}
+
+
+def _bf16_ulp(p: float) -> float:
+    """One bf16 unit in the last place at |p| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(abs(p))) - 7) if p else 0.0
+
+
+@contextlib.contextmanager
+def _router_probs(token: int, out: list):
+    """Record, for every MoE layer run inside, the router's probabilities
+    at flat token index `token`, with the layer's top-k."""
+    from socioreasoner_tpu_torch.ops import moe
+    plain = moe.moe_router
+
+    def recording(x, router_w, top_k, norm_topk_prob=True):
+        res = plain(x, router_w, top_k, norm_topk_prob)
+        out.append((res[1][token].float().cpu().numpy(), top_k))
+        return res
+
+    moe.moe_router = recording
+    try:
+        yield
+    finally:
+        moe.moe_router = plain
+
+
+def _router_gaps(config, params, ids_t, pos_t, attn_t, token: int):
+    """Per layer: (the gap between the k-th and (k+1)-th router probability
+    at `token` in the dense forward, that in bf16 ulps of the k-th)."""
+    from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
+    rows = []
+    with _router_probs(token, rows):
+        qmodel.forward(config, params, ids_t, pos_t, attn_t, logits=False)
+    gaps = []
+    for probs, k in rows:
+        p = np.sort(probs)[::-1]
+        gap = float(p[k - 1] - p[k]) if k < len(p) else float("inf")
+        gaps.append((gap, gap / max(_bf16_ulp(float(p[k - 1])), 1e-45)))
+    return gaps
+
+
+def greedy_against_forward(config, params, dev, prompts, outs):
+    """Each request's greedy tokens against one teacher-forced uncached
+    forward (dense attention) over its prompt and tokens. A token that is
+    not the forward's argmax counts as a tie where it is the runner-up
+    within GAP_TOL (phase_engine's rule) or, for an MoE family, where at
+    that token some layer's k-th and (k+1)-th router probabilities lie
+    within one bf16 ulp (the routing flips on rounding); anything else is
+    a failure. Returns (tie flips, routing ties, failures, checked
+    tokens)."""
+    import torch
+    from socioreasoner_tpu_torch.models import llm
+    from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
+    flips, routing, failures, checked = [], [], [], 0
+    for r, (prompt, out) in enumerate(zip(prompts, outs)):
+        got = list(out.output_ids)
+        ids = np.asarray([prompt + got[:-1]])
+        attn = np.ones_like(ids)
+        ids_t, attn_t = (torch.as_tensor(a, device=dev) for a in (ids, attn))
+        pos_t = torch.as_tensor(llm.text_position_ids(ids, attn), device=dev)
+        with torch.no_grad():
+            logits, _ = qmodel.forward(config, params, ids_t, pos_t, attn_t)
+            rows = logits[0, len(prompt) - 1:].float().cpu().numpy()
+        del logits
+        for step, tok in enumerate(got):
+            checked += 1
+            top2 = np.argsort(rows[step])[-2:][::-1]
+            if tok == int(top2[0]):
+                continue
+            gap = float(rows[step][top2[0]] - rows[step][top2[1]])
+            if tok == int(top2[1]) and gap < GAP_TOL:
+                flips.append((r, step, gap))
+                continue
+            layers = []
+            if config.text.n_experts:
+                with torch.no_grad():
+                    layers = _router_gaps(config, params, ids_t, pos_t, attn_t,
+                                          len(prompt) - 1 + step)
+            record = {"request": r, "step": step, "token": tok, "argmax": int(top2[0]),
+                      "logit_gap": gap, "router_gap_ulps": [u for _, u in layers]}
+            (routing if any(u <= 1.0 for _, u in layers) else failures).append(record)
+    return flips, routing, failures, checked
+
+
+def profile_forward(config, params, dev, prompt):
+    """One uncached forward (dense attention) over `prompt` under
+    torch.profiler: wall ms, the device's kernel ms and the kernels that
+    take most of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from socioreasoner_tpu_torch.models import llm
+    from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
+    ids = np.asarray([prompt])
+    attn = np.ones_like(ids)
+    args = [torch.as_tensor(a, device=dev) for a in (ids, llm.text_position_ids(ids, attn),
+                                                      attn)]
+    activity = ProfilerActivity.CUDA if dev.type == "cuda" else ProfilerActivity.CPU
+    with torch.no_grad(), profile(activities=[activity]) as prof:
+        ms = wall_ms(lambda: qmodel.forward(config, params, *args), dev, reps=1)
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.device_time_total)
+    return {"tokens": len(prompt), "ms": ms,
+            "device_ms": sum(e.device_time_total for e in kernels) / 1e3,
+            "top_kernels": [{"name": e.key[:80], "ms": e.device_time_total / 1e3,
+                             "launches": e.count} for e in kernels[:6]]}
+
+
+def serve_family(config, params, dev, *, prompt_lens=FAMILY_PROMPT_LENS,
+                 bucket=FAMILY_BUCKET, max_new=32, decode_chunk=16, seed=0):
+    """Random-token prompts through the engine of a TorchDecodeStrategy
+    initialised on `params` (which serves the tree without a copy) at greedy
+    (one batched prefill, then decode over the slots), held by
+    greedy_against_forward; then one decode chunk of new requests at the same
+    prompt lengths under torch.profiler (profile_decode_chunk), and the
+    uncached forward over the longest prompt (profile_forward). Returns the
+    figures, with the engine's prefill buckets and cache shape."""
+    from socioreasoner_tpu_torch.distributed.torch_strategies import TorchDecodeStrategy
+    from socioreasoner_tpu_torch.generation.engine import Request
+    from socioreasoner_tpu_torch.generation.sampling import SamplingParams
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(2, config.text.vocab_size - 8, n).tolist() for n in prompt_lens]
+    strategy = TorchDecodeStrategy()
+    strategy.initialize(config, params, engine_kwargs={
+        "max_slots": len(prompts), "max_len": bucket + max_new, "decode_chunk": decode_chunk,
+        "prefill_buckets": (bucket,), "device": dev})
+    engine = strategy.engine
+    if engine.params["layers"]["gate_w"].data_ptr() != params["layers"]["gate_w"].data_ptr():
+        raise AssertionError("the engine serves a copy of the tree")
+    sp = SamplingParams(temperature=0.0, do_sample=False, max_new_tokens=max_new)
+    _sync(dev)
+    t0 = time.perf_counter()
+    outs = engine.generate([Request(request_id=i, prompt_ids=p, sampling=sp)
+                            for i, p in enumerate(prompts)])
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    _check_outputs(config, outs)
+    t1 = time.perf_counter()
+    flips, routing, failures, checked = greedy_against_forward(config, params, dev, prompts,
+                                                              outs)
+    stats = {"prompt_lens": [len(p) for p in prompts],
+             "generated": [len(o.output_ids) for o in outs],
+             "generate_wall_s": wall, "prefill_ms": engine.prefill_device_time * 1e3,
+             "decode_s": engine.decode_time, "steps_executed": engine.steps_executed,
+             "decode_ms_per_step": engine.decode_time * 1e3 / max(engine.steps_executed, 1),
+             "prefill_buckets": sorted(engine.prefill_hist),
+             "cache": list(engine.caches["k"].shape), "checked_tokens": checked,
+             "tie_flips": flips, "routing_ties": routing, "failures": failures,
+             "check_s": time.perf_counter() - t1}
+    stats["decode_profile"] = profile_decode_chunk(engine, dev, list(prompt_lens))
+    stats["prefill_buckets"] = sorted(engine.prefill_hist)
+    stats["forward_profile"] = profile_forward(config, params, dev, prompts[0])
+    del engine, strategy
+    if failures:
+        raise AssertionError(f"greedy diverged beyond ties: {failures}")
+    return stats
+
+
+def train_family(config, params, dev, *, lens=FAMILY_TRAIN["kv_lens"], steps=2):
+    """`steps` PPO steps with the trainable flash kernels and as many with
+    dense attention (allow_flash=False), each from its own copy of the bf16
+    params, on parity_batch's rows of `lens`: the loss and pre-clip grad norm
+    of every step within PARITY_LOSS_TOL / PARITY_NORM_TOL of dense, and the
+    router, every expert stack and q/k norms given finite, non-zero
+    gradients (AdamW's first moments after the steps). Returns the
+    figures."""
+    import torch
+    from socioreasoner_tpu_torch.distributed import trainer as T
+    from socioreasoner_tpu_torch.pipeline.losses import PPOLossConfig
+    batch = parity_batch(config, params, dev, lens)
+    names = [n for n, _ in _named_leaves(params)]
+    watched = [n for n in names if n.split("/")[-1] in (
+        "router_w", "gate_w", "up_w", "down_w", "s_gate_w", "s_up_w", "s_down_w", "sgate_w",
+        "q_norm", "k_norm") and n.startswith("layers/")]
+    res = {}
+    for flash in (True, False):
+        opt = T.make_optimizer()
+        state = T.TrainState.create(_clone(params), opt)
+        step = T.make_train_step(config, PPOLossConfig(), opt, allow_flash=flash)
+        losses, norms, walls = [], [], []
+        for _ in range(steps):
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(metrics["actor_train/loss"].item())
+            norms.append(metrics["actor_train/grad_norm"].item())
+            walls.append(time.perf_counter() - t0)
+        mu = dict(zip(names, state.opt_state["mu"]))
+        moved = {n: bool(torch.isfinite(mu[n]).all()) and bool(mu[n].ne(0).any())
+                 for n in watched}
+        res[flash] = {"loss": losses, "grad_norm": norms, "step_s": walls,
+                      "finite_nonzero_grads": moved}
+        del state, mu
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    k, d = res[True], res[False]
+    ok = (all(abs(a - b) <= PARITY_LOSS_TOL for a, b in zip(k["loss"], d["loss"]))
+          and all(abs(a - b) <= PARITY_NORM_TOL * b for a, b in zip(k["grad_norm"],
+                                                                     d["grad_norm"]))
+          and np.isfinite(k["loss"] + k["grad_norm"]).all()
+          and all(k["finite_nonzero_grads"].values()) and len(watched) >= 6)
+    out = {"shape": f"B={len(lens)} L={lens[0]} kv_len={list(lens)}",
+           "kernels": k, "dense": d}
+    if not ok:
+        raise AssertionError(f"MoE train step out of parity with dense attention: {out}")
+    return out
+
+
+def text_model_round_trip(config, params, hf_config, path, dev):
+    """The tree written with the port's save_pretrained (qwen-moe names)
+    under the family's own config.json (save_pretrained's names the
+    Qwen2.5-VL model type), read back through llm.load_text_model: the
+    same config, every leaf bit-equal. Returns (write s, read s, GB)."""
+    import torch
+    from socioreasoner_tpu_torch.models import llm
+    from socioreasoner_tpu_torch.models.qwen2_5_vl.export import save_pretrained
+    _sync(dev)
+    t0 = time.perf_counter()
+    save_pretrained(config, params, path)
+    with open(Path(path) / "config.json", "w") as f:
+        json.dump(hf_config, f)
+    t1 = time.perf_counter()
+    config2, back = llm.load_text_model(path, dtype=params["embed"].dtype, device=dev)
+    _sync(dev)
+    t2 = time.perf_counter()
+    want, got = dict(_named_leaves(params)), dict(_named_leaves(back))
+    bad = sorted(set(want) ^ set(got)) + [n for n in want if n in got and
+                                         not torch.equal(want[n], got[n])]
+    if config2 != config or bad:
+        raise AssertionError(f"text model round trip differs: config equal "
+                             f"{config2 == config}, leaves {bad[:8]}")
+    return t1 - t0, t2 - t1, _tree_bytes(params) / 1e9
+
+
+def write_qwen2_vl_checkpoint(hf_config, path, dev, seed=0):
+    """An HF Qwen2VLForConditionalGeneration checkpoint of random bf16
+    weights (N(0, 0.02), unit norms, zero biases; the tied head omitted)
+    under HF's names and (out, in) layouts, with its config.json, written
+    by the port's safetensors writer. Returns its GB."""
+    import torch
+    from socioreasoner_tpu_torch.utils.safetensors_io import save_sharded
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev).mul_(0.02).to(torch.bfloat16)
+
+    def const(value, *shape):
+        return torch.full(shape, value, dtype=torch.bfloat16, device=dev)
+
+    h = hf_config
+    H, I, V, L = h["hidden_size"], h["intermediate_size"], h["vocab_size"], \
+        h["num_hidden_layers"]
+    D = H // h["num_attention_heads"]
+    q, kv = h["num_attention_heads"] * D, h["num_key_value_heads"] * D
+    v = h["vision_config"]
+    E, C, tps, ps = v["embed_dim"], v["in_chans"], v["temporal_patch_size"], v["patch_size"]
+    VI, merged = int(E * v["mlp_ratio"]), E * v["spatial_merge_size"] ** 2
+
+    def tensors():
+        yield "model.embed_tokens.weight", normal(V, H)
+        for i in range(L):
+            p = f"model.layers.{i}."
+            yield p + "input_layernorm.weight", const(1, H)
+            yield p + "post_attention_layernorm.weight", const(1, H)
+            for name, rows in (("q_proj", q), ("k_proj", kv), ("v_proj", kv)):
+                yield p + f"self_attn.{name}.weight", normal(rows, H)
+                yield p + f"self_attn.{name}.bias", const(0, rows)
+            yield p + "self_attn.o_proj.weight", normal(H, q)
+            yield p + "mlp.gate_proj.weight", normal(I, H)
+            yield p + "mlp.up_proj.weight", normal(I, H)
+            yield p + "mlp.down_proj.weight", normal(H, I)
+        yield "model.norm.weight", const(1, H)
+        if not h["tie_word_embeddings"]:
+            yield "lm_head.weight", normal(V, H)
+        yield "visual.patch_embed.proj.weight", normal(E, C, tps, ps, ps)
+        for i in range(v["depth"]):
+            p = f"visual.blocks.{i}."
+            for norm in ("norm1", "norm2"):
+                yield p + f"{norm}.weight", const(1, E)
+                yield p + f"{norm}.bias", const(0, E)
+            for name, (rows, cols) in (("attn.qkv", (3 * E, E)), ("attn.proj", (E, E)),
+                                       ("mlp.fc1", (VI, E)), ("mlp.fc2", (E, VI))):
+                yield p + f"{name}.weight", normal(rows, cols)
+                yield p + f"{name}.bias", const(0, rows)
+        yield "visual.merger.ln_q.weight", const(1, E)
+        yield "visual.merger.ln_q.bias", const(0, E)
+        yield "visual.merger.mlp.0.weight", normal(merged, merged)
+        yield "visual.merger.mlp.0.bias", const(0, merged)
+        yield "visual.merger.mlp.2.weight", normal(v["hidden_size"], merged)
+        yield "visual.merger.mlp.2.bias", const(0, v["hidden_size"])
+
+    nbytes = 0
+
+    def counted():
+        nonlocal nbytes
+        for name, t in tensors():
+            nbytes += t.nbytes
+            yield name, t
+
+    Path(path).mkdir(parents=True, exist_ok=True)
+    save_sharded(counted(), path)
+    with open(Path(path) / "config.json", "w") as f:
+        json.dump(hf_config, f)
+    return nbytes / 1e9
+
+
+def vit_kernel_against_dense(config, params, u8, grid, img_cfg, dev):
+    """One sample's tower on the segmented kernel (the serving route) and on
+    dense attention (use_flash=False), from the same patches: the max-abs
+    and mean-abs difference, and the output's largest and mean |value|."""
+    import torch
+    from socioreasoner_tpu_torch.models.qwen2_5_vl import vision as V
+    from socioreasoner_tpu_torch.ops import flash_attention as fa
+    vc = config.vision
+    mean = torch.as_tensor(np.asarray(img_cfg.image_mean, np.float32))
+    std = torch.as_tensor(np.asarray(img_cfg.image_std, np.float32))
+    patches = torch.cat([V.patchify_device(torch.tensor(np.asarray(a, np.uint8)), mean, std,
+                                           img_cfg.patch_size, img_cfg.merge_size,
+                                           img_cfg.temporal_patch_size) for a in u8])
+    prep = V.vision_host_inputs(vc, patches.numpy(), np.asarray(grid))
+    wseg, fseg = prep["window_seg"], prep["full_seg"]
+    bq, bk = fa.seg_block_sizes(len(wseg))
+    span = max(fa.seg_max_span_blocks(wseg, bq, bk), fa.seg_max_span_blocks(fseg, bq, bk))
+    dtype = params["vision"]["patch_embed_w"].dtype
+    args = (torch.as_tensor(prep["patches"], device=dev).to(dtype),
+            torch.as_tensor(prep["cos"], device=dev), torch.as_tensor(prep["sin"], device=dev),
+            torch.as_tensor(wseg), torch.as_tensor(fseg), prep["is_full_layer"])
+    f32 = {k: {b: w.float() for b, w in v.items()} if isinstance(v, dict) else v.float()
+           for k, v in params["vision"].items()}
+    with torch.no_grad():
+        kern = V.vision_tower(vc, params["vision"], *args, use_flash=True,
+                              max_span_blocks=span).float()
+        dense = V.vision_tower(vc, params["vision"], *args, use_flash=False).float()
+        # the same weights in f32 on dense attention: how far bf16 rounding
+        # alone carries the tower
+        exact = V.vision_tower(vc, f32, args[0].float(), *args[1:], use_flash=False)
+    diff = (kern - dense).abs()
+    return {"S": len(wseg), "full_layers": int(np.sum(prep["is_full_layer"])),
+            "max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
+            "max_abs": dense.abs().max().item(), "mean_abs": dense.abs().mean().item(),
+            "kernel_vs_f32_max_abs": (kern - exact).abs().max().item(),
+            "dense_vs_f32_max_abs": (dense - exact).abs().max().item()}
+
+
+def run_qwen2_vl(ckpt_dir, dev, *, img_cfg=None, kernels=(), **main_kw):
+    """Qwen2-VL from its HF checkpoint through load_pretrained and
+    run_main_path (the strategy's server over stage-1 map+sat tiles; the
+    `kernels`' launches counted over it), then the first sample's ViT on the
+    kernel against dense attention: within KERNEL_TOL of the output's largest
+    |value| where that passes 1 (KERNEL_TOL is bf16 rounding at |out| of a
+    few units, and the random tower's merger writes values near 7, where
+    one bf16 step is 0.031). Returns (config, outputs, engine, stats)."""
+    import torch
+    from socioreasoner_tpu_torch.datasets.processor import ImageProcessorConfig
+    from socioreasoner_tpu_torch.models.qwen2_5_vl.loader import load_pretrained
+    img_cfg = img_cfg or ImageProcessorConfig(defer_patchify=True)
+    _sync(dev)
+    t0 = time.perf_counter()
+    config, params = load_pretrained(ckpt_dir, dtype=torch.bfloat16, device=dev)
+    _sync(dev)
+    load_s = time.perf_counter() - t0
+    if config.vision.variant != "qwen2":
+        raise AssertionError(f"{ckpt_dir}: read as the {config.vision.variant} ViT")
+    _reset(kernels)
+    outs, engine, stats = run_main_path(config, params, dev, img_cfg=img_cfg, **main_kw)
+    stats["launches"] = _launch_counts(kernels)
+    batch = _stage1_batch(config, 1, main_kw.get("tile_px", 768), img_cfg,
+                          main_kw.get("buckets", (2048, 2560))[-1])
+    vit = vit_kernel_against_dense(config, params, batch.non_tensor["pixel_u8"][0],
+                                   batch.non_tensor["grid_thw"][0], img_cfg, dev)
+    stats.update(load_s=load_s, vit_kernel_vs_dense=vit)
+    if not vit["max_abs_err"] <= KERNEL_TOL * max(1.0, vit["max_abs"]):
+        raise AssertionError(f"Qwen2-VL ViT on the kernel against dense: {vit}")
+    del params
+    return config, outs, engine, stats
+
+
+def _family_kernels():
+    from socioreasoner_tpu_torch.ops import decode_attention as da
+    from socioreasoner_tpu_torch.ops import flash_attention as fa
+    return (fa.flash_attention_segmented, fa.flash_attention, da.paged_decode_attention,
+            *_train_kernel_fns())
+
+
+def phase_families():
+    """Other model families at full width on the card: (a) Qwen3-30B-A3B at
+    full depth served, (b) its width at FAMILY_TRAIN_LAYERS layers trained
+    (kernels against dense) and round-tripped through save_pretrained and
+    llm.load_text_model, (c) Qwen1.5-MoE-A2.7B at FAMILY_QWEN2_MOE_LAYERS of
+    24 layers served, (d) Qwen2-VL-2B-Instruct at full width and depth from
+    an HF checkpoint through run_main_path. Each model is freed before the
+    next is built; every launch lands on the shapes phase_kernels checked.
+    Returns the kernels' launches over the phase."""
+    import gc
+    import torch
+    from socioreasoner_tpu_torch.models import llm
+    from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    kernels = _family_kernels()
+    launches = {fn.__name__: 0 for fn in kernels}
+    t_phase = time.perf_counter()
+    out = {"phase": "families", "card": _smi_line()}
+
+    def add(name, counts):
+        out.setdefault("launches", {})[name] = counts
+        for k, n in counts.items():
+            launches[k] += n
+
+    def counted(name, fn):
+        _reset(kernels)
+        res = fn()
+        add(name, _launch_counts(kernels))
+        return res
+
+    def shapes_checked(name, stats, want_buckets, want_cache):
+        if stats["prefill_buckets"] != want_buckets or stats["cache"] != want_cache:
+            raise AssertionError(f"{name}: prefill {stats['prefill_buckets']} / cache "
+                                 f"{stats['cache']} left the checked {want_buckets} / "
+                                 f"{want_cache}")
+
+    try:
+        # (a) Qwen3-30B-A3B, full width and depth, served
+        config = llm.config_from_hf_dict(QWEN3_30B_A3B)
+        t0 = time.perf_counter()
+        params = qmodel.init_params(config, torch.Generator(device=dev).manual_seed(30),
+                                    dtype=torch.bfloat16, device=dev, with_vision=False)
+        _sync(dev)
+        init_s = time.perf_counter() - t0
+        gb = _tree_bytes(params) / 1e9
+        stats = counted("qwen3_moe", lambda: serve_family(
+            config, params, dev, max_new=FAMILY_MAX_NEW["qwen3_moe"]))
+        shapes_checked("qwen3_moe", stats, [(4, FAMILY_BUCKET, 0)],
+                       [48, 4, FAMILY_LALLOC, 4, 128])
+        # a decode step reads every expert's weights once (all compute every token)
+        step_bytes = 2 * sum(v.numel() for k, v in params["layers"].items()) + 2 * (
+            params["lm_head"].numel() + params["final_ln"].numel())
+        stats["decode_step_bound_ms"] = step_bytes / HBM_BYTES_PER_S * 1e3
+        out["qwen3_30b_a3b"] = {"model": "Qwen/Qwen3-30B-A3B, 48 layers, random bf16",
+                                "params_gb": gb, "init_s": init_s, **stats,
+                                "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) its width at FAMILY_TRAIN_LAYERS layers: two PPO steps, then the
+        # checkpoint round trip
+        hf_cut = dict(QWEN3_30B_A3B, num_hidden_layers=FAMILY_TRAIN_LAYERS)
+        config = llm.config_from_hf_dict(hf_cut)
+        params = qmodel.init_params(config, torch.Generator(device=dev).manual_seed(31),
+                                    dtype=torch.bfloat16, device=dev, with_vision=False)
+        train = counted("qwen3_moe_train", lambda: train_family(config, params, dev))
+        with tempfile.TemporaryDirectory() as d:
+            write_s, read_s, ckpt_gb = text_model_round_trip(config, params, hf_cut, d, dev)
+        out["qwen3_moe_train"] = {"model": f"Qwen3-30B-A3B widths, {FAMILY_TRAIN_LAYERS} of 48 "
+                                  "layers, random bf16", "params_gb": _tree_bytes(params) / 1e9,
+                                  **train, "save_s": write_s, "load_s": read_s,
+                                  "checkpoint_gb": ckpt_gb, "round_trip_bit_equal": True}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) Qwen1.5-MoE-A2.7B at full width, 8 of 24 layers, served
+        config = llm.config_from_hf_dict(dict(QWEN15_MOE_A27B,
+                                              num_hidden_layers=FAMILY_QWEN2_MOE_LAYERS))
+        params = qmodel.init_params(config, torch.Generator(device=dev).manual_seed(15),
+                                    dtype=torch.bfloat16, device=dev, with_vision=False)
+        stats = counted("qwen2_moe", lambda: serve_family(
+            config, params, dev, max_new=FAMILY_MAX_NEW["qwen2_moe"]))
+        shapes_checked("qwen2_moe", stats, [(4, FAMILY_BUCKET, 0)],
+                       [FAMILY_QWEN2_MOE_LAYERS, 4, FAMILY_LALLOC, 16, 128])
+        out["qwen15_moe_a27b"] = {"model": f"Qwen/Qwen1.5-MoE-A2.7B, {FAMILY_QWEN2_MOE_LAYERS} of "
+                                  "24 layers, random bf16", "params_gb": _tree_bytes(params) / 1e9,
+                                  **stats}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) Qwen2-VL-2B-Instruct from an HF checkpoint on disk
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            ckpt_gb = write_qwen2_vl_checkpoint(QWEN2_VL_2B, d, dev)
+            write_s = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            _, outs, engine, stats = run_qwen2_vl(d, dev, kernels=kernels)
+        add("qwen2_vl", stats.pop("launches"))
+        stats["prefill_buckets"] = sorted(engine.prefill_hist)
+        stats["cache"] = list(engine.caches["k"].shape)
+        if stats["prompt_lens"] != [2016] * 4 or any(b[:2] != (4, 2048)
+                                                      for b in stats["prefill_buckets"]) \
+                or stats["cache"] != [28, 4, MAIN_LALLOC, 2, 128] \
+                or stats["vit_kernel_vs_dense"]["S"] != 5832 \
+                or stats["vit_kernel_vs_dense"]["full_layers"] != 32:
+            raise AssertionError(f"qwen2_vl left the checked shapes: {stats}")
+        out["qwen2_vl_2b"] = {"model": "Qwen/Qwen2-VL-2B-Instruct, 28 layers, ViT depth 32, "
+                              "random bf16 from an HF checkpoint", "checkpoint_gb": ckpt_gb,
+                              "checkpoint_write_s": write_s,
+                              **{k: v for k, v in stats.items() if k != "finish"}}
+        del engine, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+    except BaseException as e:
+        out["error"] = repr(e)[:2000]
+        out["launches_total"] = launches
+        emit(out)
+        raise
+
+    out["launches_total"] = launches
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing or out["max_memory_allocated_gb"] >= 80:
+        raise AssertionError(f"families: kernels never launched {missing} or peak "
+                             f"{out['max_memory_allocated_gb']} GiB")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4421,6 +5063,7 @@ def main() -> int:
         del params
         entry = phase_entry(export_dir, export_stats, sums, work_dir)
     launches.update(phase_row_writer())
+    families = phase_families()
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
         if kern["name"] in two_stage:
@@ -4433,6 +5076,8 @@ def main() -> int:
         kern["launches_workers"] = workers.get(kern["name"], 0)
         if kern["name"] in entry:
             kern["launches_entry"] = entry[kern["name"]]
+        # kernels 3q and 7 are on no path of the families phase (bf16 cache)
+        kern["launches_families"] = families.get(kern["name"], 0)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

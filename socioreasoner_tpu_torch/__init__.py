@@ -8,16 +8,22 @@ Layer map (the slices ported so far: stage-1 serving, the GRPO actor path,
 quantized serving, SAM2 and the two-stage infer pipeline, the GRPO
 pipeline, the from-config start: loaders, checkpoints, entry scripts, the
 generic RLVR slice: RLVRPipeline with dynamic sampling, MathVLMPipeline,
-and the worker runtime with every reward, the reward model, the critic,
-SFT and DPO):
+the worker runtime with every reward, the reward model, the critic, SFT
+and DPO, and the other model families: MoE layers, the text-only LLM
+families, the Qwen2-VL ViT):
   examples                — the two entry scripts (yaml → pipeline → run())
   tools/convert           — HF <-> native checkpoint CLI
   configs                 — the yaml loader and the config dataclasses
   ops                     — attention references + hand-written Hopper kernels
                             (csrc/*.cu, built by ops/_build.py at first use),
-                            the trainable flash attention (autograd Function)
-  models/qwen2_5_vl       — ViT, text decoder (remat, trainable flash), full
-                            model, weight bridge, HF loader and export
+                            the trainable flash attention (autograd Function),
+                            the MoE router and experts (ops/moe)
+  models/qwen2_5_vl       — ViT (qwen2.5 and qwen2 variants), text decoder
+                            (dense and MoE layers, remat, trainable flash),
+                            full model, weight bridge, HF loader and export
+  models/llm              — llama, mistral, qwen2, qwen3, qwen2_moe,
+                            qwen3_moe and mixtral configs over the text
+                            decoder, load_text_model
   models/sam2             — Hiera + FPN encoder, prompt encoder, two-way mask
                             decoder, predictor, HF loader
   generation              — DecodeEngine, sampling, GenerateServer

@@ -25,7 +25,8 @@ The counterpart of socioreasoner_tpu/generation/engine.py on one device:
     runs prefill w8a8 on the int8 tree; `kv_quant="int8"` keeps int8
     caches with f32 per-token scales (L, S, Hkv, Lalloc), read by the int8
     decode kernel; `decode_inner` splits a chunk into chained inner loops
-    with one token readback.
+    with one token readback. MoE families serve float weights only: weight
+    quantization and pre-quantized trees raise for them, as in JAX.
 
 Not ported yet (ROADMAP): meshes / tensor parallelism.
 """
@@ -42,7 +43,6 @@ import torch
 
 from ..models.qwen2_5_vl import model as qmodel
 from ..models.qwen2_5_vl.config import Qwen25VLConfig
-from ..models.qwen2_5_vl.text import check_supported
 from ..ops.quant import params_prequantized, quantize_decode_params
 from .sampling import SamplingParams, sample_tokens
 
@@ -114,6 +114,8 @@ class DecodeEngine:
         if weight_quant not in (None, "int8", "int4"):
             raise ValueError(f"weight_quant must be None, 'int8' or 'int4', "
                              f"got {weight_quant!r}")
+        if weight_quant and config.text.n_experts:
+            raise NotImplementedError("weight_quant with MoE expert stacks")
         if act_quant not in (None, "int8"):
             raise ValueError(f"act_quant must be None or 'int8', got {act_quant!r}")
         if act_quant and weight_quant != "int8":
@@ -124,7 +126,8 @@ class DecodeEngine:
         if decode_inner and decode_chunk % decode_inner:
             raise ValueError(f"decode_chunk={decode_chunk} must be a "
                              f"multiple of decode_inner={decode_inner}")
-        check_supported(config.text)
+        if config.text.n_experts and params_prequantized(params):
+            raise NotImplementedError("pre-quantized params with MoE expert stacks")
         self.config = config
         self.weight_quant = weight_quant
         self.act_quant = bool(act_quant)

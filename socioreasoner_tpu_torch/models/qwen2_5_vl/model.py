@@ -55,9 +55,10 @@ def forward(
     tp=None,
     act_quant: bool = False,            # w8a8 matmuls on the cached multi-token pass
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Returns (logits or hidden, cache). A given cache is updated in place.
-    remat and use_flash apply to the uncached decoder, act_quant to the
-    cached one (see text_decoder)."""
+    """Returns (logits or hidden, cache). A given cache is updated in place;
+    without one, the second value is {"moe_aux": ...} for an MoE family and
+    None for a dense one (text_decoder). remat and use_flash apply to the
+    uncached decoder, act_quant to the cached one (see text_decoder)."""
     tcfg = config.text
     # F.embedding, not params["embed"][input_ids]: the indexing backward
     # accumulates the rows' gradients in a run-dependent order, the embedding
@@ -97,11 +98,12 @@ def forward(
 def init_params(config: Qwen25VLConfig, generator: torch.Generator,
                 dtype=torch.float32, device=None, with_vision: bool = True) -> Dict:
     """Random init at the JAX init_params shapes (N(0, 0.02) weights, unit
-    norms, zero biases) on `device` (the GPU unless one is named), drawn
-    from `generator`, which must live on that device."""
-    if config.text.n_experts:
-        raise NotImplementedError(
-            "MoE parameters are not ported yet (ROADMAP: the rest of the surface)")
+    norms, zero biases; an MoE family's router and expert stacks (L, E, in,
+    out) in place of the dense MLP) on `device` (the GPU unless one is
+    named), drawn from `generator`, which must live on that device. Each
+    expert stack is drawn a layer at a time into its `dtype` stack: drawn
+    whole in f32, a 30B model's (48, 128, 2048, 768) stack alone would take
+    39 GB. No init for the qwen2 ViT, as in the JAX package."""
     device = param_device(device)
     t, v = config.text, config.vision
 
@@ -121,21 +123,45 @@ def init_params(config: Qwen25VLConfig, generator: torch.Generator,
     def stack(shape):
         return dense((L,) + shape)
 
-    params = {
-        "embed": dense((t.vocab_size, t.hidden_size)),
-        "final_ln": ones((t.hidden_size,)),
-        "layers": {
-            "input_ln": ones((L, t.hidden_size)),
-            "post_ln": ones((L, t.hidden_size)),
-            "q_w": stack((t.hidden_size, H * D)), "q_b": zeros((L, H * D)),
-            "k_w": stack((t.hidden_size, Hkv * D)), "k_b": zeros((L, Hkv * D)),
-            "v_w": stack((t.hidden_size, Hkv * D)), "v_b": zeros((L, Hkv * D)),
-            "o_w": stack((H * D, t.hidden_size)),
+    def layerwise(shape):
+        out = torch.empty((L,) + shape, dtype=dtype, device=device)
+        for i in range(L):
+            out[i] = dense(shape)
+        return out
+
+    # the embedding is drawn first: every leaf's values follow the draw order
+    embed = dense((t.vocab_size, t.hidden_size))
+    layers = {
+        "input_ln": ones((L, t.hidden_size)),
+        "post_ln": ones((L, t.hidden_size)),
+        "q_w": stack((t.hidden_size, H * D)), "q_b": zeros((L, H * D)),
+        "k_w": stack((t.hidden_size, Hkv * D)), "k_b": zeros((L, Hkv * D)),
+        "v_w": stack((t.hidden_size, Hkv * D)), "v_b": zeros((L, Hkv * D)),
+        "o_w": stack((H * D, t.hidden_size)),
+    }
+    if t.n_experts:     # MoE family: routed expert stacks (L, E, in, out)
+        E, I = t.n_experts, t.intermediate_size
+        layers.update({
+            "router_w": stack((t.hidden_size, E)),
+            "gate_w": layerwise((E, t.hidden_size, I)),
+            "up_w": layerwise((E, t.hidden_size, I)),
+            "down_w": layerwise((E, I, t.hidden_size)),
+        })
+        if t.shared_expert_intermediate:   # qwen2_moe shared MLP + sigmoid gate
+            Is = t.shared_expert_intermediate
+            layers.update({
+                "s_gate_w": stack((t.hidden_size, Is)),
+                "s_up_w": stack((t.hidden_size, Is)),
+                "s_down_w": stack((Is, t.hidden_size)),
+                "sgate_w": stack((t.hidden_size, 1)),
+            })
+    else:
+        layers.update({
             "gate_w": stack((t.hidden_size, t.intermediate_size)),
             "up_w": stack((t.hidden_size, t.intermediate_size)),
             "down_w": stack((t.intermediate_size, t.hidden_size)),
-        },
-    }
+        })
+    params = {"embed": embed, "final_ln": ones((t.hidden_size,)), "layers": layers}
     if t.use_qk_norm:
         params["layers"]["q_norm"] = ones((L, D))
         params["layers"]["k_norm"] = ones((L, D))

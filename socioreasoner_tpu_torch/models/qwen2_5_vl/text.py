@@ -17,9 +17,13 @@ The counterpart of socioreasoner_tpu/models/qwen2_5_vl/text.py:
     "v_scale") is written with quantize_kv and read by the int8 decode
     kernel, while prefill attends over the raw k/v of the local sequence.
 
-MoE layers, context/pipeline/tensor parallelism, and quantized weights on the
-uncached path (the JAX package multiplies their codes unscaled there) are not
-ported and raise NotImplementedError.
+MoE families (qwen2_moe, qwen3_moe, mixtral) replace the MLP by the routed
+experts of ops/moe.py on both paths, plus qwen2_moe's sigmoid-gated shared
+expert; the uncached decoder returns {"moe_aux": the load-balance loss
+summed over layers} in place of the cache for them, as the JAX package does.
+Context/pipeline/tensor parallelism and quantized weights on the uncached
+path (the JAX package multiplies their codes unscaled there) are not ported
+and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,16 +37,28 @@ from ...ops.attention import dense_attention
 from ...ops.decode_attention import paged_decode_attention, quantize_kv
 from ...ops.flash_attention import flash_attention
 from ...ops.flash_attention_bwd import dkv_plan, flash_attention_trainable
+from ...ops.moe import moe_mlp
 from ...ops.norms import rms_norm, swiglu
 from ...ops.quant import matmul_q, params_prequantized
 from .config import TextConfig
 from .rope import apply_rotary
 
 
-def check_supported(cfg: TextConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE decoder layers are not ported yet (ROADMAP: the rest of the surface)")
+MOE_KEYS = ("router_w", "gate_w", "up_w", "down_w")
+
+
+def moe_block(cfg: TextConfig, p: Dict, h2: torch.Tensor):
+    """The MoE families' MLP on the post-attention norm h2 (B, L, hidden).
+    Returns (the routed experts' output, plus qwen2_moe's shared expert
+    behind its sigmoid gate; the layer's load-balance loss)."""
+    B, L, Hd = h2.shape
+    out, aux = moe_mlp(h2.reshape(B * L, Hd), {k: p[k] for k in MOE_KEYS},
+                       cfg.n_experts_per_tok, cfg.norm_topk_prob)
+    out = out.reshape(B, L, Hd).to(h2.dtype)
+    if cfg.shared_expert_intermediate:
+        shared = swiglu(h2, p["s_gate_w"], p["s_up_w"], p["s_down_w"])
+        out = out + torch.sigmoid(h2 @ p["sgate_w"]) * shared
+    return out, aux
 
 
 def _qkv(cfg: TextConfig, p: Dict, h: torch.Tensor):
@@ -63,7 +79,8 @@ def decoder_layer(cfg: TextConfig, p: Dict, x, cos, sin, attention_mask,
     flash kernels with use_flash over `lens`, the valid prefix of each
     right-padded row -- the postprocessed train batch's layout -- or all
     keys when None, else dense; `plan` is the dk/dv kernel's dkv_plan for
-    `lens`)."""
+    `lens`). Returns (x, the MoE load-balance loss, or None for a dense
+    MLP)."""
     B, L, _ = x.shape
     q, k, v = _qkv(cfg, p, rms_norm(x, p["input_ln"], cfg.rms_norm_eps))
     q, k = apply_rotary(q, k, cos, sin)
@@ -74,7 +91,10 @@ def decoder_layer(cfg: TextConfig, p: Dict, x, cos, sin, attention_mask,
                               q_positions=q_positions)
     x = x + out.reshape(B, L, -1) @ p["o_w"]
     h2 = rms_norm(x, p["post_ln"], cfg.rms_norm_eps)
-    return x + swiglu(h2, p["gate_w"], p["up_w"], p["down_w"])
+    if cfg.n_experts:
+        out, aux = moe_block(cfg, p, h2)
+        return x + out, aux
+    return x + swiglu(h2, p["gate_w"], p["up_w"], p["down_w"]), None
 
 
 def _decoder_cached_unrolled(cfg: TextConfig, params: Dict, x, cos, sin,
@@ -125,7 +145,9 @@ def _decoder_cached_unrolled(cfg: TextConfig, params: Dict, x, cos, sin,
                                          vs_all, layer=i)[:, None]
         x = x + matmul_q(out.reshape(B, L, H * D), p, "o_w", a8)
         h2 = rms_norm(x, p["post_ln"], cfg.rms_norm_eps)
-        if p["gate_w"].dtype in (torch.int8, torch.uint8):     # quantized MLP
+        if cfg.n_experts:
+            x = x + moe_block(cfg, p, h2)[0]
+        elif p["gate_w"].dtype in (torch.int8, torch.uint8):     # quantized MLP
             act = (torch.nn.functional.silu(matmul_q(h2, p, "gate_w", a8).float())
                    * matmul_q(h2, p, "up_w", a8).float())
             x = x + matmul_q(act.to(h2.dtype), p, "down_w", a8)
@@ -151,9 +173,9 @@ def text_decoder(
     tp=None,
     act_quant: bool = False,           # w8a8 on the cached multi-token pass (prefill)
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Returns (B, L, hidden) final hidden states (post final norm) + the cache
-    (updated in place) or None."""
-    check_supported(cfg)
+    """Returns (B, L, hidden) final hidden states (post final norm) and the
+    cache (updated in place); without a cache, {"moe_aux": the load-balance
+    loss summed over layers} for MoE configs and None for dense ones."""
     if cp is not None or pp is not None or tp is not None:
         raise NotImplementedError(
             "context / pipeline / tensor parallelism is not ported yet "
@@ -182,13 +204,14 @@ def text_decoder(
             return decoder_layer(cfg, p, x, cos, sin, attention_mask, q_positions,
                                  use_flash, plan, lens)
 
-        x = inputs_embeds
+        x, auxes = inputs_embeds, []
         for i in range(cfg.num_hidden_layers):
             if remat and torch.is_grad_enabled():
-                x = checkpoint(layer, i, x, use_reentrant=False)
+                x, aux = checkpoint(layer, i, x, use_reentrant=False)
             else:
-                x = layer(i, x)
-        new_cache = None
+                x, aux = layer(i, x)
+            auxes.append(aux)
+        new_cache = {"moe_aux": torch.stack(auxes).sum()} if cfg.n_experts else None
     else:
         x, new_cache = _decoder_cached_unrolled(
             cfg, params, inputs_embeds, cos, sin, cache, cache_positions, act_quant)

@@ -1,8 +1,10 @@
 """Qwen2.5-VL vision tower (ViT with window attention) in PyTorch.
 
-The counterpart of socioreasoner_tpu/models/qwen2_5_vl/vision.py for the
-qwen2.5 variant (RMSNorm + SwiGLU + window attention; the qwen2 variant
-raises NotImplementedError), with bf16/f32 or int8 tower weights:
+The counterpart of socioreasoner_tpu/models/qwen2_5_vl/vision.py, both
+variants: qwen2.5 (RMSNorm, SwiGLU MLP, window attention with full-attention
+layers) and qwen2 (Qwen2-VL: LayerNorm with bias, fc1 → quick-GELU → fc2,
+full attention in every block, a LayerNorm merger), with bf16/f32 or int8
+tower weights:
   * the Conv3d patch embed is one matmul (its kernel equals its stride);
   * window attention is segment-masked attention over the packed sequence:
     patches are permuted into window-contiguous order on the host, and every
@@ -32,17 +34,16 @@ import torch.nn.functional as F
 from ...ops.attention import dense_attention
 from ...ops.flash_attention import (SegPlan, flash_attention_segmented, seg_block_sizes,
                                     seg_max_span_blocks, seg_plan)
-from ...ops.norms import rms_norm, swiglu
+from ...ops.norms import layer_norm, quick_gelu, rms_norm, swiglu
 from ...ops.quant import matmul_q
 from . import rope as rope_mod
 from .config import VisionConfig
 
 
-def _check_supported(cfg: VisionConfig) -> None:
-    if cfg.variant != "qwen2_5":
-        raise NotImplementedError(
-            f"the {cfg.variant} ViT variant is not ported yet "
-            "(ROADMAP: the rest of the surface)")
+def _norm(cfg: VisionConfig, x, p, key):
+    if cfg.variant == "qwen2":     # LayerNorm with bias
+        return layer_norm(x, p[key], p[key + "_b"], cfg.rms_norm_eps)
+    return rms_norm(x, p[key], cfg.rms_norm_eps)
 
 
 def vision_block(cfg: VisionConfig, p: Dict, x: torch.Tensor, cos: torch.Tensor,
@@ -55,7 +56,7 @@ def vision_block(cfg: VisionConfig, p: Dict, x: torch.Tensor, cos: torch.Tensor,
     S = x.shape[0]
     H, D = cfg.num_heads, cfg.head_dim
     a8 = p["qkv_w"].dtype == torch.int8         # an int8 tower runs w8a8
-    h = rms_norm(x, p["norm1"], cfg.rms_norm_eps)
+    h = _norm(cfg, x, p, "norm1")
     qkv = matmul_q(h, p, "qkv_w", a8) + p["qkv_b"]          # (S, 3*hidden)
     q, k, v = qkv.reshape(S, 3, H, D).unbind(1)            # (S, H, D) views
     # rotary (cos/sin are (S, D)); float32 rotation like HF
@@ -75,7 +76,10 @@ def vision_block(cfg: VisionConfig, p: Dict, x: torch.Tensor, cos: torch.Tensor,
         attn = flash_attention_segmented(q, k, v, seg, block_q=bq, block_k=bk,
                                          max_span_blocks=max_span_blocks, plan=plan)
     x = x + (matmul_q(attn.reshape(S, H * D), p, "proj_w", a8) + p["proj_b"])
-    h2 = rms_norm(x, p["norm2"], cfg.rms_norm_eps)
+    h2 = _norm(cfg, x, p, "norm2")
+    if cfg.variant == "qwen2":     # fc1 → quick-GELU → fc2
+        return x + (matmul_q(quick_gelu(matmul_q(h2, p, "fc1_w", a8) + p["fc1_b"]),
+                             p, "fc2_w", a8) + p["fc2_b"])
     if a8:
         act = (F.silu((matmul_q(h2, p, "gate_w", True) + p["gate_b"]).float())
                * (matmul_q(h2, p, "up_w", True) + p["up_b"]).float())
@@ -98,23 +102,23 @@ def vision_tower(
 ) -> torch.Tensor:
     """Returns (S // spatial_merge_unit, out_hidden) merged embeddings, still in
     window order (the caller applies the inverse permutation)."""
-    _check_supported(cfg)
     x = (patches @ params["patch_embed_w"]).to(patches.dtype)
     blocks = params["blocks"]
-    plans = {}
-    if use_flash and x.is_cuda:   # the kernel's plans, one per id array for all layers
+    plans, is_full_layer = {}, np.asarray(is_full_layer).tolist()
+    if use_flash and x.is_cuda:   # the kernel's plans, one per id array the layers use
         bq, bk = seg_block_sizes(x.shape[0])
         plans = {full: seg_plan(seg, cfg.num_heads, x.device, block_q=bq, block_k=bk,
                                 max_span_blocks=max_span_blocks)
-                 for full, seg in ((False, window_seg), (True, full_seg))}
-    for i, is_full in enumerate(np.asarray(is_full_layer).tolist()):
+                 for full, seg in ((False, window_seg), (True, full_seg))
+                 if full in is_full_layer}
+    for i, is_full in enumerate(is_full_layer):
         p = {key: arr[i] for key, arr in blocks.items()}
         seg = full_seg if is_full else window_seg
         x = vision_block(cfg, p, x, cos, sin, seg, use_flash=use_flash,
                          max_span_blocks=max_span_blocks, plan=plans.get(is_full))
 
     # merger: norm then merge spatial_merge_unit patches → MLP
-    h = rms_norm(x, params["merger_ln_q"], cfg.rms_norm_eps)
+    h = _norm(cfg, x, params, "merger_ln_q")
     a8 = params["merger_fc1_w"].dtype == torch.int8
     h = h.reshape(-1, cfg.spatial_merge_unit * cfg.hidden_size)
     h = matmul_q(h, params, "merger_fc1_w", a8) + params["merger_fc1_b"]

@@ -320,7 +320,7 @@ def test_port_imports_no_jax():
         "       'datasets.chat_template', 'runtime.dispatch', 'runtime.cluster',\n"
         "       'runtime.worker', 'pipeline.rlvr.rewards.general_rules',\n"
         "       'pipeline.rlvr.rewards.code_sandbox', 'pipeline.rlvr.rewards.llm_judge',\n"
-        "       'distributed.sft', 'distributed.factory'}\n"
+        "       'distributed.sft', 'distributed.factory', 'ops.moe', 'models.llm'}\n"
         "assert {pkg.__name__ + '.' + n for n in new} <= set(names), names\n"
         "for n in names: importlib.import_module(n)\n"
         "from socioreasoner_tpu_torch.configs.worker_config import WorkerConfig\n"
@@ -343,7 +343,8 @@ def test_port_imports_no_jax():
         "for f in ('phase_grpo', 'run_grpo_path', 'build_grpo', 'socioseg_train_config',\n"
         "          'grpo_answers', 'ScriptedDecodeWorker', '_phase_train_kernels',\n"
         "          'phase_rlvr', 'run_rlvr_path', 'run_math_vlm_path', 'run_vit_grad_check',\n"
-        "          'phase_workers', 'run_workers_path'):\n"
+        "          'phase_workers', 'run_workers_path', 'phase_families', 'serve_family',\n"
+        "          'train_family', 'text_model_round_trip', 'run_qwen2_vl'):\n"
         "    assert callable(getattr(chip_smoke, f)), f\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'socioreasoner_tpu' or m.startswith('socioreasoner_tpu.'))\n"
@@ -385,7 +386,9 @@ def test_port_sources_import_nothing_of_the_jax_package():
     assert {"socioreasoner_tpu_torch/utils/kl_controller.py",
             "socioreasoner_tpu_torch/pipeline/base_worker.py",
             "socioreasoner_tpu_torch/pipeline/rlvr/socioseg_pipeline.py",
-            "socioreasoner_tpu_torch/runtime/generate_scheduler.py", "chip_smoke.py"} <= rel
+            "socioreasoner_tpu_torch/runtime/generate_scheduler.py",
+            "socioreasoner_tpu_torch/ops/moe.py", "socioreasoner_tpu_torch/models/llm.py",
+            "chip_smoke.py"} <= rel
     bad = {os.path.relpath(f, REPO): hits for f in files if (hits := _jax_package_imports(f))}
     assert not bad, bad
 

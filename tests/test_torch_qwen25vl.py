@@ -113,6 +113,49 @@ def test_init_params_shapes_match_jax(setup):
         return {k: shapes(v) if isinstance(v, dict) else tuple(v.shape)
                 for k, v in tree.items()}
     assert shapes(tp) == jshapes
+    moe = j_model.init_params(dataclasses.replace(config, text=dataclasses.replace(
+        config.text, n_experts=4, shared_expert_intermediate=24)), jax.random.key(0))
+    mp = t_model.init_params(_port(dataclasses.replace(config, text=dataclasses.replace(
+        config.text, n_experts=4, shared_expert_intermediate=24))),
+        torch.Generator().manual_seed(0), device="cpu")
+    assert shapes(mp) == jax.tree.map(lambda a: tuple(a.shape), moe)
+
+
+@pytest.mark.parametrize("moe", [False, True])
+def test_init_params_draws_in_a_fixed_order(setup, moe):
+    """A dense tree's values are those of one N(0, 0.02) draw a leaf in the
+    tree's order (embed, q/k/v/o, gate/up/down, lm_head, the ViT's patch
+    embed, qkv, proj, gate/up/down, merger fc1/fc2), each whole; an MoE
+    tree's expert stacks are drawn a layer at a time in that order."""
+    config = _port(setup[0])
+    if moe:
+        config = dataclasses.replace(config, text=dataclasses.replace(config.text, n_experts=3))
+    tp = t_model.init_params(config, torch.Generator().manual_seed(4), dtype=torch.bfloat16,
+                             device="cpu")
+    gen = torch.Generator().manual_seed(4)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen).mul_(0.02).to(torch.bfloat16)
+
+    t, lay, vb = config.text, tp["layers"], tp["vision"]["blocks"]
+    L = t.num_hidden_layers
+    order = [(tp["embed"], lambda: draw(*tp["embed"].shape))]
+    order += [(lay[k], lambda k=k: draw(*lay[k].shape)) for k in ("q_w", "k_w", "v_w", "o_w")]
+    if moe:
+        order.append((lay["router_w"], lambda: draw(*lay["router_w"].shape)))
+        order += [(lay[k], lambda k=k: torch.stack([draw(*lay[k].shape[1:]) for _ in range(L)]))
+                  for k in ("gate_w", "up_w", "down_w")]
+    else:
+        order += [(lay[k], lambda k=k: draw(*lay[k].shape)) for k in ("gate_w", "up_w", "down_w")]
+    order.append((tp["lm_head"], lambda: draw(*tp["lm_head"].shape)))
+    vis = [tp["vision"]["patch_embed_w"]] + [vb[k] for k in (
+        "qkv_w", "proj_w", "gate_w", "up_w", "down_w")] + [
+        tp["vision"]["merger_fc1_w"], tp["vision"]["merger_fc2_w"]]
+    order += [(w, lambda w=w: draw(*w.shape)) for w in vis]
+    for leaf, redraw in order:
+        assert torch.equal(leaf, redraw())
+    assert lay["q_b"].eq(0).all() and lay["input_ln"].eq(1).all() and vb["qkv_b"].eq(0).all()
+    assert lay["gate_w"].dim() == (4 if moe else 3)
 
 
 def test_vision_tower_matches_jax(setup):
@@ -234,15 +277,34 @@ def test_prefill_then_cached_decode_matches_uncached(setup):
 
 
 def test_unported_features_raise(setup):
+    """Context parallelism still raises; MoE configs and the qwen2 ViT,
+    once refused here, now initialise and run (their parity with JAX is in
+    tests/test_torch_llm_families.py and tests/test_torch_qwen2vl.py)."""
     config, _, tp = setup
     config = _port(config)
     ids = torch.zeros(1, 4, dtype=torch.long)
     pos = torch.zeros(1, 3, 4, dtype=torch.long)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_model.forward(config, tp, ids, pos, cp=object())
-    moe = t_config.Qwen25VLConfig(text=t_config.TextConfig(n_experts=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_model.init_params(moe, torch.Generator(), device="cpu")
+    moe = dataclasses.replace(config, text=dataclasses.replace(
+        config.text, n_experts=4, n_experts_per_tok=2, shared_expert_intermediate=24))
+    mp = t_model.init_params(moe, torch.Generator().manual_seed(0), device="cpu",
+                             with_vision=False)
+    assert tuple(mp["layers"]["gate_w"].shape) == (2, 4, 64, 128)
+    assert tuple(mp["layers"]["sgate_w"].shape) == (2, 64, 1)
+    logits, aux = t_model.forward(moe, mp, ids + 5, pos)
+    assert logits.shape == (1, 4, 512) and torch.isfinite(logits).all()
+    assert aux["moe_aux"].item() > 0
     qwen2 = dataclasses.replace(config.vision, variant="qwen2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_vision.vision_tower(qwen2, tp["vision"], None, None, None, None, None, ())
+    blocks = tp["vision"]["blocks"]
+    vp = dict(tp["vision"], merger_ln_q_b=torch.zeros(64), blocks=dict(
+        blocks, norm1_b=torch.zeros_like(blocks["norm1"]),
+        norm2_b=torch.zeros_like(blocks["norm2"]), fc1_w=blocks["gate_w"],
+        fc1_b=blocks["gate_b"], fc2_w=blocks["down_w"], fc2_b=blocks["down_b"]))
+    S = 64
+    patches = torch.randn(S, qwen2.patch_input_dim, generator=torch.Generator().manual_seed(0))
+    out = t_vision.vision_tower(qwen2, vp, patches,
+                                torch.ones(S, 16), torch.zeros(S, 16),
+                                torch.zeros(S, dtype=torch.int32),
+                                torch.zeros(S, dtype=torch.int32), [True] * 4)
+    assert out.shape == (S // 4, 64) and torch.isfinite(out).all()
