@@ -32,7 +32,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 heads and B=4 L=2048 with 12/2, kernel 3 over its three caches
                 (rep 8, 1, 6; 48, 8 and 28 layers), kernels 4-6 at B=2 L=2048
                 with 32/4, kernel 1 per tile of the qwen2 ViT (its full-layer
-                case in all 32 blocks); the host copies of kernel 2's tile
+                case in all 32 blocks); head dim 64: kernel 2 and kernels
+                4-6 at Qwen2.5-0.5B's 14/2 and Llama-3.2-1B's 32/8 heads
+                (edges, the agentic text pipeline's shapes, kernel 6's
+                plan refusal at 64); the agentic phase's shapes: kernel 1
+                on a 112² frame, kernel 2 at its prefill buckets, kernel 3
+                at its cache, kernels 4-6 at its episode batch; the host
+                copies of kernel 2's tile
                 bounds and of the GQA work items against the C++ formulas;
                 kernel 6's plan, its refusal of other kv lengths (a child
                 process that must fail with a CUDA error) and, with kernel 5,
@@ -144,7 +150,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 attend densely, as the JAX package's steps do: kernels 4-6
                 must not launch there. Each pass at the shapes the kernels
                 phase checked; peak < 80 GB.
-  15. entry   — the system started as users start it: the main phase's
+  15. agentic — the agentic slice at full width: (a) AgenticVLMPipeline
+                on a copy of the main tree (the tree the frozen reference,
+                checksummed): grid_goal in 2 groups x 2 envs, 3 turns of 32
+                sampled tokens, 112² frames, 2 steps with a validation, each
+                episode's response mask exactly the engine's sampled ids and
+                16 image rows a frame, then one AgenticRolloutPipeline step;
+                kernels 1-6 must launch. (b) Qwen2.5-0.5B-Instruct (head dim
+                64) from its published config: greedy against a
+                teacher-forced dense forward, one PPO step with kernels 4-6
+                against dense attention, then AgenticPipeline on
+                guess_number for two steps; kernels 2 and 4-6 must launch,
+                kernel 3 never (head dim 64 decodes densely, as in JAX).
+                Every pass at checked shapes; peak < 80 GiB.
+  16. entry   — the system started as users start it: the main phase's
                 tree (trained by the grpo phase) written with the port's
                 save_pretrained (BF16 shards, config.json) beside an offline
                 byte-level HF tokenizer and read back bit for bit; a
@@ -162,11 +181,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 TorchTrainStrategy checkpoint round trip at 3B widths with 2
                 layers: params and optimizer state restored bit for bit, the
                 resumed step against the uninterrupted one. Peak < 80 GB.
-  16. row_writer — kernel 7's own path: one decode step's K/V row writes
+  17. row_writer — kernel 7's own path: one decode step's K/V row writes
                 into the stacked cache at the diagnostic script's shape (36
                 layers, 24 slots, Lalloc 1536), held against the indexed
                 assignment.
-  17. families — the other model families at full width, from their
+  18. families — the other model families at full width, from their
                 published configs (random bf16 weights), each freed before
                 the next: (a) Qwen3-30B-A3B (qwen3_moe, 128 experts top-8,
                 48 layers, 61 GB) serves four random-token prompts of
@@ -433,13 +452,19 @@ TRAIN_EDGES = ((1, 1, 16, 2, True, [1], None), (2, 63, 16, 2, True, [63, 0], Non
                (2, 129, 16, 16, False, [129, 64], 1), (2, 200, 16, 2, True, [200, 77], 1),
                (1, 2304, 16, 2, True, [2304], None), (2, 200, 40, 8, True, [200, 77], None),
                (1, 129, 28, 4, False, [129], None))
+# The same at head_dim 64: Qwen2.5-0.5B's 14 / 2 heads (rep 7), Llama-3.2-1B's
+# 32 / 8 (rep 4), a GQA-1 edge, a length-1 row, a row of no key, a split plan
+TRAIN_EDGES_64 = ((1, 1, 14, 2, True, [1], None), (2, 200, 14, 2, True, [200, 77], 1),
+                  (3, 129, 32, 8, True, [129, 1, 0], None), (2, 129, 4, 4, False, [129, 64], None),
+                  (2, 300, 32, 8, True, [300, 150], None), (1, 1024, 14, 2, True, [1024], None))
 
 
-def _train_edge_checks(randn):
-    """Kernels 4-6 at TRAIN_EDGES against their plain versions in f32 on
-    the same bf16 values, row by row (kernels 5 and 6 get the plain lse and
-    delta; dq is held to the largest |reference| of dq, dk and dv together,
-    since where every query sees one key ds cancels and dq is 0 exactly).
+def _train_edge_checks(randn, edges=TRAIN_EDGES, D=128):
+    """Kernels 4-6 at `edges` (head dim D) against their plain versions in
+    f32 on the same bf16 values, row by row (kernels 5 and 6 get the plain
+    lse and delta; dq is held to the largest |reference| of dq, dk and dv
+    together, since where every query sees one key ds cancels and dq is 0
+    exactly).
     Returns (kernel 4's largest max-abs error, row ratio and lse error;
     kernel 5's and kernel 6's largest share of the gradients' largest value
     and row ratio; the split tiles of each case's plan)."""
@@ -447,11 +472,11 @@ def _train_edge_checks(randn):
     from socioreasoner_tpu_torch.ops import flash_attention_bwd as fb
     dev = torch.device("cuda")
     fwd, dq, dkv, splits = [0.0, 0.0, 0.0], [0.0, 0.0], [0.0, 0.0], []
-    for B, Lq, H, Hkv, causal, lens, cap in TRAIN_EDGES:
-        q, k, v, do = randn(B, Lq, H, 128), randn(B, Lq, Hkv, 128), randn(B, Lq, Hkv, 128), \
-            randn(B, Lq, H, 128)
+    for B, Lq, H, Hkv, causal, lens, cap in edges:
+        q, k, v, do = randn(B, Lq, H, D), randn(B, Lq, Hkv, D), randn(B, Lq, Hkv, D), \
+            randn(B, Lq, H, D)
         lt = torch.tensor(lens, dtype=torch.int32, device=dev)
-        tag = f"B={B} Lq={Lq} H={H}/{Hkv} causal={causal} kv_len={lens}"
+        tag = f"B={B} Lq={Lq} H={H}/{Hkv} D={D} causal={causal} kv_len={lens}"
         out, lse = fb.flash_attention_fwd_lse(q, k, v, lt, causal=causal)
         ref_out, ref_lse = fb.flash_attention_fwd_lse_reference(q.float(), k.float(), v.float(),
                                                                 lt, causal)
@@ -482,8 +507,9 @@ def _train_edge_checks(randn):
 
 def _edge_checks(randn):
     """Kernels 1, 2, 4 and 6 at edge shapes against their plain versions in
-    f32. Returns, for kernels 1 and 2, the largest (max-abs error, row ratio)
-    over their cases, and _train_edge_checks' figures."""
+    f32 (kernel 2 also at head dim 64). Returns, for kernels 1 and 2, the
+    largest (max-abs error, row ratio) over their cases, and
+    _train_edge_checks' figures at head dims 128 and 64."""
     import torch
     from socioreasoner_tpu_torch.ops import flash_attention as fa
     dev = torch.device("cuda")
@@ -509,12 +535,15 @@ def _edge_checks(randn):
         seg_err = worst(seg_err, _check_rows(f"segmented edge S={S} D={D} {kind}", got, want))
     pre_err = (0.0, 0.0)
     # (B, Lq, D, causal, H, Hkv): GQA ratios 8 and, leaving rows of the
-    # 128-row items idle, 5 and 7
+    # 128-row items idle, 5 and 7; head dim 64 at Qwen2.5-0.5B's 14 / 2
+    # heads, Llama-3.2-1B's 32 / 8 and GQA 1
     for B, Lq, D, causal, H, Hkv in ((1, 1, 128, True, 16, 2), (4, 63, 128, True, 16, 2),
                                      (4, 129, 80, True, 16, 2), (1, 2048, 128, True, 16, 2),
                                      (4, 129, 128, False, 16, 2), (1, 63, 80, False, 16, 2),
                                      (2, 200, 128, True, 40, 8), (3, 129, 128, False, 28, 4),
-                                     (2, 150, 80, True, 14, 2)):
+                                     (2, 150, 80, True, 14, 2), (1, 1, 64, True, 14, 2),
+                                     (4, 300, 64, True, 14, 2), (3, 129, 64, True, 32, 8),
+                                     (4, 200, 64, False, 4, 4), (2, 63, 64, True, 32, 8)):
         q, k, v = randn(B, Lq, H, D), randn(B, Lq, Hkv, D), randn(B, Lq, Hkv, D)
         lens = [Lq, 0, 1, max(Lq // 2, 1)][:B]
         mask = (torch.arange(Lq, device=dev)[None]
@@ -524,20 +553,23 @@ def _edge_checks(randn):
                                             causal=causal)
         pre_err = worst(pre_err, _check_rows(
             f"prefill edge B={B} Lq={Lq} H={H}/{Hkv} D={D} causal={causal}", got, want))
-    return seg_err, pre_err, _train_edge_checks(randn)
+    return (seg_err, pre_err, _train_edge_checks(randn),
+            _train_edge_checks(randn, TRAIN_EDGES_64, 64))
 
 
-def _one_image_seg_checks(randn):
-    """Kernel 1 at the rlvr phase's MathVLM tower call, one 756² image
-    (S = 2916), window and full-layer ids on the plans the tower builds, row
-    by row against the plain version in f32; timed with its bound."""
+def _one_image_seg_checks(randn, grid=None):
+    """Kernel 1 at one image's tower call (`grid`: the rlvr phase's MathVLM
+    756² image, S = 2916, or the agentic phase's 112² frame, S = 64),
+    window and full-layer ids on the plans the tower builds, row by row
+    against the plain version in f32; timed with its bound."""
     import torch
     from socioreasoner_tpu_torch.models.qwen2_5_vl.config import VisionConfig
     from socioreasoner_tpu_torch.models.qwen2_5_vl.rope import vision_window_index
     from socioreasoner_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
-    _, window_seg, full_seg = vision_window_index(np.array(MATH_VLM_GRID), VisionConfig())
+    grid = MATH_VLM_GRID if grid is None else grid
+    _, window_seg, full_seg = vision_window_index(np.array(grid), VisionConfig())
     S, H, D = len(window_seg), 16, 80
     q, k, v = randn(S, H, D), randn(S, H, D), randn(S, H, D)
     bq, bk = fa.seg_block_sizes(S)
@@ -645,7 +677,7 @@ def phase_kernels():
         return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
 
     results = []
-    seg_edge, pre_edge, train_edge = _edge_checks(randn)
+    seg_edge, pre_edge, train_edge, train_edge_64 = _edge_checks(randn)
 
     # segmented: two 756x756 images (the resize of a 768-px tile), 16 x 80
     vcfg = VisionConfig()
@@ -684,6 +716,7 @@ def phase_kernels():
                            "host_us": host_us(run), "plan_us": host_us(make_plan, n=10),
                            "bound": bound(4 * S * H * D * 2, 4 * D * H * _seg_pairs(seg_np))}
     one_image = _one_image_seg_checks(randn)
+    agentic_frame = _one_image_seg_checks(randn, AGENTIC_GRID)
     try:
         fa.flash_attention_segmented(q, k, v, torch.as_tensor(full_seg),
                                      block_q=bq, block_k=bk,
@@ -714,15 +747,16 @@ def phase_kernels():
             "shape": f"S={S} H=16 D=80, ms per tile = {vcfg.depth} full layers",
             "bound_ms": vcfg.depth * full["bound"][0], "bound_by": full["bound"][1]},
         max_row_ratio=max(r for _, r in errs), edge_max_abs_err=seg_edge[0],
-        edge_max_row_ratio=seg_edge[1], math_vlm_one_image=one_image))
+        edge_max_row_ratio=seg_edge[1], math_vlm_one_image=one_image,
+        agentic_frame=agentic_frame))
     emit({"phase": "kernel", **results[-1]})
 
     # prefill: 16 q / 2 kv heads, D=128; checked and timed at the L=2048
     # bucket at B=2 with kv lens {2016, 1} and at the main phase's prefill
     # (four 2016-token prompts), and at the two_stage phase's stage-2 prefill
-    def prefill_case(lens, L=2048, H=16, Hkv=2):
+    def prefill_case(lens, L=2048, H=16, Hkv=2, D=128):
         B = len(lens)
-        q, k, v = randn(B, L, H, 128), randn(B, L, Hkv, 128), randn(B, L, Hkv, 128)
+        q, k, v = randn(B, L, H, D), randn(B, L, Hkv, D), randn(B, L, Hkv, D)
         mask = (torch.arange(L, device=dev)[None]
                 < torch.tensor(lens, device=dev)[:, None]).to(torch.int32)
         run = lambda: fa.flash_attention(q, k, v, mask, causal=True)   # noqa: E731
@@ -738,7 +772,7 @@ def phase_kernels():
         return {"err": err, "ratio": ratio, "ms": cuda_ms(run), "device_ms": graph_call_ms(run),
                 "library_ms": cuda_ms(lib), "host_us": host_us(run),
                 "bound": bound(2 * (2 * q.numel() + k.numel() + v.numel()),
-                               4 * 128 * H * _causal_pairs(L, lens)),
+                               4 * D * H * _causal_pairs(L, lens)),
                 "plain": lambda: fa.flash_attention_reference(q, k, v, mask, causal=True)}
 
     def summary(case, shape):
@@ -755,8 +789,14 @@ def phase_kernels():
     judge = {(B, L): prefill_case(_judge_prefill_lens(B), L) for B, L in JUDGE_PREFILL}
     families = {name: prefill_case(list(lens), L, H, Hkv)
                 for name, (lens, L, H, Hkv) in FAMILY_PREFILL.items()}
+    head_dim_64 = {name: prefill_case(list(lens), L, H, Hkv, 64)
+                   for name, (lens, L, H, Hkv) in HEAD_DIM_64_PREFILL.items()}
+    agentic = {(B, L): prefill_case(_agentic_prefill_lens(B, L), L) for B, L in AGENTIC_PREFILL}
+    agentic_text = {(B, L): prefill_case(_agentic_text_prefill_lens(B, L), L, 14, 2, 64)
+                    for B, L in AGENTIC_TEXT_PREFILL}
     cases = (check, main, *stage2.values(), *grpo.values(), *rlvr.values(), *judge.values(),
-             *families.values())
+             *families.values(), *head_dim_64.values(), *agentic.values(),
+             *agentic_text.values())
     results.append(_row(
         "flash_attention", "socioreasoner_tpu_torch/csrc/flash_prefill.cu",
         "socioreasoner_tpu/ops/flash_attention.py:37",
@@ -789,6 +829,20 @@ def phase_kernels():
         families_prefill={name: summary(families[name], f"B={len(lens)} L={L} H={H} "
                                                         f"Hkv={Hkv} kv_len={list(lens)}")
                           for name, (lens, L, H, Hkv) in FAMILY_PREFILL.items()},
+        # head dim 64: Qwen2.5-0.5B's prefill in the agentic phase and
+        # Llama-3.2-1B's heads at the same shape (no phase serves it)
+        head_dim_64={name: summary(head_dim_64[name], f"B={len(lens)} L={L} H={H} Hkv={Hkv} "
+                                                      f"D=64 kv_len={list(lens)}")
+                     | {"host_us": head_dim_64[name]["host_us"]}
+                     for name, (lens, L, H, Hkv) in HEAD_DIM_64_PREFILL.items()},
+        # each (B, L) bucket the agentic phase's two pipelines may prefill
+        agentic_prefill={f"B{B}_L{L}": summary(case, f"B={B} L={L} kv_len="
+                                                     f"{_agentic_prefill_lens(B, L)}")
+                         for (B, L), case in agentic.items()},
+        agentic_text_prefill={f"B{B}_L{L}": summary(case, f"B={B} L={L} H=14 Hkv=2 D=64 "
+                                                          f"kv_len="
+                                                          f"{_agentic_text_prefill_lens(B, L)}")
+                              for (B, L), case in agentic_text.items()},
         edge_max_abs_err=pre_edge[0], edge_max_row_ratio=pre_edge[1],
         bounds_checked=_prefill_bounds_check()))
     emit({"phase": "kernel", **results[-1]})
@@ -796,10 +850,25 @@ def phase_kernels():
     results.extend(_decode_kernels(randn))
     results.extend(_train_kernels(randn, train_edge))
     for phase, spec in (("grpo", GRPO_TRAIN), ("rlvr", RLVR_TRAIN),
-                        ("math_vlm", MATH_VLM_TRAIN), ("families", FAMILY_TRAIN)):
+                        ("math_vlm", MATH_VLM_TRAIN), ("families", FAMILY_TRAIN),
+                        ("agentic_vlm", AGENTIC_VLM_TRAIN)):
         for row, cases in zip(results[-3:], _phase_train_kernels(randn, spec)):
             row[phase] = cases
             emit({"phase": f"kernel_{phase}_shapes", "name": row["name"], **cases})
+    # head dim 64: the agentic phase's Qwen2.5-0.5B train batches (its text
+    # pipeline's episodes, its 24-layer parity step) and Llama-3.2-1B's heads
+    fwd64, dq64, dkv64, splits64 = train_edge_64
+    edges64 = ({"edge_max_abs_err": fwd64[0], "edge_max_row_ratio": fwd64[1],
+                "edge_lse_max_abs_err": fwd64[2]},
+               {"edge_max_rel_err": dq64[0], "edge_max_row_ratio": dq64[1]},
+               {"edge_max_rel_err": dkv64[0], "edge_max_row_ratio": dkv64[1],
+                "edge_split_tiles": splits64, "plan_mismatch": _dkv_plan_mismatch(64)})
+    for row, edge in zip(results[-3:], edges64):
+        row["head_dim_64"] = dict(edge)
+    for name, spec in HEAD_DIM_64_TRAIN.items():
+        for row, cases in zip(results[-3:], _phase_train_kernels(randn, spec)):
+            row["head_dim_64"][name] = cases
+            emit({"phase": f"kernel_head_dim_64_{name}", "name": row["name"], **cases})
     results.append(_row_writer_kernel(randn))
     return results
 
@@ -881,6 +950,50 @@ def _judge_prefill_lens(B: int):
     return [JUDGE_PROMPT_TOKENS - 13 * i for i in range(B)]
 
 
+# The agentic phase's attention shapes, checked in phase_kernels and held to
+# that phase. (a) AgenticVLMPipeline on the main tree: grid_goal frames of
+# 112² (4 cells of 28 px: 8 x 8 patches, one window; 16 rows after the
+# merge), one more a turn; prompts of ~176 tokens at the first turn (the
+# system block, a user block with the frame, the assistant header) and
+# ~260-350 at the second and third (each action's 32 tokens, the next
+# frame's block), prefilled 1, 2 or 4 at a time in the buckets of 256 and
+# 512; 4 slots of prompt_length 1024 + response_length 32 with decode_chunk
+# 16 (Lalloc 1280); the episode batch of 4 rows right-padded to the longest
+# episode (data-dependent: held after the run at the rows it had). (b)
+# AgenticPipeline on Qwen2.5-0.5B (14 / 2 heads x 64): one request a turn,
+# templated prompts of ~100-200 tokens in the buckets of 128 and 256, decoded
+# densely (head dim 64, as the JAX package routes it); the batch of each
+# episode's last turn at prompt_length 256 + response_length 32.
+AGENTIC_GRID = [[1, 8, 8]]
+AGENTIC_SLOTS, AGENTIC_DECODE_CHUNK = 4, 16
+AGENTIC_VLM_CUTS = {"prompt_length": 1024, "response_length": 32, "max_steps": 2,
+                    "max_steps_per_traj": 3, "env_groups": 2, "group_size": 2,
+                    "val_batch_size": 2, "eval_steps": 1}
+AGENTIC_LALLOC = -(-(1024 + 32 + AGENTIC_DECODE_CHUNK) // 256) * 256
+AGENTIC_BUCKETS = (256, 512, 1024)
+AGENTIC_PREFILL = tuple((B, L) for L in (256, 512) for B in (1, 2, 4))
+AGENTIC_VLM_TRAIN = {"L": 384, "train_batch": 4, "logprob_batch": 4, "kv_lens": (380, 347)}
+AGENTIC_TEXT_CUTS = {"prompt_length": 256, "response_length": 32, "max_steps": 2,
+                     "episodes": 4, "max_turns": 3}
+AGENTIC_TEXT_BUCKETS = (128, 256)
+AGENTIC_TEXT_PREFILL = ((1, 128), (1, 256))
+AGENTIC_TEXT_LALLOC = -(-(256 + 32 + AGENTIC_DECODE_CHUNK) // 256) * 256
+AGENTIC_TEXT_TRAIN = {"L": 256 + 32, "train_batch": 4, "logprob_batch": 4,
+                      "kv_lens": (230, 190), "H": 14, "Hkv": 2, "D": 64}
+
+
+def _agentic_prefill_lens(B: int, L: int):
+    """kv lengths of an agentic VLM prefill bucket: B prompts 37 tokens
+    apart, a first turn's (176) in the bucket of 256, a third turn's (347)
+    in that of 512."""
+    return [(176 if L == 256 else 347) - 37 * i for i in range(B)]
+
+
+def _agentic_text_prefill_lens(B: int, L: int):
+    """kv lengths of an agentic text prefill bucket (one request)."""
+    return [L - 8 - 37 * i for i in range(B)]
+
+
 # Kernels 3 and 3q: (case, slots, Lalloc, lengths) of the checks. "main" is
 # the main phase's decode (prompts of 2016 tokens and fewer); "edges" the
 # edges of a block; "slots32" the production slot count
@@ -898,7 +1011,8 @@ DECODE_CASES = (
     ("rlvr", RLVR_SLOTS, RLVR_LALLOC, (0, 1, 63, 64, 65, 100, 127, 128, 129, 140, 200, 255,
                                        256, 257, 300, 383, 384, 385, 396, 400, 511, 512, 513,
                                        639, 640, 641, 700, 703, 704, 705, 767, 768)),
-    ("math_vlm", MATH_VLM_SLOTS, MATH_VLM_LALLOC, (0, 941, 942, 980, 1040, 1068, 1069, 1280)))
+    ("math_vlm", MATH_VLM_SLOTS, MATH_VLM_LALLOC, (0, 941, 942, 980, 1040, 1068, 1069, 1280)),
+    ("agentic", AGENTIC_SLOTS, AGENTIC_LALLOC, (177, 211, 262, 300, 347, 380, 0, 1)[:AGENTIC_SLOTS]))
 
 # The families phase's attention shapes, checked in phase_kernels and held to
 # the phase: four text prompts of these lengths in the prefill bucket of 512,
@@ -929,6 +1043,19 @@ FAMILY_DECODE_CASES = (
     ("qwen2_moe", 4, FAMILY_LALLOC, tuple(n + 9 for n in FAMILY_PROMPT_LENS),
      FAMILY_QWEN2_MOE_LAYERS, 16, 16),
     ("qwen2_vl", 4, MAIN_LALLOC, (2049, 2048, 2017, 2079), 28, 12, 2))
+# Head dim 64: Qwen2.5-0.5B (14 / 2 heads) served and trained in the agentic
+# phase as the families are (its four prompts in the bucket of 512, its
+# 24-layer PPO step on B=2 rows of 2048 against dense attention, decode
+# dense), and Llama-3.2-1B's 32 / 8 heads at the same shapes (no phase serves
+# it); kernels 2 and 4-6 are checked at both.
+HEAD_DIM_64_PREFILL = {"qwen2_5_0_5b": (FAMILY_PROMPT_LENS, FAMILY_BUCKET, 14, 2),
+                       "llama_3_2_1b": (FAMILY_PROMPT_LENS, FAMILY_BUCKET, 32, 8)}
+HEAD_DIM_64_TRAIN = {
+    "qwen2_5_0_5b": {"L": 2048, "train_batch": 2, "logprob_batch": 2, "kv_lens": (2048, 1500),
+                     "H": 14, "Hkv": 2, "D": 64},
+    "llama_3_2_1b": {"L": 2048, "train_batch": 2, "logprob_batch": 2, "kv_lens": (2048, 1500),
+                     "H": 32, "Hkv": 8, "D": 64},
+    "agentic_text": AGENTIC_TEXT_TRAIN}
 
 
 def _decode_caches(randn, slots, Lalloc, quant, layers=36, Hkv=2):
@@ -970,7 +1097,7 @@ def _decode_kernels(randn):
                     else da.paged_decode_attention_reference)
         errs, ratios, timed = [], [], {}
         for case, slots, Lalloc, lens, *heads in DECODE_CASES + FAMILY_DECODE_CASES:
-            if quant and case in ("two_stage", "grpo", "rlvr", "math_vlm") + tuple(
+            if quant and case in ("two_stage", "grpo", "rlvr", "math_vlm", "agentic") + tuple(
                     c[0] for c in FAMILY_DECODE_CASES):
                 continue
             layers, H, Hkv = heads or (36, 16, 2)
@@ -1040,11 +1167,12 @@ def _decode_kernels(randn):
         shapes = f"(36, 4|8|32, {MAIN_LALLOC}, 2, 128)" + (
             "" if quant else f", (36, 4|{GRPO_SLOTS}, {TWO_STAGE_LALLOC}, 2, 128), "
             f"(36, {RLVR_SLOTS}, {RLVR_LALLOC}, 2, 128), "
-            f"(36, {MATH_VLM_SLOTS}, {MATH_VLM_LALLOC}, 2, 128) and the families' "
+            f"(36, {MATH_VLM_SLOTS}, {MATH_VLM_LALLOC}, 2, 128), "
+            f"(36, {AGENTIC_SLOTS}, {AGENTIC_LALLOC}, 2, 128) and the families' "
             + ", ".join(f"({c[4]}, {c[1]}, {c[2]}, {c[6]}, 128) under {c[5]} q heads"
                         for c in FAMILY_DECODE_CASES))
         extra = {} if quant else {case: summary(timed[case]) for case in (
-            "two_stage", "grpo", "rlvr", "math_vlm")} | {"families_decode": {
+            "two_stage", "grpo", "rlvr", "math_vlm", "agentic")} | {"families_decode": {
                 c[0]: summary(timed[c[0]]) for c in FAMILY_DECODE_CASES}}
         rows.append(_row(
             name, "socioreasoner_tpu_torch/csrc/paged_decode.cu",
@@ -1253,25 +1381,28 @@ def _train_kernels(randn, edge):
 
 def _phase_train_kernels(randn, spec):
     """Kernels 4-6 at a phase's train micro-batch and kernel 4 at its
-    log-prob chunk (`spec`: GRPO_TRAIN, RLVR_TRAIN or MATH_VLM_TRAIN: L, the
-    two batch sizes, and two kv lengths that the rows alternate, each pair
-    of rows 3 shorter), against their plain versions in f32 a batch row at a
-    time, row by row (kernel 6 on a plan built once, against the joint scale
-    of dk and dv with GRAD_ROW_FLOOR), each timed with its bound and library
+    log-prob chunk (`spec`: GRPO_TRAIN, RLVR_TRAIN, MATH_VLM_TRAIN, ...: L,
+    the two batch sizes, and two kv lengths that the rows alternate, each
+    pair of rows 3 shorter, or the rows' own `lens`; the heads H / Hkv and
+    head dim D, 16 / 2 x 128 unless named), against their plain versions in
+    f32 a batch row at a time, row by row (kernel 6 on a plan built once,
+    against the joint scale of dk and dv with GRAD_ROW_FLOOR; kernels 5 and
+    6 two calls bit-equal), each timed with its bound, host us and library
     call. Returns one dict of cases for each of kernels 4, 5, 6."""
     import torch
     import torch.nn.functional as F
     from socioreasoner_tpu_torch.ops import flash_attention_bwd as fb
 
     dev = torch.device("cuda")
-    L, H, Hkv = spec["L"], spec.get("H", 16), spec.get("Hkv", 2)
+    L, H, Hkv, D = spec["L"], spec.get("H", 16), spec.get("Hkv", 2), spec.get("D", 128)
     out = ({}, {}, {})
     for B, backward in ((spec["train_batch"], True), (spec["logprob_batch"], False)):
-        lens_l = [spec["kv_lens"][b % 2] - 3 * (b // 2) for b in range(B)]
+        lens_l = list(spec["lens"][:B]) if "lens" in spec else \
+            [spec["kv_lens"][b % 2] - 3 * (b // 2) for b in range(B)]
         lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
-        q, k, v, do = randn(B, L, H, 128), randn(B, L, Hkv, 128), randn(B, L, Hkv, 128), \
-            randn(B, L, H, 128)
-        tag = f"B={B} L={L} H={H} Hkv={Hkv} D=128 causal kv_len={lens_l}"
+        q, k, v, do = randn(B, L, H, D), randn(B, L, Hkv, D), randn(B, L, Hkv, D), \
+            randn(B, L, H, D)
+        tag = f"B={B} L={L} H={H} Hkv={Hkv} D={D} causal kv_len={lens_l}"
         refs = [fb.flash_attention_fwd_lse_reference(
             q[b:b + 1].float(), k[b:b + 1].float(), v[b:b + 1].float(), lens[b:b + 1])
             for b in range(B)]
@@ -1293,10 +1424,11 @@ def _phase_train_kernels(randn, spec):
         out[0][case] = {
             "shape": tag, "err": err, "ratio": ratio, "lse_err": lse_err,
             "ms": cuda_ms(run_fwd), "device_ms": graph_call_ms(run_fwd),
+            "host_us": host_us(run_fwd),
             "library_ms": cuda_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
                 qt, kt, vt, is_causal=True)),
             **dict(zip(("bound_ms", "bound_by"),
-                       bound(qkv_bytes + 2 * q.numel() + f32_rows, 4 * 128 * pairs)))}
+                       bound(qkv_bytes + 2 * q.numel() + f32_rows, 4 * D * pairs)))}
         if not backward:
             continue
         delta = (do.float() * ref_out).sum(-1).transpose(1, 2).contiguous()
@@ -1306,6 +1438,10 @@ def _phase_train_kernels(randn, spec):
         run_dkv = lambda: fb.flash_attention_bwd_dkv(   # noqa: E731
             q, k, v, do, ref_lse, delta, lens, plan=plan)
         got = (run_dq(), *run_dkv())
+        again = (run_dq(), *run_dkv())
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"kernels 5/6 {tag}: two calls on the same inputs differ")
+        del again
         want = [torch.cat(g) for g in zip(*(fb.flash_attention_bwd_reference(
             q[b:b + 1].float(), k[b:b + 1].float(), v[b:b + 1].float(), do[b:b + 1].float(),
             ref_lse[b:b + 1], delta[b:b + 1], lens[b:b + 1]) for b in range(B)))]
@@ -1321,12 +1457,13 @@ def _phase_train_kernels(randn, spec):
         del lib_out, leaves
         bwd_in = qkv_bytes + 2 * do.numel() + 2 * f32_rows
         for i, (run, err_t, out_bytes, ops) in enumerate((
-                (run_dq, [dq_err], 2 * q.numel(), 6 * 128 * pairs),
-                (run_dkv, dkv_err, 2 * (k.numel() + v.numel()), 8 * 128 * pairs)), start=1):
+                (run_dq, [dq_err], 2 * q.numel(), 6 * D * pairs),
+                (run_dkv, dkv_err, 2 * (k.numel() + v.numel()), 8 * D * pairs)), start=1):
             out[i][case] = {
                 "shape": tag, "err": max(e[0] for e in err_t),
                 "rel_err": max(e[1] for e in err_t), "ratio": max(e[2] for e in err_t),
-                "ms": cuda_ms(run), "device_ms": graph_call_ms(run),
+                "ms": cuda_ms(run), "device_ms": graph_call_ms(run), "host_us": host_us(run),
+                "bit_equal_twice": True,
                 "library_ms": lib_bwd, "library": "SDPA autograd backward, dq+dk+dv",
                 **dict(zip(("bound_ms", "bound_by"), bound(bwd_in + out_bytes, ops)))}
         del plan
@@ -1339,12 +1476,13 @@ def _phase_train_kernels(randn, spec):
 # trap), which leaves the process's CUDA context unusable, so it runs in a
 # child process of its own.
 PLAN_MISMATCH_CHILD = """
-import json, torch
+import json, sys, torch
 from socioreasoner_tpu_torch.ops import flash_attention_bwd as fb
 dev = torch.device("cuda")
+D = int(sys.argv[1])
 g = torch.Generator(device=dev).manual_seed(0)
-q, do = (torch.randn(2, 8, 4, 128, generator=g, device=dev).bfloat16() for _ in range(2))
-k, v = (torch.randn(2, 8, 2, 128, generator=g, device=dev).bfloat16() for _ in range(2))
+q, do = (torch.randn(2, 8, 4, D, generator=g, device=dev).bfloat16() for _ in range(2))
+k, v = (torch.randn(2, 8, 2, D, generator=g, device=dev).bfloat16() for _ in range(2))
 stats = torch.zeros(2, 4, 8, device=dev)
 plan = fb.dkv_plan(torch.tensor([8, 3]), 2, 8, 8, 4, 2, True, dev)
 for lens in ([8, 3], [8, 5]):
@@ -1359,11 +1497,11 @@ raise SystemExit(3)
 """
 
 
-def _dkv_plan_mismatch() -> str:
-    """Runs PLAN_MISMATCH_CHILD from the repository's root; returns the
-    CUDA error of its mismatched call, raises unless the matching call ran
-    and the mismatched one failed with a CUDA error."""
-    child = subprocess.run([sys.executable, "-c", PLAN_MISMATCH_CHILD],
+def _dkv_plan_mismatch(D: int = 128) -> str:
+    """Runs PLAN_MISMATCH_CHILD at head dim D from the repository's root;
+    returns the CUDA error of its mismatched call, raises unless the
+    matching call ran and the mismatched one failed with a CUDA error."""
+    child = subprocess.run([sys.executable, "-c", PLAN_MISMATCH_CHILD, str(D)],
                            cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
                            timeout=300)
     lines = child.stdout.strip().splitlines()
@@ -2496,7 +2634,8 @@ def profile_decode_chunk(engine, dev, prompt_len, seed: int = 0):
     rng = np.random.default_rng(seed)
     # the first token comes from the prefill: three whole chunks follow it
     sp = SamplingParams(temperature=1.0, top_p=0.8, max_new_tokens=3 * engine.decode_chunk + 1)
-    top = min(c.image_token_id, c.eos_token_id, 10000)
+    # random text ids below the special ids (a test config's eos may be 1)
+    top = min(t for t in (c.image_token_id, c.eos_token_id, 10000) if t > 10)
     lens = prompt_len if isinstance(prompt_len, (list, tuple)) else [prompt_len] * engine.S
     engine.waiting.extend(Request(("decode_profile", i), rng.integers(10, top, n).tolist(), sp)
                           for i, n in enumerate(lens))
@@ -4552,12 +4691,15 @@ def _router_gaps(config, params, ids_t, pos_t, attn_t, token: int):
 def greedy_against_forward(config, params, dev, prompts, outs):
     """Each request's greedy tokens against one teacher-forced uncached
     forward (dense attention) over its prompt and tokens. A token that is
-    not the forward's argmax counts as a tie where it is the runner-up
-    within GAP_TOL (phase_engine's rule) or, for an MoE family, where at
-    that token some layer's k-th and (k+1)-th router probabilities lie
-    within one bf16 ulp (the routing flips on rounding); anything else is
-    a failure. Returns (tie flips, routing ties, failures, checked
-    tokens)."""
+    not the forward's argmax counts as a tie where its logit lies within
+    GAP_TOL of the argmax's (phase_engine's rule, which takes the
+    runner-up: in a 151,936-token vocabulary of bf16 logits three or more
+    tokens can share the top value, so the token may rank third on a gap
+    of 0) or, for an MoE family, where at that token some layer's k-th and
+    (k+1)-th router probabilities lie within one bf16 ulp (the routing
+    flips on rounding); anything else is a failure. Returns (tie flips as
+    (request, step, the token's gap, its rank), routing ties, failures,
+    checked tokens)."""
     import torch
     from socioreasoner_tpu_torch.models import llm
     from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
@@ -4577,9 +4719,9 @@ def greedy_against_forward(config, params, dev, prompts, outs):
             top2 = np.argsort(rows[step])[-2:][::-1]
             if tok == int(top2[0]):
                 continue
-            gap = float(rows[step][top2[0]] - rows[step][top2[1]])
-            if tok == int(top2[1]) and gap < GAP_TOL:
-                flips.append((r, step, gap))
+            gap = float(rows[step][top2[0]] - rows[step][tok])
+            if gap < GAP_TOL:
+                flips.append((r, step, gap, int((rows[step] > rows[step][tok]).sum()) + 1))
                 continue
             layers = []
             if config.text.n_experts:
@@ -4671,9 +4813,9 @@ def train_family(config, params, dev, *, lens=FAMILY_TRAIN["kv_lens"], steps=2):
     dense attention (allow_flash=False), each from its own copy of the bf16
     params, on parity_batch's rows of `lens`: the loss and pre-clip grad norm
     of every step within PARITY_LOSS_TOL / PARITY_NORM_TOL of dense, and the
-    router, every expert stack and q/k norms given finite, non-zero
-    gradients (AdamW's first moments after the steps). Returns the
-    figures."""
+    MLP's stacks (an MoE family's router, every expert stack and q/k norms)
+    given finite, non-zero gradients (AdamW's first moments after the
+    steps). Returns the figures."""
     import torch
     from socioreasoner_tpu_torch.distributed import trainer as T
     from socioreasoner_tpu_torch.pipeline.losses import PPOLossConfig
@@ -4708,7 +4850,8 @@ def train_family(config, params, dev, *, lens=FAMILY_TRAIN["kv_lens"], steps=2):
           and all(abs(a - b) <= PARITY_NORM_TOL * b for a, b in zip(k["grad_norm"],
                                                                      d["grad_norm"]))
           and np.isfinite(k["loss"] + k["grad_norm"]).all()
-          and all(k["finite_nonzero_grads"].values()) and len(watched) >= 6)
+          and all(k["finite_nonzero_grads"].values())
+          and len(watched) >= (6 if config.text.n_experts else 3))
     out = {"shape": f"B={len(lens)} L={lens[0]} kv_len={list(lens)}",
            "kernels": k, "dense": d}
     if not ok:
@@ -5029,6 +5172,382 @@ def phase_families():
     return launches
 
 
+# ------------------------------------------------------------------ agentic
+
+QWEN25_05B_INSTRUCT = {   # Qwen/Qwen2.5-0.5B-Instruct
+    "architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2", "vocab_size": 151936,
+    "hidden_size": 896, "intermediate_size": 4864, "num_hidden_layers": 24,
+    "num_attention_heads": 14, "num_key_value_heads": 2, "max_position_embeddings": 32768,
+    "max_window_layers": 21, "rms_norm_eps": 1e-06, "rope_theta": 1000000.0,
+    "sliding_window": 32768, "use_sliding_window": False, "tie_word_embeddings": True,
+    "bos_token_id": 151643, "eos_token_id": 151645, "hidden_act": "silu",
+    "torch_dtype": "bfloat16"}
+# the metric keys each agentic pipeline logs a step, as the JAX package's
+AGENTIC_VLM_KEYS = (
+    "val/score/mean", "val/score/max", "val/score/min", "critic/ref_log_prob/mean",
+    "critic/old_log_prob/mean", "critic/entropy/mean", "critic/kl", "critic/score/mean",
+    "critic/score/max", "critic/score/min", "critic/penalty/mean", "agentic/solved_rate",
+    "tokens/response_length/mean", "tokens/prompt_length/mean", "system/samples",
+    "time/rollout", "time/ref_log_probs", "time/old_log_probs_values", "time/adv",
+    "time/train", "time/step", "actor_train/grad_norm", "actor_train/loss",
+    "actor_train/pg_loss", "actor_train/entropy")
+AGENTIC_TEXT_KEYS = ("agentic/return_mean", "agentic/solved_rate", "time/rollout",
+                     "time/train", "time/step", "critic/kl", "actor_train/grad_norm",
+                     "actor_train/loss", "actor_train/pg_loss", "actor_train/entropy")
+AGENTIC_TIMERS = ("step", "rollout", "ref_log_probs", "old_log_probs_values", "adv", "train")
+
+
+def agentic_vlm_config(out_dir: str, **cuts):
+    """AgenticConfig of the agentic phase's VLM run: grid_goal in
+    env_groups x group_size envs (one seed a group), mean_std over state,
+    an adaptive KL controller, a small entropy bonus (random weights score
+    every episode of a group alike, so the normalised rewards are 0), lr
+    STEP_LR."""
+    from socioreasoner_tpu_torch.configs.agentic_config import (
+        AgenticConfig, EnvManagerConfig, RewardNormalizationConfig)
+    c = dict(AGENTIC_VLM_CUTS, **cuts)
+    cfg = AgenticConfig(
+        output_dir=out_dir, track_with="stdout", save_steps=-1, seed=7,
+        rollout_batch_size=c["env_groups"] * c["group_size"],
+        prompt_length=c["prompt_length"], response_length=c["response_length"],
+        max_steps=c["max_steps"], eval_steps=c["eval_steps"],
+        max_steps_per_traj=c["max_steps_per_traj"], val_batch_size=c["val_batch_size"],
+        adv_estimator="grpo", entropy_loss_coef=1e-3, init_kl_coef=0.05, target_kl=0.1,
+        reward_normalization=RewardNormalizationConfig(grouping="state", method="mean_std"),
+        train_env_manager=EnvManagerConfig(env_groups=c["env_groups"],
+                                           group_size=c["group_size"], tags=["grid_goal"]),
+        val_env_manager=EnvManagerConfig(env_groups=c["val_batch_size"], tags=["grid_goal"]))
+    ga = cfg.actor_infer.generating_args
+    ga.max_new_tokens = c["response_length"]
+    if c.get("temperature") is not None:      # 0: greedy
+        ga.temperature, ga.do_sample = c["temperature"], c["temperature"] > 0
+    cfg.actor_train.training_args.learning_rate = STEP_LR
+    return cfg
+
+
+def _agentic_recorder(pipe):
+    """Record every train and log-prob batch's (B, L, kv lengths) at the
+    strategies' step functions."""
+    seen = {"train": [], "logprob": []}
+
+    def record(kind, step_fn):
+        def wrapped(*args):
+            batch = args[-1]
+            lens = batch["attention_mask"].sum(-1).tolist()
+            seen[kind].append((*batch["input_ids"].shape, tuple(int(n) for n in lens)))
+            return step_fn(*args)
+        return wrapped
+    pipe.actor_train._train_step = record("train", pipe.actor_train._train_step)
+    for strat in (pipe.actor_train, getattr(pipe, "reference", None)):
+        if strat is not None:
+            strat._logprob_step = record("logprob", strat._logprob_step)
+    return seen
+
+
+def _episode_checks(group, sampled):
+    """Wrap a rollout group's get_batch: each request's sampled ids recorded
+    by env, then each episode's response_mask held to cover exactly the
+    engine's sampled ids, and its image rows to 16 a 112² frame (merged
+    8 x 8 patches). Returns the list the episodes are appended to."""
+    episodes = []
+    plain_get, plain_req = group.get_batch, group.scheduler.generate_one_request
+
+    def generate_one_request(req):
+        out = plain_req(req)
+        if out is not None:
+            sampled.setdefault(req.meta["src_rank"], []).extend(out.meta["output_token_ids"][0])
+        return out
+
+    def get_batch(*a, **k):
+        sampled.clear()
+        eps = plain_get(*a, **k)
+        for ep in eps:
+            got = ep.input_ids[ep.response_mask == 1].tolist()
+            if got != sampled.get(ep.env_id, []) or not got:
+                raise AssertionError(f"env {ep.env_id}: response_mask covers {len(got)} ids, "
+                                     f"the engine sampled {len(sampled.get(ep.env_id, []))}")
+            grids = np.asarray(ep.image_grid_thw)
+            if (grids != np.array(AGENTIC_GRID)).any() or \
+                    ep.image_embeds.shape[0] != 16 * len(grids) or len(grids) != len(ep.frames):
+                raise AssertionError(f"env {ep.env_id}: {len(grids)} frames, grids {grids}, "
+                                     f"{ep.image_embeds.shape[0]} embed rows")
+        episodes.extend(eps)
+        return eps
+    group.scheduler.generate_one_request = generate_one_request
+    group.get_batch = get_batch
+    return episodes
+
+
+def _finite_keys(name, metrics, keys):
+    missing = [k for k in keys if k not in metrics]
+    bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+    if missing or bad:
+        raise AssertionError(f"{name}: metrics missing {missing}, not finite {bad}")
+
+
+def run_agentic_vlm(config, params, out_dir, dev, *, kernels=(), processor=None,
+                    buckets=AGENTIC_BUCKETS, decode_chunk=AGENTIC_DECODE_CHUNK, **cuts):
+    """(a) AgenticVLMPipeline.run() on grid_goal (agentic_vlm_config), the
+    policy a copy of `params`, `params` itself the frozen reference (its
+    checksums must not move); each episode's response mask held to the
+    engine's sampled ids and its image rows to its frames (_episode_checks);
+    then one step of AgenticRolloutPipeline over `params`. Returns the
+    figures: metrics per step, timers, episodes, launches of `kernels` in
+    each pipeline, the engine's prefill buckets and cache, the train and
+    log-prob batches, a profiled decode chunk of the train engine."""
+    from socioreasoner_tpu_torch.pipeline.agentic.agentic_vlm_pipeline import (
+        AgenticRolloutPipeline, AgenticVLMPipeline)
+    processor = processor or _processor(config, None)
+    cfg = agentic_vlm_config(out_dir, **cuts)
+    engine_kwargs = {"max_slots": AGENTIC_SLOTS, "max_len": cfg.sequence_length,
+                     "decode_chunk": decode_chunk, "prefill_buckets": tuple(buckets),
+                     "device": dev}
+    want = tree_checksums(params)
+    pipe = AgenticVLMPipeline(cfg, model_config=config, policy_params=_clone(params),
+                              reference_params=params, processor=processor,
+                              engine_kwargs=engine_kwargs)
+    sampled, shapes = {}, _agentic_recorder(pipe)
+    train_eps = _episode_checks(pipe.train_rollout, sampled)
+    val_eps = _episode_checks(pipe.val_rollout, sampled)
+    kl_before = pipe.kl_ctrl.value
+    _reset(kernels)
+    _sync(dev)
+    t0 = time.perf_counter()
+    last = pipe.run()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = _launch_counts(kernels)
+    history = pipe.state.log_history
+    for h in history:
+        _finite_keys("agentic_vlm", {k: v for k, v in h.items() if k != "step"},
+                     AGENTIC_VLM_KEYS)
+    if tree_checksums(params) != want:
+        raise AssertionError("the agentic phase moved the reference tree")
+    engine = pipe.actor_infer.engine
+    fig = {"wall_s": wall, "steps": len(history),
+           "step_wall_s": [h["time/step"] for h in history],
+           "timers_s": [{k: h.get(f"time/{k}") for k in AGENTIC_TIMERS} for h in history],
+           "metrics": last, "kl_coef": [kl_before, pipe.kl_ctrl.value],
+           "episodes": [{"env": e.env_id, "group": e.group_id, "turns": e.turns,
+                         "tokens": len(e.input_ids), "action_tokens": int(e.response_mask.sum()),
+                         "frames": len(e.frames), "embed_rows": int(e.image_embeds.shape[0]),
+                         "score": e.score} for e in train_eps],
+           "val_episodes": len(val_eps),
+           "prefill_buckets": sorted({(key[0], key[1]) for key in engine.prefill_hist}),
+           "cache": list(engine.caches["k"].shape), "engine_steps": engine.steps_executed,
+           "forked_requests": engine.forked_requests,
+           "train_shapes": shapes["train"], "logprob_shapes": shapes["logprob"],
+           "launches": launches}
+    fig["decode_profile"] = profile_decode_chunk(engine, dev, [176, 211, 262, 347][:engine.S])
+    del pipe, engine
+
+    rollout = AgenticRolloutPipeline(agentic_vlm_config(out_dir, **dict(cuts, max_steps=1)),
+                                     model_config=config, policy_params=params,
+                                     processor=processor, engine_kwargs=engine_kwargs)
+    rollout_eps = _episode_checks(rollout.rollout, sampled)
+    _reset(kernels)
+    t0 = time.perf_counter()
+    rmetrics = rollout.run()
+    _sync(dev)
+    _finite_keys("agentic_rollout", rmetrics, ("rollout/score/mean", "rollout/score/max",
+                                               "rollout/score/min", "system/samples"))
+    fig["rollout_pipeline"] = {
+        "wall_s": time.perf_counter() - t0, "metrics": rmetrics, "episodes": len(rollout_eps),
+        "prefill_buckets": sorted({(key[0], key[1])
+                                   for key in rollout.actor_infer.engine.prefill_hist}),
+        "cache": list(rollout.actor_infer.engine.caches["k"].shape),
+        "launches": _launch_counts(kernels)}
+    return fig
+
+
+def run_agentic_text(config, params, dev, *, kernels=(), processor=None,
+                     buckets=AGENTIC_TEXT_BUCKETS, decode_chunk=AGENTIC_DECODE_CHUNK, **cuts):
+    """(b) AgenticPipeline.run() on guess_number 0-9 for the model `config`
+    (AGENTIC_TEXT_CUTS: episodes a step, turns of the loop and of the env,
+    new tokens), the policy a copy of `params`, `params` the frozen
+    reference (checksums unmoved). Returns the figures, with the launches of
+    `kernels`, the engine's prefill buckets and cache and the train batches."""
+    from socioreasoner_tpu_torch.configs.rlvr_config import RLVRConfig
+    from socioreasoner_tpu_torch.datasets.processor import SimpleTokenizer, SocioProcessor
+    from socioreasoner_tpu_torch.pipeline.agentic.agentic_pipeline import AgenticPipeline
+    c = dict(AGENTIC_TEXT_CUTS, **cuts)
+    processor = processor or SocioProcessor(SimpleTokenizer(config.text.vocab_size),
+                                            image_token_id=config.image_token_id)
+    with tempfile.TemporaryDirectory() as out_dir:
+        cfg = RLVRConfig(output_dir=out_dir, track_with="stdout", save_steps=-1, seed=7,
+                         rollout_batch_size=c["episodes"], prompt_length=c["prompt_length"],
+                         response_length=c["response_length"], max_steps=c["max_steps"],
+                         entropy_loss_coef=1e-3, extra_fields={"max_turns": c["max_turns"]})
+        cfg.actor_infer.generating_args.max_new_tokens = c["response_length"]
+        cfg.actor_train.training_args.learning_rate = STEP_LR
+        want = tree_checksums(params)
+        pipe = AgenticPipeline(
+            cfg, model_config=config, policy_params=_clone(params), reference_params=params,
+            processor=processor, env_name="guess_number",
+            env_kwargs={"low": 0, "high": 9, "max_turns": c["max_turns"]},
+            engine_kwargs={"max_slots": AGENTIC_SLOTS, "max_len": cfg.sequence_length,
+                           "decode_chunk": decode_chunk, "prefill_buckets": tuple(buckets),
+                           "device": dev})
+        shapes = _agentic_recorder(pipe)
+        _reset(kernels)
+        _sync(dev)
+        t0 = time.perf_counter()
+        last = pipe.run()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    launches = _launch_counts(kernels)
+    history = pipe.state.log_history
+    for h in history:
+        _finite_keys("agentic_text", {k: v for k, v in h.items() if k != "step"},
+                     AGENTIC_TEXT_KEYS)
+    if tree_checksums(params) != want:
+        raise AssertionError("the agentic text pipeline moved the reference tree")
+    engine = pipe.actor_infer.engine
+    return {"wall_s": wall, "steps": len(history),
+            "step_wall_s": [h["time/step"] for h in history],
+            "timers_s": [{k: h.get(f"time/{k}") for k in ("step", "rollout", "train")}
+                         for h in history],
+            "metrics": last, "prefill_buckets": sorted({(key[0], key[1])
+                                                        for key in engine.prefill_hist}),
+            "cache": list(engine.caches["k"].shape), "engine_steps": engine.steps_executed,
+            "decode_ms_per_step": engine.decode_time * 1e3 / max(engine.steps_executed, 1),
+            "train_shapes": shapes["train"], "logprob_shapes": shapes["logprob"],
+            "launches": launches}
+
+
+def _recheck_train_shapes(randn, shapes, H, Hkv, D):
+    """Kernels 4-6 at each train batch a pass ran ((B, L, kv lengths), with
+    its data-dependent L), against their plain versions row by row
+    (_phase_train_kernels); returns the largest row ratio of each kernel."""
+    worst = [0.0, 0.0, 0.0]
+    for B, L, lens in sorted(set(shapes)):
+        spec = {"L": L, "train_batch": B, "logprob_batch": B, "lens": lens, "H": H,
+                "Hkv": Hkv, "D": D}
+        for i, cases in enumerate(_phase_train_kernels(randn, spec)):
+            worst[i] = max([worst[i]] + [c["ratio"] for c in cases.values()])
+    return worst
+
+
+def phase_agentic(config, params):
+    """The agentic slice at full width on the card. (a) AgenticVLMPipeline
+    on the main phase's Qwen2.5-VL-3B tree (run_agentic_vlm: 2 steps and a
+    validation, then a rollout-only step; kernels 1-6 must launch). (b)
+    Qwen2.5-0.5B-Instruct (head dim 64) at full width and depth from its
+    published config: its engine greedy against a teacher-forced dense
+    forward (serve_family), one PPO step with kernels 4-6 against dense
+    attention (train_family), then AgenticPipeline (run_agentic_text);
+    kernels 2 and 4-6 must launch, kernel 3 never (head dim 64 decodes
+    densely, as in the JAX package). Every pass at the shapes the kernels
+    phase checked (the episode batches, whose length the episodes decide,
+    are checked again after the run at the rows they had). Peak < 80 GiB.
+    Returns the launches over the phase."""
+    import gc
+    import torch
+    from socioreasoner_tpu_torch.models import llm
+    from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
+    from socioreasoner_tpu_torch.ops import decode_attention as da
+    from socioreasoner_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    kernels = (fa.flash_attention_segmented, fa.flash_attention, da.paged_decode_attention,
+               *_train_kernel_fns())
+    names = [k.__name__ for k in kernels]
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    out = {"phase": "agentic", "card": _smi_line(), "cuts": {"vlm": AGENTIC_VLM_CUTS,
+                                                             "text": AGENTIC_TEXT_CUTS}}
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            vlm = run_agentic_vlm(config, params, d, dev, kernels=kernels)
+        out["vlm"] = vlm
+        left = ([b for b in vlm["prefill_buckets"] + vlm["rollout_pipeline"]["prefill_buckets"]
+                 if tuple(b) not in AGENTIC_PREFILL]
+                + [c for c in (vlm["cache"], vlm["rollout_pipeline"]["cache"])
+                   if c != [36, AGENTIC_SLOTS, AGENTIC_LALLOC, 2, 128]])
+        if left:
+            raise AssertionError(f"agentic VLM left the checked shapes: {left}")
+        out["vlm_train_recheck_row_ratio"] = _recheck_train_shapes(
+            randn, vlm["train_shapes"] + vlm["logprob_shapes"], 16, 2, 128)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cfg05 = llm.config_from_hf_dict(QWEN25_05B_INSTRUCT)
+        t0 = time.perf_counter()
+        p05 = qmodel.init_params(cfg05, torch.Generator(device=dev).manual_seed(5),
+                                 dtype=torch.bfloat16, device=dev, with_vision=False)
+        _sync(dev)
+        text = {"model": "Qwen/Qwen2.5-0.5B-Instruct, 24 layers, 14/2 heads x 64, random bf16",
+                "params_gb": _tree_bytes(p05) / 1e9, "init_s": time.perf_counter() - t0}
+        _reset(kernels)
+        text["serve"] = serve_family(cfg05, p05, dev, max_new=32)
+        text["serve"]["launches"] = _launch_counts(kernels)
+        if text["serve"]["prefill_buckets"] != [(4, FAMILY_BUCKET, 0)] or \
+                text["serve"]["cache"] != [24, 4, FAMILY_LALLOC, 2, 64]:
+            raise AssertionError(f"Qwen2.5-0.5B serving left the checked shapes: "
+                                 f"{text['serve']['prefill_buckets']} {text['serve']['cache']}")
+        _reset(kernels)
+        text["train_parity"] = train_family(cfg05, p05, dev, steps=1)
+        text["train_parity"]["launches"] = _launch_counts(kernels)
+        text["pipeline"] = run_agentic_text(cfg05, p05, dev, kernels=kernels)
+        pipe = text["pipeline"]
+        left = ([b for b in pipe["prefill_buckets"] if tuple(b) not in AGENTIC_TEXT_PREFILL]
+                + ([] if pipe["cache"] == [24, AGENTIC_SLOTS, AGENTIC_TEXT_LALLOC, 2, 64]
+                   else [pipe["cache"]])
+                + [s[:2] for s in pipe["train_shapes"] + pipe["logprob_shapes"]
+                   if s[:2] != (AGENTIC_TEXT_TRAIN["train_batch"], AGENTIC_TEXT_TRAIN["L"])])
+        if left:
+            raise AssertionError(f"agentic text left the checked shapes: {left}")
+        text["train_recheck_row_ratio"] = _recheck_train_shapes(
+            randn, pipe["train_shapes"] + pipe["logprob_shapes"], 14, 2, 64)
+        out["text"] = text
+        del p05
+    except BaseException as e:
+        out["error"] = repr(e)[:2000]
+        emit(out)
+        raise
+    parts = {"vlm": out["vlm"]["launches"], "vlm_rollout": out["vlm"]["rollout_pipeline"]["launches"],
+             "text_serve": text["serve"]["launches"],
+             "text_train_parity": text["train_parity"]["launches"],
+             "text_pipeline": text["pipeline"]["launches"]}
+    launches = {k: sum(p[k] for p in parts.values()) for k in names}
+    out["launches"] = parts
+    out["launches_total"] = launches
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    v, t = out["vlm"], out["text"]
+    emit({"phase": "agentic_figures", "card": _smi_line(), "phase_s": out["phase_s"],
+          "max_memory_allocated_gb": out["max_memory_allocated_gb"],
+          "vlm_step_wall_s": v["step_wall_s"], "vlm_timers_s": v["timers_s"],
+          "vlm_decode_profile": {k: v["decode_profile"][k] for k in (
+              "ms_per_step", "device_ms_per_step", "busy_share", "kernel_launches_per_step")},
+          "rollout_pipeline_s": v["rollout_pipeline"]["wall_s"],
+          "text_step_wall_s": t["pipeline"]["step_wall_s"],
+          "text_timers_s": t["pipeline"]["timers_s"],
+          "text_decode_ms_per_step": t["pipeline"]["decode_ms_per_step"],
+          "greedy_tie_flips": len(t["serve"]["tie_flips"]),
+          "greedy_checked_tokens": t["serve"]["checked_tokens"],
+          "train_parity": {k: t["train_parity"][k] for k in ("kernels", "dense")},
+          "launches": parts})
+    missing = ([f"vlm:{k}" for k in names if parts["vlm"][k] <= 0]
+               + [f"text:{k}" for k in names[1:2] + names[3:]
+                  if parts["text_pipeline"][k] <= 0]
+               + [f"{p}:paged_decode_attention" for p in ("text_serve", "text_train_parity",
+                                                          "text_pipeline")
+                  if parts[p]["paged_decode_attention"] != 0])
+    if missing or not out["max_memory_allocated_gb"] < 80:
+        raise AssertionError(f"agentic: kernels off the path (or kernel 3 at head dim 64) "
+                             f"{missing}, peak {out['max_memory_allocated_gb']} GiB")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -5056,6 +5575,7 @@ def main() -> int:
     grpo = phase_grpo(config, params)
     rlvr = phase_rlvr(config, params)
     workers = phase_workers(config, params)
+    agentic = phase_agentic(config, params)
     with tempfile.TemporaryDirectory() as work_dir:
         export_dir = str(Path(work_dir) / "qwen2_5_vl_3b")
         export_stats, sums = export_main_tree(config, params, export_dir,
@@ -5078,6 +5598,8 @@ def main() -> int:
             kern["launches_entry"] = entry[kern["name"]]
         # kernels 3q and 7 are on no path of the families phase (bf16 cache)
         kern["launches_families"] = families.get(kern["name"], 0)
+        # kernels 3q and 7 are on no path of the agentic phase (bf16 cache)
+        kern["launches_agentic"] = agentic.get(kern["name"], 0)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

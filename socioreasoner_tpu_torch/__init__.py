@@ -9,8 +9,8 @@ quantized serving, SAM2 and the two-stage infer pipeline, the GRPO
 pipeline, the from-config start: loaders, checkpoints, entry scripts, the
 generic RLVR slice: RLVRPipeline with dynamic sampling, MathVLMPipeline,
 the worker runtime with every reward, the reward model, the critic, SFT
-and DPO, and the other model families: MoE layers, the text-only LLM
-families, the Qwen2-VL ViT):
+and DPO, the other model families: MoE layers, the text-only LLM
+families, the Qwen2-VL ViT, and the agentic slice):
   examples                — the two entry scripts (yaml → pipeline → run())
   tools/convert           — HF <-> native checkpoint CLI
   configs                 — the yaml loader and the config dataclasses
@@ -30,7 +30,8 @@ families, the Qwen2-VL ViT):
   runtime                 — Cluster (yaml worker_cls strings, the JAX
                             package's paths read as the port's), the dispatch
                             modes, Worker, GenerateScheduler,
-                            DynamicSamplingScheduler, LocalGenerateGroup
+                            DynamicSamplingScheduler, RequestScheduler,
+                            LocalGenerateGroup
   datasets                — processor, SocioSeg encode_sample, stage-2
                             render and HF builder (load_socioseg), stage-1
                             and restage collators, the file loader and its
@@ -48,6 +49,10 @@ families, the Qwen2-VL ViT):
                             and remote, CrossThink-QA and validation, LLM
                             judge); pipeline/base_worker: the actor, SAM2,
                             rule-reward, reward-model and SocioSeg workers
+  pipeline/agentic        — environments (guess_number, grid_goal), the
+                            text rollout loop and EnvManager's multi-turn
+                            episodes, AgenticPipeline, AgenticVLMPipeline,
+                            AgenticRolloutPipeline
   utils                   — safetensors reader/writer, CheckpointManager,
                             trackers, metrics, WorkerState
   distributed             — ParamStore and strategy bases, the train/logprob,

@@ -10,7 +10,9 @@
 // What bounds it on the H100: at the engine's prefill shapes (B = 1-4,
 // L = 2048, 16 q / 2 kv heads, D = 128) it is tensor-core work, ~17 GFLOP per
 // layer causal at B = 2 (17 us at the bf16 peak), while its 38 MB of
-// Q/K/V/O take 11 us at the memory rate.
+// Q/K/V/O take 11 us at the memory rate. Head dims 64 (Qwen2.5-0.5B/1.5B,
+// Llama-3.2-1B/3B), 80 (the ViT's) and 128 are instantiated; any other D is
+// refused (cudaErrorInvalidValue) before a tensor map is encoded.
 //
 // The design (attention_sm90.cuh): GQA is folded as in the Pallas grid, so a
 // 128-row work item is floor(128 / rep) tokens x the rep q heads of one kv
@@ -36,7 +38,8 @@ int launch_gqa(const void* q, const void* k, const void* v, void* o, float* lse,
                long long skh, long long svb, long long svt, long long svh,
                long long sob, long long sot, long long soh, int causal, float scale,
                cudaStream_t stream) {
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kBM || (D != 80 && D != 128))
+  // the head dims instantiated below (Layout<D> admits 64k and 64k + 16)
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kBM || (D != 64 && D != 80 && D != 128))
     return (int)cudaErrorInvalidValue;
   const int rep = H / Hkv;
   const int toks = kBM / rep;
@@ -67,7 +70,12 @@ int launch_gqa(const void* q, const void* k, const void* v, void* o, float* lse,
   if (rc == 0) rc = encode_pair(&p.k_main, &p.k_tail, k, 4, kdims, ks, kbox, D);
   if (rc == 0) rc = encode_pair(&p.v_main, &p.v_tail, v, 4, kdims, vs, vbox, D);
   if (rc != 0) return rc;
-  return D == 80 ? launch<80, false>(p, stream) : launch<128, false>(p, stream);
+  switch (D) {
+    case 64: return launch<64, false>(p, stream);
+    case 80: return launch<80, false>(p, stream);
+    case 128: return launch<128, false>(p, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace socio90

@@ -55,5 +55,9 @@ extern "C" int socio_flash_segmented_bf16(
   if (rc == 0) rc = encode_pair(&p.v_main, &p.v_tail, v, 3, dims, vs, vbox, D);
   if (rc != 0) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 80 ? launch<80, true>(p, s) : launch<128, true>(p, s);
+  switch (D) {
+    case 80: return launch<80, true>(p, s);
+    case 128: return launch<128, true>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -22,9 +22,12 @@
 //
 // The design:
 //   * A work item owns 128 keys of one (batch row, kv head) as two consumer
-//     warpgroups of 64 keys; each keeps its dK and dV (64 x 128 f32, 64 + 64
-//     registers a thread) in registers over the item's loop, which streams q
-//     tiles of 64 rows for the item's (q head, q tile) pairs.
+//     warpgroups of 64 keys; each keeps its dK and dV (64 x D f32, D / 2 +
+//     D / 2 registers a thread) in registers over the item's loop, which
+//     streams q tiles of 64 rows for the item's (q head, q tile) pairs.
+//   * Head dims 64 and 128, each its own instance (Smem<kD>: tiles, the
+//     workspace slot and the kD / 64 column chunks of every product and
+//     load); at D = 64 the accumulators halve. Any other D is refused.
 //   * S^T = K Q^T and dP^T = V dO^T are wgmma with both operands in shared
 //     memory, K-major over D (kernel 2's Q K^T with the roles swapped). P^T
 //     and dS^T are rounded to bf16 in registers -- the accumulator layout is
@@ -68,30 +71,34 @@ namespace dkv {
 
 constexpr int kBK = 128;          // keys per work item (2 consumer warpgroups x 64)
 constexpr int kBQ = 64;           // query rows per step of the loop
-constexpr int kD = 128;           // head dim
 constexpr int kStages = 4;        // Q / dO / lse / delta ring depth
 constexpr int kThreads = 384;     // 2 consumer warpgroups + 1 producer warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared-memory layout (offsets from a 1024-byte-aligned base). Operand tiles
-// are 64-column chunks with a 128-byte swizzle, each starting on a 1024-byte
-// boundary.
-constexpr uint32_t kKVChunk = kBK * 64 * 2;     // 16 KB: 128 rows x 64 columns
-constexpr uint32_t kKVBytes = kBK * kD * 2;     // a K (or V) tile
-constexpr uint32_t kQChunk = kBQ * 64 * 2;      // 8 KB
-constexpr uint32_t kQBytes = kBQ * kD * 2;      // a Q (or dO) tile
-constexpr uint32_t kOffK = 0;
-constexpr uint32_t kOffV = kKVBytes;
-constexpr uint32_t kOffQ = 2 * kKVBytes;
-constexpr uint32_t kOffDO = kOffQ + kStages * kQBytes;
-constexpr uint32_t kOffStats = kOffDO + kStages * kQBytes;   // per stage: lse[64], delta[64]
-constexpr uint32_t kOffBar = kOffStats + kStages * 2 * kBQ * 4;
-// barriers: K/V full, K/V empty, then full[kStages], empty[kStages]
-constexpr uint32_t kOffFlag = kOffBar + (2 + 2 * kStages) * 8;   // one int per warpgroup
-constexpr uint32_t kSmem = kOffFlag + 16 + 1024;                 // + alignment slack
-
-// One workspace slot: a piece's f32 partial dK and dV of 128 keys x D.
-constexpr int kSlotFloats = kBK * kD * 2;
+// Shared-memory layout for head dim kD (64 or 128; offsets from a
+// 1024-byte-aligned base). Operand tiles are kD / 64 chunks of 64 columns
+// with a 128-byte swizzle, each starting on a 1024-byte boundary.
+template <int kD>
+struct Smem {
+  static constexpr uint32_t kKVChunk = kBK * 64 * 2;     // 16 KB: 128 rows x 64 columns
+  static constexpr uint32_t kKVBytes = kBK * kD * 2;     // a K (or V) tile
+  static constexpr uint32_t kQChunk = kBQ * 64 * 2;      // 8 KB
+  static constexpr uint32_t kQBytes = kBQ * kD * 2;      // a Q (or dO) tile
+  static constexpr uint32_t kOffK = 0;
+  static constexpr uint32_t kOffV = kKVBytes;
+  static constexpr uint32_t kOffQ = 2 * kKVBytes;
+  static constexpr uint32_t kOffDO = kOffQ + kStages * kQBytes;
+  static constexpr uint32_t kOffStats = kOffDO + kStages * kQBytes;   // per stage: lse, delta
+  static constexpr uint32_t kOffBar = kOffStats + kStages * 2 * kBQ * 4;
+  // barriers: K/V full, K/V empty, then full[kStages], empty[kStages]
+  static constexpr uint32_t kOffFlag = kOffBar + (2 + 2 * kStages) * 8;   // an int a warpgroup
+  static constexpr uint32_t kBytes = kOffFlag + 16 + 1024;               // + alignment slack
+  // dK (and dV) accumulator registers a consumer thread holds: 64 keys x kD
+  static constexpr int kRegs = kD / 64 * 32;
+  // One workspace slot: a piece's f32 partial dK and dV of 128 keys x kD
+  // (two warpgroups x dK and dV x kRegs registers x 128 threads).
+  static constexpr int kSlotFloats = kBK * kD * 2;
+};
 
 struct Params {
   CUtensorMap q, k, v, dO;   // 64-column boxes: q/dO one head x 64 tokens, k/v one head x 128
@@ -129,8 +136,10 @@ __device__ __forceinline__ uint32_t empty_bar(uint32_t bars, int st) {
 
 // ------------------------------------------------------------- producer
 
+template <int kD>
 __device__ __forceinline__ void producer(const Params& p, uint32_t base, int lane) {
-  const uint32_t bars = base + kOffBar;
+  using L = Smem<kD>;
+  const uint32_t bars = base + L::kOffBar;
   const uint32_t kv_full = bars, kv_empty = bars + 8;
   int st = 0;
   uint32_t ph = 0, kvph = 0;
@@ -139,11 +148,12 @@ __device__ __forceinline__ void producer(const Params& p, uint32_t base, int lan
     if (it.np == 0) continue;          // a key tile without pairs loads nothing
     if (lane == 0) {
       mbar_wait(kv_empty, kvph ^ 1);
-      mbar_expect_tx(kv_full, 2 * kKVBytes);
+      mbar_expect_tx(kv_full, 2 * L::kKVBytes);
 #pragma unroll
       for (int c = 0; c < kD / 64; ++c) {
-        tma_load_4d(base + kOffK + c * kKVChunk, &p.k, kv_full, 64 * c, it.g, it.kt * kBK, it.b);
-        tma_load_4d(base + kOffV + c * kKVChunk, &p.v, kv_full, 64 * c, it.g, it.kt * kBK, it.b);
+        const uint32_t off = c * L::kKVChunk;
+        tma_load_4d(base + L::kOffK + off, &p.k, kv_full, 64 * c, it.g, it.kt * kBK, it.b);
+        tma_load_4d(base + L::kOffV + off, &p.v, kv_full, 64 * c, it.g, it.kt * kBK, it.b);
       }
     }
     kvph ^= 1;
@@ -153,18 +163,18 @@ __device__ __forceinline__ void producer(const Params& p, uint32_t base, int lan
       const uint32_t full = full_bar(bars, st);
       mbar_wait(empty_bar(bars, st), ph ^ 1);
       if (lane == 0) {
-        mbar_expect_tx(full, 2 * kQBytes);
+        mbar_expect_tx(full, 2 * L::kQBytes);
 #pragma unroll
         for (int c = 0; c < kD / 64; ++c) {
-          tma_load_4d(base + kOffQ + st * kQBytes + c * kQChunk, &p.q, full, 64 * c, h, t0, it.b);
-          tma_load_4d(base + kOffDO + st * kQBytes + c * kQChunk, &p.dO, full, 64 * c, h, t0,
-                      it.b);
+          const uint32_t off = st * L::kQBytes + c * L::kQChunk;
+          tma_load_4d(base + L::kOffQ + off, &p.q, full, 64 * c, h, t0, it.b);
+          tma_load_4d(base + L::kOffDO + off, &p.dO, full, 64 * c, h, t0, it.b);
         }
       }
       // lse and delta of rows t0 .. t0 + 63, two a lane; rows past Lq read
       // nothing and land as zeros
       const long long row = ((long long)it.b * p.H + h) * p.Lq;
-      const uint32_t stats = base + kOffStats + st * 2 * kBQ * 4;
+      const uint32_t stats = base + L::kOffStats + st * 2 * kBQ * 4;
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int r = lane + 32 * e;
@@ -183,6 +193,7 @@ __device__ __forceinline__ void producer(const Params& p, uint32_t base, int lan
 
 // Rows key_base and key_base + 8 of acc (chunks of 64 columns) as bf16 pairs,
 // straight from registers; rows past Lk are not written.
+template <int kD>
 __device__ __forceinline__ void store_rows(bf16* out, long long sb, long long st, long long sh,
                                            const Item& it, int key_base, int Lk, int cq,
                                            const float (&acc)[kD / 64][32]) {
@@ -200,15 +211,17 @@ __device__ __forceinline__ void store_rows(bf16* out, long long sb, long long st
   }
 }
 
+template <int kD>
 __device__ __forceinline__ void consumer(const Params& p, uint32_t base, volatile int* flag,
                                          int wg) {
+  using L = Smem<kD>;
   const int tid = threadIdx.x & 127;
   const int warp = tid >> 5, lane = tid & 31;
   const int cq = (lane & 3) * 2;                       // the thread's column pair in an 8-group
   const int krow = wg * 64 + warp * 16 + (lane >> 2);  // its key rows krow, krow + 8 of the item
-  const uint32_t bars = base + kOffBar;
+  const uint32_t bars = base + L::kOffBar;
   const uint32_t kv_full = bars, kv_empty = bars + 8;
-  const uint32_t kb = base + kOffK + wg * 8192, vb = base + kOffV + wg * 8192;
+  const uint32_t kb = base + L::kOffK + wg * 8192, vb = base + L::kOffV + wg * 8192;
   int st = 0;
   uint32_t ph = 0, kvph = 0;
 
@@ -229,8 +242,9 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base, volatil
         const int t0 = (it.i_lo + q % it.cnt) * kBQ;
         const bool masked = (p.causal && t0 < k0 + kBK - 1) || k0 + kBK > it.kv_len ||
                             t0 + kBQ > p.Lq;
-        const uint32_t qb = base + kOffQ + st * kQBytes, ob = base + kOffDO + st * kQBytes;
-        const uint32_t stats = base + kOffStats + st * 2 * kBQ * 4;
+        const uint32_t qb = base + L::kOffQ + st * L::kQBytes;
+        const uint32_t ob = base + L::kOffDO + st * L::kQBytes;
+        const uint32_t stats = base + L::kOffStats + st * 2 * kBQ * 4;
         mbar_wait(full_bar(bars, st), ph);
 
         // S^T = K Q^T and dP^T = V dO^T over the head dim, one group each
@@ -240,16 +254,16 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base, volatil
         for (int c = 0; c < kD / 64; ++c)
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
-            wgmma_ss_n64(s, make_desc(kb + c * kKVChunk + kk * 32, 16, 1024, kSw128),
-                         make_desc(qb + c * kQChunk + kk * 32, 16, 1024, kSw128),
+            wgmma_ss_n64(s, make_desc(kb + c * L::kKVChunk + kk * 32, 16, 1024, kSw128),
+                         make_desc(qb + c * L::kQChunk + kk * 32, 16, 1024, kSw128),
                          (c | kk) != 0);
         wg_commit();
 #pragma unroll
         for (int c = 0; c < kD / 64; ++c)
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
-            wgmma_ss_n64(dp, make_desc(vb + c * kKVChunk + kk * 32, 16, 1024, kSw128),
-                         make_desc(ob + c * kQChunk + kk * 32, 16, 1024, kSw128),
+            wgmma_ss_n64(dp, make_desc(vb + c * L::kKVChunk + kk * 32, 16, 1024, kSw128),
+                         make_desc(ob + c * L::kQChunk + kk * 32, 16, 1024, kSw128),
                          (c | kk) != 0);
         wg_commit();
 
@@ -309,13 +323,13 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base, volatil
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
             wgmma_rs_n64(dv[c], pa[kk],
-                         make_desc(ob + c * kQChunk + kk * 2048, kQChunk, 1024, kSw128));
+                         make_desc(ob + c * L::kQChunk + kk * 2048, L::kQChunk, 1024, kSw128));
 #pragma unroll
         for (int c = 0; c < kD / 64; ++c)
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
             wgmma_rs_n64(dk[c], da[kk],
-                         make_desc(qb + c * kQChunk + kk * 2048, kQChunk, 1024, kSw128));
+                         make_desc(qb + c * L::kQChunk + kk * 2048, L::kQChunk, 1024, kSw128));
         wg_commit();
         wg_wait0();
 #pragma unroll
@@ -338,14 +352,14 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base, volatil
       // a piece of a split key tile: the partials to slot ws0 + j (thread-
       // major, so each store is coalesced), then count in; the last piece
       // adds slots ws0 .. ws0 + n - 1 in order
-      const int half = wg * 2 * 64 * 128;       // this warpgroup's 64 keys of a slot
-      float* mine = p.ws + (long long)(it.ws0 + it.j) * kSlotFloats + half;
+      const int half = wg * 2 * L::kRegs * 128;   // this warpgroup's 64 keys of a slot
+      float* mine = p.ws + (long long)(it.ws0 + it.j) * L::kSlotFloats + half;
 #pragma unroll
       for (int c = 0; c < kD / 64; ++c)
 #pragma unroll
         for (int e = 0; e < 32; ++e) {
           __stcg(mine + (32 * c + e) * 128 + tid, dk[c][e]);
-          __stcg(mine + (64 + 32 * c + e) * 128 + tid, dv[c][e]);
+          __stcg(mine + (L::kRegs + 32 * c + e) * 128 + tid, dv[c][e]);
         }
       __threadfence();
       named_bar_sync(1 + wg, 128);
@@ -354,34 +368,36 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base, volatil
       named_bar_sync(1 + wg, 128);
       if (flag[wg] != it.n - 1) continue;
       __threadfence();
-      const float* first = p.ws + (long long)it.ws0 * kSlotFloats + half;
+      const float* first = p.ws + (long long)it.ws0 * L::kSlotFloats + half;
 #pragma unroll
       for (int c = 0; c < kD / 64; ++c)
 #pragma unroll
         for (int e = 0; e < 32; ++e) {
           float a = 0.f, b = 0.f;
           for (int piece = 0; piece < it.n; ++piece) {
-            const float* slot = first + (long long)piece * kSlotFloats;
+            const float* slot = first + (long long)piece * L::kSlotFloats;
             a += piece == it.j ? dk[c][e] : __ldcg(slot + (32 * c + e) * 128 + tid);
-            b += piece == it.j ? dv[c][e] : __ldcg(slot + (64 + 32 * c + e) * 128 + tid);
+            b += piece == it.j ? dv[c][e] : __ldcg(slot + (L::kRegs + 32 * c + e) * 128 + tid);
           }
           dk[c][e] = a;
           dv[c][e] = b;
         }
       if (tid == 0) *counter = 0;               // ready for the next launch
     }
-    store_rows(p.dk, p.sdkb, p.sdkt, p.sdkh, it, key0, p.Lk, cq, dk);
-    store_rows(p.dv, p.sdvb, p.sdvt, p.sdvh, it, key0, p.Lk, cq, dv);
+    store_rows<kD>(p.dk, p.sdkb, p.sdkt, p.sdkh, it, key0, p.Lk, cq, dk);
+    store_rows<kD>(p.dv, p.sdvb, p.sdvt, p.sdvh, it, key0, p.Lk, cq, dv);
   }
 }
 
 // ---------------------------------------------------------------- kernel
 
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_train_dkv_kernel(const __grid_constant__ Params p) {
+  using L = Smem<kD>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t bars = base + kOffBar;
+  const uint32_t bars = base + L::kOffBar;
   if (threadIdx.x == 0) {
     mbar_init(bars, 1);                     // K/V full: the producer's expect_tx
     mbar_init(bars + 8, 8);                 // K/V empty: one arrive per consumer warp
@@ -395,13 +411,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wg = threadIdx.x >> 7;
   if (wg == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (threadIdx.x < 256 + 32) producer(p, base, threadIdx.x & 31);
+    if (threadIdx.x < 256 + 32) producer<kD>(p, base, threadIdx.x & 31);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
     volatile int* flag = reinterpret_cast<volatile int*>(smem_raw + (base - smem_u32(smem_raw)) +
-                                                         kOffFlag);
-    consumer(p, base, flag, wg);
+                                                         L::kOffFlag);
+    consumer<kD>(p, base, flag, wg);
   }
+}
+
+// One launch of the kD instance over n_cta persistent CTAs.
+template <int kD>
+int launch(const Params& p, int n_cta, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(flash_train_dkv_kernel<kD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)Smem<kD>::kBytes);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  flash_train_dkv_kernel<kD><<<n_cta, kThreads, Smem<kD>::kBytes, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace dkv
@@ -421,15 +452,8 @@ extern "C" int socio_flash_train_dkv_bf16(
     int causal, float scale, void* stream) {
   using namespace socio90;
   using namespace socio90::dkv;
-  if (D != kD || Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(flash_train_dkv_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)kSmem);
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
+  // the head dims instantiated below
+  if ((D != 64 && D != 128) || Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
   if (n_cta <= 0) return 0;
   Params p{};
   p.lse = static_cast<const float*>(lse);
@@ -465,6 +489,10 @@ extern "C" int socio_flash_train_dkv_bf16(
   if (rc == 0) rc = encode_map(&p.k, k, 4, kdims, ks, kbox, true);
   if (rc == 0) rc = encode_map(&p.v, v, 4, kdims, vs, kbox, true);
   if (rc != 0) return rc;
-  flash_train_dkv_kernel<<<n_cta, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return launch<64>(p, n_cta, s);
+    case 128: return launch<128>(p, n_cta, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -32,12 +32,12 @@
 //     heads x tokens, as kernel 4's Q) and its rows' lse and delta ((B, H, Lq)
 //     f32, gathered by 4-byte cp.async with zero fill, as kernel 6 loads
 //     them), all arriving on one barrier, then streams the K/V tiles (128
-//     keys) through a 2-stage mbarrier ring. 2 x 32 KB of Q and dO and 2 x
-//     64 KB of K/V fill 193 KB of shared memory, so Q and dO have one buffer:
-//     the next item's load starts when the current item's last S and dP are
-//     done.
-//   * Two consumer warpgroups own 64 rows each and keep their dQ (64 x 128
-//     f32, 64 registers a thread) in registers over the item. A 128-key tile
+//     keys) through a 2-stage mbarrier ring. At D = 128, 2 x 32 KB of Q and
+//     dO and 2 x 64 KB of K/V fill 193 KB of shared memory, so Q and dO have
+//     one buffer: the next item's load starts when the current item's last S
+//     and dP are done.
+//   * Two consumer warpgroups own 64 rows each and keep their dQ (64 x D
+//     f32, D / 2 registers a thread) in registers over the item. A 128-key tile
 //     is taken as two 64-key halves (the second skipped where the item's
 //     last token is in the first): S = Q K^T and dP = dO V^T are wgmma with
 //     both operands in shared memory (32 registers each), p = ex2(s * scale
@@ -46,6 +46,9 @@
 //     operand layout -- and dQ += dS K with K as the MN-major B operand, the
 //     forward's O += P V with K in V's place. Nothing of S, P, dP or dS
 //     touches shared memory. dq is stored as bf16 straight from registers.
+//   * Head dims 64 and 128, each its own instance (Smem<kD>, the kD / 64
+//     column chunks of every product and load); D = 64 serves Qwen2.5-0.5B
+//     and -1.5B and Llama-3.2. Any other D is refused.
 //   * Any GQA ratio up to 128: where rep does not divide 128, rows past
 //     rep * floor(128 / rep) are idle (zeroed Q and dO rows, zero-filled lse
 //     and delta, so their ds is 0) and never stored. Every mbarrier wait traps
@@ -55,22 +58,26 @@
 namespace socio90 {
 namespace dq {
 
-constexpr int kD = 128;              // head dim
 constexpr int kStages = 2;           // K/V ring depth
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared-memory layout (offsets from a 1024-byte-aligned base): 128-row
-// operand tiles as two 64-column chunks with a 128-byte swizzle.
-constexpr uint32_t kChunk = kBM * 64 * 2;              // 16 KB
-constexpr uint32_t kTile = kBM * kD * 2;               // 32 KB: Q, dO, K or V
-constexpr uint32_t kOffQ = 0;
-constexpr uint32_t kOffDO = kTile;
-constexpr uint32_t kOffK = 2 * kTile;
-constexpr uint32_t kOffV = kOffK + kStages * kTile;
-constexpr uint32_t kOffStats = kOffV + kStages * kTile;    // lse[128], delta[128]
-constexpr uint32_t kOffBar = kOffStats + 2 * kBM * 4;
-// barriers: Q full, Q empty, then K/V full[kStages], K/V empty[kStages]
-constexpr uint32_t kSmem = kOffBar + (2 + 2 * kStages) * 8 + 1024;   // + alignment slack
+// Shared-memory layout for head dim kD (64 or 128; offsets from a
+// 1024-byte-aligned base): 128-row operand tiles as kD / 64 chunks of 64
+// columns with a 128-byte swizzle. At kD = 128 the tiles fill 193 KB; at 64,
+// half of it.
+template <int kD>
+struct Smem {
+  static constexpr uint32_t kChunk = kBM * 64 * 2;             // 16 KB
+  static constexpr uint32_t kTile = kBM * kD * 2;              // Q, dO, K or V
+  static constexpr uint32_t kOffQ = 0;
+  static constexpr uint32_t kOffDO = kTile;
+  static constexpr uint32_t kOffK = 2 * kTile;
+  static constexpr uint32_t kOffV = kOffK + kStages * kTile;
+  static constexpr uint32_t kOffStats = kOffV + kStages * kTile;   // lse[128], delta[128]
+  static constexpr uint32_t kOffBar = kOffStats + 2 * kBM * 4;
+  // barriers: Q full, Q empty, then K/V full[kStages], K/V empty[kStages]
+  static constexpr uint32_t kBytes = kOffBar + (2 + 2 * kStages) * 8 + 1024;   // + slack
+};
 
 struct Params {
   CUtensorMap q, dO, k, v;    // 64-column boxes: q/dO rep heads x toks tokens, k/v 1 head x 128
@@ -90,10 +97,12 @@ __device__ __forceinline__ uint32_t kv_empty(uint32_t bars, int st) {
 
 // ------------------------------------------------------------- producer
 
+template <int kD>
 __device__ __forceinline__ void producer(const Params& p, uint32_t base, int lane) {
-  const uint32_t bars = base + kOffBar;
+  using L = Smem<kD>;
+  const uint32_t bars = base + L::kOffBar;
   const uint32_t q_full = bars, q_empty = bars + 8;
-  const uint32_t stats = base + kOffStats;
+  const uint32_t stats = base + L::kOffStats;
   int ks = 0;
   uint32_t qph = 0, kph = 0;
   for (int item = blockIdx.x; item < p.n_items; item += gridDim.x) {
@@ -103,9 +112,10 @@ __device__ __forceinline__ void producer(const Params& p, uint32_t base, int lan
       mbar_expect_tx(q_full, 2 * p.q_rows * kD * 2);
 #pragma unroll
       for (int c = 0; c < kD / 64; ++c) {
-        tma_load_4d(base + kOffQ + c * kChunk, &p.q, q_full, 64 * c, it.head * p.rep, it.t0, it.b);
-        tma_load_4d(base + kOffDO + c * kChunk, &p.dO, q_full, 64 * c, it.head * p.rep, it.t0,
-                    it.b);
+        tma_load_4d(base + L::kOffQ + c * L::kChunk, &p.q, q_full, 64 * c, it.head * p.rep,
+                    it.t0, it.b);
+        tma_load_4d(base + L::kOffDO + c * L::kChunk, &p.dO, q_full, 64 * c, it.head * p.rep,
+                    it.t0, it.b);
       }
     }
     // lse and delta of the tile's rows, four a lane; idle rows and rows past
@@ -125,13 +135,14 @@ __device__ __forceinline__ void producer(const Params& p, uint32_t base, int lan
     if (lane != 0) continue;
     for (int j = it.lo; j <= it.hi; ++j) {
       mbar_wait(kv_empty(bars, ks), kph ^ 1);
-      mbar_expect_tx(kv_full(bars, ks), 2 * kTile);
+      mbar_expect_tx(kv_full(bars, ks), 2 * L::kTile);
 #pragma unroll
       for (int c = 0; c < kD / 64; ++c) {
-        tma_load_4d(base + kOffK + ks * kTile + c * kChunk, &p.k, kv_full(bars, ks), 64 * c,
-                    it.head, j * kBN, it.b);
-        tma_load_4d(base + kOffV + ks * kTile + c * kChunk, &p.v, kv_full(bars, ks), 64 * c,
-                    it.head, j * kBN, it.b);
+        const uint32_t off = ks * L::kTile + c * L::kChunk;
+        tma_load_4d(base + L::kOffK + off, &p.k, kv_full(bars, ks), 64 * c, it.head, j * kBN,
+                    it.b);
+        tma_load_4d(base + L::kOffV + off, &p.v, kv_full(bars, ks), 64 * c, it.head, j * kBN,
+                    it.b);
       }
       if (++ks == kStages) { ks = 0; kph ^= 1; }
     }
@@ -140,17 +151,19 @@ __device__ __forceinline__ void producer(const Params& p, uint32_t base, int lan
 
 // ------------------------------------------------------------- consumer
 
+template <int kD>
 __device__ __forceinline__ void consumer(const Params& p, uint32_t base, int wg) {
+  using L = Smem<kD>;
   const int tid = threadIdx.x & 127;
   const int warp = tid >> 5, lane = tid & 31;
   // this thread's rows row0 and row0 + 8 of the 128-row tile, and its column
   // pair within each 8-column group of an accumulator (the wgmma layout)
   const int row0 = wg * 64 + warp * 16 + (lane >> 2);
   const int cq = (lane & 3) * 2;
-  const uint32_t bars = base + kOffBar;
+  const uint32_t bars = base + L::kOffBar;
   const uint32_t q_full = bars, q_empty = bars + 8;
-  const uint32_t qb = base + kOffQ + wg * 8192, ob = base + kOffDO + wg * 8192;
-  const uint32_t stats = base + kOffStats;
+  const uint32_t qb = base + L::kOffQ + wg * 8192, ob = base + L::kOffDO + wg * 8192;
+  const uint32_t stats = base + L::kOffStats;
   const int toks = kBM / p.rep;
   int ks = 0;
   uint32_t qph = 0, kph = 0;
@@ -185,7 +198,7 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base, int wg)
 
     if (it.lo > it.hi) release_q();       // no key: release Q, dO and the stats at once
     for (int j = it.lo; j <= it.hi; ++j) {
-      const uint32_t kb = base + kOffK + ks * kTile, vb = base + kOffV + ks * kTile;
+      const uint32_t kb = base + L::kOffK + ks * L::kTile, vb = base + L::kOffV + ks * L::kTile;
       const bool masked = j < it.nm_lo || j > it.nm_hi;
       const int halves = j * kBN + 64 < k_hi ? 2 : 1;
       mbar_wait(kv_full(bars, ks), kph);
@@ -198,16 +211,16 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base, int wg)
         for (int c = 0; c < kD / 64; ++c)
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
-            wgmma_ss_n64(s, make_desc(qb + c * kChunk + kk * 32, 16, 1024, kSw128),
-                         make_desc(kb + c * kChunk + hf * 8192 + kk * 32, 16, 1024, kSw128),
+            wgmma_ss_n64(s, make_desc(qb + c * L::kChunk + kk * 32, 16, 1024, kSw128),
+                         make_desc(kb + c * L::kChunk + hf * 8192 + kk * 32, 16, 1024, kSw128),
                          (c | kk) != 0);
         wg_commit();
 #pragma unroll
         for (int c = 0; c < kD / 64; ++c)
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
-            wgmma_ss_n64(dp, make_desc(ob + c * kChunk + kk * 32, 16, 1024, kSw128),
-                         make_desc(vb + c * kChunk + hf * 8192 + kk * 32, 16, 1024, kSw128),
+            wgmma_ss_n64(dp, make_desc(ob + c * L::kChunk + kk * 32, 16, 1024, kSw128),
+                         make_desc(vb + c * L::kChunk + hf * 8192 + kk * 32, 16, 1024, kSw128),
                          (c | kk) != 0);
         wg_commit();
 
@@ -254,8 +267,8 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base, int wg)
         for (int c = 0; c < kD / 64; ++c)
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
-            wgmma_rs_n64(acc[c], da[kk],
-                         make_desc(kb + c * kChunk + (4 * hf + kk) * 2048, kChunk, 1024, kSw128));
+            wgmma_rs_n64(acc[c], da[kk], make_desc(kb + c * L::kChunk + (4 * hf + kk) * 2048,
+                                                   L::kChunk, 1024, kSw128));
         wg_commit();
         wg_wait0();
 #pragma unroll
@@ -287,11 +300,13 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base, int wg)
 
 // ---------------------------------------------------------------- kernel
 
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_train_dq_kernel(const __grid_constant__ Params p) {
+  using L = Smem<kD>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t bars = base + kOffBar;
+  const uint32_t bars = base + L::kOffBar;
   if (threadIdx.x == 0) {
     mbar_init(bars, 1 + 32);       // Q full: the producer's expect_tx + its lanes' cp.async
     mbar_init(bars + 8, 8);        // Q empty: one arrive per consumer warp
@@ -303,17 +318,33 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   // the idle rows of Q and dO: zeros for good (no TMA box reaches them)
   for (int c = 0; c < 2 * (kD / 64); ++c)
-    zero_smem(base + kOffQ + c * kChunk + p.q_rows * 128, (kBM - p.q_rows) * 128);
+    zero_smem(base + L::kOffQ + c * L::kChunk + p.q_rows * 128, (kBM - p.q_rows) * 128);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // before wgmma reads them
   __syncthreads();
   const int wg = threadIdx.x >> 7;
   if (wg == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (threadIdx.x < 256 + 32) producer(p, base, threadIdx.x & 31);
+    if (threadIdx.x < 256 + 32) producer<kD>(p, base, threadIdx.x & 31);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    consumer(p, base, wg);
+    consumer<kD>(p, base, wg);
   }
+}
+
+// One launch of the kD instance; the grid-constant parameters are complete.
+template <int kD>
+int launch(const Params& p, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(flash_train_dq_kernel<kD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)Smem<kD>::kBytes);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const int grid = p.n_items < num_sms() ? p.n_items : num_sms();
+  flash_train_dq_kernel<kD><<<grid, kThreads, Smem<kD>::kBytes, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace dq
@@ -331,15 +362,9 @@ extern "C" int socio_flash_train_dq_bf16(
     int causal, float scale, void* stream) {
   using namespace socio90;
   using namespace socio90::dq;
-  if (D != kD || Hkv <= 0 || H % Hkv != 0 || H / Hkv > kBM) return (int)cudaErrorInvalidValue;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(flash_train_dq_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)kSmem);
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
+  // the head dims instantiated below
+  if ((D != 64 && D != 128) || Hkv <= 0 || H % Hkv != 0 || H / Hkv > kBM)
+    return (int)cudaErrorInvalidValue;
   Params p{};
   const int rep = H / Hkv;
   const int toks = kBM / rep;
@@ -374,7 +399,10 @@ extern "C" int socio_flash_train_dq_bf16(
   if (rc == 0) rc = encode_map(&p.k, k, 4, kdims, ks, kbox, true);
   if (rc == 0) rc = encode_map(&p.v, v, 4, kdims, vs, kbox, true);
   if (rc != 0) return rc;
-  const int grid = p.n_items < num_sms() ? p.n_items : num_sms();
-  flash_train_dq_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return launch<64>(p, s);
+    case 128: return launch<128>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

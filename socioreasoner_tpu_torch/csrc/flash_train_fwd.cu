@@ -39,7 +39,13 @@ extern "C" int socio_flash_train_fwd_bf16(
     long long svb, long long svt, long long svh,
     long long sob, long long sot, long long soh,
     int causal, float scale, void* stream) {
-  if (D != 128) return (int)cudaErrorInvalidValue;
+  // the head dims of the text decoders (kernel 2's instances of the CTA; the
+  // ViT's 80 is kernel 1's and 2's only)
+  switch (D) {
+    case 64:
+    case 128: break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return socio90::launch_gqa(q, k, v, o, static_cast<float*>(lse), kv_lens, B, Lq, Lk, H, Hkv,
                              D, sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh,
                              causal, scale, static_cast<cudaStream_t>(stream));

@@ -11,7 +11,10 @@ The counterpart of socioreasoner_tpu/models/qwen2_5_vl/text.py:
     donates those buffers and XLA updates them in place — then a multi-token
     pass (prefill) runs the flash prefill kernel over the local sequence and a
     one-token pass (decode) runs the paged decode kernel on the stacked cache
-    at the layer index. The cache path also serves quantized trees
+    at the layer index -- where head_dim is a multiple of 128, as in the JAX
+    package; other head dims (64: Qwen2.5-0.5B/1.5B, Llama-3.2) attend
+    densely over the layer's cache, an int8 cache dequantized first, the
+    route JAX takes there. The cache path also serves quantized trees
     (ops/quant.py): every projection goes through matmul_q, w8a8 on
     multi-token passes with act_quant; an int8 cache (with "k_scale" /
     "v_scale") is written with quantize_kv and read by the int8 decode
@@ -34,7 +37,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import dense_attention
-from ...ops.decode_attention import paged_decode_attention, quantize_kv
+from ...ops.decode_attention import dequantize_kv, paged_decode_attention, quantize_kv
 from ...ops.flash_attention import flash_attention
 from ...ops.flash_attention_bwd import dkv_plan, flash_attention_trainable
 from ...ops.moe import moe_mlp
@@ -111,6 +114,12 @@ def _decoder_cached_unrolled(cfg: TextConfig, params: Dict, x, cos, sin,
     lengths = kv_valid.sum(dim=-1, dtype=torch.int32)
     bidx = torch.arange(B, device=x.device)[:, None]
     pos = cache_positions.long()
+    # the decode kernel (kernels 3/3q) where head_dim is a multiple of 128,
+    # as the JAX package routes it; dense attention over the cache otherwise
+    paged = D % 128 == 0
+    if L == 1 and not paged:
+        Lmax = k_all.shape[2]
+        kv_pos = torch.arange(Lmax, device=x.device)[None].expand(B, Lmax)
     # w8a8 only on the multi-token pass (prefill); decode stays w8a16
     a8 = bool(act_quant) and L > 1
     for i in range(cfg.num_hidden_layers):
@@ -139,10 +148,18 @@ def _decoder_cached_unrolled(cfg: TextConfig, params: Dict, x, cos, sin,
             # prefill into a fresh cache: attention over the local sequence's
             # raw k/v only
             out = flash_attention(q, k, v, kv_valid[:, :L], causal=True)
-        else:
+        elif paged:
             # decode: the kernel reads only each slot's valid cache prefix
             out = paged_decode_attention(q[:, 0], k_all, v_all, lengths, ks_all,
                                          vs_all, layer=i)[:, None]
+        else:
+            if quant:
+                kd = dequantize_kv(k_all[i], ks_all[i], q.dtype)
+                vd = dequantize_kv(v_all[i], vs_all[i], q.dtype)
+            else:
+                kd, vd = k_all[i].to(q.dtype), v_all[i].to(q.dtype)
+            out = dense_attention(q, kd, vd, causal=True, attention_mask=kv_valid,
+                                  q_positions=pos, kv_positions=kv_pos)
         x = x + matmul_q(out.reshape(B, L, H * D), p, "o_w", a8)
         h2 = rms_norm(x, p["post_ln"], cfg.rms_norm_eps)
         if cfg.n_experts:

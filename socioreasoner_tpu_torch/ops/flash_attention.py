@@ -32,7 +32,12 @@ from .attention import dense_attention
 
 KERNEL_Q_TILE = 128     # query rows per work item of kernels 1, 2, 4 and 5 (2 warpgroups x 64)
 KERNEL_K_TILE = 128     # keys per K/V tile of kernels 1, 2, 4 and 5
-KERNEL_HEAD_DIMS = (80, 128)     # the ViT's and the text decoder's
+# the head dims each kernel instantiates (csrc/flash_prefill.cu and
+# csrc/flash_segmented.cu switch on them): kernel 2 the text decoders' 64
+# (Qwen2.5-0.5B/1.5B, Llama-3.2) and 128, and 80; kernel 1 the ViT's 80 and
+# 128
+KERNEL_HEAD_DIMS = (64, 80, 128)
+SEG_HEAD_DIMS = (80, 128)
 
 
 def check_kernel_inputs(name: str, *tensors: torch.Tensor) -> None:
@@ -335,8 +340,8 @@ def flash_attention_segmented(
     if S == 0:
         return torch.empty_like(q)
     check_kernel_inputs("flash_attention_segmented", q, k, v)
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention_segmented kernel: unsupported D={D}")
+    if D not in SEG_HEAD_DIMS:
+        raise ValueError(f"flash_attention_segmented kernel: unsupported H={H} D={D}")
     if plan is None:
         plan = seg_plan(segment_ids, H, q.device, block_q=block_q, block_k=block_k,
                         max_span_blocks=max_span_blocks)

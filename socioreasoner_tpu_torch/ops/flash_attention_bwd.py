@@ -54,12 +54,16 @@ from . import _build
 from .attention import NEG_INF, repeat_kv
 from .flash_attention import KERNEL_Q_TILE, check_kernel_inputs, check_shapes
 
-TRAIN_HEAD_DIMS = (128,)      # the text decoder's head dim
+# the head dims kernels 4-6 instantiate (csrc/flash_train_fwd.cu,
+# flash_train_dq_sm90.cu and flash_train_dkv_sm90.cu switch on them)
+TRAIN_HEAD_DIMS = (64, 128)
 
 DKV_K_TILE = 128    # keys per kernel-6 work item (2 consumer warpgroups x 64)
 DKV_Q_TILE = 64     # query rows per step of kernel 6's loop
 DKV_MIN_CAP = 16    # the smallest share of (key tile, q head, q tile) pairs a CTA gets
-DKV_SLOT_FLOATS = DKV_K_TILE * 128 * 2    # one piece's f32 dK and dV partials (D = 128)
+# one piece's f32 dK and dV partials at the largest head dim (a D = 64
+# launch's slots are half as long and fill the first half of the workspace)
+DKV_SLOT_FLOATS = DKV_K_TILE * max(TRAIN_HEAD_DIMS) * 2
 DKV_FIELDS = ("b", "g", "kt", "i_lo", "cnt", "p0", "np", "j", "n", "split", "ws0", "kv_len")
 N_SM = 132          # an H100's SMs: the count a plan for a CPU tensor assumes
 

@@ -10,6 +10,9 @@ LocalGenerateGroup from socioreasoner_tpu/runtime/generate_scheduler.py:
     prompt's sibling requests once it has n, and the output re-padded and
     ordered by (prompt, sample).
   LocalGenerateGroup — the pipelines' cluster facade over the strategies.
+  RequestScheduler — one request at a time for the agentic env loops: a
+    sticky worker per request source (an env thread), a caller blocked
+    until its request finishes, aborts and timeouts.
   DynamicSamplingScheduler — the generic RLVR pipeline's dataset-pulling
     rollout: prompt groups streamed into the servers under flow control,
     rewards per group as it completes, query and response filters whose
@@ -17,8 +20,7 @@ LocalGenerateGroup from socioreasoner_tpu/runtime/generate_scheduler.py:
     still in flight once the target is met.
 
 One GPU serves one decode replica (data-parallel replicas wait for the
-multi-GPU slice). RequestScheduler serves the agentic pipelines and waits
-for that slice. The schedulers move host ids and texts only: every CUDA
+multi-GPU slice). The schedulers move host ids and texts only: every CUDA
 call runs on the server's thread, and the request callbacks fire there.
 """
 
@@ -383,3 +385,95 @@ class DynamicSamplingScheduler:
             metrics[f"scheduler/{domain}/score/min"] = float(v.min())
         out_batch.meta["metrics"] = metrics
         return out_batch
+
+
+class RequestScheduler:
+    """One-request-at-a-time rollout proxy for the agentic env loops.
+
+    Each request source (an env thread, named by the request's `src_rank`)
+    gets a STICKY worker, assigned round robin at its first request, so the
+    turns of one episode reach the same engine. `generate_one_request`
+    blocks on the request's own event until the engine's callback fires (on
+    the server's thread); after `rpc_timeout` seconds (default 3600) it
+    aborts the request and raises TimeoutError. `abort_request` routes an
+    ABORT to the owning worker and releases the waiter with None."""
+
+    def __init__(self, cluster, pipeline_config=None):
+        self.cluster = cluster
+        self.pipeline_config = pipeline_config
+        self._worker_iter = itertools.cycle(range(len(cluster.workers)))
+        self._src2dp: Dict[Any, int] = {}
+        self._rid2dp: Dict[Any, int] = {}
+        # rid -> [threading.Event, output or None]
+        self._pending: Dict[Any, List] = {}
+        self._lock = threading.Lock()
+
+    def generate_one_request(self, data: BatchProto) -> Optional[BatchProto]:
+        """A single-row request → a single-row batch of [prompt | response]
+        (unpadded) with `response_mask`, meta `output_token_ids` and
+        `finish_reason`; None when the request was aborted or produced
+        nothing."""
+        rid = data.meta["request_id"]
+        src = data.meta.get("src_rank", rid)
+        with self._lock:
+            if src not in self._src2dp:
+                self._src2dp[src] = next(self._worker_iter)
+            dp = self._src2dp[src]
+            box = [threading.Event(), None]
+            self._pending[rid] = box
+            self._rid2dp[rid] = dp
+
+        def callback(out):
+            with self._lock:
+                b = self._pending.pop(rid, None)
+                self._rid2dp.pop(rid, None)
+            if b is not None:
+                b[1] = out
+                b[0].set()
+
+        ids = np.asarray(data.batch["input_ids"][0])
+        attn = (np.asarray(data.batch["attention_mask"][0])
+                if "attention_mask" in data.batch else np.ones_like(ids))
+        valid = attn == 1
+        pos = None
+        if "position_ids" in data.batch:
+            pos = np.asarray(data.batch["position_ids"][0])[:, valid]
+        sampling = data.meta.get("sampling")
+        if sampling is None:
+            sampling = SamplingParams.from_generating_args(data.meta["generating_args"])
+        self.cluster.workers[dp].add_request(GenerateRequestType.ADD, {
+            "request_id": rid, "prompt_ids": ids[valid].tolist(),
+            "sampling": sampling, "position_ids": pos,
+            "image_embeds": data.meta.get("image_embeds"),
+            "callback": callback})
+        timeout = getattr(self.pipeline_config, "rpc_timeout", None) or 3600.0
+        if not box[0].wait(timeout):
+            self.abort_request(rid)
+            raise TimeoutError(f"request {rid!r} timed out after {timeout}s")
+        out = box[1]
+        if out is None or not getattr(out, "output_ids", None):
+            return None                                 # aborted
+        # a single unpadded request: [prompt | response] as one row
+        prompt_ids = ids[valid]
+        seq = np.concatenate([prompt_ids, np.asarray(out.output_ids, np.int64)])[None]
+        resp = np.zeros_like(seq)
+        resp[:, len(prompt_ids):] = 1
+        return BatchProto.from_dict(
+            tensors={"input_ids": seq, "attention_mask": np.ones_like(seq),
+                     "response_mask": resp},
+            meta={**data.meta, "output_token_ids": [list(out.output_ids)],
+                  "finish_reason": getattr(out, "finish_reason", None)})
+
+    def abort_request(self, request_id) -> None:
+        """Route an ABORT to the worker that owns the request and release its
+        waiter with None."""
+        with self._lock:
+            dp = self._rid2dp.get(request_id)
+            box = self._pending.pop(request_id, None)
+            self._rid2dp.pop(request_id, None)
+        if dp is not None:
+            self.cluster.workers[dp].add_request(
+                GenerateRequestType.ABORT, {"request_id": request_id})
+        if box is not None:
+            box[1] = None
+            box[0].set()

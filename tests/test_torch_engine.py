@@ -320,7 +320,9 @@ def test_port_imports_no_jax():
         "       'datasets.chat_template', 'runtime.dispatch', 'runtime.cluster',\n"
         "       'runtime.worker', 'pipeline.rlvr.rewards.general_rules',\n"
         "       'pipeline.rlvr.rewards.code_sandbox', 'pipeline.rlvr.rewards.llm_judge',\n"
-        "       'distributed.sft', 'distributed.factory', 'ops.moe', 'models.llm'}\n"
+        "       'distributed.sft', 'distributed.factory', 'ops.moe', 'models.llm',\n"
+        "       'configs.agentic_config', 'pipeline.agentic.environment_worker',\n"
+        "       'pipeline.agentic.agentic_pipeline', 'pipeline.agentic.agentic_vlm_pipeline'}\n"
         "assert {pkg.__name__ + '.' + n for n in new} <= set(names), names\n"
         "for n in names: importlib.import_module(n)\n"
         "from socioreasoner_tpu_torch.configs.worker_config import WorkerConfig\n"
@@ -344,7 +346,8 @@ def test_port_imports_no_jax():
         "          'grpo_answers', 'ScriptedDecodeWorker', '_phase_train_kernels',\n"
         "          'phase_rlvr', 'run_rlvr_path', 'run_math_vlm_path', 'run_vit_grad_check',\n"
         "          'phase_workers', 'run_workers_path', 'phase_families', 'serve_family',\n"
-        "          'train_family', 'text_model_round_trip', 'run_qwen2_vl'):\n"
+        "          'train_family', 'text_model_round_trip', 'run_qwen2_vl',\n"
+        "          'phase_agentic', 'run_agentic_vlm', 'run_agentic_text'):\n"
         "    assert callable(getattr(chip_smoke, f)), f\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'socioreasoner_tpu' or m.startswith('socioreasoner_tpu.'))\n"
@@ -388,6 +391,10 @@ def test_port_sources_import_nothing_of_the_jax_package():
             "socioreasoner_tpu_torch/pipeline/rlvr/socioseg_pipeline.py",
             "socioreasoner_tpu_torch/runtime/generate_scheduler.py",
             "socioreasoner_tpu_torch/ops/moe.py", "socioreasoner_tpu_torch/models/llm.py",
+            "socioreasoner_tpu_torch/configs/agentic_config.py",
+            "socioreasoner_tpu_torch/pipeline/agentic/environment_worker.py",
+            "socioreasoner_tpu_torch/pipeline/agentic/agentic_pipeline.py",
+            "socioreasoner_tpu_torch/pipeline/agentic/agentic_vlm_pipeline.py",
             "chip_smoke.py"} <= rel
     bad = {os.path.relpath(f, REPO): hits for f in files if (hits := _jax_package_imports(f))}
     assert not bad, bad
