@@ -37,7 +37,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 (edges, the agentic text pipeline's shapes, kernel 6's
                 plan refusal at 64); the agentic phase's shapes: kernel 1
                 on a 112² frame, kernel 2 at its prefill buckets, kernel 3
-                at its cache, kernels 4-6 at its episode batch; the host
+                at its cache, kernels 4-6 at its episode batch; the parallel
+                phase's tp shard: kernel 2 at B=4 L=2048 with 8/1 heads,
+                kernels 3 and 3q over its (36, 4, 2816, 1, 128) cache; the host
                 copies of kernel 2's tile
                 bounds and of the GQA work items against the C++ formulas;
                 kernel 6's plan, its refusal of other kv lengths (a child
@@ -90,6 +92,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 cache), (768, 768) uint8 masks, an all-zero mask for an
                 answer without answer tags; encoder ms a tile, decoder ms a
                 prompt batch; one tile in bf16 against f32.
+  11b. parallel — serving over several devices, on the one card: (a) the
+                main phase's four stage-1 requests (2016 tokens, 64 greedy
+                tokens) through the tensor-parallel DecodeEngine at full
+                width, tp = 2 with both shards on cuda:0 (8 q heads over 1
+                kv head a shard, its own contiguous cache), with bf16
+                weights, then with int8 single-copy weights and an int8 KV
+                cache; each against the unsharded engine on the same
+                requests (tp_tie_check: both engines teacher-forced along
+                the unsharded tokens, every logit within TP_DELTA_LIMIT of
+                the unsharded one, every differing argmax a tie), both
+                engines' prefill and decode profiled through
+                utils/profiling.py; (b)
+                SocioSegInferPipeline.run() over the two_stage phase's four
+                tiles at greedy with actor_infer dp_size 1, then 2 (two
+                decode replicas on cuda:0): every file of the dp = 2 run
+                equal to the dp = 1 run's, tiles/s of both, each pass at
+                the two_stage phase's checked shapes; (c) the infer yaml's
+                16 slots of sequence length 6144 a replica, two replicas,
+                allocated beside SAM2-hiera-large. Kernels 1, 2, 3 and 3q
+                must launch (launches_parallel), peak < 80 GB; kernels 2, 3
+                and 3q are checked at the shard's local shapes in the
+                kernels phase. Two shards on one card measure the sharded
+                code, not multi-GPU speed.
   12. grpo    — SocioSegPipeline.run(), GRPO over both stages with the
                 SocioSeg rule reward, at full width with
                 examples/train/rlvr_tpu.yaml's settings (n = 8, int8
@@ -212,7 +237,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 32/4); peak < 80 GiB.
 
 TF32 is off for matmuls and convolutions, so float32 references are full
-float32. Imports nothing of JAX. The last line is the device summary
+float32. Profiles are read through socioreasoner_tpu_torch/utils/profiling.py.
+It refuses to run with SOCIO_DISABLE_FLASH=1 (the knob asks for dense
+attention, which the engine, trainer and ViT refuse on the card). Imports nothing of JAX. The last line is the device summary
 {"ok": true, "device": {...}}; the line before it lists the kernels.
 """
 
@@ -253,6 +280,13 @@ GRAD_REL_TOL = 2e-2
 # key, so p = 1 and dP = delta for every query, and dk is 0 exactly).
 GRAD_ROW_FLOOR = 1e-3
 GAP_TOL = 0.05          # a greedy flip is a tie when the top-2 gap is below this
+# The largest difference the tp = 2 engine's partial-product sums may make
+# to a logit of the 3B on random weights (logits' RMS ~0.9, top ~4), along
+# the same tokens. Sound runs read 0.15-0.18 at their first divergences, a
+# few bf16 steps of 0.03125 at |logit| 4-8; a misplaced shard (a wrong block
+# of o_proj, down_proj, the embedding or the head) moves the logits by
+# their own size, several units at the top of a 151936-entry row.
+TP_DELTA_LIMIT = 0.5
 
 
 def emit(obj) -> None:
@@ -298,22 +332,39 @@ def graph_call_ms(fn, reps: int = 10) -> float:
     return graph_ms(lambda: [fn() for _ in range(reps)]) / reps
 
 
+_TRACE_DIR = None
+
+
+def _trace_dir() -> str:
+    """A temporary directory for the profiler's Chrome traces, removed at
+    exit."""
+    global _TRACE_DIR
+    if _TRACE_DIR is None:
+        import atexit
+        import shutil
+        _TRACE_DIR = tempfile.mkdtemp(prefix="chip_smoke_traces_")
+        atexit.register(shutil.rmtree, _TRACE_DIR, True)
+    return _TRACE_DIR
+
+
+def profiled(fn):
+    """fn() under torch.profiler, read through the port's
+    utils/profiling.trace_summary: (result, wall ms, every device row)."""
+    from socioreasoner_tpu_torch.utils.profiling import trace_summary
+    summary = trace_summary(fn, log_dir=_trace_dir(), top=1 << 30)
+    return summary["result"], summary["wall_s"] * 1e3, summary["ops"]
+
+
 def device_ms(fn, kernels, n: int = 5) -> float:
     """Device time of one fn() in the CUDA kernels whose names contain one
-    of `kernels` ("" for all), from torch.profiler over n calls after a
-    warm-up call: the kernels' own time, without the host's launch time.
-    Only device events count (a runtime call carries its kernels' time)."""
+    of `kernels` ("" for all), from the profiler's trace of n calls after a
+    warm-up call: the kernels' own time, without the host's launch time."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and any(k in e.key for k in kernels))
+    _, _, rows = profiled(lambda: [fn() for _ in range(n)])
+    us = sum(r["total_us"] for r in rows
+             if r["plane"].startswith("/device:") and any(k in r["name"] for k in kernels))
     return us / n / 1e3
 
 
@@ -585,8 +636,16 @@ def _one_image_seg_checks(randn, grid=None):
                                  fa.flash_attention_segmented_reference(
                                      q.float(), k.float(), v.float(), seg))
         b_ms, b_by = bound(4 * S * H * D * 2, 4 * D * H * _seg_pairs(seg_np))
+        if name == "window":
+            lib, lib_name = _window_library(q, k, v, seg_np)
+        else:      # one image: full attention over its S patches
+            qb, kb, vb = (x.transpose(0, 1)[None] for x in (q, k, v))
+            lib = lambda: torch.nn.functional.scaled_dot_product_attention(   # noqa: E731
+                qb, kb, vb)
+            lib_name = f"scaled_dot_product_attention (1, 16, {S}, 80)"
         out[name] = {"err": err, "ratio": ratio, "ms": cuda_ms(run),
-                     "device_ms": graph_call_ms(run), "bound_ms": b_ms, "bound_by": b_by}
+                     "device_ms": graph_call_ms(run), "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": cuda_ms(lib), "library": lib_name}
     return out
 
 
@@ -794,9 +853,11 @@ def phase_kernels():
     agentic = {(B, L): prefill_case(_agentic_prefill_lens(B, L), L) for B, L in AGENTIC_PREFILL}
     agentic_text = {(B, L): prefill_case(_agentic_text_prefill_lens(B, L), L, 14, 2, 64)
                     for B, L in AGENTIC_TEXT_PREFILL}
+    parallel = prefill_case([PARALLEL_PREFILL["kv_len"]] * PARALLEL_PREFILL["B"],
+                            PARALLEL_PREFILL["L"], *PARALLEL_HEADS)
     cases = (check, main, *stage2.values(), *grpo.values(), *rlvr.values(), *judge.values(),
              *families.values(), *head_dim_64.values(), *agentic.values(),
-             *agentic_text.values())
+             *agentic_text.values(), parallel)
     results.append(_row(
         "flash_attention", "socioreasoner_tpu_torch/csrc/flash_prefill.cu",
         "socioreasoner_tpu/ops/flash_attention.py:37",
@@ -843,6 +904,11 @@ def phase_kernels():
                                                           f"kv_len="
                                                           f"{_agentic_text_prefill_lens(B, L)}")
                               for (B, L), case in agentic_text.items()},
+        # one shard's prefill in the parallel phase's tensor-parallel engine
+        parallel_local=summary(parallel, "B={B} L={L} kv_len={kv_len} x {B}".format(
+            **PARALLEL_PREFILL) + " H={} Hkv={}, one layer of one tp shard's prefill".format(
+            *PARALLEL_HEADS)) | {"host_us": parallel["host_us"],
+                                 "plain_ms": cuda_ms(parallel["plain"], n=10)},
         edge_max_abs_err=pre_edge[0], edge_max_row_ratio=pre_edge[1],
         bounds_checked=_prefill_bounds_check()))
     emit({"phase": "kernel", **results[-1]})
@@ -878,10 +944,21 @@ def phase_kernels():
 # the prompt_length bucket, prefilled four at a time by the sequential pass
 # and two at a time by each restage group of run(); the cache of
 # sequence_length 4096 + 64, Lalloc = ceil((4160 + 64) / 256) * 256.
-TWO_STAGE_PREFILL = {"L": 4096, "kv_len": 2155, "batches": (4, 2)}
+# (the parallel phase's two decode replicas split each restage group of two
+# and prefill its stage-2 prompts one at a time)
+TWO_STAGE_PREFILL = {"L": 4096, "kv_len": 2155, "batches": (4, 2, 1)}
 TWO_STAGE_LALLOC = 4352
 # the main phase's cache: max_len 2560 + 64, decode_chunk 16
 MAIN_LALLOC = -(-(2560 + 64 + 16) // 256) * 256
+# The parallel phase's tensor-parallel engine: the main phase's four stage-1
+# requests over tp = 2 shards of 8 q heads over 1 kv head each (16 / 2 heads
+# cut in two), both on the one card; each shard's prefill at B=4, L=2048
+# (kv 2016) and its own cache of 4 slots at MAIN_LALLOC, checked in
+# phase_kernels at these local shapes (kernels 2, 3 and 3q).
+PARALLEL_TP = 2
+PARALLEL_HEADS = (16 // PARALLEL_TP, 2 // PARALLEL_TP)
+PARALLEL_PREFILL = {"B": 4, "L": 2048, "kv_len": 2016}
+PARALLEL_INT8 = {"weight_quant": "int8", "single_copy_quant": True, "kv_quant": "int8"}
 # The grpo phase's attention shapes, checked in phase_kernels and held to
 # that phase's pass over the real engine. Prefill (B, L) buckets: stage-1
 # prompts of 2016 tokens at L=2048, one or two distinct prompts a prefill
@@ -1013,6 +1090,10 @@ DECODE_CASES = (
                                        639, 640, 641, 700, 703, 704, 705, 767, 768)),
     ("math_vlm", MATH_VLM_SLOTS, MATH_VLM_LALLOC, (0, 941, 942, 980, 1040, 1068, 1069, 1280)),
     ("agentic", AGENTIC_SLOTS, AGENTIC_LALLOC, (177, 211, 262, 300, 347, 380, 0, 1)[:AGENTIC_SLOTS]))
+# the parallel phase's per-shard cache (kernels 3 and 3q): 36 layers, 8 q
+# heads over 1 kv head, lengths of its 2016-token prompts mid-decode
+PARALLEL_DECODE_CASES = (
+    ("parallel", 4, MAIN_LALLOC, (2016, 2040, 2079, 0), 36, *PARALLEL_HEADS),)
 
 # The families phase's attention shapes, checked in phase_kernels and held to
 # the phase: four text prompts of these lengths in the prefill bucket of 512,
@@ -1096,7 +1177,8 @@ def _decode_kernels(randn):
         plain_fn = (da.paged_decode_attention_int8_reference if quant
                     else da.paged_decode_attention_reference)
         errs, ratios, timed = [], [], {}
-        for case, slots, Lalloc, lens, *heads in DECODE_CASES + FAMILY_DECODE_CASES:
+        for case, slots, Lalloc, lens, *heads in (DECODE_CASES + FAMILY_DECODE_CASES
+                                                  + PARALLEL_DECODE_CASES):
             if quant and case in ("two_stage", "grpo", "rlvr", "math_vlm", "agentic") + tuple(
                     c[0] for c in FAMILY_DECODE_CASES):
                 continue
@@ -1174,6 +1256,8 @@ def _decode_kernels(randn):
         extra = {} if quant else {case: summary(timed[case]) for case in (
             "two_stage", "grpo", "rlvr", "math_vlm", "agentic")} | {"families_decode": {
                 c[0]: summary(timed[c[0]]) for c in FAMILY_DECODE_CASES}}
+        # the parallel phase's local shard: 3 on its bf16 cache, 3q on its int8 one
+        extra["parallel_local"] = summary(timed["parallel"])
         rows.append(_row(
             name, "socioreasoner_tpu_torch/csrc/paged_decode.cu",
             "socioreasoner_tpu/ops/decode_attention.py:36",
@@ -1674,12 +1758,15 @@ QUANT_ENGINE_KWARGS = {"weight_quant": "int8", "single_copy_quant": True,
 
 
 def run_main_path(config, params, dev, *, n_tiles=4, tile_px=768, img_cfg=None,
-                  buckets=(2048, 2560), max_new=64, decode_chunk=16, engine_extra=None):
+                  buckets=(2048, 2560), max_new=64, decode_chunk=16, engine_extra=None,
+                  mesh=None, keep=None):
     """Stage-1 requests through the port's user-facing path:
     TorchDecodeStrategy.initialize (which quantizes the served tree under
-    `engine_extra`'s strategy knobs) → collator → batch_image_embeds (ViT,
-    on the strategy's tree) → the strategy's server (ADD ×n, then
-    ALIVE_CHECK and STOP). Returns (outputs, engine, stats)."""
+    `engine_extra`'s strategy knobs; tensor-parallel over `mesh`, a device
+    list, when given) → collator → batch_image_embeds (ViT, on the
+    strategy's tree) → the strategy's server (ADD ×n, then ALIVE_CHECK and
+    STOP). Returns (outputs, engine, stats); `keep`, a dict, receives the
+    requests and the served tree."""
     import torch
     from socioreasoner_tpu_torch.datasets.processor import ImageProcessorConfig
     from socioreasoner_tpu_torch.distributed.torch_strategies import (
@@ -1698,7 +1785,7 @@ def run_main_path(config, params, dev, *, n_tiles=4, tile_px=768, img_cfg=None,
         strategy.initialize(config, params, engine_kwargs={
             "max_slots": n_tiles, "prefill_buckets": tuple(buckets),
             "max_len": buckets[-1] + max_new, "decode_chunk": decode_chunk,
-            "device": dev, **(engine_extra or {})})
+            **({"device": dev} if mesh is None else {}), **(engine_extra or {})}, mesh=mesh)
         _sync(dev)
         t_vit = time.perf_counter()
         embeds = batch_image_embeds(config, strategy.param_store.get("rollout"), batch,
@@ -1706,10 +1793,12 @@ def run_main_path(config, params, dev, *, n_tiles=4, tile_px=768, img_cfg=None,
         _sync(dev)
         vit_ms = (time.perf_counter() - t_vit) * 1e3 / n_tiles
         sp = SamplingParams(temperature=0.0, do_sample=False, max_new_tokens=max_new)
-        outs, gen_s, alive = _serve(strategy, [
-            {"prompt_ids": ids[i][attn[i] == 1].tolist(), "sampling": sp,
-             "image_embeds": embeds[i], "position_ids": pos[i][:, attn[i] == 1]}
-            for i in range(n_tiles)], dev)
+        requests = [{"prompt_ids": ids[i][attn[i] == 1].tolist(), "sampling": sp,
+                     "image_embeds": embeds[i], "position_ids": pos[i][:, attn[i] == 1]}
+                    for i in range(n_tiles)]
+        outs, gen_s, alive = _serve(strategy, requests, dev)
+    if keep is not None:
+        keep.update(requests=requests, tree=strategy.param_store.get("rollout"))
     _check_outputs(config, outs)
     for e in embeds:
         if tuple(e.shape[1:]) != (config.text.hidden_size,) or \
@@ -1732,7 +1821,8 @@ def run_main_path(config, params, dev, *, n_tiles=4, tile_px=768, img_cfg=None,
              # what the server holds: the served tree (ViT included) and the
              # KV cache with its scales
              "served_weights_gb": _tree_bytes(strategy.param_store.get("rollout")) / 2**30,
-             "kv_cache_gb": sum(c.nbytes for c in engine.caches.values()) / 2**30}
+             "kv_cache_gb": sum(c.nbytes for caches in engine.cache_dicts()
+                                for c in caches.values()) / 2**30}
     return outs, engine, stats
 
 
@@ -2410,9 +2500,12 @@ def socioseg_infer_config(out_dir: str, *, rollout_batch_size: int, response_len
 
 
 def build_two_stage(config, params, sam_config, sam_params, out_dir, *, n_tiles=4,
-                    tile_px=768, img_cfg=None, prompt_length=4096, **cuts):
+                    tile_px=768, img_cfg=None, prompt_length=4096, dp_size=None,
+                    devices=None, greedy=False, **cuts):
     """SocioSegInferPipeline over n synthetic tiles, built as the entry
-    script builds it (default_engine_kwargs of the config)."""
+    script builds it (default_engine_kwargs of the config); `dp_size` sets
+    actor_infer's decode replicas over `devices` (the pipeline's device
+    list), `greedy` its temperature to 0."""
     from socioreasoner_tpu_torch.datasets.processor import ImageProcessorConfig
     from socioreasoner_tpu_torch.datasets.socioseg import encode_sample
     from socioreasoner_tpu_torch.pipeline.rlvr.build import default_engine_kwargs
@@ -2422,11 +2515,15 @@ def build_two_stage(config, params, sam_config, sam_params, out_dir, *, n_tiles=
     img_cfg = img_cfg or ImageProcessorConfig(defer_patchify=True)
     cfg = socioseg_infer_config(out_dir, prompt_length=prompt_length,
                                 **{**TWO_STAGE_CUTS, **cuts})
+    if dp_size is not None:
+        cfg.actor_infer.strategy_args.strategy_config["dp_size"] = dp_size
+    if greedy:
+        cfg.actor_infer.generating_args.temperature = 0.0
     dataset = [encode_sample(t, img_cfg) for t in _synthetic_tiles(n_tiles, tile_px)]
     return SocioSegInferPipeline(
         cfg, model_config=config, policy_params=params, sam_config=sam_config,
         sam_params=sam_params, processor=_processor(config, img_cfg), dataset=dataset,
-        engine_kwargs=default_engine_kwargs(cfg))
+        engine_kwargs=default_engine_kwargs(cfg), devices=devices)
 
 
 def wall_ms(fn, dev, reps=3) -> float:
@@ -2619,16 +2716,14 @@ def run_sam2_checks(pipeline, dev, *, reps=3):
 def profile_decode_chunk(engine, dev, prompt_len, seed: int = 0):
     """The engine's decode at its full slot count: one request a slot of
     prompt_len random text tokens (or prompt_len[i] in slot i; decode reads
-    no image), admitted with the first chunk; then a chunk timed between syncs, and one under
-    torch.profiler with device activity only: its kernels' time a step, the
-    device's busy share of the chunk's wall (kernel time over wall; streams
-    do not overlap in decode) and the kernels that take most of it. Returns
-    stats."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    no image), admitted with the first chunk; then a chunk timed between
+    syncs, and one under torch.profiler read through utils/profiling: its
+    device time a step, the device's busy share of the chunk's wall (device
+    time over wall; streams do not overlap in decode) and the kernels that
+    take most of it. Returns stats."""
     from socioreasoner_tpu_torch.generation.engine import Request
     from socioreasoner_tpu_torch.generation.sampling import SamplingParams
+    from socioreasoner_tpu_torch.utils.profiling import busy_us
 
     c = engine.config
     rng = np.random.default_rng(seed)
@@ -2647,22 +2742,19 @@ def profile_decode_chunk(engine, dev, prompt_len, seed: int = 0):
         return ms, engine.steps_executed - steps
 
     ms, steps = chunk()
-    activity = ProfilerActivity.CUDA if dev.type == "cuda" else ProfilerActivity.CPU
-    with profile(activities=[activity]) as prof:
-        prof_ms, prof_steps = chunk()
+    (_, prof_steps), prof_ms, rows = profiled(chunk)
     while engine.has_work():
         engine.step()
-    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                     key=lambda e: -e.device_time_total)
-    device_ms = sum(e.device_time_total for e in kernels) / 1e3
+    kernels = [r for r in rows if r["plane"].startswith("/device:")]
+    device_ms = busy_us(rows) / 1e3
     return {"slots": engine.S, "prompt_len": prompt_len, "chunk_ms": ms, "steps": steps,
             "ms_per_step": ms / steps, "profiled_chunk_ms": prof_ms,
             "profiled_steps": prof_steps, "device_ms_per_step": device_ms / prof_steps,
             "busy_share": device_ms / prof_ms,
-            "kernel_launches_per_step": sum(e.count for e in kernels) / prof_steps,
-            "top_kernels": [{"name": e.key[:80], "ms_per_step": e.device_time_total / 1e3
-                             / prof_steps, "launches_per_step": e.count / prof_steps}
-                            for e in kernels[:8]]}
+            "kernel_launches_per_step": sum(r["count"] for r in kernels) / prof_steps,
+            "top_kernels": [{"name": r["name"][:80], "ms_per_step": r["total_us"] / 1e3
+                             / prof_steps, "launches_per_step": r["count"] / prof_steps}
+                            for r in kernels[:8]]}
 
 
 def phase_two_stage(config, params):
@@ -2715,6 +2807,328 @@ def phase_two_stage(config, params):
         emit({"phase": "sam2", "model": "SAM2-hiera-large, random bf16 weights", **sam,
               "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30})
     return stats["launches"]
+
+
+# ------------------------------------------------------------ multi-device serving
+
+def _free():
+    """Collect the dropped engines' reference cycles and return their
+    memory to the card."""
+    import gc
+    import torch
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _forced_logits(engine, requests, tokens):
+    """`requests` through `engine` with each request's `tokens` fed in place
+    of the engine's samples (the first from its prefill, the rest one a
+    decode step), so the engine's own path (its kernels, weights and cache)
+    is teacher-forced along them. Returns, per request, the (len(tokens), V)
+    f32 logits that fed each token. Prefix forking is off for the run, so
+    every request is prefilled."""
+    import torch
+    from socioreasoner_tpu_torch.generation import engine as E
+    from socioreasoner_tpu_torch.generation.sampling import SamplingParams
+    reqs = [E.Request(("forced", i), r["prompt_ids"], SamplingParams(
+                temperature=0.0, do_sample=False, max_new_tokens=len(t)),
+                image_embeds=r["image_embeds"], position_ids=r["position_ids"])
+            for i, (r, t) in enumerate(zip(requests, tokens))]
+    rows = [[] for _ in reqs]
+    group = []
+    prefill_group = engine._prefill_group
+
+    def record_group(g, outputs):
+        group[:] = [next(j for j, q in enumerate(reqs) if q is r) for r in g]
+        return prefill_group(g, outputs)
+
+    def forced(logits, *_):
+        # a prefill's rows follow its group; a decode step's, the slots
+        picks = (list(enumerate(group)) if group else
+                 [(reqs[j].slot, j) for j in range(len(reqs))
+                  if engine.slot_req.get(reqs[j].slot) is reqs[j]])
+        group.clear()
+        out = torch.full(logits.shape[:1], engine.config.pad_token_id, dtype=torch.long,
+                         device=logits.device)
+        for row, j in picks:
+            n = len(rows[j])
+            if n < len(tokens[j]):
+                rows[j].append(logits[row].float().cpu())
+                out[row] = int(tokens[j][n])
+        return out
+
+    fork, sample = engine.prefix_fork, E.sample_tokens
+    engine.prefix_fork, engine._prefill_group, E.sample_tokens = False, record_group, forced
+    try:
+        outs = engine.generate(reqs)
+    finally:
+        engine.prefix_fork, E.sample_tokens = fork, sample
+        del engine._prefill_group
+    if [list(o.output_ids) for o in outs] != [list(t) for t in tokens]:
+        raise AssertionError("the forced run did not emit the forced tokens")
+    return [torch.stack(r).numpy() for r in rows]
+
+
+def tp_tie_check(ref_engine, tp_engine, requests, ref_outs, tp_outs):
+    """The tensor-parallel engine's greedy tokens against the unsharded
+    engine's, request by request and token by token. Both engines are
+    teacher-forced (_forced_logits) along the unsharded engine's tokens, so
+    every step of every request is compared on the same prefix. The shards
+    sum o_proj and down_proj as partial products, which round otherwise than
+    one matmul: `delta`, the largest difference the sharding makes to a
+    logit at a step, must stay within the fixed TP_DELTA_LIMIT,
+    and where the tp engine's argmax differs from the unsharded token, both
+    must lie within max(GAP_TOL, 2 x delta) of the unsharded top logit (a
+    tie flip). The tp engine's own first divergence is held to the same
+    rule. Returns (equal requests, tie flips, failures, compared tokens,
+    largest delta)."""
+    from socioreasoner_tpu_torch.ops import decode_attention as da
+    from socioreasoner_tpu_torch.ops import flash_attention as fa
+    xs = [list(o.output_ids) for o in ref_outs]
+    # the forced runs are comparisons: they leave the path's launch counts
+    wrappers = (fa.flash_attention_segmented, fa.flash_attention, da.paged_decode_attention,
+                da.paged_decode_attention_int8)
+    counts = [w.launches for w in wrappers]
+    try:
+        ref_rows = _forced_logits(ref_engine, requests, xs)
+        tp_rows = _forced_logits(tp_engine, requests, xs)
+    finally:
+        for w, c in zip(wrappers, counts):
+            w.launches = c
+    equal, flips, failures, compared, worst = 0, [], [], 0, 0.0
+    for r, (x, b, ref, tp) in enumerate(zip(xs, tp_outs, ref_rows, tp_rows)):
+        y = list(b.output_ids)
+        equal += x == y
+        first = next((i for i, (u, v) in enumerate(zip(x, y)) if u != v), None)
+        for i, row in enumerate(ref):
+            delta = float(np.abs(tp[i] - row).max())
+            worst = max(worst, delta)
+            compared += 1
+            top = float(row.max())
+            mine = int(np.argmax(tp[i]))
+            cands = {x[i], mine} | ({y[i]} if i == first else set())
+            gaps = {t: top - float(row[t]) for t in sorted(cands)}
+            bound = max(GAP_TOL, 2 * delta)
+            record = {"request": r, "step": i, "gaps": gaps, "delta": delta,
+                      "bound": bound, "top": top}
+            if delta > TP_DELTA_LIMIT or max(gaps.values()) > bound or gaps[x[i]] > GAP_TOL:
+                failures.append(record)
+            elif len(cands) > 1:
+                flips.append(record)
+    return equal, flips, failures, compared, worst
+
+
+def profile_prefill(engine, dev, prompt_len, seed: int = 1):
+    """One prefill of the engine's full slot count (prompt_len random text
+    tokens a slot, one new token each, so decode never runs) under
+    torch.profiler, read through utils/profiling: its wall ms, device ms
+    and busy share."""
+    from socioreasoner_tpu_torch.generation.engine import Request
+    from socioreasoner_tpu_torch.generation.sampling import SamplingParams
+    from socioreasoner_tpu_torch.utils.profiling import busy_us
+    c = engine.config
+    rng = np.random.default_rng(seed)
+    top = min(t for t in (c.image_token_id, c.eos_token_id, 10000) if t > 10)
+    sp = SamplingParams(temperature=0.0, do_sample=False, max_new_tokens=1)
+    engine.waiting.extend(Request(("prefill_profile", i), rng.integers(10, top, prompt_len)
+                                  .tolist(), sp) for i in range(engine.S))
+    done, ms, rows = profiled(engine.step)
+    if len(done) != engine.S or engine.has_work():
+        raise AssertionError("the profiled prefill did not finish every request")
+    device_ms = busy_us(rows) / 1e3
+    return {"slots": engine.S, "prompt_len": prompt_len, "prefill_ms": ms,
+            "device_ms": device_ms, "busy_share": device_ms / ms}
+
+
+def run_tp_engines(config, params, dev, devices, *, img_cfg=None, tile_px=768, n_tiles=4,
+                   buckets=(2048, 2560), max_new=64, decode_chunk=16, profile_len=None):
+    """(a) of the parallel phase: the main path's stage-1 requests through
+    the unsharded engine and through the tensor-parallel engine over
+    `devices`, with bf16 weights, then with int8 single-copy weights and an
+    int8 KV cache (PARALLEL_INT8); the tp tokens held to the unsharded ones
+    under tp_tie_check; with `profile_len`, each engine's prefill and decode
+    at that prompt length profiled. Returns stats."""
+    out = {}
+    for name, extra in (("bf16", {}), ("int8", PARALLEL_INT8)):
+        kw = dict(img_cfg=img_cfg, tile_px=tile_px, n_tiles=n_tiles, buckets=buckets,
+                  max_new=max_new, decode_chunk=decode_chunk, engine_extra=extra)
+        keep = {}
+        ref_outs, ref_engine, ref_stats = run_main_path(config, params, dev, keep=keep, **kw)
+        tp_outs, tp_engine, tp_stats = run_main_path(config, params, dev, mesh=devices, **kw)
+        if tp_engine.tp is None or len(tp_engine.tp) != len(devices):
+            raise AssertionError(f"{name}: the engine is not tensor-parallel over {devices}")
+        equal, flips, failures, compared, delta = tp_tie_check(
+            ref_engine, tp_engine, keep["requests"], ref_outs, tp_outs)
+        if failures:
+            raise AssertionError(f"{name}: tp tokens left the unsharded engine's beyond a "
+                                 f"tie: {failures}")
+        local = tp_engine.caches[0]["k"].shape
+        fig = {"unsharded": {k: ref_stats[k] for k in MAIN_KEYS if k in ref_stats},
+               "tp": {k: tp_stats[k] for k in MAIN_KEYS if k in tp_stats},
+               "equal_requests": equal, "tie_flips": flips, "compared_tokens": compared,
+               "max_logit_delta": delta, "delta_limit": TP_DELTA_LIMIT,
+               "tp_shard_cache": list(local), "tp_shard_weights_gb": _tree_bytes(
+                   tp_engine.params) / 2**30 / len(devices),
+               "prefill_hist": {str(k): v for k, v in tp_engine.prefill_hist.items()},
+               "lalloc": tp_engine.Lalloc}
+        if profile_len:
+            fig["profile"] = {
+                "unsharded": {"prefill": profile_prefill(ref_engine, dev, profile_len),
+                              "decode": profile_decode_chunk(ref_engine, dev, profile_len)},
+                "tp": {"prefill": profile_prefill(tp_engine, dev, profile_len),
+                       "decode": profile_decode_chunk(tp_engine, dev, profile_len)}}
+        out[name] = fig
+        del ref_engine, tp_engine, keep
+        _free()
+    return out
+
+
+def _result_files(pipeline):
+    """Every file run() wrote under the result directory: {relative path:
+    bytes}."""
+    import os
+    root = pipeline.result_dir
+    files = {}
+    for dirpath, _, names in os.walk(root):
+        for f in names:
+            path = os.path.join(dirpath, f)
+            with open(path, "rb") as fh:
+                files[os.path.relpath(path, root)] = fh.read()
+    return files
+
+
+def run_dp_pipelines(config, params, sam_config, sam_params, out_dir, dev, devices, *,
+                     kernels=(), n_tiles=4, tile_px=768, img_cfg=None, prompt_length=4096,
+                     checked=None, **cuts):
+    """(b) of the parallel phase: SocioSegInferPipeline.run() with
+    actor_infer dp_size 1, then 2 over `devices` (two decode replicas), at
+    greedy, each run() timed: every text, mask and iou_acc.txt of the dp = 2
+    run equal to the dp = 1 run's; the kernels' launches counted over both
+    run() calls; with `checked` (prefill buckets, prefill batch sizes,
+    Lalloc), every pass held to those shapes. Returns stats."""
+    import os
+    runs, files = {}, {}
+    counts = {fn.__name__: 0 for fn in kernels}
+    for dp in (1, 2):
+        pipeline = build_two_stage(config, params, sam_config, sam_params,
+                                   os.path.join(out_dir, f"dp{dp}"), n_tiles=n_tiles,
+                                   tile_px=tile_px, img_cfg=img_cfg,
+                                   prompt_length=prompt_length, dp_size=dp,
+                                   devices=devices, greedy=True, **cuts)
+        engines = [rep.engine for rep in pipeline.decode_replicas]
+        if len(engines) != dp:
+            raise AssertionError(f"dp_size={dp} built {len(engines)} replicas")
+        for fn in kernels:
+            fn.launches = 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        giou_acc = pipeline.run()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        for fn in kernels:
+            counts[fn.__name__] += fn.launches
+        written, _ = check_infer_outputs(pipeline)
+        if written != giou_acc:
+            raise AssertionError(f"iou_acc.txt {written} != giou_acc {giou_acc}")
+        served = [e.prefill_rows for e in engines]
+        if not all(served):
+            raise AssertionError(f"dp_size={dp}: a replica served no prefill: {served}")
+        fig = {"tiles_per_s": len(pipeline.dataset) / wall, "run_wall_s": wall,
+               "prefill_ms": sum(e.prefill_device_time for e in engines) * 1e3,
+               "decode_s": sum(e.decode_time for e in engines),
+               "steps_executed": sum(e.steps_executed for e in engines),
+               "prefill_buckets": sorted({k[1] for e in engines for k in e.prefill_hist}),
+               "prefill_batches": sorted({k[0] for e in engines for k in e.prefill_hist}),
+               "cache_lalloc": engines[0].Lalloc, "giou_acc": giou_acc,
+               "replica_prefill_rows": served}
+        runs[f"dp{dp}"] = fig
+        files[dp] = _result_files(pipeline)
+        if checked and (fig["prefill_buckets"] != checked[0]
+                        or not set(fig["prefill_batches"]) <= set(checked[1])
+                        or fig["cache_lalloc"] != checked[2]):
+            raise AssertionError(f"dp_size={dp} left the checked shapes: {fig}")
+        del pipeline, engines
+        _free()
+    if files[1].keys() != files[2].keys():
+        raise AssertionError(f"dp_size 2 wrote {sorted(files[2])}, dp_size 1 {sorted(files[1])}")
+    differ = sorted(k for k in files[1] if files[1][k] != files[2][k])
+    if differ:
+        raise AssertionError(f"dp_size 2's files differ from dp_size 1's: {differ}")
+    return {**runs, "files_equal": len(files[1]), "launches": counts}
+
+
+def phase_parallel(config, params):
+    """Serving over several devices on the one card: (a) the tensor-parallel
+    engine, both shards on cuda:0, against the unsharded one, bf16 and int8;
+    (b) the infer pipeline with two decode replicas on cuda:0 against one;
+    (c) the infer yaml's 16 slots a replica, two replicas, allocated beside
+    SAM2. Returns the launch counts of kernels 1, 2, 3 and 3q over (a) and
+    (b)."""
+    import tempfile
+    import torch
+    from socioreasoner_tpu_torch.models.sam2 import model as smodel
+    from socioreasoner_tpu_torch.models.sam2.config import Sam2Config
+    from socioreasoner_tpu_torch.ops import decode_attention as da
+    from socioreasoner_tpu_torch.ops import flash_attention as fa
+    from socioreasoner_tpu_torch.utils.context_managers import device_memory_stats
+
+    dev = torch.device("cuda")
+    devices = [dev] * PARALLEL_TP
+    kernels = (fa.flash_attention_segmented, fa.flash_attention, da.paged_decode_attention,
+               da.paged_decode_attention_int8)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    engines = run_tp_engines(config, params, dev, devices,
+                             profile_len=PARALLEL_PREFILL["kv_len"])
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    emit({"phase": "parallel_tp", "model": "Qwen2.5-VL-3B (36 layers, 16/2 x 128 heads, "
+          f"vocab 151936), random bf16 weights, tp={PARALLEL_TP} with both shards on "
+          "cuda:0: the sharded code, not multi-GPU speed", "wall_s": time.perf_counter() - t0,
+          **engines})
+    sam_config = Sam2Config.large()
+    sam_params = smodel.init_params(sam_config, torch.Generator(device=dev).manual_seed(1),
+                                    dtype=torch.bfloat16, device=dev)
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        # held to the two_stage phase's checked shapes
+        dp = run_dp_pipelines(config, params, sam_config, sam_params, out_dir, dev,
+                              devices, kernels=kernels, checked=(
+                                  [2048, TWO_STAGE_PREFILL["L"]],
+                                  TWO_STAGE_PREFILL["batches"], TWO_STAGE_LALLOC))
+        for k, c in dp["launches"].items():
+            launches[k] += c
+        emit({"phase": "parallel_dp", "model": "Qwen2.5-VL-3B served as int8 single-copy "
+              "weights + SAM2-hiera-large, random bf16 weights, greedy; two decode "
+              "replicas on cuda:0", "cuts": TWO_STAGE_CUTS, "wall_s": time.perf_counter() - t0,
+              **dp})
+        # (c) the infer yaml's own scale: 16 slots of sequence_length 6144 a
+        # replica, two replicas, beside SAM2-hiera-large
+        t0 = time.perf_counter()
+        full = build_two_stage(config, params, sam_config, sam_params, out_dir,
+                               dp_size=2, devices=devices, rollout_batch_size=16,
+                               response_length=2048, infer_batch_size=16)
+        caches = [sum(c.nbytes for c in rep.engine.caches.values()) / 2**30
+                  for rep in full.decode_replicas]
+        memory = device_memory_stats()
+        yaml_scale = {"replicas": len(full.decode_replicas), "slots": full.decode_replicas[0]
+                      .engine.S, "lalloc": full.decode_replicas[0].engine.Lalloc,
+                      "kv_cache_gb": caches, "build_s": time.perf_counter() - t0,
+                      "bytes_in_use_gb": memory["device0/bytes_in_use"] / 2**30}
+        del full
+        _free()
+    peak = device_memory_stats()["device0/peak_bytes_in_use"]
+    emit({"phase": "parallel", "launches": launches, "yaml_scale": yaml_scale,
+          "peak_gb": peak / 2**30, "peak_gib_limit": 80})
+    missing = [k for k, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in the parallel phase: {missing}")
+    if peak >= 80e9:
+        raise AssertionError(f"parallel phase peak {peak / 1e9:.1f} GB")
+    return launches
 
 
 # ------------------------------------------------------------ GRPO pipeline
@@ -4736,26 +5150,22 @@ def greedy_against_forward(config, params, dev, prompts, outs):
 
 def profile_forward(config, params, dev, prompt):
     """One uncached forward (dense attention) over `prompt` under
-    torch.profiler: wall ms, the device's kernel ms and the kernels that
-    take most of it."""
+    torch.profiler, read through utils/profiling: wall ms, the device's
+    kernel ms and the kernels that take most of it."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from socioreasoner_tpu_torch.models import llm
     from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
+    from socioreasoner_tpu_torch.utils.profiling import busy_us
     ids = np.asarray([prompt])
     attn = np.ones_like(ids)
     args = [torch.as_tensor(a, device=dev) for a in (ids, llm.text_position_ids(ids, attn),
                                                       attn)]
-    activity = ProfilerActivity.CUDA if dev.type == "cuda" else ProfilerActivity.CPU
-    with torch.no_grad(), profile(activities=[activity]) as prof:
-        ms = wall_ms(lambda: qmodel.forward(config, params, *args), dev, reps=1)
-    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                     key=lambda e: -e.device_time_total)
-    return {"tokens": len(prompt), "ms": ms,
-            "device_ms": sum(e.device_time_total for e in kernels) / 1e3,
-            "top_kernels": [{"name": e.key[:80], "ms": e.device_time_total / 1e3,
-                             "launches": e.count} for e in kernels[:6]]}
+    with torch.no_grad():
+        _, ms, rows = profiled(lambda: qmodel.forward(config, params, *args))
+    kernels = [r for r in rows if r["plane"].startswith("/device:")]
+    return {"tokens": len(prompt), "ms": ms, "device_ms": busy_us(rows) / 1e3,
+            "top_kernels": [{"name": r["name"][:80], "ms": r["total_us"] / 1e3,
+                             "launches": r["count"]} for r in kernels[:6]]}
 
 
 def serve_family(config, params, dev, *, prompt_lens=FAMILY_PROMPT_LENS,
@@ -5552,6 +5962,7 @@ def main() -> int:
     try:
         import torch
         from socioreasoner_tpu_torch.ops import _build
+        from socioreasoner_tpu_torch.ops.flags import flash_disabled
     except ImportError as e:
         print(f"chip_smoke: {e} (run from the root of the repository)",
               file=sys.stderr)
@@ -5561,6 +5972,12 @@ def main() -> int:
         # the kernels must build from the sources of this checkout
         print(f"chip_smoke: the port was imported from {_build.PKG_DIR}, not "
               f"from {here}", file=sys.stderr)
+        return 1
+    if flash_disabled():
+        # the knob would send attention to its plain version (the engine,
+        # trainer and ViT refuse it for tensors on the card)
+        print("chip_smoke: SOCIO_DISABLE_FLASH=1 is set; unset it to run the kernels",
+              file=sys.stderr)
         return 1
     name = phase_device()
     phase_build()
@@ -5572,6 +5989,7 @@ def main() -> int:
     launches.update(phase_train(config, params))
     launches.update(phase_main_quant(config, params, main_stats))
     two_stage = phase_two_stage(config, params)
+    parallel = phase_parallel(config, params)
     grpo = phase_grpo(config, params)
     rlvr = phase_rlvr(config, params)
     workers = phase_workers(config, params)
@@ -5588,6 +6006,8 @@ def main() -> int:
         kern["launches"] = launches[kern["name"]]
         if kern["name"] in two_stage:
             kern["launches_two_stage"] = two_stage[kern["name"]]
+        if kern["name"] in parallel:
+            kern["launches_parallel"] = parallel[kern["name"]]
         if kern["name"] in grpo:
             kern["launches_grpo"] = grpo[kern["name"]]
         if kern["name"] in rlvr:

@@ -10,14 +10,19 @@ pipeline, the from-config start: loaders, checkpoints, entry scripts, the
 generic RLVR slice: RLVRPipeline with dynamic sampling, MathVLMPipeline,
 the worker runtime with every reward, the reward model, the critic, SFT
 and DPO, the other model families: MoE layers, the text-only LLM
-families, the Qwen2-VL ViT, and the agentic slice):
+families, the Qwen2-VL ViT, the agentic slice, and the serving plane over
+several devices with the runtime and tooling modules):
   examples                — the two entry scripts (yaml → pipeline → run())
   tools/convert           — HF <-> native checkpoint CLI
   configs                 — the yaml loader and the config dataclasses
+  parallel                — named device meshes (a grid of torch.devices) and
+                            the Megatron spec tables, shard_params (one
+                            tree a tensor-parallel shard)
   ops                     — attention references + hand-written Hopper kernels
                             (csrc/*.cu, built by ops/_build.py at first use),
                             the trainable flash attention (autograd Function),
-                            the MoE router and experts (ops/moe)
+                            their head-sharded tp calls, the MoE router and
+                            experts (ops/moe), the kernel flags (ops/flags)
   models/qwen2_5_vl       — ViT (qwen2.5 and qwen2 variants), text decoder
                             (dense and MoE layers, remat, trainable flash),
                             full model, weight bridge, HF loader and export
@@ -26,12 +31,14 @@ families, the Qwen2-VL ViT, and the agentic slice):
                             decoder, load_text_model
   models/sam2             — Hiera + FPN encoder, prompt encoder, two-way mask
                             decoder, predictor, HF loader
-  generation              — DecodeEngine, sampling, GenerateServer
+  generation              — DecodeEngine (one device, or tensor-parallel
+                            over a device list), sampling, GenerateServer
   runtime                 — Cluster (yaml worker_cls strings, the JAX
                             package's paths read as the port's), the dispatch
                             modes, Worker, GenerateScheduler,
                             DynamicSamplingScheduler, RequestScheduler,
-                            LocalGenerateGroup
+                            LocalGenerateGroup (data-parallel replicas),
+                            ResourceManager, log_monitor
   datasets                — processor, SocioSeg encode_sample, stage-2
                             render and HF builder (load_socioseg), stage-1
                             and restage collators, the file loader and its
@@ -54,14 +61,18 @@ families, the Qwen2-VL ViT, and the agentic slice):
                             episodes, AgenticPipeline, AgenticVLMPipeline,
                             AgenticRolloutPipeline
   utils                   — safetensors reader/writer, CheckpointManager,
-                            trackers, metrics, WorkerState
+                            trackers, metrics, WorkerState, the native host
+                            library (its own copy of csrc/socio_host.cpp,
+                            built at first use), profiling (torch.profiler
+                            traces), context managers, checkpoint upload
   distributed             — ParamStore and strategy bases, the train/logprob,
                             critic and SFT steps and optimizer (trainer),
                             sequence packing and DPO (sft),
                             batch_image_embeds, compute_image_embeds,
                             TorchTrainStrategy / TorchInferStrategy /
                             TorchRewardStrategy / TorchDecodeStrategy,
-                            SegStrategy (SAM2), create_strategy (factory)
+                            SegStrategy (SAM2), create_strategy (factory),
+                            transfer (weights onto a device or tp layout)
 
 It imports torch, never jax, and nothing of the JAX package: the host-only
 modules it needs (the Qwen2.5-VL and SAM2 configs, protocol, the configs,

@@ -11,10 +11,9 @@ the JAX package):
                                                 that layout, and the loader
   render_visual_prompt                        — the stage-2 restage render
 
-The JAX package counts components with its native host library
-(csrc/socio_host.cpp, union-find); here scipy.ndimage.label with 8-connectivity
-gives the same components, numbered in the same raster order of their first
-pixel.
+Components and their boxes come from the port's native host library
+(utils/native.py: 8-connected union-find, numbered in the raster order of
+each component's first pixel), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -65,29 +64,17 @@ def format_stage2_prompt(prompt: str, bboxs_text: str, n_images: int = 2) -> str
 
 # ------------------------------------------------------------- GT extraction
 
-def _components(mask: np.ndarray):
-    """8-connected components of mask > 0: (labels, count), numbered 1.. in
-    the raster order of each component's first pixel."""
-    from scipy import ndimage
-    return ndimage.label(np.asarray(mask) > 0, structure=np.ones((3, 3), np.int32))
-
-
 def count_components(mask_image: Image.Image) -> int:
     """8-connected component count of the binary GT mask."""
-    return int(_components(np.asarray(mask_image.convert("L")))[1])
+    from ..utils.native import connected_components_count
+    return connected_components_count(np.asarray(mask_image.convert("L")))
 
 
 def component_boxes(mask: np.ndarray, min_area: int = 10) -> List[List[int]]:
     """[x1, y1, x2, y2] (x2, y2 exclusive) per component with pixel area >
     min_area, in component order."""
-    labels, n = _components(mask)
-    if n == 0:
-        return []
-    area = np.bincount(labels.ravel(), minlength=n + 1)
-    from scipy import ndimage
-    return [[sl[1].start, sl[0].start, sl[1].stop, sl[0].stop]
-            for lab, sl in enumerate(ndimage.find_objects(labels), start=1)
-            if area[lab] > min_area]
+    from ..utils import native
+    return native.component_boxes(mask, min_area=min_area)
 
 
 def extract_gt_bboxes(mask_image: Image.Image, min_area: float = 10) -> str:

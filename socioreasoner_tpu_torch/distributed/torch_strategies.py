@@ -306,8 +306,10 @@ class TorchDecodeStrategy(InferenceStrategy):
 
     def initialize(self, model_config: Qwen25VLConfig, params=None,
                    engine_kwargs: Optional[Dict] = None,
-                   param_store: Optional[ParamStore] = None):
-        """Serve `params`, or the param store's "rollout" weights when None.
+                   param_store: Optional[ParamStore] = None, mesh=None):
+        """Serve `params`, or the param store's "rollout" weights when None;
+        with `mesh` (a parallel.mesh.Mesh or a device list) the engine is
+        tensor-parallel over its "tp" devices.
 
         engine_kwargs may carry two strategy knobs besides the engine's:
         `single_copy_quant` (needs `weight_quant`) stores a quantized copy of
@@ -326,6 +328,8 @@ class TorchDecodeStrategy(InferenceStrategy):
             raise ValueError("single_copy_quant requires weight_quant")
         if self._single_copy or self._vit_quant:
             self._quantize_store()
+        if mesh is not None:
+            self.engine_kwargs.setdefault("mesh", mesh)
         self.engine = DecodeEngine(model_config, self.param_store.get("rollout"),
                                    **self.engine_kwargs)
         self.server: Optional[GenerateServer] = None
@@ -353,15 +357,24 @@ class TorchDecodeStrategy(InferenceStrategy):
         would share with the published tree: the trainer updates its weights
         in place, and a rollout after later train steps must see the weights
         of this update. Of a quantized tree only the float leaves it shares
-        are copied; the codes are new tensors already."""
-        if params is not None and not isinstance(params, Mapping):
-            raise TypeError(f"params must be a mapping of weights, got {type(params).__name__}")
+        are copied; the codes are new tensors already. A tensor-parallel
+        engine also takes the list of per-shard trees of
+        distributed/transfer.py's transfer_params."""
+        shards = (isinstance(params, list) and self.engine.tp is not None
+                  and all(isinstance(p, Mapping) for p in params))
+        if params is not None and not (isinstance(params, Mapping) or shards):
+            raise TypeError(f"params must be a mapping of weights (or, for a tensor-parallel "
+                            f"engine, a list of per-shard mappings), got "
+                            f"{type(params).__name__}")
         if self.engine.has_work():
             raise RuntimeError(
                 "model_update while the decode engine has in-flight or waiting "
                 f"requests ({self.engine.num_running()} running, "
                 f"{self.engine.num_waiting()} waiting); drain/stop generation "
                 "before swapping weights")
+        if shards:                  # already laid out: the engine's own, not the store's
+            self.engine.set_params(params)
+            return
         if params is not None:
             self.param_store.put("rollout", params)
         published = self.param_store.get("rollout")

@@ -44,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models.qwen2_5_vl import model as qmodel
 from ..models.qwen2_5_vl.config import Qwen25VLConfig
+from ..ops.flags import use_flash_attention
 from ..pipeline.losses import PPOLossConfig, ppo_policy_loss
 
 HEAD_CHUNK = 256
@@ -291,11 +292,14 @@ def make_train_step(config: Qwen25VLConfig, loss_cfg: PPOLossConfig,
     (B, L-1), optional image_embeds / vision_inputs / sample_weights.
     Metrics: the PPO loss's, plus actor_train/grad_norm (the global norm of
     this call's grads before clipping) and actor_train/loss, as 0-dim
-    tensors."""
+    tensors. The trainable flash kernels unless allow_flash is off or
+    SOCIO_DISABLE_FLASH=1 (ops/flags.py, which refuses the knob for a
+    batch on the card), as in the JAX package."""
 
     def loss_fn(params: Dict, batch: Dict):
+        flash = allow_flash and use_flash_attention(device=batch["input_ids"].device)
         lp, ent = _model_log_probs(config, params, batch, remat, with_entropy=True,
-                                   use_flash=allow_flash, cp=cp, pp=pp, vp_mesh=vp_mesh,
+                                   use_flash=flash, cp=cp, pp=pp, vp_mesh=vp_mesh,
                                    chunk_size=chunk_size)
         return ppo_policy_loss(
             lp, ent, batch["old_log_probs"], batch.get("ref_log_probs"),
@@ -315,11 +319,12 @@ def make_logprob_step(config: Qwen25VLConfig, remat: bool = False, cp=None, pp=N
                       vp_mesh=None, allow_flash: bool = True,
                       chunk_size: int = HEAD_CHUNK) -> Callable[[Dict, Dict], Dict]:
     """Forward only: {"log_probs", "entropy"}, each (B, L-1) and zero outside
-    the response."""
+    the response; flash attention as make_train_step chooses it."""
 
     @torch.no_grad()
     def logprob_step(params: Dict, batch: Dict) -> Dict:
-        lp, ent = _model_log_probs(config, params, batch, remat, use_flash=allow_flash,
+        flash = allow_flash and use_flash_attention(device=batch["input_ids"].device)
+        lp, ent = _model_log_probs(config, params, batch, remat, use_flash=flash,
                                    cp=cp, pp=pp, vp_mesh=vp_mesh, chunk_size=chunk_size)
         resp = batch["response_mask"][:, 1:].to(lp.dtype)
         return {"log_probs": lp * resp, "entropy": ent * resp}

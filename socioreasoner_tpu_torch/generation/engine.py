@@ -27,8 +27,21 @@ The counterpart of socioreasoner_tpu/generation/engine.py on one device:
     decode kernel; `decode_inner` splits a chunk into chained inner loops
     with one token readback. MoE families serve float weights only: weight
     quantization and pre-quantized trees raise for them, as in JAX.
+  * Tensor parallelism (`mesh`: a parallel.mesh.Mesh, whose "tp" axis is
+    used, or a plain list of devices, which may repeat one device): the
+    weights take the Megatron column/row layout, one tree a shard on its
+    device (parallel/sharding.py shard_params; a HYBRID int8 copy is
+    quantized whole, then sharded, so its scales are the unsharded
+    tree's), each shard keeps its own contiguous cache of its kv heads,
+    kernels 2 and 3/3q run on each shard's local heads, and the
+    row-parallel partial products are summed onto the first device, where
+    the residual stream, the gathered logits, the sampler and the slot
+    state live. `mesh` and `device` are exclusive, as in JAX.
+    Nibble-packed int4 weights are refused under tensor parallelism.
 
-Not ported yet (ROADMAP): meshes / tensor parallelism.
+The attention route follows ops/flags.use_flash_attention: the kernels
+unless SOCIO_DISABLE_FLASH=1, which attends densely over a CPU engine's
+cache and raises for an engine on the card.
 """
 
 from __future__ import annotations
@@ -43,7 +56,10 @@ import torch
 
 from ..models.qwen2_5_vl import model as qmodel
 from ..models.qwen2_5_vl.config import Qwen25VLConfig
+from ..ops.flags import use_flash_attention
 from ..ops.quant import params_prequantized, quantize_decode_params
+from ..parallel.mesh import tp_devices
+from ..parallel.sharding import shard_params
 from .sampling import SamplingParams, sample_tokens
 
 
@@ -110,7 +126,8 @@ class DecodeEngine:
                  kv_quant: Optional[str] = None, weight_quant: Optional[str] = None,
                  max_prefill_batch: Optional[int] = None, seed: int = 0,
                  device=None, prefill_batch_sizes: Optional[Tuple[int, ...]] = None,
-                 prefix_fork: bool = True, act_quant: Optional[str] = None):
+                 prefix_fork: bool = True, act_quant: Optional[str] = None,
+                 mesh=None, tp_axis: str = "tp"):
         if weight_quant not in (None, "int8", "int4"):
             raise ValueError(f"weight_quant must be None, 'int8' or 'int4', "
                              f"got {weight_quant!r}")
@@ -128,15 +145,32 @@ class DecodeEngine:
                              f"multiple of decode_inner={decode_inner}")
         if config.text.n_experts and params_prequantized(params):
             raise NotImplementedError("pre-quantized params with MoE expert stacks")
+        if mesh is not None and device is not None:
+            raise ValueError("pass either mesh (TP engine) or device "
+                             "(DP replica pin), not both")
+        t = config.text
+        self.tp: Optional[List[torch.device]] = None
+        if mesh is not None:
+            devices = tp_devices(mesh, tp_axis)
+            if len(devices) > 1:
+                T = len(devices)
+                if t.num_attention_heads % T or t.num_key_value_heads % T:
+                    raise ValueError(
+                        f"tp={T} must divide heads ({t.num_attention_heads}) and "
+                        f"kv heads ({t.num_key_value_heads})")
+                if weight_quant == "int4":
+                    raise NotImplementedError(
+                        "weight_quant='int4' under tensor parallelism")
+                self.tp = devices
+            device = devices[0]
+        self.mesh = mesh
         self.config = config
         self.weight_quant = weight_quant
         self.act_quant = bool(act_quant)
         self.kv_quant = kv_quant
         self.decode_inner = decode_inner
         self.device = torch.device(device) if device is not None else params["embed"].device
-        self.params = self._to_device(params)
-        self.params_q = None              # HYBRID mode's quantized decode copy
-        self._derive_params_q()
+        self._install(params)             # self.params, and HYBRID mode's params_q
         self.S = max_slots
         self.Lmax = max_len
         self.decode_chunk = decode_chunk
@@ -149,23 +183,26 @@ class DecodeEngine:
             self._prefill_batch_buckets = tuple(sorted(
                 {b for b in (1, 2, 4, 8, 16, 32) if b < min(max_slots, cap)}
                 | {min(max_slots, cap)}))
-        t = config.text
         L, Hkv, D = t.num_hidden_layers, t.num_key_value_heads, t.head_dim
         # decode_chunk slack: a chunk may overshoot max_len before the host
         # notices; rounded up to 256 so the decode kernel's blocks tile it
         self.Lalloc = -(-(max_len + decode_chunk) // 256) * 256
         if kv_quant == "int8":
             cache_dtype = torch.int8
-        self.caches = {
-            "k": torch.zeros((L, self.S, self.Lalloc, Hkv, D), dtype=cache_dtype,
-                             device=self.device),
-            "v": torch.zeros((L, self.S, self.Lalloc, Hkv, D), dtype=cache_dtype,
-                             device=self.device),
-        }
-        if kv_quant == "int8":
-            for name in ("k_scale", "v_scale"):
-                self.caches[name] = torch.zeros((L, self.S, Hkv, self.Lalloc),
-                                                dtype=torch.float32, device=self.device)
+
+        def new_cache(Hkv_local, dev):
+            c = {name: torch.zeros((L, self.S, self.Lalloc, Hkv_local, D),
+                                   dtype=cache_dtype, device=dev) for name in ("k", "v")}
+            if kv_quant == "int8":
+                for name in ("k_scale", "v_scale"):
+                    c[name] = torch.zeros((L, self.S, Hkv_local, self.Lalloc),
+                                          dtype=torch.float32, device=dev)
+            return c
+
+        # under tp, one cache of its kv heads a shard, contiguous on its
+        # device (a view of a whole cache would fail the kernels' strides)
+        self.caches = (new_cache(Hkv, self.device) if self.tp is None else
+                       [new_cache(Hkv // len(self.tp), dev) for dev in self.tp])
         self.lengths = np.zeros(self.S, np.int32)         # host copy
         self.next_pos = np.zeros(self.S, np.int32)        # next M-RoPE position value
         self.last_token = np.zeros(self.S, np.int32)
@@ -184,7 +221,6 @@ class DecodeEngine:
         self.forked_requests = 0          # diagnostic: prompts forked instead
         self.waiting: List[Request] = []
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        self._embed_dtype = params["embed"].dtype
         # device-resident decode state, refreshed only when admission or
         # release changes the slot set
         self._dev_state: Optional[Dict[str, torch.Tensor]] = None
@@ -195,22 +231,46 @@ class DecodeEngine:
             return {k: self._to_device(v) for k, v in params.items()}
         return params.to(self.device)
 
-    def _derive_params_q(self):
-        """SINGLE-COPY (a pre-quantized tree) serves prefill and decode from
-        self.params; HYBRID (weight_quant on a float tree) derives the
-        quantized decode copy."""
-        if params_prequantized(self.params):
-            self.params_q = None
-        elif self.weight_quant:
+    def _shard(self, params):
+        """The per-shard trees of a whole tree (the engine never runs the
+        ViT, so the vision subtree is left out)."""
+        return shard_params({k: v for k, v in params.items() if k != "vision"}, self.tp)
+
+    def _install(self, params):
+        """Serve `params`. SINGLE-COPY (a pre-quantized tree) serves prefill
+        and decode from self.params; HYBRID (weight_quant on a float tree)
+        derives the quantized decode copy. Under tp a whole tree is sharded
+        (its HYBRID copy quantized whole first); a list of per-shard trees
+        (distributed/transfer.py) is taken as it is."""
+        self.params_q = None
+        if isinstance(params, (list, tuple)):
+            if self.tp is None or len(params) != len(self.tp):
+                raise ValueError(f"{len(params)} per-shard trees for an engine over "
+                                 f"{self.tp} devices")
+            if self.weight_quant and not params_prequantized(params[0]):
+                raise ValueError("weight_quant's HYBRID copy is quantized from the whole "
+                                 "tree: pass the whole tree, not its shards")
+            self.params = list(params)
+            self._embed_dtype = params[0]["embed"].dtype
+            return
+        self._embed_dtype = params["embed"].dtype
+        whole = params if self.tp is not None else self._to_device(params)
+        self.params = self._shard(whole) if self.tp is not None else whole
+        if self.weight_quant and not params_prequantized(whole):
             with torch.no_grad():
-                self.params_q = quantize_decode_params(self.params, mode=self.weight_quant)
+                q = quantize_decode_params(whole, mode=self.weight_quant)
+                self.params_q = self._shard(q) if self.tp is not None else q
+
+    def cache_dicts(self) -> List[Dict[str, torch.Tensor]]:
+        """The caches as one dict a shard (one dict on one device)."""
+        return self.caches if self.tp is not None else [self.caches]
 
     # ------------------------------------------------------------------ public
     def set_params(self, params):
         """Swap in new weights and derive the quantized decode copy again.
-        The caller drains the engine first."""
-        self.params = self._to_device(params)
-        self._derive_params_q()
+        The caller drains the engine first. Under tp a whole tree is
+        sharded again."""
+        self._install(params)
         # prefixes cached under the OLD weights must never fork under the new
         self._prefix_registry.clear()
 
@@ -437,10 +497,11 @@ class DecodeEngine:
     def _fork_slots(self, srcs: List[int], dsts: List[int]):
         """Gather the source rows, then write them to the destination slots
         in place (slot axis = 1). Sources and destinations are disjoint."""
-        src = torch.as_tensor(srcs, device=self.device)
-        dst = torch.as_tensor(dsts, device=self.device)
-        for c in self.caches.values():
-            c[:, dst] = c[:, src]
+        for caches in self.cache_dicts():
+            for c in caches.values():
+                src = torch.as_tensor(srcs, device=c.device)
+                dst = torch.as_tensor(dsts, device=c.device)
+                c[:, dst] = c[:, src]
 
     def _prefill_group(self, reqs: List[Request], outputs: List[EngineOutput]):
         """One batched prefill for `reqs` (one prompt bucket, slots assigned).
@@ -595,41 +656,51 @@ class DecodeEngine:
         dev = self.device
         Bp, bucket = ids.shape
         Lyr = cfg.text.num_hidden_layers
-        Hkv, D = cfg.text.num_key_value_heads, cfg.text.head_dim
+        D = cfg.text.head_dim
         attn_t = torch.as_tensor(attn, device=dev)
-        local = {name: torch.zeros((Lyr, Bp, bucket, Hkv, D), dtype=self.caches[name].dtype,
-                                   device=dev) for name in ("k", "v")}
-        if self.kv_quant:
-            for name in ("k_scale", "v_scale"):
-                local[name] = torch.zeros((Lyr, Bp, Hkv, bucket), dtype=torch.float32,
-                                          device=dev)
-        local["kv_valid"] = attn_t
+
+        def local_cache(slot_cache):
+            Hkv, cdev = slot_cache["k"].shape[3], slot_cache["k"].device
+            local = {name: torch.zeros((Lyr, Bp, bucket, Hkv, D),
+                                       dtype=slot_cache[name].dtype, device=cdev)
+                     for name in ("k", "v")}
+            if self.kv_quant:
+                for name in ("k_scale", "v_scale"):
+                    local[name] = torch.zeros((Lyr, Bp, Hkv, bucket), dtype=torch.float32,
+                                              device=cdev)
+            local["kv_valid"] = attn_t.to(cdev)
+            return local
+
+        locals_ = [local_cache(c) for c in self.cache_dicts()]
         cache_positions = torch.arange(bucket, device=dev)[None].expand(Bp, bucket)
         # w8a8 prefill in HYBRID mode runs on the int8 copy (in SINGLE-COPY
         # mode self.params is the int8 tree already)
         params = (self.params_q if self.act_quant and self.params_q is not None
                   else self.params)
         # logits=False: only each row's LAST position feeds sampling
-        hidden, local = qmodel.forward(
+        hidden, _ = qmodel.forward(
             cfg, params, torch.as_tensor(ids, device=dev),
             torch.as_tensor(pos, device=dev), None, image_embeds=image_embeds,
-            cache=local, cache_positions=cache_positions, logits=False,
-            act_quant=self.act_quant)
+            cache=locals_ if self.tp is not None else locals_[0],
+            cache_positions=cache_positions, logits=False, act_quant=self.act_quant,
+            use_flash=use_flash_attention(device=dev), tp=self.tp)
         rows = torch.arange(Bp, device=dev)
         last_hidden = hidden[rows, torch.as_tensor(Ps - 1, device=dev)]
-        tok = sample_tokens(qmodel.head_logits(params, last_hidden), self._gen,
+        head = qmodel.head_logits_tp if self.tp is not None else qmodel.head_logits
+        tok = sample_tokens(head(params, last_hidden), self._gen,
                             torch.as_tensor(temps, device=dev),
                             torch.as_tensor(top_ps, device=dev),
                             torch.as_tensor(top_ks, device=dev))
         # (L, S, Lalloc, Hkv, D) ← (L, B, bucket, …) and scales (L, S, Hkv,
         # Lalloc) ← (L, B, Hkv, bucket); padded rows are dropped
-        slot_idx = torch.as_tensor(slots, device=dev)
         B = len(slots)
-        for name, cache in self.caches.items():
-            if name in ("k", "v"):
-                cache[:, slot_idx, :bucket] = local[name][:, :B]
-            else:
-                cache[:, slot_idx, :, :bucket] = local[name][:, :B]
+        for caches, local in zip(self.cache_dicts(), locals_):
+            for name, cache in caches.items():
+                slot_idx = torch.as_tensor(slots, device=cache.device)
+                if name in ("k", "v"):
+                    cache[:, slot_idx, :bucket] = local[name][:, :B]
+                else:
+                    cache[:, slot_idx, :, :bucket] = local[name][:, :B]
         return tok
 
     @torch.no_grad()
@@ -659,10 +730,12 @@ class DecodeEngine:
             if not bool(running.any()):
                 break
             pos = next_pos[:, None, None].expand(S, 3, 1)
-            cache = dict(self.caches,
-                         kv_valid=(kv_pos[None, :] < (lengths + 1)[:, None]).to(torch.int32))
+            kv_valid = (kv_pos[None, :] < (lengths + 1)[:, None]).to(torch.int32)
+            cache = ([dict(c, kv_valid=kv_valid) for c in self.caches]
+                     if self.tp is not None else dict(self.caches, kv_valid=kv_valid))
             logits, _ = qmodel.forward(cfg, params, last_token[:, None], pos, None,
-                                       cache=cache, cache_positions=lengths[:, None])
+                                       cache=cache, cache_positions=lengths[:, None],
+                                       use_flash=use_flash_attention(device=dev), tp=self.tp)
             tok = sample_tokens(logits[:, 0], self._gen, st["temps"], st["top_ps"],
                                 st["top_ks"])
             tok = torch.where(active, tok, pad)

@@ -6,6 +6,12 @@ are a dict of tensors with the JAX package's layout and names, weights kept
 
   {"embed": (V, H), "layers": stacked dicts, "final_ln": (H,),
    "lm_head": (H, V) (absent if tied), "vision": {...}}
+
+Under tensor parallelism (`tp`, the decode engine's devices) the model call
+takes the per-shard trees of parallel/sharding.py: the vocab-parallel
+embedding lookup (each shard's rows of its vocabulary block, selected onto
+the first shard's device), the decoder's shards, and the head's vocabulary
+blocks gathered into whole logits before anything samples them.
 """
 
 from __future__ import annotations
@@ -36,6 +42,35 @@ def scatter_image_embeds(input_ids: torch.Tensor, token_embeds: torch.Tensor,
     return flat.reshape(B, L, -1)
 
 
+def vocab_parallel_embed(shards, input_ids: torch.Tensor, home: torch.device
+                         ) -> torch.Tensor:
+    """The embedding rows of input_ids from vocab-split tables: shard t holds
+    rows [t*V/T, (t+1)*V/T) and looks up the ids in its block; each id's row
+    is taken, exactly, from the shard that holds it, on `home`."""
+    out = None
+    for t, p in enumerate(shards):
+        table = p["embed"]
+        n = table.shape[0]
+        local = input_ids.to(table.device) - t * n
+        inside = (local >= 0) & (local < n)
+        rows = torch.nn.functional.embedding(local.clamp(0, n - 1), table).to(home)
+        out = rows if out is None else torch.where(inside.to(home)[..., None], rows, out)
+    return out
+
+
+def head_logits_tp(shards, hidden: torch.Tensor) -> torch.Tensor:
+    """Each shard's vocabulary block of the logits (untied, tied or
+    quantized head), gathered along the vocabulary on hidden's device. A
+    nibble-packed int4 head is whole on every shard: its first copy gives
+    all the logits."""
+    home = hidden.device
+    head = shards[0].get("lm_head", shards[0].get("lm_head_q"))
+    if head is not None and head.dtype == torch.uint8:
+        return head_logits(shards[0], hidden)
+    return torch.cat([head_logits(p, hidden.to(p["embed"].device)).to(home)
+                      for p in shards], dim=-1)
+
+
 def forward(
     config: Qwen25VLConfig,
     params: Dict,
@@ -49,7 +84,7 @@ def forward(
     cache_positions: Optional[torch.Tensor] = None,
     remat: bool = False,
     logits: bool = True,
-    use_flash: bool = False,
+    use_flash: Optional[bool] = None,
     cp=None,
     pp=None,
     tp=None,
@@ -58,12 +93,24 @@ def forward(
     """Returns (logits or hidden, cache). A given cache is updated in place;
     without one, the second value is {"moe_aux": ...} for an MoE family and
     None for a dense one (text_decoder). remat and use_flash apply to the
-    uncached decoder, act_quant to the cached one (see text_decoder)."""
+    uncached decoder, act_quant to the cached one (see text_decoder).
+
+    With `tp`, `params` and `cache` are the per-shard lists and the result
+    lies on tp[0] (the image embeddings are moved there)."""
     tcfg = config.text
-    # F.embedding, not params["embed"][input_ids]: the indexing backward
-    # accumulates the rows' gradients in a run-dependent order, the embedding
-    # backward in a fixed one, so that a train step repeats bit for bit
-    embeds = torch.nn.functional.embedding(input_ids, params["embed"])
+    if tp is not None:
+        home = torch.device(tp[0])
+        embeds = vocab_parallel_embed(params, input_ids, home)
+        input_ids = input_ids.to(home)
+        position_ids = position_ids.to(home)
+        if image_embeds is not None:
+            image_embeds = image_embeds.to(home)
+    else:
+        # F.embedding, not params["embed"][input_ids]: the indexing backward
+        # accumulates the rows' gradients in a run-dependent order, the
+        # embedding backward in a fixed one, so that a train step repeats bit
+        # for bit
+        embeds = torch.nn.functional.embedding(input_ids, params["embed"])
 
     if image_embeds is None and vision_inputs is not None:
         vi = vision_inputs
@@ -90,6 +137,8 @@ def forward(
         use_flash=use_flash, cp=cp, pp=pp, tp=tp, act_quant=act_quant)
     if not logits:
         return hidden, new_cache
+    if tp is not None:
+        return head_logits_tp(params, hidden), new_cache
     return head_logits(params, hidden), new_cache
 
 

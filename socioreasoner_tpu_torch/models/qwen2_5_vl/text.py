@@ -24,9 +24,20 @@ MoE families (qwen2_moe, qwen3_moe, mixtral) replace the MLP by the routed
 experts of ops/moe.py on both paths, plus qwen2_moe's sigmoid-gated shared
 expert; the uncached decoder returns {"moe_aux": the load-balance loss
 summed over layers} in place of the cache for them, as the JAX package does.
-Context/pipeline/tensor parallelism and quantized weights on the uncached
-path (the JAX package multiplies their codes unscaled there) are not ported
-and raise NotImplementedError.
+Tensor parallelism (`tp`, the decode engine's devices) runs the cached
+decoder over per-shard trees and caches (parallel/sharding.py): the norms
+and residual stream on the first shard's device, each shard's q/k/v and
+gate/up products on its own heads and columns, kernels 2 and 3/3q on its
+local heads (flash_attention_tp, paged_decode_attention_tp), and the
+row-parallel o_proj/down_proj partial products summed onto the first
+shard's device, as the JAX package's GSPMD psum does (int8 weights: the
+partial products before the per-channel scale; w8a8: the int32 partials of
+one global activation scale, so those sums are exact). MoE layers split the
+experts over the shards. `use_flash=False` on the cached path attends
+densely over the cache (the SOCIO_DISABLE_FLASH route). Context and
+pipeline parallelism, tensor parallelism without a cache, and quantized
+weights on the uncached path (the JAX package multiplies their codes
+unscaled there) are not ported and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -37,12 +48,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import dense_attention
-from ...ops.decode_attention import dequantize_kv, paged_decode_attention, quantize_kv
-from ...ops.flash_attention import flash_attention
+from ...ops.decode_attention import (dequantize_kv, paged_decode_attention,
+                                     paged_decode_attention_tp, quantize_kv)
+from ...ops.flash_attention import flash_attention, flash_attention_tp
 from ...ops.flash_attention_bwd import dkv_plan, flash_attention_trainable
-from ...ops.moe import moe_mlp
+from ...ops.moe import moe_experts, moe_mlp, moe_router
 from ...ops.norms import rms_norm, swiglu
-from ...ops.quant import matmul_q, params_prequantized
+from ...ops.quant import _INV127, _scale, int_matmul, matmul_q, params_prequantized
 from .config import TextConfig
 from .rope import apply_rotary
 
@@ -100,11 +112,51 @@ def decoder_layer(cfg: TextConfig, p: Dict, x, cos, sin, attention_mask,
     return x + swiglu(h2, p["gate_w"], p["up_w"], p["down_w"]), None
 
 
+def _sum_to(parts, home: torch.device) -> torch.Tensor:
+    """Left-to-right sum of the shards' partial tensors on `home`."""
+    total = parts[0].to(home)
+    for part in parts[1:]:
+        total = total + part.to(home)
+    return total
+
+
+def row_parallel(hs, ps, name: str, a8: bool, home: torch.device) -> torch.Tensor:
+    """sum_t hs[t] @ ps[t][name] for a row-parallel weight (input dim split),
+    on `home`. int8 weights scale the summed
+    product by the per-channel scale, which every shard holds whole; with
+    a8 the activations share one per-row scale from the global row amax and
+    the int32 partials sum exactly, so the result equals the unsharded w8a8
+    product."""
+    w0 = ps[0][name]
+    dtype = hs[0].dtype
+    if w0.dtype == torch.int8:
+        scale = ps[0][name + "_scale"].to(home)
+        if a8:
+            amaxes = [h.float().abs().amax(dim=-1, keepdim=True).to(home) for h in hs]
+            amax = amaxes[0]
+            for a in amaxes[1:]:
+                amax = torch.maximum(amax, a)
+            a_scale = _scale(amax, _INV127)
+            accs = []
+            for h, p in zip(hs, ps):
+                q = torch.round(h.float() / a_scale.to(h.device)).clamp_(-127, 127)
+                acc = int_matmul(q.to(torch.int8).reshape(-1, q.shape[-1]), p[name])
+                accs.append(acc.reshape(*q.shape[:-1], acc.shape[-1]))
+            return (_sum_to(accs, home).float() * a_scale * scale).to(dtype)
+        y = _sum_to([h @ p[name].to(dtype) for h, p in zip(hs, ps)], home)
+        return (y * scale).to(dtype)
+    if w0.dtype == torch.uint8:
+        raise NotImplementedError("nibble-packed int4 weights under tensor parallelism")
+    return _sum_to([h @ p[name] for h, p in zip(hs, ps)], home)
+
+
 def _decoder_cached_unrolled(cfg: TextConfig, params: Dict, x, cos, sin,
-                             cache: Dict, cache_positions, act_quant: bool = False):
+                             cache: Dict, cache_positions, act_quant: bool = False,
+                             use_flash: bool = True):
     """Cache-mode decoder. Writes each layer's K/V rows (and, for an int8
     cache, their scales) into the cache's stacked buffers in place and
-    returns (x, cache) with the same buffers."""
+    returns (x, cache) with the same buffers. use_flash=False attends
+    densely over the cache."""
     B, L, _ = x.shape
     H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     k_all, v_all = cache["k"], cache["v"]
@@ -116,8 +168,8 @@ def _decoder_cached_unrolled(cfg: TextConfig, params: Dict, x, cos, sin,
     pos = cache_positions.long()
     # the decode kernel (kernels 3/3q) where head_dim is a multiple of 128,
     # as the JAX package routes it; dense attention over the cache otherwise
-    paged = D % 128 == 0
-    if L == 1 and not paged:
+    paged = D % 128 == 0 and use_flash
+    if not (use_flash and (L > 1 or paged)):
         Lmax = k_all.shape[2]
         kv_pos = torch.arange(Lmax, device=x.device)[None].expand(B, Lmax)
     # w8a8 only on the multi-token pass (prefill); decode stays w8a16
@@ -144,11 +196,11 @@ def _decoder_cached_unrolled(cfg: TextConfig, params: Dict, x, cos, sin,
         else:
             k_all[i, bidx, pos] = k.to(k_all.dtype)
             v_all[i, bidx, pos] = v.to(v_all.dtype)
-        if L > 1:
+        if L > 1 and use_flash:
             # prefill into a fresh cache: attention over the local sequence's
             # raw k/v only
             out = flash_attention(q, k, v, kv_valid[:, :L], causal=True)
-        elif paged:
+        elif L == 1 and paged:
             # decode: the kernel reads only each slot's valid cache prefix
             out = paged_decode_attention(q[:, 0], k_all, v_all, lengths, ks_all,
                                          vs_all, layer=i)[:, None]
@@ -173,6 +225,125 @@ def _decoder_cached_unrolled(cfg: TextConfig, params: Dict, x, cos, sin,
     return x, cache
 
 
+def _decoder_cached_tp(cfg: TextConfig, shards, x, cos, sin, caches, cache_positions,
+                       devices, act_quant: bool = False, use_flash: bool = True):
+    """_decoder_cached_unrolled under tensor parallelism: `shards` and
+    `caches` hold one params tree and one cache dict a device of `devices`,
+    each shard its heads, columns and experts and its own contiguous cache
+    of its kv heads. x (the residual stream) and the replicated norms live
+    on devices[0]. Returns (x, caches)."""
+    B, L, _ = x.shape
+    T = len(devices)
+    home = x.device
+    H, Hkv, D = (cfg.num_attention_heads // T, cfg.num_key_value_heads // T,
+                 cfg.head_dim)
+    kv_valid = caches[0]["kv_valid"].to(home)
+    quant = "k_scale" in caches[0]
+    # the decode kernel (kernels 3/3q) where head_dim is a multiple of 128,
+    # as the JAX package routes it; dense attention over the cache otherwise
+    paged = D % 128 == 0 and use_flash
+    lengths = kv_valid.sum(dim=-1, dtype=torch.int32)
+    pos = cache_positions.long()
+    at = [dict(kv_valid=kv_valid.to(dev), pos=pos.to(dev), cos=cos.to(dev),
+               sin=sin.to(dev), bidx=torch.arange(B, device=dev)[:, None])
+          for dev in devices]
+    if not (use_flash and (L > 1 or paged)):
+        Lmax = caches[0]["k"].shape[2]
+        for a, dev in zip(at, devices):
+            a["kv_pos"] = torch.arange(Lmax, device=dev)[None].expand(B, Lmax)
+    # w8a8 only on the multi-token pass (prefill); decode stays w8a16
+    a8 = bool(act_quant) and L > 1
+    for i in range(cfg.num_hidden_layers):
+        ps = [{key: arr[i] for key, arr in s["layers"].items()} for s in shards]
+        h = rms_norm(x, ps[0]["input_ln"], cfg.rms_norm_eps)
+        hs = [h.to(dev) for dev in devices]
+        qs, ks, vs = [], [], []
+        for p, a, c, ht in zip(ps, at, caches, hs):
+            q = (matmul_q(ht, p, "q_w", a8) + p["q_b"]).reshape(B, L, H, D)
+            k = (matmul_q(ht, p, "k_w", a8) + p["k_b"]).reshape(B, L, Hkv, D)
+            v = (matmul_q(ht, p, "v_w", a8) + p["v_b"]).reshape(B, L, Hkv, D)
+            if cfg.use_qk_norm:
+                q = rms_norm(q, p["q_norm"], cfg.rms_norm_eps)
+                k = rms_norm(k, p["k_norm"], cfg.rms_norm_eps)
+            q, k = apply_rotary(q, k, a["cos"], a["sin"])
+            if quant:
+                kq, ksc = quantize_kv(k)
+                vq, vsc = quantize_kv(v)
+                c["k"][i, a["bidx"], a["pos"]] = kq
+                c["v"][i, a["bidx"], a["pos"]] = vq
+                # scales stored (B, Hkv, Lmax): the advanced indices around
+                # the slice put the (B, L) dims first, so the value is (B, L, Hkv)
+                c["k_scale"][i, a["bidx"], :, a["pos"]] = ksc
+                c["v_scale"][i, a["bidx"], :, a["pos"]] = vsc
+            else:
+                c["k"][i, a["bidx"], a["pos"]] = k.to(c["k"].dtype)
+                c["v"][i, a["bidx"], a["pos"]] = v.to(c["v"].dtype)
+            qs.append(q)
+            ks.append(k)
+            vs.append(v)
+        if L > 1 and use_flash:
+            # prefill into a fresh cache: attention over the local sequence's
+            # raw k/v only, each shard on its heads
+            outs = flash_attention_tp(qs, ks, vs, kv_valid[:, :L], devices=devices,
+                                      causal=True)
+        elif L == 1 and paged:
+            # decode: the kernel reads only each slot's valid cache prefix
+            scales = (([c["k_scale"] for c in caches], [c["v_scale"] for c in caches])
+                      if quant else (None, None))
+            outs = paged_decode_attention_tp(
+                [q[:, 0] for q in qs], [c["k"] for c in caches],
+                [c["v"] for c in caches], lengths, *scales, devices=devices, layer=i)
+            outs = [o[:, None] for o in outs]
+        else:
+            outs = []
+            for q, a, c in zip(qs, at, caches):
+                if quant:
+                    kd = dequantize_kv(c["k"][i], c["k_scale"][i], q.dtype)
+                    vd = dequantize_kv(c["v"][i], c["v_scale"][i], q.dtype)
+                else:
+                    kd, vd = c["k"][i].to(q.dtype), c["v"][i].to(q.dtype)
+                outs.append(dense_attention(q, kd, vd, causal=True,
+                                            attention_mask=a["kv_valid"],
+                                            q_positions=a["pos"], kv_positions=a["kv_pos"]))
+        x = x + row_parallel([o.reshape(B, L, H * D) for o in outs], ps, "o_w", a8, home)
+        h2 = rms_norm(x, ps[0]["post_ln"], cfg.rms_norm_eps)
+        h2s = [h2.to(dev) for dev in devices]
+        if cfg.n_experts:
+            x = x + _moe(cfg, ps, h2, h2s, home)
+            continue
+        acts = []
+        for h2t, p in zip(h2s, ps):
+            if p["gate_w"].dtype in (torch.int8, torch.uint8):      # quantized MLP
+                act = (torch.nn.functional.silu(matmul_q(h2t, p, "gate_w", a8).float())
+                       * matmul_q(h2t, p, "up_w", a8).float()).to(h2t.dtype)
+            else:
+                act = torch.nn.functional.silu(h2t @ p["gate_w"]) * (h2t @ p["up_w"])
+            acts.append(act)
+        x = x + row_parallel(acts, ps, "down_w", a8, home)
+    return x, caches
+
+
+def _moe(cfg: TextConfig, ps, h2, h2s, home):
+    """The MoE MLP over the shards' expert blocks: the router on the first
+    shard's device, each shard's experts weighted by their columns of the
+    routing weights, the shards' sums added on `home`; qwen2_moe's shared
+    expert column/row-parallel behind its replicated gate."""
+    B, L, Hd = h2.shape
+    weights = moe_router(h2.reshape(B * L, Hd), ps[0]["router_w"],
+                         cfg.n_experts_per_tok, cfg.norm_topk_prob)[0]
+    E = weights.shape[-1] // len(ps)
+    parts = [moe_experts(h2t.reshape(B * L, Hd), weights[:, t * E:(t + 1) * E].to(h2t.device),
+                         {k: p[k] for k in ("gate_w", "up_w", "down_w")})
+             for t, (h2t, p) in enumerate(zip(h2s, ps))]
+    out = _sum_to(parts, home).reshape(B, L, Hd).to(h2.dtype)
+    if cfg.shared_expert_intermediate:
+        acts = [torch.nn.functional.silu(h2t @ p["s_gate_w"]) * (h2t @ p["s_up_w"])
+                for h2t, p in zip(h2s, ps)]
+        shared = row_parallel(acts, ps, "s_down_w", False, home)
+        out = out + torch.sigmoid(h2 @ ps[0]["sgate_w"]) * shared
+    return out
+
+
 def text_decoder(
     cfg: TextConfig,
     params: Dict,                      # {"layers": stacked dict, "final_ln": ...}
@@ -184,7 +355,7 @@ def text_decoder(
     cache: Optional[Dict] = None,      # {"k","v": (layers,B,Lmax,Hkv,D), "kv_valid": (B,Lmax)}
     cache_positions: Optional[torch.Tensor] = None,
     remat: bool = False,
-    use_flash: bool = False,
+    use_flash: Optional[bool] = None,
     cp=None,
     pp=None,
     tp=None,
@@ -192,11 +363,24 @@ def text_decoder(
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (B, L, hidden) final hidden states (post final norm) and the
     cache (updated in place); without a cache, {"moe_aux": the load-balance
-    loss summed over layers} for MoE configs and None for dense ones."""
-    if cp is not None or pp is not None or tp is not None:
+    loss summed over layers} for MoE configs and None for dense ones.
+
+    use_flash None takes each path's default: the kernels on the cached
+    path, dense attention on the uncached one.
+
+    With `tp` (the tensor-parallel devices) `params` and `cache` are lists
+    of per-shard trees and caches, and the result is on tp[0]; the final
+    norm uses the first shard's copy."""
+    if cp is not None or pp is not None:
         raise NotImplementedError(
-            "context / pipeline / tensor parallelism is not ported yet "
-            "(ROADMAP: multi-GPU)")
+            "context / pipeline parallelism is not ported yet (ROADMAP: multi-GPU)")
+    if tp is not None:
+        if cache is None:
+            raise NotImplementedError("tensor parallelism serves through the cache path only")
+        x, new_cache = _decoder_cached_tp(cfg, params, inputs_embeds, cos, sin, cache,
+                                          cache_positions, list(tp), act_quant,
+                                          use_flash is not False)
+        return rms_norm(x, params[0]["final_ln"], cfg.rms_norm_eps), new_cache
     if cache is None:
         if params_prequantized(params):
             raise NotImplementedError(
@@ -231,5 +415,6 @@ def text_decoder(
         new_cache = {"moe_aux": torch.stack(auxes).sum()} if cfg.n_experts else None
     else:
         x, new_cache = _decoder_cached_unrolled(
-            cfg, params, inputs_embeds, cos, sin, cache, cache_positions, act_quant)
+            cfg, params, inputs_embeds, cos, sin, cache, cache_positions, act_quant,
+            use_flash is not False)
     return rms_norm(x, params["final_ln"], cfg.rms_norm_eps), new_cache

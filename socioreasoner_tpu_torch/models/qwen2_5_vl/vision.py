@@ -10,7 +10,8 @@ tower weights:
     patches are permuted into window-contiguous order on the host, and every
     block attends under a per-patch segment-id equality mask — window ids in
     window layers, per-image ids in the full-attention layers. With
-    use_flash (the serving paths, run_vision / run_vision_u8) it goes
+    use_flash (the serving paths, run_vision / run_vision_u8, unless
+    SOCIO_DISABLE_FLASH=1 on CPU tensors, ops/flags.py) it goes
     through the segmented flash kernel (ops/flash_attention.py), which has
     no backward; without it (the default, and the model call's
     vision_inputs route that trains the ViT) through dense attention in f32
@@ -32,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ...ops.attention import dense_attention
+from ...ops.flags import use_flash_attention
 from ...ops.flash_attention import (SegPlan, flash_attention_segmented, seg_block_sizes,
                                     seg_max_span_blocks, seg_plan)
 from ...ops.norms import layer_norm, quick_gelu, rms_norm, swiglu
@@ -182,7 +184,8 @@ def _run_tower(cfg: VisionConfig, params: Dict, patches: torch.Tensor,
         torch.as_tensor(tables["sin"], device=dev),
         # the ids stay on the host: the kernel's plans are built from them
         torch.as_tensor(wseg), torch.as_tensor(fseg),
-        tables["is_full_layer"], use_flash=True, max_span_blocks=span)
+        tables["is_full_layer"], use_flash=use_flash_attention(device=dev),
+        max_span_blocks=span)
     out = out[torch.as_tensor(tables["inv_perm"], device=dev)]
     return out.to(dtype) if dtype is not None else out
 

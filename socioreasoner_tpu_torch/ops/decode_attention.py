@@ -160,6 +160,19 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _strides(t: torch.Tensor) -> Tuple[int, ...]:
+    """t's strides, a size-1 dim's replaced by the contiguous value (the
+    size times the stride of the dim after it). Such a dim is never stepped
+    over, and a transposed view leaves it any stride (a contiguous one with
+    one kv head: (..., 1, 1)), which the row rules and the tensor maps'
+    16-byte strides would refuse for nothing."""
+    st = list(t.stride())
+    for i in range(t.dim() - 2, -1, -1):
+        if t.shape[i] == 1:
+            st[i] = st[i + 1] * t.shape[i + 1]
+    return tuple(st)
+
+
 def _check_tensors(name, quant, q, caches, scales):
     """What the kernel reads: one GPU; bf16 q; bf16 (kernel 3) or int8
     (kernel 3q) caches and f32 scales; unit last strides and 16-byte rows
@@ -174,7 +187,8 @@ def _check_tensors(name, quant, q, caches, scales):
                            + [(t, torch.float32, 4) for t in scales]):
         if t.dtype != dtype:
             raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-        if t.stride(-1) != 1 or any(s % unit for s in t.stride()[:-1]):
+        st = _strides(t)
+        if st[-1] != 1 or any(s % unit for s in st[:-1]):
             raise ValueError(f"{name}: strides {t.stride()} are not 16-byte rows")
 
 
@@ -208,10 +222,11 @@ def _make_plan(q, k, v, ks, vs, lengths, stacked) -> DecodePlan:
     if Lalloc % KERNEL_BLOCK:
         raise ValueError(f"cache length {Lalloc} must be a multiple of {KERNEL_BLOCK}")
     n_split = split_count(S, Hkv, Lalloc, _sm_count(q.get_device()))
-    layer = lambda t: t.stride(0) if stacked else 0    # noqa: E731
-    strides = [*q.stride()[:2], layer(k), *k.stride()[lead:lead + 3],
-               layer(v), *v.stride()[lead:lead + 3]]
-    strides += [*ks.stride()[lead:lead + 2], *vs.stride()[lead:lead + 2]] if quant else [0] * 4
+    layer = lambda t: _strides(t)[0] if stacked else 0    # noqa: E731
+    strides = [*_strides(q)[:2], layer(k), *_strides(k)[lead:lead + 3],
+               layer(v), *_strides(v)[lead:lead + 3]]
+    strides += ([*_strides(ks)[lead:lead + 2], *_strides(vs)[lead:lead + 2]] if quant
+                else [0] * 4)
     scale_layer_bytes = (layer(ks) * 4, layer(vs) * 4) if quant else (0, 0)
     return DecodePlan(quant, S, H, Hkv, Lalloc, n_split, k.shape[0] if stacked else 1,
                       strides, scale_layer_bytes)
@@ -319,3 +334,28 @@ def paged_decode_attention_int8(q, k_cache, v_cache, lengths, k_scale, v_scale, 
 
 
 paged_decode_attention_int8.launches = 0
+
+
+# ------------------------------------------------------- tensor parallelism
+
+def paged_decode_attention_tp(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None, *,
+                              devices, layer: Optional[int] = None) -> list:
+    """Tensor-parallel decode attention over `devices`: q heads and kv heads
+    split into matching contiguous GQA blocks (q-head block t attends
+    kv-head block t, the column-parallel order), so every shard runs kernel
+    3 (or 3q, with its scales) on its LOCAL cache and no attention collective
+    is needed; o_proj's row-parallel sum is the only cross-shard sum a layer.
+
+    q, the caches and the scales are lists of per-shard tensors, each shard's
+    cache its own contiguous ([layers,] S, Lalloc, Hkv/T, D) buffer on its
+    device; the result is the list of per-shard (S, H/T, D) outputs.
+    `lengths` is the same on every shard."""
+    from .flash_attention import _check_shards
+    _check_shards("paged_decode_attention_tp", devices, q, k_cache, v_cache,
+                  *(() if k_scale is None else (k_scale, v_scale)))
+    outs = []
+    for t, dev in enumerate(devices):
+        scales = (None, None) if k_scale is None else (k_scale[t], v_scale[t])
+        outs.append(paged_decode_attention(q[t], k_cache[t], v_cache[t], lengths.to(dev),
+                                           *scales, layer=layer))
+    return outs

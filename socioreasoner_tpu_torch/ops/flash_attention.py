@@ -357,3 +357,31 @@ def flash_attention_segmented(
 
 
 flash_attention_segmented.launches = 0
+
+
+# ------------------------------------------------------- tensor parallelism
+
+def _check_shards(name: str, devices, *shards) -> None:
+    """One block a device in every per-shard list."""
+    if any(len(x) != len(devices) for x in shards):
+        raise ValueError(f"{name}: {[len(x) for x in shards]} shards for "
+                         f"{len(devices)} devices")
+
+
+def flash_attention_tp(q, k, v, attention_mask=None, *, devices, **kw) -> list:
+    """Head-sharded flash attention over the tensor-parallel `devices` (the
+    decode engine's prefill under tp). Heads are independent: shard t runs
+    the unmodified kernel on its contiguous GQA block of q heads and kv heads
+    (q-head block t attends kv-head block t), the same grouping as
+    paged_decode_attention_tp, so the prefill-written cache shards line up
+    with the decode reads.
+
+    q, k, v are lists of per-shard blocks (B, L, H/T, D) / (B, L, Hkv/T, D),
+    each contiguous on its device (a view of a head block would fail the
+    kernels' stride checks); the result is the list of per-shard outputs.
+    The mask is the same on every shard. The engine refuses a tp that does
+    not divide the heads."""
+    _check_shards("flash_attention_tp", devices, q, k, v)
+    return [flash_attention(qt, kt, vt, None if attention_mask is None
+                            else attention_mask.to(qt.device), **kw)
+            for qt, kt, vt in zip(q, k, v)]

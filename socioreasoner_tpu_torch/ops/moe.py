@@ -7,8 +7,9 @@ depend on the routing. The products are batched matmuls over the expert
 axis (torch.bmm with the tokens broadcast, no copy of a weight stack);
 they are plain large GEMMs, outside any TPU kernel.
 
-Not ported: moe_param_specs (the experts' sharding over a mesh; the port
-runs on one device).
+Under tensor parallelism the expert stacks split over the shards
+(parallel/sharding.py), each shard computing its experts' share with
+moe_experts.
 """
 
 from __future__ import annotations
@@ -49,14 +50,20 @@ def moe_mlp(x: torch.Tensor, params: Dict, top_k: int = 2,
     """SwiGLU expert MLPs. params: router_w (H, E), gate_w/up_w (E, H, I),
     down_w (E, I, H). Returns (out (T, H), aux_loss)."""
     weights, _, aux_loss = moe_router(x, params["router_w"], top_k, norm_topk_prob)
+    return moe_experts(x, weights, params), aux_loss
+
+
+def moe_experts(x: torch.Tensor, weights: torch.Tensor, params: Dict) -> torch.Tensor:
+    """sum_e weights[:, e] * expert_e(x) over the experts of the stacks in
+    `params` (all of them, or a tensor-parallel shard's block with its
+    columns of `weights`)."""
     E = weights.shape[-1]
     xe = x.unsqueeze(0).expand(E, *x.shape)              # (E, T, H), a view
     h = F.silu(torch.bmm(xe, params["gate_w"])) * torch.bmm(xe, params["up_w"])
     expert_out = torch.bmm(h, params["down_w"])          # (E, T, H)
     # out[t] = sum_e weights[t, e] * expert_out[e, t]: per token a (1, E) @ (E, H)
-    out = torch.bmm(weights.to(expert_out.dtype).unsqueeze(1),
-                    expert_out.transpose(0, 1)).squeeze(1)
-    return out, aux_loss
+    return torch.bmm(weights.to(expert_out.dtype).unsqueeze(1),
+                     expert_out.transpose(0, 1)).squeeze(1)
 
 
 def init_moe_params(generator: torch.Generator, hidden: int, intermediate: int,

@@ -30,6 +30,7 @@ from ...models.qwen2_5_vl.convert import param_device
 from ...models.sam2 import loader as sloader
 from ...models.sam2 import model as smodel
 from ...models.sam2.config import Sam2Config
+from ...runtime.resource_manager import ResourceManager
 
 
 def build_processor(cfg: SocioSegConfig, model_config: Qwen25VLConfig) -> SocioProcessor:
@@ -123,12 +124,13 @@ def build_infer_pipeline(cfg: SocioSegConfig, dtype=torch.bfloat16, device=None)
         dataset=dataset, engine_kwargs=default_engine_kwargs(cfg))
 
 
-def build_train_mesh(cfg: SocioSegConfig):
-    """The train plane's mesh on one GPU: validate_config, then None when
-    every parallel knob of actor_train's strategy_config (tp, cp, pp, dp and
-    fsdp_size, whose -1 takes the remaining devices) and its device_mapping
-    resolve to one device. Anything larger raises: multi-GPU training is
-    not ported yet."""
+def build_train_mesh(cfg: SocioSegConfig, devices=None):
+    """The train plane's mesh: validate_config, then the ResourceManager's
+    layout of actor_train over `devices` (default: the GPU, or the CPU
+    without one), which is None when every parallel knob of its
+    strategy_config (tp, cp, pp, dp and fsdp_size, whose -1 takes the
+    remaining devices) and its device_mapping resolve to one device.
+    Anything larger raises: multi-GPU training is not ported yet."""
     validate_config(cfg, n_devices=1)
     wc = cfg.actor_train
     sc = wc.strategy_args.config
@@ -144,7 +146,10 @@ def build_train_mesh(cfg: SocioSegConfig):
         raise NotImplementedError(
             f"actor_train on {n} devices with {big or sizes}: a train mesh is not "
             "ported yet (ROADMAP: multi-GPU)")
-    return None
+    if devices is None:
+        devices = [torch.device("cuda", 0) if torch.cuda.is_available()
+                   else torch.device("cpu")]
+    return ResourceManager(devices).allocate_mesh("actor_train", wc)
 
 
 def build_train_pipeline(cfg: SocioSegConfig, dtype=torch.bfloat16, device=None):

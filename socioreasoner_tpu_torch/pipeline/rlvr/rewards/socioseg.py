@@ -1,4 +1,4 @@
-"""SocioSeg rule rewards, for the port: numpy and scipy on the host.
+"""SocioSeg rule rewards, for the port: numpy and the native host library.
 
 The port's own copy of socioreasoner_tpu/pipeline/rlvr/rewards/socioseg.py,
 formula for formula:
@@ -7,10 +7,9 @@ formula for formula:
   stage 2 (sat): format (boxes echo stage 1, points inside their box) +
                  points-per-box Gaussian length + mask-IoU accuracy
 
-The Hungarian matching is scipy.optimize.linear_sum_assignment (the JAX
-package's native host library computes the same assignment; the reward
-reads only its total cost, which every optimal assignment shares), and
-`mask_iou` is the numpy path of the JAX package's mask_iou_native.
+The Hungarian matching and `mask_iou` go through the port's native host
+library (utils/native.py, its own copy of the JAX package's), as the JAX
+package's rewards do.
 """
 
 from __future__ import annotations
@@ -20,8 +19,9 @@ import math
 from typing import Dict, Optional, Sequence
 
 import numpy as np
-from scipy.optimize import linear_sum_assignment
 
+from ....utils.native import hungarian as linear_sum_assignment
+from ....utils.native import mask_iou_native
 from ..parsing import ANSWER_RE, THINK_ANSWER_RE, strip_special_tokens
 
 MAX_OBJECTS = 120
@@ -55,9 +55,7 @@ def mask_iou(mask: np.ndarray, gt_mask: np.ndarray, empty_value: float = 0.0) ->
         return 0.0
     if mask.shape != gt_mask.shape:
         return 0.0
-    a, b = mask > 0, gt_mask > 0
-    uni = np.logical_or(a, b).sum()
-    return empty_value if uni == 0 else float(np.logical_and(a, b).sum() / uni)
+    return mask_iou_native(mask, gt_mask, empty_value=empty_value)
 
 
 # ------------------------------------------------------------ answer parsing

@@ -43,7 +43,7 @@ from ..base_pipeline import BasePipeline
 from .evaluation import compute_giou
 from .parsing import parse_visual_prompts_s1, parse_visual_prompts_s2, strip_special_tokens
 from .rewards.socioseg import mask_iou
-from .socioseg_pipeline import _build_decode_replicas, _restage
+from .socioseg_pipeline import _build_decode_replicas, _restage, pipeline_devices
 
 
 def _gt_768(gt_mask) -> np.ndarray:
@@ -56,12 +56,15 @@ class SocioSegInferPipeline(BasePipeline):
                  model_config: Qwen25VLConfig, policy_params,
                  sam_config: Sam2Config, sam_params,
                  processor: SocioProcessor, dataset: List[Dict],
-                 engine_kwargs: Optional[Dict] = None):
+                 engine_kwargs: Optional[Dict] = None, devices=None):
         """policy_params / sam_params: the port's trees, on the device each
         model is to run on (init_params and the weight bridges put them on
-        the GPU unless a device is named)."""
+        the GPU unless a device is named). `devices`: the device list of the
+        roles' device_mapping (pipeline_devices); actor_infer's dp_size and
+        tensor_model_parallel_size lay the decode replicas over it."""
         super().__init__(pipeline_config)
-        validate_config(pipeline_config, n_devices=1)
+        self.devices = pipeline_devices(policy_params, devices)
+        validate_config(pipeline_config, n_devices=len(self.devices))
         self.model_config = model_config
         self.processor = processor
         self.dataset = dataset
@@ -69,7 +72,7 @@ class SocioSegInferPipeline(BasePipeline):
         self.param_store = ParamStore()
         self.param_store.put("rollout", policy_params)
         self.decode_replicas = _build_decode_replicas(
-            pipeline_config, model_config, self.param_store, engine_kwargs)
+            pipeline_config, model_config, self.param_store, engine_kwargs, self.devices)
         self.actor_infer = self.decode_replicas[0]
         self.decode_group = LocalGenerateGroup(self.decode_replicas)
         self.seg_infer = SegStrategy(worker_config=pipeline_config.seg_infer)

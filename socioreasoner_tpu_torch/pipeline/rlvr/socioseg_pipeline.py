@@ -45,6 +45,7 @@ from ...generation.sampling import SamplingParams
 from ...generation.server import GenerateRequestType as GRT
 from ...models.qwen2_5_vl.config import Qwen25VLConfig
 from ...models.sam2.config import Sam2Config
+from ...parallel.mesh import default_devices, make_mesh
 from ...pipeline.losses import PPOLossConfig
 from ...protocol import BatchProto
 from ...runtime.cluster import Cluster
@@ -58,22 +59,58 @@ from .parsing import (parse_bboxes, parse_visual_prompts_s1, parse_visual_prompt
 from .rewards.socioseg import compute_socioseg_rewards
 
 
+def pipeline_devices(params, devices=None) -> List[torch.device]:
+    """The devices a pipeline's roles index with their device_mapping: the
+    given list (which may repeat a device), else every CUDA device when the
+    policy tree lies on one, else the policy tree's device (the CPU)."""
+    if devices is not None:
+        return [torch.device(d) for d in devices]
+    dev = params["embed"].device
+    if dev.type == "cuda":
+        return default_devices()
+    return [dev]
+
+
 def _build_decode_replicas(cfg, model_config: Qwen25VLConfig, param_store: ParamStore,
-                           engine_kwargs: Optional[Dict]) -> List[TorchDecodeStrategy]:
-    """The actor_infer decode replica: one TorchDecodeStrategy serving the
-    param store's "rollout" weights on their device. Data- and
-    tensor-parallel decode (actor_infer dp_size / tensor_model_parallel_size
-    > 1) wait for the multi-GPU slice."""
+                           engine_kwargs: Optional[Dict],
+                           devices: List[torch.device]) -> List[TorchDecodeStrategy]:
+    """actor_infer.strategy_config.dp_size decode replicas serving the param
+    store's "rollout" weights, as the JAX package builds them: with
+    tensor_model_parallel_size > 1, dp tensor-parallel engines, replica r
+    over its own tp devices r*tp .. (r+1)*tp - 1; else replica r pinned to
+    devices[r % n] when dp > 1, or on the weights' device. The devices are
+    `devices` indexed by the role's device_mapping."""
     sc = cfg.actor_infer.strategy_args.config
     dp = int(sc.get("dp_size", 1) or 1)
     tp = int(sc.get("tensor_model_parallel_size", 1) or 1)
-    if dp > 1 or tp > 1:
-        raise NotImplementedError(
-            f"actor_infer dp_size={dp}, tensor_model_parallel_size={tp}: decode "
-            "replicas over several GPUs are not ported yet (ROADMAP: multi-GPU)")
-    s = TorchDecodeStrategy(worker_config=cfg.actor_infer, param_store=param_store)
-    s.initialize(model_config, engine_kwargs=dict(engine_kwargs or {}))
-    return [s]
+    mapping = cfg.actor_infer.resolved_device_mapping()
+    if mapping:
+        missing = [i for i in mapping if i >= len(devices)]
+        if missing:
+            raise ValueError(f"role actor_infer: device_mapping {mapping} exceeds "
+                             f"available {len(devices)} devices")
+        devices = [devices[i] for i in mapping]
+    if tp > 1:
+        if dp * tp > len(devices):
+            raise ValueError(
+                f"actor_infer: dp_size={dp} × tensor_model_parallel_size={tp}"
+                f" needs {dp * tp} devices, have {len(devices)}")
+        replicas = []
+        for r in range(dp):
+            mesh = make_mesh(dp=1, fsdp=1, tp=tp, devices=devices[r * tp:(r + 1) * tp])
+            s = TorchDecodeStrategy(worker_config=cfg.actor_infer, param_store=param_store)
+            s.initialize(model_config, engine_kwargs=dict(engine_kwargs or {}), mesh=mesh)
+            replicas.append(s)
+        return replicas
+    replicas = []
+    for r in range(dp):
+        ek = dict(engine_kwargs or {})
+        if dp > 1:
+            ek["device"] = devices[r % len(devices)]
+        s = TorchDecodeStrategy(worker_config=cfg.actor_infer, param_store=param_store)
+        s.initialize(model_config, engine_kwargs=ek)
+        replicas.append(s)
+    return replicas
 
 
 def _restage(map_text: str, question, images, mask):
@@ -90,14 +127,17 @@ class SocioSegPipeline(BasePipeline):
                  sam_config: Sam2Config, sam_params,
                  processor: SocioProcessor, dataset: List[Dict],
                  val_dataset: Optional[List[Dict]] = None,
-                 engine_kwargs: Optional[Dict] = None):
+                 engine_kwargs: Optional[Dict] = None, devices=None):
         """policy_params / reference_params / sam_params: the port's trees on
         the device each model runs on. The trainer updates policy_params in
         place; the reference keeps its own copy of whatever it shares with
-        them."""
+        them. `devices`: the device list of the roles' device_mapping
+        (pipeline_devices); actor_infer's dp_size and
+        tensor_model_parallel_size lay the decode replicas over it."""
         super().__init__(pipeline_config)
         cfg = pipeline_config
-        validate_config(cfg, n_devices=1)
+        self.devices = pipeline_devices(policy_params, devices)
+        validate_config(cfg, n_devices=len(self.devices))
         self.model_config = model_config
         self.processor = processor
         self.dataset = dataset
@@ -117,7 +157,7 @@ class SocioSegPipeline(BasePipeline):
         self.reference.initialize(model_config, copy_shared(reference_params, policy_params))
         self.actor_train.model_update()
         self.decode_replicas = _build_decode_replicas(
-            cfg, model_config, self.param_store, engine_kwargs)
+            cfg, model_config, self.param_store, engine_kwargs, self.devices)
         self.actor_infer = self.decode_replicas[0]
         # off-frequency steps skip the weight flow and the engine's
         # re-quantization

@@ -19,9 +19,11 @@ LocalGenerateGroup from socioreasoner_tpu/runtime/generate_scheduler.py:
     rejected groups are replaced by further pulls, and the ABORT of what is
     still in flight once the target is met.
 
-One GPU serves one decode replica (data-parallel replicas wait for the
-multi-GPU slice). The schedulers move host ids and texts only: every CUDA
-call runs on the server's thread, and the request callbacks fire there.
+Several decode replicas (actor_infer dp_size) serve side by side, each on
+its own device or sharing one, and each behind its own server thread. The
+schedulers move host ids and texts only: every CUDA call runs on a server's
+thread (or, for LocalGenerateGroup.generate, on one thread a replica), and
+the request callbacks fire there.
 """
 
 from __future__ import annotations
@@ -158,9 +160,6 @@ class LocalGenerateGroup:
     start_server/stop_server/add_request/generate."""
 
     def __init__(self, strategies: List):
-        if len(strategies) != 1:
-            raise NotImplementedError(
-                "more than one decode replica is not ported yet (ROADMAP: multi-GPU)")
         self.workers = list(strategies)
 
     def start_server(self):
@@ -172,8 +171,33 @@ class LocalGenerateGroup:
             s.stop_server()
 
     def generate(self, batch: BatchProto, generating_args):
-        """Batch generate on the replica: (len(batch) * n, P + max_out) rows."""
-        return self.workers[0].generate(batch, generating_args)
+        """Batch generate: (len(batch) * n, P + max_out) rows. With more than
+        one decode replica the batch splits into one contiguous chunk a
+        replica, the chunks generate concurrently on threads (each replica's
+        engine on its own device, or sharing one), and each chunk's rows are
+        re-padded to the widest before they are concatenated in order."""
+        if len(self.workers) == 1:
+            return self.workers[0].generate(batch, generating_args)
+        n_w = min(len(self.workers), len(batch))
+        chunks = batch.chunk(n_w)
+        # meta copies whole through slice(): re-split the per-sample image
+        # embeddings to match each chunk's rows
+        embeds = batch.meta.get("image_embeds_list")
+        if embeds is not None:
+            start = 0
+            for c in chunks:
+                c.meta = dict(c.meta)
+                c.meta["image_embeds_list"] = embeds[start:start + len(c)]
+                start += len(c)
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=n_w) as ex:
+            outs = list(ex.map(lambda wc: wc[0].generate(wc[1], generating_args),
+                               zip(self.workers, chunks)))
+        pad_id = batch.meta.get("pad_token_id", 0)
+        width = max(o.shape[1] for o in outs)
+        full = [np.pad(o, ((0, 0), (0, width - o.shape[1])), constant_values=pad_id)
+                for o in outs]
+        return np.concatenate(full, axis=0)
 
 
 class DynamicSamplingScheduler:

@@ -26,6 +26,14 @@ import jax
 import jax.numpy as jnp
 from PIL import Image
 
+# The suite runs under pytest-xdist, several worker processes on a machine of
+# few cores (tier-1: 6 workers on 8). PyTorch's default of one intra-op
+# thread a core puts ~6 x 8 threads on those cores, and the port's tests ran
+# 5-20x slower under that load than alone: one thread a worker process.
+# Every worker imports this module when it collects the suite (the port's
+# test files import _port from it).
+torch.set_num_threads(1)
+
 from socioreasoner_tpu.datasets.processor import (ImageProcessorConfig,
                                                   SimpleTokenizer, SocioProcessor)
 from socioreasoner_tpu.datasets.socioseg import encode_sample
@@ -322,7 +330,11 @@ def test_port_imports_no_jax():
         "       'pipeline.rlvr.rewards.code_sandbox', 'pipeline.rlvr.rewards.llm_judge',\n"
         "       'distributed.sft', 'distributed.factory', 'ops.moe', 'models.llm',\n"
         "       'configs.agentic_config', 'pipeline.agentic.environment_worker',\n"
-        "       'pipeline.agentic.agentic_pipeline', 'pipeline.agentic.agentic_vlm_pipeline'}\n"
+        "       'pipeline.agentic.agentic_pipeline', 'pipeline.agentic.agentic_vlm_pipeline',\n"
+        "       'ops.flags', 'utils.context_managers', 'utils.profiling',\n"
+        "       'runtime.log_monitor', 'utils.checkpoint_manager', 'utils.native',\n"
+        "       'runtime.resource_manager', 'parallel.mesh', 'parallel.sharding',\n"
+        "       'distributed.transfer'}\n"
         "assert {pkg.__name__ + '.' + n for n in new} <= set(names), names\n"
         "for n in names: importlib.import_module(n)\n"
         "from socioreasoner_tpu_torch.configs.worker_config import WorkerConfig\n"
@@ -347,7 +359,9 @@ def test_port_imports_no_jax():
         "          'phase_rlvr', 'run_rlvr_path', 'run_math_vlm_path', 'run_vit_grad_check',\n"
         "          'phase_workers', 'run_workers_path', 'phase_families', 'serve_family',\n"
         "          'train_family', 'text_model_round_trip', 'run_qwen2_vl',\n"
-        "          'phase_agentic', 'run_agentic_vlm', 'run_agentic_text'):\n"
+        "          'phase_agentic', 'run_agentic_vlm', 'run_agentic_text',\n"
+        "          'phase_parallel', 'run_tp_engines', 'run_dp_pipelines', 'tp_tie_check',\n"
+        "          'profile_prefill', 'profiled', '_forced_logits'):\n"
         "    assert callable(getattr(chip_smoke, f)), f\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'socioreasoner_tpu' or m.startswith('socioreasoner_tpu.'))\n"
@@ -395,6 +409,16 @@ def test_port_sources_import_nothing_of_the_jax_package():
             "socioreasoner_tpu_torch/pipeline/agentic/environment_worker.py",
             "socioreasoner_tpu_torch/pipeline/agentic/agentic_pipeline.py",
             "socioreasoner_tpu_torch/pipeline/agentic/agentic_vlm_pipeline.py",
+            "socioreasoner_tpu_torch/ops/flags.py",
+            "socioreasoner_tpu_torch/utils/context_managers.py",
+            "socioreasoner_tpu_torch/utils/profiling.py",
+            "socioreasoner_tpu_torch/runtime/log_monitor.py",
+            "socioreasoner_tpu_torch/utils/checkpoint_manager.py",
+            "socioreasoner_tpu_torch/utils/native.py",
+            "socioreasoner_tpu_torch/runtime/resource_manager.py",
+            "socioreasoner_tpu_torch/parallel/mesh.py",
+            "socioreasoner_tpu_torch/parallel/sharding.py",
+            "socioreasoner_tpu_torch/distributed/transfer.py",
             "chip_smoke.py"} <= rel
     bad = {os.path.relpath(f, REPO): hits for f in files if (hits := _jax_package_imports(f))}
     assert not bad, bad
