@@ -188,6 +188,34 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 guess_number for two steps; kernels 2 and 4-6 must launch,
                 kernel 3 never (head dim 64 decodes densely, as in JAX).
                 Every pass at checked shapes; peak < 80 GiB.
+  15b. train_mesh — the train plane over a device mesh on the one card,
+                at Qwen2.5-VL-3B's text widths (vocab 151936, tied head) cut
+                to 4 layers, random bf16 weights from a seed: (a) the same
+                tree and GRPO batch (3 rows of L = 4160, ~2,150 valid tokens:
+                a pad row runs) through TorchTrainStrategy and
+                TorchInferStrategy unsharded, over fsdp 2 ([cuda:0] x 2) and
+                over fsdp 2 x tp 2 ([cuda:0] x 4): two train steps, the
+                log-probs and entropy, held to the unsharded run within the
+                TRAIN_MESH_* limits (loss, grad norm, ratio_mean with the
+                pad row counted 0, log-probs, every param after the steps);
+                the vocab-parallel head against the gathered head on the
+                same shards; (b) kernels 4-6 counted by shard: every data
+                rank's rows at the shard's local heads (8/1 at tp = 2), as
+                many launches as layers x ranks x shards x passes; (c) one
+                SocioSegPipeline step of crafted answers over
+                build_train_mesh's fsdp 2 (the train yaml's fsdp_size -1
+                over [cuda:0] x 2) against the same step unsharded, within
+                (a)'s limits, at rank shapes the kernels phase checked, the
+                decode engine's tree after model_update the int8 single
+                copy of the gathered shards bit for bit; (d) two processes
+                on cuda:0 through runtime/initialize.py (gloo: NCCL refuses
+                two ranks on one card), a tensor and a host object
+                broadcast, one train step with dp across the processes:
+                both losses equal, within (a)'s limit of the one-process
+                step over the same mesh shape. Kernels 1 and 4-6 launch
+                (launches_train_mesh); the meshes' devices are one card
+                listed several times, so the figures measure the sharded
+                code, not multi-GPU speed.
   16. entry   — the system started as users start it: the main phase's
                 tree (trained by the grpo phase) written with the port's
                 save_pretrained (BF16 shards, config.json) beside an offline
@@ -917,7 +945,8 @@ def phase_kernels():
     results.extend(_train_kernels(randn, train_edge))
     for phase, spec in (("grpo", GRPO_TRAIN), ("rlvr", RLVR_TRAIN),
                         ("math_vlm", MATH_VLM_TRAIN), ("families", FAMILY_TRAIN),
-                        ("agentic_vlm", AGENTIC_VLM_TRAIN)):
+                        ("agentic_vlm", AGENTIC_VLM_TRAIN), ("train_mesh", TRAIN_MESH_TRAIN),
+                        ("train_mesh_pipeline", TRAIN_MESH_PIPELINE_TRAIN)):
         for row, cases in zip(results[-3:], _phase_train_kernels(randn, spec)):
             row[phase] = cases
             emit({"phase": f"kernel_{phase}_shapes", "name": row["name"], **cases})
@@ -1898,16 +1927,16 @@ PARITY_LP_MEAN_TOL = 1e-2   # mean-abs over the response tokens
 PARITY_LENS = (2304, 2080, 1000, 600)   # valid tokens a row; L is the first
 
 
-def parity_batch(config, params, dev, lens=PARITY_LENS, seed=9):
+def parity_batch(config, params, dev, lens=PARITY_LENS, seed=9, L=None):
     """A GRPO batch of random tokens as device tensors: rows of `lens` valid
-    tokens right-padded to lens[0], the last 256 of each the response, old
-    log-probs from a log-prob step on `params`, reference log-probs and
-    advantages drawn around them."""
+    tokens right-padded to L (default lens[0]), the last 256 of each the
+    response, old log-probs from a log-prob step on `params`, reference
+    log-probs and advantages drawn around them."""
     import torch
     from socioreasoner_tpu_torch.distributed import trainer as T
     rng = np.random.default_rng(seed)
     lens = np.asarray(lens)
-    B, L = len(lens), int(lens[0])
+    B, L = len(lens), int(lens[0] if L is None else L)
     cols = np.arange(L)[None]
     attn = (cols < lens[:, None]).astype(np.int64)
     ids = np.where(attn == 1, rng.integers(2, config.text.vocab_size - 8, (B, L)), 0)
@@ -5958,6 +5987,584 @@ def phase_agentic(config, params):
     return launches
 
 
+# ------------------------------------------------------------ train mesh
+
+# The train_mesh phase: the train plane over several "devices" that are the
+# one card listed several times (the sharded code, not multi-GPU speed), at
+# Qwen2.5-VL-3B's text widths cut to TRAIN_MESH_LAYERS layers, full vocab.
+TRAIN_MESH_LAYERS = 4
+TRAIN_MESH_L = GRPO_TRAIN["L"]
+TRAIN_MESH_LENS = (2219, 2080, 2150)   # the grpo phase's rows; 3 rows: a pad row runs
+TRAIN_MESH_SEED = 16
+TRAIN_MESH_LR = 1e-5
+TRAIN_MESH_MESHES = {"fsdp2": {"fsdp": 2}, "fsdp2_tp2": {"fsdp": 2, "tp": 2}}
+TRAIN_MESH_PROCESSES = {"dp": 2, "tp": 2}   # (d): dp over two processes, tp 2 in each
+# (a)'s limits, sharded against unsharded in bf16. Sharding rounds the
+# row-parallel partial products to bf16 before their sum (the parallel
+# phase's tp engine moved the logits by 0.15-0.21 over 36 layers on an H100
+# 80GB HBM3 at 700 W, TP_DELTA_LIMIT) and cuBLAS
+# may pick other kernels for a rank's fewer rows; log-probs move by a
+# fraction of that over 4 layers, the PPO loss and ratio mean average the
+# moves over ~6,000 response tokens, and Adam moves an element by at most
+# ~1.5 lr a step whatever its gradient.
+TRAIN_MESH_LP_MAX = 0.5        # max-abs on a response token's log-prob or entropy
+TRAIN_MESH_LP_MEAN = 0.05      # mean-abs over the response tokens
+TRAIN_MESH_LOSS_ABS = 1e-2     # the PPO loss (terms of size ~1)
+TRAIN_MESH_NORM_REL = 5e-2     # the pre-clip grad norm, relative
+TRAIN_MESH_RATIO_ABS = 1e-2    # actor_train/ratio_mean
+TRAIN_MESH_PARAM_LRS = 6       # params after 2 steps: |d| <= 6 lr + one bf16 ulp of the leaf's max
+TRAIN_MESH_VP_ABS = 1e-3       # vocab-parallel head against the gathered head, same shards
+# the kernels phase's checks of kernels 4-6 at the phase's rank shapes:
+# (a) fsdp 2 x tp 2, rank 0's two rows at the shard's 8/1 heads; (c) the
+# pipeline's fsdp 2, one row a rank of each train micro-batch of 2 and four
+# of each log-prob chunk of 8, at 16/2 heads
+TRAIN_MESH_TRAIN = {"L": TRAIN_MESH_L, "train_batch": 2, "logprob_batch": 2,
+                    "lens": TRAIN_MESH_LENS[:2], "H": 8, "Hkv": 1}
+TRAIN_MESH_PIPELINE_TRAIN = {"L": TRAIN_MESH_L, "train_batch": 1, "logprob_batch": 4,
+                             "kv_lens": GRPO_TRAIN["kv_lens"]}
+
+
+def train_mesh_config(layers: int = TRAIN_MESH_LAYERS, config=None):
+    """Qwen25VLConfig() (or `config`) with its text depth cut to `layers`."""
+    import dataclasses
+    from socioreasoner_tpu_torch.models.qwen2_5_vl.config import Qwen25VLConfig
+    config = config or Qwen25VLConfig()
+    return dataclasses.replace(config, text=dataclasses.replace(config.text,
+                                                                num_hidden_layers=layers))
+
+
+def train_mesh_params(config, dev, dtype=None, seed: int = TRAIN_MESH_SEED):
+    """The phase's text tree, drawn from a generator seeded with `seed` on
+    `dev` (so that each process of (d) draws the same one)."""
+    import torch
+    from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
+    return qmodel.init_params(config, torch.Generator(device=dev).manual_seed(seed),
+                              dtype=dtype or torch.bfloat16, device=dev, with_vision=False)
+
+
+def train_mesh_batch(config, params, dev, lens=TRAIN_MESH_LENS, L=TRAIN_MESH_L, seed=9):
+    """parity_batch's GRPO batch as host arrays (old log-probs from the
+    unsharded log-prob step on `params`)."""
+    batch = parity_batch(config, params, dev, lens, seed=seed, L=L)
+    return {k: v.cpu().numpy() for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def kernel_shapes():
+    """Records (kernel, B, L, H, Hkv, kv lengths) of every launch of kernels
+    4-6 through the trainable attention, as a Counter filled when the block
+    ends (the lengths are read back then, not at each launch; the wrappers'
+    own counts are left as they are)."""
+    from collections import Counter
+    from socioreasoner_tpu_torch.ops import flash_attention_bwd as fb
+    seen, raw = Counter(), []
+    names = ("flash_attention_fwd_lse", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    plain = {n: getattr(fb, n) for n in names}
+
+    def wrap(name):
+        def recorded(q, k, v, *args, **kwargs):
+            lens = args[3] if name != "flash_attention_fwd_lse" else args[0]
+            raw.append((name, q.shape[0], q.shape[1], q.shape[2], k.shape[2], lens))
+            # the wrapper counts its launch on the module's name, this one
+            # while it is patched: carry the count across
+            recorded.launches = plain[name].launches
+            try:
+                return plain[name](q, k, v, *args, **kwargs)
+            finally:
+                plain[name].launches = recorded.launches
+        return recorded
+    for n in names:
+        setattr(fb, n, wrap(n))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(fb, n, plain[n])
+        for *key, lens in raw:
+            seen[(*key, tuple(int(x) for x in lens.tolist()))] += 1
+
+
+def _rank_lens(lens, pad_src: int, ranks: int):
+    """Each data rank's kv lengths: the rows padded to a multiple of the
+    ranks with copies of row pad_src (0 for a train batch, -1 for a log-prob
+    chunk, as the strategies pad)."""
+    rows = list(lens) + [lens[pad_src]] * ((-len(lens)) % ranks)
+    b = len(rows) // ranks
+    return [tuple(rows[r * b:(r + 1) * b]) for r in range(ranks)]
+
+
+def _expected_launches(seen, lens, L: int, ranks: int, tp: int, H: int, Hkv: int,
+                       layers: int, per_layer: dict, pad_src: int):
+    """Problems with the recorded launches: every rank's rows at the
+    shard's local heads, `per_layer[kernel]` launches a layer and shard."""
+    want = {}
+    for rank_lens in _rank_lens(lens, pad_src, ranks):
+        for name, n in per_layer.items():
+            key = (name, len(rank_lens), L, H // tp, Hkv // tp, rank_lens)
+            want[key] = want.get(key, 0) + n * layers * tp
+    return {"missing_or_off": sorted(str(k) for k in set(want) | set(seen)
+                                     if want.get(k, 0) != seen.get(k, 0)),
+            "launches": sum(seen.values())}
+
+
+def run_mesh_strategies(config, params, dev, meshes, batch, *, lr=TRAIN_MESH_LR, steps=2,
+                        vp_mesh: str = "fsdp2_tp2"):
+    """(a) and (b): TorchTrainStrategy unsharded and over each mesh of
+    `meshes` ({name: device list and axis sizes}) from the same weights and
+    batch: `steps` train steps, then the log-probs and entropy; the largest
+    differences from the unsharded run, and each meshed run's kernel 4-6
+    launches by shard shape. Then TorchInferStrategy over `vp_mesh` with
+    and without vocab_parallel_logprobs."""
+    import types
+    import torch
+    from socioreasoner_tpu_torch.configs.worker_config import (StrategyArguments,
+                                                               WorkerConfig)
+    from socioreasoner_tpu_torch.distributed.strategy import ParamStore
+    from socioreasoner_tpu_torch.distributed.torch_strategies import (TorchInferStrategy,
+                                                                      TorchTrainStrategy)
+    from socioreasoner_tpu_torch.distributed.trainer import tree_leaves
+    from socioreasoner_tpu_torch.parallel.mesh import make_mesh
+    from socioreasoner_tpu_torch.protocol import BatchProto
+
+    proto = BatchProto.from_dict(tensors=dict(batch))
+    ta = types.SimpleNamespace(learning_rate=lr)
+    resp = batch["response_mask"][:, 1:] == 1
+    B = len(batch["input_ids"])
+    out, base = {}, None
+    for name in ["unsharded", *meshes]:
+        mesh = None
+        if name != "unsharded":
+            spec = meshes[name]
+            mesh = make_mesh(**spec["axes"], devices=spec["devices"])
+        s = TorchTrainStrategy(worker_config=WorkerConfig(), param_store=ParamStore())
+        s.initialize(config, _clone(params) if mesh is None else params, training_args=ta,
+                     mesh=mesh)
+        _sync(dev)
+        t0 = time.perf_counter()
+        metrics, step_s = [], []
+        with kernel_shapes() as train_shapes:
+            for _ in range(steps):
+                t1 = time.perf_counter()
+                metrics.append(s.train_step(proto))     # its metrics read back: synced
+                step_s.append(time.perf_counter() - t1)
+        with kernel_shapes() as logprob_shapes:
+            lp = s.compute_log_probs(proto)
+        _sync(dev)
+        run = {"wall_s": time.perf_counter() - t0, "step_s": step_s, "metrics": metrics}
+        tree = s.state.params if mesh is None else s.state.params.gather(dev)
+        if mesh is None:
+            base = {"metrics": metrics, "lp": lp, "tree": tree}
+        else:
+            shape = mesh.shape
+            ranks, tp = shape["dp"] * shape["fsdp"], shape["tp"]
+            t = config.text
+            args = (_row_lens(batch), batch["input_ids"].shape[1], ranks, tp,
+                    t.num_attention_heads, t.num_key_value_heads, t.num_hidden_layers)
+            # remat runs each layer's forward again in the backward
+            run["train_launches"] = _expected_launches(
+                train_shapes, *args, {"flash_attention_fwd_lse": 2 * steps,
+                                      "flash_attention_bwd_dq": steps,
+                                      "flash_attention_bwd_dkv": steps}, 0)
+            run["logprob_launches"] = _expected_launches(
+                logprob_shapes, *args, {"flash_attention_fwd_lse": 1}, -1)
+            diffs = {}
+            for k in ("log_probs", "entropy"):
+                d = np.abs(lp[k] - base["lp"][k])[resp]
+                diffs[k + "_max_abs"], diffs[k + "_mean_abs"] = float(d.max()), float(d.mean())
+            for step, (m, m0) in enumerate(zip(metrics, base["metrics"])):
+                diffs[f"loss_abs_{step}"] = abs(m["actor_train/loss"] - m0["actor_train/loss"])
+                diffs[f"grad_norm_rel_{step}"] = abs(
+                    m["actor_train/grad_norm"] / m0["actor_train/grad_norm"] - 1)
+                # the pad row's masked ratio mean counts 0 (JaxTrainStrategy's padding)
+                real = B / (B + (-B) % ranks)
+                diffs[f"ratio_mean_abs_{step}"] = abs(
+                    m["actor_train/ratio_mean"] - m0["actor_train/ratio_mean"] * real)
+            worst = []
+            for a, b in zip(tree_leaves(tree), tree_leaves(base["tree"])):
+                scale = b.float().abs().max().item()
+                limit = TRAIN_MESH_PARAM_LRS * lr + scale * 2.0 ** -7
+                worst.append((a.float() - b.float()).abs().max().item() / limit)
+            diffs["param_max_over_limit"] = max(worst)
+            run["diffs"] = diffs
+        out[name] = run
+        del s, tree
+        _free()
+    # the vocab-parallel head against the gathered head on the same shards
+    spec = meshes[vp_mesh]
+    vp = {}
+    for knob in (False, True):
+        wc = WorkerConfig(strategy_args=StrategyArguments(
+            strategy_name="jax_infer", strategy_config={"vocab_parallel_logprobs": knob}))
+        s = TorchInferStrategy(worker_config=wc, param_store=ParamStore())
+        s.initialize(config, params, mesh=make_mesh(**spec["axes"], devices=spec["devices"]))
+        vp[knob] = s.compute_log_probs(proto)
+        del s
+        _free()
+    out["vocab_parallel"] = {
+        k + "_max_abs": float(np.abs(vp[True][k] - vp[False][k])[resp].max())
+        for k in ("log_probs", "entropy")}
+    out["base_metrics"] = base["metrics"]
+    return out
+
+
+def _row_lens(batch):
+    """The rows' valid lengths."""
+    return tuple(int(x) for x in batch["attention_mask"].sum(-1))
+
+
+def check_mesh_strategies(res) -> list:
+    """(a) and (b)'s failures against the limits."""
+    bad = []
+    for name, run in res.items():
+        if name in ("unsharded", "vocab_parallel", "base_metrics"):
+            continue
+        d = run["diffs"]
+        for key, limit in (("log_probs_max_abs", TRAIN_MESH_LP_MAX),
+                           ("entropy_max_abs", TRAIN_MESH_LP_MAX),
+                           ("log_probs_mean_abs", TRAIN_MESH_LP_MEAN),
+                           ("entropy_mean_abs", TRAIN_MESH_LP_MEAN),
+                           ("param_max_over_limit", 1.0)):
+            if not d[key] <= limit:
+                bad.append(f"{name} {key} {d[key]} > {limit}")
+        for key, v in d.items():
+            limit = (TRAIN_MESH_LOSS_ABS if key.startswith("loss")
+                     else TRAIN_MESH_NORM_REL if key.startswith("grad_norm")
+                     else TRAIN_MESH_RATIO_ABS if key.startswith("ratio") else None)
+            if limit is not None and not v <= limit:
+                bad.append(f"{name} {key} {v} > {limit}")
+        for kind in ("train_launches", "logprob_launches"):
+            if run[kind]["missing_or_off"] or run[kind]["launches"] <= 0:
+                bad.append(f"{name} {kind}: {run[kind]}")
+        if not all(np.isfinite(list(m.values())).all() for m in run["metrics"]):
+            bad.append(f"{name}: metrics not finite")
+    for key, v in res["vocab_parallel"].items():
+        if not v <= TRAIN_MESH_VP_ABS:
+            bad.append(f"vocab_parallel {key} {v} > {TRAIN_MESH_VP_ABS}")
+    return bad
+
+
+# examples/train/rlvr_tpu.yaml:63-67: actor_train's parallel knobs
+TRAIN_YAML_MESH_KNOBS = {"tensor_model_parallel_size": 1, "fsdp_size": -1,
+                         "context_parallel_size": 1, "pipeline_model_parallel_size": 1}
+
+
+def run_mesh_pipeline(config, params, sam_config, sam_params, out_dir, dev, devices, *,
+                      n_tiles=2, tile_px=768, img_cfg=None, processor=None,
+                      prompt_length=4096, **cuts):
+    """(c): one SocioSegPipeline step of grpo_answers' crafted answers
+    (ScriptedDecodeWorker) at the grpo phase's cuts, actor_train and the
+    reference over build_train_mesh(cfg, devices) with the train yaml's
+    knobs (fsdp_size -1: every device on fsdp; None over one device); then
+    one model_update, the rollout tree held bit for bit to the quantized
+    gathered shards. Returns (the step's metrics, the mesh's shape, the
+    rollout check, the pipeline's train shapes and the (B, L, H, Hkv) of
+    its kernel 4-6 launches)."""
+    import torch
+    from socioreasoner_tpu_torch.datasets.processor import ImageProcessorConfig
+    from socioreasoner_tpu_torch.datasets.socioseg import encode_sample
+    from socioreasoner_tpu_torch.distributed.trainer import tree_leaves
+    from socioreasoner_tpu_torch.ops.quant import quantize_decode_params
+    from socioreasoner_tpu_torch.pipeline.rlvr.build import (build_train_mesh,
+                                                             default_engine_kwargs)
+    from socioreasoner_tpu_torch.pipeline.rlvr.socioseg_pipeline import SocioSegPipeline
+    from socioreasoner_tpu_torch.runtime.generate_scheduler import LocalGenerateGroup
+    from socioreasoner_tpu_torch.utils.checkpoint import flatten
+
+    img_cfg = img_cfg or ImageProcessorConfig(defer_patchify=True)
+    cfg = socioseg_train_config(out_dir, prompt_length=prompt_length,
+                                **{**GRPO_CUTS, "max_steps": 1, "eval_steps": 0, **cuts})
+    cfg.actor_train.strategy_args.strategy_config = dict(TRAIN_YAML_MESH_KNOBS)
+    mesh = build_train_mesh(cfg, devices)
+    dataset = [encode_sample(t, img_cfg) for t in _synthetic_tiles(n_tiles, tile_px)]
+    pipe = SocioSegPipeline(
+        cfg, model_config=config, policy_params=params,
+        reference_params={k: v for k, v in params.items() if k != "vision"},
+        sam_config=sam_config, sam_params=sam_params,
+        processor=processor or _processor(config, img_cfg), dataset=dataset,
+        engine_kwargs=default_engine_kwargs(cfg), devices=[dev], mesh=mesh)
+    n = cfg.num_return_sequences
+    worker = ScriptedDecodeWorker(pipe.processor.tokenizer,
+                                  *grpo_answers(len(dataset[:cfg.rollout_batch_size]) * n, n), n)
+    pipe.decode_replicas = [worker]
+    pipe.decode_group = pipe.generate_scheduler.cluster = LocalGenerateGroup([worker])
+    shapes = set()
+    step = pipe.actor_train._train_step
+
+    def recorded(state, batch):
+        shapes.add(tuple(batch["input_ids"].shape))
+        return step(state, batch)
+    pipe.actor_train._train_step = recorded
+    _sync(dev)
+    t0 = time.perf_counter()
+    with kernel_shapes() as launched:
+        metrics = pipe.run()
+        _sync(dev)
+    wall = time.perf_counter() - t0
+    # the weight flow after the step: the engine's tree is the yaml's int8
+    # single copy of what actor_train published, the gathered shards
+    pipe.model_update(pipe.state.step)
+    engine_tree = flatten(pipe.actor_infer.engine.params)
+    trained = pipe.actor_train.params
+    gathered = trained.gather(dev) if mesh is not None else trained
+    want = flatten(quantize_decode_params(gathered, mode=TRAIN_STRATEGY["weight_quant"]))
+    rollout_equal = sorted(engine_tree) == sorted(want) and all(
+        torch.equal(engine_tree[k], want[k]) for k in want)
+    published_equal = mesh is None or all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(gathered),
+                                          tree_leaves(trained.gather(dev))))
+    keys = [f"{s}/actor_train/{k}" for s in ("map", "sat")
+            for k in ("total_loss", "grad_norm", "ratio_mean", "pg_loss", "kl_loss")]
+    out = {"wall_s": wall, "mesh": None if mesh is None else mesh.shape,
+           "metrics": {k: metrics[k] for k in keys},
+           "rollout_equal_quantized_gather": bool(rollout_equal and published_equal),
+           "train_shapes": sorted(shapes),
+           "kernel_shapes": sorted({k[1:5] for k in launched}),
+           "kernel_launches": sum(launched.values())}
+    del pipe
+    _free()
+    return out
+
+
+TRAIN_MESH_WORKER = """
+import sys
+import chip_smoke
+sys.exit(chip_smoke.train_mesh_worker(sys.argv[1]))
+"""
+
+
+def train_mesh_worker(spec_path: str) -> int:
+    """One process of (d): joins through runtime/initialize.py (RANK,
+    WORLD_SIZE, MASTER_ADDR, MASTER_PORT), broadcasts a tensor and a host
+    object, draws the phase's tree from its seed and runs one train step
+    over a mesh whose dp axis spans the processes. Prints one JSON line."""
+    import torch
+    from socioreasoner_tpu_torch.parallel.mesh import make_mesh
+    from socioreasoner_tpu_torch.runtime import initialize
+    from socioreasoner_tpu_torch.utils import collective
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = torch.device(spec["device"])
+    initialize.init(timeout_s=300)
+    import torch.distributed as dist
+    rank, world = initialize.get_driver_rank(), initialize.get_driver_world_size()
+    axes = dict(spec["axes"])
+    mesh = make_mesh(**axes, devices=[dev] * (int(np.prod(list(axes.values()))) // world),
+                     process_index=rank, process_count=world)
+    value = collective.broadcast(torch.arange(4.0, device=dev) * (1 - rank), mesh, "dp")
+    host = collective.broadcast_host_data({"rank": rank, "seed": spec["seed"]})
+    collective.barrier()
+    config = config_from_dict(spec["config"])
+    dtype = getattr(torch, spec["dtype"])
+    params = train_mesh_params(config, dev, dtype, spec["seed"])
+    batch = dict(np.load(spec["batch"]))
+    res = run_mesh_step(config, params, batch, mesh, spec["lr"])
+    print(json.dumps({"rank": rank, "backend": dist.get_backend(), "driver":
+                      initialize.is_driver(), "broadcast": value.tolist(), "host": host,
+                      **res}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def config_from_dict(d):
+    """A Qwen25VLConfig from dataclasses.asdict's dict (lists back to
+    tuples)."""
+    from socioreasoner_tpu_torch.models.qwen2_5_vl.config import (
+        Qwen25VLConfig, TextConfig, VisionConfig)
+
+    def fields(x):
+        return {k: tuple(v) if isinstance(v, list) else v for k, v in x.items()}
+    rest = {k: v for k, v in d.items() if k not in ("vision", "text")}
+    return Qwen25VLConfig(vision=VisionConfig(**fields(d["vision"])),
+                          text=TextConfig(**fields(d["text"])), **fields(rest))
+
+
+def run_mesh_step(config, params, batch, mesh, lr):
+    """One TorchTrainStrategy step over `mesh` from `params` (copied into
+    its shards): the loss, its repr, the grad norm and ratio mean."""
+    import types
+    from socioreasoner_tpu_torch.configs.worker_config import WorkerConfig
+    from socioreasoner_tpu_torch.distributed.strategy import ParamStore
+    from socioreasoner_tpu_torch.distributed.torch_strategies import TorchTrainStrategy
+    from socioreasoner_tpu_torch.protocol import BatchProto
+    s = TorchTrainStrategy(worker_config=WorkerConfig(), param_store=ParamStore())
+    s.initialize(config, params, training_args=types.SimpleNamespace(learning_rate=lr),
+                 mesh=mesh)
+    m = s.train_step(BatchProto.from_dict(tensors=dict(batch)))
+    return {"loss": m["actor_train/loss"], "loss_repr": repr(m["actor_train/loss"]),
+            "grad_norm": m["actor_train/grad_norm"],
+            "ratio_mean": m["actor_train/ratio_mean"], "mesh": mesh.shape}
+
+
+def run_mesh_processes(config, dev, batch, work_dir, *, axes=TRAIN_MESH_PROCESSES,
+                       seed=TRAIN_MESH_SEED, lr=TRAIN_MESH_LR, dtype="bfloat16", timeout=600):
+    """(d): two processes of train_mesh_worker on `dev` (gloo: the two
+    ranks share the card), each drawing train_mesh_params(config) from
+    `seed`, against the one-process step over the same mesh shape and tree.
+    Returns (the workers' JSON lines, the one-process step); raises when a
+    worker fails."""
+    import dataclasses
+    import os
+    import socket
+    import torch
+    from socioreasoner_tpu_torch.parallel.mesh import make_mesh
+    batch_path = str(Path(work_dir) / "train_mesh_batch.npz")
+    np.savez(batch_path, **batch)
+    spec_path = str(Path(work_dir) / "train_mesh_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump({"device": str(dev), "axes": axes, "config": dataclasses.asdict(config),
+                   "seed": seed, "lr": lr, "dtype": dtype, "batch": batch_path}, f)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    here = Path(__file__).resolve().parent
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen([sys.executable, "-c", TRAIN_MESH_WORKER, spec_path],
+                                      cwd=here, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    results = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"train_mesh worker {rank}: exit {p.returncode}\n"
+                                 f"{out[-4000:]}")
+        results.append(json.loads(lines[-1]))
+    params = train_mesh_params(config, dev, getattr(torch, dtype), seed)
+    one = run_mesh_step(config, params, batch, make_mesh(
+        **axes, devices=[dev] * int(np.prod(list(axes.values())))), lr)
+    del params
+    _free()
+    return results, one
+
+
+def check_mesh_processes(workers, one) -> list:
+    """(d)'s failures: equal losses, within (a)'s limit of one process's."""
+    bad = []
+    if workers[0]["loss_repr"] != workers[1]["loss_repr"]:
+        bad.append(f"the two processes' losses differ: {[w['loss'] for w in workers]}")
+    if not abs(workers[0]["loss"] - one["loss"]) <= TRAIN_MESH_LOSS_ABS:
+        bad.append(f"two processes {workers[0]['loss']} against one {one['loss']}")
+    if workers[0]["mesh"] != one["mesh"]:
+        bad.append(f"mesh {workers[0]['mesh']} against {one['mesh']}")
+    if any(w["broadcast"] != [0.0, 1.0, 2.0, 3.0] or w["host"]["rank"] != 0
+           or w["backend"] != "gloo" for w in workers):
+        bad.append(f"broadcast: {[(w['broadcast'], w['host']) for w in workers]}")
+    return bad
+
+
+def phase_train_mesh(main_config):
+    """The train plane over a device mesh on the one card, at Qwen2.5-VL-3B
+    text widths (hidden 2048, 16/2 heads x 128, intermediate 11008, vocab
+    151936, tied head) cut to TRAIN_MESH_LAYERS layers: (a) the strategies
+    unsharded, over fsdp 2 and over fsdp 2 x tp 2 ([cuda:0] x 2 and x 4):
+    two train steps, the log-probs and entropy, the vocab-parallel head;
+    (b) kernels 4-6 on every rank's rows at the shard's local heads; (c) a
+    SocioSegPipeline step over build_train_mesh's fsdp 2 against one
+    unsharded, the rollout tree after model_update; (d) two processes with
+    dp across them. Returns the launch counts of kernels 1-6 over (a)-(c)."""
+    import torch
+    from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
+    from socioreasoner_tpu_torch.models.sam2 import model as smodel
+    from socioreasoner_tpu_torch.models.sam2.config import Sam2Config
+    from socioreasoner_tpu_torch.ops import decode_attention as da
+    from socioreasoner_tpu_torch.ops import flash_attention as fa
+    from socioreasoner_tpu_torch.utils.context_managers import device_memory_stats
+
+    dev = torch.device("cuda")
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = (fa.flash_attention_segmented, fa.flash_attention, da.paged_decode_attention,
+               *_train_kernel_fns())
+    for fn in kernels:
+        fn.launches = 0
+    t_phase = time.perf_counter()
+    config = train_mesh_config(TRAIN_MESH_LAYERS, main_config)
+    params = train_mesh_params(config, dev)
+    batch = train_mesh_batch(config, params, dev)
+    meshes = {name: {"axes": axes, "devices": [dev] * int(np.prod(list(axes.values())))}
+              for name, axes in TRAIN_MESH_MESHES.items()}
+    t0 = time.perf_counter()
+    res = run_mesh_strategies(config, params, dev, meshes, batch)
+    emit({"phase": "train_mesh_strategies", "card": _smi_line(),
+          "model": f"Qwen2.5-VL-3B text widths, {TRAIN_MESH_LAYERS} layers, vocab 151936, "
+                   "tied head, random bf16 weights; the meshes' devices are cuda:0 listed "
+                   "several times: the sharded code, not multi-GPU speed",
+          "batch": f"B={len(TRAIN_MESH_LENS)} L={TRAIN_MESH_L} kv_len={list(TRAIN_MESH_LENS)}",
+          "wall_s": time.perf_counter() - t0,
+          "limits": {"lp_max": TRAIN_MESH_LP_MAX, "lp_mean": TRAIN_MESH_LP_MEAN,
+                     "loss_abs": TRAIN_MESH_LOSS_ABS, "grad_norm_rel": TRAIN_MESH_NORM_REL,
+                     "ratio_mean_abs": TRAIN_MESH_RATIO_ABS,
+                     "param": f"{TRAIN_MESH_PARAM_LRS} lr + 2^-7 x leaf max",
+                     "vocab_parallel_abs": TRAIN_MESH_VP_ABS},
+          **{k: v if k in ("vocab_parallel", "base_metrics") else
+             {kk: vv for kk, vv in v.items() if kk != "metrics"} for k, v in res.items()}})
+    bad = check_mesh_strategies(res)
+    if bad:
+        raise AssertionError(f"train_mesh (a)/(b): {bad}")
+    launches_a = {fn.__name__: fn.launches for fn in kernels}
+
+    # (c) the pipeline over build_train_mesh's fsdp 2, against one device
+    sam_config = Sam2Config.large()
+    sam_params = smodel.init_params(sam_config, torch.Generator(device=dev).manual_seed(2),
+                                    dtype=torch.bfloat16, device=dev)
+    # the same text tree with the 3B ViT (32 blocks) beside it
+    full = qmodel.init_params(config, torch.Generator(device=dev).manual_seed(TRAIN_MESH_SEED),
+                              dtype=torch.bfloat16, device=dev)
+    pipes = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        for name, devices in (("unsharded", [dev]), ("fsdp2", [dev] * 2)):
+            pipes[name] = run_mesh_pipeline(config, _clone(full) if name == "unsharded"
+                                            else full, sam_config, sam_params,
+                                            str(Path(out_dir) / name), dev, devices)
+    del full, sam_params
+    _free()
+    base, meshed = pipes["unsharded"], pipes["fsdp2"]
+    # the rank shapes the kernels phase checked (TRAIN_MESH_PIPELINE_TRAIN)
+    spec = TRAIN_MESH_PIPELINE_TRAIN
+    checked = {(B, spec["L"], 16, 2) for B in (spec["train_batch"], spec["logprob_batch"])}
+    left = sorted(set(map(tuple, meshed["kernel_shapes"])) - checked)
+    diffs = {k: abs(meshed["metrics"][k] - base["metrics"][k]) for k in base["metrics"]}
+    emit({"phase": "train_mesh_pipeline", "pipelines": pipes, "diffs": diffs})
+    bad = [k for k, d in diffs.items() if not d <= (
+        TRAIN_MESH_NORM_REL * abs(base["metrics"][k]) if "grad_norm" in k
+        else TRAIN_MESH_RATIO_ABS if "ratio" in k else TRAIN_MESH_LOSS_ABS)]
+    if (bad or left or meshed["mesh"] != {"dp": 1, "fsdp": 2, "pp": 1, "sp": 1, "tp": 1}
+            or not (base["rollout_equal_quantized_gather"]
+                    and meshed["rollout_equal_quantized_gather"])):
+        raise AssertionError(f"train_mesh (c): {bad}, left the checked shapes {left}, "
+                             f"{meshed['mesh']}, "
+                             f"{[p['rollout_equal_quantized_gather'] for p in pipes.values()]}")
+    launches = {fn.__name__: fn.launches for fn in kernels}
+
+    # (d) two processes on the card, dp across them
+    with tempfile.TemporaryDirectory() as work_dir:
+        t0 = time.perf_counter()
+        workers, one = run_mesh_processes(config, dev, batch, work_dir)
+        wall = time.perf_counter() - t0
+    emit({"phase": "train_mesh_processes", "axes": TRAIN_MESH_PROCESSES, "wall_s": wall,
+          "workers": workers, "one_process": one})
+    bad = check_mesh_processes(workers, one)
+    if bad:
+        raise AssertionError(f"train_mesh (d): {bad}")
+    peak = device_memory_stats()["device0/peak_bytes_in_use"] / 2**30
+    emit({"phase": "train_mesh", "phase_s": time.perf_counter() - t_phase,
+          "launches": launches, "launches_strategies": launches_a, "peak_gib": peak})
+    if not all(launches[fn.__name__] > 0 for fn in _train_kernel_fns()):
+        raise AssertionError(f"kernels 4-6 never launched in the train_mesh phase: {launches}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -5994,6 +6601,7 @@ def main() -> int:
     rlvr = phase_rlvr(config, params)
     workers = phase_workers(config, params)
     agentic = phase_agentic(config, params)
+    train_mesh = phase_train_mesh(config)
     with tempfile.TemporaryDirectory() as work_dir:
         export_dir = str(Path(work_dir) / "qwen2_5_vl_3b")
         export_stats, sums = export_main_tree(config, params, export_dir,
@@ -6020,6 +6628,9 @@ def main() -> int:
         kern["launches_families"] = families.get(kern["name"], 0)
         # kernels 3q and 7 are on no path of the agentic phase (bf16 cache)
         kern["launches_agentic"] = agentic.get(kern["name"], 0)
+        # kernels 2, 3, 3q and 7 are on no path of the train_mesh phase (its
+        # pipeline step answers through a scripted decode worker)
+        kern["launches_train_mesh"] = train_mesh.get(kern["name"], 0)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

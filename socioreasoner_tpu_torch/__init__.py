@@ -10,19 +10,24 @@ pipeline, the from-config start: loaders, checkpoints, entry scripts, the
 generic RLVR slice: RLVRPipeline with dynamic sampling, MathVLMPipeline,
 the worker runtime with every reward, the reward model, the critic, SFT
 and DPO, the other model families: MoE layers, the text-only LLM
-families, the Qwen2-VL ViT, the agentic slice, and the serving plane over
-several devices with the runtime and tooling modules):
+families, the Qwen2-VL ViT, the agentic slice, the serving plane over
+several devices with the runtime and tooling modules, and the train plane
+over a dp x fsdp x tp mesh, in one process or several):
   examples                — the two entry scripts (yaml → pipeline → run())
   tools/convert           — HF <-> native checkpoint CLI
   configs                 — the yaml loader and the config dataclasses
-  parallel                — named device meshes (a grid of torch.devices) and
-                            the Megatron spec tables, shard_params (one
-                            tree a tensor-parallel shard)
+  parallel                — named device meshes (a grid of torch.devices,
+                            dp split over processes), the Megatron spec
+                            tables, shard_params (one tree a tensor-
+                            parallel shard), ShardedTree (a train tree over
+                            fsdp x tp) and RankParams (a data rank's view)
   ops                     — attention references + hand-written Hopper kernels
                             (csrc/*.cu, built by ops/_build.py at first use),
                             the trainable flash attention (autograd Function),
                             their head-sharded tp calls, the MoE router and
-                            experts (ops/moe), the kernel flags (ops/flags)
+                            experts (ops/moe), vocab-parallel log-probs and
+                            entropy (ops/vocab_parallel), the kernel flags
+                            (ops/flags)
   models/qwen2_5_vl       — ViT (qwen2.5 and qwen2 variants), text decoder
                             (dense and MoE layers, remat, trainable flash),
                             full model, weight bridge, HF loader and export
@@ -38,7 +43,8 @@ several devices with the runtime and tooling modules):
                             modes, Worker, GenerateScheduler,
                             DynamicSamplingScheduler, RequestScheduler,
                             LocalGenerateGroup (data-parallel replicas),
-                            ResourceManager, log_monitor
+                            ResourceManager, log_monitor, initialize (the
+                            RANK/WORLD_SIZE contract → torch.distributed)
   datasets                — processor, SocioSeg encode_sample, stage-2
                             render and HF builder (load_socioseg), stage-1
                             and restage collators, the file loader and its
@@ -64,9 +70,13 @@ several devices with the runtime and tooling modules):
                             trackers, metrics, WorkerState, the native host
                             library (its own copy of csrc/socio_host.cpp,
                             built at first use), profiling (torch.profiler
-                            traces), context managers, checkpoint upload
+                            traces), context managers, checkpoint upload,
+                            collective (allreduce/broadcast over a mesh
+                            axis and across processes, barrier,
+                            broadcast_host_data)
   distributed             — ParamStore and strategy bases, the train/logprob,
-                            critic and SFT steps and optimizer (trainer),
+                            critic and SFT steps and optimizer (trainer;
+                            the train and logprob steps also over a mesh),
                             sequence packing and DPO (sft),
                             batch_image_embeds, compute_image_embeds,
                             TorchTrainStrategy / TorchInferStrategy /

@@ -1,8 +1,8 @@
 """Concrete strategies of the port: torch_train / torch_infer / torch_reward /
 torch_decode.
 
-The counterpart of socioreasoner_tpu/distributed/jax_strategies.py without a
-mesh: `batch_image_embeds` runs the ViT once per sample; `TorchTrainStrategy`
+The counterpart of socioreasoner_tpu/distributed/jax_strategies.py:
+`batch_image_embeds` runs the ViT once per sample; `TorchTrainStrategy`
 (the JaxTrainStrategy role) runs the GRPO train and logprob steps;
 `TorchInferStrategy` (JaxInferStrategy) is the frozen reference policy;
 `TorchRewardStrategy` (JaxRewardStrategy) scores with a value head;
@@ -25,6 +25,19 @@ copy of the weights.
 TorchTrainStrategy checkpoints its params, optimizer state (moments, the
 update count, the gradient-accumulation buffer and counters) and step
 through utils/checkpoint.py when initialized with a checkpoint_dir.
+
+With a `mesh` (parallel/mesh.py, from ResourceManager.allocate_mesh) the
+train, infer and reward strategies shard their trees over its fsdp and tp
+axes (parallel/sharding.ShardedTree: copies, the caller's tree is left as
+it was) and run their steps over its data ranks (trainer.py). As in the
+JAX strategies, a train batch is padded to a multiple of dp x fsdp with
+copies of row 0 whose response mask and sample weight are 0, and every
+log-prob micro-batch with copies of its last row, sliced off again; each
+rank takes the image embeddings of its own samples. model_update hands the
+decode engine the gathered whole tree (a new tree each update, on the
+mesh's first device), and a checkpoint holds the gathered tree and
+moments, so it loads into any mesh or none. Context and pipeline
+parallelism (strategy_config) come in the next port slice and raise.
 """
 
 from __future__ import annotations
@@ -42,6 +55,8 @@ from ..models.qwen2_5_vl.config import Qwen25VLConfig
 from ..models.qwen2_5_vl.vision import run_vision, run_vision_u8
 from ..ops.quant import (params_prequantized, quantize_decode_params,
                          quantize_vision_params, vision_prequantized)
+from ..parallel.mesh import batch_divisor
+from ..parallel.sharding import ShardedTree
 from ..pipeline.losses import PPOLossConfig
 from ..protocol import BatchProto
 from ..utils.checkpoint import CheckpointManager
@@ -115,45 +130,113 @@ def _to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+def _image_rows(batch: BatchProto, n: int):
+    """(the packed image embeddings, each sample's row count) of a batch:
+    meta["image_embeds_rows"], else equal rows per sample; (None, None)
+    without images."""
+    img = batch.meta.get("image_embeds")
+    if img is None:
+        return None, None
+    rows = batch.meta.get("image_embeds_rows")
+    if rows is None:
+        rows = np.full(n, img.shape[0] // max(n, 1), np.int64)
+    return img, np.asarray(rows, np.int64)
+
+
+def _pad_rows(arrays: Dict, pad: int, src: int) -> Dict:
+    """Each array with `pad` copies of its row `src` appended."""
+    return {k: np.concatenate([np.asarray(v), np.repeat(np.asarray(v)[src:src + 1], pad,
+                                                        axis=0)], axis=0)
+            for k, v in arrays.items()}
+
+
+def _padded_images(img, rows, offs, start: int, stop: int, pad: int, src: int, device):
+    """The image embeddings of samples start..stop-1 plus `pad` copies of
+    sample src's, with their row counts, on `device`."""
+    img = torch.as_tensor(img, device=device)
+    parts = [img[offs[start]:offs[stop]]] + [img[offs[src]:offs[src + 1]]] * pad
+    counts = np.concatenate([rows[start:stop], np.repeat(rows[src:src + 1], pad)])
+    return torch.cat(parts), torch.as_tensor(counts, device=device)
+
+
 def _micro_batched_log_probs(logprob_step: Callable, params, batch: BatchProto,
-                             worker_config, device) -> Dict[str, np.ndarray]:
+                             worker_config, device, mesh=None) -> Dict[str, np.ndarray]:
     """Forward in micro-batches of worker_config.infer_batch_size rows (all
     rows when unset), slicing the packed image embeddings by each sample's
-    row count (meta["image_embeds_rows"], else equal rows per sample)."""
+    row count (meta["image_embeds_rows"], else equal rows per sample). With
+    a mesh, each micro-batch is a multiple of dp x fsdp rows, padded with
+    copies of its last row and sliced back, as in the JAX strategies."""
     n = len(batch)
     mb = getattr(worker_config, "infer_batch_size", 0) or n
-    img = batch.meta.get("image_embeds")
-    rows = batch.meta.get("image_embeds_rows")
-    if img is not None and rows is None:
-        rows = np.full(n, img.shape[0] // max(n, 1), np.int64)
-    offs = None if rows is None else np.concatenate(
-        [[0], np.cumsum(np.asarray(rows, np.int64))])
+    div = batch_divisor(mesh)
+    mb = max(div, (mb // div) * div)
+    img, rows = _image_rows(batch, n)
+    offs = None if rows is None else np.concatenate([[0], np.cumsum(rows)])
     outs: Dict[str, list] = {}
     for start in range(0, n, mb):
         chunk = batch.slice(start, start + mb)
         k0 = len(chunk)
-        device_batch = _to_device(chunk.batch, device)
+        pad = (-k0) % div
+        arrays = _pad_rows(chunk.batch, pad, k0 - 1) if pad else chunk.batch
+        device_batch = _to_device(arrays, device)
         if img is not None and offs[start + k0] > offs[start]:
-            device_batch["image_embeds"] = torch.as_tensor(
-                img[offs[start]:offs[start + k0]], device=device)
+            if mesh is None:
+                device_batch["image_embeds"] = torch.as_tensor(
+                    img[offs[start]:offs[start + k0]], device=device)
+            else:
+                device_batch["image_embeds"], device_batch["image_embeds_rows"] = \
+                    _padded_images(img, rows, offs, start, start + k0, pad,
+                                   start + k0 - 1, device)
         out = logprob_step(params, device_batch)
         for k, v in out.items():
             outs.setdefault(k, []).append(v.float().cpu().numpy()[:k0])
     return {k: np.concatenate(v, axis=0) for k, v in outs.items()}
 
 
+def _parallel_plan(strategy, model_config: Qwen25VLConfig, mesh):
+    """The vocab-parallel route of strategy_config (the mesh when
+    vocab_parallel_logprobs is set, as JaxTrainStrategy._parallel_plan);
+    context and pipeline parallelism raise. With a mesh, tp must divide the
+    text heads: a head is never split."""
+    wc = strategy.worker_config
+    cfg = wc.strategy_args.config if wc is not None else {}
+    cp = int(cfg.get("context_parallel_size", 1) or 1)
+    pp = int(cfg.get("pipeline_model_parallel_size", 1) or 1)
+    if cp > 1 or pp > 1:
+        raise NotImplementedError(
+            f"context_parallel_size={cp}, pipeline_model_parallel_size={pp}: context and "
+            "pipeline parallelism come in the next port slice (ROADMAP queue 1 items "
+            "8b.3 and 8b.4)")
+    if mesh is None:
+        return None
+    t, T = model_config.text, mesh.shape.get("tp", 1)
+    if t.num_attention_heads % T or t.num_key_value_heads % T:
+        raise ValueError(f"tp={T} must divide the heads: H={t.num_attention_heads}, "
+                         f"Hkv={t.num_key_value_heads} (a head is never split)")
+    return mesh if cfg.get("vocab_parallel_logprobs") else None
+
+
+def _mesh_device(mesh, params):
+    return mesh.devices.flat[0] if mesh is not None else params["embed"].device
+
+
 class TorchTrainStrategy(TrainStrategy):
-    """The actor-train backend (the JaxTrainStrategy role) on one GPU."""
+    """The actor-train backend (the JaxTrainStrategy role), on one device or
+    over a train mesh."""
 
     strategy_name = "torch_train"
     ckpt: Optional[CheckpointManager] = None
+    mesh = None
 
     def initialize(self, model_config: Qwen25VLConfig, params,
                    loss_cfg: Optional[PPOLossConfig] = None,
                    training_args=None, param_store: Optional[ParamStore] = None,
                    checkpoint_dir: Optional[str] = None, mesh=None):
+        vp_mesh = _parallel_plan(self, model_config, mesh)
+        self.mesh = mesh
+        self.device = _mesh_device(mesh, params)
         if mesh is not None:
-            raise NotImplementedError("a train mesh is not ported yet (ROADMAP: multi-GPU)")
+            params = ShardedTree(params, mesh)
         self.model_config = model_config
         if param_store is not None:
             self.param_store = param_store
@@ -171,9 +254,9 @@ class TorchTrainStrategy(TrainStrategy):
             gradient_accumulation_steps=self.grad_accum_steps)
         self.state = TrainState.create(params, self.optimizer)
         self.loss_cfg = loss_cfg or PPOLossConfig()
-        self.device = params["embed"].device
-        self._train_step = make_train_step(model_config, self.loss_cfg, self.optimizer)
-        self._logprob_step = make_logprob_step(model_config)
+        self._train_step = make_train_step(model_config, self.loss_cfg, self.optimizer,
+                                           vp_mesh=vp_mesh)
+        self._logprob_step = make_logprob_step(model_config, vp_mesh=vp_mesh)
         self.param_store.put("actor", self.state.params)
         self.ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
 
@@ -182,10 +265,30 @@ class TorchTrainStrategy(TrainStrategy):
         return self.state.params
 
     def train_step(self, batch: BatchProto, loss_func: Callable = None) -> Dict[str, float]:
-        device_batch = _to_device(batch.batch, self.device)
-        if "image_embeds" in batch.meta:
-            device_batch["image_embeds"] = torch.as_tensor(batch.meta["image_embeds"],
-                                                           device=self.device)
+        n = len(batch)
+        pad = (-n) % batch_divisor(self.mesh)
+        arrays = dict(batch.batch)
+        if pad:
+            # pad rows repeat row 0 with response_mask and sample_weights 0:
+            # agg_loss drops them from numerator and denominator in every
+            # loss_agg_mode (JaxTrainStrategy.train_step)
+            arrays = _pad_rows(arrays, pad, 0)
+            for k in ("response_mask", "sample_weights"):
+                if k in arrays:
+                    arrays[k][n:] = 0
+            if "sample_weights" not in arrays:
+                w = np.ones((n + pad,), np.float32)
+                w[n:] = 0.0
+                arrays["sample_weights"] = w
+        device_batch = _to_device(arrays, self.device)
+        img, rows = _image_rows(batch, n)
+        if img is not None:
+            if self.mesh is None:
+                device_batch["image_embeds"] = torch.as_tensor(img, device=self.device)
+            else:
+                offs = np.concatenate([[0], np.cumsum(rows)])
+                device_batch["image_embeds"], device_batch["image_embeds_rows"] = \
+                    _padded_images(img, rows, offs, 0, n, pad, 0, self.device)
         self.state, metrics = self._train_step(self.state, device_batch)
         self.param_store.put("actor", self.state.params)
         values = torch.stack([v.float() for v in metrics.values()]).tolist()
@@ -196,15 +299,26 @@ class TorchTrainStrategy(TrainStrategy):
 
     def compute_log_probs(self, batch: BatchProto) -> Dict[str, np.ndarray]:
         return _micro_batched_log_probs(self._logprob_step, self.state.params, batch,
-                                        self.worker_config, self.device)
+                                        self.worker_config, self.device, self.mesh)
 
     def model_update(self, *args, **kwargs):
-        """Expose the current weights to the rollout engine."""
-        self.param_store.put("rollout", self.state.params)
+        """Expose the current weights to the rollout engine: the trainer's
+        tree, or over a mesh its shards gathered into a new whole tree on
+        the mesh's first device."""
+        params = self.state.params
+        self.param_store.put("rollout", params.gather() if self.mesh is not None else params)
+
+    _LEAF_LISTS = ("mu", "nu", "acc")
 
     def _checkpoint_tree(self) -> Dict:
-        return {"params": self.state.params, "opt_state": self.state.opt_state,
-                "step": self.state.step}
+        """Over a mesh, the gathered tree and the moments gathered a leaf
+        (the unsharded strategy's layout)."""
+        params, opt = self.state.params, self.state.opt_state
+        if self.mesh is not None:
+            opt = {k: params.whole_leaves(v, self.device) if k in self._LEAF_LISTS else v
+                   for k, v in opt.items()}
+            params = params.gather(self.device)
+        return {"params": params, "opt_state": opt, "step": self.state.step}
 
     def save_checkpoint(self, step: int, meta: Optional[Dict] = None, wait: bool = False):
         """Checkpoint the params and optimizer state at `step` (nothing
@@ -220,8 +334,14 @@ class TorchTrainStrategy(TrainStrategy):
             return None
         restored, meta = self.ckpt.restore(step, like=self._checkpoint_tree())
         if restored is not None:
-            self.state = TrainState(params=restored["params"],
-                                    opt_state=restored["opt_state"], step=restored["step"])
+            params, opt = restored["params"], restored["opt_state"]
+            if self.mesh is not None:
+                sharded = self.state.params
+                sharded.assign(params)
+                opt = {k: sharded.split_leaves(v) if k in self._LEAF_LISTS else v
+                       for k, v in opt.items()}
+                params = sharded
+            self.state = TrainState(params=params, opt_state=opt, step=restored["step"])
             self.param_store.put("actor", self.state.params)
         return meta
 
@@ -232,16 +352,18 @@ class TorchInferStrategy(InferenceStrategy):
 
     strategy_name = "torch_infer"
 
+    mesh = None
+
     def initialize(self, model_config: Qwen25VLConfig, params,
                    param_store: Optional[ParamStore] = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("an infer mesh is not ported yet (ROADMAP: multi-GPU)")
+        vp_mesh = _parallel_plan(self, model_config, mesh)
+        self.mesh = mesh
         self.model_config = model_config
         if param_store is not None:
             self.param_store = param_store
-        self._params = params
-        self.device = params["embed"].device
-        self._logprob_step = make_logprob_step(model_config)
+        self.device = _mesh_device(mesh, params)
+        self._params = params if mesh is None else ShardedTree(params, mesh)
+        self._logprob_step = make_logprob_step(model_config, vp_mesh=vp_mesh)
 
     @property
     def params(self):
@@ -249,7 +371,7 @@ class TorchInferStrategy(InferenceStrategy):
 
     def compute_log_probs(self, batch: BatchProto) -> Dict[str, np.ndarray]:
         return _micro_batched_log_probs(self._logprob_step, self._params, batch,
-                                        self.worker_config, self.device)
+                                        self.worker_config, self.device, self.mesh)
 
     def forward_step(self, batch: BatchProto, forward_func: Callable = None):
         return self.compute_log_probs(batch)
@@ -261,22 +383,27 @@ class TorchRewardStrategy(InferenceStrategy):
     by RewardWorker. Dense attention, as in the JAX package's strategy."""
 
     strategy_name = "torch_reward"
+    mesh = None
 
     def initialize(self, model_config: Qwen25VLConfig, params,
                    param_store: Optional[ParamStore] = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("an infer mesh is not ported yet (ROADMAP: multi-GPU)")
+        """With a mesh the body is sharded over it and the value head kept
+        whole (stored once, copied onto each rank's first device)."""
+        _parallel_plan(self, model_config, mesh)
         if "value_head_w" not in params:
             raise ValueError("torch_reward strategy needs a value head "
                              "(trainer.add_value_head) on the params tree")
         self.model_config = model_config
         if param_store is not None:
             self.param_store = param_store
-        self._params = params
-        self.device = params["embed"].device
+        self.mesh = mesh
+        self.device = _mesh_device(mesh, params)
+        self._params = params if mesh is None else ShardedTree(params, mesh)
 
         @torch.no_grad()
-        def value_step(params: Dict, batch: Dict) -> Dict[str, torch.Tensor]:
+        def value_step(params, batch: Dict) -> Dict[str, torch.Tensor]:
+            if isinstance(params, ShardedTree):
+                return {"values": _mesh_values(model_config, params, batch)}
             hidden, _ = qmodel.forward(
                 model_config, params, batch["input_ids"], batch["position_ids"],
                 batch.get("attention_mask"), image_embeds=batch.get("image_embeds"),
@@ -293,10 +420,28 @@ class TorchRewardStrategy(InferenceStrategy):
     def compute_values(self, batch: BatchProto) -> np.ndarray:
         """(B, L-1) f32 values in micro-batches of infer_batch_size rows."""
         return _micro_batched_log_probs(self._value_step, self._params, batch,
-                                        self.worker_config, self.device)["values"]
+                                        self.worker_config, self.device, self.mesh)["values"]
 
     def forward_step(self, batch: BatchProto, forward_func: Callable = None):
         return {"values": self.compute_values(batch)}
+
+
+def _mesh_values(config: Qwen25VLConfig, params: ShardedTree, batch: Dict) -> torch.Tensor:
+    """The reward model's (B, L-1) values over a mesh: each data rank's
+    hidden states through the whole value head on its first device, put
+    together on the mesh's first device (this process's ranks: the reward
+    strategy runs in one process)."""
+    ranks, rows = params.data_ranks(batch["input_ids"].shape[0])
+    hiddens, _ = qmodel.forward_mesh(
+        config, ranks, rows, batch["input_ids"],
+        batch["position_ids"], batch.get("attention_mask"),
+        image_embeds=batch.get("image_embeds"), image_rows=batch.get("image_embeds_rows"),
+        logits=False)
+    main = ranks[0].home
+    return torch.cat([
+        value_head({k: rank.top(k)[0] for k in ("value_head_w", "value_head_b")},
+                   hidden)[:, 1:].to(main)
+        for rank, hidden in zip(ranks, hiddens)])
 
 
 class TorchDecodeStrategy(InferenceStrategy):

@@ -1,7 +1,7 @@
-"""GRPO/PPO train and logprob steps on one GPU.
+"""GRPO/PPO train and logprob steps, on one device or over a train mesh.
 
-The counterpart of socioreasoner_tpu/distributed/trainer.py for the path
-without context, pipeline or vocab parallelism:
+The counterpart of socioreasoner_tpu/distributed/trainer.py without context
+or pipeline parallelism (the next port slice):
 
   make_optimizer        — clip_by_global_norm → AdamW (decoupled, eps outside
                           the sqrt, bias-corrected, moments in the param
@@ -21,6 +21,19 @@ without context, pipeline or vocab parallelism:
 
 The critic and SFT steps (and sft.make_dpo_step) attend densely, as the JAX
 package's do: only the GRPO train and logprob steps take the flash kernels.
+
+Over a train mesh the params are a parallel/sharding.ShardedTree, and the
+same steps run as one controller over its data ranks: rank (d, f) takes
+its rows of the batch (padded to the mesh's divisor by the strategy), runs
+the model over its tp devices (models/qwen2_5_vl/model.forward_mesh, the
+kernels on each shard's local heads) and the chunked head over its tp
+blocks (`vp`: the vocab-parallel reductions of ops/vocab_parallel.py, the
+JAX package's vp_mesh route). The ranks' (B_r, L-1) log-probs are put
+together on the mesh's first device, so the loss and its metrics are those
+of the global batch, as in JAX's one global program; the gradient of each
+block is summed over the ranks by autograd (and across processes by
+utils/collective.py), the global norm counts each block once (a replicated
+leaf once), and the optimizer updates the blocks in place.
 
 JAX's train state is immutable; here `train_step` updates the parameters and
 the optimizer state IN PLACE and returns the same TrainState, so the trainer
@@ -45,13 +58,19 @@ from torch.utils.checkpoint import checkpoint
 from ..models.qwen2_5_vl import model as qmodel
 from ..models.qwen2_5_vl.config import Qwen25VLConfig
 from ..ops.flags import use_flash_attention
+from ..ops.vocab_parallel import vocab_parallel_entropy, vocab_parallel_log_probs
+from ..parallel.sharding import ShardedTree
 from ..pipeline.losses import PPOLossConfig, ppo_policy_loss
+from ..utils.collective import allreduce_across_processes, gather_rows
 
 HEAD_CHUNK = 256
 
 
-def tree_leaves(tree: Dict) -> List[torch.Tensor]:
-    """The tensors of a nested parameter dict, in insertion order."""
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a nested parameter dict, in insertion order; of a
+    ShardedTree, its blocks (each stored block once)."""
+    if isinstance(tree, ShardedTree):
+        return tree.blocks()
     out = []
     for v in tree.values():
         out.extend(tree_leaves(v) if isinstance(v, dict) else [v])
@@ -60,12 +79,12 @@ def tree_leaves(tree: Dict) -> List[torch.Tensor]:
 
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares over all tensors (None counts as zeros),
-    accumulated in f32."""
+    accumulated in f32, on the first tensor's device."""
     norms = [torch.linalg.vector_norm(t, dtype=torch.float32)
              for t in tensors if t is not None]
     if not norms:
         return torch.zeros(())
-    return torch.linalg.vector_norm(torch.stack(norms))
+    return torch.linalg.vector_norm(torch.stack([n.to(norms[0].device) for n in norms]))
 
 
 # ------------------------------------------------------------------ optimizer
@@ -148,7 +167,7 @@ class Optimizer:
         if not bool(norm < self.max_grad_norm):        # clip_by_global_norm
             for g in grads:        # in place: the caller's grads are spent here
                 if g is not None:
-                    g.div_(norm.to(g.dtype)).mul_(self.max_grad_norm)
+                    g.div_(norm.to(g.device, g.dtype)).mul_(self.max_grad_norm)
         lr = self.schedule(state["count"])
         state["count"] += 1
         bc1 = 1 - self.b1 ** state["count"]
@@ -200,9 +219,9 @@ class TrainState:
 
 # ------------------------------------------------------------------ log-probs
 
-def _head_logp_entropy(params: Dict, hidden: torch.Tensor, labels: torch.Tensor,
-                       with_entropy: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    logits = qmodel.head_logits(params, hidden).float()
+def _logp_entropy(logits: torch.Tensor, labels: torch.Tensor, with_entropy: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     lp = torch.gather(logits, -1, labels[..., None].long())[..., 0] - logz
     if with_entropy:
@@ -212,37 +231,98 @@ def _head_logp_entropy(params: Dict, hidden: torch.Tensor, labels: torch.Tensor,
     return lp, ent
 
 
-def chunked_logp_entropy(params: Dict, hidden: torch.Tensor, labels: torch.Tensor,
-                         chunk_size: int = HEAD_CHUNK, with_entropy: bool = True
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _head_logp_entropy(params: Dict, hidden: torch.Tensor, labels: torch.Tensor,
+                       with_entropy: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _logp_entropy(qmodel.head_logits(params, hidden), labels, with_entropy)
+
+
+def _head_logp_entropy_tp(heads: List[Dict], hidden: torch.Tensor, labels: torch.Tensor,
+                          with_entropy: bool, vp: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """_head_logp_entropy over tp head blocks (model.rank_heads): each
+    block's logits on its device, then either gathered along the vocabulary
+    (the same softmax as one device) or, with vp, reduced across the blocks
+    (ops/vocab_parallel.py)."""
+    home = hidden.device
+    blocks = [qmodel.head_logits(p, hidden.to(p["embed"].device)) for p in heads]
+    if vp:
+        lp = vocab_parallel_log_probs(blocks, labels)
+        ent = vocab_parallel_entropy(blocks, home) if with_entropy else torch.zeros_like(lp)
+        return lp, ent
+    return _logp_entropy(torch.cat([b.to(home) for b in blocks], dim=-1), labels,
+                         with_entropy)
+
+
+def chunked_logp_entropy(params, hidden: torch.Tensor, labels: torch.Tensor,
+                         chunk_size: int = HEAD_CHUNK, with_entropy: bool = True,
+                         vp: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, L, H) hidden + (B, L) labels → f32 (logp, entropy), each (B, L),
     without the (B, L, V) logits: the head matmul (in the weights' dtype,
     then f32) and the softmax statistics run per chunk of `chunk_size`
     positions, each under torch.utils.checkpoint, so the backward recomputes
     one chunk's logits at a time and the head weight's gradient accumulates
-    across chunks."""
+    across chunks. `params` is the tree, or a train-plane rank's list of tp
+    head blocks (model.rank_heads; `vp` reduces them vocab-parallel)."""
     L = hidden.shape[1]
     C = min(chunk_size, L)
     lps, ents = [], []
     for s in range(0, L, C):
-        args = (params, hidden[:, s:s + C], labels[:, s:s + C], with_entropy)
-        if torch.is_grad_enabled():
-            lp, ent = checkpoint(_head_logp_entropy, *args, use_reentrant=False)
+        if isinstance(params, list):
+            fn, args = _head_logp_entropy_tp, (params, hidden[:, s:s + C],
+                                               labels[:, s:s + C], with_entropy, vp)
         else:
-            lp, ent = _head_logp_entropy(*args)
+            fn, args = _head_logp_entropy, (params, hidden[:, s:s + C],
+                                            labels[:, s:s + C], with_entropy)
+        if torch.is_grad_enabled():
+            lp, ent = checkpoint(fn, *args, use_reentrant=False)
+        else:
+            lp, ent = fn(*args)
         lps.append(lp)
         ents.append(ent)
     return torch.cat(lps, dim=1), torch.cat(ents, dim=1)
 
 
-def _model_log_probs(config: Qwen25VLConfig, params: Dict, batch: Dict,
+def _mesh_log_probs(config: Qwen25VLConfig, params: ShardedTree, batch: Dict,
+                    remat: bool, with_entropy: bool, use_flash: bool, vp: bool,
+                    chunk_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """_model_log_probs over a train mesh: the global batch's (B, L-1) logp
+    and entropy on the mesh's first device, this process's rows computed by
+    its data ranks (the others' gathered from their processes, without
+    gradient)."""
+    ids = batch["input_ids"]
+    ranks, rows = params.data_ranks(ids.shape[0])
+    hiddens, _ = qmodel.forward_mesh(
+        config, ranks, rows, ids, batch["position_ids"], batch.get("attention_mask"),
+        image_embeds=batch.get("image_embeds"), image_rows=batch.get("image_embeds_rows"),
+        remat=remat, logits=False, use_flash=use_flash)
+    main = ranks[0].home
+    lps, ents = [], []
+    for rank, sl, hidden in zip(ranks, rows, hiddens):
+        lp, ent = chunked_logp_entropy(qmodel.rank_heads(rank), hidden[:, :-1],
+                                       ids[sl, 1:].to(rank.home), chunk_size,
+                                       with_entropy, vp)
+        lps.append(lp.to(main))
+        ents.append(ent.to(main))
+    lp, ent = torch.cat(lps), torch.cat(ents)
+    if params.mesh.process_count > 1:
+        lp, ent = gather_rows(lp, params.mesh), gather_rows(ent, params.mesh)
+    return lp, ent
+
+
+def _model_log_probs(config: Qwen25VLConfig, params, batch: Dict,
                      remat: bool, with_entropy: bool = True, use_flash: bool = False,
                      cp=None, pp=None, vp_mesh=None, chunk_size: int = HEAD_CHUNK):
-    """Forward → (logp of the next-token labels, entropy), both (B, L-1)."""
-    if cp is not None or pp is not None or vp_mesh is not None:
+    """Forward → (logp of the next-token labels, entropy), both (B, L-1).
+    A ShardedTree runs over its mesh (vocab-parallel with vp_mesh)."""
+    if cp is not None or pp is not None:
         raise NotImplementedError(
-            "context / pipeline / vocab-parallel log-probs are not ported yet "
-            "(ROADMAP: multi-GPU)")
+            "context / pipeline parallel log-probs come in the next port slice "
+            "(ROADMAP queue 1 items 8b.3 and 8b.4)")
+    if isinstance(params, ShardedTree):
+        return _mesh_log_probs(config, params, batch, remat, with_entropy, use_flash,
+                               vp_mesh is not None, chunk_size)
+    if vp_mesh is not None:
+        raise ValueError("vocab-parallel log-probs run over a train mesh: shard the params "
+                         "(parallel.sharding.ShardedTree)")
     ids = batch["input_ids"]
     hidden, _ = qmodel.forward(
         config, params, ids, batch["position_ids"], batch.get("attention_mask"),
@@ -273,6 +353,10 @@ def _grad_step(optimizer: Optimizer, state: TrainState,
     finally:
         for p, flag in zip(leaves, flags):
             p.requires_grad_(flag)
+    mesh = getattr(state.params, "mesh", None)
+    if mesh is not None and mesh.process_count > 1:
+        # the dp axis spans processes: each computed its own ranks' share
+        grads = allreduce_across_processes(list(grads))
     metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in metrics.items()}
     metrics[grad_norm_key] = global_norm(grads)
     optimizer.update(list(grads), state.opt_state, state.params)
@@ -301,6 +385,8 @@ def make_train_step(config: Qwen25VLConfig, loss_cfg: PPOLossConfig,
         lp, ent = _model_log_probs(config, params, batch, remat, with_entropy=True,
                                    use_flash=flash, cp=cp, pp=pp, vp_mesh=vp_mesh,
                                    chunk_size=chunk_size)
+        batch = {k: v.to(lp.device) for k, v in batch.items()
+                 if isinstance(v, torch.Tensor)}
         return ppo_policy_loss(
             lp, ent, batch["old_log_probs"], batch.get("ref_log_probs"),
             batch["advantages"], batch["response_mask"][:, 1:], loss_cfg,
@@ -326,7 +412,7 @@ def make_logprob_step(config: Qwen25VLConfig, remat: bool = False, cp=None, pp=N
         flash = allow_flash and use_flash_attention(device=batch["input_ids"].device)
         lp, ent = _model_log_probs(config, params, batch, remat, use_flash=flash,
                                    cp=cp, pp=pp, vp_mesh=vp_mesh, chunk_size=chunk_size)
-        resp = batch["response_mask"][:, 1:].to(lp.dtype)
+        resp = batch["response_mask"][:, 1:].to(lp.device, lp.dtype)
         return {"log_probs": lp * resp, "entropy": ent * resp}
 
     return logprob_step

@@ -12,6 +12,11 @@ takes the per-shard trees of parallel/sharding.py: the vocab-parallel
 embedding lookup (each shard's rows of its vocabulary block, selected onto
 the first shard's device), the decoder's shards, and the head's vocabulary
 blocks gathered into whole logits before anything samples them.
+
+Under the train plane (`forward_mesh`) every data rank of a mesh runs the
+model on its rows over its tp devices from a parallel/sharding.RankParams:
+the embedding and head blocks gathered over fsdp, the decoder one layer at
+a time (text.py), and the image embeddings of the rank's own samples.
 """
 
 from __future__ import annotations
@@ -45,16 +50,17 @@ def scatter_image_embeds(input_ids: torch.Tensor, token_embeds: torch.Tensor,
 def vocab_parallel_embed(shards, input_ids: torch.Tensor, home: torch.device
                          ) -> torch.Tensor:
     """The embedding rows of input_ids from vocab-split tables: shard t holds
-    rows [t*V/T, (t+1)*V/T) and looks up the ids in its block; each id's row
+    the t-th block of rows and looks up the ids in its block; each id's row
     is taken, exactly, from the shard that holds it, on `home`."""
-    out = None
-    for t, p in enumerate(shards):
+    out, lo = None, 0
+    for p in shards:
         table = p["embed"]
         n = table.shape[0]
-        local = input_ids.to(table.device) - t * n
+        local = input_ids.to(table.device) - lo
         inside = (local >= 0) & (local < n)
         rows = torch.nn.functional.embedding(local.clamp(0, n - 1), table).to(home)
         out = rows if out is None else torch.where(inside.to(home)[..., None], rows, out)
+        lo += n
     return out
 
 
@@ -96,11 +102,14 @@ def forward(
     uncached decoder, act_quant to the cached one (see text_decoder).
 
     With `tp`, `params` and `cache` are the per-shard lists and the result
-    lies on tp[0] (the image embeddings are moved there)."""
+    lies on tp[0] (the image embeddings are moved there); with `tp` and no
+    cache, `params` is a train-plane rank (RankParams, see forward_mesh)."""
     tcfg = config.text
     if tp is not None:
         home = torch.device(tp[0])
-        embeds = vocab_parallel_embed(params, input_ids, home)
+        shards = (params if cache is not None
+                  else [{"embed": table} for table in params.top("embed")])
+        embeds = vocab_parallel_embed(shards, input_ids, home)
         input_ids = input_ids.to(home)
         position_ids = position_ids.to(home)
         if image_embeds is not None:
@@ -138,8 +147,63 @@ def forward(
     if not logits:
         return hidden, new_cache
     if tp is not None:
-        return head_logits_tp(params, hidden), new_cache
+        return head_logits_tp(params if cache is not None else rank_heads(params),
+                              hidden), new_cache
     return head_logits(params, hidden), new_cache
+
+
+def rank_heads(rank) -> list:
+    """A train-plane rank's head, one {"lm_head"} (untied) or {"embed"}
+    (tied) block a tp device, gathered over fsdp."""
+    if "lm_head" in rank:
+        return [{"lm_head": w, "embed": w} for w in rank.top("lm_head")]
+    return [{"embed": table} for table in rank.top("embed")]
+
+
+def image_row_offsets(image_embeds: torch.Tensor, n_samples: int, rows=None):
+    """Offsets into the packed image embeddings a sample: from its row
+    counts (meta["image_embeds_rows"], ragged in agentic batches), else
+    equal rows a sample."""
+    if rows is None:
+        rows = [image_embeds.shape[0] // max(n_samples, 1)] * n_samples
+    offs = [0]
+    for r in (rows.tolist() if hasattr(rows, "tolist") else rows):
+        offs.append(offs[-1] + int(r))
+    return offs
+
+
+def forward_mesh(config: Qwen25VLConfig, ranks, row_slices, input_ids, position_ids,
+                 attention_mask=None, *, image_embeds=None, image_rows=None,
+                 remat: bool = False, logits: bool = True, use_flash: Optional[bool] = None):
+    """The model over a train mesh: ranks[r] (RankParams) runs rows
+    row_slices[r] of the batch (input_ids (B, L) etc., on any device) on its
+    own devices, with the image embeddings of its own samples (their offsets
+    from `image_rows` or equal rows a sample). Returns (a list of each
+    rank's logits or hidden states on its first device, {"moe_aux": the
+    load-balance loss of the whole batch, summed over layers, on the first
+    rank's device} for MoE configs, else None)."""
+    n = input_ids.shape[0]
+    offs = None if image_embeds is None else image_row_offsets(image_embeds, n, image_rows)
+    outs, stats, n_tokens = [], None, 0
+    for rank, rows in zip(ranks, row_slices):
+        home = rank.home
+        img = None
+        if offs is not None and offs[rows.stop] > offs[rows.start]:
+            img = image_embeds[offs[rows.start]:offs[rows.stop]].to(home)
+        mask = None if attention_mask is None else attention_mask[rows].to(home)
+        out, aux = forward(config, rank, input_ids[rows].to(home), position_ids[rows].to(home),
+                           mask, image_embeds=img, remat=remat, logits=logits,
+                           use_flash=use_flash, tp=rank.devices)
+        outs.append(out)
+        if aux is not None:
+            first = ranks[0].home
+            layer_stats = torch.stack([st.to(first) for st in aux["moe_stats"]])
+            stats = layer_stats if stats is None else stats + layer_stats
+            n_tokens += out.shape[0] * out.shape[1]
+    if stats is None:
+        return outs, None
+    from .text import moe_aux_from_stats
+    return outs, {"moe_aux": sum(moe_aux_from_stats(st, n_tokens) for st in stats)}
 
 
 # ------------------------------------------------------------------ random init

@@ -34,10 +34,17 @@ shard's device, as the JAX package's GSPMD psum does (int8 weights: the
 partial products before the per-channel scale; w8a8: the int32 partials of
 one global activation scale, so those sums are exact). MoE layers split the
 experts over the shards. `use_flash=False` on the cached path attends
-densely over the cache (the SOCIO_DISABLE_FLASH route). Context and
-pipeline parallelism, tensor parallelism without a cache, and quantized
-weights on the uncached path (the JAX package multiplies their codes
-unscaled there) are not ported and raise NotImplementedError.
+densely over the cache (the SOCIO_DISABLE_FLASH route).
+
+The train plane runs the uncached decoder the same way over one data
+rank's tp devices (parallel/sharding.RankParams): each layer gathered over
+fsdp just before it runs (inside its checkpoint under remat), column-parallel
+q/k/v and gate/up, the trainable kernels 4-6 on each shard's local heads
+with a kernel-6 plan a shard, row-parallel o_proj/down_proj partial sums
+added on the rank's first device; differentiable throughout. Context and
+pipeline parallelism (the next port slice) and quantized weights on the
+uncached path (the JAX package multiplies their codes unscaled there) are
+not ported and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -76,9 +83,10 @@ def moe_block(cfg: TextConfig, p: Dict, h2: torch.Tensor):
     return out, aux
 
 
-def _qkv(cfg: TextConfig, p: Dict, h: torch.Tensor):
+def _qkv(cfg: TextConfig, p: Dict, h: torch.Tensor, T: int = 1):
+    """q, k, v of the heads in `p`: all of them, or a tp shard's 1/T."""
     B, L, _ = h.shape
-    H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    H, Hkv, D = cfg.num_attention_heads // T, cfg.num_key_value_heads // T, cfg.head_dim
     q = (h @ p["q_w"] + p["q_b"]).reshape(B, L, H, D)
     k = (h @ p["k_w"] + p["k_b"]).reshape(B, L, Hkv, D)
     v = (h @ p["v_w"] + p["v_b"]).reshape(B, L, Hkv, D)
@@ -323,16 +331,20 @@ def _decoder_cached_tp(cfg: TextConfig, shards, x, cos, sin, caches, cache_posit
     return x, caches
 
 
-def _moe(cfg: TextConfig, ps, h2, h2s, home):
+def _moe(cfg: TextConfig, ps, h2, h2s, home, with_stats: bool = False):
     """The MoE MLP over the shards' expert blocks: the router on the first
     shard's device, each shard's experts weighted by their columns of the
     routing weights, the shards' sums added on `home`; qwen2_moe's shared
-    expert column/row-parallel behind its replicated gate."""
+    expert column/row-parallel behind its replicated gate. with_stats also
+    returns the router's sums over these tokens (moe_stats)."""
     B, L, Hd = h2.shape
-    weights = moe_router(h2.reshape(B * L, Hd), ps[0]["router_w"],
-                         cfg.n_experts_per_tok, cfg.norm_topk_prob)[0]
-    E = weights.shape[-1] // len(ps)
-    parts = [moe_experts(h2t.reshape(B * L, Hd), weights[:, t * E:(t + 1) * E].to(h2t.device),
+    weights, probs, _ = moe_router(h2.reshape(B * L, Hd), ps[0]["router_w"],
+                                   cfg.n_experts_per_tok, cfg.norm_topk_prob)
+    offsets = [0]
+    for p in ps:
+        offsets.append(offsets[-1] + p["gate_w"].shape[0])
+    parts = [moe_experts(h2t.reshape(B * L, Hd),
+                         weights[:, offsets[t]:offsets[t + 1]].to(h2t.device),
                          {k: p[k] for k in ("gate_w", "up_w", "down_w")})
              for t, (h2t, p) in enumerate(zip(h2s, ps))]
     out = _sum_to(parts, home).reshape(B, L, Hd).to(h2.dtype)
@@ -341,7 +353,84 @@ def _moe(cfg: TextConfig, ps, h2, h2s, home):
                 for h2t, p in zip(h2s, ps)]
         shared = row_parallel(acts, ps, "s_down_w", False, home)
         out = out + torch.sigmoid(h2 @ ps[0]["sgate_w"]) * shared
+    if with_stats:
+        return out, moe_stats(weights, probs)
     return out
+
+
+def moe_stats(weights: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+    """(2, E): the router's per-expert counts of chosen tokens and sums of
+    probabilities over these tokens. Summed over data ranks, they give the
+    load-balance loss of the global batch (moe_aux_from_stats)."""
+    return torch.stack([(weights > 0).float().sum(dim=0), probs.sum(dim=0)])
+
+
+def moe_aux_from_stats(stats: torch.Tensor, n_tokens: int) -> torch.Tensor:
+    """moe_router's Switch loss, E * sum(frac_tokens * frac_probs), from
+    moe_stats summed over every token of a batch."""
+    return stats.shape[-1] * torch.sum((stats[0] / n_tokens) * (stats[1] / n_tokens))
+
+
+def _decoder_uncached_tp(cfg: TextConfig, rank, x, cos, sin, attention_mask,
+                         use_flash: bool, remat: bool):
+    """The uncached decoder of one data rank of the train plane over its tp
+    devices (rank: parallel/sharding.RankParams; x on rank.home). Each
+    layer's leaves are gathered over fsdp inside the layer (so inside its
+    checkpoint under remat); the trainable kernels (use_flash) run on each
+    shard's local heads over the valid prefix lengths, with one kernel-6
+    plan a shard, never shared. Returns (x, a list of the layers' moe_stats
+    for MoE configs, else None)."""
+    devices = rank.devices
+    T = len(devices)
+    if cfg.num_attention_heads % T or cfg.num_key_value_heads % T:
+        raise ValueError(f"tp={T} must divide the heads: H={cfg.num_attention_heads}, "
+                         f"Hkv={cfg.num_key_value_heads} (a head is never split)")
+    B, L, _ = x.shape
+    home = x.device
+    H, Hkv = cfg.num_attention_heads // T, cfg.num_key_value_heads // T
+    at = [dict(cos=cos.to(dev), sin=sin.to(dev)) for dev in devices]
+    if use_flash:
+        lens = None if attention_mask is None else attention_mask.sum(-1)
+        for a, dev in zip(at, devices):
+            a["lens"] = None if lens is None else lens.to(dev)
+            # kernel 6's work list from this rank's lengths at the shard's
+            # local heads: one host read a shard, and a plan of its own
+            a["plan"] = (dkv_plan(lens, B, L, L, H, Hkv, True, dev)
+                         if torch.is_grad_enabled() else None)
+    else:
+        for a, dev in zip(at, devices):
+            a["mask"] = None if attention_mask is None else attention_mask.to(dev)
+
+    def layer(i, x):
+        ps = rank.layer(i)
+        h = rms_norm(x, ps[0]["input_ln"], cfg.rms_norm_eps)
+        outs = []
+        for p, a, dev in zip(ps, at, devices):
+            q, k, v = _qkv(cfg, p, h.to(dev), T)
+            q, k = apply_rotary(q, k, a["cos"], a["sin"])
+            if use_flash:
+                out = flash_attention_trainable(q, k, v, a["lens"], True, a["plan"])
+            else:
+                out = dense_attention(q, k, v, causal=True, attention_mask=a["mask"])
+            outs.append(out.reshape(B, L, -1))
+        x = x + row_parallel(outs, ps, "o_w", False, home)
+        h2 = rms_norm(x, ps[0]["post_ln"], cfg.rms_norm_eps)
+        h2s = [h2.to(dev) for dev in devices]
+        if cfg.n_experts:
+            out, stats = _moe(cfg, ps, h2, h2s, home, with_stats=True)
+            return x + out, stats
+        acts = [torch.nn.functional.silu(h2t @ p["gate_w"]) * (h2t @ p["up_w"])
+                for h2t, p in zip(h2s, ps)]
+        return x + row_parallel(acts, ps, "down_w", False, home), None
+
+    stats = []
+    for i in range(cfg.num_hidden_layers):
+        if remat and torch.is_grad_enabled():
+            x, st = checkpoint(layer, i, x, use_reentrant=False)
+        else:
+            x, st = layer(i, x)
+        stats.append(st)
+    return x, (stats if cfg.n_experts else None)
 
 
 def text_decoder(
@@ -368,15 +457,21 @@ def text_decoder(
     use_flash None takes each path's default: the kernels on the cached
     path, dense attention on the uncached one.
 
-    With `tp` (the tensor-parallel devices) `params` and `cache` are lists
-    of per-shard trees and caches, and the result is on tp[0]; the final
-    norm uses the first shard's copy."""
+    With `tp` (the tensor-parallel devices) and a cache, `params` and
+    `cache` are lists of per-shard trees and caches, and the result is on
+    tp[0]; the final norm uses the first shard's copy. With `tp` and no
+    cache, `params` is a train-plane rank (parallel/sharding.RankParams) and
+    the second value {"moe_stats": [per layer]} for MoE configs."""
     if cp is not None or pp is not None:
         raise NotImplementedError(
-            "context / pipeline parallelism is not ported yet (ROADMAP: multi-GPU)")
+            "context / pipeline parallelism comes in the next port slice "
+            "(ROADMAP queue 1 items 8b.3 and 8b.4)")
     if tp is not None:
         if cache is None:
-            raise NotImplementedError("tensor parallelism serves through the cache path only")
+            x, stats = _decoder_uncached_tp(cfg, params, inputs_embeds, cos, sin,
+                                            attention_mask, bool(use_flash), remat)
+            return (rms_norm(x, params.top("final_ln")[0], cfg.rms_norm_eps),
+                    None if stats is None else {"moe_stats": stats})
         x, new_cache = _decoder_cached_tp(cfg, params, inputs_embeds, cos, sin, cache,
                                           cache_positions, list(tp), act_quant,
                                           use_flash is not False)

@@ -2,12 +2,16 @@
 socioreasoner_tpu/parallel/mesh.py.
 
 The JAX package lays a `jax.sharding.Mesh` over its devices and lets GSPMD
-insert the collectives. The port runs the serving plane as one controller
-over explicit device lists: a `Mesh` here is a named grid of
+insert the collectives. The port runs the serving and train planes as one
+controller over explicit device lists: a `Mesh` here is a named grid of
 `torch.device`s, and the code that shards over an axis (the tensor-parallel
-decode engine over "tp") takes that axis's devices and moves the tensors
-itself. A device may appear more than once, so two shards can share one
-card.
+decode engine over "tp", the train step over dp, fsdp and tp) takes that
+axis's devices and moves the tensors itself. A device may appear more than
+once, so two shards can share one card.
+
+Several processes (runtime/initialize.py) split a mesh along dp: each holds
+the grid of its own dp rows (`process_count` > 1), `shape` gives the global
+sizes, and utils/collective.py reduces across the processes.
 
 Canonical axes:
   dp    — data parallel (batch dim)
@@ -20,7 +24,7 @@ Canonical axes:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,15 +51,29 @@ class MeshConfig:
 class Mesh:
     """A grid of torch devices with named axes (dp, fsdp, pp, sp, tp)."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str] = AXIS_NAMES):
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str] = AXIS_NAMES,
+                 process_index: int = 0, process_count: int = 1):
+        """`devices`: this process's grid; with process_count > 1 it holds the
+        dp rows process_index * dp_local .. of a mesh whose dp axis spans
+        the processes."""
         if devices.ndim != len(axis_names):
             raise ValueError(f"a {devices.ndim}-d device grid for axes {tuple(axis_names)}")
         self.devices = devices
         self.axis_names = tuple(axis_names)
+        self.process_index = process_index
+        self.process_count = process_count
+
+    @property
+    def local_shape(self) -> Dict[str, int]:
+        """The axis sizes of this process's grid."""
+        return dict(zip(self.axis_names, self.devices.shape))
 
     @property
     def shape(self) -> Dict[str, int]:
-        return dict(zip(self.axis_names, self.devices.shape))
+        """The global axis sizes (dp over every process)."""
+        shape = self.local_shape
+        shape["dp"] = shape.get("dp", 1) * self.process_count
+        return shape
 
     def axis_devices(self, axis: str) -> List[torch.device]:
         """The devices along `axis` at index 0 of every other axis."""
@@ -75,18 +93,24 @@ def default_devices() -> List[torch.device]:
 
 
 def make_mesh(dp: int = 1, fsdp: int = 1, tp: int = 1, sp: int = 1, pp: int = 1,
-              devices: Optional[Sequence] = None) -> Mesh:
+              devices: Optional[Sequence] = None, process_index: int = 0,
+              process_count: int = 1) -> Mesh:
     """The first dp*fsdp*pp*sp*tp devices as a (dp, fsdp, pp, sp, tp) grid:
     pp sits outside sp and tp so that a stage's tensor-parallel group holds
-    adjacent devices."""
+    adjacent devices. With process_count > 1, `dp` is the global size and
+    `devices` this process's: its grid holds dp / process_count rows."""
     devices = [torch.device(d) for d in (devices if devices is not None
                                          else default_devices())]
+    if dp % process_count:
+        raise ValueError(f"dp={dp} does not split over {process_count} processes")
+    dp //= process_count
     need = dp * fsdp * tp * sp * pp
     if len(devices) < need:
         raise ValueError(f"need {need} devices, have {len(devices)}")
     arr = np.empty(need, dtype=object)
     arr[:] = devices[:need]
-    return Mesh(arr.reshape(dp, fsdp, pp, sp, tp))
+    return Mesh(arr.reshape(dp, fsdp, pp, sp, tp), process_index=process_index,
+                process_count=process_count)
 
 
 def auto_mesh(n_devices: Optional[int] = None, tp: int = 1, sp: int = 1,
@@ -104,3 +128,40 @@ def tp_devices(mesh, axis: str = MODEL_AXIS) -> List[torch.device]:
     if isinstance(mesh, Mesh):
         return mesh.axis_devices(axis)
     return [torch.device(d) for d in mesh]
+
+
+def batch_divisor(mesh: Optional[Mesh]) -> int:
+    """The global rows a batch must be a multiple of: dp x fsdp (1 without
+    a mesh), as the JAX strategies' _batch_divisor."""
+    if mesh is None:
+        return 1
+    return mesh.shape.get("dp", 1) * mesh.shape.get("fsdp", 1)
+
+
+def data_ranks(mesh: Mesh) -> List[Tuple[int, int, int]]:
+    """This process's data ranks in batch order, as (global rank, local dp
+    index, fsdp index): the batch's leading dim splits over (dp, fsdp), rank
+    d * fsdp + f taking block number d * fsdp + f, as a jax
+    PartitionSpec(("dp", "fsdp")) lays it."""
+    shape = mesh.local_shape
+    dl, F = shape.get("dp", 1), shape.get("fsdp", 1)
+    first = mesh.process_index * dl
+    return [((first + d) * F + f, d, f) for d in range(dl) for f in range(F)]
+
+
+def split_rows(n_rows: int, parts: int) -> List[slice]:
+    """The row slices of `parts` equal blocks of n_rows."""
+    if n_rows % parts:
+        raise ValueError(f"{n_rows} rows do not split over {parts} data ranks: pad the "
+                         "batch to the mesh's divisor (batch_divisor)")
+    b = n_rows // parts
+    return [slice(r * b, (r + 1) * b) for r in range(parts)]
+
+
+def rank_devices(mesh: Mesh, d: int, f: int) -> List[torch.device]:
+    """The tp devices of the local data rank (d, f)."""
+    if mesh.local_shape.get("pp", 1) > 1 or mesh.local_shape.get("sp", 1) > 1:
+        raise NotImplementedError(
+            "pipeline and context parallelism of the train plane come in the next "
+            "port slice (ROADMAP queue 1 items 8b.3 and 8b.4)")
+    return list(mesh.devices[d, f, 0, 0, :])

@@ -16,13 +16,24 @@ channel scales follow their weight's output dim: sliced with a column-
 parallel weight, whole beside a row-parallel one (the JAX tables replicate
 them and GSPMD slices them against the sharded product). Nibble-packed int4
 weights and any key the tables do not know are copied whole.
+
+The train plane (ShardedTree) cuts a float tree over a mesh's fsdp AND tp
+axes by the same tables: leaf x becomes blocks[f][t], the block of fsdp
+position f and tp position t of the dims the spec names (one block along
+an axis it does not name), each stored once on the device of (dp 0, f, t).
+A data rank gathers one layer's fsdp blocks onto its tp devices just before
+that layer (RankParams), so autograd hands each block its gradient summed
+over the ranks that read it: the reduce-scatter of JAX's GSPMD program.
+The optimizer keeps its moments per block.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
+
+from .mesh import batch_divisor, data_ranks, rank_devices, split_rows
 
 
 class P(tuple):
@@ -166,3 +177,195 @@ def shard_params(params: Dict, devices: Sequence, axis: str = "tp") -> List[Dict
         return out
 
     return walk(params, specs)
+
+
+# ------------------------------------------------------------ the train plane
+
+def _dim(spec: Sequence, axis: str) -> Optional[int]:
+    dims = [d for d, a in enumerate(spec) if a == axis]
+    return dims[0] if dims else None
+
+
+def _cat(parts: List[torch.Tensor], dim: Optional[int]) -> torch.Tensor:
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+class ShardedLeaf:
+    """One leaf over a mesh's fsdp x tp positions: blocks[f][t] is the
+    contiguous block (torch.tensor_split) of the dim over "fsdp" (fdim) and
+    the dim over "tp" (tdim); a leaf whose spec names neither keeps one
+    block."""
+
+    def __init__(self, x: torch.Tensor, spec: Sequence, mesh):
+        self.shape, self.dtype = tuple(x.shape), x.dtype
+        self.fdim, self.tdim = _dim(spec, "fsdp"), _dim(spec, "tp")
+        shape = mesh.local_shape
+        nf = shape.get("fsdp", 1) if self.fdim is not None else 1
+        nt = shape.get("tp", 1) if self.tdim is not None else 1
+        fparts = x.tensor_split(nf, dim=self.fdim) if nf > 1 else [x]
+        self.blocks = []
+        for f, part in enumerate(fparts):
+            tparts = part.tensor_split(nt, dim=self.tdim) if nt > 1 else [part]
+            self.blocks.append([
+                p.detach().to(device=mesh.devices[0, f, 0, 0, t], copy=True,
+                              memory_format=torch.contiguous_format)
+                for t, p in enumerate(tparts)])
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [b for row in self.blocks for b in row]
+
+    def tp_block(self, t: int, parts=None, fdim=None) -> torch.Tensor:
+        """The block of tp position t over the whole fsdp dim (the fsdp
+        gather); `parts` replaces blocks by per-block views (one layer)."""
+        parts = self.blocks if parts is None else parts
+        tt = t if len(parts[0]) > 1 else 0
+        return _cat([row[tt] for row in parts], self.fdim if fdim is None else fdim)
+
+    def whole(self, tensors: Optional[List[torch.Tensor]] = None, device=None) -> torch.Tensor:
+        """The whole leaf from its blocks (or from `tensors`, aligned with
+        tensors()), on `device` (the first block's when None)."""
+        flat = self.tensors() if tensors is None else tensors
+        device = flat[0].device if device is None else device
+        nt = len(self.blocks[0])
+        rows = [[flat[f * nt + t].to(device) for t in range(nt)]
+                for f in range(len(self.blocks))]
+        return _cat([_cat(row, self.tdim) for row in rows], self.fdim)
+
+    def split(self, x: torch.Tensor) -> List[List[torch.Tensor]]:
+        """A whole tensor of this leaf's shape cut as the blocks are (views)."""
+        nf, nt = len(self.blocks), len(self.blocks[0])
+        fparts = x.tensor_split(nf, dim=self.fdim) if nf > 1 else [x]
+        return [part.tensor_split(nt, dim=self.tdim) if nt > 1 else [part]
+                for part in fparts]
+
+    @torch.no_grad()
+    def assign(self, x: torch.Tensor) -> None:
+        """Copy the whole leaf `x` into the blocks in place."""
+        for row, parts in zip(self.blocks, self.split(x)):
+            for block, p in zip(row, parts):
+                block.copy_(p)
+
+
+class ShardedTree:
+    """A float parameter tree over a train mesh (see the module doc): the
+    same nesting with a ShardedLeaf in place of every tensor. `leaves` are
+    in trainer.tree_leaves order, and `blocks()` lists every stored block
+    once (leaf by leaf, f then t), which is what the optimizer and the
+    global gradient norm walk."""
+
+    def __init__(self, tree: Dict, mesh, specs: Optional[Dict] = None):
+        self.mesh = mesh
+        specs = shard_specs(tree) if specs is None else specs
+        self.leaves: List[ShardedLeaf] = []
+
+        def walk(node, spec):
+            out = {}
+            for key, v in node.items():
+                if isinstance(v, dict):
+                    out[key] = walk(v, spec[key])
+                else:
+                    out[key] = ShardedLeaf(v, spec[key], mesh)
+                    self.leaves.append(out[key])
+            return out
+        self.tree = walk(tree, specs)
+
+    def __getitem__(self, key):
+        return self.tree[key]
+
+    def __contains__(self, key) -> bool:
+        return key in self.tree
+
+    def blocks(self) -> List[torch.Tensor]:
+        return [b for leaf in self.leaves for b in leaf.tensors()]
+
+    def whole_leaves(self, tensors: List[torch.Tensor], device=None) -> List[torch.Tensor]:
+        """Per-block tensors (aligned with blocks(), e.g. the optimizer's
+        moments) → one whole tensor a leaf, on `device`."""
+        out, i = [], 0
+        for leaf in self.leaves:
+            n = len(leaf.tensors())
+            out.append(leaf.whole(tensors[i:i + n], device))
+            i += n
+        return out
+
+    def split_leaves(self, wholes: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Whole tensors a leaf → per-block copies aligned with blocks(),
+        each on its block's device in its block's dtype."""
+        return [p.to(device=b.device, dtype=b.dtype, copy=True,
+                     memory_format=torch.contiguous_format)
+                for leaf, x in zip(self.leaves, wholes)
+                for row, parts in zip(leaf.blocks, leaf.split(x))
+                for b, p in zip(row, parts)]
+
+    @torch.no_grad()
+    def gather(self, device=None) -> Dict:
+        """The whole tree (new tensors) on `device` (default: the mesh's
+        first device): what model_update hands the decode engine and what a
+        checkpoint saves."""
+        device = self.mesh.devices.flat[0] if device is None else torch.device(device)
+
+        def walk(node):
+            return {k: walk(v) if isinstance(v, dict) else v.whole(device=device)
+                    for k, v in node.items()}
+        return walk(self.tree)
+
+    @torch.no_grad()
+    def assign(self, tree: Dict) -> None:
+        """Copy a whole tree of the same structure into the blocks."""
+        def walk(node, src):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    walk(v, src[k])
+                else:
+                    v.assign(src[k])
+        walk(self.tree, tree)
+
+    def rank(self, d: int, f: int) -> "RankParams":
+        return RankParams(self, rank_devices(self.mesh, d, f))
+
+    def data_ranks(self, n_rows: int):
+        """This process's data ranks in batch order: (their RankParams, their
+        row slices of a batch of n_rows)."""
+        slices = split_rows(n_rows, batch_divisor(self.mesh))
+        local = data_ranks(self.mesh)
+        return ([self.rank(d, f) for _, d, f in local], [slices[g] for g, _, _ in local])
+
+
+class RankParams:
+    """One data rank's view of a ShardedTree: its tp devices, the top-level
+    leaves gathered over fsdp onto each of them (once a rank and step,
+    `top`), and one decoder layer gathered at a time (`layer`, called inside
+    the layer's checkpoint so that the backward gathers again instead of
+    keeping every layer's copy)."""
+
+    def __init__(self, sharded: ShardedTree, devices: List[torch.device]):
+        self.sharded = sharded
+        self.devices = [torch.device(d) for d in devices]
+        self.home = self.devices[0]
+        self._top: Dict[str, List[torch.Tensor]] = {}
+        self._layers = None
+
+    def __contains__(self, key) -> bool:
+        return key in self.sharded
+
+    def top(self, key: str) -> List[torch.Tensor]:
+        """A top-level leaf's tp blocks, fsdp gathered, one a tp device."""
+        if key not in self._top:
+            leaf = self.sharded[key]
+            self._top[key] = [leaf.tp_block(t).to(dev) for t, dev in enumerate(self.devices)]
+        return self._top[key]
+
+    def layer(self, i: int) -> List[Dict[str, torch.Tensor]]:
+        """Decoder layer i's leaves, one dict a tp device. The stacked
+        blocks are unbound once a rank and step (the backward of one unbind
+        stacks the layers' gradients once)."""
+        if self._layers is None:
+            self._layers = {k: [[b.unbind(0) for b in row] for row in leaf.blocks]
+                            for k, leaf in self.sharded["layers"].items()}
+        out = [dict() for _ in self.devices]
+        for k, leaf in self.sharded["layers"].items():
+            parts = [[views[i] for views in row] for row in self._layers[k]]
+            fdim = None if leaf.fdim is None else leaf.fdim - 1
+            for t, dev in enumerate(self.devices):
+                out[t][k] = leaf.tp_block(t, parts, fdim).to(dev)
+        return out

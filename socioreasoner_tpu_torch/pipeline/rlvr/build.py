@@ -30,6 +30,7 @@ from ...models.qwen2_5_vl.convert import param_device
 from ...models.sam2 import loader as sloader
 from ...models.sam2 import model as smodel
 from ...models.sam2.config import Sam2Config
+from ...parallel.mesh import default_devices
 from ...runtime.resource_manager import ResourceManager
 
 
@@ -125,39 +126,38 @@ def build_infer_pipeline(cfg: SocioSegConfig, dtype=torch.bfloat16, device=None)
 
 
 def build_train_mesh(cfg: SocioSegConfig, devices=None):
-    """The train plane's mesh: validate_config, then the ResourceManager's
-    layout of actor_train over `devices` (default: the GPU, or the CPU
-    without one), which is None when every parallel knob of its
-    strategy_config (tp, cp, pp, dp and fsdp_size, whose -1 takes the
-    remaining devices) and its device_mapping resolve to one device.
-    Anything larger raises: multi-GPU training is not ported yet."""
-    validate_config(cfg, n_devices=1)
-    wc = cfg.actor_train
-    sc = wc.strategy_args.config
-    mapping = wc.resolved_device_mapping()
-    n = len(mapping) if mapping else 1
-    sizes = {k: int(sc.get(k, 1) or 1) for k in (
-        "tensor_model_parallel_size", "context_parallel_size",
-        "pipeline_model_parallel_size", "dp_size")}
-    fsdp = int(sc.get("fsdp_size", -1) or -1)
-    sizes["fsdp_size"] = n if fsdp in (-1, 0) else fsdp
-    big = {k: v for k, v in sizes.items() if v > 1}
-    if n > 1 or big:
-        raise NotImplementedError(
-            f"actor_train on {n} devices with {big or sizes}: a train mesh is not "
-            "ported yet (ROADMAP: multi-GPU)")
-    if devices is None:
-        devices = [torch.device("cuda", 0) if torch.cuda.is_available()
-                   else torch.device("cpu")]
-    return ResourceManager(devices).allocate_mesh("actor_train", wc)
+    """The train plane's mesh: the ResourceManager's layout of actor_train
+    over `devices` (default: every visible CUDA device, default_devices(),
+    which raises without one; the CPU only when the caller names it, e.g.
+    [torch.device("cpu")] * n), after validate_config against that many
+    devices. The strategy_config knobs (tensor_model_parallel_size, dp_size,
+    fsdp_size, whose -1 takes the remaining devices) and the
+    device_mapping lay the grid; None for one device with every knob at 1.
+    Context and pipeline parallelism raise: they come in the next port
+    slice."""
+    devices = [torch.device(d) for d in (devices if devices is not None
+                                         else default_devices())]
+    sc = cfg.actor_train.strategy_args.config
+    for knob in ("context_parallel_size", "pipeline_model_parallel_size"):
+        if int(sc.get(knob, 1) or 1) > 1:
+            raise NotImplementedError(
+                f"actor_train {knob}={sc[knob]}: context and pipeline parallelism come "
+                "in the next port slice (ROADMAP queue 1 items 8b.3 and 8b.4)")
+    validate_config(cfg, n_devices=len(devices))
+    return ResourceManager(devices).allocate_mesh("actor_train", cfg.actor_train)
 
 
-def build_train_pipeline(cfg: SocioSegConfig, dtype=torch.bfloat16, device=None):
+def build_train_pipeline(cfg: SocioSegConfig, dtype=torch.bfloat16, device=None,
+                         devices=None):
     """SocioSegPipeline over the train split: the policy loaded twice (the
     reference is a frozen copy of the initial policy), SAM2 and the
-    processor as for inference."""
+    processor as for inference, actor_train and the reference over
+    build_train_mesh's mesh. `devices`: the train mesh's device list
+    (default: every CUDA device, or [device] when a device is named)."""
     from .socioseg_pipeline import SocioSegPipeline
-    build_train_mesh(cfg)
+    if devices is None and device is not None:
+        devices = [param_device(device)]
+    mesh = build_train_mesh(cfg, devices)
     model_config, params = load_policy(cfg, dtype, device)
     _, ref_params = load_policy(cfg, dtype, device)   # frozen copy of the initial policy
     sam_config, sam_params = load_sam(cfg, dtype, device)
@@ -167,4 +167,4 @@ def build_train_pipeline(cfg: SocioSegConfig, dtype=torch.bfloat16, device=None)
         cfg, model_config=model_config, policy_params=params,
         reference_params=ref_params, sam_config=sam_config,
         sam_params=sam_params, processor=processor, dataset=dataset,
-        engine_kwargs=default_engine_kwargs(cfg))
+        engine_kwargs=default_engine_kwargs(cfg), mesh=mesh)

@@ -17,6 +17,10 @@ copy of the weights, and model_update hands the trainer's tensors to the
 decode engine through the ParamStore (a copy of them where a rollout must
 see the weights of an update after later train steps). Image embeddings
 stay tensors on the device from the ViT to the train steps.
+
+With `mesh` (build.build_train_mesh) actor_train and the reference shard
+their trees over it and step over its data ranks; model_update then hands
+the decode replicas, which stay as they are, the gathered whole tree.
 """
 
 from __future__ import annotations
@@ -127,17 +131,21 @@ class SocioSegPipeline(BasePipeline):
                  sam_config: Sam2Config, sam_params,
                  processor: SocioProcessor, dataset: List[Dict],
                  val_dataset: Optional[List[Dict]] = None,
-                 engine_kwargs: Optional[Dict] = None, devices=None):
+                 engine_kwargs: Optional[Dict] = None, devices=None, mesh=None):
         """policy_params / reference_params / sam_params: the port's trees on
         the device each model runs on. The trainer updates policy_params in
         place; the reference keeps its own copy of whatever it shares with
         them. `devices`: the device list of the roles' device_mapping
         (pipeline_devices); actor_infer's dp_size and
-        tensor_model_parallel_size lay the decode replicas over it."""
+        tensor_model_parallel_size lay the decode replicas over it. `mesh`:
+        the train mesh of actor_train and the reference (both then hold
+        sharded copies)."""
         super().__init__(pipeline_config)
         cfg = pipeline_config
         self.devices = pipeline_devices(policy_params, devices)
-        validate_config(cfg, n_devices=len(self.devices))
+        self.mesh = mesh
+        n_mesh = 0 if mesh is None else mesh.devices.size
+        validate_config(cfg, n_devices=max(len(self.devices), n_mesh))
         self.model_config = model_config
         self.processor = processor
         self.dataset = dataset
@@ -151,10 +159,12 @@ class SocioSegPipeline(BasePipeline):
             entropy_loss_coef=cfg.entropy_loss_coef,
             loss_agg_mode=cfg.loss_agg_mode)
         self.actor_train.initialize(model_config, policy_params, loss_cfg,
-                                    cfg.actor_train.training_args)
+                                    cfg.actor_train.training_args, mesh=mesh)
         self.reference = TorchInferStrategy(worker_config=cfg.reference,
                                             param_store=self.param_store)
-        self.reference.initialize(model_config, copy_shared(reference_params, policy_params))
+        self.reference.initialize(model_config, reference_params if mesh is not None
+                                  else copy_shared(reference_params, policy_params),
+                                  mesh=mesh)
         self.actor_train.model_update()
         self.decode_replicas = _build_decode_replicas(
             cfg, model_config, self.param_store, engine_kwargs, self.devices)

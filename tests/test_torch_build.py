@@ -269,20 +269,24 @@ def test_random_policy_without_a_checkpoint_directory(world, tmp_path, monkeypat
 
 def test_build_pipelines_match_jax(world, tmp_path, both_f32):
     """build_infer_pipeline and build_train_pipeline from the yamls: the
-    same dataset, collated stage-1 prompts and weights as the JAX build functions;
-    the train pipeline's reference holds its own copy of the weights."""
+    same dataset, collated stage-1 prompts and weights as the JAX build functions.
+    The train yaml's actor_train unpinned (fsdp_size -1): the port over eight
+    cpu entries lays the fsdp 8 mesh JAX lays over its virtual devices, its
+    sharded trees gather to JAX's, and a train step on two rows (padded to
+    eight) gives JAX's metrics, ratio_mean read with the six pad rows as 0."""
     for example, split in (("infer/rlvr_tpu.yaml", "test"), ("train/rlvr_tpu.yaml", "train")):
-        tcfg, jcfg = _configs(*_write_yaml(world, example, str(tmp_path / split)))
+        overlay = {"actor_train": {"device_mapping": None}} if split == "train" else {}
+        tcfg, jcfg = _configs(*_write_yaml(world, example, str(tmp_path / split), **overlay))
         if split == "test":
             tpipe = t_build.build_infer_pipeline(tcfg, device="cpu")
             jpipe = j_build.build_infer_pipeline(jcfg)
         else:
-            tpipe = t_build.build_train_pipeline(tcfg, device="cpu")
+            tpipe = t_build.build_train_pipeline(tcfg, device="cpu", devices=[CPU] * 8)
             jpipe = j_build.build_train_pipeline(jcfg)
-            _assert_trees_equal(tpipe.actor_train.params, jpipe.actor_train.params)
-            _assert_trees_equal(tpipe.reference.params, jpipe.reference.params)
-            assert tpipe.reference.params["embed"].untyped_storage().data_ptr() != \
-                tpipe.actor_train.params["embed"].untyped_storage().data_ptr()
+            assert tpipe.mesh.shape == dict(jpipe.mesh.shape) and tpipe.mesh.shape["fsdp"] == 8
+            _assert_trees_equal(tpipe.actor_train.params.gather(CPU), jpipe.actor_train.params)
+            _assert_trees_equal(tpipe.reference.params.gather(CPU), jpipe.reference.params)
+            _assert_fsdp8_step_matches(tpipe, jpipe)
         assert tpipe.model_config == _port(jpipe.model_config)
         assert [r["id"] for r in tpipe.dataset] == [r["id"] for r in jpipe.dataset]
         tb, jb = tpipe.collator(tpipe.dataset), jpipe.collator(jpipe.dataset)
@@ -295,26 +299,61 @@ def test_build_pipelines_match_jax(world, tmp_path, both_f32):
         assert engine.params["layers"]["q_w"].dtype == torch.int8     # the yaml's single copy
 
 
+def _assert_fsdp8_step_matches(tpipe, jpipe):
+    from socioreasoner_tpu.protocol import BatchProto as JBatch
+    from socioreasoner_tpu_torch.protocol import BatchProto
+    from tests.test_torch_train import _grpo_batch
+    batch, img = _grpo_batch(tpipe.model_config, seed=2, B=2)
+    got = tpipe.actor_train.train_step(BatchProto.from_dict(
+        tensors=batch, meta={"image_embeds": img}))
+    want = jpipe.actor_train.train_step(JBatch.from_dict(
+        tensors=batch, meta={"image_embeds": img}))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6, err_msg=k)
+
+
 @pytest.mark.parametrize("knobs", [
     {"tensor_model_parallel_size": 2}, {"fsdp_size": 2}, {"context_parallel_size": 2},
     {"pipeline_model_parallel_size": 2}, {"dp_size": 2}, {}],
     ids=["tp", "fsdp", "cp", "pp", "dp", "mapping"])
 def test_build_train_mesh_on_one_gpu(world, tmp_path, knobs):
-    """The example train yaml's knobs (fsdp_size -1) resolve to one device
-    and no mesh; a knob above 1, or a device_mapping of four devices,
-    raises, naming the multi-GPU queue (validate_config refuses a knob
-    above 1 on one device first)."""
+    """The example train yaml's knobs (fsdp_size -1) over one device give no
+    mesh, and without CUDA the default device list raises instead of falling
+    back to the CPU. Over device_mapping list(range(0,4)) of four cpu
+    entries (two for fsdp_size 2) the tp, fsdp, dp and mapping cases give
+    the mesh JAX's build_train_mesh lays over its virtual devices; cp and
+    pp raise, naming the next port slice (validate_config refuses a tp or
+    dp knob above 1 on one device)."""
     def config(name, **actor_train):
         return _configs(*_write_yaml(world, "train/rlvr_tpu.yaml", str(tmp_path / name),
-                                     actor_train=actor_train))[0]
-    assert t_build.build_train_mesh(config("ok")) is None
-    tcfg = config("four", device_mapping="list(range(0,4))",
-                  strategy_args={"strategy_config": knobs})
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        t_build.build_train_mesh(tcfg)
+                                     actor_train=actor_train))
+    four = [CPU] * 4
+    assert t_build.build_train_mesh(config("ok")[0], devices=[CPU]) is None
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            t_build.build_train_mesh(config("ok")[0])
+    mapping = "list(range(0,2))" if "fsdp_size" in knobs else "list(range(0,4))"
+    tcfg, jcfg = config("four", device_mapping=mapping,
+                        strategy_args={"strategy_config": knobs})
+    if "context_parallel_size" in knobs or "pipeline_model_parallel_size" in knobs:
+        with pytest.raises(NotImplementedError, match="next port slice"):
+            t_build.build_train_mesh(tcfg, devices=four)
+        with pytest.raises(NotImplementedError, match="next port slice"):
+            t_build.build_train_mesh(config("one", strategy_args={"strategy_config": knobs})[0],
+                                     devices=[CPU])
+        return
+    mesh = t_build.build_train_mesh(tcfg, devices=four)
+    _, jmesh = j_build.build_train_mesh(jcfg)
+    assert mesh.shape == dict(jmesh.shape)
+    want = {"tensor_model_parallel_size": (1, 2, 2), "fsdp_size": (1, 2, 1),
+            "dp_size": (2, 2, 1)}.get(next(iter(knobs), None), (1, 4, 1))
+    assert (mesh.shape["dp"], mesh.shape["fsdp"], mesh.shape["tp"]) == want
+    assert list(mesh.devices.reshape(-1)) == four[:mesh.devices.size]
     if knobs and "fsdp_size" not in knobs:
         with pytest.raises(ValueError, match="available devices"):
-            t_build.build_train_mesh(config("one", strategy_args={"strategy_config": knobs}))
+            t_build.build_train_mesh(config("one", strategy_args={"strategy_config": knobs})[0],
+                                     devices=[CPU])
 
 
 def test_chip_smoke_entry_phase_on_cpu(tmp_path):

@@ -334,7 +334,8 @@ def test_port_imports_no_jax():
         "       'ops.flags', 'utils.context_managers', 'utils.profiling',\n"
         "       'runtime.log_monitor', 'utils.checkpoint_manager', 'utils.native',\n"
         "       'runtime.resource_manager', 'parallel.mesh', 'parallel.sharding',\n"
-        "       'distributed.transfer'}\n"
+        "       'distributed.transfer', 'ops.vocab_parallel', 'runtime.initialize',\n"
+        "       'utils.collective'}\n"
         "assert {pkg.__name__ + '.' + n for n in new} <= set(names), names\n"
         "for n in names: importlib.import_module(n)\n"
         "from socioreasoner_tpu_torch.configs.worker_config import WorkerConfig\n"
@@ -361,7 +362,11 @@ def test_port_imports_no_jax():
         "          'train_family', 'text_model_round_trip', 'run_qwen2_vl',\n"
         "          'phase_agentic', 'run_agentic_vlm', 'run_agentic_text',\n"
         "          'phase_parallel', 'run_tp_engines', 'run_dp_pipelines', 'tp_tie_check',\n"
-        "          'profile_prefill', 'profiled', '_forced_logits'):\n"
+        "          'profile_prefill', 'profiled', '_forced_logits',\n"
+        "          'phase_train_mesh', 'run_mesh_strategies', 'check_mesh_strategies',\n"
+        "          'run_mesh_pipeline', 'run_mesh_processes', 'check_mesh_processes',\n"
+        "          'train_mesh_worker', 'run_mesh_step', 'kernel_shapes',\n"
+        "          'train_mesh_config', 'train_mesh_params', 'train_mesh_batch'):\n"
         "    assert callable(getattr(chip_smoke, f)), f\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'socioreasoner_tpu' or m.startswith('socioreasoner_tpu.'))\n"
@@ -419,6 +424,9 @@ def test_port_sources_import_nothing_of_the_jax_package():
             "socioreasoner_tpu_torch/parallel/mesh.py",
             "socioreasoner_tpu_torch/parallel/sharding.py",
             "socioreasoner_tpu_torch/distributed/transfer.py",
+            "socioreasoner_tpu_torch/ops/vocab_parallel.py",
+            "socioreasoner_tpu_torch/runtime/initialize.py",
+            "socioreasoner_tpu_torch/utils/collective.py",
             "chip_smoke.py"} <= rel
     bad = {os.path.relpath(f, REPO): hits for f in files if (hits := _jax_package_imports(f))}
     assert not bad, bad

@@ -451,15 +451,23 @@ def test_strategy_token_ops_match_jax():
 
 
 def test_unported_train_options_raise():
+    """Context and pipeline parallelism raise, naming the next port slice
+    (the train mesh and vocab-parallel log-probs are ported:
+    tests/test_torch_train_mesh.py); vocab-parallel log-probs need a
+    sharded tree."""
     config = _port(Qwen25VLConfig.tiny())
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        TT._model_log_probs(config, {}, {"input_ids": None}, remat=False, cp=object())
-    for kwargs in ({"pp": object()}, {"vp_mesh": object()}):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
+    for kwargs in ({"cp": object()}, {"pp": object()}):
+        with pytest.raises(NotImplementedError, match="next port slice"):
             TT._model_log_probs(config, {}, {"input_ids": None}, remat=False, **kwargs)
-    strat = TS.TorchTrainStrategy()
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        strat.initialize(config, {}, mesh=object())
+    with pytest.raises(ValueError, match="train mesh"):
+        TT._model_log_probs(config, {}, {"input_ids": None}, remat=False, vp_mesh=object())
+    from socioreasoner_tpu_torch.configs.worker_config import StrategyArguments, WorkerConfig
+    for knob in ("context_parallel_size", "pipeline_model_parallel_size"):
+        strat = TS.TorchTrainStrategy(worker_config=WorkerConfig(
+            strategy_args=StrategyArguments(strategy_name="jax_train",
+                                            strategy_config={knob: 2})))
+        with pytest.raises(NotImplementedError, match="next port slice"):
+            strat.initialize(config, {})
 
 
 # ---------------------------------------------------------------- strategies
