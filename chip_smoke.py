@@ -197,7 +197,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 over fsdp 2 x tp 2 ([cuda:0] x 4): two train steps, the
                 log-probs and entropy, held to the unsharded run within the
                 TRAIN_MESH_* limits (loss, grad norm, ratio_mean with the
-                pad row counted 0, log-probs, every param after the steps);
+                pad row counted 0, log-probs, every param after the steps;
+                the log-probs before any step within MESH_LP0_*);
                 the vocab-parallel head against the gathered head on the
                 same shards; (b) kernels 4-6 counted by shard: every data
                 rank's rows at the shard's local heads (8/1 at tp = 2), as
@@ -216,6 +217,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 (launches_train_mesh); the meshes' devices are one card
                 listed several times, so the figures measure the sharded
                 code, not multi-GPU speed.
+  15c. seq_pipe — context and pipeline parallelism of the train plane on
+                the train_mesh phase's model (3B text widths, 4 layers,
+                vocab 151936): (a) 4 rows of L = 4160 (~2,150 valid)
+                through TorchTrainStrategy unsharded, cp 2 ring over sp 2
+                x tp 2 ([cuda:0] x 4), cp 2 Ulysses ([cuda:0] x 2), pp 2
+                GPipe and pp 2 x vpp 2 interleaved ([cuda:0] x 2): the
+                log-probs before any step (MESH_LP0_*), two train steps
+                and the log-probs after them held to the unsharded run
+                within the TRAIN_MESH_* limits, the ring's loss within
+                SEQ_PIPE_RING_ULYSSES of Ulysses'; (b) kernels 4-6 counted
+                by shape: layers x sp shards x passes at B=4 8/1 under
+                Ulysses, layers x micro-batches at B=2 16/2 under pp, none
+                in the ring (plain f32 attention, as JAX's is plain jnp),
+                whose attention a layer is timed beside kernel 4 on the
+                same rows; (c) one SocioSegPipeline step of crafted
+                answers with the train yaml's context_parallel_size 2 over
+                [cuda:0] x 2 against the same step unsharded; (d) the
+                port's dry runs (tools/dryrun.py): dryrun_multichip over
+                [cuda:0] x 8 and dryrun_multiprocess over two gloo
+                processes on cuda:0. Kernels 1-6 launch
+                (launches_seq_pipe); one card listed several times, so the
+                figures measure the sharded code, not multi-GPU speed.
   16. entry   — the system started as users start it: the main phase's
                 tree (trained by the grpo phase) written with the port's
                 save_pretrained (BF16 shards, config.json) beside an offline
@@ -946,7 +969,9 @@ def phase_kernels():
     for phase, spec in (("grpo", GRPO_TRAIN), ("rlvr", RLVR_TRAIN),
                         ("math_vlm", MATH_VLM_TRAIN), ("families", FAMILY_TRAIN),
                         ("agentic_vlm", AGENTIC_VLM_TRAIN), ("train_mesh", TRAIN_MESH_TRAIN),
-                        ("train_mesh_pipeline", TRAIN_MESH_PIPELINE_TRAIN)):
+                        ("train_mesh_pipeline", TRAIN_MESH_PIPELINE_TRAIN),
+                        ("seq_pipe_ulysses", SEQ_PIPE_ULYSSES_TRAIN),
+                        ("seq_pipe_pp", SEQ_PIPE_PP_TRAIN)):
         for row, cases in zip(results[-3:], _phase_train_kernels(randn, spec)):
             row[phase] = cases
             emit({"phase": f"kernel_{phase}_shapes", "name": row["name"], **cases})
@@ -6014,6 +6039,13 @@ TRAIN_MESH_NORM_REL = 5e-2     # the pre-clip grad norm, relative
 TRAIN_MESH_RATIO_ABS = 1e-2    # actor_train/ratio_mean
 TRAIN_MESH_PARAM_LRS = 6       # params after 2 steps: |d| <= 6 lr + one bf16 ulp of the leaf's max
 TRAIN_MESH_VP_ABS = 1e-3       # vocab-parallel head against the gathered head, same shards
+# the log-probs before any step, sharded against unsharded (PERF.md's
+# prediction for the seq_pipe phase): the ring attends in f32 from the bf16
+# q/k/v and rounds its output once, where kernel 4 rounds its unnormalised
+# p; tp 2 sums the row-parallel partials in bf16; pp runs each layer whole
+# on two rows at a time, where cuBLAS may pick other kernels
+MESH_LP0_MAX = 0.25            # max-abs on a response token's log-prob or entropy
+MESH_LP0_MEAN = 0.02           # mean-abs over the response tokens
 # the kernels phase's checks of kernels 4-6 at the phase's rank shapes:
 # (a) fsdp 2 x tp 2, rank 0's two rows at the shard's 8/1 heads; (c) the
 # pipeline's fsdp 2, one row a rank of each train micro-batch of 2 and four
@@ -6108,15 +6140,18 @@ def _expected_launches(seen, lens, L: int, ranks: int, tp: int, H: int, Hkv: int
 
 
 def run_mesh_strategies(config, params, dev, meshes, batch, *, lr=TRAIN_MESH_LR, steps=2,
-                        vp_mesh: str = "fsdp2_tp2"):
-    """(a) and (b): TorchTrainStrategy unsharded and over each mesh of
-    `meshes` ({name: device list and axis sizes}) from the same weights and
-    batch: `steps` train steps, then the log-probs and entropy; the largest
-    differences from the unsharded run, and each meshed run's kernel 4-6
-    launches by shard shape. Then TorchInferStrategy over `vp_mesh` with
-    and without vocab_parallel_logprobs."""
+                        vp_mesh="fsdp2_tp2"):
+    """(a) and (b) of the train_mesh and seq_pipe phases: TorchTrainStrategy
+    unsharded and over each mesh of `meshes` ({name: {"axes", "devices",
+    optionally "strategy_config" and "split"}}) from the same weights and
+    batch: the log-probs and entropy of TorchInferStrategy, `steps` train
+    steps, the train strategy's log-probs and entropy after them; the
+    largest differences from the unsharded run, and
+    each meshed run's kernel 4-6 launches by shape: `split` (row blocks,
+    head shards) a layer pass, by default (data ranks, tp), None for a run
+    that launches none. Then TorchInferStrategy over `vp_mesh` (unless
+    None) with and without vocab_parallel_logprobs."""
     import types
-    import torch
     from socioreasoner_tpu_torch.configs.worker_config import (StrategyArguments,
                                                                WorkerConfig)
     from socioreasoner_tpu_torch.distributed.strategy import ParamStore
@@ -6130,13 +6165,21 @@ def run_mesh_strategies(config, params, dev, meshes, batch, *, lr=TRAIN_MESH_LR,
     ta = types.SimpleNamespace(learning_rate=lr)
     resp = batch["response_mask"][:, 1:] == 1
     B = len(batch["input_ids"])
+    t = config.text
     out, base = {}, None
     for name in ["unsharded", *meshes]:
-        mesh = None
-        if name != "unsharded":
-            spec = meshes[name]
-            mesh = make_mesh(**spec["axes"], devices=spec["devices"])
-        s = TorchTrainStrategy(worker_config=WorkerConfig(), param_store=ParamStore())
+        spec = meshes.get(name, {})
+        mesh = None if name == "unsharded" else make_mesh(**spec["axes"],
+                                                          devices=spec["devices"])
+        def wc():
+            return WorkerConfig(strategy_args=StrategyArguments(
+                strategy_name="jax_train", strategy_config=dict(spec.get("strategy_config", {}))))
+        ref = TorchInferStrategy(worker_config=wc(), param_store=ParamStore())
+        ref.initialize(config, params, mesh=mesh)
+        with kernel_shapes() as lp0_shapes:
+            lp0 = ref.compute_log_probs(proto)
+        del ref
+        s = TorchTrainStrategy(worker_config=wc(), param_store=ParamStore())
         s.initialize(config, _clone(params) if mesh is None else params, training_args=ta,
                      mesh=mesh)
         _sync(dev)
@@ -6147,30 +6190,33 @@ def run_mesh_strategies(config, params, dev, meshes, batch, *, lr=TRAIN_MESH_LR,
                 t1 = time.perf_counter()
                 metrics.append(s.train_step(proto))     # its metrics read back: synced
                 step_s.append(time.perf_counter() - t1)
-        with kernel_shapes() as logprob_shapes:
+        with kernel_shapes() as lp_shapes:
             lp = s.compute_log_probs(proto)
         _sync(dev)
         run = {"wall_s": time.perf_counter() - t0, "step_s": step_s, "metrics": metrics}
         tree = s.state.params if mesh is None else s.state.params.gather(dev)
         if mesh is None:
-            base = {"metrics": metrics, "lp": lp, "tree": tree}
+            base = {"metrics": metrics, "lp0": lp0, "lp": lp, "tree": tree}
         else:
             shape = mesh.shape
-            ranks, tp = shape["dp"] * shape["fsdp"], shape["tp"]
-            t = config.text
-            args = (_row_lens(batch), batch["input_ids"].shape[1], ranks, tp,
+            ranks = shape["dp"] * shape["fsdp"]
+            split = spec.get("split", (ranks, shape["tp"]))
+            args = (_row_lens(batch), batch["input_ids"].shape[1], *(split or (1, 1)),
                     t.num_attention_heads, t.num_key_value_heads, t.num_hidden_layers)
             # remat runs each layer's forward again in the backward
             run["train_launches"] = _expected_launches(
-                train_shapes, *args, {"flash_attention_fwd_lse": 2 * steps,
-                                      "flash_attention_bwd_dq": steps,
-                                      "flash_attention_bwd_dkv": steps}, 0)
+                train_shapes, *args, {} if split is None else {
+                    "flash_attention_fwd_lse": 2 * steps, "flash_attention_bwd_dq": steps,
+                    "flash_attention_bwd_dkv": steps}, 0)
             run["logprob_launches"] = _expected_launches(
-                logprob_shapes, *args, {"flash_attention_fwd_lse": 1}, -1)
+                lp0_shapes + lp_shapes, *args,
+                {} if split is None else {"flash_attention_fwd_lse": 2}, -1)
             diffs = {}
-            for k in ("log_probs", "entropy"):
-                d = np.abs(lp[k] - base["lp"][k])[resp]
-                diffs[k + "_max_abs"], diffs[k + "_mean_abs"] = float(d.max()), float(d.mean())
+            for tag, got, want in (("lp0_", lp0, base["lp0"]), ("", lp, base["lp"])):
+                for k in ("log_probs", "entropy"):
+                    d = np.abs(got[k] - want[k])[resp]
+                    diffs[f"{tag}{k}_max_abs"] = float(d.max())
+                    diffs[f"{tag}{k}_mean_abs"] = float(d.mean())
             for step, (m, m0) in enumerate(zip(metrics, base["metrics"])):
                 diffs[f"loss_abs_{step}"] = abs(m["actor_train/loss"] - m0["actor_train/loss"])
                 diffs[f"grad_norm_rel_{step}"] = abs(
@@ -6189,6 +6235,9 @@ def run_mesh_strategies(config, params, dev, meshes, batch, *, lr=TRAIN_MESH_LR,
         out[name] = run
         del s, tree
         _free()
+    out["base_metrics"] = base["metrics"]
+    if vp_mesh is None:
+        return out
     # the vocab-parallel head against the gathered head on the same shards
     spec = meshes[vp_mesh]
     vp = {}
@@ -6203,7 +6252,6 @@ def run_mesh_strategies(config, params, dev, meshes, batch, *, lr=TRAIN_MESH_LR,
     out["vocab_parallel"] = {
         k + "_max_abs": float(np.abs(vp[True][k] - vp[False][k])[resp].max())
         for k in ("log_probs", "entropy")}
-    out["base_metrics"] = base["metrics"]
     return out
 
 
@@ -6219,7 +6267,11 @@ def check_mesh_strategies(res) -> list:
         if name in ("unsharded", "vocab_parallel", "base_metrics"):
             continue
         d = run["diffs"]
-        for key, limit in (("log_probs_max_abs", TRAIN_MESH_LP_MAX),
+        for key, limit in (("lp0_log_probs_max_abs", MESH_LP0_MAX),
+                           ("lp0_entropy_max_abs", MESH_LP0_MAX),
+                           ("lp0_log_probs_mean_abs", MESH_LP0_MEAN),
+                           ("lp0_entropy_mean_abs", MESH_LP0_MEAN),
+                           ("log_probs_max_abs", TRAIN_MESH_LP_MAX),
                            ("entropy_max_abs", TRAIN_MESH_LP_MAX),
                            ("log_probs_mean_abs", TRAIN_MESH_LP_MEAN),
                            ("entropy_mean_abs", TRAIN_MESH_LP_MEAN),
@@ -6233,11 +6285,11 @@ def check_mesh_strategies(res) -> list:
             if limit is not None and not v <= limit:
                 bad.append(f"{name} {key} {v} > {limit}")
         for kind in ("train_launches", "logprob_launches"):
-            if run[kind]["missing_or_off"] or run[kind]["launches"] <= 0:
+            if run[kind]["missing_or_off"]:
                 bad.append(f"{name} {kind}: {run[kind]}")
         if not all(np.isfinite(list(m.values())).all() for m in run["metrics"]):
             bad.append(f"{name}: metrics not finite")
-    for key, v in res["vocab_parallel"].items():
+    for key, v in res.get("vocab_parallel", {}).items():
         if not v <= TRAIN_MESH_VP_ABS:
             bad.append(f"vocab_parallel {key} {v} > {TRAIN_MESH_VP_ABS}")
     return bad
@@ -6250,11 +6302,12 @@ TRAIN_YAML_MESH_KNOBS = {"tensor_model_parallel_size": 1, "fsdp_size": -1,
 
 def run_mesh_pipeline(config, params, sam_config, sam_params, out_dir, dev, devices, *,
                       n_tiles=2, tile_px=768, img_cfg=None, processor=None,
-                      prompt_length=4096, **cuts):
+                      prompt_length=4096, knobs=None, **cuts):
     """(c): one SocioSegPipeline step of grpo_answers' crafted answers
     (ScriptedDecodeWorker) at the grpo phase's cuts, actor_train and the
     reference over build_train_mesh(cfg, devices) with the train yaml's
-    knobs (fsdp_size -1: every device on fsdp; None over one device); then
+    knobs (fsdp_size -1: every device on fsdp; None over one device), or
+    `knobs` in their place; then
     one model_update, the rollout tree held bit for bit to the quantized
     gathered shards. Returns (the step's metrics, the mesh's shape, the
     rollout check, the pipeline's train shapes and the (B, L, H, Hkv) of
@@ -6273,7 +6326,7 @@ def run_mesh_pipeline(config, params, sam_config, sam_params, out_dir, dev, devi
     img_cfg = img_cfg or ImageProcessorConfig(defer_patchify=True)
     cfg = socioseg_train_config(out_dir, prompt_length=prompt_length,
                                 **{**GRPO_CUTS, "max_steps": 1, "eval_steps": 0, **cuts})
-    cfg.actor_train.strategy_args.strategy_config = dict(TRAIN_YAML_MESH_KNOBS)
+    cfg.actor_train.strategy_args.strategy_config = dict(knobs or TRAIN_YAML_MESH_KNOBS)
     mesh = build_train_mesh(cfg, devices)
     dataset = [encode_sample(t, img_cfg) for t in _synthetic_tiles(n_tiles, tile_px)]
     pipe = SocioSegPipeline(
@@ -6502,7 +6555,8 @@ def phase_train_mesh(main_config):
                    "several times: the sharded code, not multi-GPU speed",
           "batch": f"B={len(TRAIN_MESH_LENS)} L={TRAIN_MESH_L} kv_len={list(TRAIN_MESH_LENS)}",
           "wall_s": time.perf_counter() - t0,
-          "limits": {"lp_max": TRAIN_MESH_LP_MAX, "lp_mean": TRAIN_MESH_LP_MEAN,
+          "limits": {"lp0_max": MESH_LP0_MAX, "lp0_mean": MESH_LP0_MEAN,
+                     "lp_max": TRAIN_MESH_LP_MAX, "lp_mean": TRAIN_MESH_LP_MEAN,
                      "loss_abs": TRAIN_MESH_LOSS_ABS, "grad_norm_rel": TRAIN_MESH_NORM_REL,
                      "ratio_mean_abs": TRAIN_MESH_RATIO_ABS,
                      "param": f"{TRAIN_MESH_PARAM_LRS} lr + 2^-7 x leaf max",
@@ -6565,6 +6619,210 @@ def phase_train_mesh(main_config):
     return launches
 
 
+# ------------------------------------------------------------ seq_pipe
+
+# The seq_pipe phase: context and pipeline parallelism of the train plane on
+# the train_mesh phase's model (Qwen2.5-VL-3B text widths at 4 layers, full
+# vocabulary), the meshes' devices cuda:0 listed several times (the sharded
+# code, not multi-GPU speed).
+SEQ_PIPE_LENS = (2219, 2080, 2150, 2164)    # 4 rows of L = 4160, ~2,150 valid
+# name: mesh axes, strategy_config and the kernel 4-6 calls a layer pass
+# makes, (row blocks, head shards): Ulysses attends all rows over each of
+# its sp 2 head slices, GPipe a micro-batch of 2 rows at a time at the
+# full heads, the ring (plain f32 attention, as JAX's is plain jnp) none
+SEQ_PIPE_RUNS = {
+    "cp2_ring": {"axes": {"sp": 2, "tp": 2}, "split": None,
+                 "strategy_config": {"context_parallel_size": 2}},
+    "cp2_ulysses": {"axes": {"sp": 2}, "split": (1, 2),
+                    "strategy_config": {"context_parallel_size": 2,
+                                        "context_parallel_impl": "ulysses"}},
+    "pp2": {"axes": {"pp": 2}, "split": (2, 1),
+            "strategy_config": {"pipeline_model_parallel_size": 2}},
+    "pp2_vpp2": {"axes": {"pp": 2}, "split": (2, 1),
+                 "strategy_config": {"pipeline_model_parallel_size": 2,
+                                     "virtual_pipeline_model_parallel_size": 2}},
+}
+SEQ_PIPE_RING_ULYSSES = 1e-3  # the ring's loss against Ulysses', each step
+# the kernels phase's checks of kernels 4-6 at the phase's shapes: Ulysses'
+# head slice (the 4 rows at full L, 8/1 heads on each of sp 2) and a GPipe
+# micro-batch (2 rows at 16/2 heads)
+SEQ_PIPE_ULYSSES_TRAIN = {"L": TRAIN_MESH_L, "train_batch": 4, "logprob_batch": 4,
+                          "lens": SEQ_PIPE_LENS, "H": 8, "Hkv": 1}
+SEQ_PIPE_PP_TRAIN = {"L": TRAIN_MESH_L, "train_batch": 2, "logprob_batch": 2,
+                     "lens": SEQ_PIPE_LENS[:2]}
+# (c): the train yaml's knobs with context_parallel_size 2 over [cuda:0] x 2
+SEQ_PIPE_YAML_KNOBS = dict(TRAIN_YAML_MESH_KNOBS, context_parallel_size=2)
+
+
+def seq_pipe_runs(dev, runs=None):
+    """SEQ_PIPE_RUNS with each mesh's devices: `dev` listed once a device."""
+    return {name: dict(spec, devices=[dev] * int(np.prod(list(spec["axes"].values()))))
+            for name, spec in (runs or SEQ_PIPE_RUNS).items()}
+
+
+def check_ring_against_ulysses(res) -> list:
+    """The ring's loss against Ulysses' at each step, SEQ_PIPE_RING_ULYSSES."""
+    gaps = [abs(r["actor_train/loss"] - u["actor_train/loss"])
+            for r, u in zip(res["cp2_ring"]["metrics"], res["cp2_ulysses"]["metrics"])]
+    return [f"ring against ulysses loss at step {step}: {gap}"
+            for step, gap in enumerate(gaps) if not gap <= SEQ_PIPE_RING_ULYSSES]
+
+
+def ring_against_kernel(dev, lens=SEQ_PIPE_LENS, L=TRAIN_MESH_L, H=8, Hkv=1, D=128,
+                        timed: bool = True):
+    """One layer's attention of the cp2_ring run on one tp shard (its rows
+    at H / Hkv heads, zigzag over sp 2, K/V repeated to H) against kernel 4
+    on the same rows unsplit: the ring's largest difference from kernel
+    4's output in the rows' valid queries and, when timed, each one's ms
+    (CUDA events) and device ms (the profiler's kernel time)."""
+    import torch
+    from socioreasoner_tpu_torch.ops import flash_attention_bwd as fb
+    from socioreasoner_tpu_torch.parallel.context_parallel import zigzag_indices
+    from socioreasoner_tpu_torch.parallel.ring_attention import ring_attention_pos_local
+    g = torch.Generator(device=dev).manual_seed(5)
+    B = len(lens)
+    q, k, v = (torch.randn((B, L, h, D), generator=g, device=dev).to(torch.bfloat16)
+               for h in (H, Hkv, Hkv))
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    mask = (torch.arange(L, device=dev)[None] < lens_t[:, None]).to(torch.int32)
+    perm = torch.as_tensor(zigzag_indices(L, 2), device=dev)
+    pos = perm[None].expand(B, L)
+    qp, kp, vp, mp = (x[:, perm] for x in (q, k.repeat_interleave(H // Hkv, 2),
+                                            v.repeat_interleave(H // Hkv, 2), mask))
+    half = L // 2
+    shards = [(x[:, :half], x[:, half:]) for x in (qp, kp, vp, pos, mp)]
+
+    def ring():
+        return ring_attention_pos_local(*[list(s) for s in shards[:3]], list(shards[3]),
+                                        list(shards[3]), list(shards[4]), causal=True)
+
+    def kernel():
+        return fb.flash_attention_fwd_lse(q, k, v, lens_t)
+    with torch.no_grad():
+        got = torch.cat(ring(), dim=1)[:, torch.argsort(perm)]
+        want = kernel()[0]
+        valid = mask.bool()
+        err = (got.float() - want.float()).abs()[valid].max().item()
+        out = {"shape": f"B={B} L={L} H={H} Hkv={Hkv} D={D} kv_len={list(lens)}, "
+                        "one tp shard of a layer",
+               "ring_max_abs_diff_from_kernel4": err}
+        if timed:
+            out.update(ring_ms=cuda_ms(ring, n=5), ring_device_ms=device_ms(ring, ("",), n=3),
+                       kernel4_ms=cuda_ms(kernel), kernel4_device_ms=device_ms(kernel, ("",)))
+    del q, k, v, qp, kp, vp, shards
+    _free()
+    return out
+
+
+def phase_seq_pipe(main_config):
+    """Context and pipeline parallelism of the train plane at Qwen2.5-VL-3B
+    text widths cut to TRAIN_MESH_LAYERS layers: (a) the strategies
+    unsharded, cp 2 ring over sp 2 x tp 2 ([cuda:0] x 4), cp 2 Ulysses
+    over [cuda:0] x 2, pp 2 GPipe and pp 2 x vpp 2 interleaved over
+    [cuda:0] x 2: the log-probs before any step, two train steps and the
+    log-probs after, held to the unsharded run, ring against Ulysses on the
+    loss; (b) kernels 4-6 counted by shape (Ulysses' head slices, GPipe's
+    micro-batches, none in the ring), the ring's attention a layer timed
+    beside kernel 4 on the same rows; (c) a SocioSegPipeline step of crafted
+    answers with the train yaml's context_parallel_size 2 over [cuda:0] x 2
+    against the same step unsharded; (d) the port's dry runs,
+    dryrun_multichip over [cuda:0] x 8 and dryrun_multiprocess over two
+    processes on cuda:0. Returns the launch counts of kernels 1-6 over
+    (a)-(d) in this process."""
+    import torch
+    from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
+    from socioreasoner_tpu_torch.models.sam2 import model as smodel
+    from socioreasoner_tpu_torch.models.sam2.config import Sam2Config
+    from socioreasoner_tpu_torch.ops import decode_attention as da
+    from socioreasoner_tpu_torch.ops import flash_attention as fa
+    from socioreasoner_tpu_torch.tools.dryrun import dryrun_multichip, dryrun_multiprocess
+    from socioreasoner_tpu_torch.utils.context_managers import device_memory_stats
+
+    dev = torch.device("cuda")
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = (fa.flash_attention_segmented, fa.flash_attention, da.paged_decode_attention,
+               *_train_kernel_fns())
+    for fn in kernels:
+        fn.launches = 0
+    t_phase = time.perf_counter()
+    config = train_mesh_config(TRAIN_MESH_LAYERS, main_config)
+    params = train_mesh_params(config, dev)
+    batch = train_mesh_batch(config, params, dev, lens=SEQ_PIPE_LENS)
+    t0 = time.perf_counter()
+    res = run_mesh_strategies(config, params, dev, seq_pipe_runs(dev), batch, vp_mesh=None)
+    emit({"phase": "seq_pipe_strategies", "card": _smi_line(),
+          "model": f"Qwen2.5-VL-3B text widths, {TRAIN_MESH_LAYERS} layers, vocab 151936, "
+                   "tied head, random bf16 weights; the meshes' devices are cuda:0 listed "
+                   "several times: the sharded code, not multi-GPU speed",
+          "batch": f"B={len(SEQ_PIPE_LENS)} L={TRAIN_MESH_L} kv_len={list(SEQ_PIPE_LENS)}",
+          "wall_s": time.perf_counter() - t0,
+          "limits": {"lp0_max": MESH_LP0_MAX, "lp0_mean": MESH_LP0_MEAN,
+                     "lp_max": TRAIN_MESH_LP_MAX, "lp_mean": TRAIN_MESH_LP_MEAN,
+                     "loss_abs": TRAIN_MESH_LOSS_ABS, "grad_norm_rel": TRAIN_MESH_NORM_REL,
+                     "ratio_mean_abs": TRAIN_MESH_RATIO_ABS,
+                     "param": f"{TRAIN_MESH_PARAM_LRS} lr + 2^-7 x leaf max",
+                     "ring_against_ulysses_loss": SEQ_PIPE_RING_ULYSSES},
+          **{k: v if k == "base_metrics" else
+             {kk: vv for kk, vv in v.items() if kk != "metrics"} for k, v in res.items()}})
+    bad = check_mesh_strategies(res) + check_ring_against_ulysses(res)
+    if bad:
+        raise AssertionError(f"seq_pipe (a)/(b): {bad}")
+    launches_a = {fn.__name__: fn.launches for fn in kernels}
+    ring = ring_against_kernel(dev)
+    for fn in kernels:      # the comparison's launches are not the path's
+        fn.launches = launches_a[fn.__name__]
+    emit({"phase": "seq_pipe_ring_attention", "card": _smi_line(), **ring})
+    del params
+    _free()
+
+    # (c) the pipeline with the yaml's context_parallel_size 2, against one device
+    sam_config = Sam2Config.large()
+    sam_params = smodel.init_params(sam_config, torch.Generator(device=dev).manual_seed(2),
+                                    dtype=torch.bfloat16, device=dev)
+    full = qmodel.init_params(config, torch.Generator(device=dev).manual_seed(TRAIN_MESH_SEED),
+                              dtype=torch.bfloat16, device=dev)
+    pipes = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        for name, devices in (("unsharded", [dev]), ("cp2", [dev] * 2)):
+            pipes[name] = run_mesh_pipeline(
+                config, _clone(full) if name == "unsharded" else full, sam_config,
+                sam_params, str(Path(out_dir) / name), dev, devices,
+                knobs=SEQ_PIPE_YAML_KNOBS if name == "cp2" else None)
+    del full, sam_params
+    _free()
+    base, meshed = pipes["unsharded"], pipes["cp2"]
+    # the reference (no cp) runs sp row 0 at the grpo phase's log-prob chunk
+    checked = {(GRPO_TRAIN["logprob_batch"], GRPO_TRAIN["L"], 16, 2)}
+    left = sorted(set(map(tuple, meshed["kernel_shapes"])) - checked)
+    diffs = {k: abs(meshed["metrics"][k] - base["metrics"][k]) for k in base["metrics"]}
+    emit({"phase": "seq_pipe_pipeline", "pipelines": pipes, "diffs": diffs})
+    bad = [k for k, d in diffs.items() if not d <= (
+        TRAIN_MESH_NORM_REL * abs(base["metrics"][k]) if "grad_norm" in k
+        else TRAIN_MESH_RATIO_ABS if "ratio" in k else TRAIN_MESH_LOSS_ABS)]
+    if (bad or left or meshed["mesh"] != {"dp": 1, "fsdp": 1, "pp": 1, "sp": 2, "tp": 1}
+            or not all(p["rollout_equal_quantized_gather"] for p in pipes.values())):
+        raise AssertionError(f"seq_pipe (c): {bad}, left the checked shapes {left}, "
+                             f"{meshed['mesh']}, "
+                             f"{[p['rollout_equal_quantized_gather'] for p in pipes.values()]}")
+
+    # (d) the port's dry runs on the card
+    t0 = time.perf_counter()
+    multichip = dryrun_multichip(8, [dev] * 8)
+    t1 = time.perf_counter()
+    processes = dryrun_multiprocess(2, device=dev)
+    emit({"phase": "seq_pipe_dryruns", "multichip": multichip,
+          "multichip_s": t1 - t0, "multiprocess": processes,
+          "multiprocess_s": time.perf_counter() - t1})
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak = device_memory_stats()["device0/peak_bytes_in_use"] / 2**30
+    emit({"phase": "seq_pipe", "phase_s": time.perf_counter() - t_phase,
+          "launches": launches, "launches_strategies": launches_a, "peak_gib": peak})
+    if not all(launches[fn.__name__] > 0 for fn in _train_kernel_fns()):
+        raise AssertionError(f"kernels 4-6 never launched in the seq_pipe phase: {launches}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -6602,6 +6860,7 @@ def main() -> int:
     workers = phase_workers(config, params)
     agentic = phase_agentic(config, params)
     train_mesh = phase_train_mesh(config)
+    seq_pipe = phase_seq_pipe(config)
     with tempfile.TemporaryDirectory() as work_dir:
         export_dir = str(Path(work_dir) / "qwen2_5_vl_3b")
         export_stats, sums = export_main_tree(config, params, export_dir,
@@ -6631,6 +6890,8 @@ def main() -> int:
         # kernels 2, 3, 3q and 7 are on no path of the train_mesh phase (its
         # pipeline step answers through a scripted decode worker)
         kern["launches_train_mesh"] = train_mesh.get(kern["name"], 0)
+        # kernels 3q and 7 are on no path of the seq_pipe phase (bf16 cache)
+        kern["launches_seq_pipe"] = seq_pipe.get(kern["name"], 0)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -11,16 +11,22 @@ generic RLVR slice: RLVRPipeline with dynamic sampling, MathVLMPipeline,
 the worker runtime with every reward, the reward model, the critic, SFT
 and DPO, the other model families: MoE layers, the text-only LLM
 families, the Qwen2-VL ViT, the agentic slice, the serving plane over
-several devices with the runtime and tooling modules, and the train plane
-over a dp x fsdp x tp mesh, in one process or several):
+several devices with the runtime and tooling modules, the train plane
+over a dp x fsdp x tp mesh, in one process or several, and its context
+and pipeline parallelism):
   examples                — the two entry scripts (yaml → pipeline → run())
   tools/convert           — HF <-> native checkpoint CLI
+  tools/dryrun            — entry(), dryrun_multichip, dryrun_multiprocess:
+                            every sharded plane over a device list, one step
   configs                 — the yaml loader and the config dataclasses
   parallel                — named device meshes (a grid of torch.devices,
                             dp split over processes), the Megatron spec
                             tables, shard_params (one tree a tensor-
                             parallel shard), ShardedTree (a train tree over
-                            fsdp x tp) and RankParams (a data rank's view)
+                            fsdp x tp, layers a pp stage) and RankParams (a
+                            data rank's view), context parallelism (the
+                            zigzag layout, ring attention, Ulysses), pipeline
+                            parallelism (GPipe, interleaved VPP)
   ops                     — attention references + hand-written Hopper kernels
                             (csrc/*.cu, built by ops/_build.py at first use),
                             the trainable flash attention (autograd Function),

@@ -36,8 +36,13 @@ log-prob micro-batch with copies of its last row, sliced off again; each
 rank takes the image embeddings of its own samples. model_update hands the
 decode engine the gathered whole tree (a new tree each update, on the
 mesh's first device), and a checkpoint holds the gathered tree and
-moments, so it loads into any mesh or none. Context and pipeline
-parallelism (strategy_config) come in the next port slice and raise.
+moments, so it loads into any mesh or none. strategy_config's
+context_parallel_size / context_parallel_impl and
+pipeline_model_parallel_size / pp_micro_batches /
+virtual_pipeline_model_parallel_size give the steps a CPConfig over the
+mesh's sp axis or a PPConfig over its pp axis (_parallel_plan), as in the
+JAX strategies; under pp the layers are stored a stage on the stage's
+devices.
 """
 
 from __future__ import annotations
@@ -55,7 +60,9 @@ from ..models.qwen2_5_vl.config import Qwen25VLConfig
 from ..models.qwen2_5_vl.vision import run_vision, run_vision_u8
 from ..ops.quant import (params_prequantized, quantize_decode_params,
                          quantize_vision_params, vision_prequantized)
+from ..parallel.context_parallel import make_cp_config
 from ..parallel.mesh import batch_divisor
+from ..parallel.pipeline_parallel import make_pp_config
 from ..parallel.sharding import ShardedTree
 from ..pipeline.losses import PPOLossConfig
 from ..protocol import BatchProto
@@ -194,26 +201,36 @@ def _micro_batched_log_probs(logprob_step: Callable, params, batch: BatchProto,
 
 
 def _parallel_plan(strategy, model_config: Qwen25VLConfig, mesh):
-    """The vocab-parallel route of strategy_config (the mesh when
-    vocab_parallel_logprobs is set, as JaxTrainStrategy._parallel_plan);
-    context and pipeline parallelism raise. With a mesh, tp must divide the
+    """(cp, pp, vp_mesh) from strategy_config, as JaxTrainStrategy._parallel_plan:
+    context_parallel_size / context_parallel_impl → a CPConfig over the
+    mesh's sp axis (zigzag ring or Ulysses), pipeline_model_parallel_size /
+    pp_micro_batches / virtual_pipeline_model_parallel_size → a PPConfig
+    over its pp axis (GPipe, or interleaved under vpp), and the mesh as the
+    vocab-parallel route when vocab_parallel_logprobs is set without cp and
+    pp. Either knob above 1 needs a mesh. With a mesh, tp must divide the
     text heads: a head is never split."""
     wc = strategy.worker_config
     cfg = wc.strategy_args.config if wc is not None else {}
-    cp = int(cfg.get("context_parallel_size", 1) or 1)
-    pp = int(cfg.get("pipeline_model_parallel_size", 1) or 1)
-    if cp > 1 or pp > 1:
-        raise NotImplementedError(
-            f"context_parallel_size={cp}, pipeline_model_parallel_size={pp}: context and "
-            "pipeline parallelism come in the next port slice (ROADMAP queue 1 items "
-            "8b.3 and 8b.4)")
+    cp = make_cp_config(mesh, int(cfg.get("context_parallel_size", 1) or 1),
+                        impl=str(cfg.get("context_parallel_impl", "ring")))
+    pp = make_pp_config(mesh, int(cfg.get("pipeline_model_parallel_size", 1) or 1),
+                        n_micro=int(cfg.get("pp_micro_batches", 0) or 0),
+                        vpp=int(cfg.get("virtual_pipeline_model_parallel_size", 1) or 1))
     if mesh is None:
-        return None
+        return None, None, None
     t, T = model_config.text, mesh.shape.get("tp", 1)
     if t.num_attention_heads % T or t.num_key_value_heads % T:
         raise ValueError(f"tp={T} must divide the heads: H={t.num_attention_heads}, "
                          f"Hkv={t.num_key_value_heads} (a head is never split)")
-    return mesh if cfg.get("vocab_parallel_logprobs") else None
+    vp_mesh = mesh if (cfg.get("vocab_parallel_logprobs") and cp is None
+                       and pp is None) else None
+    return cp, pp, vp_mesh
+
+
+def _shard(params, mesh, pp, model_config: Qwen25VLConfig):
+    """The tree over the mesh, its layers stored a pp stage under pp."""
+    stages = None if pp is None else pp.stage_layers(model_config.text.num_hidden_layers)
+    return ShardedTree(params, mesh, layer_stages=stages)
 
 
 def _mesh_device(mesh, params):
@@ -232,11 +249,11 @@ class TorchTrainStrategy(TrainStrategy):
                    loss_cfg: Optional[PPOLossConfig] = None,
                    training_args=None, param_store: Optional[ParamStore] = None,
                    checkpoint_dir: Optional[str] = None, mesh=None):
-        vp_mesh = _parallel_plan(self, model_config, mesh)
+        cp, pp, vp_mesh = _parallel_plan(self, model_config, mesh)
         self.mesh = mesh
         self.device = _mesh_device(mesh, params)
         if mesh is not None:
-            params = ShardedTree(params, mesh)
+            params = _shard(params, mesh, pp, model_config)
         self.model_config = model_config
         if param_store is not None:
             self.param_store = param_store
@@ -255,8 +272,8 @@ class TorchTrainStrategy(TrainStrategy):
         self.state = TrainState.create(params, self.optimizer)
         self.loss_cfg = loss_cfg or PPOLossConfig()
         self._train_step = make_train_step(model_config, self.loss_cfg, self.optimizer,
-                                           vp_mesh=vp_mesh)
-        self._logprob_step = make_logprob_step(model_config, vp_mesh=vp_mesh)
+                                           cp=cp, pp=pp, vp_mesh=vp_mesh)
+        self._logprob_step = make_logprob_step(model_config, cp=cp, pp=pp, vp_mesh=vp_mesh)
         self.param_store.put("actor", self.state.params)
         self.ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
 
@@ -356,14 +373,14 @@ class TorchInferStrategy(InferenceStrategy):
 
     def initialize(self, model_config: Qwen25VLConfig, params,
                    param_store: Optional[ParamStore] = None, mesh=None):
-        vp_mesh = _parallel_plan(self, model_config, mesh)
+        cp, pp, vp_mesh = _parallel_plan(self, model_config, mesh)
         self.mesh = mesh
         self.model_config = model_config
         if param_store is not None:
             self.param_store = param_store
         self.device = _mesh_device(mesh, params)
-        self._params = params if mesh is None else ShardedTree(params, mesh)
-        self._logprob_step = make_logprob_step(model_config, vp_mesh=vp_mesh)
+        self._params = params if mesh is None else _shard(params, mesh, pp, model_config)
+        self._logprob_step = make_logprob_step(model_config, cp=cp, pp=pp, vp_mesh=vp_mesh)
 
     @property
     def params(self):
@@ -389,7 +406,7 @@ class TorchRewardStrategy(InferenceStrategy):
                    param_store: Optional[ParamStore] = None, mesh=None):
         """With a mesh the body is sharded over it and the value head kept
         whole (stored once, copied onto each rank's first device)."""
-        _parallel_plan(self, model_config, mesh)
+        cp, pp, _ = _parallel_plan(self, model_config, mesh)
         if "value_head_w" not in params:
             raise ValueError("torch_reward strategy needs a value head "
                              "(trainer.add_value_head) on the params tree")
@@ -398,12 +415,12 @@ class TorchRewardStrategy(InferenceStrategy):
             self.param_store = param_store
         self.mesh = mesh
         self.device = _mesh_device(mesh, params)
-        self._params = params if mesh is None else ShardedTree(params, mesh)
+        self._params = params if mesh is None else _shard(params, mesh, pp, model_config)
 
         @torch.no_grad()
         def value_step(params, batch: Dict) -> Dict[str, torch.Tensor]:
             if isinstance(params, ShardedTree):
-                return {"values": _mesh_values(model_config, params, batch)}
+                return {"values": _mesh_values(model_config, params, batch, cp, pp)}
             hidden, _ = qmodel.forward(
                 model_config, params, batch["input_ids"], batch["position_ids"],
                 batch.get("attention_mask"), image_embeds=batch.get("image_embeds"),
@@ -426,17 +443,22 @@ class TorchRewardStrategy(InferenceStrategy):
         return {"values": self.compute_values(batch)}
 
 
-def _mesh_values(config: Qwen25VLConfig, params: ShardedTree, batch: Dict) -> torch.Tensor:
+def _mesh_values(config: Qwen25VLConfig, params: ShardedTree, batch: Dict,
+                 cp=None, pp=None) -> torch.Tensor:
     """The reward model's (B, L-1) values over a mesh: each data rank's
-    hidden states through the whole value head on its first device, put
-    together on the mesh's first device (this process's ranks: the reward
-    strategy runs in one process)."""
+    hidden states (under cp put back into the original order) through the
+    whole value head on its first device, put together on the mesh's first
+    device (this process's ranks: the reward strategy runs in one
+    process)."""
     ranks, rows = params.data_ranks(batch["input_ids"].shape[0])
     hiddens, _ = qmodel.forward_mesh(
         config, ranks, rows, batch["input_ids"],
         batch["position_ids"], batch.get("attention_mask"),
         image_embeds=batch.get("image_embeds"), image_rows=batch.get("image_embeds_rows"),
-        logits=False)
+        logits=False, cp=cp, pp=pp)
+    if cp is not None:
+        L = batch["input_ids"].shape[1]
+        hiddens = [h[:, torch.as_tensor(cp.inv_perm(L), device=h.device)] for h in hiddens]
     main = ranks[0].home
     return torch.cat([
         value_head({k: rank.top(k)[0] for k in ("value_head_w", "value_head_b")},

@@ -1,7 +1,6 @@
 """GRPO/PPO train and logprob steps, on one device or over a train mesh.
 
-The counterpart of socioreasoner_tpu/distributed/trainer.py without context
-or pipeline parallelism (the next port slice):
+The counterpart of socioreasoner_tpu/distributed/trainer.py:
 
   make_optimizer        — clip_by_global_norm → AdamW (decoupled, eps outside
                           the sqrt, bias-corrected, moments in the param
@@ -33,7 +32,14 @@ together on the mesh's first device, so the loss and its metrics are those
 of the global batch, as in JAX's one global program; the gradient of each
 block is summed over the ranks by autograd (and across processes by
 utils/collective.py), the global norm counts each block once (a replicated
-leaf once), and the optimizer updates the blocks in place.
+leaf once), and the optimizer updates the blocks in place. `cp` (a
+parallel/context_parallel.CPConfig) splits each rank's sequence over its sp
+devices, ring or Ulysses attention; `pp` (a
+parallel/pipeline_parallel.PPConfig) runs each rank's layers through the
+GPipe or interleaved schedule over its pp stages. Both need the mesh, and
+the trainable kernels still run where the attention is full-sequence (each
+Ulysses head slice, each pipeline stage's layers), where the JAX package
+attends densely under cp and pp.
 
 JAX's train state is immutable; here `train_step` updates the parameters and
 the optimizer state IN PLACE and returns the same TrainState, so the trainer
@@ -283,26 +289,40 @@ def chunked_logp_entropy(params, hidden: torch.Tensor, labels: torch.Tensor,
 
 def _mesh_log_probs(config: Qwen25VLConfig, params: ShardedTree, batch: Dict,
                     remat: bool, with_entropy: bool, use_flash: bool, vp: bool,
-                    chunk_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                    chunk_size: int, cp=None, pp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """_model_log_probs over a train mesh: the global batch's (B, L-1) logp
     and entropy on the mesh's first device, this process's rows computed by
     its data ranks (the others' gathered from their processes, without
-    gradient)."""
+    gradient).
+
+    With cp the ranks' hidden states come in cp's layout: the next-token
+    labels are built in the ORIGINAL order (the last column a dummy, masked
+    by every caller), permuted to match, and the per-token logp and entropy
+    inverse-permuted back, so only (B, L) arrays cross the permutation."""
     ids = batch["input_ids"]
     ranks, rows = params.data_ranks(ids.shape[0])
     hiddens, _ = qmodel.forward_mesh(
         config, ranks, rows, ids, batch["position_ids"], batch.get("attention_mask"),
         image_embeds=batch.get("image_embeds"), image_rows=batch.get("image_embeds_rows"),
-        remat=remat, logits=False, use_flash=use_flash)
+        remat=remat, logits=False, use_flash=use_flash, cp=cp, pp=pp)
     main = ranks[0].home
+    if cp is not None:
+        L = ids.shape[1]
+        perm = torch.as_tensor(cp.perm(L), device=ids.device)
+        inv = torch.as_tensor(cp.inv_perm(L), device=main)
+        labels = torch.cat([ids[:, 1:], ids[:, -1:]], dim=1)[:, perm]
+    else:
+        labels = ids[:, 1:]
     lps, ents = [], []
     for rank, sl, hidden in zip(ranks, rows, hiddens):
-        lp, ent = chunked_logp_entropy(qmodel.rank_heads(rank), hidden[:, :-1],
-                                       ids[sl, 1:].to(rank.home), chunk_size,
-                                       with_entropy, vp)
+        lp, ent = chunked_logp_entropy(qmodel.rank_heads(rank),
+                                       hidden if cp is not None else hidden[:, :-1],
+                                       labels[sl].to(rank.home), chunk_size, with_entropy, vp)
         lps.append(lp.to(main))
         ents.append(ent.to(main))
     lp, ent = torch.cat(lps), torch.cat(ents)
+    if cp is not None:
+        lp, ent = lp[:, inv][:, :-1], ent[:, inv][:, :-1]
     if params.mesh.process_count > 1:
         lp, ent = gather_rows(lp, params.mesh), gather_rows(ent, params.mesh)
     return lp, ent
@@ -312,16 +332,14 @@ def _model_log_probs(config: Qwen25VLConfig, params, batch: Dict,
                      remat: bool, with_entropy: bool = True, use_flash: bool = False,
                      cp=None, pp=None, vp_mesh=None, chunk_size: int = HEAD_CHUNK):
     """Forward → (logp of the next-token labels, entropy), both (B, L-1).
-    A ShardedTree runs over its mesh (vocab-parallel with vp_mesh)."""
-    if cp is not None or pp is not None:
-        raise NotImplementedError(
-            "context / pipeline parallel log-probs come in the next port slice "
-            "(ROADMAP queue 1 items 8b.3 and 8b.4)")
+    A ShardedTree runs over its mesh (vocab-parallel with vp_mesh; context
+    parallel with cp, pipeline parallel with pp, which need one)."""
     if isinstance(params, ShardedTree):
         return _mesh_log_probs(config, params, batch, remat, with_entropy, use_flash,
-                               vp_mesh is not None, chunk_size)
-    if vp_mesh is not None:
-        raise ValueError("vocab-parallel log-probs run over a train mesh: shard the params "
+                               vp_mesh is not None, chunk_size, cp, pp)
+    if vp_mesh is not None or cp is not None or pp is not None:
+        raise ValueError("vocab-parallel, context-parallel and pipeline-parallel log-probs "
+                         "run over a train mesh: shard the params "
                          "(parallel.sharding.ShardedTree)")
     ids = batch["input_ids"]
     hidden, _ = qmodel.forward(

@@ -16,7 +16,9 @@ blocks gathered into whole logits before anything samples them.
 Under the train plane (`forward_mesh`) every data rank of a mesh runs the
 model on its rows over its tp devices from a parallel/sharding.RankParams:
 the embedding and head blocks gathered over fsdp, the decoder one layer at
-a time (text.py), and the image embeddings of the rank's own samples.
+a time (text.py), and the image embeddings of the rank's own samples;
+under context parallelism the sequence in cp's layout over the rank's sp
+rows, under pipeline parallelism the layers over its pp stages.
 """
 
 from __future__ import annotations
@@ -103,7 +105,15 @@ def forward(
 
     With `tp`, `params` and `cache` are the per-shard lists and the result
     lies on tp[0] (the image embeddings are moved there); with `tp` and no
-    cache, `params` is a train-plane rank (RankParams, see forward_mesh)."""
+    cache, `params` is a train-plane rank (RankParams, see forward_mesh).
+
+    With cp (parallel/context_parallel.CPConfig) the embeddings and the
+    image scatter are computed in the ORIGINAL order, then the embeddings,
+    rotary tables and mask are permuted into cp's layout (zigzag for the
+    ring; the identity for Ulysses) with q_positions = the permutation:
+    the returned logits or hidden states are in the PERMUTED order (map
+    them back with cp.inv_perm(L)). With pp (PPConfig) the decoder runs
+    the pipeline schedule over the rank's stages."""
     tcfg = config.text
     if tp is not None:
         home = torch.device(tp[0])
@@ -140,8 +150,20 @@ def forward(
 
     # Causality follows SEQUENCE order, not M-RoPE values: image tokens share
     # equal t-positions, so masking by position value would be bidirectional.
+    q_positions = None
+    if cp is not None and cache is None and tp is not None:
+        # the image scatter ran in the original order; now everything goes
+        # into cp's layout, each token keeping its global position (without
+        # a train-plane rank text_decoder refuses cp)
+        B, L = input_ids.shape
+        perm = torch.as_tensor(cp.perm(L), device=embeds.device)
+        q_positions = perm[None].expand(B, L)
+        embeds = embeds[:, perm]
+        cos, sin = cos[:, perm], sin[:, perm]
+        if attention_mask is not None:
+            attention_mask = attention_mask[:, perm.to(attention_mask.device)]
     hidden, new_cache = text_decoder(
-        tcfg, params, embeds, cos, sin, attention_mask, q_positions=None,
+        tcfg, params, embeds, cos, sin, attention_mask, q_positions=q_positions,
         cache=cache, cache_positions=cache_positions, remat=remat,
         use_flash=use_flash, cp=cp, pp=pp, tp=tp, act_quant=act_quant)
     if not logits:
@@ -174,14 +196,16 @@ def image_row_offsets(image_embeds: torch.Tensor, n_samples: int, rows=None):
 
 def forward_mesh(config: Qwen25VLConfig, ranks, row_slices, input_ids, position_ids,
                  attention_mask=None, *, image_embeds=None, image_rows=None,
-                 remat: bool = False, logits: bool = True, use_flash: Optional[bool] = None):
+                 remat: bool = False, logits: bool = True, use_flash: Optional[bool] = None,
+                 cp=None, pp=None):
     """The model over a train mesh: ranks[r] (RankParams) runs rows
     row_slices[r] of the batch (input_ids (B, L) etc., on any device) on its
     own devices, with the image embeddings of its own samples (their offsets
     from `image_rows` or equal rows a sample). Returns (a list of each
     rank's logits or hidden states on its first device, {"moe_aux": the
     load-balance loss of the whole batch, summed over layers, on the first
-    rank's device} for MoE configs, else None)."""
+    rank's device} for MoE configs, else None). cp and pp as in forward:
+    under cp each rank's outputs are in cp's layout."""
     n = input_ids.shape[0]
     offs = None if image_embeds is None else image_row_offsets(image_embeds, n, image_rows)
     outs, stats, n_tokens = [], None, 0
@@ -193,7 +217,7 @@ def forward_mesh(config: Qwen25VLConfig, ranks, row_slices, input_ids, position_
         mask = None if attention_mask is None else attention_mask[rows].to(home)
         out, aux = forward(config, rank, input_ids[rows].to(home), position_ids[rows].to(home),
                            mask, image_embeds=img, remat=remat, logits=logits,
-                           use_flash=use_flash, tp=rank.devices)
+                           use_flash=use_flash, cp=cp, pp=pp, tp=rank.devices)
         outs.append(out)
         if aux is not None:
             first = ranks[0].home

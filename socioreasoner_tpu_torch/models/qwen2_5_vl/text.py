@@ -41,10 +41,15 @@ rank's tp devices (parallel/sharding.RankParams): each layer gathered over
 fsdp just before it runs (inside its checkpoint under remat), column-parallel
 q/k/v and gate/up, the trainable kernels 4-6 on each shard's local heads
 with a kernel-6 plan a shard, row-parallel o_proj/down_proj partial sums
-added on the rank's first device; differentiable throughout. Context and
-pipeline parallelism (the next port slice) and quantized weights on the
-uncached path (the JAX package multiplies their codes unscaled there) are
-not ported and raise NotImplementedError.
+added on the rank's first device; differentiable throughout. Under context
+parallelism the rank's sequence is split over its sp rows and attention
+runs as ring attention (plain PyTorch, as in the JAX package) or as
+Ulysses' all-to-all (kernels 4-6 on each head slice under use_flash);
+under pipeline parallelism its layers run whole on its stage devices
+through the GPipe or interleaved schedule (parallel/pipeline_parallel.py,
+kernels 4-6 a micro-batch). PP with CP raises, as JAX's assert does.
+Quantized weights on the uncached path (the JAX package multiplies their
+codes unscaled there) are not ported and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -62,6 +67,9 @@ from ...ops.flash_attention_bwd import dkv_plan, flash_attention_trainable
 from ...ops.moe import moe_experts, moe_mlp, moe_router
 from ...ops.norms import rms_norm, swiglu
 from ...ops.quant import _INV127, _scale, int_matmul, matmul_q, params_prequantized
+from ...parallel.pipeline_parallel import pipeline_decoder
+from ...parallel.ring_attention import ring_attention_pos_local
+from ...parallel.ulysses import ulysses_attention_local, ulysses_heads
 from .config import TextConfig
 from .rope import apply_rotary
 
@@ -372,64 +380,139 @@ def moe_aux_from_stats(stats: torch.Tensor, n_tokens: int) -> torch.Tensor:
 
 
 def _decoder_uncached_tp(cfg: TextConfig, rank, x, cos, sin, attention_mask,
-                         use_flash: bool, remat: bool):
+                         use_flash: bool, remat: bool, cp=None, q_positions=None):
     """The uncached decoder of one data rank of the train plane over its tp
     devices (rank: parallel/sharding.RankParams; x on rank.home). Each
     layer's leaves are gathered over fsdp inside the layer (so inside its
     checkpoint under remat); the trainable kernels (use_flash) run on each
     shard's local heads over the valid prefix lengths, with one kernel-6
-    plan a shard, never shared. Returns (x, a list of the layers' moe_stats
-    for MoE configs, else None)."""
+    plan a shard, never shared.
+
+    With cp (parallel/context_parallel.CPConfig) the sequence, already in
+    cp's layout, is split over the rank's sp rows (rank.sp_devices): each
+    row runs its tokens' projections and MLP on its tp devices, and
+    attention couples the rows on each tp index's local heads: ring
+    attention over the global `q_positions` and the padding mask (impl
+    "ring"), or Ulysses' all-to-all with dense attention, or the trainable
+    kernels under use_flash, over every head slice (impl "ulysses").
+    Returns (x on rank.home, a list of the layers' moe_stats for MoE
+    configs, else None)."""
     devices = rank.devices
     T = len(devices)
     if cfg.num_attention_heads % T or cfg.num_key_value_heads % T:
         raise ValueError(f"tp={T} must divide the heads: H={cfg.num_attention_heads}, "
                          f"Hkv={cfg.num_key_value_heads} (a head is never split)")
     B, L, _ = x.shape
-    home = x.device
     H, Hkv = cfg.num_attention_heads // T, cfg.num_key_value_heads // T
-    at = [dict(cos=cos.to(dev), sin=sin.to(dev)) for dev in devices]
-    if use_flash:
+    rows = [devices] if cp is None else rank.sp_devices     # [sp row][tp index]
+    n = len(rows)
+    if L % n:
+        raise ValueError(f"sequence length {L} does not split over sp={n}")
+    Ls = L // n
+    homes = [row[0] for row in rows]
+
+    def chunk(a, s, dev):
+        return a[:, s * Ls:(s + 1) * Ls].to(dev)
+    at = [[dict(cos=chunk(cos, s, dev), sin=chunk(sin, s, dev)) for dev in row]
+          for s, row in enumerate(rows)]
+    plans = None
+    impl = None if cp is None else cp.impl
+    if impl == "ring":
+        mask = (torch.ones((B, L), dtype=torch.int32, device=x.device)
+                if attention_mask is None else attention_mask)
+        pos = torch.broadcast_to(q_positions, (B, L))
+        for s, row in enumerate(rows):
+            for a, dev in zip(at[s], row):
+                a["pos"], a["kv_mask"] = chunk(pos, s, dev), chunk(mask, s, dev)
+    elif impl == "ulysses":
+        for s, row in enumerate(rows):
+            for a, dev in zip(at[s], row):
+                a["mask"] = None if attention_mask is None else chunk(attention_mask, s, dev)
+        Hu, Hkvu = ulysses_heads(H, Hkv, n)
+        if use_flash and torch.is_grad_enabled():
+            # kernel 6's work list a device of each tp index's all-to-all,
+            # from the rank's lengths at the head slice
+            lens = None if attention_mask is None else attention_mask.sum(-1)
+            plans = [[dkv_plan(lens, B, L, L, Hu, Hkvu, True, rows[j][t]) for j in range(n)]
+                     for t in range(T)]
+    elif use_flash:
         lens = None if attention_mask is None else attention_mask.sum(-1)
-        for a, dev in zip(at, devices):
+        for a, dev in zip(at[0], devices):
             a["lens"] = None if lens is None else lens.to(dev)
             # kernel 6's work list from this rank's lengths at the shard's
             # local heads: one host read a shard, and a plan of its own
             a["plan"] = (dkv_plan(lens, B, L, L, H, Hkv, True, dev)
                          if torch.is_grad_enabled() else None)
     else:
-        for a, dev in zip(at, devices):
+        for a, dev in zip(at[0], devices):
             a["mask"] = None if attention_mask is None else attention_mask.to(dev)
 
-    def layer(i, x):
-        ps = rank.layer(i)
-        h = rms_norm(x, ps[0]["input_ln"], cfg.rms_norm_eps)
-        outs = []
-        for p, a, dev in zip(ps, at, devices):
-            q, k, v = _qkv(cfg, p, h.to(dev), T)
-            q, k = apply_rotary(q, k, a["cos"], a["sin"])
-            if use_flash:
-                out = flash_attention_trainable(q, k, v, a["lens"], True, a["plan"])
+    def attend(qkv):
+        """qkv[s][t] = (q, k, v) → out[s][t] (B, Ls, H, D)."""
+        if impl is None:
+            out = []
+            for (q, k, v), a in zip(qkv[0], at[0]):
+                out.append(flash_attention_trainable(q, k, v, a["lens"], True, a["plan"])
+                           if use_flash else
+                           dense_attention(q, k, v, causal=True, attention_mask=a["mask"]))
+            return [out]
+        outs = [[None] * T for _ in range(n)]
+        for t in range(T):
+            qs, ks, vs = (list(z) for z in zip(*(qkv[s][t] for s in range(n))))
+            cells = [at[s][t] for s in range(n)]
+            if impl == "ring":
+                if Hkv != H:                      # GQA: repeat KV heads
+                    ks = [k.repeat_interleave(H // Hkv, dim=2) for k in ks]
+                    vs = [v.repeat_interleave(H // Hkv, dim=2) for v in vs]
+                pos = [c["pos"] for c in cells]
+                res = ring_attention_pos_local(qs, ks, vs, pos, pos,
+                                               [c["kv_mask"] for c in cells], causal=True)
             else:
-                out = dense_attention(q, k, v, causal=True, attention_mask=a["mask"])
-            outs.append(out.reshape(B, L, -1))
-        x = x + row_parallel(outs, ps, "o_w", False, home)
-        h2 = rms_norm(x, ps[0]["post_ln"], cfg.rms_norm_eps)
-        h2s = [h2.to(dev) for dev in devices]
-        if cfg.n_experts:
-            out, stats = _moe(cfg, ps, h2, h2s, home, with_stats=True)
-            return x + out, stats
-        acts = [torch.nn.functional.silu(h2t @ p["gate_w"]) * (h2t @ p["up_w"])
-                for h2t, p in zip(h2s, ps)]
-        return x + row_parallel(acts, ps, "down_w", False, home), None
+                masks = None if attention_mask is None else [c["mask"] for c in cells]
+                res = ulysses_attention_local(qs, ks, vs, masks, causal=True,
+                                              use_flash=use_flash,
+                                              plans=None if plans is None else plans[t])
+            for s in range(n):
+                outs[s][t] = res[s]
+        return outs
 
+    def layer(i, *xs):
+        ps = [rank.layer(i, row) for row in rows]
+        qkv = []
+        for s, row in enumerate(rows):
+            h = rms_norm(xs[s], ps[s][0]["input_ln"], cfg.rms_norm_eps)
+            cells = []
+            for p, a, dev in zip(ps[s], at[s], row):
+                q, k, v = _qkv(cfg, p, h.to(dev), T)
+                q, k = apply_rotary(q, k, a["cos"], a["sin"])
+                cells.append((q, k, v))
+            qkv.append(cells)
+        outs = attend(qkv)
+        new, stats = [], None
+        for s, row in enumerate(rows):
+            xr = xs[s] + row_parallel([o.reshape(B, Ls, -1) for o in outs[s]], ps[s], "o_w",
+                                      False, homes[s])
+            h2 = rms_norm(xr, ps[s][0]["post_ln"], cfg.rms_norm_eps)
+            h2s = [h2.to(dev) for dev in row]
+            if cfg.n_experts:
+                out, st = _moe(cfg, ps[s], h2, h2s, homes[s], with_stats=True)
+                stats = st.to(homes[0]) if stats is None else stats + st.to(homes[0])
+                new.append(xr + out)
+                continue
+            acts = [torch.nn.functional.silu(h2t @ p["gate_w"]) * (h2t @ p["up_w"])
+                    for h2t, p in zip(h2s, ps[s])]
+            new.append(xr + row_parallel(acts, ps[s], "down_w", False, homes[s]))
+        return (*new, stats)
+
+    xs = [chunk(x, s, home) for s, home in enumerate(homes)]
     stats = []
     for i in range(cfg.num_hidden_layers):
         if remat and torch.is_grad_enabled():
-            x, st = checkpoint(layer, i, x, use_reentrant=False)
+            *xs, st = checkpoint(layer, i, *xs, use_reentrant=False)
         else:
-            x, st = layer(i, x)
+            *xs, st = layer(i, *xs)
         stats.append(st)
+    x = xs[0] if n == 1 else torch.cat([xr.to(x.device) for xr in xs], dim=1)
     return x, (stats if cfg.n_experts else None)
 
 
@@ -461,15 +544,25 @@ def text_decoder(
     `cache` are lists of per-shard trees and caches, and the result is on
     tp[0]; the final norm uses the first shard's copy. With `tp` and no
     cache, `params` is a train-plane rank (parallel/sharding.RankParams) and
-    the second value {"moe_stats": [per layer]} for MoE configs."""
-    if cp is not None or pp is not None:
-        raise NotImplementedError(
-            "context / pipeline parallelism comes in the next port slice "
-            "(ROADMAP queue 1 items 8b.3 and 8b.4)")
+    the second value {"moe_stats": [per layer]} for MoE configs; `cp` (a
+    CPConfig: the input already in its layout, causality by the global
+    `q_positions`) or `pp` (a PPConfig) then shard the sequence over the
+    rank's sp rows or its layers over its pp stages."""
+    if (cp is not None or pp is not None) and cache is None:
+        if pp is not None and cp is not None:
+            raise ValueError("PP and CP cannot combine (pick one seq plan)")
+        if tp is None:
+            raise ValueError("context and pipeline parallelism run over a train mesh: "
+                             "shard the params (parallel.sharding.ShardedTree)")
     if tp is not None:
         if cache is None:
+            if pp is not None:
+                x = pipeline_decoder(cfg, params, inputs_embeds, cos, sin, attention_mask,
+                                     q_positions, pp, remat, bool(use_flash))
+                return rms_norm(x, params.top("final_ln")[0], cfg.rms_norm_eps), None
             x, stats = _decoder_uncached_tp(cfg, params, inputs_embeds, cos, sin,
-                                            attention_mask, bool(use_flash), remat)
+                                            attention_mask, bool(use_flash), remat,
+                                            cp, q_positions)
             return (rms_norm(x, params.top("final_ln")[0], cfg.rms_norm_eps),
                     None if stats is None else {"moe_stats": stats})
         x, new_cache = _decoder_cached_tp(cfg, params, inputs_embeds, cos, sin, cache,

@@ -5,8 +5,8 @@ The JAX package lays a `jax.sharding.Mesh` over its devices and lets GSPMD
 insert the collectives. The port runs the serving and train planes as one
 controller over explicit device lists: a `Mesh` here is a named grid of
 `torch.device`s, and the code that shards over an axis (the tensor-parallel
-decode engine over "tp", the train step over dp, fsdp and tp) takes that
-axis's devices and moves the tensors itself. A device may appear more than
+decode engine over "tp", the train step over dp, fsdp, pp, sp and tp) takes
+that axis's devices and moves the tensors itself. A device may appear more than
 once, so two shards can share one card.
 
 Several processes (runtime/initialize.py) split a mesh along dp: each holds
@@ -16,6 +16,7 @@ sizes, and utils/collective.py reduces across the processes.
 Canonical axes:
   dp    — data parallel (batch dim)
   fsdp  — parameter/optimizer sharding (batch also sharded here)
+  pp    — pipeline stages (layer chunks)
   tp    — tensor/model parallel (heads, mlp hidden, vocab)
   sp    — sequence/context parallel
   ep    — expert parallel (folded into tp)
@@ -158,10 +159,7 @@ def split_rows(n_rows: int, parts: int) -> List[slice]:
     return [slice(r * b, (r + 1) * b) for r in range(parts)]
 
 
-def rank_devices(mesh: Mesh, d: int, f: int) -> List[torch.device]:
-    """The tp devices of the local data rank (d, f)."""
-    if mesh.local_shape.get("pp", 1) > 1 or mesh.local_shape.get("sp", 1) > 1:
-        raise NotImplementedError(
-            "pipeline and context parallelism of the train plane come in the next "
-            "port slice (ROADMAP queue 1 items 8b.3 and 8b.4)")
-    return list(mesh.devices[d, f, 0, 0, :])
+def rank_devices(mesh: Mesh, d: int, f: int) -> np.ndarray:
+    """The (pp, sp, tp) grid of devices of the local data rank (d, f): its
+    pipeline stages, each stage's sp rows, each row's tp devices."""
+    return mesh.devices[d, f]

@@ -24,7 +24,11 @@ an axis it does not name), each stored once on the device of (dp 0, f, t).
 A data rank gathers one layer's fsdp blocks onto its tp devices just before
 that layer (RankParams), so autograd hands each block its gradient summed
 over the ranks that read it: the reduce-scatter of JAX's GSPMD program.
-The optimizer keeps its moments per block.
+The optimizer keeps its moments per block. A rank's devices are a (pp, sp,
+tp) grid: context parallelism gathers each layer onto the tp devices of
+every sp row, pipeline parallelism gathers it whole onto its stage's
+device, and under pp the stacked layer leaves are stored a stage, on the
+stage's devices (ShardedTree's layer_stages).
 """
 
 from __future__ import annotations
@@ -191,28 +195,44 @@ def _cat(parts: List[torch.Tensor], dim: Optional[int]) -> torch.Tensor:
 
 
 class ShardedLeaf:
-    """One leaf over a mesh's fsdp x tp positions: blocks[f][t] is the
-    contiguous block (torch.tensor_split) of the dim over "fsdp" (fdim) and
-    the dim over "tp" (tdim); a leaf whose spec names neither keeps one
-    block."""
+    """One leaf over a mesh's fsdp x tp positions and, for a stacked layer
+    leaf under pipeline parallelism, over its pp stages: pieces[p][f][t] is
+    stage p's layers (`stages[p]`, original layer indices in the stage's
+    order; all of dim 0 without stages) cut into the contiguous block
+    (torch.tensor_split) of the dim over "fsdp" (fdim) and of the dim over
+    "tp" (tdim), stored on the device of (dp 0, f, p, sp 0, t); a leaf
+    whose spec names neither axis keeps one block a stage. `blocks` is
+    stage 0's [f][t] (every block without stages)."""
 
-    def __init__(self, x: torch.Tensor, spec: Sequence, mesh):
+    def __init__(self, x: torch.Tensor, spec: Sequence, mesh, stages=None):
         self.shape, self.dtype = tuple(x.shape), x.dtype
         self.fdim, self.tdim = _dim(spec, "fsdp"), _dim(spec, "tp")
         shape = mesh.local_shape
-        nf = shape.get("fsdp", 1) if self.fdim is not None else 1
-        nt = shape.get("tp", 1) if self.tdim is not None else 1
-        fparts = x.tensor_split(nf, dim=self.fdim) if nf > 1 else [x]
-        self.blocks = []
-        for f, part in enumerate(fparts):
-            tparts = part.tensor_split(nt, dim=self.tdim) if nt > 1 else [part]
-            self.blocks.append([
-                p.detach().to(device=mesh.devices[0, f, 0, 0, t], copy=True,
-                              memory_format=torch.contiguous_format)
-                for t, p in enumerate(tparts)])
+        self.nf = shape.get("fsdp", 1) if self.fdim is not None else 1
+        self.nt = shape.get("tp", 1) if self.tdim is not None else 1
+        self.stages = None if stages is None else [list(idx) for idx in stages]
+        self.pieces = [
+            [[p.detach().to(device=mesh.devices[0, f, s, 0, t], copy=True,
+                            memory_format=torch.contiguous_format)
+              for t, p in enumerate(row)] for f, row in enumerate(self._cut(part))]
+            for s, part in enumerate(self._stage_parts(x))]
+
+    @property
+    def blocks(self) -> List[List[torch.Tensor]]:
+        return self.pieces[0]
+
+    def _stage_parts(self, x: torch.Tensor) -> List[torch.Tensor]:
+        if self.stages is None:
+            return [x]
+        return [x[torch.as_tensor(idx, device=x.device)] for idx in self.stages]
+
+    def _cut(self, x: torch.Tensor) -> List[List[torch.Tensor]]:
+        fparts = x.tensor_split(self.nf, dim=self.fdim) if self.nf > 1 else [x]
+        return [part.tensor_split(self.nt, dim=self.tdim) if self.nt > 1 else [part]
+                for part in fparts]
 
     def tensors(self) -> List[torch.Tensor]:
-        return [b for row in self.blocks for b in row]
+        return [b for piece in self.pieces for row in piece for b in row]
 
     def tp_block(self, t: int, parts=None, fdim=None) -> torch.Tensor:
         """The block of tp position t over the whole fsdp dim (the fsdp
@@ -221,27 +241,43 @@ class ShardedLeaf:
         tt = t if len(parts[0]) > 1 else 0
         return _cat([row[tt] for row in parts], self.fdim if fdim is None else fdim)
 
+    def layer_parts(self) -> List[List[List[torch.Tensor]]]:
+        """A stacked layer leaf's blocks as one [f][t] list of per-layer
+        views a layer, in the original layer order (each piece unbound
+        once)."""
+        out = [None] * self.shape[0]
+        for idx, piece in zip(self.stages or [range(self.shape[0])], self.pieces):
+            views = [[b.unbind(0) for b in row] for row in piece]
+            for j, i in enumerate(idx):
+                out[i] = [[v[j] for v in row] for row in views]
+        return out
+
     def whole(self, tensors: Optional[List[torch.Tensor]] = None, device=None) -> torch.Tensor:
         """The whole leaf from its blocks (or from `tensors`, aligned with
         tensors()), on `device` (the first block's when None)."""
         flat = self.tensors() if tensors is None else tensors
         device = flat[0].device if device is None else device
-        nt = len(self.blocks[0])
-        rows = [[flat[f * nt + t].to(device) for t in range(nt)]
-                for f in range(len(self.blocks))]
-        return _cat([_cat(row, self.tdim) for row in rows], self.fdim)
+        per = self.nf * self.nt
+        stages = []
+        for s in range(len(self.pieces)):
+            rows = [[flat[s * per + f * self.nt + t].to(device) for t in range(self.nt)]
+                    for f in range(self.nf)]
+            stages.append(_cat([_cat(row, self.tdim) for row in rows], self.fdim))
+        if self.stages is None:
+            return stages[0]
+        order = torch.as_tensor([i for idx in self.stages for i in idx], device=device)
+        return torch.cat(stages)[torch.argsort(order)]
 
     def split(self, x: torch.Tensor) -> List[List[torch.Tensor]]:
-        """A whole tensor of this leaf's shape cut as the blocks are (views)."""
-        nf, nt = len(self.blocks), len(self.blocks[0])
-        fparts = x.tensor_split(nf, dim=self.fdim) if nf > 1 else [x]
-        return [part.tensor_split(nt, dim=self.tdim) if nt > 1 else [part]
-                for part in fparts]
+        """A whole tensor of this leaf's shape cut as the blocks are, flat
+        over the stages (pieces[p][f][t] → [p * nf + f][t])."""
+        return [row for part in self._stage_parts(x) for row in self._cut(part)]
 
     @torch.no_grad()
     def assign(self, x: torch.Tensor) -> None:
         """Copy the whole leaf `x` into the blocks in place."""
-        for row, parts in zip(self.blocks, self.split(x)):
+        rows = [row for piece in self.pieces for row in piece]
+        for row, parts in zip(rows, self.split(x)):
             for block, p in zip(row, parts):
                 block.copy_(p)
 
@@ -250,21 +286,26 @@ class ShardedTree:
     """A float parameter tree over a train mesh (see the module doc): the
     same nesting with a ShardedLeaf in place of every tensor. `leaves` are
     in trainer.tree_leaves order, and `blocks()` lists every stored block
-    once (leaf by leaf, f then t), which is what the optimizer and the
-    global gradient norm walk."""
+    once (leaf by leaf, stage then f then t), which is what the optimizer
+    and the global gradient norm walk. `layer_stages` (pipeline
+    parallelism: PPConfig.stage_layers) lists the layers of each pp stage:
+    the stacked layer leaves are then stored a stage on that stage's
+    devices, and so are their optimizer moments."""
 
-    def __init__(self, tree: Dict, mesh, specs: Optional[Dict] = None):
+    def __init__(self, tree: Dict, mesh, specs: Optional[Dict] = None,
+                 layer_stages: Optional[List[List[int]]] = None):
         self.mesh = mesh
         specs = shard_specs(tree) if specs is None else specs
         self.leaves: List[ShardedLeaf] = []
 
-        def walk(node, spec):
+        def walk(node, spec, stages=None):
             out = {}
             for key, v in node.items():
                 if isinstance(v, dict):
-                    out[key] = walk(v, spec[key])
+                    inner = layer_stages if node is tree and key == "layers" else None
+                    out[key] = walk(v, spec[key], inner)
                 else:
-                    out[key] = ShardedLeaf(v, spec[key], mesh)
+                    out[key] = ShardedLeaf(v, spec[key], mesh, stages)
                     self.leaves.append(out[key])
             return out
         self.tree = walk(tree, specs)
@@ -294,7 +335,8 @@ class ShardedTree:
         return [p.to(device=b.device, dtype=b.dtype, copy=True,
                      memory_format=torch.contiguous_format)
                 for leaf, x in zip(self.leaves, wholes)
-                for row, parts in zip(leaf.blocks, leaf.split(x))
+                for row, parts in zip([r for piece in leaf.pieces for r in piece],
+                                      leaf.split(x))
                 for b, p in zip(row, parts)]
 
     @torch.no_grad()
@@ -332,18 +374,33 @@ class ShardedTree:
 
 
 class RankParams:
-    """One data rank's view of a ShardedTree: its tp devices, the top-level
-    leaves gathered over fsdp onto each of them (once a rank and step,
-    `top`), and one decoder layer gathered at a time (`layer`, called inside
-    the layer's checkpoint so that the backward gathers again instead of
-    keeping every layer's copy)."""
+    """One data rank's view of a ShardedTree over its (pp, sp, tp) grid of
+    devices (`grid`): `devices` are the tp devices of stage 0 and sp row 0,
+    `home` the first of them. The top-level leaves are gathered over fsdp
+    onto each tp device once a rank and step (`top`); one decoder layer is
+    gathered at a time, called inside the layer's checkpoint so that the
+    backward gathers again instead of keeping every layer's copy: over
+    fsdp onto the tp devices of an sp row (`layer`, context parallelism
+    runs every row), or over fsdp and tp onto one device (`stage_layer`,
+    a pipeline stage runs its layers whole)."""
 
-    def __init__(self, sharded: ShardedTree, devices: List[torch.device]):
+    def __init__(self, sharded: ShardedTree, grid):
         self.sharded = sharded
-        self.devices = [torch.device(d) for d in devices]
+        self.grid = grid
+        self.devices = [torch.device(d) for d in grid[0, 0]]
         self.home = self.devices[0]
         self._top: Dict[str, List[torch.Tensor]] = {}
         self._layers = None
+
+    @property
+    def sp_devices(self) -> List[List[torch.device]]:
+        """The tp devices of each sp row of stage 0."""
+        return [[torch.device(d) for d in row] for row in self.grid[0]]
+
+    @property
+    def stage_devices(self) -> List[torch.device]:
+        """Each pp stage's first device (sp row 0, tp 0)."""
+        return [torch.device(d) for d in self.grid[:, 0, 0]]
 
     def __contains__(self, key) -> bool:
         return key in self.sharded
@@ -355,17 +412,35 @@ class RankParams:
             self._top[key] = [leaf.tp_block(t).to(dev) for t, dev in enumerate(self.devices)]
         return self._top[key]
 
-    def layer(self, i: int) -> List[Dict[str, torch.Tensor]]:
-        """Decoder layer i's leaves, one dict a tp device. The stacked
-        blocks are unbound once a rank and step (the backward of one unbind
-        stacks the layers' gradients once)."""
+    def _layer_parts(self):
+        """Each stacked leaf's per-layer [f][t] views, made once a rank and
+        step (the backward of one unbind stacks the layers' gradients
+        once)."""
         if self._layers is None:
-            self._layers = {k: [[b.unbind(0) for b in row] for row in leaf.blocks]
+            self._layers = {k: leaf.layer_parts()
                             for k, leaf in self.sharded["layers"].items()}
-        out = [dict() for _ in self.devices]
-        for k, leaf in self.sharded["layers"].items():
-            parts = [[views[i] for views in row] for row in self._layers[k]]
+        return self._layers
+
+    def layer(self, i: int, devices=None) -> List[Dict[str, torch.Tensor]]:
+        """Decoder layer i's leaves, one dict a tp device of `devices`
+        (default: the rank's)."""
+        devices = self.devices if devices is None else devices
+        out = [dict() for _ in devices]
+        for k, parts in self._layer_parts().items():
+            leaf = self.sharded["layers"][k]
             fdim = None if leaf.fdim is None else leaf.fdim - 1
-            for t, dev in enumerate(self.devices):
-                out[t][k] = leaf.tp_block(t, parts, fdim).to(dev)
+            for t, dev in enumerate(devices):
+                out[t][k] = leaf.tp_block(t, parts[i], fdim).to(dev)
+        return out
+
+    def stage_layer(self, i: int, device) -> Dict[str, torch.Tensor]:
+        """Decoder layer i whole (gathered over fsdp and tp) on `device`."""
+        out = {}
+        for k, parts in self._layer_parts().items():
+            leaf = self.sharded["layers"][k]
+            fdim = None if leaf.fdim is None else leaf.fdim - 1
+            tdim = None if leaf.tdim is None else leaf.tdim - 1
+            blocks = [leaf.tp_block(t, parts[i], fdim).to(device)
+                      for t in range(len(parts[i][0]))]
+            out[k] = _cat(blocks, tdim)
         return out

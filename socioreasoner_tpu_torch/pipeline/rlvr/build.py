@@ -130,19 +130,13 @@ def build_train_mesh(cfg: SocioSegConfig, devices=None):
     over `devices` (default: every visible CUDA device, default_devices(),
     which raises without one; the CPU only when the caller names it, e.g.
     [torch.device("cpu")] * n), after validate_config against that many
-    devices. The strategy_config knobs (tensor_model_parallel_size, dp_size,
-    fsdp_size, whose -1 takes the remaining devices) and the
-    device_mapping lay the grid; None for one device with every knob at 1.
-    Context and pipeline parallelism raise: they come in the next port
-    slice."""
+    devices. The strategy_config knobs (tensor_model_parallel_size,
+    context_parallel_size on the sp axis, pipeline_model_parallel_size on
+    the pp axis, dp_size, fsdp_size, whose -1 takes the remaining devices)
+    and the device_mapping lay the grid; None for one device with every knob
+    at 1."""
     devices = [torch.device(d) for d in (devices if devices is not None
                                          else default_devices())]
-    sc = cfg.actor_train.strategy_args.config
-    for knob in ("context_parallel_size", "pipeline_model_parallel_size"):
-        if int(sc.get(knob, 1) or 1) > 1:
-            raise NotImplementedError(
-                f"actor_train {knob}={sc[knob]}: context and pipeline parallelism come "
-                "in the next port slice (ROADMAP queue 1 items 8b.3 and 8b.4)")
     validate_config(cfg, n_devices=len(devices))
     return ResourceManager(devices).allocate_mesh("actor_train", cfg.actor_train)
 

@@ -322,9 +322,9 @@ def test_build_train_mesh_on_one_gpu(world, tmp_path, knobs):
     mesh, and without CUDA the default device list raises instead of falling
     back to the CPU. Over device_mapping list(range(0,4)) of four cpu
     entries (two for fsdp_size 2) the tp, fsdp, dp and mapping cases give
-    the mesh JAX's build_train_mesh lays over its virtual devices; cp and
-    pp raise, naming the next port slice (validate_config refuses a tp or
-    dp knob above 1 on one device)."""
+    the mesh JAX's build_train_mesh lays over its virtual devices, cp and
+    pp on the sp and pp axes (validate_config refuses a tp, cp, pp or dp
+    knob above 1 on one device)."""
     def config(name, **actor_train):
         return _configs(*_write_yaml(world, "train/rlvr_tpu.yaml", str(tmp_path / name),
                                      actor_train=actor_train))
@@ -336,19 +336,14 @@ def test_build_train_mesh_on_one_gpu(world, tmp_path, knobs):
     mapping = "list(range(0,2))" if "fsdp_size" in knobs else "list(range(0,4))"
     tcfg, jcfg = config("four", device_mapping=mapping,
                         strategy_args={"strategy_config": knobs})
-    if "context_parallel_size" in knobs or "pipeline_model_parallel_size" in knobs:
-        with pytest.raises(NotImplementedError, match="next port slice"):
-            t_build.build_train_mesh(tcfg, devices=four)
-        with pytest.raises(NotImplementedError, match="next port slice"):
-            t_build.build_train_mesh(config("one", strategy_args={"strategy_config": knobs})[0],
-                                     devices=[CPU])
-        return
     mesh = t_build.build_train_mesh(tcfg, devices=four)
     _, jmesh = j_build.build_train_mesh(jcfg)
     assert mesh.shape == dict(jmesh.shape)
-    want = {"tensor_model_parallel_size": (1, 2, 2), "fsdp_size": (1, 2, 1),
-            "dp_size": (2, 2, 1)}.get(next(iter(knobs), None), (1, 4, 1))
-    assert (mesh.shape["dp"], mesh.shape["fsdp"], mesh.shape["tp"]) == want
+    want = {"tensor_model_parallel_size": (1, 2, 1, 1, 2), "fsdp_size": (1, 2, 1, 1, 1),
+            "dp_size": (2, 2, 1, 1, 1), "context_parallel_size": (1, 2, 1, 2, 1),
+            "pipeline_model_parallel_size": (1, 2, 2, 1, 1)}.get(next(iter(knobs), None),
+                                                              (1, 4, 1, 1, 1))
+    assert tuple(mesh.shape[a] for a in ("dp", "fsdp", "pp", "sp", "tp")) == want
     assert list(mesh.devices.reshape(-1)) == four[:mesh.devices.size]
     if knobs and "fsdp_size" not in knobs:
         with pytest.raises(ValueError, match="available devices"):

@@ -277,14 +277,15 @@ def test_prefill_then_cached_decode_matches_uncached(setup):
 
 
 def test_unported_features_raise(setup):
-    """Context parallelism still raises; MoE configs and the qwen2 ViT,
+    """Context parallelism refuses a plain tree (it runs over a train mesh:
+    tests/test_torch_context_parallel.py); MoE configs and the qwen2 ViT,
     once refused here, now initialise and run (their parity with JAX is in
     tests/test_torch_llm_families.py and tests/test_torch_qwen2vl.py)."""
     config, _, tp = setup
     config = _port(config)
     ids = torch.zeros(1, 4, dtype=torch.long)
     pos = torch.zeros(1, 3, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="train mesh"):
         t_model.forward(config, tp, ids, pos, cp=object())
     moe = dataclasses.replace(config, text=dataclasses.replace(
         config.text, n_experts=4, n_experts_per_tok=2, shared_expert_intermediate=24))

@@ -451,22 +451,21 @@ def test_strategy_token_ops_match_jax():
 
 
 def test_unported_train_options_raise():
-    """Context and pipeline parallelism raise, naming the next port slice
-    (the train mesh and vocab-parallel log-probs are ported:
-    tests/test_torch_train_mesh.py); vocab-parallel log-probs need a
-    sharded tree."""
+    """Context and pipeline parallelism and vocab-parallel log-probs run
+    over a train mesh (tests/test_torch_context_parallel.py,
+    tests/test_torch_pipeline_parallel.py, tests/test_torch_train_mesh.py):
+    given a plain tree they refuse, and the strategies refuse their knobs
+    without a mesh, as the JAX strategies do."""
     config = _port(Qwen25VLConfig.tiny())
-    for kwargs in ({"cp": object()}, {"pp": object()}):
-        with pytest.raises(NotImplementedError, match="next port slice"):
+    for kwargs in ({"cp": object()}, {"pp": object()}, {"vp_mesh": object()}):
+        with pytest.raises(ValueError, match="train mesh"):
             TT._model_log_probs(config, {}, {"input_ids": None}, remat=False, **kwargs)
-    with pytest.raises(ValueError, match="train mesh"):
-        TT._model_log_probs(config, {}, {"input_ids": None}, remat=False, vp_mesh=object())
     from socioreasoner_tpu_torch.configs.worker_config import StrategyArguments, WorkerConfig
     for knob in ("context_parallel_size", "pipeline_model_parallel_size"):
         strat = TS.TorchTrainStrategy(worker_config=WorkerConfig(
             strategy_args=StrategyArguments(strategy_name="jax_train",
                                             strategy_config={knob: 2})))
-        with pytest.raises(NotImplementedError, match="next port slice"):
+        with pytest.raises(ValueError, match="requires an explicit mesh"):
             strat.initialize(config, {})
 
 

@@ -451,7 +451,7 @@ def test_tp_must_divide_the_heads(tiny):
                      mesh=t_mesh.make_mesh(tp=4, devices=[CPU] * 4))
     wc = WorkerConfig(strategy_args=StrategyArguments(
         strategy_name="jax_train", strategy_config={"context_parallel_size": 2}))
-    with pytest.raises(NotImplementedError, match="next port slice"):
+    with pytest.raises(ValueError, match="requires an explicit mesh"):
         t_strat.TorchTrainStrategy(worker_config=wc).initialize(
             _port(config), params_from_numpy(np_params, CPU))
 
