@@ -98,7 +98,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 width, tp = 2 with both shards on cuda:0 (8 q heads over 1
                 kv head a shard, its own contiguous cache), with bf16
                 weights, then with int8 single-copy weights and an int8 KV
-                cache; each against the unsharded engine on the same
+                cache, then with int4 single-copy weights (split by their
+                scale groups); each against the unsharded engine on the same
                 requests (tp_tie_check: both engines teacher-forced along
                 the unsharded tokens, every logit within TP_DELTA_LIMIT of
                 the unsharded one, every differing argmax a tie), both
@@ -286,6 +287,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 (4, 512) with 32/4 and 16/16 heads and (4, 2048) with 12/2,
                 kernel 3 at rep 8, 1 and 6, kernels 4-6 at (2, 2048) with
                 32/4); peak < 80 GiB.
+  19. head_dims — kernels 2 and 4-6 at head dims other than 64 and 128,
+                through public checkpoints at full width from their
+                published configs, each written with save_pretrained and
+                read back through llm.load_text_model: H2O-Danube3-4B
+                (32/8 x 120) served at 24 layers (four prompts of 300-500
+                tokens in the bucket of 512, 32 greedy tokens, held to the
+                dense forward with a tie bound measured by teacher-forcing
+                the engine: forced_against_forward) and trained at 4 (two PPO
+                steps on B=2 rows of 2048 against dense attention),
+                Danube3-500M (16/8 x 96) served and trained at 16,
+                Danube2-1.8B (32/8 x 80) trained at 4, OpenLLaMA-3B v2
+                (32/32 x 100, through the host pad to 104) served at 4.
+                Kernel 2 launches in every served pass and 4-6 in every
+                trained one, at the shapes the kernels phase checked
+                (HEAD_DIMS_PREFILL, HEAD_DIMS_TRAIN); kernel 3 never (these
+                head dims decode densely, as in the JAX package). The
+                kernels phase also holds kernel 2 and kernels 4-6 at other
+                widths and GQA ratios (HEAD_DIM_EDGES,
+                HEAD_DIM_TRAIN_EDGES), kernel 1 at 96 and 120, and the
+                host's head_dim_plan against the kernels' formula.
 
 TF32 is off for matmuls and convolutions, so float32 references are full
 float32. Profiles are read through socioreasoner_tpu_torch/utils/profiling.py.
@@ -299,6 +320,7 @@ from __future__ import annotations
 import contextlib
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -659,11 +681,12 @@ def _edge_checks(randn):
             _train_edge_checks(randn, TRAIN_EDGES_64, 64))
 
 
-def _one_image_seg_checks(randn, grid=None):
+def _one_image_seg_checks(randn, grid=None, D=80):
     """Kernel 1 at one image's tower call (`grid`: the rlvr phase's MathVLM
-    756² image, S = 2916, or the agentic phase's 112² frame, S = 64),
-    window and full-layer ids on the plans the tower builds, row by row
-    against the plain version in f32; timed with its bound."""
+    756² image, S = 2916, or the agentic phase's 112² frame, S = 64) with
+    16 heads of D columns, window and full-layer ids on the plans the tower
+    builds, row by row against the plain version in f32; timed with its
+    bound."""
     import torch
     from socioreasoner_tpu_torch.models.qwen2_5_vl.config import VisionConfig
     from socioreasoner_tpu_torch.models.qwen2_5_vl.rope import vision_window_index
@@ -672,7 +695,7 @@ def _one_image_seg_checks(randn, grid=None):
     dev = torch.device("cuda")
     grid = MATH_VLM_GRID if grid is None else grid
     _, window_seg, full_seg = vision_window_index(np.array(grid), VisionConfig())
-    S, H, D = len(window_seg), 16, 80
+    S, H = len(window_seg), 16
     q, k, v = randn(S, H, D), randn(S, H, D), randn(S, H, D)
     bq, bk = fa.seg_block_sizes(S)
     span = max(fa.seg_max_span_blocks(window_seg, bq, bk),
@@ -693,7 +716,7 @@ def _one_image_seg_checks(randn, grid=None):
             qb, kb, vb = (x.transpose(0, 1)[None] for x in (q, k, v))
             lib = lambda: torch.nn.functional.scaled_dot_product_attention(   # noqa: E731
                 qb, kb, vb)
-            lib_name = f"scaled_dot_product_attention (1, 16, {S}, 80)"
+            lib_name = f"scaled_dot_product_attention (1, 16, {S}, {D})"
         out[name] = {"err": err, "ratio": ratio, "ms": cuda_ms(run),
                      "device_ms": graph_call_ms(run), "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": cuda_ms(lib), "library": lib_name}
@@ -989,6 +1012,11 @@ def phase_kernels():
         for row, cases in zip(results[-3:], _phase_train_kernels(randn, spec)):
             row["head_dim_64"][name] = cases
             emit({"phase": f"kernel_head_dim_64_{name}", "name": row["name"], **cases})
+    # every head dim up to 128: the head_dims phase's widths
+    widths = _head_dim_kernels(randn)
+    for row in results:
+        if row["name"] in widths:
+            row["head_dims"] = widths[row["name"]]
     results.append(_row_writer_kernel(randn))
     return results
 
@@ -1013,6 +1041,11 @@ PARALLEL_TP = 2
 PARALLEL_HEADS = (16 // PARALLEL_TP, 2 // PARALLEL_TP)
 PARALLEL_PREFILL = {"B": 4, "L": 2048, "kv_len": 2016}
 PARALLEL_INT8 = {"weight_quant": "int8", "single_copy_quant": True, "kv_quant": "int8"}
+# int4 single-copy weights under tp: q/k/v and gate/up split on their output
+# channels, o_proj and down_proj on their packed rows and scale groups (the
+# 3B's 2048 / 2 and 11008 / 2 contraction rows hold whole 128-row groups),
+# the int4 head whole on each shard
+PARALLEL_INT4 = {"weight_quant": "int4", "single_copy_quant": True}
 # The grpo phase's attention shapes, checked in phase_kernels and held to
 # that phase's pass over the real engine. Prefill (B, L) buckets: stage-1
 # prompts of 2016 tokens at L=2048, one or two distinct prompts a prefill
@@ -1191,6 +1224,73 @@ HEAD_DIM_64_TRAIN = {
     "llama_3_2_1b": {"L": 2048, "train_batch": 2, "logprob_batch": 2, "kv_lens": (2048, 1500),
                      "H": 32, "Hkv": 8, "D": 64},
     "agentic_text": AGENTIC_TEXT_TRAIN}
+
+# The head_dims phase: public checkpoints whose head dim is none of the
+# instances' widths or needs a padded instance in training, typed in from
+# each repository's config.json (the fields that set a kernel's shape; the
+# others, rope_theta, rms_norm_eps, the special token ids, are not at hand
+# offline and take config_from_hf_dict's defaults: they change no kernel
+# shape, and the weights are random). Head dim = hidden / heads.
+DANUBE3_4B = {        # h2oai/h2o-danube3-4b-base: head dim 120, rep 4
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama", "hidden_size": 3840,
+    "num_hidden_layers": 24, "num_attention_heads": 32, "num_key_value_heads": 8,
+    "intermediate_size": 10240, "vocab_size": 32000}
+DANUBE3_500M = {      # h2oai/h2o-danube3-500m-base: head dim 96, rep 2
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama", "hidden_size": 1536,
+    "num_hidden_layers": 16, "num_attention_heads": 16, "num_key_value_heads": 8,
+    "intermediate_size": 4096, "vocab_size": 32000}
+DANUBE2_1_8B = {      # h2oai/h2o-danube2-1.8b-base: head dim 80, rep 4
+    "architectures": ["MistralForCausalLM"], "model_type": "mistral", "hidden_size": 2560,
+    "num_hidden_layers": 24, "num_attention_heads": 32, "num_key_value_heads": 8,
+    "intermediate_size": 6912, "vocab_size": 32000}
+OPEN_LLAMA_3B_V2 = {  # openlm-research/open_llama_3b_v2: head dim 100 (host pad), rep 1
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama", "hidden_size": 3200,
+    "num_hidden_layers": 26, "num_attention_heads": 32, "num_key_value_heads": 32,
+    "intermediate_size": 8640, "vocab_size": 32000}
+# name: (config, repository, layers served, layers trained; None: not run).
+# Danube3-4B served at full depth and trained at FAMILY_TRAIN_LAYERS,
+# Danube3-500M served and trained at full depth, Danube2-1.8B trained at
+# FAMILY_TRAIN_LAYERS (kernels 4-6 at 80 on the 128 instance of 5 and 6),
+# OpenLLaMA-3B v2 served at FAMILY_TRAIN_LAYERS (kernel 2 through the pad).
+HEAD_DIM_MODELS = {
+    "danube3_4b": (DANUBE3_4B, "h2oai/h2o-danube3-4b-base", 24, FAMILY_TRAIN_LAYERS),
+    "danube3_500m": (DANUBE3_500M, "h2oai/h2o-danube3-500m-base", 16, 16),
+    "danube2_1_8b": (DANUBE2_1_8B, "h2oai/h2o-danube2-1.8b-base", None, FAMILY_TRAIN_LAYERS),
+    "open_llama_3b_v2": (OPEN_LLAMA_3B_V2, "openlm-research/open_llama_3b_v2",
+                         FAMILY_TRAIN_LAYERS, None)}
+
+
+def _heads(hf):
+    """(q heads, kv heads, head dim) of an HF text config."""
+    H = hf["num_attention_heads"]
+    return H, hf.get("num_key_value_heads", H), hf["hidden_size"] // H
+
+
+# The shapes the phase's passes take, checked in phase_kernels: each served
+# model's one prefill of FAMILY_PROMPT_LENS in the bucket of 512 (kernel 2),
+# each trained model's PPO step on FAMILY_TRAIN's rows (kernels 4-6) and its
+# log-prob pass (kernel 4).
+HEAD_DIMS_PREFILL = {name: (FAMILY_PROMPT_LENS, FAMILY_BUCKET, *_heads(hf))
+                     for name, (hf, _, serve, _) in HEAD_DIM_MODELS.items() if serve}
+HEAD_DIMS_TRAIN = {name: {**FAMILY_TRAIN, **dict(zip(("H", "Hkv", "D"), _heads(hf)))}
+                   for name, (hf, _, _, train) in HEAD_DIM_MODELS.items() if train}
+# Edge shapes at other head dims: kernel 2's (B, Lq, H, Hkv, D, causal), GQA
+# ratios 4, 1, 2, 5 and 8 at widths 32 (the 64 instance), 72 (the 80
+# one), 96, 100 (padded to 104) and 120 (the 128 one); kernels 4-6's
+# TRAIN_EDGES-style cases at each width of HEAD_DIM_TRAIN_WIDTHS (a
+# length-1 row, a split plan, a row of no key, rep 1).
+HEAD_DIM_EDGES = ((2, 129, 32, 8, 120, True), (1, 1, 32, 8, 120, True),
+                  (2, 300, 20, 4, 120, False), (3, 129, 32, 32, 100, True),
+                  (2, 63, 16, 8, 96, True), (3, 200, 4, 4, 96, False),
+                  (2, 150, 16, 2, 72, True), (2, 129, 8, 2, 32, True))
+HEAD_DIM_TRAIN_EDGES = ((1, 1, 32, 8, True, [1], None), (2, 200, 32, 8, True, [200, 77], 1),
+                        (3, 129, 16, 8, True, [129, 1, 0], None),
+                        (2, 129, 4, 4, False, [129, 64], None),
+                        (2, 300, 32, 32, True, [300, 150], None))
+HEAD_DIM_TRAIN_WIDTHS = (120, 96, 80, 100, 32)
+# kernel 1's width cases: one 756² image's ids (the rlvr phase's MathVLM
+# grid) at 16 heads
+HEAD_DIM_SEG_WIDTHS = (96, 120)
 
 
 def _decode_caches(randn, slots, Lalloc, quant, layers=36, Hkv=2):
@@ -1517,7 +1617,7 @@ def _train_kernels(randn, edge):
     return results
 
 
-def _phase_train_kernels(randn, spec):
+def _phase_train_kernels(randn, spec, name_library=False):
     """Kernels 4-6 at a phase's train micro-batch and kernel 4 at its
     log-prob chunk (`spec`: GRPO_TRAIN, RLVR_TRAIN, MATH_VLM_TRAIN, ...: L,
     the two batch sizes, and two kv lengths that the rows alternate, each
@@ -1526,7 +1626,9 @@ def _phase_train_kernels(randn, spec):
     f32 a batch row at a time, row by row (kernel 6 on a plan built once,
     against the joint scale of dk and dv with GRAD_ROW_FLOOR; kernels 5 and
     6 two calls bit-equal), each timed with its bound, host us and library
-    call. Returns one dict of cases for each of kernels 4, 5, 6."""
+    call (with name_library, the device kernels that call runs: which
+    backend SDPA picked). Returns one dict of cases for each of kernels 4,
+    5, 6."""
     import torch
     import torch.nn.functional as F
     from socioreasoner_tpu_torch.ops import flash_attention_bwd as fb
@@ -1559,14 +1661,16 @@ def _phase_train_kernels(randn, spec):
         f32_rows = B * H * L * 4
         qkv_bytes = 2 * (q.numel() + k.numel() + v.numel())
         case = "train_micro_batch" if backward else "logprob_chunk"
+        fwd_lib = lambda: torch.ops.aten._scaled_dot_product_flash_attention(   # noqa: E731
+            qt, kt, vt, is_causal=True)
         out[0][case] = {
             "shape": tag, "err": err, "ratio": ratio, "lse_err": lse_err,
             "ms": cuda_ms(run_fwd), "device_ms": graph_call_ms(run_fwd),
-            "host_us": host_us(run_fwd),
-            "library_ms": cuda_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
-                qt, kt, vt, is_causal=True)),
+            "host_us": host_us(run_fwd), "library_ms": cuda_ms(fwd_lib),
             **dict(zip(("bound_ms", "bound_by"),
                        bound(qkv_bytes + 2 * q.numel() + f32_rows, 4 * D * pairs)))}
+        if name_library:
+            out[0][case]["library_kernels"] = library_kernels(fwd_lib)
         if not backward:
             continue
         delta = (do.float() * ref_out).sum(-1).transpose(1, 2).contiguous()
@@ -1591,8 +1695,11 @@ def _phase_train_kernels(randn, spec):
         del got, want
         leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
         lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
-        lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, dot, retain_graph=True))
-        del lib_out, leaves
+        bwd_lib = lambda: torch.autograd.grad(   # noqa: E731
+            lib_out, leaves, dot, retain_graph=True)
+        lib_bwd = cuda_ms(bwd_lib)
+        lib_names = library_kernels(bwd_lib) if name_library else None
+        del lib_out, leaves, bwd_lib
         bwd_in = qkv_bytes + 2 * do.numel() + 2 * f32_rows
         for i, (run, err_t, out_bytes, ops) in enumerate((
                 (run_dq, [dq_err], 2 * q.numel(), 6 * D * pairs),
@@ -1603,7 +1710,8 @@ def _phase_train_kernels(randn, spec):
                 "ms": cuda_ms(run), "device_ms": graph_call_ms(run), "host_us": host_us(run),
                 "bit_equal_twice": True,
                 "library_ms": lib_bwd, "library": "SDPA autograd backward, dq+dk+dv",
-                **dict(zip(("bound_ms", "bound_by"), bound(bwd_in + out_bytes, ops)))}
+                **dict(zip(("bound_ms", "bound_by"), bound(bwd_in + out_bytes, ops))),
+                **({"library_kernels": lib_names} if name_library else {})}
         del plan
     torch.cuda.empty_cache()
     return out
@@ -1648,6 +1756,152 @@ def _dkv_plan_mismatch(D: int = 128) -> str:
         raise AssertionError(f"kernel 6 on a plan for other kv lengths: exit "
                              f"{child.returncode}, {result}, {child.stderr[-2000:]}")
     return result["error"]
+
+
+def library_kernels(fn, top: int = 3) -> list:
+    """The device kernels one fn() runs, the longest first, by name from
+    torch.profiler (for an SDPA call: the backend it picked)."""
+    _, _, rows = profiled(fn)
+    kernels = sorted((r for r in rows if r["plane"].startswith("/device:")),
+                     key=lambda r: -r["total_us"])
+    return [r["name"][:90] for r in kernels[:top]]
+
+
+def _head_dim_instance_check() -> int:
+    """fa.head_dim_plan, the host's choice of width and instance for kernels
+    1, 2, 4, 5 and 6, against the kernels' own formula (socio_head_dim_instance
+    runs head_dim_instance on the host) at every head dim 1-300: the
+    instance of the padded width, and no instance for a width that is no
+    multiple of HEAD_DIM_ALIGN. Returns the cases compared."""
+    from socioreasoner_tpu_torch.ops import _build
+    from socioreasoner_tpu_torch.ops import flash_attention as fa
+    from socioreasoner_tpu_torch.ops import flash_attention_bwd as fb
+    lib = _build.library()
+    n = 0
+    for kernel, instances in ((1, fa.SEG_HEAD_DIMS), (2, fa.KERNEL_HEAD_DIMS),
+                              (4, fa.KERNEL_HEAD_DIMS), (5, fb.TRAIN_HEAD_DIMS),
+                              (6, fb.TRAIN_HEAD_DIMS)):
+        for D in range(1, 301):
+            plan = fa.head_dim_plan(D, instances)
+            width = -(-D // fa.HEAD_DIM_ALIGN) * fa.HEAD_DIM_ALIGN
+            got = lib.socio_head_dim_instance(kernel, width)
+            bare = lib.socio_head_dim_instance(kernel, D)
+            if got != (0 if plan is None else plan[1]) or (D % fa.HEAD_DIM_ALIGN and bare):
+                raise AssertionError(f"kernel {kernel} D={D}: the host plans {plan}, the "
+                                     f"kernels' formula gives {got} ({bare} unpadded)")
+            n += 1
+    return n
+
+
+def _d128_twin_ms(randn, B, L, H, Hkv, lens, train: bool) -> dict:
+    """Device ms (CUDA graph) of kernel 2 (or kernels 4, 5 and 6) on inputs
+    of the same shape at head dim 128, the instance a narrower head dim runs
+    on: what the zero-filled columns cost against a native 128."""
+    import torch
+    from socioreasoner_tpu_torch.ops import flash_attention as fa
+    from socioreasoner_tpu_torch.ops import flash_attention_bwd as fb
+    q, k, v = randn(B, L, H, 128), randn(B, L, Hkv, 128), randn(B, L, Hkv, 128)
+    lt = torch.tensor(lens, dtype=torch.int32, device=q.device)
+    if not train:
+        mask = (torch.arange(L, device=q.device)[None] < lt[:, None]).to(torch.int32)
+        return {"flash_attention": graph_call_ms(lambda: fa.flash_attention(q, k, v, mask))}
+    do = randn(B, L, H, 128)
+    out, lse = fb.flash_attention_fwd_lse(q, k, v, lt)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    plan = fb.dkv_plan(lt, B, L, L, H, Hkv, True, q.device)
+    return {"flash_attention_fwd_lse": graph_call_ms(lambda: fb.flash_attention_fwd_lse(
+                q, k, v, lt)),
+            "flash_attention_bwd_dq": graph_call_ms(lambda: fb.flash_attention_bwd_dq(
+                q, k, v, do, lse, delta, lt)),
+            "flash_attention_bwd_dkv": graph_call_ms(lambda: fb.flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, lt, plan=plan))}
+
+
+def _head_dim_kernels(randn):
+    """The kernels at the head_dims phase's widths against their plain
+    versions in f32 on the same bf16 values, row by row: kernel 2 at each
+    served model's prefill (HEAD_DIMS_PREFILL: 120, 96 and 100, the last
+    through the host pad, timed apart) and at HEAD_DIM_EDGES; kernels 4-6 at
+    each trained model's step (HEAD_DIMS_TRAIN: 120, 96, 80; kernels 5 and
+    6 two calls bit-equal) and at HEAD_DIM_TRAIN_EDGES for each width of
+    HEAD_DIM_TRAIN_WIDTHS; kernel 1 on one 756² image at
+    HEAD_DIM_SEG_WIDTHS; each with its bound and the library call (the
+    device kernels it runs named); then head_dim_plan against the C
+    formula. Returns {kernel name: its head-dim figures}."""
+    import torch
+    import torch.nn.functional as F
+    from socioreasoner_tpu_torch.ops import flash_attention as fa
+    dev = torch.device("cuda")
+    worst = lambda a, b: (max(a[0], b[0]), max(a[1], b[1]))   # noqa: E731
+    out = {"flash_attention_segmented": {}, "flash_attention": {},
+           "flash_attention_fwd_lse": {}, "flash_attention_bwd_dq": {},
+           "flash_attention_bwd_dkv": {}}
+    for D in HEAD_DIM_SEG_WIDTHS:
+        out["flash_attention_segmented"][f"D{D}"] = _one_image_seg_checks(randn, D=D)
+    pre = (0.0, 0.0)
+    for B, Lq, H, Hkv, D, causal in HEAD_DIM_EDGES:
+        q, k, v = randn(B, Lq, H, D), randn(B, Lq, Hkv, D), randn(B, Lq, Hkv, D)
+        lens = [Lq, 0, 1, max(Lq // 2, 1)][:B]
+        mask = (torch.arange(Lq, device=dev)[None]
+                < torch.tensor(lens, device=dev)[:, None]).to(torch.int32)
+        pre = worst(pre, _check_rows(
+            f"prefill edge B={B} Lq={Lq} H={H}/{Hkv} D={D} causal={causal}",
+            fa.flash_attention(q, k, v, mask, causal=causal),
+            fa.flash_attention_reference(q.float(), k.float(), v.float(), mask,
+                                         causal=causal)))
+    out["flash_attention"]["edges"] = {"max_abs_err": pre[0], "max_row_ratio": pre[1],
+                                       "cases": len(HEAD_DIM_EDGES)}
+    for name, (lens, L, H, Hkv, D) in HEAD_DIMS_PREFILL.items():
+        B = len(lens)
+        q, k, v = randn(B, L, H, D), randn(B, L, Hkv, D), randn(B, L, Hkv, D)
+        mask = (torch.arange(L, device=dev)[None]
+                < torch.tensor(lens, device=dev)[:, None]).to(torch.int32)
+        run = lambda: fa.flash_attention(q, k, v, mask, causal=True)   # noqa: E731
+        err, ratio = _check_rows(f"prefill {name}", run(), fa.flash_attention_reference(
+            q.float(), k.float(), v.float(), mask, causal=True))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        width, inst = fa.head_dim_plan(D, fa.KERNEL_HEAD_DIMS)
+        case = {"shape": f"B={B} L={L} H={H} Hkv={Hkv} D={D} kv_len={list(lens)}",
+                "instance": inst, "width": width, "err": err, "ratio": ratio,
+                "ms": cuda_ms(run), "device_ms": graph_call_ms(run),
+                "kernel_device_ms": device_ms(run, ["attention_sm90_kernel"]),
+                "host_us": host_us(run),
+                "plain_ms": cuda_ms(lambda: fa.flash_attention_reference(
+                    q, k, v, mask, causal=True), n=10),
+                "library_ms": cuda_ms(lib), "library_kernels": library_kernels(lib),
+                **dict(zip(("bound_ms", "bound_by"), bound(
+                    2 * (2 * q.numel() + k.numel() + v.numel()),
+                    4 * D * H * _causal_pairs(L, lens))))}
+        if width != D:     # the host pad of q, k and v, inside ms and device_ms
+            case["pad_ms"] = cuda_ms(lambda: [fa.pad_head_dim(x, width) for x in (q, k, v)])
+            case["pad_device_ms"] = graph_call_ms(
+                lambda: [fa.pad_head_dim(x, width) for x in (q, k, v)])
+        case["d128_device_ms"] = _d128_twin_ms(randn, B, L, H, Hkv, lens,
+                                               False)["flash_attention"]
+        out["flash_attention"][name] = case
+        emit({"phase": f"kernel_head_dims_{name}", "name": "flash_attention", **case})
+        del q, k, v
+    rows = ("flash_attention_fwd_lse", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    for name, spec in HEAD_DIMS_TRAIN.items():
+        B = spec["train_batch"]
+        twin = _d128_twin_ms(randn, B, spec["L"], spec["H"], spec["Hkv"],
+                             [spec["kv_lens"][b % 2] - 3 * (b // 2) for b in range(B)], True)
+        for row, cases in zip(rows, _phase_train_kernels(randn, spec, name_library=True)):
+            cases["train_micro_batch"]["d128_device_ms"] = twin[row]
+            out[row][name] = cases
+            emit({"phase": f"kernel_head_dims_{name}", "name": row, **cases})
+    for D in HEAD_DIM_TRAIN_WIDTHS:
+        fwd, dq, dkv, splits = _train_edge_checks(randn, HEAD_DIM_TRAIN_EDGES, D)
+        for row, fig in zip(rows, (
+                {"max_abs_err": fwd[0], "max_row_ratio": fwd[1], "lse_max_abs_err": fwd[2]},
+                {"max_rel_err": dq[0], "max_row_ratio": dq[1]},
+                {"max_rel_err": dkv[0], "max_row_ratio": dkv[1], "split_tiles": splits})):
+            out[row][f"edges_D{D}"] = fig
+    out["flash_attention"]["instance_cases"] = _head_dim_instance_check()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _short_3b_config(vocab: int = 8192):
@@ -3000,11 +3254,12 @@ def run_tp_engines(config, params, dev, devices, *, img_cfg=None, tile_px=768, n
     """(a) of the parallel phase: the main path's stage-1 requests through
     the unsharded engine and through the tensor-parallel engine over
     `devices`, with bf16 weights, then with int8 single-copy weights and an
-    int8 KV cache (PARALLEL_INT8); the tp tokens held to the unsharded ones
-    under tp_tie_check; with `profile_len`, each engine's prefill and decode
-    at that prompt length profiled. Returns stats."""
+    int8 KV cache (PARALLEL_INT8), then with int4 single-copy weights
+    (PARALLEL_INT4); the tp tokens held to the unsharded ones under
+    tp_tie_check; with `profile_len`, each bf16 and int8 engine's prefill
+    and decode at that prompt length profiled. Returns stats."""
     out = {}
-    for name, extra in (("bf16", {}), ("int8", PARALLEL_INT8)):
+    for name, extra in (("bf16", {}), ("int8", PARALLEL_INT8), ("int4", PARALLEL_INT4)):
         kw = dict(img_cfg=img_cfg, tile_px=tile_px, n_tiles=n_tiles, buckets=buckets,
                   max_new=max_new, decode_chunk=decode_chunk, engine_extra=extra)
         keep = {}
@@ -3026,7 +3281,7 @@ def run_tp_engines(config, params, dev, devices, *, img_cfg=None, tile_px=768, n
                    tp_engine.params) / 2**30 / len(devices),
                "prefill_hist": {str(k): v for k, v in tp_engine.prefill_hist.items()},
                "lalloc": tp_engine.Lalloc}
-        if profile_len:
+        if profile_len and name != "int4":
             fig["profile"] = {
                 "unsharded": {"prefill": profile_prefill(ref_engine, dev, profile_len),
                               "decode": profile_decode_chunk(ref_engine, dev, profile_len)},
@@ -3114,7 +3369,8 @@ def run_dp_pipelines(config, params, sam_config, sam_params, out_dir, dev, devic
 
 def phase_parallel(config, params):
     """Serving over several devices on the one card: (a) the tensor-parallel
-    engine, both shards on cuda:0, against the unsharded one, bf16 and int8;
+    engine, both shards on cuda:0, against the unsharded one, bf16, int8 and
+    int4;
     (b) the infer pipeline with two decode replicas on cuda:0 against one;
     (c) the infer yaml's 16 slots a replica, two replicas, allocated beside
     SAM2. Returns the launch counts of kernels 1, 2, 3 and 3q over (a) and
@@ -5222,15 +5478,65 @@ def profile_forward(config, params, dev, prompt):
                              "launches": r["count"]} for r in kernels[:6]]}
 
 
+def forced_against_forward(config, params, engine, dev, prompts, outs):
+    """The engine's greedy tokens against the dense uncached forward with a
+    measured tie bound (tp_tie_check's rule, for models whose logits pass
+    GAP_TOL's bf16 resolution): the engine teacher-forced along its own
+    tokens (_forced_logits; the launch counts are left as they were) and the
+    forward over the same prefix give each step's logits. `delta`, their
+    largest difference at a step, must stay within TP_DELTA_LIMIT (a kernel
+    fault moves the logits by their own size), and a token that is not the
+    forward's argmax must lie within max(GAP_TOL, 2 x delta) of the
+    forward's top logit (a tie flip). Returns (tie flips, failures, checked
+    tokens, the largest delta)."""
+    import torch
+    from socioreasoner_tpu_torch.models import llm
+    from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
+    tokens = [list(o.output_ids) for o in outs]
+    kernels = _family_kernels()
+    counts = [k.launches for k in kernels]
+    try:
+        forced = _forced_logits(engine, [{"prompt_ids": p, "image_embeds": None,
+                                          "position_ids": None} for p in prompts], tokens)
+    finally:
+        for k, c in zip(kernels, counts):
+            k.launches = c
+    flips, failures, checked, worst = [], [], 0, 0.0
+    for r, (prompt, got, eng) in enumerate(zip(prompts, tokens, forced)):
+        ids = np.asarray([prompt + got[:-1]])
+        attn = np.ones_like(ids)
+        ids_t, attn_t = (torch.as_tensor(a, device=dev) for a in (ids, attn))
+        pos_t = torch.as_tensor(llm.text_position_ids(ids, attn), device=dev)
+        with torch.no_grad():
+            logits, _ = qmodel.forward(config, params, ids_t, pos_t, attn_t)
+            fwd = logits[0, len(prompt) - 1:].float().cpu().numpy()
+        del logits
+        for step, tok in enumerate(got):
+            checked += 1
+            delta = float(np.abs(eng[step] - fwd[step]).max())
+            worst = max(worst, delta)
+            top = int(np.argmax(fwd[step]))
+            gap = float(fwd[step][top] - fwd[step][tok])
+            record = {"request": r, "step": step, "token": tok, "argmax": top,
+                      "logit_gap": gap, "delta": delta, "top": float(fwd[step][top])}
+            if delta > TP_DELTA_LIMIT or gap > max(GAP_TOL, 2 * delta):
+                failures.append(record)
+            elif tok != top:
+                flips.append(record)
+    return flips, failures, checked, worst
+
+
 def serve_family(config, params, dev, *, prompt_lens=FAMILY_PROMPT_LENS,
-                 bucket=FAMILY_BUCKET, max_new=32, decode_chunk=16, seed=0):
+                 bucket=FAMILY_BUCKET, max_new=32, decode_chunk=16, seed=0,
+                 forced_ties=False):
     """Random-token prompts through the engine of a TorchDecodeStrategy
     initialised on `params` (which serves the tree without a copy) at greedy
     (one batched prefill, then decode over the slots), held by
-    greedy_against_forward; then one decode chunk of new requests at the same
-    prompt lengths under torch.profiler (profile_decode_chunk), and the
-    uncached forward over the longest prompt (profile_forward). Returns the
-    figures, with the engine's prefill buckets and cache shape."""
+    greedy_against_forward (with forced_ties, by forced_against_forward);
+    then one decode chunk of new requests at the same prompt lengths under
+    torch.profiler (profile_decode_chunk), and the uncached forward over the
+    longest prompt (profile_forward). Returns the figures, with the engine's
+    prefill buckets and cache shape."""
     from socioreasoner_tpu_torch.distributed.torch_strategies import TorchDecodeStrategy
     from socioreasoner_tpu_torch.generation.engine import Request
     from socioreasoner_tpu_torch.generation.sampling import SamplingParams
@@ -5251,18 +5557,24 @@ def serve_family(config, params, dev, *, prompt_lens=FAMILY_PROMPT_LENS,
     _sync(dev)
     wall = time.perf_counter() - t0
     _check_outputs(config, outs)
-    t1 = time.perf_counter()
-    flips, routing, failures, checked = greedy_against_forward(config, params, dev, prompts,
-                                                              outs)
     stats = {"prompt_lens": [len(p) for p in prompts],
              "generated": [len(o.output_ids) for o in outs],
              "generate_wall_s": wall, "prefill_ms": engine.prefill_device_time * 1e3,
              "decode_s": engine.decode_time, "steps_executed": engine.steps_executed,
              "decode_ms_per_step": engine.decode_time * 1e3 / max(engine.steps_executed, 1),
              "prefill_buckets": sorted(engine.prefill_hist),
-             "cache": list(engine.caches["k"].shape), "checked_tokens": checked,
-             "tie_flips": flips, "routing_ties": routing, "failures": failures,
-             "check_s": time.perf_counter() - t1}
+             "cache": list(engine.caches["k"].shape)}
+    t1 = time.perf_counter()
+    if forced_ties:
+        flips, failures, checked, delta = forced_against_forward(config, params, engine, dev,
+                                                                 prompts, outs)
+        routing = []
+        stats.update(max_logit_delta=delta, delta_limit=TP_DELTA_LIMIT)
+    else:
+        flips, routing, failures, checked = greedy_against_forward(config, params, dev,
+                                                                  prompts, outs)
+    stats.update(checked_tokens=checked, tie_flips=flips, routing_ties=routing,
+                 failures=failures, check_s=time.perf_counter() - t1)
     stats["decode_profile"] = profile_decode_chunk(engine, dev, list(prompt_lens))
     stats["prefill_buckets"] = sorted(engine.prefill_hist)
     stats["forward_profile"] = profile_forward(config, params, dev, prompts[0])
@@ -5632,6 +5944,130 @@ def phase_families():
     missing = [n for n, c in launches.items() if c <= 0]
     if missing or out["max_memory_allocated_gb"] >= 80:
         raise AssertionError(f"families: kernels never launched {missing} or peak "
+                             f"{out['max_memory_allocated_gb']} GiB")
+    return launches
+
+
+# ------------------------------------------------------------------ head dims
+
+def written_text_model(hf_config, path, dev, seed):
+    """A random bf16 tree of the HF text config `hf_config` written with the
+    port's save_pretrained under that config.json and read back through
+    llm.load_text_model, as a user loads the checkpoint: (config, the tree
+    read back, GB). The read is held to the written tree bit for bit."""
+    import torch
+    from socioreasoner_tpu_torch.models import llm
+    from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
+    config = llm.config_from_hf_dict(hf_config)
+    params = qmodel.init_params(config, torch.Generator(device=dev).manual_seed(seed),
+                                dtype=torch.bfloat16, device=dev, with_vision=False)
+    write_s, read_s, gb = text_model_round_trip(config, params, hf_config, path, dev)
+    del params
+    _free()
+    config, params = llm.load_text_model(path, dtype=torch.bfloat16, device=dev)
+    return config, params, {"checkpoint_gb": gb, "save_s": write_s, "load_s": read_s}
+
+
+def _cut_layers(config, params, layers: int):
+    """The first `layers` layers of a text tree (views, no copy) and its
+    config."""
+    import dataclasses
+    cut = dataclasses.replace(config, text=dataclasses.replace(config.text,
+                                                               num_hidden_layers=layers))
+    return cut, {**params, "layers": {k: v[:layers] for k, v in params["layers"].items()}}
+
+
+def run_head_dim_model(name, dev, work_dir, *, kernels=(), serve_kw=None, train_kw=None):
+    """One HEAD_DIM_MODELS entry on `dev`: its checkpoint written and read
+    back (written_text_model) at the larger of its served and trained
+    depths; served at its served depth (serve_family with forced_ties:
+    greedy against the dense forward, the tie bound measured by
+    teacher-forcing the engine; the random logits of these widths pass
+    GAP_TOL's bf16 resolution) and trained at its trained depth (the
+    first layers of the same tree: train_family, kernels against dense
+    attention), each pass's launches of `kernels` counted. Returns the
+    figures."""
+    hf, source, serve_layers, train_layers = HEAD_DIM_MODELS[name]
+    H, Hkv, D = _heads(hf)
+    layers = max(n for n in (serve_layers, train_layers) if n)
+    cut = dict(hf, num_hidden_layers=layers)
+    path = Path(work_dir) / name
+    config, params, io = written_text_model(cut, str(path), dev, seed=len(name))
+    shutil.rmtree(path)
+    out = {"model": f"{source}, {layers} of {hf['num_hidden_layers']} layers, {H}/{Hkv} "
+                    f"heads x {D}, random bf16", "params_gb": _tree_bytes(params) / 1e9, **io}
+    if serve_layers:
+        c, p = _cut_layers(config, params, serve_layers)
+        _reset(kernels)
+        out["serve"] = serve_family(c, p, dev, forced_ties=True, **(serve_kw or {}))
+        out["serve"]["launches"] = _launch_counts(kernels)
+    if train_layers:
+        c, p = _cut_layers(config, params, train_layers)
+        _reset(kernels)
+        out["train"] = train_family(c, p, dev, **(train_kw or {}))
+        out["train"]["launches"] = _launch_counts(kernels)
+    del params
+    _free()
+    return out
+
+
+def phase_head_dims():
+    """Kernels 2 and 4-6 at head dims other than 64 and 128, through the
+    models that use them, at full width from their published configs, each
+    from a checkpoint written and read back through llm.load_text_model
+    (run_head_dim_model): H2O-Danube3-4B (120, rep 4) served at 24 layers
+    and trained at FAMILY_TRAIN_LAYERS, Danube3-500M (96, rep 2) served and
+    trained at 16, Danube2-1.8B (80, rep 4) trained at FAMILY_TRAIN_LAYERS,
+    OpenLLaMA-3B v2 (100, rep 1, the host pad) served at
+    FAMILY_TRAIN_LAYERS. Kernel 2 must launch in every served pass and
+    kernels 4-6 in every trained one, at the shapes phase_kernels checked;
+    kernel 3 never (these head dims decode densely, as in the JAX package).
+    Peak < 80 GiB. Returns the launches over the phase."""
+    import gc
+    import torch
+    dev = torch.device("cuda")
+    kernels = _family_kernels()
+    names = [k.__name__ for k in kernels]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    out = {"phase": "head_dims", "card": _smi_line()}
+    left = []
+    try:
+        with tempfile.TemporaryDirectory() as work_dir:
+            for name, (hf, _, serve_layers, train_layers) in HEAD_DIM_MODELS.items():
+                t0 = time.perf_counter()
+                fig = run_head_dim_model(name, dev, work_dir, kernels=kernels)
+                fig["wall_s"] = time.perf_counter() - t0
+                out[name] = fig
+                _, Hkv, D = _heads(hf)
+                if serve_layers and (fig["serve"]["prefill_buckets"] != [(4, FAMILY_BUCKET, 0)]
+                                     or fig["serve"]["cache"] != [serve_layers, 4,
+                                                                  FAMILY_LALLOC, Hkv, D]):
+                    left.append((name, fig["serve"]["prefill_buckets"], fig["serve"]["cache"]))
+                emit({"phase": f"head_dims_{name}", **fig})
+    except BaseException as e:
+        out["error"] = repr(e)[:2000]
+        emit(out)
+        raise
+    passes = {f"{name}_{p}": out[name][p]["launches"] for name in HEAD_DIM_MODELS
+              for p in ("serve", "train") if p in out[name]}
+    launches = {k: sum(c[k] for c in passes.values()) for k in names}
+    out["launches"] = passes
+    out["launches_total"] = launches
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit({k: v for k, v in out.items() if k not in HEAD_DIM_MODELS})
+    missing = ([f"{p}:flash_attention" for p, c in passes.items()
+                if p.endswith("_serve") and c["flash_attention"] <= 0]
+               + [f"{p}:{k}" for p, c in passes.items() if p.endswith("_train")
+                  for k in names[3:] if c[k] <= 0]
+               + [f"{p}:paged_decode_attention" for p, c in passes.items()
+                  if c["paged_decode_attention"] != 0])
+    if missing or left or not out["max_memory_allocated_gb"] < 80:
+        raise AssertionError(f"head_dims: kernels off the path (or kernel 3 at these head "
+                             f"dims) {missing}, unchecked shapes {left}, peak "
                              f"{out['max_memory_allocated_gb']} GiB")
     return launches
 
@@ -6869,6 +7305,7 @@ def main() -> int:
         entry = phase_entry(export_dir, export_stats, sums, work_dir)
     launches.update(phase_row_writer())
     families = phase_families()
+    head_dims = phase_head_dims()
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
         if kern["name"] in two_stage:
@@ -6885,6 +7322,9 @@ def main() -> int:
             kern["launches_entry"] = entry[kern["name"]]
         # kernels 3q and 7 are on no path of the families phase (bf16 cache)
         kern["launches_families"] = families.get(kern["name"], 0)
+        # kernels 1, 3, 3q and 7 are on no path of the head_dims phase (text
+        # models whose head dims decode densely)
+        kern["launches_head_dims"] = head_dims.get(kern["name"], 0)
         # kernels 3q and 7 are on no path of the agentic phase (bf16 cache)
         kern["launches_agentic"] = agentic.get(kern["name"], 0)
         # kernels 2, 3, 3q and 7 are on no path of the train_mesh phase (its

@@ -29,11 +29,15 @@
 //
 // setmaxnreg moves registers from the producer (24) to the consumers (240).
 //
-// Head dims are 64-column chunks loaded with a 128-byte swizzle plus, for
-// D = 80, one 16-column tail loaded with a 32-byte swizzle (an 80-wide row
-// is 160 bytes, more than one 128-byte swizzle span). QK^T is then 4 + 1
-// k-steps over two pairs of descriptors, and PV one n64 and one n16 wgmma.
-// Nothing is padded in device memory.
+// An instance's D columns are 64-column chunks loaded with a 128-byte
+// swizzle plus, for D = 80, one 16-column tail loaded with a 32-byte swizzle
+// (an 80-wide row is 160 bytes, more than one 128-byte swizzle span). QK^T
+// is then 4 + 1 k-steps over two pairs of descriptors, and PV one n64 and one
+// n16 wgmma. A head dim d below the instance's D (any multiple of 8 up to D,
+// head_dim_instance) keeps d as the tensor maps' innermost extent: TMA fills
+// the box columns d .. D - 1 with zeros, which add nothing to Q K^T and give
+// O columns of 0, and the epilogue stores only the first d columns. Nothing
+// is padded in device memory.
 //
 // GQA (kernels 2 and 4) folds the rep = H / Hkv q heads of a kv head into an
 // item: floor(128 / rep) tokens x rep heads, rows r = token * rep + head. For
@@ -67,7 +71,7 @@ template <int D>
 struct Layout {
   static constexpr int kMain = D / 64;    // 64-column chunks (128-byte swizzle)
   static constexpr int kTail = D % 64;    // 0 or 16 columns (32-byte swizzle)
-  static_assert(kTail == 0 || kTail == 16, "head dim must be 64k or 64k + 16");
+  static_assert(kTail == 0 || kTail == 16, "an instance is 64k or 64k + 16 columns");
   static constexpr uint32_t q_chunk = kBM * 64 * 2;      // bytes of one Q chunk
   static constexpr uint32_t kv_chunk = kBN * 64 * 2;
   static constexpr uint32_t q_tail = kMain * q_chunk;    // offset of the Q tail
@@ -94,6 +98,7 @@ struct FwdParams {
   int n_items;
   float scale_log2;          // D^-0.5 * log2(e)
   int q_rows;                // rows of a Q tile that TMA fills: 128 (kernel 1), rep * toks
+  int d;                     // the tensors' head dim: columns stored (<= the instance's D)
   // kernels 2 and 4 (GQA prefill, training forward): q (B, Lq, H, D), k/v
   // (B, Lk, Hkv, D)
   const int* kv_lens;        // (B,)
@@ -257,8 +262,9 @@ __device__ __forceinline__ void producer(const FwdParams& p, uint32_t base) {
 // ------------------------------------------------------------- consumer
 
 // One consumer warpgroup's 64 rows; the two consumer warpgroups of a CTA
-// overlap each other's products and softmax.
-template <int D, bool kSeg>
+// overlap each other's products and softmax. kPart: the tensors' head dim
+// p.d is below the instance's D, and the epilogue stores only its columns.
+template <int D, bool kSeg, bool kPart>
 __device__ __forceinline__ void consumer(const FwdParams& p, uint32_t base, int wg) {
   using L = Layout<D>;
   constexpr int kM = L::kMain;
@@ -480,17 +486,21 @@ __device__ __forceinline__ void consumer(const FwdParams& p, uint32_t base, int 
         }
       }
       if (dst == nullptr) continue;
+      // the first d columns only (d % 8 == 0: a column group is stored whole
+      // or not at all)
 #pragma unroll
       for (int c = 0; c < kM; ++c)
 #pragma unroll
         for (int g = 0; g < 8; ++g)
-          *reinterpret_cast<uint32_t*>(dst + 64 * c + 8 * g + cq) =
-              pack_bf16(o[c][4 * g + 2 * i] * inv, o[c][4 * g + 2 * i + 1] * inv);
+          if (!kPart || 64 * c + 8 * g < p.d)
+            *reinterpret_cast<uint32_t*>(dst + 64 * c + 8 * g + cq) =
+                pack_bf16(o[c][4 * g + 2 * i] * inv, o[c][4 * g + 2 * i + 1] * inv);
       if constexpr (L::kTail != 0) {
 #pragma unroll
         for (int g = 0; g < 2; ++g)
-          *reinterpret_cast<uint32_t*>(dst + 64 * kM + 8 * g + cq) =
-              pack_bf16(ot[4 * g + 2 * i] * inv, ot[4 * g + 2 * i + 1] * inv);
+          if (!kPart || 64 * kM + 8 * g < p.d)
+            *reinterpret_cast<uint32_t*>(dst + 64 * kM + 8 * g + cq) =
+                pack_bf16(ot[4 * g + 2 * i] * inv, ot[4 * g + 2 * i + 1] * inv);
       }
     }
   }
@@ -498,7 +508,7 @@ __device__ __forceinline__ void consumer(const FwdParams& p, uint32_t base, int 
 
 // ---------------------------------------------------------------- kernel
 
-template <int D, bool kSeg>
+template <int D, bool kSeg, bool kPart>
 __global__ void __launch_bounds__(kThreads, 1) attention_sm90_kernel(const __grid_constant__ FwdParams p) {
   using L = Layout<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -531,18 +541,18 @@ __global__ void __launch_bounds__(kThreads, 1) attention_sm90_kernel(const __gri
     if (threadIdx.x == 256) producer<D, kSeg>(p, base);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    consumer<D, kSeg>(p, base, wg);
+    consumer<D, kSeg, kPart>(p, base, wg);
   }
 }
 
 // ------------------------------------------------------------------ host
 
 // One persistent CTA per SM (at most one per item).
-template <int D, bool kSeg>
+template <int D, bool kSeg, bool kPart>
 int launch(const FwdParams& p, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(attention_sm90_kernel<D, kSeg>,
+    cudaError_t err = cudaFuncSetAttribute(attention_sm90_kernel<D, kSeg, kPart>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)Layout<D>::smem);
     if (err != cudaSuccess) return (int)err;
@@ -550,12 +560,21 @@ int launch(const FwdParams& p, cudaStream_t stream) {
   }
   if (p.n_items <= 0) return 0;
   const int grid = p.n_items < num_sms() ? p.n_items : num_sms();
-  attention_sm90_kernel<D, kSeg><<<grid, kThreads, Layout<D>::smem, stream>>>(p);
+  attention_sm90_kernel<D, kSeg, kPart><<<grid, kThreads, Layout<D>::smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
+// The instance D's kernel for tensors of head dim p.d <= D: the one whose
+// epilogue guards its column stores where p.d < D, and the unguarded one at
+// p.d == D (the instance's own width pays nothing for narrower head dims).
+template <int D, bool kSeg>
+int launch_width(const FwdParams& p, cudaStream_t stream) {
+  return p.d < D ? launch<D, kSeg, true>(p, stream) : launch<D, kSeg, false>(p, stream);
+}
+
 // Kernels 2 and 4: GQA attention of q (B, Lq, H, D) over k/v (B, Lk, Hkv, D)
-// (strides in elements), writing o and, where lse is given, the per-row
+// (strides in elements; D a multiple of 8 up to 128, run on the instance
+// head_dim_instance(kGqaDims, D)), writing o and, where lse is given, the per-row
 // log-sum-exp (B, H, Lq). GQA is folded as in the Pallas grid: a 128-row item
 // is floor(128 / rep) tokens x the rep q heads of one kv head, one 4-D TMA
 // box (64 columns x rep heads x floor(128 / rep) tokens), since the rep heads

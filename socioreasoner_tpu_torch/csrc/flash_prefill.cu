@@ -10,9 +10,14 @@
 // What bounds it on the H100: at the engine's prefill shapes (B = 1-4,
 // L = 2048, 16 q / 2 kv heads, D = 128) it is tensor-core work, ~17 GFLOP per
 // layer causal at B = 2 (17 us at the bf16 peak), while its 38 MB of
-// Q/K/V/O take 11 us at the memory rate. Head dims 64 (Qwen2.5-0.5B/1.5B,
-// Llama-3.2-1B/3B), 80 (the ViT's) and 128 are instantiated; any other D is
-// refused (cudaErrorInvalidValue) before a tensor map is encoded.
+// Q/K/V/O take 11 us at the memory rate. Instances of 64 (Qwen2.5-0.5B/1.5B,
+// Llama-3.2-1B/3B), 80 (the ViT's, H2O-Danube2) and 128 columns are
+// compiled; a head dim d that is a multiple of 8 up to 128 runs on the
+// smallest instance of at least d columns (H2O-Danube3-500M's 96 and -4B's
+// 120 on the 128 one), its tail columns zero-filled by TMA and never stored
+// (attention_sm90.cuh); the host pads other head dims (OpenLLaMA-3B's 100)
+// to a multiple of 8 first. Any other D is refused
+// (cudaErrorInvalidValue) before a tensor map is encoded.
 //
 // The design (attention_sm90.cuh): GQA is folded as in the Pallas grid, so a
 // 128-row work item is floor(128 / rep) tokens x the rep q heads of one kv
@@ -38,13 +43,15 @@ int launch_gqa(const void* q, const void* k, const void* v, void* o, float* lse,
                long long skh, long long svb, long long svt, long long svh,
                long long sob, long long sot, long long soh, int causal, float scale,
                cudaStream_t stream) {
-  // the head dims instantiated below (Layout<D> admits 64k and 64k + 16)
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kBM || (D != 64 && D != 80 && D != 128))
+  // the instance that serves D (Layout<D> admits 64k and 64k + 16 columns)
+  const int inst = head_dim_instance(kGqaDims, D);
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kBM || inst == 0)
     return (int)cudaErrorInvalidValue;
   const int rep = H / Hkv;
   const int toks = kBM / rep;
   FwdParams p{};
   p.q_rows = rep * toks;
+  p.d = D;
   p.o = static_cast<bf16*>(o);
   p.sob = sob;
   p.sot = sot;
@@ -61,19 +68,19 @@ int launch_gqa(const void* q, const void* k, const void* v, void* o, float* lse,
   p.n_ttiles = (Lq + toks - 1) / toks;
   p.n_items = p.n_ttiles * B * Hkv;
   // (D, heads, tokens, B) views; q boxes of rep heads x floor(128 / rep) tokens,
-  // k/v boxes of one kv head x 128 keys
+  // k/v boxes of one kv head x 128 keys, each inst columns wide
   const long long qdims[4] = {D, H, Lq, B}, kdims[4] = {D, Hkv, Lk, B};
   const long long qs[4] = {1, sqh, sqt, sqb}, ks[4] = {1, skh, skt, skb},
                   vs[4] = {1, svh, svt, svb};
   int qbox[4] = {0, rep, toks, 1}, kbox[4] = {0, 1, kBN, 1}, vbox[4] = {0, 1, kBN, 1};
-  int rc = encode_pair(&p.q_main, &p.q_tail, q, 4, qdims, qs, qbox, D);
-  if (rc == 0) rc = encode_pair(&p.k_main, &p.k_tail, k, 4, kdims, ks, kbox, D);
-  if (rc == 0) rc = encode_pair(&p.v_main, &p.v_tail, v, 4, kdims, vs, vbox, D);
+  int rc = encode_pair(&p.q_main, &p.q_tail, q, 4, qdims, qs, qbox, inst);
+  if (rc == 0) rc = encode_pair(&p.k_main, &p.k_tail, k, 4, kdims, ks, kbox, inst);
+  if (rc == 0) rc = encode_pair(&p.v_main, &p.v_tail, v, 4, kdims, vs, vbox, inst);
   if (rc != 0) return rc;
-  switch (D) {
-    case 64: return launch<64, false>(p, stream);
-    case 80: return launch<80, false>(p, stream);
-    case 128: return launch<128, false>(p, stream);
+  switch (inst) {
+    case 64: return launch_width<64, false>(p, stream);
+    case 80: return launch_width<80, false>(p, stream);
+    case 128: return launch_width<128, false>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -120,4 +127,19 @@ extern "C" int socio_gqa_item(int item, int B, int Lq, int Hkv, int rep, void* o
   o[2] = w.z;
   o[3] = toks;
   return 0;
+}
+
+// The instance (columns of the tiles) that kernel `kernel` (1, 2, 4, 5 or 6)
+// runs head dim d on, by the kernels' own formula: 0 where none serves d
+// (the host's copy, ops/flash_attention.py head_dim_plan, is held to it).
+extern "C" int socio_head_dim_instance(int kernel, int d) {
+  using namespace socio90;
+  switch (kernel) {
+    case 1: return head_dim_instance(kSegDims, d);
+    case 2:
+    case 4: return head_dim_instance(kGqaDims, d);
+    case 5:
+    case 6: return head_dim_instance(kBwdDims, d);
+    default: return 0;
+  }
 }

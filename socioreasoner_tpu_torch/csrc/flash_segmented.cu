@@ -11,7 +11,9 @@
 // D = 80): the four full-attention layers are tensor-core work (~87 GFLOP of
 // block-diagonal attention each, 88 us at the bf16 peak); the 28 window
 // layers (windows of 64, 48, 36 patches) are memory-bound (59.7 MB of
-// Q/K/V/O each, 17.8 us at 3.35 TB/s) and do almost no arithmetic.
+// Q/K/V/O each, 17.8 us at 3.35 TB/s) and do almost no arithmetic. Instances
+// of 80 and 128 columns; any head dim that is a multiple of 8 up to 128 runs
+// on the smaller one that covers it (attention_sm90.cuh).
 //
 // The design (attention_sm90.cuh): persistent warp-specialised CTAs, one per
 // SM, walk a work list of (head, q tile) items that the wrapper builds on the
@@ -34,8 +36,11 @@ extern "C" int socio_flash_segmented_bf16(
     long long svt, long long svh, long long sot, long long soh,
     float scale, void* stream) {
   using namespace socio90;
-  if (D != 80 && D != 128) return (int)cudaErrorInvalidValue;
+  // the instance that serves D: 80 or 128 columns
+  const int inst = head_dim_instance(kSegDims, D);
+  if (inst == 0) return (int)cudaErrorInvalidValue;
   FwdParams p{};
+  p.d = D;
   p.o = static_cast<bf16*>(o);
   p.sot = sot;
   p.soh = soh;
@@ -50,14 +55,14 @@ extern "C" int socio_flash_segmented_bf16(
   const long long dims[3] = {D, H, S};
   const long long qs[3] = {1, sqh, sqt}, ks[3] = {1, skh, skt}, vs[3] = {1, svh, svt};
   int qbox[3] = {0, 1, kBM}, kbox[3] = {0, 1, kBN}, vbox[3] = {0, 1, kBN};
-  int rc = encode_pair(&p.q_main, &p.q_tail, q, 3, dims, qs, qbox, D);
-  if (rc == 0) rc = encode_pair(&p.k_main, &p.k_tail, k, 3, dims, ks, kbox, D);
-  if (rc == 0) rc = encode_pair(&p.v_main, &p.v_tail, v, 3, dims, vs, vbox, D);
+  int rc = encode_pair(&p.q_main, &p.q_tail, q, 3, dims, qs, qbox, inst);
+  if (rc == 0) rc = encode_pair(&p.k_main, &p.k_tail, k, 3, dims, ks, kbox, inst);
+  if (rc == 0) rc = encode_pair(&p.v_main, &p.v_tail, v, 3, dims, vs, vbox, inst);
   if (rc != 0) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 80: return launch<80, true>(p, s);
-    case 128: return launch<128, true>(p, s);
+  switch (inst) {
+    case 80: return launch_width<80, true>(p, s);
+    case 128: return launch_width<128, true>(p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -25,9 +25,14 @@
 //     warpgroups of 64 keys; each keeps its dK and dV (64 x D f32, D / 2 +
 //     D / 2 registers a thread) in registers over the item's loop, which
 //     streams q tiles of 64 rows for the item's (q head, q tile) pairs.
-//   * Head dims 64 and 128, each its own instance (Smem<kD>: tiles, the
-//     workspace slot and the kD / 64 column chunks of every product and
-//     load); at D = 64 the accumulators halve. Any other D is refused.
+//   * Instances of 64 and 128 columns (Smem<kD>: tiles, the workspace slot
+//     and the kD / 64 column chunks of every product and load); at 64 the
+//     accumulators halve. A head dim d that is a multiple of 8 up to 128 runs
+//     on the smaller one that covers it (kernel 5's rule): TMA fills the
+//     columns past d with zeros, so dK and dV get 0 there, and neither the
+//     workspace slots nor the outputs take those columns. The host pads
+//     other head dims up to 128 to a multiple of 8; any other D is refused.
+//     The piece order, and so the bits, do not depend on d.
 //   * S^T = K Q^T and dP^T = V dO^T are wgmma with both operands in shared
 //     memory, K-major over D (kernel 2's Q K^T with the roles swapped). P^T
 //     and dS^T are rounded to bf16 in registers -- the accumulator layout is
@@ -107,6 +112,7 @@ struct Params {
   bf16* dk;
   bf16* dv;
   long long sdkb, sdkt, sdkh, sdvb, sdvt, sdvh;
+  int d;                     // the tensors' head dim: columns stored (<= kD)
   float* ws;                 // (slots, kSlotFloats) partials of split pieces
   int* counters;             // (2 x split tiles,) arrival counts, 0 between launches
   const int4* items;         // (n_items, 3) int4: dkv_tile_plan's 12 fields, in CTA order
@@ -192,10 +198,11 @@ __device__ __forceinline__ void producer(const Params& p, uint32_t base, int lan
 // ------------------------------------------------------------- consumer
 
 // Rows key_base and key_base + 8 of acc (chunks of 64 columns) as bf16 pairs,
-// straight from registers; rows past Lk are not written.
-template <int kD>
+// straight from registers; rows past Lk and, with kPart, columns past d
+// are not written.
+template <int kD, bool kPart>
 __device__ __forceinline__ void store_rows(bf16* out, long long sb, long long st, long long sh,
-                                           const Item& it, int key_base, int Lk, int cq,
+                                           const Item& it, int key_base, int Lk, int d, int cq,
                                            const float (&acc)[kD / 64][32]) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -206,12 +213,15 @@ __device__ __forceinline__ void store_rows(bf16* out, long long sb, long long st
     for (int c = 0; c < kD / 64; ++c)
 #pragma unroll
       for (int g = 0; g < 8; ++g)
-        *reinterpret_cast<uint32_t*>(dst + 64 * c + 8 * g + cq) =
-            pack_bf16(acc[c][4 * g + 2 * i], acc[c][4 * g + 2 * i + 1]);
+        if (!kPart || 64 * c + 8 * g < d)
+          *reinterpret_cast<uint32_t*>(dst + 64 * c + 8 * g + cq) =
+              pack_bf16(acc[c][4 * g + 2 * i], acc[c][4 * g + 2 * i + 1]);
   }
 }
 
-template <int kD>
+// kPart: the tensors' head dim p.d is below kD; the columns past it go to
+// neither the workspace slots nor the outputs.
+template <int kD, bool kPart>
 __device__ __forceinline__ void consumer(const Params& p, uint32_t base, volatile int* flag,
                                          int wg) {
   using L = Smem<kD>;
@@ -351,13 +361,15 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base, volatil
     if (it.n > 1) {
       // a piece of a split key tile: the partials to slot ws0 + j (thread-
       // major, so each store is coalesced), then count in; the last piece
-      // adds slots ws0 .. ws0 + n - 1 in order
+      // adds slots ws0 .. ws0 + n - 1 in order. Register e of chunk c holds
+      // column 64 c + 8 (e / 4) + ..: those past d are 0 and skipped.
       const int half = wg * 2 * L::kRegs * 128;   // this warpgroup's 64 keys of a slot
       float* mine = p.ws + (long long)(it.ws0 + it.j) * L::kSlotFloats + half;
 #pragma unroll
       for (int c = 0; c < kD / 64; ++c)
 #pragma unroll
         for (int e = 0; e < 32; ++e) {
+          if (kPart && 64 * c + 8 * (e >> 2) >= p.d) continue;
           __stcg(mine + (32 * c + e) * 128 + tid, dk[c][e]);
           __stcg(mine + (L::kRegs + 32 * c + e) * 128 + tid, dv[c][e]);
         }
@@ -373,6 +385,7 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base, volatil
       for (int c = 0; c < kD / 64; ++c)
 #pragma unroll
         for (int e = 0; e < 32; ++e) {
+          if (kPart && 64 * c + 8 * (e >> 2) >= p.d) continue;
           float a = 0.f, b = 0.f;
           for (int piece = 0; piece < it.n; ++piece) {
             const float* slot = first + (long long)piece * L::kSlotFloats;
@@ -384,14 +397,14 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base, volatil
         }
       if (tid == 0) *counter = 0;               // ready for the next launch
     }
-    store_rows<kD>(p.dk, p.sdkb, p.sdkt, p.sdkh, it, key0, p.Lk, cq, dk);
-    store_rows<kD>(p.dv, p.sdvb, p.sdvt, p.sdvh, it, key0, p.Lk, cq, dv);
+    store_rows<kD, kPart>(p.dk, p.sdkb, p.sdkt, p.sdkh, it, key0, p.Lk, p.d, cq, dk);
+    store_rows<kD, kPart>(p.dv, p.sdvb, p.sdvt, p.sdvh, it, key0, p.Lk, p.d, cq, dv);
   }
 }
 
 // ---------------------------------------------------------------- kernel
 
-template <int kD>
+template <int kD, bool kPart>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_train_dkv_kernel(const __grid_constant__ Params p) {
   using L = Smem<kD>;
@@ -416,22 +429,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
     volatile int* flag = reinterpret_cast<volatile int*>(smem_raw + (base - smem_u32(smem_raw)) +
                                                          L::kOffFlag);
-    consumer<kD>(p, base, flag, wg);
+    consumer<kD, kPart>(p, base, flag, wg);
   }
 }
 
-// One launch of the kD instance over n_cta persistent CTAs.
-template <int kD>
+// One launch of the kD instance over n_cta persistent CTAs (guarding its
+// column stores where p.d < kD).
+template <int kD, bool kPart>
 int launch(const Params& p, int n_cta, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(flash_train_dkv_kernel<kD>,
+    cudaError_t err = cudaFuncSetAttribute(flash_train_dkv_kernel<kD, kPart>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)Smem<kD>::kBytes);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  flash_train_dkv_kernel<kD><<<n_cta, kThreads, Smem<kD>::kBytes, stream>>>(p);
+  flash_train_dkv_kernel<kD, kPart><<<n_cta, kThreads, Smem<kD>::kBytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -452,10 +466,12 @@ extern "C" int socio_flash_train_dkv_bf16(
     int causal, float scale, void* stream) {
   using namespace socio90;
   using namespace socio90::dkv;
-  // the head dims instantiated below
-  if ((D != 64 && D != 128) || Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
+  // the instance that serves D: 64 or 128 columns
+  const int inst = head_dim_instance(kBwdDims, D);
+  if (inst == 0 || Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
   if (n_cta <= 0) return 0;
   Params p{};
+  p.d = D;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.dk = static_cast<bf16*>(dk);
@@ -478,8 +494,8 @@ extern "C" int socio_flash_train_dkv_bf16(
   p.causal = causal;
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
-  // (D, heads, tokens, B) views, 64-column boxes of one head: 64 tokens of
-  // q and dO, 128 keys of k and v
+  // (D, heads, tokens, B) views, 64-column boxes of one head (columns past
+  // D read as zeros): 64 tokens of q and dO, 128 keys of k and v
   const long long qdims[4] = {D, H, Lq, B}, kdims[4] = {D, Hkv, Lk, B};
   const long long qs[4] = {1, sqh, sqt, sqb}, ks[4] = {1, skh, skt, skb},
                   vs[4] = {1, svh, svt, svb}, os[4] = {1, sdoh, sdot, sdob};
@@ -490,9 +506,9 @@ extern "C" int socio_flash_train_dkv_bf16(
   if (rc == 0) rc = encode_map(&p.v, v, 4, kdims, vs, kbox, true);
   if (rc != 0) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return launch<64>(p, n_cta, s);
-    case 128: return launch<128>(p, n_cta, s);
+  switch (inst) {
+    case 64: return D < 64 ? launch<64, true>(p, n_cta, s) : launch<64, false>(p, n_cta, s);
+    case 128: return D < 128 ? launch<128, true>(p, n_cta, s) : launch<128, false>(p, n_cta, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

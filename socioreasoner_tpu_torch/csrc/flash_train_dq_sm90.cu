@@ -46,9 +46,15 @@
 //     operand layout -- and dQ += dS K with K as the MN-major B operand, the
 //     forward's O += P V with K in V's place. Nothing of S, P, dP or dS
 //     touches shared memory. dq is stored as bf16 straight from registers.
-//   * Head dims 64 and 128, each its own instance (Smem<kD>, the kD / 64
-//     column chunks of every product and load); D = 64 serves Qwen2.5-0.5B
-//     and -1.5B and Llama-3.2. Any other D is refused.
+//   * Instances of 64 and 128 columns (Smem<kD>, the kD / 64 column chunks
+//     of every product and load); 64 serves Qwen2.5-0.5B and -1.5B and
+//     Llama-3.2. A head dim d that is a multiple of 8 up to 128 runs on the
+//     smaller one that covers it (H2O-Danube2's 80, H2O-Danube3's 96 and
+//     120 on 128): the tensor maps keep d as their innermost extent, TMA
+//     fills the columns past d with zeros (Q, dO, K and V alike, so they add
+//     nothing to S, dP or dQ) and the epilogue stores the first d columns.
+//     The host pads other head dims up to 128 to a multiple of 8; any other
+//     D is refused.
 //   * Any GQA ratio up to 128: where rep does not divide 128, rows past
 //     rep * floor(128 / rep) are idle (zeroed Q and dO rows, zero-filled lse
 //     and delta, so their ds is 0) and never stored. Every mbarrier wait traps
@@ -85,6 +91,7 @@ struct Params {
   const float* delta;         // (B, H, Lq)
   bf16* dq;
   long long sdqb, sdqt, sdqh;
+  int d;                      // the tensors' head dim: dq columns stored (<= kD)
   const int* kv_lens;         // (B,)
   int B, Lq, Lk, H, Hkv, rep, causal, n_ttiles, n_items, q_rows;
   float scale, scale_log2;    // D^-0.5 and D^-0.5 * log2(e)
@@ -151,7 +158,9 @@ __device__ __forceinline__ void producer(const Params& p, uint32_t base, int lan
 
 // ------------------------------------------------------------- consumer
 
-template <int kD>
+// kPart: the tensors' head dim p.d is below kD, and the epilogue stores
+// only its columns.
+template <int kD, bool kPart>
 __device__ __forceinline__ void consumer(const Params& p, uint32_t base, int wg) {
   using L = Smem<kD>;
   const int tid = threadIdx.x & 127;
@@ -292,15 +301,16 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base, int wg)
       for (int c = 0; c < kD / 64; ++c)
 #pragma unroll
         for (int g = 0; g < 8; ++g)
-          *reinterpret_cast<uint32_t*>(dst + 64 * c + 8 * g + cq) =
-              pack_bf16(acc[c][4 * g + 2 * i], acc[c][4 * g + 2 * i + 1]);
+          if (!kPart || 64 * c + 8 * g < p.d)     // the first d columns (d % 8 == 0)
+            *reinterpret_cast<uint32_t*>(dst + 64 * c + 8 * g + cq) =
+                pack_bf16(acc[c][4 * g + 2 * i], acc[c][4 * g + 2 * i + 1]);
     }
   }
 }
 
 // ---------------------------------------------------------------- kernel
 
-template <int kD>
+template <int kD, bool kPart>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_train_dq_kernel(const __grid_constant__ Params p) {
   using L = Smem<kD>;
@@ -327,23 +337,24 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x < 256 + 32) producer<kD>(p, base, threadIdx.x & 31);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    consumer<kD>(p, base, wg);
+    consumer<kD, kPart>(p, base, wg);
   }
 }
 
-// One launch of the kD instance; the grid-constant parameters are complete.
-template <int kD>
+// One launch of the kD instance (guarding its column stores where p.d <
+// kD); the grid-constant parameters are complete.
+template <int kD, bool kPart>
 int launch(const Params& p, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(flash_train_dq_kernel<kD>,
+    cudaError_t err = cudaFuncSetAttribute(flash_train_dq_kernel<kD, kPart>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)Smem<kD>::kBytes);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
   const int grid = p.n_items < num_sms() ? p.n_items : num_sms();
-  flash_train_dq_kernel<kD><<<grid, kThreads, Smem<kD>::kBytes, stream>>>(p);
+  flash_train_dq_kernel<kD, kPart><<<grid, kThreads, Smem<kD>::kBytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -362,10 +373,12 @@ extern "C" int socio_flash_train_dq_bf16(
     int causal, float scale, void* stream) {
   using namespace socio90;
   using namespace socio90::dq;
-  // the head dims instantiated below
-  if ((D != 64 && D != 128) || Hkv <= 0 || H % Hkv != 0 || H / Hkv > kBM)
+  // the instance that serves D: 64 or 128 columns
+  const int inst = head_dim_instance(kBwdDims, D);
+  if (inst == 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > kBM)
     return (int)cudaErrorInvalidValue;
   Params p{};
+  p.d = D;
   const int rep = H / Hkv;
   const int toks = kBM / rep;
   p.lse = static_cast<const float*>(lse);
@@ -388,8 +401,8 @@ extern "C" int socio_flash_train_dq_bf16(
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
   if (p.n_items <= 0) return 0;
-  // (D, heads, tokens, B) views, 64-column boxes: rep heads x toks tokens of
-  // q and dO, one head x 128 keys of k and v
+  // (D, heads, tokens, B) views, 64-column boxes (columns past D read as
+  // zeros): rep heads x toks tokens of q and dO, one head x 128 keys of k and v
   const long long qdims[4] = {D, H, Lq, B}, kdims[4] = {D, Hkv, Lk, B};
   const long long qs[4] = {1, sqh, sqt, sqb}, os[4] = {1, sdoh, sdot, sdob},
                   ks[4] = {1, skh, skt, skb}, vs[4] = {1, svh, svt, svb};
@@ -400,9 +413,9 @@ extern "C" int socio_flash_train_dq_bf16(
   if (rc == 0) rc = encode_map(&p.v, v, 4, kdims, vs, kbox, true);
   if (rc != 0) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return launch<64>(p, s);
-    case 128: return launch<128>(p, s);
+  switch (inst) {
+    case 64: return D < 64 ? launch<64, true>(p, s) : launch<64, false>(p, s);
+    case 128: return D < 128 ? launch<128, true>(p, s) : launch<128, false>(p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

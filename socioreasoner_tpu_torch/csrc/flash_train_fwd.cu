@@ -28,7 +28,10 @@
 // one lane of each quad writes its row's lse. The GQA fold reads each K/V
 // tile once for the rep = 8 q heads of a kv head (any rep up to 128: a
 // rep that does not divide 128 leaves rows of the 128-row tile idle), so
-// the TPU wrapper's repeat, transposes and padding are gone.
+// the TPU wrapper's repeat, transposes and padding are gone. Head dims
+// follow kernel 2's rule: any multiple of 8 up to 128 on the 64-, 80- or
+// 128-column instance that covers it, the tail zero-filled by TMA and never
+// stored (the host pads other head dims up to 128 to a multiple of 8).
 #include "attention_sm90.cuh"
 
 extern "C" int socio_flash_train_fwd_bf16(
@@ -39,13 +42,8 @@ extern "C" int socio_flash_train_fwd_bf16(
     long long svb, long long svt, long long svh,
     long long sob, long long sot, long long soh,
     int causal, float scale, void* stream) {
-  // the head dims of the text decoders (kernel 2's instances of the CTA; the
-  // ViT's 80 is kernel 1's and 2's only)
-  switch (D) {
-    case 64:
-    case 128: break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  // kernel 2's instances of the CTA (64, 80 and 128 columns) serve every
+  // head dim that is a multiple of 8 up to 128; launch_gqa refuses the rest
   return socio90::launch_gqa(q, k, v, o, static_cast<float*>(lse), kv_lens, B, Lq, Lk, H, Hkv,
                              D, sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh,
                              causal, scale, static_cast<cudaStream_t>(stream));

@@ -266,17 +266,40 @@ inline int encode_map(CUtensorMap* map, const void* ptr, int rank, const long lo
   return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
 }
 
-// The main-chunk (64 columns) and, for D % 64 == 16, the tail map of one
-// tensor; `box` is the box with its innermost extent left to fill.
+// The main-chunk (64 columns) and, for an instance of 64k + 16 columns, the
+// tail map of one tensor; `box` is the box with its innermost extent left
+// to fill. dims[0] is the tensor's own head dim d (a multiple of 8, at most
+// `inst`): the boxes cover the instance's `inst` columns, and TMA fills the
+// columns past d with zeros (and still counts their bytes on the barrier).
 inline int encode_pair(CUtensorMap* main_map, CUtensorMap* tail_map, const void* ptr, int rank,
-                       const long long* dims, const long long* strides, int* box, int D) {
+                       const long long* dims, const long long* strides, int* box, int inst) {
   box[0] = 64;
   int rc = encode_map(main_map, ptr, rank, dims, strides, box, true);
-  if (rc == 0 && D % 64 != 0) {
-    box[0] = D % 64;
+  if (rc == 0 && inst % 64 != 0) {
+    box[0] = inst % 64;
     rc = encode_map(tail_map, ptr, rank, dims, strides, box, false);
   }
   return rc;
+}
+
+// The head-dim instances each kernel is compiled for (the columns of its
+// tiles): kernels 2 and 4 (launch_gqa) 64, 80 and 128; kernel 1 80 and 128;
+// kernels 5 and 6 64 and 128. A head dim d that is a multiple of 8 (a row of
+// 16-byte units, which a tensor map's stride needs) and at most 128 runs on
+// the smallest instance of at least d columns, its tail zero-filled by TMA
+// and never stored; the host pads any other d <= 128 to the next multiple
+// of 8 first (ops/flash_attention.py head_dim_plan, held to this formula by
+// socio_head_dim_instance). Returns 0 where no instance serves d.
+constexpr int kGqaDims[3] = {64, 80, 128};
+constexpr int kSegDims[2] = {80, 128};
+constexpr int kBwdDims[2] = {64, 128};
+
+template <int N>
+inline int head_dim_instance(const int (&dims)[N], int d) {
+  if (d <= 0 || d % 8 != 0) return 0;
+  for (int i = 0; i < N; ++i)
+    if (d <= dims[i]) return dims[i];
+  return 0;
 }
 
 inline int num_sms() {

@@ -73,7 +73,7 @@ def transfer_params(params: Dict, target, bucket_bytes: Optional[int] = 256 * 10
     bucket."""
     if isinstance(target, (Mesh, list, tuple)):
         devices = tp_devices(target, axis)
-        specs = shard_specs(params)
+        specs = shard_specs(params, len(devices))
         out: List[Dict] = [{} for _ in devices]
 
         def move(path, leaf):

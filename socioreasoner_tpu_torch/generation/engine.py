@@ -37,7 +37,8 @@ The counterpart of socioreasoner_tpu/generation/engine.py on one device:
     row-parallel partial products are summed onto the first device, where
     the residual stream, the gathered logits, the sampler and the slot
     state live. `mesh` and `device` are exclusive, as in JAX.
-    Nibble-packed int4 weights are refused under tensor parallelism.
+    Nibble-packed int4 weights split by their scale groups (whole leaves
+    where a shard boundary would cut one), at every tp the heads allow.
 
 The attention route follows ops/flags.use_flash_attention: the kernels
 unless SOCIO_DISABLE_FLASH=1, which attends densely over a CPU engine's
@@ -158,9 +159,6 @@ class DecodeEngine:
                     raise ValueError(
                         f"tp={T} must divide heads ({t.num_attention_heads}) and "
                         f"kv heads ({t.num_key_value_heads})")
-                if weight_quant == "int4":
-                    raise NotImplementedError(
-                        "weight_quant='int4' under tensor parallelism")
                 self.tp = devices
             device = devices[0]
         self.mesh = mesh

@@ -32,7 +32,8 @@ local heads (flash_attention_tp, paged_decode_attention_tp), and the
 row-parallel o_proj/down_proj partial products summed onto the first
 shard's device, as the JAX package's GSPMD psum does (int8 weights: the
 partial products before the per-channel scale; w8a8: the int32 partials of
-one global activation scale, so those sums are exact). MoE layers split the
+one global activation scale, so those sums are exact; int4 weights: each
+shard's dequantized rows, or its rows of a leaf kept whole). MoE layers split the
 experts over the shards. `use_flash=False` on the cached path attends
 densely over the cache (the SOCIO_DISABLE_FLASH route).
 
@@ -66,7 +67,8 @@ from ...ops.flash_attention import flash_attention, flash_attention_tp
 from ...ops.flash_attention_bwd import dkv_plan, flash_attention_trainable
 from ...ops.moe import moe_experts, moe_mlp, moe_router
 from ...ops.norms import rms_norm, swiglu
-from ...ops.quant import _INV127, _scale, int_matmul, matmul_q, params_prequantized
+from ...ops.quant import (_INV127, _scale, int_matmul, matmul_int4_rows, matmul_q,
+                          params_prequantized)
 from ...parallel.pipeline_parallel import pipeline_decoder
 from ...parallel.ring_attention import ring_attention_pos_local
 from ...parallel.ulysses import ulysses_attention_local, ulysses_heads
@@ -142,7 +144,10 @@ def row_parallel(hs, ps, name: str, a8: bool, home: torch.device) -> torch.Tenso
     product by the per-channel scale, which every shard holds whole; with
     a8 the activations share one per-row scale from the global row amax and
     the int32 partials sum exactly, so the result equals the unsharded w8a8
-    product."""
+    product. Nibble-packed int4 weights hold their packed rows and scale
+    groups a shard, or the whole leaf where a shard boundary would cut a
+    group (parallel/sharding.py), whose rows of this shard's inputs it then
+    multiplies."""
     w0 = ps[0][name]
     dtype = hs[0].dtype
     if w0.dtype == torch.int8:
@@ -162,7 +167,14 @@ def row_parallel(hs, ps, name: str, a8: bool, home: torch.device) -> torch.Tenso
         y = _sum_to([h @ p[name].to(dtype) for h, p in zip(hs, ps)], home)
         return (y * scale).to(dtype)
     if w0.dtype == torch.uint8:
-        raise NotImplementedError("nibble-packed int4 weights under tensor parallelism")
+        parts = []
+        for t, (h, p) in enumerate(zip(hs, ps)):
+            k = h.shape[-1]
+            if 2 * p[name].shape[-2] == k:        # this shard's rows and groups
+                parts.append(matmul_q(h, p, name))
+            else:                                 # the whole leaf: its rows t k ..
+                parts.append(matmul_int4_rows(h, p[name], p[name + "_scale"], t * k))
+        return _sum_to(parts, home)
     return _sum_to([h @ p[name] for h, p in zip(hs, ps)], home)
 
 

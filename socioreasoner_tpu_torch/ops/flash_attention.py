@@ -8,7 +8,10 @@ The counterpart of socioreasoner_tpu/ops/flash_attention.py:
   flash_attention_segmented — segment-id equality mask, non-causal, over a
                               packed ViT sequence (csrc/flash_segmented.cu)
 
-Both kernels are the persistent TMA + wgmma CTA of csrc/attention_sm90.cuh.
+Both kernels are the persistent TMA + wgmma CTA of csrc/attention_sm90.cuh,
+compiled for a few head-dim instances; head_dim_plan maps any head dim up to
+128 onto one (zero-filled tail columns, a host pad where D is not a multiple
+of 8) and the wrappers raise for a larger one, naming H, Hkv and D.
 Kernel 1 walks a work list built here from the segment ids
 (seg_tile_plan); kernel 2 derives its k ranges on the device from kv_len
 (prefill_tile_bounds is the host copy of that formula).
@@ -32,12 +35,36 @@ from .attention import dense_attention
 
 KERNEL_Q_TILE = 128     # query rows per work item of kernels 1, 2, 4 and 5 (2 warpgroups x 64)
 KERNEL_K_TILE = 128     # keys per K/V tile of kernels 1, 2, 4 and 5
-# the head dims each kernel instantiates (csrc/flash_prefill.cu and
-# csrc/flash_segmented.cu switch on them): kernel 2 the text decoders' 64
-# (Qwen2.5-0.5B/1.5B, Llama-3.2) and 128, and 80; kernel 1 the ViT's 80 and
-# 128
+# The head-dim instances (the columns of a kernel's tiles) each kernel is
+# compiled for, as csrc/sm90_common.cuh lists them (kGqaDims, kSegDims):
+# kernels 2 and 4 64, 80 and 128, kernel 1 80 and 128. Any head dim up to
+# 128 runs on one of them (head_dim_plan); a larger one raises.
 KERNEL_HEAD_DIMS = (64, 80, 128)
 SEG_HEAD_DIMS = (80, 128)
+HEAD_DIM_ALIGN = 8      # 16-byte rows: what a tensor map's head stride needs
+
+
+def head_dim_plan(D: int, instances) -> Optional["tuple[int, int]"]:
+    """How a kernel compiled for `instances` serves head dim D: (the width
+    the wrapper hands it, the instance it runs on), or None where no instance
+    covers D. The width is D, or D padded with zero columns to the next
+    multiple of HEAD_DIM_ALIGN where D is not one (OpenLLaMA-3B's 100 → 104:
+    a row of 200 bytes cannot be a tensor map's stride); the instance is the
+    smallest one of at least that width, whose columns past it TMA fills
+    with zeros and the epilogue never stores. The host copy of
+    head_dim_instance in csrc/sm90_common.cuh (socio_head_dim_instance runs
+    it on the host)."""
+    width = -(-D // HEAD_DIM_ALIGN) * HEAD_DIM_ALIGN
+    inst = next((n for n in instances if n >= width), None)
+    return None if D <= 0 or inst is None else (width, inst)
+
+
+def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x (..., D) with zero columns up to `width` (a new contiguous tensor),
+    or x itself where D is `width`: the copy a head dim that is not a
+    multiple of HEAD_DIM_ALIGN costs before a kernel reads it."""
+    D = x.shape[-1]
+    return x if D == width else torch.nn.functional.pad(x, (0, width - D))
 
 
 def check_kernel_inputs(name: str, *tensors: torch.Tensor) -> None:
@@ -107,19 +134,22 @@ def flash_attention(
                  q=q, k=k, v=v, attention_mask=attention_mask)
     if q.is_cpu:
         return flash_attention_reference(q, k, v, attention_mask, causal=causal)
-    check_kernel_inputs("flash_attention", q, k, v)
-    if D not in KERNEL_HEAD_DIMS or H % Hkv or H // Hkv > KERNEL_Q_TILE:
+    plan = head_dim_plan(D, KERNEL_HEAD_DIMS)
+    if plan is None or H % Hkv or H // Hkv > KERNEL_Q_TILE:
         raise ValueError(f"flash_attention kernel: unsupported H={H} Hkv={Hkv} D={D}")
+    Dp = plan[0]
+    q, k, v = (pad_head_dim(x, Dp) for x in (q, k, v))
+    check_kernel_inputs("flash_attention", q, k, v)
     kv_lens = _kv_lens(attention_mask, B, Lk, q.device).contiguous()
-    out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Lq, H, Dp), dtype=q.dtype, device=q.device)
     rc = _build.library().socio_flash_prefill_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        kv_lens.data_ptr(), B, Lq, Lk, H, Hkv, D,
+        kv_lens.data_ptr(), B, Lq, Lk, H, Hkv, Dp,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         int(causal), D ** -0.5, torch._C._cuda_getCurrentRawStream(q.get_device()))
     _build.check(rc, "socio_flash_prefill_bf16")
     flash_attention.launches += 1
-    return out
+    return out if Dp == D else out[..., :D]
 
 
 flash_attention.launches = 0
@@ -339,21 +369,24 @@ def flash_attention_segmented(
                            "(vision_tower(..., use_flash=False))")
     if S == 0:
         return torch.empty_like(q)
-    check_kernel_inputs("flash_attention_segmented", q, k, v)
-    if D not in SEG_HEAD_DIMS:
+    widths = head_dim_plan(D, SEG_HEAD_DIMS)
+    if widths is None:
         raise ValueError(f"flash_attention_segmented kernel: unsupported H={H} D={D}")
+    Dp = widths[0]
+    q, k, v = (pad_head_dim(x, Dp) for x in (q, k, v))
+    check_kernel_inputs("flash_attention_segmented", q, k, v)
     if plan is None:
         plan = seg_plan(segment_ids, H, q.device, block_q=block_q, block_k=block_k,
                         max_span_blocks=max_span_blocks)
-    out = torch.empty((S, H, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((S, H, Dp), dtype=q.dtype, device=q.device)
     rc = _build.library().socio_flash_segmented_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), plan.seg.data_ptr(),
-        plan.work.data_ptr(), plan.tiles.data_ptr(), S, H, D, plan.work.numel(),
+        plan.work.data_ptr(), plan.tiles.data_ptr(), S, H, Dp, plan.work.numel(),
         *q.stride()[:2], *k.stride()[:2], *v.stride()[:2], *out.stride()[:2],
         D ** -0.5, torch._C._cuda_getCurrentRawStream(q.get_device()))
     _build.check(rc, "socio_flash_segmented_bf16")
     flash_attention_segmented.launches += 1
-    return out
+    return out if Dp == D else out[..., :D]
 
 
 flash_attention_segmented.launches = 0

@@ -31,6 +31,12 @@ The counterpart of socioreasoner_tpu/ops/flash_attention_bwd.py:
                              layers over the same kv_lens builds kernel 6's
                              plan once (dkv_plan) and passes it as `plan=`.
 
+Head dims: kernel 4 runs on kernel 2's instances (64, 80, 128 columns),
+kernels 5 and 6 on 64 and 128 (TRAIN_HEAD_DIMS); any head dim up to 128 runs
+on the smallest instance that covers it (head_dim_plan: the tail columns
+zero-filled by TMA, q/k/v/dO padded on the host where D is not a multiple of
+8), a larger one raises ValueError naming H, Hkv and D.
+
 Conventions of the JAX kernels, kept by the kernels and the plain versions:
 the mask is key < kv_len (a contiguous valid prefix per batch row) and, when
 causal, key <= query index; rows with no valid key give out 0 and lse NEG_INF;
@@ -52,17 +58,20 @@ import torch
 
 from . import _build
 from .attention import NEG_INF, repeat_kv
-from .flash_attention import KERNEL_Q_TILE, check_kernel_inputs, check_shapes
+from .flash_attention import (KERNEL_HEAD_DIMS, KERNEL_Q_TILE, check_kernel_inputs,
+                              check_shapes, head_dim_plan, pad_head_dim)
 
-# the head dims kernels 4-6 instantiate (csrc/flash_train_fwd.cu,
-# flash_train_dq_sm90.cu and flash_train_dkv_sm90.cu switch on them)
+# the head-dim instances kernels 5 and 6 are compiled for (csrc/sm90_common.cuh
+# kBwdDims; kernel 4 is kernel 2's CTA, KERNEL_HEAD_DIMS): any head dim up to
+# 128 runs on one of them (head_dim_plan), a larger one raises
 TRAIN_HEAD_DIMS = (64, 128)
 
 DKV_K_TILE = 128    # keys per kernel-6 work item (2 consumer warpgroups x 64)
 DKV_Q_TILE = 64     # query rows per step of kernel 6's loop
 DKV_MIN_CAP = 16    # the smallest share of (key tile, q head, q tile) pairs a CTA gets
-# one piece's f32 dK and dV partials at the largest head dim (a D = 64
-# launch's slots are half as long and fill the first half of the workspace)
+# one piece's f32 dK and dV partials at the widest instance (a launch on the
+# 64-column one has slots half as long, which fill the first half of the
+# workspace)
 DKV_SLOT_FLOATS = DKV_K_TILE * max(TRAIN_HEAD_DIMS) * 2
 DKV_FIELDS = ("b", "g", "kt", "i_lo", "cnt", "p0", "np", "j", "n", "split", "ws0", "kv_len")
 N_SM = 132          # an H100's SMs: the count a plan for a CPU tensor assumes
@@ -273,26 +282,34 @@ def flash_attention_bwd_dkv_by_plan(q, k, v, do, lse, delta, items, causal: bool
 
 # ---------------------------------------------------------------- kernels
 
-def _check(name: str, q, k, v, kv_lens, *more) -> None:
+def _check(name: str, q, k, v, kv_lens, *more, instances=TRAIN_HEAD_DIMS) -> list:
     """Shapes (H % Hkv == 0), then (for GPU tensors) what the CUDA kernel
-    reads: bf16 operands, D in TRAIN_HEAD_DIMS and a GQA ratio H / Hkv of
-    at most KERNEL_Q_TILE (the q heads of a kv head fit one 128-row item)."""
+    reads: a head dim that one of `instances` serves (head_dim_plan), a GQA
+    ratio H / Hkv of at most KERNEL_Q_TILE (the q heads of a kv head fit one
+    128-row item), bf16 operands of 16-byte rows once padded to that width.
+    Returns q, k, v and the (B, L, H, D) tensors of `more`, each padded to
+    the width the kernel takes (as they are on the CPU)."""
     B, Lq, H, D = q.shape
     check_shapes(name, k.dim() == 4 and k.shape == v.shape and k.shape[0] == B
                  and k.shape[3] == D and H % k.shape[2] == 0
                  and (kv_lens is None or tuple(kv_lens.shape) == (B,))
                  and all(t.shape == s for t, s in more),
                  q=q, k=k, v=v, kv_lens=kv_lens)
-    if q.device.type != "cpu":
-        check_kernel_inputs(name, q, k, v, *(t for t, s in more if len(s) == 4))
-        Hkv = k.shape[2]
-        if D not in TRAIN_HEAD_DIMS or H // Hkv > KERNEL_Q_TILE:
-            raise ValueError(f"{name} kernel: unsupported H={H} Hkv={Hkv} D={D}")
-        for t, s in more:
-            if len(s) == 3 and (t.device != q.device or t.dtype != torch.float32
-                                or not t.is_contiguous()):
-                raise ValueError(f"{name}: lse/delta must be contiguous float32 "
-                                 f"on {q.device}")
+    operands = [q, k, v, *(t for t, s in more if len(s) == 4)]
+    if q.device.type == "cpu":
+        return operands
+    Hkv = k.shape[2]
+    plan = head_dim_plan(D, instances)
+    if plan is None or H // Hkv > KERNEL_Q_TILE:
+        raise ValueError(f"{name} kernel: unsupported H={H} Hkv={Hkv} D={D}")
+    operands = [pad_head_dim(t, plan[0]) for t in operands]
+    check_kernel_inputs(name, *operands)
+    for t, s in more:
+        if len(s) == 3 and (t.device != q.device or t.dtype != torch.float32
+                            or not t.is_contiguous()):
+            raise ValueError(f"{name}: lse/delta must be contiguous float32 "
+                             f"on {q.device}")
+    return operands
 
 
 def _strides(*tensors):
@@ -304,21 +321,22 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (B, Lq, H, D), k/v (B, Lk, Hkv, D), kv_lens (B,) → (out (B, Lq, H, D),
     lse (B, H, Lq) f32)."""
-    _check("flash_attention_fwd_lse", q, k, v, kv_lens)
+    qp, kp, vp = _check("flash_attention_fwd_lse", q, k, v, kv_lens,
+                        instances=KERNEL_HEAD_DIMS)
     if q.device.type == "cpu":
         return flash_attention_fwd_lse_reference(q, k, v, kv_lens, causal)
     B, Lq, H, D = q.shape
-    Lk, Hkv = k.shape[1], k.shape[2]
+    Lk, Hkv, Dp = k.shape[1], k.shape[2], qp.shape[-1]
     lens = _lens(kv_lens, B, Lk, q.device)
-    out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Lq, H, Dp), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     rc = _build.library().socio_flash_train_fwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        lens.data_ptr(), B, Lq, Lk, H, Hkv, D, *_strides(q, k, v, out),
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        lens.data_ptr(), B, Lq, Lk, H, Hkv, Dp, *_strides(qp, kp, vp, out),
         int(causal), D ** -0.5, torch._C._cuda_getCurrentRawStream(q.get_device()))
     _build.check(rc, "socio_flash_train_fwd_bf16")
     flash_attention_fwd_lse.launches += 1
-    return out, lse
+    return (out if Dp == D else out[..., :D]), lse
 
 
 flash_attention_fwd_lse.launches = 0
@@ -329,21 +347,21 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, kv_lens=None, *,
     """dq (B, Lq, H, D) from the saved lse and delta ((B, H, Lq) f32)."""
     B, Lq, H, D = q.shape
     stats = (B, H, Lq)
-    _check("flash_attention_bwd_dq", q, k, v, kv_lens,
-           (do, q.shape), (lse, stats), (delta, stats))
+    qp, kp, vp, dop = _check("flash_attention_bwd_dq", q, k, v, kv_lens,
+                             (do, q.shape), (lse, stats), (delta, stats))
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, do, lse, delta, kv_lens, causal)[0]
-    Lk, Hkv = k.shape[1], k.shape[2]
+    Lk, Hkv, Dp = k.shape[1], k.shape[2], qp.shape[-1]
     lens = _lens(kv_lens, B, Lk, q.device)
-    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dq = torch.empty_like(qp, memory_format=torch.contiguous_format)
     rc = _build.library().socio_flash_train_dq_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), lens.data_ptr(), B, Lq, Lk, H, Hkv, D,
-        *_strides(q, k, v, do, dq), int(causal), D ** -0.5,
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), dop.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), lens.data_ptr(), B, Lq, Lk, H, Hkv, Dp,
+        *_strides(qp, kp, vp, dop, dq), int(causal), D ** -0.5,
         torch._C._cuda_getCurrentRawStream(q.get_device()))
     _build.check(rc, "socio_flash_train_dq_bf16")
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return dq if Dp == D else dq[..., :D]
 
 
 flash_attention_bwd_dq.launches = 0
@@ -371,8 +389,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_lens=None, *, causal: bo
     and traps where they are not kv_lens."""
     B, Lq, H, D = q.shape
     stats = (B, H, Lq)
-    _check("flash_attention_bwd_dkv", q, k, v, kv_lens,
-           (do, q.shape), (lse, stats), (delta, stats))
+    qp, kp, vp, dop = _check("flash_attention_bwd_dkv", q, k, v, kv_lens,
+                             (do, q.shape), (lse, stats), (delta, stats))
     Lk, Hkv = k.shape[1], k.shape[2]
     key = (B, Lq, Lk, H, Hkv, bool(causal))
     lens = _lens(kv_lens, B, Lk, q.device)
@@ -382,17 +400,19 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_lens=None, *, causal: bo
         return flash_attention_bwd_reference(q, k, v, do, lse, delta, kv_lens, causal)[1:]
     if plan is None:
         plan = dkv_plan(kv_lens, *key, q.device)
-    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
-    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    Dp = qp.shape[-1]
+    dk = torch.empty_like(kp, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(vp, memory_format=torch.contiguous_format)
     rc = _build.library().socio_flash_train_dkv_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), dop.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), plan.items.data_ptr(),
         plan.cta_start.data_ptr(), plan.workspace.data_ptr(), plan.counters.data_ptr(),
-        lens.data_ptr(), plan.n_cta, B, Lq, Lk, H, Hkv, D, *_strides(q, k, v, do, dk, dv), int(causal),
-        D ** -0.5, torch._C._cuda_getCurrentRawStream(q.get_device()))
+        lens.data_ptr(), plan.n_cta, B, Lq, Lk, H, Hkv, Dp,
+        *_strides(qp, kp, vp, dop, dk, dv), int(causal), D ** -0.5,
+        torch._C._cuda_getCurrentRawStream(q.get_device()))
     _build.check(rc, "socio_flash_train_dkv_bf16")
     flash_attention_bwd_dkv.launches += 1
-    return dk, dv
+    return (dk, dv) if Dp == D else (dk[..., :D], dv[..., :D])
 
 
 flash_attention_bwd_dkv.launches = 0

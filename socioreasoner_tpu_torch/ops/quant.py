@@ -111,14 +111,26 @@ def unpack_int4(p: torch.Tensor) -> torch.Tensor:
     return w.reshape(*p.shape[:-2], 2 * p.shape[-2], p.shape[-1])
 
 
-def _matmul_int4(h: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """h @ dequant(unpack(q), scale) with group-wise scales (the group is
-    inferred from the scale shape)."""
+def _dequant_int4(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """dequant(unpack(q), scale) in `dtype`, with group-wise scales (the
+    group is inferred from the scale shape)."""
     K, N = 2 * q.shape[-2], q.shape[-1]
     G = scale.shape[-2]
-    wdq = (unpack_int4(q).float().reshape(*q.shape[:-2], G, K // G, N)
-           * scale[..., :, None, :]).reshape(*q.shape[:-2], K, N).to(h.dtype)
-    return h @ wdq
+    return (unpack_int4(q).float().reshape(*q.shape[:-2], G, K // G, N)
+            * scale[..., :, None, :]).reshape(*q.shape[:-2], K, N).to(dtype)
+
+
+def _matmul_int4(h: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """h @ dequant(unpack(q), scale) with group-wise scales."""
+    return h @ _dequant_int4(q, scale, h.dtype)
+
+
+def matmul_int4_rows(h: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                     row0: int) -> torch.Tensor:
+    """h (..., k) @ rows row0 .. row0 + k - 1 of dequant(unpack(q), scale):
+    a tensor-parallel shard's slice of a row-parallel int4 product whose
+    leaf it holds whole (where a shard boundary would cut a scale group)."""
+    return h @ _dequant_int4(q, scale, h.dtype)[row0:row0 + h.shape[-1]]
 
 
 def quantize_act(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -15,7 +15,13 @@ cut: the serving plane shards over tp only). A quantized tree's per-output-
 channel scales follow their weight's output dim: sliced with a column-
 parallel weight, whole beside a row-parallel one (the JAX tables replicate
 them and GSPMD slices them against the sharded product). Nibble-packed int4
-weights and any key the tables do not know are copied whole.
+weights split as their math does: the packing and the scale groups run
+along the contraction dim, so a column-parallel leaf splits its codes and
+group scales on the output dim, and a row-parallel one its packed rows and
+scale rows, unless a shard boundary would cut a scale group (K / T not a
+multiple of the group); such a leaf, the int4 LM head and any key the
+tables do not know are copied whole, and a shard computes its slice of the
+product from the whole leaf, as JAX's replicated leaf does.
 
 The train plane (ShardedTree) cuts a float tree over a mesh's fsdp AND tp
 axes by the same tables: leaf x becomes blocks[f][t], the block of fsdp
@@ -128,10 +134,24 @@ def param_specs(params: Dict) -> Dict:
     return specs
 
 
-def shard_specs(params: Dict) -> Dict:
-    """The specs shard_params applies: param_specs, with nibble-packed int4
-    leaves whole, and each `<w>_scale` of an int8 weight split over tp on
-    its last dim where the weight's output (last) dim is; the tied head's
+def _int4_split(w: torch.Tensor, w_spec, scale: torch.Tensor, tp: Optional[int]) -> bool:
+    """Whether nibble-packed int4 leaf w (with its (..., groups, out) scale)
+    splits over tp as its spec says: on the output dim always, on the
+    contraction dim only where each of the tp shards holds whole scale
+    groups (a tp of None is not known: kept whole)."""
+    if not w_spec or "tp" not in w_spec:
+        return False
+    if list(w_spec).index("tp") == w.dim() - 1:
+        return True
+    return tp is not None and scale.shape[-2] % tp == 0
+
+
+def shard_specs(params: Dict, tp: Optional[int] = None) -> Dict:
+    """The specs shard_params applies over `tp` shards: param_specs, with
+    each `<w>_scale` of an int8 weight split over tp on its last dim where
+    the weight's output (last) dim is, nibble-packed int4 leaves and their
+    group scales split on the dim their spec names where _int4_split allows
+    (whole otherwise, and so is the int4 LM head); the tied head's
     lm_head_scale follows lm_head_q."""
     def fix(tree: Dict, spec_tree: Dict) -> Dict:
         out = {}
@@ -139,15 +159,23 @@ def shard_specs(params: Dict) -> Dict:
             if isinstance(spec, dict):
                 out[key] = fix(tree[key], spec)
                 continue
-            out[key] = P() if _is_uint8(tree[key]) else spec
+            out[key] = spec
+            if _is_uint8(tree[key]) and not (
+                    key + "_scale" in tree
+                    and _int4_split(tree[key], spec, tree[key + "_scale"], tp)):
+                out[key] = P()
             if key.endswith("_scale"):
                 w_key = key[:-len("_scale")]
                 if key == "lm_head_scale":
                     w_key = "lm_head" if "lm_head" in tree else "lm_head_q"
                 w, w_spec = tree.get(w_key), spec_tree.get(w_key)
+                nd = tree[key].dim()
                 if (w is not None and w.dtype == torch.int8 and w_spec
                         and w_spec[-1] == "tp"):
-                    out[key] = P(*([None] * (tree[key].dim() - 1)), "tp")
+                    out[key] = P(*([None] * (nd - 1)), "tp")
+                elif w is not None and _is_uint8(w) and _int4_split(w, w_spec, tree[key], tp):
+                    dim = list(w_spec).index("tp") - w.dim()     # -1 or -2, as the codes
+                    out[key] = P(*(("tp" if d == nd + dim else None) for d in range(nd)))
         return out
     return fix(params, param_specs(params))
 
@@ -169,7 +197,7 @@ def shard_leaf(x: torch.Tensor, spec: Sequence, devices: Sequence[torch.device],
 def shard_params(params: Dict, devices: Sequence, axis: str = "tp") -> List[Dict]:
     """The tree as T trees, shard t on devices[t] (see the module doc)."""
     devices = [torch.device(d) for d in devices]
-    specs = shard_specs(params)
+    specs = shard_specs(params, len(devices))
 
     def walk(tree, spec_tree):
         out = [dict() for _ in devices]

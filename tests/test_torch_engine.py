@@ -366,7 +366,9 @@ def test_port_imports_no_jax():
         "          'phase_train_mesh', 'run_mesh_strategies', 'check_mesh_strategies',\n"
         "          'run_mesh_pipeline', 'run_mesh_processes', 'check_mesh_processes',\n"
         "          'train_mesh_worker', 'run_mesh_step', 'kernel_shapes',\n"
-        "          'train_mesh_config', 'train_mesh_params', 'train_mesh_batch'):\n"
+        "          'train_mesh_config', 'train_mesh_params', 'train_mesh_batch',\n"
+        "          'phase_head_dims', 'run_head_dim_model', 'written_text_model',\n"
+        "          '_head_dim_kernels', '_head_dim_instance_check', 'library_kernels'):\n"
         "    assert callable(getattr(chip_smoke, f)), f\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'socioreasoner_tpu' or m.startswith('socioreasoner_tpu.'))\n"

@@ -1,8 +1,9 @@
 """Head dims on the port's attention routes.
 
-The host's head-dim sets (KERNEL_HEAD_DIMS, SEG_HEAD_DIMS, TRAIN_HEAD_DIMS)
+The host's instance sets (KERNEL_HEAD_DIMS, SEG_HEAD_DIMS, TRAIN_HEAD_DIMS)
 are pinned to the instances the CUDA sources dispatch, and the wrappers
-refuse any other head dim with an error naming H, Hkv and D. The cached
+refuse a head dim above 128 with an error naming H, Hkv and D (every head
+dim up to 128 runs: tests/test_torch_head_dims_any.py). The cached
 decoder routes as the JAX package does: the decode kernel (kernels 3/3q)
 where head_dim is a multiple of 128, dense attention over the layer's cache
 otherwise (an int8 cache dequantized first). At head_dim 64 (Qwen2.5-0.5B,
@@ -38,37 +39,51 @@ from tests.test_torch_engine import _port
 CSRC = Path(__file__).resolve().parents[1] / "socioreasoner_tpu_torch" / "csrc"
 
 
-def _dispatched(source: str, entry: str):
-    """The head dims of the `switch (D)` in the body of C function `entry`
-    of `source`, and of the guard `D != n` ahead of it."""
+def _body(source: str, entry: str) -> str:
+    """The body of C function `entry` of `source`."""
     text = (CSRC / source).read_text()
     body = text[text.index(entry):]
-    body = body[:body.index("\n}\n")]
-    switch = body[body.index("switch (D)"):]
-    cases = {int(n) for n in re.findall(r"case (\d+):", switch)}
-    guard = {int(n) for n in re.findall(r"D != (\d+)", body)}
-    return cases, guard
+    return body[:body.index("\n}\n")]
+
+
+def _dispatched(source: str, entry: str):
+    """The instances of the `switch (inst)` in the body of C function
+    `entry` of `source`, and the instance list (sm90_common.cuh) whose
+    head_dim_instance chose `inst` there; a function that hands its call to
+    launch_gqa answers with launch_gqa's."""
+    body = _body(source, entry)
+    if "switch (inst)" not in body:
+        assert "launch_gqa(" in body, (source, entry)
+        return _dispatched("flash_prefill.cu", "int launch_gqa(")
+    cases = {int(n) for n in re.findall(r"case (\d+):", body[body.index("switch (inst)"):])}
+    (dims,) = re.findall(r"head_dim_instance\((k\w+Dims), D\)", body)
+    listed = re.search(rf"constexpr int {dims}\[\d+\] = \{{([\d, ]+)\}};",
+                       (CSRC / "sm90_common.cuh").read_text())
+    return cases, tuple(int(n) for n in listed.group(1).split(","))
 
 
 @pytest.mark.parametrize("source,entry,host", [
     ("flash_prefill.cu", "int launch_gqa(", fa.KERNEL_HEAD_DIMS),
     ("flash_segmented.cu", "socio_flash_segmented_bf16(", fa.SEG_HEAD_DIMS),
-    ("flash_train_fwd.cu", "socio_flash_train_fwd_bf16(", fb.TRAIN_HEAD_DIMS),
+    ("flash_train_fwd.cu", "socio_flash_train_fwd_bf16(", fa.KERNEL_HEAD_DIMS),
     ("flash_train_dq_sm90.cu", "socio_flash_train_dq_bf16(", fb.TRAIN_HEAD_DIMS),
     ("flash_train_dkv_sm90.cu", "socio_flash_train_dkv_bf16(", fb.TRAIN_HEAD_DIMS),
 ])
 def test_host_head_dims_are_the_dispatched_instances(source, entry, host):
-    cases, guard = _dispatched(source, entry)
-    assert cases == set(host), (source, cases, host)
-    assert guard in (set(), set(host)), (source, guard)
+    """Each entry point dispatches exactly the instances its list names, and
+    the host's instance set is that list, in order (head_dim_plan takes the
+    first instance that covers a width)."""
+    cases, listed = _dispatched(source, entry)
+    assert cases == set(listed), (source, cases, listed)
+    assert listed == tuple(host), (source, listed, host)
     assert 64 in fb.TRAIN_HEAD_DIMS and 64 in fa.KERNEL_HEAD_DIMS
 
 
-@pytest.mark.parametrize("D", [96, 32])
+@pytest.mark.parametrize("D", [136, 256])
 def test_wrappers_refuse_other_head_dims_naming_them(D, monkeypatch):
-    """A head dim outside the instances raises ValueError naming H, Hkv and
-    D before any pointer is passed: the tensors are made to read as CUDA
-    tensors that pass the device and type checks."""
+    """A head dim above 128 (no instance covers it) raises ValueError naming
+    H, Hkv and D before any pointer is passed: the tensors are made to read
+    as CUDA tensors that pass the device and type checks."""
     q = torch.zeros(1, 8, 4, D, dtype=torch.bfloat16)
     k = torch.zeros(1, 8, 2, D, dtype=torch.bfloat16)
     monkeypatch.setattr(torch.Tensor, "is_cpu", property(lambda self: False))

@@ -10,7 +10,8 @@ port side on device lists of `cpu` entries (the kernels' plain versions):
     shards concatenated back bit for bit;
   * the tensor-parallel DecodeEngine's greedy tokens against JAX's tp = 2
     engine with bf16 weights, int8 weights and an int8 KV cache (prefix fork
-    included);
+    included), and with int4 weights (whole and split row-parallel leaves,
+    teacher-forced logits against the unsharded int4 engine);
   * the decode replicas' tp x dp composition and its refusals,
     LocalGenerateGroup over two replicas, the infer pipeline with dp_size 2
     against JAX's, the train pipeline's replicas;
@@ -257,10 +258,12 @@ def test_shards_concatenate_back(case):
     """shard_params cuts each tp leaf into contiguous blocks, one a device,
     and the blocks concatenate back bit for bit; a column-parallel int8
     weight's scale is cut with its output channels, a row-parallel one's is
-    whole on each shard, int4 leaves are whole."""
+    whole on each shard; a column-parallel int4 weight's codes and group
+    scales are cut on the output channels, a row-parallel one (one scale
+    group over the tiny config's contraction dim) and the int4 head whole."""
     _, _, tp = _trees(case)
     shards = t_sharding.shard_params(tp, TP2)
-    specs = t_sharding.shard_specs(tp)
+    specs = t_sharding.shard_specs(tp, len(TP2))
     leaves = [transfer.tree_leaves_with_path(t) for t in (tp, specs, *shards)]
     for (path, whole), (_, spec), *parts in zip(*leaves):
         parts = [p for _, p in parts]
@@ -281,7 +284,13 @@ def test_shards_concatenate_back(case):
         blk = shards[1]["vision"]["blocks"]
         assert blk["qkv_w_scale"].shape[-1] == tp["vision"]["blocks"]["qkv_w_scale"].shape[-1] // 2
     if case == "int4":
-        assert torch.equal(layers1["q_w"], full["q_w"]) and full["q_w"].dtype == torch.uint8
+        q, qs = full["q_w"], full["q_w_scale"]
+        assert q.dtype == torch.uint8
+        assert torch.equal(layers1["q_w"], q[..., q.shape[-1] // 2:])
+        assert torch.equal(layers1["q_w_scale"], qs[..., qs.shape[-1] // 2:])
+        assert full["o_w_scale"].shape[-2] == 1
+        assert torch.equal(layers1["o_w"], full["o_w"])
+        assert torch.equal(shards[1]["lm_head"], tp["lm_head"])
     if case == "tied_int8":
         assert shards[1]["lm_head_q"].shape[-1] == tp["lm_head_q"].shape[-1] // 2
         assert shards[1]["embed"].shape[0] == tp["embed"].shape[0] // 2
@@ -355,10 +364,63 @@ def test_tp_engine_greedy_matches_jax(engine_setup, jax_flash, case):
         == (3, 1)
 
 
+def _wide_config():
+    """The tiny config at widths whose int4 row-parallel leaves split: o_proj's
+    256 and down_proj's 512 contraction rows are 2 and 4 scale groups of 128."""
+    config = Qwen25VLConfig.tiny()
+    return dataclasses.replace(config, text=dataclasses.replace(
+        config.text, hidden_size=256, intermediate_size=512, head_dim=64,
+        mrope_section=(8, 12, 12)))
+
+
+@pytest.mark.parametrize("case", ["whole", "split"])
+def test_tp_engine_int4_matches_jax(jax_flash, case):
+    """int4 weights under tp = 2: the port's engine on a `cpu` device list
+    against JAX's GSPMD engine over 2 virtual devices (weight_quant="int4",
+    its uint8 leaves replicated), the same greedy tokens, and against the
+    port's unsharded int4 engine, the same tokens and, teacher-forced along
+    them, logits within 1e-4 (f32 partial sums). "whole": the tiny config,
+    whose row-parallel leaves are one scale group (each shard holds them
+    whole and multiplies its rows); "split": _wide_config, whose shards hold
+    their own packed rows and groups."""
+    import chip_smoke
+    config = Qwen25VLConfig.tiny() if case == "whole" else _wide_config()
+    jp = j_model.init_params(config, jax.random.key(11), dtype=jnp.float32, with_vision=False)
+    tree = params_from_numpy(_np_tree(jp), "cpu")
+    kw = dict(max_slots=3, max_len=64, decode_chunk=4, prefill_buckets=(16, 32),
+              weight_quant="int4")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(2, 200, size=n).tolist() for n in (6, 11, 15)]
+    je = j_engine.DecodeEngine(config, jp, mesh=j_mesh.make_mesh(tp=2), sampler_exact=True,
+                               cache_dtype=jnp.float32, **kw)
+    want = je.generate([j_engine.Request(request_id=i, prompt_ids=p, sampling=JSampling(
+        temperature=0.0, do_sample=False, max_new_tokens=7)) for i, p in enumerate(prompts)])
+    engines = [t_engine.DecodeEngine(_port(config), tree, mesh=mesh, cache_dtype=torch.float32,
+                                     **kw) for mesh in (TP2, None)]
+    outs = [e.generate([t_engine.Request(i, p, SamplingParams(
+        temperature=0.0, do_sample=False, max_new_tokens=7)) for i, p in enumerate(prompts)])
+        for e in engines]
+    tokens = [list(o.output_ids) for o in want]
+    assert [list(o.output_ids) for o in outs[0]] == tokens
+    assert [list(o.output_ids) for o in outs[1]] == tokens
+    requests = [{"prompt_ids": p, "image_embeds": None, "position_ids": None} for p in prompts]
+    tp_rows, ref_rows = (chip_smoke._forced_logits(e, requests, tokens) for e in engines)
+    for a, b in zip(tp_rows, ref_rows):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=0)
+    shard, whole = engines[0].params_q[1]["layers"], engines[1].params_q["layers"]
+    for key in ("o_w", "down_w"):
+        rows = whole[key].shape[-2] // (2 if case == "split" else 1)
+        assert shard[key].dtype == torch.uint8 and shard[key].shape[-2] == rows, key
+        assert shard[key + "_scale"].shape[-2] == whole[key + "_scale"].shape[-2] * rows \
+            // whole[key].shape[-2], key
+    assert shard["q_w"].shape[-1] == whole["q_w"].shape[-1] // 2
+
+
 def test_tp_engine_refusals(engine_setup):
     """mesh and device are exclusive (JAX's message), tp must divide the
-    heads, int4 weights are refused under tp; set_params re-shards and takes
-    per-shard trees; a one-device mesh is a plain engine."""
+    heads; int4 weights are served under tp (their HYBRID copy sharded);
+    set_params re-shards and takes per-shard trees; a one-device mesh is a
+    plain engine."""
     config, jp = engine_setup
     tree = params_from_numpy(_np_tree(jp), "cpu")
     pc = _port(config)
@@ -371,8 +433,8 @@ def test_tp_engine_refusals(engine_setup):
     assert str(e.value) == str(je.value)
     with pytest.raises(ValueError, match="divide heads"):
         t_engine.DecodeEngine(pc, tree, mesh=[CPU] * 4, **kw)
-    with pytest.raises(NotImplementedError, match="int4"):
-        t_engine.DecodeEngine(pc, tree, mesh=TP2, weight_quant="int4", **kw)
+    int4 = t_engine.DecodeEngine(pc, tree, mesh=TP2, weight_quant="int4", **kw)
+    assert len(int4.params_q) == 2 and int4.params_q[1]["layers"]["q_w"].dtype == torch.uint8
     one = t_engine.DecodeEngine(pc, tree, mesh=t_mesh.make_mesh(tp=1, devices=[CPU]), **kw)
     assert one.tp is None and isinstance(one.caches, dict)
     eng = t_engine.DecodeEngine(pc, tree, mesh=t_mesh.make_mesh(tp=2, devices=TP2), **kw)
@@ -679,7 +741,8 @@ def _smoke_model():
 
 def test_chip_smoke_parallel_phase_on_cpu():
     """chip_smoke's parallel phase at a tiny config on CPU tensors: the tp =
-    2 engine against the unsharded one (bf16, then int8 weights and KV), two
+    2 engine against the unsharded one (bf16, then int8 weights and KV, then
+    int4 weights), two
     tiles' requests, with the prefill and decode profiles; then the infer
     pipeline at dp_size 1 and 2 over two tiles, their files equal."""
     import chip_smoke
@@ -689,13 +752,14 @@ def test_chip_smoke_parallel_phase_on_cpu():
     out = chip_smoke.run_tp_engines(config, params, CPU, TP2, img_cfg=img_cfg, tile_px=96,
                                     buckets=(512, 1024), max_new=5, decode_chunk=4,
                                     n_tiles=2, profile_len=40)
-    for name in ("bf16", "int8"):
+    for name in ("bf16", "int8", "int4"):
         fig = out[name]
         assert fig["equal_requests"] == 2 and not fig["tie_flips"]
         assert fig["tp_shard_cache"][3] == 1 and fig["compared_tokens"] == 10
         assert fig["max_logit_delta"] < fig["delta_limit"] == chip_smoke.TP_DELTA_LIMIT
-        assert fig["profile"]["tp"]["decode"]["steps"] == 4
-        assert fig["profile"]["tp"]["prefill"]["slots"] == 2
+        if name != "int4":          # the int4 engines are not profiled
+            assert fig["profile"]["tp"]["decode"]["steps"] == 4
+            assert fig["profile"]["tp"]["prefill"]["slots"] == 2
     sam_config = Sam2Config.tiny_test()
     sam_params = t_sam.init_params(sam_config, torch.Generator().manual_seed(1),
                                    dtype=torch.bfloat16, device="cpu")
