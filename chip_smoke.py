@@ -287,7 +287,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 (4, 512) with 32/4 and 16/16 heads and (4, 2048) with 12/2,
                 kernel 3 at rep 8, 1 and 6, kernels 4-6 at (2, 2048) with
                 32/4); peak < 80 GiB.
-  19. head_dims — kernels 2 and 4-6 at head dims other than 64 and 128,
+  19. head_dims — kernels 2-6 at head dims other than 64 and 128,
                 through public checkpoints at full width from their
                 published configs, each written with save_pretrained and
                 read back through llm.load_text_model: H2O-Danube3-4B
@@ -298,14 +298,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 steps on B=2 rows of 2048 against dense attention),
                 Danube3-500M (16/8 x 96) served and trained at 16,
                 Danube2-1.8B (32/8 x 80) trained at 4, OpenLLaMA-3B v2
-                (32/32 x 100, through the host pad to 104) served at 4.
-                Kernel 2 launches in every served pass and 4-6 in every
-                trained one, at the shapes the kernels phase checked
-                (HEAD_DIMS_PREFILL, HEAD_DIMS_TRAIN); kernel 3 never (these
-                head dims decode densely, as in the JAX package). The
-                kernels phase also holds kernel 2 and kernels 4-6 at other
-                widths and GQA ratios (HEAD_DIM_EDGES,
-                HEAD_DIM_TRAIN_EDGES), kernel 1 at 96 and 120, and the
+                (32/32 x 100, through the host pad to 104) served at 4,
+                Falcon3-7B (12/4 x 256) served at 28 of 28 layers, again at
+                4 with the int8 KV cache, and trained at 4. Kernel 2
+                launches in every served pass and 4-6 in every trained one,
+                at the shapes the kernels phase checked (HEAD_DIMS_PREFILL,
+                HEAD_DIMS_TRAIN); kernel 3 (3q with the int8 cache) in
+                Falcon3's served passes and never in the others (head dims
+                that are no multiple of 128 decode densely, as in the JAX
+                package). The kernels phase
+                also holds kernels 1, 2 and 4-6 at other widths (132
+                through the host pad, 136, 192, 200, 256) and GQA ratios
+                (HEAD_DIM_EDGES, HEAD_DIM_TRAIN_EDGES, HEAD_DIM_SEG_WIDTHS),
+                kernels 3 and 3q at 256 (HEAD_DIM_DECODE_CASES), a D=192
+                call on the 256 instance against its D=256 twin, and the
                 host's head_dim_plan against the kernels' formula.
 
 TF32 is off for matmuls and convolutions, so float32 references are full
@@ -610,7 +616,7 @@ def _train_edge_checks(randn, edges=TRAIN_EDGES, D=128):
             raise AssertionError(f"train fwd edge {tag}: lse max_abs_err {lse_err} > {LSE_TOL}")
         fwd = [max(fwd[0], err), max(fwd[1], ratio), max(fwd[2], lse_err)]
         delta = (do.float() * ref_out).sum(-1).transpose(1, 2).contiguous()
-        plan = fb.dkv_plan(lt, B, Lq, Lq, H, Hkv, causal, dev, cap=cap)
+        plan = fb.dkv_plan(lt, B, Lq, Lq, H, Hkv, causal, dev, cap=cap, head_dim=D)
         splits.append(plan.counters.numel() // 2)
         got = fb.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, lt, causal=causal,
                                          plan=plan)
@@ -710,7 +716,9 @@ def _one_image_seg_checks(randn, grid=None, D=80):
                                  fa.flash_attention_segmented_reference(
                                      q.float(), k.float(), v.float(), seg))
         b_ms, b_by = bound(4 * S * H * D * 2, 4 * D * H * _seg_pairs(seg_np))
-        if name == "window":
+        if name == "window" and D % 8:       # varlen_attn refuses such a head size
+            lib, lib_name = None, "none: varlen_attn takes head sizes that are multiples of 8"
+        elif name == "window":
             lib, lib_name = _window_library(q, k, v, seg_np)
         else:      # one image: full attention over its S patches
             qb, kb, vb = (x.transpose(0, 1)[None] for x in (q, k, v))
@@ -719,7 +727,7 @@ def _one_image_seg_checks(randn, grid=None, D=80):
             lib_name = f"scaled_dot_product_attention (1, 16, {S}, {D})"
         out[name] = {"err": err, "ratio": ratio, "ms": cuda_ms(run),
                      "device_ms": graph_call_ms(run), "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": cuda_ms(lib), "library": lib_name}
+                     "library_ms": None if lib is None else cuda_ms(lib), "library": lib_name}
     return out
 
 
@@ -1230,7 +1238,8 @@ HEAD_DIM_64_TRAIN = {
 # each repository's config.json (the fields that set a kernel's shape; the
 # others, rope_theta, rms_norm_eps, the special token ids, are not at hand
 # offline and take config_from_hf_dict's defaults: they change no kernel
-# shape, and the weights are random). Head dim = hidden / heads.
+# shape, and the weights are random). Head dim = hidden / heads, or the
+# config's own head_dim (Falcon3).
 DANUBE3_4B = {        # h2oai/h2o-danube3-4b-base: head dim 120, rep 4
     "architectures": ["LlamaForCausalLM"], "model_type": "llama", "hidden_size": 3840,
     "num_hidden_layers": 24, "num_attention_heads": 32, "num_key_value_heads": 8,
@@ -1247,23 +1256,33 @@ OPEN_LLAMA_3B_V2 = {  # openlm-research/open_llama_3b_v2: head dim 100 (host pad
     "architectures": ["LlamaForCausalLM"], "model_type": "llama", "hidden_size": 3200,
     "num_hidden_layers": 26, "num_attention_heads": 32, "num_key_value_heads": 32,
     "intermediate_size": 8640, "vocab_size": 32000}
+FALCON3_7B = {        # tiiuae/Falcon3-7B-Base: head dim 256, rep 3
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama", "hidden_size": 3072,
+    "num_hidden_layers": 28, "num_attention_heads": 12, "num_key_value_heads": 4,
+    "head_dim": 256, "intermediate_size": 23040, "vocab_size": 131072,
+    "rope_theta": 1000042}
 # name: (config, repository, layers served, layers trained; None: not run).
 # Danube3-4B served at full depth and trained at FAMILY_TRAIN_LAYERS,
 # Danube3-500M served and trained at full depth, Danube2-1.8B trained at
 # FAMILY_TRAIN_LAYERS (kernels 4-6 at 80 on the 128 instance of 5 and 6),
-# OpenLLaMA-3B v2 served at FAMILY_TRAIN_LAYERS (kernel 2 through the pad).
+# OpenLLaMA-3B v2 served at FAMILY_TRAIN_LAYERS (kernel 2 through the pad),
+# Falcon3-7B served at full depth (kernels 2 and 3 at 256) and trained at
+# FAMILY_TRAIN_LAYERS (kernels 4-6 at 256).
 HEAD_DIM_MODELS = {
     "danube3_4b": (DANUBE3_4B, "h2oai/h2o-danube3-4b-base", 24, FAMILY_TRAIN_LAYERS),
     "danube3_500m": (DANUBE3_500M, "h2oai/h2o-danube3-500m-base", 16, 16),
     "danube2_1_8b": (DANUBE2_1_8B, "h2oai/h2o-danube2-1.8b-base", None, FAMILY_TRAIN_LAYERS),
     "open_llama_3b_v2": (OPEN_LLAMA_3B_V2, "openlm-research/open_llama_3b_v2",
-                         FAMILY_TRAIN_LAYERS, None)}
+                         FAMILY_TRAIN_LAYERS, None),
+    "falcon3_7b": (FALCON3_7B, "tiiuae/Falcon3-7B-Base", 28, FAMILY_TRAIN_LAYERS)}
+# Models served again with the int8 KV cache (kernel 3q) at these layers.
+HEAD_DIM_INT8_LAYERS = {"falcon3_7b": FAMILY_TRAIN_LAYERS}
 
 
 def _heads(hf):
     """(q heads, kv heads, head dim) of an HF text config."""
     H = hf["num_attention_heads"]
-    return H, hf.get("num_key_value_heads", H), hf["hidden_size"] // H
+    return H, hf.get("num_key_value_heads", H), hf.get("head_dim", hf["hidden_size"] // H)
 
 
 # The shapes the phase's passes take, checked in phase_kernels: each served
@@ -1275,36 +1294,53 @@ HEAD_DIMS_PREFILL = {name: (FAMILY_PROMPT_LENS, FAMILY_BUCKET, *_heads(hf))
 HEAD_DIMS_TRAIN = {name: {**FAMILY_TRAIN, **dict(zip(("H", "Hkv", "D"), _heads(hf)))}
                    for name, (hf, _, _, train) in HEAD_DIM_MODELS.items() if train}
 # Edge shapes at other head dims: kernel 2's (B, Lq, H, Hkv, D, causal), GQA
-# ratios 4, 1, 2, 5 and 8 at widths 32 (the 64 instance), 72 (the 80
-# one), 96, 100 (padded to 104) and 120 (the 128 one); kernels 4-6's
-# TRAIN_EDGES-style cases at each width of HEAD_DIM_TRAIN_WIDTHS (a
-# length-1 row, a split plan, a row of no key, rep 1).
+# ratios 4, 1, 2, 3, 5 and 8 at widths 32 (the 64 instance), 72 (the 80
+# one), 96, 100 (padded to 104), 120 (the 128 one), 132 (padded to 136),
+# 136, 192, 200 and 256 (the 256 one); kernels 4-6's TRAIN_EDGES-style
+# cases at each width of HEAD_DIM_TRAIN_WIDTHS (a length-1 row, a split
+# plan, a row of no key, rep 1 and 3).
 HEAD_DIM_EDGES = ((2, 129, 32, 8, 120, True), (1, 1, 32, 8, 120, True),
                   (2, 300, 20, 4, 120, False), (3, 129, 32, 32, 100, True),
                   (2, 63, 16, 8, 96, True), (3, 200, 4, 4, 96, False),
-                  (2, 150, 16, 2, 72, True), (2, 129, 8, 2, 32, True))
+                  (2, 150, 16, 2, 72, True), (2, 129, 8, 2, 32, True),
+                  (3, 300, 12, 4, 256, True), (2, 129, 4, 4, 256, False),
+                  (3, 200, 16, 4, 256, True), (1, 1, 12, 4, 256, True),
+                  (3, 257, 12, 4, 192, True), (2, 129, 16, 4, 192, False),
+                  (3, 200, 4, 4, 200, True), (3, 129, 12, 4, 136, True),
+                  (2, 300, 16, 4, 132, True), (2, 63, 4, 4, 132, False))
 HEAD_DIM_TRAIN_EDGES = ((1, 1, 32, 8, True, [1], None), (2, 200, 32, 8, True, [200, 77], 1),
                         (3, 129, 16, 8, True, [129, 1, 0], None),
                         (2, 129, 4, 4, False, [129, 64], None),
-                        (2, 300, 32, 32, True, [300, 150], None))
-HEAD_DIM_TRAIN_WIDTHS = (120, 96, 80, 100, 32)
+                        (2, 300, 32, 32, True, [300, 150], None),
+                        (2, 300, 12, 4, True, [300, 150], 2))
+HEAD_DIM_TRAIN_WIDTHS = (120, 96, 80, 100, 32, 132, 136, 192, 200, 256)
 # kernel 1's width cases: one 756² image's ids (the rlvr phase's MathVLM
 # grid) at 16 heads
-HEAD_DIM_SEG_WIDTHS = (96, 120)
+HEAD_DIM_SEG_WIDTHS = (96, 120, 132, 136, 192, 200, 256)
+# Kernels 3 and 3q at head dim 256: (case, slots, Lalloc, lengths, layers,
+# q heads, kv heads, head dim) as DECODE_CASES. Falcon3-7B's served cache
+# mid-decode (timed; 3q at its int8 pass's HEAD_DIM_INT8_LAYERS), GQA ratio
+# 8 with zero-length and full slots, ratio 3 at 32 slots.
+HEAD_DIM_DECODE_CASES = (
+    ("falcon3_7b", 4, FAMILY_LALLOC, tuple(n + 17 for n in FAMILY_PROMPT_LENS), 28, 12, 4,
+     256),
+    ("d256_rep8", 4, 640, (0, 1, 337, 640), 3, 16, 2, 256),
+    ("d256_rep3_slots32", 32, 576, (0, 1, 63, 64, 65, 576) + tuple(17 * i for i in range(1, 27)),
+     3, 12, 4, 256))
 
 
-def _decode_caches(randn, slots, Lalloc, quant, layers=36, Hkv=2):
-    """The stacked caches (k, v), (layers, S, Lalloc, Hkv, 128), or, for
+def _decode_caches(randn, slots, Lalloc, quant, layers=36, Hkv=2, D=128):
+    """The stacked caches (k, v), (layers, S, Lalloc, Hkv, D), or, for
     kernel 3q, (k codes, v codes, k scales, v scales) from quantize_kv,
     scales (layers, S, Hkv, Lalloc)."""
     from socioreasoner_tpu_torch.ops import decode_attention as da
     if not quant:
-        return (randn(layers, slots, Lalloc, Hkv, 128),
-                randn(layers, slots, Lalloc, Hkv, 128))
+        return (randn(layers, slots, Lalloc, Hkv, D),
+                randn(layers, slots, Lalloc, Hkv, D))
     codes, scales = [], []
     for _ in range(2):
-        code, scale = da.quantize_kv(randn(layers * slots, Lalloc, Hkv, 128))
-        codes.append(code.reshape(layers, slots, Lalloc, Hkv, 128))
+        code, scale = da.quantize_kv(randn(layers * slots, Lalloc, Hkv, D))
+        codes.append(code.reshape(layers, slots, Lalloc, Hkv, D))
         scales.append(scale.reshape(layers, slots, Lalloc, Hkv).transpose(-1, -2)
                       .contiguous())
         del code, scale
@@ -1313,13 +1349,15 @@ def _decode_caches(randn, slots, Lalloc, quant, layers=36, Hkv=2):
 
 def _decode_kernels(randn):
     """Kernels 3 (bf16 cache) and 3q (int8 codes with f32 scales) over the
-    stacked cache (36, S, Lalloc, 2, 128) at DECODE_CASES: each (slot, q head)
-    row against the plain version in f32 on the same values (ROW_TOL; a
-    zero-length slot exactly 0) at layers 0, 17 and 35, two calls bit-equal;
-    per layer over a sweep of all 36 layers (a layer's blocks come from HBM as
-    in the decode step, not L2): ms, device ms from a CUDA graph of the sweep
-    (the torch.profiler figure beside it), host us a call, the plain
-    version's and the library call's ms, the bound."""
+    stacked cache (36, S, Lalloc, 2, 128) at DECODE_CASES (and the other
+    phases' caches, head dim 256 included: HEAD_DIM_DECODE_CASES): each
+    (slot, q head) row against the plain version in f32 on the same values
+    (ROW_TOL; a zero-length slot exactly 0) at the first, a middle and the
+    last layer, two calls bit-equal; per layer over a sweep of all the
+    cache's layers (a layer's blocks come from HBM as in the decode step,
+    not L2): ms, device ms from a CUDA graph of the sweep (the
+    torch.profiler figure beside it), host us a call, the plain version's
+    and the library call's ms, the bound."""
     import torch
     import torch.nn.functional as F
     from socioreasoner_tpu_torch.ops import decode_attention as da
@@ -1332,15 +1370,18 @@ def _decode_kernels(randn):
                     else da.paged_decode_attention_reference)
         errs, ratios, timed = [], [], {}
         for case, slots, Lalloc, lens, *heads in (DECODE_CASES + FAMILY_DECODE_CASES
-                                                  + PARALLEL_DECODE_CASES):
+                                                  + PARALLEL_DECODE_CASES
+                                                  + HEAD_DIM_DECODE_CASES):
             if quant and case in ("two_stage", "grpo", "rlvr", "math_vlm", "agentic") + tuple(
                     c[0] for c in FAMILY_DECODE_CASES):
                 continue
-            layers, H, Hkv = heads or (36, 16, 2)
+            layers, H, Hkv, D = (*(heads or (36, 16, 2)), 128)[:4]
+            if quant and case in HEAD_DIM_INT8_LAYERS:     # the model's int8 pass
+                layers = HEAD_DIM_INT8_LAYERS[case]
             lens = [n % Lalloc if n < 0 else n for n in lens]
-            caches = _decode_caches(randn, slots, Lalloc, quant, layers, Hkv)
+            caches = _decode_caches(randn, slots, Lalloc, quant, layers, Hkv, D)
             k, v, scales = caches[0], caches[1], caches[2:]
-            q = randn(slots, H, 128)
+            q = randn(slots, H, D)
             lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
             for layer in (0, layers // 2, layers - 1):
                 got = da.paged_decode_attention(q, k, v, lengths, *scales, layer=layer)
@@ -1357,7 +1398,7 @@ def _decode_kernels(randn):
                 err, ratio = _check_rows(tag, got, want)
                 errs.append(err)
                 ratios.append(ratio)
-            if case != "edges":
+            if case not in ("edges", "d256_rep8", "d256_rep3_slots32"):
                 sweep = lambda: [da.paged_decode_attention(   # noqa: E731
                     q, k, v, lengths, *scales, layer=i) for i in range(layers)]
                 plain = lambda: [plain_fn(q, k, v, lengths, *scales, layer=i)   # noqa: E731
@@ -1366,8 +1407,9 @@ def _decode_kernels(randn):
                 # q read and the output written (bf16), and each valid key's K
                 # and V rows of every kv head once: bf16, or int8 codes and an
                 # f32 scale a row
-                row_bytes = 128 + 4 if quant else 128 * 2
+                row_bytes = D + 4 if quant else D * 2
                 figures = {
+                    "shape": f"({layers}, {slots}, {Lalloc}, {Hkv}, {D}) under {H} q heads",
                     "lengths": lens, "heads": f"{layers} layers, {H}/{Hkv} heads",
                     "n_split": da.decode_plan(q, k, v, lengths, *scales, stacked=True).n_split,
                     "ms": cuda_ms(sweep) / layers,
@@ -1377,7 +1419,7 @@ def _decode_kernels(randn):
                         q, k, v, lengths, *scales, layer=layers // 2)),
                     "plain_ms": cuda_ms(plain, n=10) / layers,
                     "bound": bound(2 * (2 * q.numel()) + n_keys * Hkv * 2 * row_bytes,
-                                   4 * 128 * H * n_keys)}
+                                   4 * D * H * n_keys)}
                 if not quant:
                     # the library call: one query per slot over the layer's
                     # cache view with a boolean length mask (rows of length 0
@@ -1412,6 +1454,11 @@ def _decode_kernels(randn):
                 c[0]: summary(timed[c[0]]) for c in FAMILY_DECODE_CASES}}
         # the parallel phase's local shard: 3 on its bf16 cache, 3q on its int8 one
         extra["parallel_local"] = summary(timed["parallel"])
+        # Falcon3-7B's cache at head dim 256 (the head_dims phase; its int8
+        # pass at HEAD_DIM_INT8_LAYERS) and the edge cases checked with it
+        extra["head_dim_256"] = summary(timed["falcon3_7b"]) | {
+            "shape": timed["falcon3_7b"]["shape"],
+            "edge_cases": [c[0] for c in HEAD_DIM_DECODE_CASES[1:]]}
         rows.append(_row(
             name, "socioreasoner_tpu_torch/csrc/paged_decode.cu",
             "socioreasoner_tpu/ops/decode_attention.py:36",
@@ -1674,7 +1721,7 @@ def _phase_train_kernels(randn, spec, name_library=False):
         if not backward:
             continue
         delta = (do.float() * ref_out).sum(-1).transpose(1, 2).contiguous()
-        plan = fb.dkv_plan(lens, B, L, L, H, Hkv, True, dev)
+        plan = fb.dkv_plan(lens, B, L, L, H, Hkv, True, dev, head_dim=D)
         run_dq = lambda: fb.flash_attention_bwd_dq(   # noqa: E731
             q, k, v, do, ref_lse, delta, lens)
         run_dkv = lambda: fb.flash_attention_bwd_dkv(   # noqa: E731
@@ -1730,7 +1777,7 @@ g = torch.Generator(device=dev).manual_seed(0)
 q, do = (torch.randn(2, 8, 4, D, generator=g, device=dev).bfloat16() for _ in range(2))
 k, v = (torch.randn(2, 8, 2, D, generator=g, device=dev).bfloat16() for _ in range(2))
 stats = torch.zeros(2, 4, 8, device=dev)
-plan = fb.dkv_plan(torch.tensor([8, 3]), 2, 8, 8, 4, 2, True, dev)
+plan = fb.dkv_plan(torch.tensor([8, 3]), 2, 8, 8, 4, 2, True, dev, head_dim=D)
 for lens in ([8, 3], [8, 5]):
     try:
         fb.flash_attention_bwd_dkv(q, k, v, do, stats, stats,
@@ -1793,22 +1840,23 @@ def _head_dim_instance_check() -> int:
     return n
 
 
-def _d128_twin_ms(randn, B, L, H, Hkv, lens, train: bool) -> dict:
+def _twin_ms(randn, B, L, H, Hkv, lens, train: bool, D: int = 128) -> dict:
     """Device ms (CUDA graph) of kernel 2 (or kernels 4, 5 and 6) on inputs
-    of the same shape at head dim 128, the instance a narrower head dim runs
-    on: what the zero-filled columns cost against a native 128."""
+    of the same shape at head dim D: at D=128, the instance a narrower head
+    dim runs on (what the zero-filled columns cost against a native 128);
+    at D=192, a head dim on the 256 instance beside its native twin."""
     import torch
     from socioreasoner_tpu_torch.ops import flash_attention as fa
     from socioreasoner_tpu_torch.ops import flash_attention_bwd as fb
-    q, k, v = randn(B, L, H, 128), randn(B, L, Hkv, 128), randn(B, L, Hkv, 128)
+    q, k, v = randn(B, L, H, D), randn(B, L, Hkv, D), randn(B, L, Hkv, D)
     lt = torch.tensor(lens, dtype=torch.int32, device=q.device)
     if not train:
         mask = (torch.arange(L, device=q.device)[None] < lt[:, None]).to(torch.int32)
         return {"flash_attention": graph_call_ms(lambda: fa.flash_attention(q, k, v, mask))}
-    do = randn(B, L, H, 128)
+    do = randn(B, L, H, D)
     out, lse = fb.flash_attention_fwd_lse(q, k, v, lt)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    plan = fb.dkv_plan(lt, B, L, L, H, Hkv, True, q.device)
+    plan = fb.dkv_plan(lt, B, L, L, H, Hkv, True, q.device, head_dim=D)
     return {"flash_attention_fwd_lse": graph_call_ms(lambda: fb.flash_attention_fwd_lse(
                 q, k, v, lt)),
             "flash_attention_bwd_dq": graph_call_ms(lambda: fb.flash_attention_bwd_dq(
@@ -1878,18 +1926,22 @@ def _head_dim_kernels(randn):
             case["pad_ms"] = cuda_ms(lambda: [fa.pad_head_dim(x, width) for x in (q, k, v)])
             case["pad_device_ms"] = graph_call_ms(
                 lambda: [fa.pad_head_dim(x, width) for x in (q, k, v)])
-        case["d128_device_ms"] = _d128_twin_ms(randn, B, L, H, Hkv, lens,
-                                               False)["flash_attention"]
+        # beside a narrower head dim its instance's native twin; beside a
+        # 256 one, a D=192 call on the same instance
+        twin = 192 if inst == 256 else 128
+        case[f"d{twin}_device_ms"] = _twin_ms(randn, B, L, H, Hkv, lens, False,
+                                              twin)["flash_attention"]
         out["flash_attention"][name] = case
         emit({"phase": f"kernel_head_dims_{name}", "name": "flash_attention", **case})
         del q, k, v
     rows = ("flash_attention_fwd_lse", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
     for name, spec in HEAD_DIMS_TRAIN.items():
         B = spec["train_batch"]
-        twin = _d128_twin_ms(randn, B, spec["L"], spec["H"], spec["Hkv"],
-                             [spec["kv_lens"][b % 2] - 3 * (b // 2) for b in range(B)], True)
+        D = 192 if spec["D"] > 128 else 128
+        twin = _twin_ms(randn, B, spec["L"], spec["H"], spec["Hkv"],
+                        [spec["kv_lens"][b % 2] - 3 * (b // 2) for b in range(B)], True, D)
         for row, cases in zip(rows, _phase_train_kernels(randn, spec, name_library=True)):
-            cases["train_micro_batch"]["d128_device_ms"] = twin[row]
+            cases["train_micro_batch"][f"d{D}_device_ms"] = twin[row]
             out[row][name] = cases
             emit({"phase": f"kernel_head_dims_{name}", "name": row, **cases})
     for D in HEAD_DIM_TRAIN_WIDTHS:
@@ -1900,8 +1952,12 @@ def _head_dim_kernels(randn):
                 {"max_rel_err": dkv[0], "max_row_ratio": dkv[1], "split_tiles": splits})):
             out[row][f"edges_D{D}"] = fig
     out["flash_attention"]["instance_cases"] = _head_dim_instance_check()
+    out["flash_attention_segmented"]["model_path"] = (
+        "none above 128: no ViT of the supported families has a wider head dim, so the "
+        "wider instances are launched and checked here only")
     torch.cuda.empty_cache()
     return out
+
 
 
 def _short_3b_config(vocab: int = 8192):
@@ -5492,8 +5548,9 @@ def forced_against_forward(config, params, engine, dev, prompts, outs):
     import torch
     from socioreasoner_tpu_torch.models import llm
     from socioreasoner_tpu_torch.models.qwen2_5_vl import model as qmodel
+    from socioreasoner_tpu_torch.ops import decode_attention as da
     tokens = [list(o.output_ids) for o in outs]
-    kernels = _family_kernels()
+    kernels = (*_family_kernels(), da.paged_decode_attention_int8)
     counts = [k.launches for k in kernels]
     try:
         forced = _forced_logits(engine, [{"prompt_ids": p, "image_embeds": None,
@@ -5528,10 +5585,11 @@ def forced_against_forward(config, params, engine, dev, prompts, outs):
 
 def serve_family(config, params, dev, *, prompt_lens=FAMILY_PROMPT_LENS,
                  bucket=FAMILY_BUCKET, max_new=32, decode_chunk=16, seed=0,
-                 forced_ties=False):
+                 forced_ties=False, engine_extra=None):
     """Random-token prompts through the engine of a TorchDecodeStrategy
-    initialised on `params` (which serves the tree without a copy) at greedy
-    (one batched prefill, then decode over the slots), held by
+    initialised on `params` (which serves the tree without a copy; with
+    `engine_extra`'s engine knobs, e.g. the int8 KV cache) at greedy (one
+    batched prefill, then decode over the slots), held by
     greedy_against_forward (with forced_ties, by forced_against_forward);
     then one decode chunk of new requests at the same prompt lengths under
     torch.profiler (profile_decode_chunk), and the uncached forward over the
@@ -5545,7 +5603,7 @@ def serve_family(config, params, dev, *, prompt_lens=FAMILY_PROMPT_LENS,
     strategy = TorchDecodeStrategy()
     strategy.initialize(config, params, engine_kwargs={
         "max_slots": len(prompts), "max_len": bucket + max_new, "decode_chunk": decode_chunk,
-        "prefill_buckets": (bucket,), "device": dev})
+        "prefill_buckets": (bucket,), "device": dev, **(engine_extra or {})})
     engine = strategy.engine
     if engine.params["layers"]["gate_w"].data_ptr() != params["layers"]["gate_w"].data_ptr():
         raise AssertionError("the engine serves a copy of the tree")
@@ -5980,13 +6038,14 @@ def _cut_layers(config, params, layers: int):
 def run_head_dim_model(name, dev, work_dir, *, kernels=(), serve_kw=None, train_kw=None):
     """One HEAD_DIM_MODELS entry on `dev`: its checkpoint written and read
     back (written_text_model) at the larger of its served and trained
-    depths; served at its served depth (serve_family with forced_ties:
-    greedy against the dense forward, the tie bound measured by
-    teacher-forcing the engine; the random logits of these widths pass
-    GAP_TOL's bf16 resolution) and trained at its trained depth (the
-    first layers of the same tree: train_family, kernels against dense
-    attention), each pass's launches of `kernels` counted. Returns the
-    figures."""
+    depths; served at its served depth
+    (serve_family with forced_ties: greedy against the dense forward, the
+    tie bound measured by teacher-forcing the engine; the random logits of
+    these widths pass GAP_TOL's bf16 resolution), served again with the
+    int8 KV cache at HEAD_DIM_INT8_LAYERS where named, and trained at its
+    trained depth (the first layers of the same tree: train_family, kernels
+    against dense attention), each pass's launches of `kernels` counted.
+    Returns the figures."""
     hf, source, serve_layers, train_layers = HEAD_DIM_MODELS[name]
     H, Hkv, D = _heads(hf)
     layers = max(n for n in (serve_layers, train_layers) if n)
@@ -6001,6 +6060,13 @@ def run_head_dim_model(name, dev, work_dir, *, kernels=(), serve_kw=None, train_
         _reset(kernels)
         out["serve"] = serve_family(c, p, dev, forced_ties=True, **(serve_kw or {}))
         out["serve"]["launches"] = _launch_counts(kernels)
+    if name in HEAD_DIM_INT8_LAYERS:
+        c, p = _cut_layers(config, params, HEAD_DIM_INT8_LAYERS[name])
+        _reset(kernels)
+        out["serve_int8_kv"] = serve_family(c, p, dev, forced_ties=True,
+                                            engine_extra={"kv_quant": "int8"},
+                                            **(serve_kw or {}))
+        out["serve_int8_kv"]["launches"] = _launch_counts(kernels)
     if train_layers:
         c, p = _cut_layers(config, params, train_layers)
         _reset(kernels)
@@ -6012,21 +6078,26 @@ def run_head_dim_model(name, dev, work_dir, *, kernels=(), serve_kw=None, train_
 
 
 def phase_head_dims():
-    """Kernels 2 and 4-6 at head dims other than 64 and 128, through the
-    models that use them, at full width from their published configs, each
-    from a checkpoint written and read back through llm.load_text_model
+    """Kernels 2-6 at head dims other than 64 and 128, through the models
+    that use them, at full width from their published configs, each from a
+    checkpoint written and read back through llm.load_text_model
     (run_head_dim_model): H2O-Danube3-4B (120, rep 4) served at 24 layers
     and trained at FAMILY_TRAIN_LAYERS, Danube3-500M (96, rep 2) served and
     trained at 16, Danube2-1.8B (80, rep 4) trained at FAMILY_TRAIN_LAYERS,
     OpenLLaMA-3B v2 (100, rep 1, the host pad) served at
+    FAMILY_TRAIN_LAYERS, Falcon3-7B (256, rep 3) served at 28 layers, at
+    FAMILY_TRAIN_LAYERS with the int8 KV cache, and trained at
     FAMILY_TRAIN_LAYERS. Kernel 2 must launch in every served pass and
     kernels 4-6 in every trained one, at the shapes phase_kernels checked;
-    kernel 3 never (these head dims decode densely, as in the JAX package).
-    Peak < 80 GiB. Returns the launches over the phase."""
+    kernel 3 (3q with the int8 cache) in every served pass of a head dim
+    that is a multiple of 128 and never in the others (they decode densely,
+    as in the JAX package). Peak < 80 GiB. Returns the launches over the
+    phase, and Falcon3-7B's alone."""
     import gc
     import torch
+    from socioreasoner_tpu_torch.ops import decode_attention as da
     dev = torch.device("cuda")
-    kernels = _family_kernels()
+    kernels = (*_family_kernels(), da.paged_decode_attention_int8)
     names = [k.__name__ for k in kernels]
     gc.collect()
     torch.cuda.empty_cache()
@@ -6042,34 +6113,47 @@ def phase_head_dims():
                 fig["wall_s"] = time.perf_counter() - t0
                 out[name] = fig
                 _, Hkv, D = _heads(hf)
-                if serve_layers and (fig["serve"]["prefill_buckets"] != [(4, FAMILY_BUCKET, 0)]
-                                     or fig["serve"]["cache"] != [serve_layers, 4,
-                                                                  FAMILY_LALLOC, Hkv, D]):
-                    left.append((name, fig["serve"]["prefill_buckets"], fig["serve"]["cache"]))
+                for p, n in (("serve", serve_layers),
+                             ("serve_int8_kv", HEAD_DIM_INT8_LAYERS.get(name))):
+                    if n and (fig[p]["prefill_buckets"] != [(4, FAMILY_BUCKET, 0)]
+                              or fig[p]["cache"] != [n, 4, FAMILY_LALLOC, Hkv, D]):
+                        left.append((name, p, fig[p]["prefill_buckets"], fig[p]["cache"]))
                 emit({"phase": f"head_dims_{name}", **fig})
     except BaseException as e:
         out["error"] = repr(e)[:2000]
         emit(out)
         raise
     passes = {f"{name}_{p}": out[name][p]["launches"] for name in HEAD_DIM_MODELS
-              for p in ("serve", "train") if p in out[name]}
+              for p in ("serve", "serve_int8_kv", "train") if p in out[name]}
     launches = {k: sum(c[k] for c in passes.values()) for k in names}
+    falcon = {k: sum(c[k] for p, c in passes.items() if p.startswith("falcon3_7b_"))
+              for k in names}
     out["launches"] = passes
     out["launches_total"] = launches
+    out["launches_falcon3_7b"] = falcon
     out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 2**30
     out["phase_s"] = time.perf_counter() - t_phase
     emit({k: v for k, v in out.items() if k not in HEAD_DIM_MODELS})
+    paged = {f"{name}_{p}": (_heads(HEAD_DIM_MODELS[name][0])[2] % 128 == 0,
+                             "paged_decode_attention_int8" if p == "serve_int8_kv"
+                             else "paged_decode_attention")
+             for name in HEAD_DIM_MODELS for p in ("serve", "serve_int8_kv")}
     missing = ([f"{p}:flash_attention" for p, c in passes.items()
-                if p.endswith("_serve") and c["flash_attention"] <= 0]
+                if p in paged and c["flash_attention"] <= 0]
                + [f"{p}:{k}" for p, c in passes.items() if p.endswith("_train")
-                  for k in names[3:] if c[k] <= 0]
-               + [f"{p}:paged_decode_attention" for p, c in passes.items()
-                  if c["paged_decode_attention"] != 0])
+                  for k in names[3:6] if c[k] <= 0]
+               # the decode kernel where the head dim is a multiple of 128,
+               # the matching one of 3 and 3q only, and neither elsewhere
+               + [f"{p}:{k}" for p, c in passes.items() for k in names
+                  if k.startswith("paged_decode") and (c[k] > 0) != (
+                      p in paged and paged[p][0] and paged[p][1] == k)]
+               + [f"falcon3_7b:{k}" for k in names if k != "flash_attention_segmented"
+                  and falcon[k] <= 0])
     if missing or left or not out["max_memory_allocated_gb"] < 80:
-        raise AssertionError(f"head_dims: kernels off the path (or kernel 3 at these head "
-                             f"dims) {missing}, unchecked shapes {left}, peak "
+        raise AssertionError(f"head_dims: kernels off the path (or the decode kernel off "
+                             f"its head dims) {missing}, unchecked shapes {left}, peak "
                              f"{out['max_memory_allocated_gb']} GiB")
-    return launches
+    return launches, falcon
 
 
 # ------------------------------------------------------------------ agentic
@@ -7305,7 +7389,7 @@ def main() -> int:
         entry = phase_entry(export_dir, export_stats, sums, work_dir)
     launches.update(phase_row_writer())
     families = phase_families()
-    head_dims = phase_head_dims()
+    head_dims, falcon3 = phase_head_dims()
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
         if kern["name"] in two_stage:
@@ -7322,9 +7406,10 @@ def main() -> int:
             kern["launches_entry"] = entry[kern["name"]]
         # kernels 3q and 7 are on no path of the families phase (bf16 cache)
         kern["launches_families"] = families.get(kern["name"], 0)
-        # kernels 1, 3, 3q and 7 are on no path of the head_dims phase (text
-        # models whose head dims decode densely)
+        # kernels 1 and 7 are on no path of the head_dims phase (text models);
+        # 3 and 3q run there at Falcon3-7B's head dim 256 only
         kern["launches_head_dims"] = head_dims.get(kern["name"], 0)
+        kern["launches_head_dims_falcon3_7b"] = falcon3.get(kern["name"], 0)
         # kernels 3q and 7 are on no path of the agentic phase (bf16 cache)
         kern["launches_agentic"] = agentic.get(kern["name"], 0)
         # kernels 2, 3, 3q and 7 are on no path of the train_mesh phase (its

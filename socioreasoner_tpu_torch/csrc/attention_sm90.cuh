@@ -9,10 +9,12 @@
 //
 //   warpgroup 2 (producer)  one thread keeps TMA loads (cp.async.bulk.tensor)
 //                           in flight: the item's Q tile into a ring of two
-//                           Q buffers, then its K and V tiles (128 keys) into
-//                           a ring of 2-3 stages, each with full and
-//                           empty mbarriers. It runs ahead into the next
-//                           item while the consumers finish the current one.
+//                           Q buffers (one at D = 256), then its K and V
+//                           tiles (128 keys; at D = 256 each 128-key tile
+//                           as two 64-key halves) into a ring of 2-3
+//                           stages, each with full and empty mbarriers. It
+//                           runs ahead into the next item while the
+//                           consumers finish the current one.
 //   warpgroups 0 and 1      each owns 64 of the 128 query rows. S = Q K^T is
 //   (consumers)             wgmma m64n128k16 with Q and K from shared memory
 //                           and an f32 accumulator in registers; the mask and
@@ -39,6 +41,14 @@
 // O columns of 0, and the epilogue stores only the first d columns. Nothing
 // is padded in device memory.
 //
+// The 256-column instance (Layout<256>) keeps the host's plan units (128-row
+// items, 128-key tiles, the known-unmasked tile ranges) and walks each 128-key
+// tile as two 64-key stages: a 128 x 256 Q tile is 64 KB, so one Q buffer and
+// two stages of 64-key K and V sub-tiles (32 KB each) fill 192 KB of shared
+// memory; a consumer thread holds O (64 x 256 f32: 128 registers) beside a
+// 64 x 64 S tile (32) and its bf16 P fragments (16). S = Q K^T is then
+// wgmma m64n64k16, PV four n64 products a k16 step.
+//
 // GQA (kernels 2 and 4) folds the rep = H / Hkv q heads of a kv head into an
 // item: floor(128 / rep) tokens x rep heads, rows r = token * rep + head. For
 // a rep that does not divide 128 (5, 7, ...) rows rep * floor(128 / rep) ..
@@ -57,9 +67,12 @@
 namespace socio90 {
 
 constexpr int kBM = 128;         // query rows per work item (2 consumer warpgroups x 64)
-constexpr int kBN = 128;         // keys per K/V tile
+constexpr int kBN = 128;         // keys per K/V tile of the plan
 
-constexpr int kQBufs = 2;        // Q ring depth (the next item's Q loads early)
+// Keys per K/V ring stage of the instance of D columns: a whole 128-key tile,
+// or, above 128 columns, each half of one (the host's tensor-map boxes).
+__host__ __device__ constexpr int stage_keys(int D) { return D > 128 ? 64 : kBN; }
+
 constexpr int kThreads = 384;    // 2 consumer warpgroups + 1 producer warpgroup
 constexpr float kNegInf = -1e30f;   // lse of a row with no valid key (the Pallas NEG_INF)
 constexpr float kLn2 = 0.6931471805599453f;
@@ -72,12 +85,15 @@ struct Layout {
   static constexpr int kMain = D / 64;    // 64-column chunks (128-byte swizzle)
   static constexpr int kTail = D % 64;    // 0 or 16 columns (32-byte swizzle)
   static_assert(kTail == 0 || kTail == 16, "an instance is 64k or 64k + 16 columns");
+  static constexpr int kKeys = stage_keys(D);  // keys of one K/V stage
+  static constexpr int kSub = kBN / kKeys;     // stages a 128-key tile of the plan takes
+  static constexpr int kQBufs = D > 128 ? 1 : 2;   // Q ring depth (the next item's Q loads early)
   static constexpr uint32_t q_chunk = kBM * 64 * 2;      // bytes of one Q chunk
-  static constexpr uint32_t kv_chunk = kBN * 64 * 2;
+  static constexpr uint32_t kv_chunk = kKeys * 64 * 2;
   static constexpr uint32_t q_tail = kMain * q_chunk;    // offset of the Q tail
   static constexpr uint32_t kv_tail = kMain * kv_chunk;
   static constexpr uint32_t q_bytes = kBM * D * 2;       // bytes of a full Q tile
-  static constexpr uint32_t kv_bytes = kBN * D * 2;      // of a K (or V) tile
+  static constexpr uint32_t kv_bytes = kKeys * D * 2;    // of a K (or V) stage
   static constexpr uint32_t q_buf = (q_bytes + 1023) / 1024 * 1024;
   static constexpr uint32_t kv_buf = (kv_bytes + 1023) / 1024 * 1024;
   static constexpr uint32_t off_k = kQBufs * q_buf;
@@ -87,6 +103,7 @@ struct Layout {
   static constexpr uint32_t off_bar = off_v + kStages * kv_buf;
   static constexpr uint32_t n_bars = 2 * kQBufs + 3 * kStages;
   static constexpr uint32_t smem = off_bar + n_bars * 8 + 1024;   // + alignment slack
+  static_assert(smem <= 232448, "the H100's shared memory a block");
 };
 
 // Everything a launch needs, passed by value as a __grid_constant__ so the
@@ -211,6 +228,7 @@ __device__ __forceinline__ Item resolve(const FwdParams& p, int item) {
 template <int D, bool kSeg>
 __device__ __forceinline__ void producer(const FwdParams& p, uint32_t base) {
   using L = Layout<D>;
+  constexpr int kQBufs = L::kQBufs;
   const uint32_t bars = base + L::off_bar;
   int qs = 0, ks = 0;
   uint32_t qph = 0, kph = 0;
@@ -229,7 +247,8 @@ __device__ __forceinline__ void producer(const FwdParams& p, uint32_t base) {
       else tma_load_4d(dst, map, q_full, 64 * c, it.head * p.rep, it.t0, it.b);
     }
     if (++qs == kQBufs) { qs = 0; qph ^= 1; }
-    for (int j = it.lo; j <= it.hi; ++j) {
+    for (int js = it.lo * L::kSub; js < (it.hi + 1) * L::kSub; ++js) {
+      const int key = js * L::kKeys;       // the stage's first key past k0
       const uint32_t k_full = bars + 8 * (2 * kQBufs + ks);
       const uint32_t v_full = bars + 8 * (2 * kQBufs + L::kStages + ks);
       const uint32_t kv_empty = bars + 8 * (2 * kQBufs + 2 * L::kStages + ks);
@@ -242,8 +261,8 @@ __device__ __forceinline__ void producer(const FwdParams& p, uint32_t base) {
         if (c == L::kMain && L::kTail == 0) break;
         const uint32_t off = c < L::kMain ? c * L::kv_chunk : L::kv_tail;
         const CUtensorMap* map = c < L::kMain ? &p.k_main : &p.k_tail;
-        if constexpr (kSeg) tma_load_3d(kb + off, map, k_full, 64 * c, it.head, it.k0 + j * kBN);
-        else tma_load_4d(kb + off, map, k_full, 64 * c, it.head, j * kBN, it.b);
+        if constexpr (kSeg) tma_load_3d(kb + off, map, k_full, 64 * c, it.head, it.k0 + key);
+        else tma_load_4d(kb + off, map, k_full, 64 * c, it.head, key, it.b);
       }
       mbar_expect_tx(v_full, L::kv_bytes);
 #pragma unroll
@@ -251,8 +270,8 @@ __device__ __forceinline__ void producer(const FwdParams& p, uint32_t base) {
         if (c == L::kMain && L::kTail == 0) break;
         const uint32_t off = c < L::kMain ? c * L::kv_chunk : L::kv_tail;
         const CUtensorMap* map = c < L::kMain ? &p.v_main : &p.v_tail;
-        if constexpr (kSeg) tma_load_3d(vb + off, map, v_full, 64 * c, it.head, it.k0 + j * kBN);
-        else tma_load_4d(vb + off, map, v_full, 64 * c, it.head, j * kBN, it.b);
+        if constexpr (kSeg) tma_load_3d(vb + off, map, v_full, 64 * c, it.head, it.k0 + key);
+        else tma_load_4d(vb + off, map, v_full, 64 * c, it.head, key, it.b);
       }
       if (++ks == L::kStages) { ks = 0; kph ^= 1; }
     }
@@ -267,6 +286,8 @@ __device__ __forceinline__ void producer(const FwdParams& p, uint32_t base) {
 template <int D, bool kSeg, bool kPart>
 __device__ __forceinline__ void consumer(const FwdParams& p, uint32_t base, int wg) {
   using L = Layout<D>;
+  constexpr int kQBufs = L::kQBufs;
+  constexpr int kN = L::kKeys;              // keys of a stage (the S tile's columns)
   constexpr int kM = L::kMain;
   constexpr int kT = L::kTail ? 8 : 1;      // registers of the n16 tail accumulator
   const uint32_t bars = base + L::off_bar;
@@ -304,8 +325,8 @@ __device__ __forceinline__ void consumer(const FwdParams& p, uint32_t base, int 
 #pragma unroll
     for (int e = 0; e < kT; ++e) ot[e] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
-    float s[kBN / 2];
-    uint32_t pa[kBN / 16][4];
+    float s[kN / 2];
+    uint32_t pa[kN / 16][4];
 
     const uint32_t q_empty = bars + 8 * (kQBufs + qs);
     const uint32_t qb = base + qs * L::q_buf;
@@ -313,6 +334,11 @@ __device__ __forceinline__ void consumer(const FwdParams& p, uint32_t base, int 
     auto v_full = [&](int st) { return bars + 8 * (2 * kQBufs + L::kStages + st); };
     auto kv_empty = [&](int st) { return bars + 8 * (2 * kQBufs + 2 * L::kStages + st); };
 
+    // S (64 x kN) (+)= A B^T: wgmma n128 on a 128-key stage, n64 on a 64-key one
+    auto mma_s = [&](uint64_t da, uint64_t db, int scale_d) {
+      if constexpr (kN == 128) wgmma_ss_n128(s, da, db, scale_d);
+      else wgmma_ss_n64(s, da, db, scale_d);
+    };
     // S = Q K^T over the head dim (4 k-steps per 64-column chunk, then the
     // tail), issued and committed as one group
     auto issue_s = [&](int st) {
@@ -322,13 +348,11 @@ __device__ __forceinline__ void consumer(const FwdParams& p, uint32_t base, int 
       for (int c = 0; c < kM; ++c)
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss_n128(s,
-                       make_desc(qb + c * L::q_chunk + wg * 8192 + kk * 32, 16, 1024, kSw128),
-                       make_desc(kb + c * L::kv_chunk + kk * 32, 16, 1024, kSw128),
-                       (c | kk) != 0);
+          mma_s(make_desc(qb + c * L::q_chunk + wg * 8192 + kk * 32, 16, 1024, kSw128),
+                make_desc(kb + c * L::kv_chunk + kk * 32, 16, 1024, kSw128), (c | kk) != 0);
       if constexpr (L::kTail != 0)
-        wgmma_ss_n128(s, make_desc(qb + L::q_tail + wg * 2048, 16, 256, kSw32),
-                     make_desc(kb + L::kv_tail, 16, 256, kSw32), kM > 0);
+        mma_s(make_desc(qb + L::q_tail + wg * 2048, 16, 256, kSw32),
+              make_desc(kb + L::kv_tail, 16, 256, kSw32), kM > 0);
       wg_commit();
     };
     // O += P V, one group
@@ -338,26 +362,27 @@ __device__ __forceinline__ void consumer(const FwdParams& p, uint32_t base, int 
 #pragma unroll
       for (int c = 0; c < kM; ++c)
 #pragma unroll
-        for (int kk = 0; kk < kBN / 16; ++kk)
+        for (int kk = 0; kk < kN / 16; ++kk)
           wgmma_rs_n64(o[c], pa[kk],
                        make_desc(vb + c * L::kv_chunk + kk * 2048, L::kv_chunk, 1024, kSw128));
       if constexpr (L::kTail != 0) {
 #pragma unroll
-        for (int kk = 0; kk < kBN / 16; ++kk)
+        for (int kk = 0; kk < kN / 16; ++kk)
           wgmma_rs_n16(ot, pa[kk], make_desc(vb + L::kv_tail + kk * 512, 512, 256, kSw32));
       }
       wg_commit();
     };
-    // mask tile j (only outside the item's known-valid range), then the
-    // online-softmax update of m and l; s becomes p, corr the factor that
-    // O has to be scaled by
-    auto softmax = [&](int j) {
+    // mask stage js of tile j = js / kSub (only outside the item's
+    // known-valid range), then the online-softmax update of m and l; s
+    // becomes p, corr the factor that O has to be scaled by
+    auto softmax = [&](int js) {
+      const int j = js / L::kSub;
       if (j < it.nm_lo || j > it.nm_hi) {
 #pragma unroll
-        for (int g = 0; g < kBN / 8; ++g) {
+        for (int g = 0; g < kN / 8; ++g) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int key = it.k0 + j * kBN + 8 * g + cq + e;
+            const int key = it.k0 + js * kN + 8 * g + cq + e;
             if constexpr (kSeg) {
               const int ks_id = key < p.S ? p.seg[key] : -2;
 #pragma unroll
@@ -372,12 +397,12 @@ __device__ __forceinline__ void consumer(const FwdParams& p, uint32_t base, int 
           }
         }
       }
-      // a row's 64 columns sit in the 4 threads of a quad
+      // a row's columns sit in the 4 threads of a quad
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         float mx = -INFINITY;
 #pragma unroll
-        for (int g = 0; g < kBN / 8; ++g) mx = fmaxf(mx, fmaxf(s[4 * g + 2 * i], s[4 * g + 2 * i + 1]));
+        for (int g = 0; g < kN / 8; ++g) mx = fmaxf(mx, fmaxf(s[4 * g + 2 * i], s[4 * g + 2 * i + 1]));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
         const float m_new = fmaxf(m[i], mx);
@@ -388,7 +413,7 @@ __device__ __forceinline__ void consumer(const FwdParams& p, uint32_t base, int 
         m[i] = m_new;
         float sum = 0.f;
 #pragma unroll
-        for (int g = 0; g < kBN / 8; ++g) {
+        for (int g = 0; g < kN / 8; ++g) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const float pe = ex2(s[4 * g + 2 * i + e] * p.scale_log2 - m_sc);
@@ -418,11 +443,11 @@ __device__ __forceinline__ void consumer(const FwdParams& p, uint32_t base, int 
         }
       }
     };
-    // P in bf16 as the A fragments of four k16 steps (keys 16kk..16kk+15):
+    // P in bf16 as the A fragments of the k16 steps (keys 16kk..16kk+15):
     // the accumulator layout of S is the A-operand layout of PV
     auto pack_p = [&]() {
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) {
+      for (int kk = 0; kk < kN / 16; ++kk) {
         pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
         pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
         pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -438,13 +463,13 @@ __device__ __forceinline__ void consumer(const FwdParams& p, uint32_t base, int 
     if (it.lo > it.hi) {
       release_q();                // no key: release Q at once
     } else {
-      for (int j = it.lo; j <= it.hi; ++j) {
+      for (int js = it.lo * L::kSub; js < (it.hi + 1) * L::kSub; ++js) {
         mbar_wait(k_full(ks), kph);
         issue_s(ks);
         wg_wait0();
         reg_fence(s);
-        if (j == it.hi) release_q();    // the item's last use of Q
-        softmax(j);
+        if (js == (it.hi + 1) * L::kSub - 1) release_q();    // the item's last use of Q
+        softmax(js);
         rescale_o();
         pack_p();
         mbar_wait(v_full(ks), kph);
@@ -511,6 +536,7 @@ __device__ __forceinline__ void consumer(const FwdParams& p, uint32_t base, int 
 template <int D, bool kSeg, bool kPart>
 __global__ void __launch_bounds__(kThreads, 1) attention_sm90_kernel(const __grid_constant__ FwdParams p) {
   using L = Layout<D>;
+  constexpr int kQBufs = L::kQBufs;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bars = base + L::off_bar;
@@ -573,7 +599,7 @@ int launch_width(const FwdParams& p, cudaStream_t stream) {
 }
 
 // Kernels 2 and 4: GQA attention of q (B, Lq, H, D) over k/v (B, Lk, Hkv, D)
-// (strides in elements; D a multiple of 8 up to 128, run on the instance
+// (strides in elements; D a multiple of 8 up to 256, run on the instance
 // head_dim_instance(kGqaDims, D)), writing o and, where lse is given, the per-row
 // log-sum-exp (B, H, Lq). GQA is folded as in the Pallas grid: a 128-row item
 // is floor(128 / rep) tokens x the rep q heads of one kv head, one 4-D TMA

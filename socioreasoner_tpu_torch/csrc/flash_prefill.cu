@@ -11,13 +11,13 @@
 // L = 2048, 16 q / 2 kv heads, D = 128) it is tensor-core work, ~17 GFLOP per
 // layer causal at B = 2 (17 us at the bf16 peak), while its 38 MB of
 // Q/K/V/O take 11 us at the memory rate. Instances of 64 (Qwen2.5-0.5B/1.5B,
-// Llama-3.2-1B/3B), 80 (the ViT's, H2O-Danube2) and 128 columns are
-// compiled; a head dim d that is a multiple of 8 up to 128 runs on the
-// smallest instance of at least d columns (H2O-Danube3-500M's 96 and -4B's
-// 120 on the 128 one), its tail columns zero-filled by TMA and never stored
-// (attention_sm90.cuh); the host pads other head dims (OpenLLaMA-3B's 100)
-// to a multiple of 8 first. Any other D is refused
-// (cudaErrorInvalidValue) before a tensor map is encoded.
+// Llama-3.2-1B/3B), 80 (the ViT's, H2O-Danube2), 128 and 256 (Falcon3-7B)
+// columns are compiled; a head dim d that is a multiple of 8 up to 256 runs
+// on the smallest instance of at least d columns (H2O-Danube3-500M's 96 and
+// -4B's 120 on the 128 one, 136-248 on the 256 one), its tail columns
+// zero-filled by TMA and never stored (attention_sm90.cuh); the host pads
+// other head dims (OpenLLaMA-3B's 100) to a multiple of 8 first. Any other
+// D is refused (cudaErrorInvalidValue) before a tensor map is encoded.
 //
 // The design (attention_sm90.cuh): GQA is folded as in the Pallas grid, so a
 // 128-row work item is floor(128 / rep) tokens x the rep q heads of one kv
@@ -68,11 +68,13 @@ int launch_gqa(const void* q, const void* k, const void* v, void* o, float* lse,
   p.n_ttiles = (Lq + toks - 1) / toks;
   p.n_items = p.n_ttiles * B * Hkv;
   // (D, heads, tokens, B) views; q boxes of rep heads x floor(128 / rep) tokens,
-  // k/v boxes of one kv head x 128 keys, each inst columns wide
+  // k/v boxes of one kv head x a stage's keys (128, or 64 at 256 columns),
+  // each inst columns wide
   const long long qdims[4] = {D, H, Lq, B}, kdims[4] = {D, Hkv, Lk, B};
   const long long qs[4] = {1, sqh, sqt, sqb}, ks[4] = {1, skh, skt, skb},
                   vs[4] = {1, svh, svt, svb};
-  int qbox[4] = {0, rep, toks, 1}, kbox[4] = {0, 1, kBN, 1}, vbox[4] = {0, 1, kBN, 1};
+  const int keys = stage_keys(inst);
+  int qbox[4] = {0, rep, toks, 1}, kbox[4] = {0, 1, keys, 1}, vbox[4] = {0, 1, keys, 1};
   int rc = encode_pair(&p.q_main, &p.q_tail, q, 4, qdims, qs, qbox, inst);
   if (rc == 0) rc = encode_pair(&p.k_main, &p.k_tail, k, 4, kdims, ks, kbox, inst);
   if (rc == 0) rc = encode_pair(&p.v_main, &p.v_tail, v, 4, kdims, vs, vbox, inst);
@@ -81,6 +83,7 @@ int launch_gqa(const void* q, const void* k, const void* v, void* o, float* lse,
     case 64: return launch_width<64, false>(p, stream);
     case 80: return launch_width<80, false>(p, stream);
     case 128: return launch_width<128, false>(p, stream);
+    case 256: return launch_width<256, false>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -12,8 +12,10 @@
 // block-diagonal attention each, 88 us at the bf16 peak); the 28 window
 // layers (windows of 64, 48, 36 patches) are memory-bound (59.7 MB of
 // Q/K/V/O each, 17.8 us at 3.35 TB/s) and do almost no arithmetic. Instances
-// of 80 and 128 columns; any head dim that is a multiple of 8 up to 128 runs
-// on the smaller one that covers it (attention_sm90.cuh).
+// of 80, 128 and 256 columns; any head dim that is a multiple of 8 up to 256
+// runs on the smallest one that covers it (attention_sm90.cuh). No ViT of
+// the supported families has a head dim above 128: the 256 instance is held
+// to the plain version by chip_smoke's kernels phase alone.
 //
 // The design (attention_sm90.cuh): persistent warp-specialised CTAs, one per
 // SM, walk a work list of (head, q tile) items that the wrapper builds on the
@@ -36,7 +38,7 @@ extern "C" int socio_flash_segmented_bf16(
     long long svt, long long svh, long long sot, long long soh,
     float scale, void* stream) {
   using namespace socio90;
-  // the instance that serves D: 80 or 128 columns
+  // the instance that serves D: 80, 128 or 256 columns
   const int inst = head_dim_instance(kSegDims, D);
   if (inst == 0) return (int)cudaErrorInvalidValue;
   FwdParams p{};
@@ -51,10 +53,12 @@ extern "C" int socio_flash_segmented_bf16(
   p.work = static_cast<const int*>(work);
   p.tiles = static_cast<const int4*>(tiles);
   p.S = S;
-  // (D, H, S) views of q, k, v; boxes of 1 head x 128 rows
+  // (D, H, S) views of q, k, v; boxes of 1 head x 128 rows (k and v: x a
+  // stage's keys, 64 at 256 columns)
   const long long dims[3] = {D, H, S};
   const long long qs[3] = {1, sqh, sqt}, ks[3] = {1, skh, skt}, vs[3] = {1, svh, svt};
-  int qbox[3] = {0, 1, kBM}, kbox[3] = {0, 1, kBN}, vbox[3] = {0, 1, kBN};
+  const int keys = stage_keys(inst);
+  int qbox[3] = {0, 1, kBM}, kbox[3] = {0, 1, keys}, vbox[3] = {0, 1, keys};
   int rc = encode_pair(&p.q_main, &p.q_tail, q, 3, dims, qs, qbox, inst);
   if (rc == 0) rc = encode_pair(&p.k_main, &p.k_tail, k, 3, dims, ks, kbox, inst);
   if (rc == 0) rc = encode_pair(&p.v_main, &p.v_tail, v, 3, dims, vs, vbox, inst);
@@ -63,6 +67,7 @@ extern "C" int socio_flash_segmented_bf16(
   switch (inst) {
     case 80: return launch_width<80, true>(p, s);
     case 128: return launch_width<128, true>(p, s);
+    case 256: return launch_width<256, true>(p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

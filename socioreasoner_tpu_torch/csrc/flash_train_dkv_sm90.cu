@@ -25,14 +25,24 @@
 //     warpgroups of 64 keys; each keeps its dK and dV (64 x D f32, D / 2 +
 //     D / 2 registers a thread) in registers over the item's loop, which
 //     streams q tiles of 64 rows for the item's (q head, q tile) pairs.
-//   * Instances of 64 and 128 columns (Smem<kD>: tiles, the workspace slot
-//     and the kD / 64 column chunks of every product and load); at 64 the
-//     accumulators halve. A head dim d that is a multiple of 8 up to 128 runs
-//     on the smaller one that covers it (kernel 5's rule): TMA fills the
+//   * Instances of 64, 128 and 256 columns (Smem<kD>: tiles, the workspace
+//     slot and the kD / 64 column chunks of every product and load); at 64
+//     the accumulators halve. A head dim d that is a multiple of 8 up to 256
+//     runs on the smallest one that covers it (kernel 5's rule): TMA fills the
 //     columns past d with zeros, so dK and dV get 0 there, and neither the
 //     workspace slots nor the outputs take those columns. The host pads
-//     other head dims up to 128 to a multiple of 8; any other D is refused.
+//     other head dims up to 256 to a multiple of 8; any other D is refused.
 //     The piece order, and so the bits, do not depend on d.
+//   * At 256 columns dK and dV of 64 keys are 256 registers a thread, so the
+//     item's 128 keys are walked as two 64-key passes, each streaming the
+//     item's pairs again, and the two consumer warpgroups split the columns:
+//     both compute the pass's S^T and dP^T over all 256 columns (the same
+//     64 x 64 tiles), and each keeps dK and dV of the 64 keys for its 128
+//     columns (128 registers). A pass loads its 64-key K and V (32 KB each)
+//     beside a 2-stage Q/dO ring of 64-row tiles (2 x 64 KB): 193 KB. A
+//     split tile's pieces write both passes' partials to their slots and
+//     count in once, after the second; the last piece adds each pass's
+//     slots in piece order.
 //   * S^T = K Q^T and dP^T = V dO^T are wgmma with both operands in shared
 //     memory, K-major over D (kernel 2's Q K^T with the roles swapped). P^T
 //     and dS^T are rounded to bf16 in registers -- the accumulator layout is
@@ -76,17 +86,23 @@ namespace dkv {
 
 constexpr int kBK = 128;          // keys per work item (2 consumer warpgroups x 64)
 constexpr int kBQ = 64;           // query rows per step of the loop
-constexpr int kStages = 4;        // Q / dO / lse / delta ring depth
 constexpr int kThreads = 384;     // 2 consumer warpgroups + 1 producer warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared-memory layout for head dim kD (64 or 128; offsets from a
+// Shared-memory layout for head dim kD (64, 128 or 256; offsets from a
 // 1024-byte-aligned base). Operand tiles are kD / 64 chunks of 64 columns
 // with a 128-byte swizzle, each starting on a 1024-byte boundary.
 template <int kD>
 struct Smem {
-  static constexpr uint32_t kKVChunk = kBK * 64 * 2;     // 16 KB: 128 rows x 64 columns
-  static constexpr uint32_t kKVBytes = kBK * kD * 2;     // a K (or V) tile
+  // at 256 columns the consumer warpgroups split the columns and walk the
+  // item's keys in two passes of 64
+  static constexpr bool kSplitD = kD > 128;
+  static constexpr int kPasses = kSplitD ? 2 : 1;
+  static constexpr int kKeys = kBK / kPasses;            // keys of K and V a pass
+  static constexpr int kCols = kSplitD ? kD / 2 : kD;    // dK/dV columns of a warpgroup
+  static constexpr int kStages = kSplitD ? 2 : 4;        // Q / dO / lse / delta ring depth
+  static constexpr uint32_t kKVChunk = kKeys * 64 * 2;   // kKeys rows x 64 columns
+  static constexpr uint32_t kKVBytes = kKeys * kD * 2;   // a pass's K (or V) tile
   static constexpr uint32_t kQChunk = kBQ * 64 * 2;      // 8 KB
   static constexpr uint32_t kQBytes = kBQ * kD * 2;      // a Q (or dO) tile
   static constexpr uint32_t kOffK = 0;
@@ -98,15 +114,17 @@ struct Smem {
   // barriers: K/V full, K/V empty, then full[kStages], empty[kStages]
   static constexpr uint32_t kOffFlag = kOffBar + (2 + 2 * kStages) * 8;   // an int a warpgroup
   static constexpr uint32_t kBytes = kOffFlag + 16 + 1024;               // + alignment slack
-  // dK (and dV) accumulator registers a consumer thread holds: 64 keys x kD
-  static constexpr int kRegs = kD / 64 * 32;
+  static_assert(kBytes <= 232448, "the H100's shared memory a block");
+  // dK (and dV) accumulator registers a consumer thread holds: 64 keys x kCols
+  static constexpr int kRegs = kCols / 64 * 32;
   // One workspace slot: a piece's f32 partial dK and dV of 128 keys x kD
-  // (two warpgroups x dK and dV x kRegs registers x 128 threads).
+  // (passes x two warpgroups x dK and dV x kRegs registers x 128 threads).
   static constexpr int kSlotFloats = kBK * kD * 2;
+  static_assert(kSlotFloats == kPasses * 2 * 2 * kRegs * 128, "slot regions");
 };
 
 struct Params {
-  CUtensorMap q, k, v, dO;   // 64-column boxes: q/dO one head x 64 tokens, k/v one head x 128
+  CUtensorMap q, k, v, dO;   // 64-column boxes: q/dO one head x 64 tokens, k/v one head x a pass
   const float* lse;          // (B, H, Lq)
   const float* delta;        // (B, H, Lq)
   bf16* dk;
@@ -136,6 +154,7 @@ __device__ __forceinline__ Item load_item(const Params& p, int idx) {
 }
 
 __device__ __forceinline__ uint32_t full_bar(uint32_t bars, int st) { return bars + 8 * (2 + st); }
+template <int kStages>
 __device__ __forceinline__ uint32_t empty_bar(uint32_t bars, int st) {
   return bars + 8 * (2 + kStages + st);
 }
@@ -145,6 +164,7 @@ __device__ __forceinline__ uint32_t empty_bar(uint32_t bars, int st) {
 template <int kD>
 __device__ __forceinline__ void producer(const Params& p, uint32_t base, int lane) {
   using L = Smem<kD>;
+  constexpr int kStages = L::kStages;
   const uint32_t bars = base + L::kOffBar;
   const uint32_t kv_full = bars, kv_empty = bars + 8;
   int st = 0;
@@ -152,68 +172,71 @@ __device__ __forceinline__ void producer(const Params& p, uint32_t base, int lan
   for (int idx = p.cta_start[blockIdx.x]; idx < p.cta_start[blockIdx.x + 1]; ++idx) {
     const Item it = load_item(p, idx);
     if (it.np == 0) continue;          // a key tile without pairs loads nothing
-    if (lane == 0) {
-      mbar_wait(kv_empty, kvph ^ 1);
-      mbar_expect_tx(kv_full, 2 * L::kKVBytes);
-#pragma unroll
-      for (int c = 0; c < kD / 64; ++c) {
-        const uint32_t off = c * L::kKVChunk;
-        tma_load_4d(base + L::kOffK + off, &p.k, kv_full, 64 * c, it.g, it.kt * kBK, it.b);
-        tma_load_4d(base + L::kOffV + off, &p.v, kv_full, 64 * c, it.g, it.kt * kBK, it.b);
-      }
-    }
-    kvph ^= 1;
-    for (int q = it.p0; q < it.p0 + it.np; ++q) {
-      const int h = it.g * p.rep + q / it.cnt;
-      const int t0 = (it.i_lo + q % it.cnt) * kBQ;
-      const uint32_t full = full_bar(bars, st);
-      mbar_wait(empty_bar(bars, st), ph ^ 1);
+    for (int ps = 0; ps < L::kPasses; ++ps) {
       if (lane == 0) {
-        mbar_expect_tx(full, 2 * L::kQBytes);
+        mbar_wait(kv_empty, kvph ^ 1);
+        mbar_expect_tx(kv_full, 2 * L::kKVBytes);
+        const int key = it.kt * kBK + ps * L::kKeys;
 #pragma unroll
         for (int c = 0; c < kD / 64; ++c) {
-          const uint32_t off = st * L::kQBytes + c * L::kQChunk;
-          tma_load_4d(base + L::kOffQ + off, &p.q, full, 64 * c, h, t0, it.b);
-          tma_load_4d(base + L::kOffDO + off, &p.dO, full, 64 * c, h, t0, it.b);
+          const uint32_t off = c * L::kKVChunk;
+          tma_load_4d(base + L::kOffK + off, &p.k, kv_full, 64 * c, it.g, key, it.b);
+          tma_load_4d(base + L::kOffV + off, &p.v, kv_full, 64 * c, it.g, key, it.b);
         }
       }
-      // lse and delta of rows t0 .. t0 + 63, two a lane; rows past Lq read
-      // nothing and land as zeros
-      const long long row = ((long long)it.b * p.H + h) * p.Lq;
-      const uint32_t stats = base + L::kOffStats + st * 2 * kBQ * 4;
+      kvph ^= 1;
+      for (int q = it.p0; q < it.p0 + it.np; ++q) {
+        const int h = it.g * p.rep + q / it.cnt;
+        const int t0 = (it.i_lo + q % it.cnt) * kBQ;
+        const uint32_t full = full_bar(bars, st);
+        mbar_wait(empty_bar<kStages>(bars, st), ph ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(full, 2 * L::kQBytes);
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int r = lane + 32 * e;
-        const bool in = t0 + r < p.Lq;
-        const long long src = row + (in ? t0 + r : 0);
-        cp_async4(stats + 4 * r, p.lse + src, in ? 4u : 0u);
-        cp_async4(stats + 4 * (kBQ + r), p.delta + src, in ? 4u : 0u);
+          for (int c = 0; c < kD / 64; ++c) {
+            const uint32_t off = st * L::kQBytes + c * L::kQChunk;
+            tma_load_4d(base + L::kOffQ + off, &p.q, full, 64 * c, h, t0, it.b);
+            tma_load_4d(base + L::kOffDO + off, &p.dO, full, 64 * c, h, t0, it.b);
+          }
+        }
+        // lse and delta of rows t0 .. t0 + 63, two a lane; rows past Lq read
+        // nothing and land as zeros
+        const long long row = ((long long)it.b * p.H + h) * p.Lq;
+        const uint32_t stats = base + L::kOffStats + st * 2 * kBQ * 4;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = lane + 32 * e;
+          const bool in = t0 + r < p.Lq;
+          const long long src = row + (in ? t0 + r : 0);
+          cp_async4(stats + 4 * r, p.lse + src, in ? 4u : 0u);
+          cp_async4(stats + 4 * (kBQ + r), p.delta + src, in ? 4u : 0u);
+        }
+        cp_async_arrive_noinc(full);
+        if (++st == kStages) { st = 0; ph ^= 1; }
       }
-      cp_async_arrive_noinc(full);
-      if (++st == kStages) { st = 0; ph ^= 1; }
     }
   }
 }
 
 // ------------------------------------------------------------- consumer
 
-// Rows key_base and key_base + 8 of acc (chunks of 64 columns) as bf16 pairs,
-// straight from registers; rows past Lk and, with kPart, columns past d
-// are not written.
-template <int kD, bool kPart>
+// Rows key_base and key_base + 8 of acc (kC chunks of 64 columns from column
+// col0) as bf16 pairs, straight from registers; rows past Lk and, with kPart,
+// columns past d are not written.
+template <int kC, bool kPart>
 __device__ __forceinline__ void store_rows(bf16* out, long long sb, long long st, long long sh,
-                                           const Item& it, int key_base, int Lk, int d, int cq,
-                                           const float (&acc)[kD / 64][32]) {
+                                           const Item& it, int key_base, int col0, int Lk, int d,
+                                           int cq, const float (&acc)[kC][32]) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = key_base + 8 * i;
     if (key >= Lk) continue;
-    bf16* dst = out + it.b * sb + key * st + it.g * sh;
+    bf16* dst = out + it.b * sb + key * st + it.g * sh + col0;
 #pragma unroll
-    for (int c = 0; c < kD / 64; ++c)
+    for (int c = 0; c < kC; ++c)
 #pragma unroll
       for (int g = 0; g < 8; ++g)
-        if (!kPart || 64 * c + 8 * g < d)
+        if (!kPart || col0 + 64 * c + 8 * g < d)
           *reinterpret_cast<uint32_t*>(dst + 64 * c + 8 * g + cq) =
               pack_bf16(acc[c][4 * g + 2 * i], acc[c][4 * g + 2 * i + 1]);
   }
@@ -225,154 +248,173 @@ template <int kD, bool kPart>
 __device__ __forceinline__ void consumer(const Params& p, uint32_t base, volatile int* flag,
                                          int wg) {
   using L = Smem<kD>;
+  constexpr int kStages = L::kStages;
+  constexpr int kC = L::kCols / 64;                    // dK/dV column chunks of a warpgroup
   const int tid = threadIdx.x & 127;
   const int warp = tid >> 5, lane = tid & 31;
   const int cq = (lane & 3) * 2;                       // the thread's column pair in an 8-group
-  const int krow = wg * 64 + warp * 16 + (lane >> 2);  // its key rows krow, krow + 8 of the item
+  // its key rows krow, krow + 8 of the pass's K tile: the warpgroup's own 64
+  // of the 128 keys, or at 256 columns the pass's 64, which both share
+  const int krow = (L::kSplitD ? 0 : wg * 64) + warp * 16 + (lane >> 2);
+  const int c0 = L::kSplitD ? wg * kC : 0;             // the warpgroup's first dK/dV chunk
   const uint32_t bars = base + L::kOffBar;
   const uint32_t kv_full = bars, kv_empty = bars + 8;
-  const uint32_t kb = base + L::kOffK + wg * 8192, vb = base + L::kOffV + wg * 8192;
+  const uint32_t kb = base + L::kOffK + (L::kSplitD ? 0 : wg * 8192);
+  const uint32_t vb = base + L::kOffV + (L::kSplitD ? 0 : wg * 8192);
   int st = 0;
   uint32_t ph = 0, kvph = 0;
 
   for (int idx = p.cta_start[blockIdx.x]; idx < p.cta_start[blockIdx.x + 1]; ++idx) {
     const Item it = load_item(p, idx);
     if (it.kv_len != min(max(p.kv_lens[it.b], 0), p.Lk)) __trap();   // a plan for other lengths
-    const int k0 = it.kt * kBK;
-    const int key0 = k0 + krow;
-    float dk[kD / 64][32], dv[kD / 64][32];
+    for (int ps = 0; ps < L::kPasses; ++ps) {
+      const int kp0 = it.kt * kBK + ps * L::kKeys;     // the pass's first key
+      const int key0 = kp0 + krow;
+      float dk[kC][32], dv[kC][32];
 #pragma unroll
-    for (int c = 0; c < kD / 64; ++c)
+      for (int c = 0; c < kC; ++c)
 #pragma unroll
-      for (int e = 0; e < 32; ++e) dk[c][e] = dv[c][e] = 0.f;
+        for (int e = 0; e < 32; ++e) dk[c][e] = dv[c][e] = 0.f;
 
-    if (it.np > 0) {
-      mbar_wait(kv_full, kvph);
-      for (int q = it.p0; q < it.p0 + it.np; ++q) {
-        const int t0 = (it.i_lo + q % it.cnt) * kBQ;
-        const bool masked = (p.causal && t0 < k0 + kBK - 1) || k0 + kBK > it.kv_len ||
-                            t0 + kBQ > p.Lq;
-        const uint32_t qb = base + L::kOffQ + st * L::kQBytes;
-        const uint32_t ob = base + L::kOffDO + st * L::kQBytes;
-        const uint32_t stats = base + L::kOffStats + st * 2 * kBQ * 4;
-        mbar_wait(full_bar(bars, st), ph);
+      if (it.np > 0) {
+        mbar_wait(kv_full, kvph);
+        for (int q = it.p0; q < it.p0 + it.np; ++q) {
+          const int t0 = (it.i_lo + q % it.cnt) * kBQ;
+          const bool masked = (p.causal && t0 < kp0 + L::kKeys - 1) ||
+                              kp0 + L::kKeys > it.kv_len || t0 + kBQ > p.Lq;
+          const uint32_t qb = base + L::kOffQ + st * L::kQBytes;
+          const uint32_t ob = base + L::kOffDO + st * L::kQBytes;
+          const uint32_t stats = base + L::kOffStats + st * 2 * kBQ * 4;
+          mbar_wait(full_bar(bars, st), ph);
 
-        // S^T = K Q^T and dP^T = V dO^T over the head dim, one group each
-        float s[32], dp[32];
-        wg_fence();
+          // S^T = K Q^T and dP^T = V dO^T over the whole head dim, one group each
+          float s[32], dp[32];
+          wg_fence();
 #pragma unroll
-        for (int c = 0; c < kD / 64; ++c)
+          for (int c = 0; c < kD / 64; ++c)
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_ss_n64(s, make_desc(kb + c * L::kKVChunk + kk * 32, 16, 1024, kSw128),
-                         make_desc(qb + c * L::kQChunk + kk * 32, 16, 1024, kSw128),
-                         (c | kk) != 0);
-        wg_commit();
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_ss_n64(s, make_desc(kb + c * L::kKVChunk + kk * 32, 16, 1024, kSw128),
+                           make_desc(qb + c * L::kQChunk + kk * 32, 16, 1024, kSw128),
+                           (c | kk) != 0);
+          wg_commit();
 #pragma unroll
-        for (int c = 0; c < kD / 64; ++c)
+          for (int c = 0; c < kD / 64; ++c)
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_ss_n64(dp, make_desc(vb + c * L::kKVChunk + kk * 32, 16, 1024, kSw128),
-                         make_desc(ob + c * L::kQChunk + kk * 32, 16, 1024, kSw128),
-                         (c | kk) != 0);
-        wg_commit();
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_ss_n64(dp, make_desc(vb + c * L::kKVChunk + kk * 32, 16, 1024, kSw128),
+                           make_desc(ob + c * L::kQChunk + kk * 32, 16, 1024, kSw128),
+                           (c | kk) != 0);
+          wg_commit();
 
-        // p = exp2(s * scale log2 e - lse log2 e), 0 where the mask fails;
-        // element 4g + 2i + e is key row krow + 8i, q row t0 + 8g + cq + e
-        wg_wait1();
-        reg_fence(s);
+          // p = exp2(s * scale log2 e - lse log2 e), 0 where the mask fails;
+          // element 4g + 2i + e is key row krow + 8i, q row t0 + 8g + cq + e
+          wg_wait1();
+          reg_fence(s);
 #pragma unroll
-        for (int g = 0; g < 8; ++g) {
-          const float2 l = lds_f2(stats + 4 * (8 * g + cq));
+          for (int g = 0; g < 8; ++g) {
+            const float2 l = lds_f2(stats + 4 * (8 * g + cq));
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            s[4 * g + 2 * i] = ex2(fmaf(s[4 * g + 2 * i], p.scale_log2, -l.x * kLog2e));
-            s[4 * g + 2 * i + 1] = ex2(fmaf(s[4 * g + 2 * i + 1], p.scale_log2, -l.y * kLog2e));
-          }
-        }
-        if (masked) {
-#pragma unroll
-          for (int g = 0; g < 8; ++g)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int t = t0 + 8 * g + cq + e;
-#pragma unroll
-              for (int i = 0; i < 2; ++i) {
-                const int key = key0 + 8 * i;
-                if (key >= it.kv_len || t >= p.Lq || (p.causal && key > t))
-                  s[4 * g + 2 * i + e] = 0.f;
-              }
+            for (int i = 0; i < 2; ++i) {
+              s[4 * g + 2 * i] = ex2(fmaf(s[4 * g + 2 * i], p.scale_log2, -l.x * kLog2e));
+              s[4 * g + 2 * i + 1] = ex2(fmaf(s[4 * g + 2 * i + 1], p.scale_log2, -l.y * kLog2e));
             }
-        }
-        // ds = p (dp - delta) scale (0 where p is)
-        wg_wait0();
-        reg_fence(dp);
-#pragma unroll
-        for (int g = 0; g < 8; ++g) {
-          const float2 d = lds_f2(stats + 4 * (kBQ + 8 * g + cq));
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            dp[4 * g + 2 * i] = s[4 * g + 2 * i] * (dp[4 * g + 2 * i] - d.x) * p.scale;
-            dp[4 * g + 2 * i + 1] = s[4 * g + 2 * i + 1] * (dp[4 * g + 2 * i + 1] - d.y) * p.scale;
           }
-        }
-        // P^T and dS^T in bf16 as the A fragments of four k16 steps (q rows
-        // 16kk .. 16kk + 15)
-        uint32_t pa[4][4], da[4][4];
+          if (masked) {
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
+            for (int g = 0; g < 8; ++g)
 #pragma unroll
-          for (int x = 0; x < 4; ++x) {
-            pa[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
-            da[kk][x] = pack_bf16(dp[8 * kk + 2 * x], dp[8 * kk + 2 * x + 1]);
+              for (int e = 0; e < 2; ++e) {
+                const int t = t0 + 8 * g + cq + e;
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                  const int key = key0 + 8 * i;
+                  if (key >= it.kv_len || t >= p.Lq || (p.causal && key > t))
+                    s[4 * g + 2 * i + e] = 0.f;
+                }
+              }
           }
-        // dV += P^T dO, dK += dS^T Q: one group
-        wg_fence();
+          // ds = p (dp - delta) scale (0 where p is)
+          wg_wait0();
+          reg_fence(dp);
 #pragma unroll
-        for (int c = 0; c < kD / 64; ++c)
+          for (int g = 0; g < 8; ++g) {
+            const float2 d = lds_f2(stats + 4 * (kBQ + 8 * g + cq));
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              dp[4 * g + 2 * i] = s[4 * g + 2 * i] * (dp[4 * g + 2 * i] - d.x) * p.scale;
+              dp[4 * g + 2 * i + 1] =
+                  s[4 * g + 2 * i + 1] * (dp[4 * g + 2 * i + 1] - d.y) * p.scale;
+            }
+          }
+          // P^T and dS^T in bf16 as the A fragments of four k16 steps (q rows
+          // 16kk .. 16kk + 15)
+          uint32_t pa[4][4], da[4][4];
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
-            wgmma_rs_n64(dv[c], pa[kk],
-                         make_desc(ob + c * L::kQChunk + kk * 2048, L::kQChunk, 1024, kSw128));
 #pragma unroll
-        for (int c = 0; c < kD / 64; ++c)
+            for (int x = 0; x < 4; ++x) {
+              pa[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+              da[kk][x] = pack_bf16(dp[8 * kk + 2 * x], dp[8 * kk + 2 * x + 1]);
+            }
+          // dV += P^T dO, dK += dS^T Q over the warpgroup's columns: one group
+          wg_fence();
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_rs_n64(dk[c], da[kk],
-                         make_desc(qb + c * L::kQChunk + kk * 2048, L::kQChunk, 1024, kSw128));
-        wg_commit();
-        wg_wait0();
+          for (int c = 0; c < kC; ++c)
 #pragma unroll
-        for (int c = 0; c < kD / 64; ++c) {
-          reg_fence(dk[c]);
-          reg_fence(dv[c]);
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_rs_n64(dv[c], pa[kk],
+                           make_desc(ob + (c0 + c) * L::kQChunk + kk * 2048, L::kQChunk, 1024,
+                                     kSw128));
+#pragma unroll
+          for (int c = 0; c < kC; ++c)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_rs_n64(dk[c], da[kk],
+                           make_desc(qb + (c0 + c) * L::kQChunk + kk * 2048, L::kQChunk, 1024,
+                                     kSw128));
+          wg_commit();
+          wg_wait0();
+#pragma unroll
+          for (int c = 0; c < kC; ++c) {
+            reg_fence(dk[c]);
+            reg_fence(dv[c]);
+          }
+          reg_keep(pa);
+          reg_keep(da);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty_bar<kStages>(bars, st));
+          if (++st == kStages) { st = 0; ph ^= 1; }
         }
-        reg_keep(pa);
-        reg_keep(da);
         __syncwarp();
-        if (lane == 0) mbar_arrive(empty_bar(bars, st));
-        if (++st == kStages) { st = 0; ph ^= 1; }
+        if (lane == 0) mbar_arrive(kv_empty);      // the pass's last use of K and V
+        kvph ^= 1;
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(kv_empty);      // the item's last use of K and V
-      kvph ^= 1;
-    }
 
-    if (it.n > 1) {
-      // a piece of a split key tile: the partials to slot ws0 + j (thread-
-      // major, so each store is coalesced), then count in; the last piece
-      // adds slots ws0 .. ws0 + n - 1 in order. Register e of chunk c holds
-      // column 64 c + 8 (e / 4) + ..: those past d are 0 and skipped.
-      const int half = wg * 2 * L::kRegs * 128;   // this warpgroup's 64 keys of a slot
-      float* mine = p.ws + (long long)(it.ws0 + it.j) * L::kSlotFloats + half;
+      if (it.n == 1) {
+        store_rows<kC, kPart>(p.dk, p.sdkb, p.sdkt, p.sdkh, it, key0, 64 * c0, p.Lk, p.d, cq, dk);
+        store_rows<kC, kPart>(p.dv, p.sdvb, p.sdvt, p.sdvh, it, key0, 64 * c0, p.Lk, p.d, cq, dv);
+        continue;
+      }
+      // a piece of a split key tile: the pass's partials to its region of
+      // slot ws0 + j (thread-major, so each store is coalesced); after the
+      // last pass, count in; the last piece adds slots ws0 .. ws0 + n - 1 in
+      // order, pass by pass. Register e of chunk c holds column 64 (c0 + c)
+      // + 8 (e / 4) + ..: those past d are 0 and skipped.
+      auto region = [&](int pass) {   // this (pass, warpgroup)'s part of a slot
+        return (pass * 2 + wg) * 2 * L::kRegs * 128;
+      };
+      auto skip = [&](int c, int e) { return kPart && 64 * (c0 + c) + 8 * (e >> 2) >= p.d; };
+      float* mine = p.ws + (long long)(it.ws0 + it.j) * L::kSlotFloats + region(ps);
 #pragma unroll
-      for (int c = 0; c < kD / 64; ++c)
+      for (int c = 0; c < kC; ++c)
 #pragma unroll
         for (int e = 0; e < 32; ++e) {
-          if (kPart && 64 * c + 8 * (e >> 2) >= p.d) continue;
+          if (skip(c, e)) continue;
           __stcg(mine + (32 * c + e) * 128 + tid, dk[c][e]);
           __stcg(mine + (L::kRegs + 32 * c + e) * 128 + tid, dv[c][e]);
         }
+      if (ps + 1 < L::kPasses) continue;
       __threadfence();
       named_bar_sync(1 + wg, 128);
       int* counter = p.counters + 2 * it.split + wg;
@@ -380,25 +422,31 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base, volatil
       named_bar_sync(1 + wg, 128);
       if (flag[wg] != it.n - 1) continue;
       __threadfence();
-      const float* first = p.ws + (long long)it.ws0 * L::kSlotFloats + half;
+      // this pass first, its own partials still in registers; earlier passes'
+      // all from the slots
+      for (int pp = ps; pp >= 0; --pp) {
+        const float* first = p.ws + (long long)it.ws0 * L::kSlotFloats + region(pp);
 #pragma unroll
-      for (int c = 0; c < kD / 64; ++c)
+        for (int c = 0; c < kC; ++c)
 #pragma unroll
-        for (int e = 0; e < 32; ++e) {
-          if (kPart && 64 * c + 8 * (e >> 2) >= p.d) continue;
-          float a = 0.f, b = 0.f;
-          for (int piece = 0; piece < it.n; ++piece) {
-            const float* slot = first + (long long)piece * L::kSlotFloats;
-            a += piece == it.j ? dk[c][e] : __ldcg(slot + (32 * c + e) * 128 + tid);
-            b += piece == it.j ? dv[c][e] : __ldcg(slot + (L::kRegs + 32 * c + e) * 128 + tid);
+          for (int e = 0; e < 32; ++e) {
+            if (skip(c, e)) continue;
+            float a = 0.f, b = 0.f;
+            for (int piece = 0; piece < it.n; ++piece) {
+              const float* slot = first + (long long)piece * L::kSlotFloats;
+              const bool own = piece == it.j && pp == ps;
+              a += own ? dk[c][e] : __ldcg(slot + (32 * c + e) * 128 + tid);
+              b += own ? dv[c][e] : __ldcg(slot + (L::kRegs + 32 * c + e) * 128 + tid);
+            }
+            dk[c][e] = a;
+            dv[c][e] = b;
           }
-          dk[c][e] = a;
-          dv[c][e] = b;
-        }
+        const int kb0 = it.kt * kBK + pp * L::kKeys + krow;
+        store_rows<kC, kPart>(p.dk, p.sdkb, p.sdkt, p.sdkh, it, kb0, 64 * c0, p.Lk, p.d, cq, dk);
+        store_rows<kC, kPart>(p.dv, p.sdvb, p.sdvt, p.sdvh, it, kb0, 64 * c0, p.Lk, p.d, cq, dv);
+      }
       if (tid == 0) *counter = 0;               // ready for the next launch
     }
-    store_rows<kD, kPart>(p.dk, p.sdkb, p.sdkt, p.sdkh, it, key0, p.Lk, p.d, cq, dk);
-    store_rows<kD, kPart>(p.dv, p.sdvb, p.sdvt, p.sdvh, it, key0, p.Lk, p.d, cq, dv);
   }
 }
 
@@ -414,9 +462,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x == 0) {
     mbar_init(bars, 1);                     // K/V full: the producer's expect_tx
     mbar_init(bars + 8, 8);                 // K/V empty: one arrive per consumer warp
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < L::kStages; ++s) {
       mbar_init(full_bar(bars, s), 1 + 32);   // expect_tx + the producer lanes' cp.async
-      mbar_init(empty_bar(bars, s), 8);
+      mbar_init(empty_bar<L::kStages>(bars, s), 8);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -466,7 +514,7 @@ extern "C" int socio_flash_train_dkv_bf16(
     int causal, float scale, void* stream) {
   using namespace socio90;
   using namespace socio90::dkv;
-  // the instance that serves D: 64 or 128 columns
+  // the instance that serves D: 64, 128 or 256 columns
   const int inst = head_dim_instance(kBwdDims, D);
   if (inst == 0 || Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
   if (n_cta <= 0) return 0;
@@ -495,11 +543,12 @@ extern "C" int socio_flash_train_dkv_bf16(
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
   // (D, heads, tokens, B) views, 64-column boxes of one head (columns past
-  // D read as zeros): 64 tokens of q and dO, 128 keys of k and v
+  // D read as zeros): 64 tokens of q and dO, a pass's keys of k and v (128,
+  // or 64 at 256 columns)
   const long long qdims[4] = {D, H, Lq, B}, kdims[4] = {D, Hkv, Lk, B};
   const long long qs[4] = {1, sqh, sqt, sqb}, ks[4] = {1, skh, skt, skb},
                   vs[4] = {1, svh, svt, svb}, os[4] = {1, sdoh, sdot, sdob};
-  const int qbox[4] = {64, 1, kBQ, 1}, kbox[4] = {64, 1, kBK, 1};
+  const int qbox[4] = {64, 1, kBQ, 1}, kbox[4] = {64, 1, inst > 128 ? kBK / 2 : kBK, 1};
   int rc = encode_map(&p.q, q, 4, qdims, qs, qbox, true);
   if (rc == 0) rc = encode_map(&p.dO, dO, 4, qdims, os, qbox, true);
   if (rc == 0) rc = encode_map(&p.k, k, 4, kdims, ks, kbox, true);
@@ -509,6 +558,7 @@ extern "C" int socio_flash_train_dkv_bf16(
   switch (inst) {
     case 64: return D < 64 ? launch<64, true>(p, n_cta, s) : launch<64, false>(p, n_cta, s);
     case 128: return D < 128 ? launch<128, true>(p, n_cta, s) : launch<128, false>(p, n_cta, s);
+    case 256: return D < 256 ? launch<256, true>(p, n_cta, s) : launch<256, false>(p, n_cta, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -46,15 +46,21 @@
 //     operand layout -- and dQ += dS K with K as the MN-major B operand, the
 //     forward's O += P V with K in V's place. Nothing of S, P, dP or dS
 //     touches shared memory. dq is stored as bf16 straight from registers.
-//   * Instances of 64 and 128 columns (Smem<kD>, the kD / 64 column chunks
-//     of every product and load); 64 serves Qwen2.5-0.5B and -1.5B and
-//     Llama-3.2. A head dim d that is a multiple of 8 up to 128 runs on the
-//     smaller one that covers it (H2O-Danube2's 80, H2O-Danube3's 96 and
-//     120 on 128): the tensor maps keep d as their innermost extent, TMA
-//     fills the columns past d with zeros (Q, dO, K and V alike, so they add
-//     nothing to S, dP or dQ) and the epilogue stores the first d columns.
-//     The host pads other head dims up to 128 to a multiple of 8; any other
-//     D is refused.
+//   * Instances of 64, 128 and 256 columns (Smem<kD>, the kD / 64 column
+//     chunks of every product and load); 64 serves Qwen2.5-0.5B and -1.5B
+//     and Llama-3.2, 256 Falcon3. A head dim d that is a multiple of 8 up to
+//     256 runs on the smallest one that covers it (H2O-Danube2's 80,
+//     H2O-Danube3's 96 and 120 on 128, 136-248 on 256): the tensor maps keep
+//     d as their innermost extent, TMA fills the columns past d with zeros
+//     (Q, dO, K and V alike, so they add nothing to S, dP or dQ) and the
+//     epilogue stores the first d columns. The host pads other head dims up
+//     to 256 to a multiple of 8; any other D is refused.
+//   * At 256 columns Q and dO are 64 KB each and a 128-key K/V tile would be
+//     128 KB, so the ring holds one stage of 64-key K and V halves (32 KB
+//     each; 193 KB in all): the producer loads each half that the item's
+//     rows reach as a stage of its own, and the consumers walk the same
+//     halves. dQ is 128 registers a consumer thread beside S and dP (32
+//     each) and the bf16 dS fragments (16).
 //   * Any GQA ratio up to 128: where rep does not divide 128, rows past
 //     rep * floor(128 / rep) are idle (zeroed Q and dO rows, zero-filled lse
 //     and delta, so their ds is 0) and never stored. Every mbarrier wait traps
@@ -64,29 +70,36 @@
 namespace socio90 {
 namespace dq {
 
-constexpr int kStages = 2;           // K/V ring depth
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared-memory layout for head dim kD (64 or 128; offsets from a
-// 1024-byte-aligned base): 128-row operand tiles as kD / 64 chunks of 64
-// columns with a 128-byte swizzle. At kD = 128 the tiles fill 193 KB; at 64,
-// half of it.
+// Shared-memory layout for head dim kD (64, 128 or 256; offsets from a
+// 1024-byte-aligned base): operand tiles as kD / 64 chunks of 64 columns with
+// a 128-byte swizzle, Q and dO of 128 rows, a K/V stage of kKeys keys (a
+// whole 128-key tile in a ring of two, or at 256 columns one 64-key half in
+// a ring of one). At kD = 128 and 256 the tiles fill 193 KB; at 64, half of
+// it.
 template <int kD>
 struct Smem {
-  static constexpr uint32_t kChunk = kBM * 64 * 2;             // 16 KB
-  static constexpr uint32_t kTile = kBM * kD * 2;              // Q, dO, K or V
+  static constexpr int kKeys = stage_keys(kD);                 // keys of a K/V stage
+  static constexpr int kSub = kBN / kKeys;                     // stages a 128-key tile takes
+  static constexpr int kStages = kSub == 1 ? 2 : 1;            // K/V ring depth
+  static constexpr uint32_t kChunk = kBM * 64 * 2;             // 16 KB: a Q or dO chunk
+  static constexpr uint32_t kTile = kBM * kD * 2;              // Q or dO
+  static constexpr uint32_t kKVChunk = kKeys * 64 * 2;
+  static constexpr uint32_t kKVTile = kKeys * kD * 2;          // a K or V stage
   static constexpr uint32_t kOffQ = 0;
   static constexpr uint32_t kOffDO = kTile;
   static constexpr uint32_t kOffK = 2 * kTile;
-  static constexpr uint32_t kOffV = kOffK + kStages * kTile;
-  static constexpr uint32_t kOffStats = kOffV + kStages * kTile;   // lse[128], delta[128]
+  static constexpr uint32_t kOffV = kOffK + kStages * kKVTile;
+  static constexpr uint32_t kOffStats = kOffV + kStages * kKVTile;   // lse[128], delta[128]
   static constexpr uint32_t kOffBar = kOffStats + 2 * kBM * 4;
   // barriers: Q full, Q empty, then K/V full[kStages], K/V empty[kStages]
   static constexpr uint32_t kBytes = kOffBar + (2 + 2 * kStages) * 8 + 1024;   // + slack
+  static_assert(kBytes <= 232448, "the H100's shared memory a block");
 };
 
 struct Params {
-  CUtensorMap q, dO, k, v;    // 64-column boxes: q/dO rep heads x toks tokens, k/v 1 head x 128
+  CUtensorMap q, dO, k, v;    // 64-column boxes: q/dO rep heads x toks tokens, k/v 1 head x a stage
   const float* lse;           // (B, H, Lq)
   const float* delta;         // (B, H, Lq)
   bf16* dq;
@@ -98,8 +111,22 @@ struct Params {
 };
 
 __device__ __forceinline__ uint32_t kv_full(uint32_t bars, int st) { return bars + 8 * (2 + st); }
+template <int kStages>
 __device__ __forceinline__ uint32_t kv_empty(uint32_t bars, int st) {
   return bars + 8 * (2 + kStages + st);
+}
+
+// The 64-key halves of 128-key tile j that rows below key k_hi reach: 2, or
+// 1 where the item's last key lies in the first half.
+__device__ __forceinline__ int tile_halves(int j, int k_hi) { return j * kBN + 64 < k_hi ? 2 : 1; }
+
+// The keys below which an item's rows see any key: kv_len, and under a
+// causal mask its last token + 1.
+template <class P>
+__device__ __forceinline__ int item_k_hi(const P& p, const Item& it) {
+  int k_hi = it.kv_len;
+  if (p.causal) k_hi = min(k_hi, min(it.t0 + kBM / p.rep, p.Lq));
+  return k_hi;
 }
 
 // ------------------------------------------------------------- producer
@@ -110,6 +137,7 @@ __device__ __forceinline__ void producer(const Params& p, uint32_t base, int lan
   const uint32_t bars = base + L::kOffBar;
   const uint32_t q_full = bars, q_empty = bars + 8;
   const uint32_t stats = base + L::kOffStats;
+  constexpr int kStages = L::kStages;
   int ks = 0;
   uint32_t qph = 0, kph = 0;
   for (int item = blockIdx.x; item < p.n_items; item += gridDim.x) {
@@ -140,18 +168,22 @@ __device__ __forceinline__ void producer(const Params& p, uint32_t base, int lan
     cp_async_arrive_noinc(q_full);
     qph ^= 1;
     if (lane != 0) continue;
+    const int k_hi = item_k_hi(p, it);
     for (int j = it.lo; j <= it.hi; ++j) {
-      mbar_wait(kv_empty(bars, ks), kph ^ 1);
-      mbar_expect_tx(kv_full(bars, ks), 2 * L::kTile);
+      // a stage a tile, or at 256 columns a stage a half that the rows reach
+      const int n_stages = L::kSub == 1 ? 1 : tile_halves(j, k_hi);
+      for (int hf = 0; hf < n_stages; ++hf) {
+        const int key = j * kBN + hf * L::kKeys;
+        mbar_wait(kv_empty<kStages>(bars, ks), kph ^ 1);
+        mbar_expect_tx(kv_full(bars, ks), 2 * L::kKVTile);
 #pragma unroll
-      for (int c = 0; c < kD / 64; ++c) {
-        const uint32_t off = ks * L::kTile + c * L::kChunk;
-        tma_load_4d(base + L::kOffK + off, &p.k, kv_full(bars, ks), 64 * c, it.head, j * kBN,
-                    it.b);
-        tma_load_4d(base + L::kOffV + off, &p.v, kv_full(bars, ks), 64 * c, it.head, j * kBN,
-                    it.b);
+        for (int c = 0; c < kD / 64; ++c) {
+          const uint32_t off = ks * L::kKVTile + c * L::kKVChunk;
+          tma_load_4d(base + L::kOffK + off, &p.k, kv_full(bars, ks), 64 * c, it.head, key, it.b);
+          tma_load_4d(base + L::kOffV + off, &p.v, kv_full(bars, ks), 64 * c, it.head, key, it.b);
+        }
+        if (++ks == kStages) { ks = 0; kph ^= 1; }
       }
-      if (++ks == kStages) { ks = 0; kph ^= 1; }
     }
   }
 }
@@ -173,15 +205,14 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base, int wg)
   const uint32_t q_full = bars, q_empty = bars + 8;
   const uint32_t qb = base + L::kOffQ + wg * 8192, ob = base + L::kOffDO + wg * 8192;
   const uint32_t stats = base + L::kOffStats;
-  const int toks = kBM / p.rep;
+  constexpr int kStages = L::kStages;
   int ks = 0;
   uint32_t qph = 0, kph = 0;
 
   for (int item = blockIdx.x; item < p.n_items; item += gridDim.x) {
     const Item it = resolve_gqa(p, item);
     // the keys the item's rows may see lie below k_hi
-    int k_hi = it.kv_len;
-    if (p.causal) k_hi = min(k_hi, min(it.t0 + toks, p.Lq));
+    const int k_hi = item_k_hi(p, it);
     int t[2];
     float lse2[2], dlt[2];
     mbar_wait(q_full, qph);
@@ -207,11 +238,14 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base, int wg)
 
     if (it.lo > it.hi) release_q();       // no key: release Q, dO and the stats at once
     for (int j = it.lo; j <= it.hi; ++j) {
-      const uint32_t kb = base + L::kOffK + ks * L::kTile, vb = base + L::kOffV + ks * L::kTile;
       const bool masked = j < it.nm_lo || j > it.nm_hi;
-      const int halves = j * kBN + 64 < k_hi ? 2 : 1;
-      mbar_wait(kv_full(bars, ks), kph);
+      const int halves = tile_halves(j, k_hi);
+      if (L::kSub == 1) mbar_wait(kv_full(bars, ks), kph);
       for (int hf = 0; hf < halves; ++hf) {
+        if (L::kSub == 2) mbar_wait(kv_full(bars, ks), kph);    // the half is a stage
+        const uint32_t kb = base + L::kOffK + ks * L::kKVTile;
+        const uint32_t vb = base + L::kOffV + ks * L::kKVTile;
+        const int hrow = L::kSub == 1 ? hf : 0;     // the half's first row in the stage / 64
         // S = Q K^T and dP = dO V^T over the head dim for keys
         // j * 128 + 64 hf .. + 63, one group each
         float s[32], dp[32];
@@ -221,7 +255,8 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base, int wg)
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
             wgmma_ss_n64(s, make_desc(qb + c * L::kChunk + kk * 32, 16, 1024, kSw128),
-                         make_desc(kb + c * L::kChunk + hf * 8192 + kk * 32, 16, 1024, kSw128),
+                         make_desc(kb + c * L::kKVChunk + hrow * 8192 + kk * 32, 16, 1024,
+                                   kSw128),
                          (c | kk) != 0);
         wg_commit();
 #pragma unroll
@@ -229,7 +264,8 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base, int wg)
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
             wgmma_ss_n64(dp, make_desc(ob + c * L::kChunk + kk * 32, 16, 1024, kSw128),
-                         make_desc(vb + c * L::kChunk + hf * 8192 + kk * 32, 16, 1024, kSw128),
+                         make_desc(vb + c * L::kKVChunk + hrow * 8192 + kk * 32, 16, 1024,
+                                   kSw128),
                          (c | kk) != 0);
         wg_commit();
 
@@ -276,17 +312,20 @@ __device__ __forceinline__ void consumer(const Params& p, uint32_t base, int wg)
         for (int c = 0; c < kD / 64; ++c)
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
-            wgmma_rs_n64(acc[c], da[kk], make_desc(kb + c * L::kChunk + (4 * hf + kk) * 2048,
-                                                   L::kChunk, 1024, kSw128));
+            wgmma_rs_n64(acc[c], da[kk],
+                         make_desc(kb + c * L::kKVChunk + (4 * hrow + kk) * 2048, L::kKVChunk,
+                                   1024, kSw128));
         wg_commit();
         wg_wait0();
 #pragma unroll
         for (int c = 0; c < kD / 64; ++c) reg_fence(acc[c]);
         reg_keep(da);
+        if (L::kSub == 2 || hf == halves - 1) {     // the stage's last use
+          __syncwarp();
+          if (lane == 0) mbar_arrive(kv_empty<kStages>(bars, ks));
+          if (++ks == kStages) { ks = 0; kph ^= 1; }
+        }
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(kv_empty(bars, ks));
-      if (++ks == kStages) { ks = 0; kph ^= 1; }
     }
     qph ^= 1;
 
@@ -320,9 +359,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x == 0) {
     mbar_init(bars, 1 + 32);       // Q full: the producer's expect_tx + its lanes' cp.async
     mbar_init(bars + 8, 8);        // Q empty: one arrive per consumer warp
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < L::kStages; ++s) {
       mbar_init(kv_full(bars, s), 1);
-      mbar_init(kv_empty(bars, s), 8);
+      mbar_init(kv_empty<L::kStages>(bars, s), 8);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -373,7 +412,7 @@ extern "C" int socio_flash_train_dq_bf16(
     int causal, float scale, void* stream) {
   using namespace socio90;
   using namespace socio90::dq;
-  // the instance that serves D: 64 or 128 columns
+  // the instance that serves D: 64, 128 or 256 columns
   const int inst = head_dim_instance(kBwdDims, D);
   if (inst == 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > kBM)
     return (int)cudaErrorInvalidValue;
@@ -402,11 +441,12 @@ extern "C" int socio_flash_train_dq_bf16(
   p.scale_log2 = scale * kLog2e;
   if (p.n_items <= 0) return 0;
   // (D, heads, tokens, B) views, 64-column boxes (columns past D read as
-  // zeros): rep heads x toks tokens of q and dO, one head x 128 keys of k and v
+  // zeros): rep heads x toks tokens of q and dO, one head x a stage's keys
+  // (128, or 64 at 256 columns) of k and v
   const long long qdims[4] = {D, H, Lq, B}, kdims[4] = {D, Hkv, Lk, B};
   const long long qs[4] = {1, sqh, sqt, sqb}, os[4] = {1, sdoh, sdot, sdob},
                   ks[4] = {1, skh, skt, skb}, vs[4] = {1, svh, svt, svb};
-  const int qbox[4] = {64, rep, toks, 1}, kbox[4] = {64, 1, kBN, 1};
+  const int qbox[4] = {64, rep, toks, 1}, kbox[4] = {64, 1, stage_keys(inst), 1};
   int rc = encode_map(&p.q, q, 4, qdims, qs, qbox, true);
   if (rc == 0) rc = encode_map(&p.dO, dO, 4, qdims, os, qbox, true);
   if (rc == 0) rc = encode_map(&p.k, k, 4, kdims, ks, kbox, true);
@@ -416,6 +456,7 @@ extern "C" int socio_flash_train_dq_bf16(
   switch (inst) {
     case 64: return D < 64 ? launch<64, true>(p, s) : launch<64, false>(p, s);
     case 128: return D < 128 ? launch<128, true>(p, s) : launch<128, false>(p, s);
+    case 256: return D < 256 ? launch<256, true>(p, s) : launch<256, false>(p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

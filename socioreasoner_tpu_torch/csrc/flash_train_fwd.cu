@@ -29,9 +29,9 @@
 // tile once for the rep = 8 q heads of a kv head (any rep up to 128: a
 // rep that does not divide 128 leaves rows of the 128-row tile idle), so
 // the TPU wrapper's repeat, transposes and padding are gone. Head dims
-// follow kernel 2's rule: any multiple of 8 up to 128 on the 64-, 80- or
-// 128-column instance that covers it, the tail zero-filled by TMA and never
-// stored (the host pads other head dims up to 128 to a multiple of 8).
+// follow kernel 2's rule: any multiple of 8 up to 256 on the 64-, 80-, 128-
+// or 256-column instance that covers it, the tail zero-filled by TMA and
+// never stored (the host pads other head dims up to 256 to a multiple of 8).
 #include "attention_sm90.cuh"
 
 extern "C" int socio_flash_train_fwd_bf16(
@@ -42,8 +42,9 @@ extern "C" int socio_flash_train_fwd_bf16(
     long long svb, long long svt, long long svh,
     long long sob, long long sot, long long soh,
     int causal, float scale, void* stream) {
-  // kernel 2's instances of the CTA (64, 80 and 128 columns) serve every
-  // head dim that is a multiple of 8 up to 128; launch_gqa refuses the rest
+  // kernel 2's instances of the CTA (64, 80, 128 and 256 columns) serve
+  // every head dim that is a multiple of 8 up to 256; launch_gqa refuses the
+  // rest
   return socio90::launch_gqa(q, k, v, o, static_cast<float*>(lse), kv_lens, B, Lq, Lk, H, Hkv,
                              D, sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh,
                              causal, scale, static_cast<cudaStream_t>(stream));

@@ -52,6 +52,15 @@
 // from shared memory for every product. The reduction order over D is
 // permuted (frag_d) so that one 16-byte shared load gives a thread the B
 // fragments of two (bf16) or four (int8) k-steps; Q's A fragments follow.
+//
+// Head dims 128 and 256 (Falcon3), where D % 128 == 0 as the JAX package
+// routes its decode kernel; any other D is refused. At 256 a bf16 stage is
+// 64 KB (4 + 4 boxes), so the ring takes three; the merge workspace (the
+// warps' and the CTA's partial states, ~150 KB) still fits inside the ring
+// it aliases, which is idle once every warp has left the block loop. O is
+// 128 registers a consumer thread there, so Q's fragments (8 KB) are kept
+// in shared memory beside the ring, written once by warp 0 and read per
+// block, instead of 64 more registers.
 #include <cooperative_groups.h>
 #include <stdint.h>
 #include <string.h>
@@ -66,25 +75,26 @@ using namespace socio90;
 namespace cg = cooperative_groups;
 
 constexpr int kBlock = 64;             // cache rows per block
-constexpr int kD = 128;                // head dim
 constexpr int kMaxRep = 16;            // q heads per kv head: the mma's 16 rows
 constexpr int kGroups = 2;             // consumer groups, taking alternate blocks
 constexpr int kWarps = 4 * kGroups;    // consumer warps: 16 keys of a block each
 constexpr int kThreads = 32 * (kWarps + 1);   // + one producer warp
-constexpr int kStages = 4;             // ring depth
 constexpr int kMaxCluster = 8;         // the portable cluster size
-constexpr int kAccStride = kD + 8;     // f32 partial rows, padded against bank conflicts
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared-memory layout of one CTA (bytes). K and V arrive as TMA boxes of
-// 64 rows x 128 bytes with the 128-byte swizzle (16-byte chunk c of row r
-// stored at chunk c ^ (r % 8)), so the fragment loads below, 8 rows or 8
-// chunks a phase, hit distinct banks: bf16 rows as two boxes (d 0-63, 64-127),
-// int8 rows as one. Every box starts on a 1024-byte boundary.
-template <typename T>
+// Shared-memory layout of one CTA of head dim kD (bytes). K and V arrive as
+// TMA boxes of 64 rows x 128 bytes with the 128-byte swizzle (16-byte chunk c
+// of row r stored at chunk c ^ (r % 8)), so the fragment loads below, 8 rows
+// or 8 chunks a phase, hit distinct banks: bf16 rows as kD / 64 boxes (d
+// 0-63, 64-127, ..), int8 rows as kD / 128. Every box starts on a 1024-byte
+// boundary.
+template <typename T, int kD>
 struct Layout {
   static constexpr bool kQuant = std::is_same<T, int8_t>::value;
+  static constexpr int kStages = !kQuant && kD > 128 ? 3 : 4;       // ring depth
+  static constexpr int kAccStride = kD + 8;   // f32 partial rows, padded against bank conflicts
+  static constexpr bool kQSmem = kD > 128;    // Q's A fragments in shared memory
   static constexpr int kBoxes = kD * (int)sizeof(T) / 128;          // 128-byte boxes a row
   static constexpr int kBox = kBlock * 128;                         // bytes of one box
   static constexpr int kK = 0;
@@ -97,7 +107,9 @@ struct Layout {
   static constexpr int kConvStride = kD * 2 + 16;
   static constexpr int kConv = kStages * kStage;
   static constexpr int kWork = kConv + (kQuant ? kWarps * 16 * kConvStride : 0);
-  static constexpr int kSmem = 1024 + kWork;                        // + alignment slack
+  // Q's fragments, [kD / 16 k-steps][32 lanes] x 16 bytes, outside the ring
+  static constexpr int kQ = kWork;
+  static constexpr int kSmem = 1024 + kWork + (kQSmem ? kD / 16 * 32 * 16 : 0);   // + slack
   // after the block loop the ring (and int8 scratch) hold the warps' partial
   // states, then the CTA's, which the other CTAs of the cluster read
   static constexpr int kWarpAcc = 0;                                  // [kWarps][16][kAccStride]
@@ -108,16 +120,18 @@ struct Layout {
   static constexpr int kCtaL = kCtaM + kMaxRep * 4;
   static_assert(kCtaL + kMaxRep * 4 <= kWork, "partials exceed the ring");
   static_assert(kStage % 1024 == 0, "swizzled boxes start on 1024-byte boundaries");
+  static_assert(kSmem <= 232448, "the H100's shared memory a block");
 };
 
 // The d column that thread tq of a quad supplies as element e (0-3) of mma
 // k-step kk: one 16-byte shared load gives a thread 8 bf16 (two k-steps) or
-// 16 int8 codes (four), from the logical chunk 2 tq + p of its 128-byte row,
-// which spreads the 8 rows x 4 threads of a load phase over distinct banks.
-// Q's A fragments use the same map, so q . k sums every d once.
+// 16 int8 codes (four), from the logical chunk 2 tq + p of a 128-byte box
+// row, which spreads the 8 rows x 4 threads of a load phase over distinct
+// banks. Q's A fragments use the same map, so q . k sums every d once.
 template <bool kQuant>
 __host__ __device__ constexpr int frag_d(int kk, int tq, int e) {
-  return kQuant ? 32 * tq + 4 * kk + e : 64 * (kk / 4) + 16 * tq + 4 * (kk % 4) + e;
+  return kQuant ? 128 * (kk / 8) + 32 * tq + 4 * (kk % 8) + e
+                : 64 * (kk / 4) + 16 * tq + 4 * (kk % 4) + e;
 }
 
 struct DecodeArgs {
@@ -214,10 +228,11 @@ __device__ __forceinline__ uint32_t swz(uint32_t box, int r, int c) {
   return box + r * 128 + ((c ^ (r & 7)) << 4);
 }
 
-template <typename T>
+template <typename T, int kD>
 __device__ __forceinline__ void producer(const DecodeArgs& a, uint32_t base, uint32_t full0,
                                          uint32_t empty0, int s, int g, int j_lo, int j_hi) {
-  using L = Layout<T>;
+  using L = Layout<T, kD>;
+  constexpr int kStages = L::kStages;
   const float* ksb = a.ks + s * a.skss + g * a.sksh;
   const float* vsb = a.vs + s * a.svss + g * a.svsh;
   for (int j = j_lo; j < j_hi; ++j) {
@@ -241,11 +256,13 @@ __device__ __forceinline__ void producer(const DecodeArgs& a, uint32_t base, uin
 // One consumer warp: 16 keys of every block of its group (blocks j_lo +
 // group, + kGroups, ...) with its own online softmax; leaves its partial
 // state (log2 domain) in the ring.
-template <typename T>
+template <typename T, int kD>
 __device__ __forceinline__ void consumer(const DecodeArgs& a, unsigned char* smem, uint32_t base,
                                          uint32_t full0, uint32_t empty0, int s, int g,
                                          int len, int j_lo, int j_hi) {
-  using L = Layout<T>;
+  using L = Layout<T, kD>;
+  constexpr int kStages = L::kStages;
+  constexpr int kAccStride = L::kAccStride;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wk = w % 4, group = w / 4;          // key slice, block parity
   const int gq = lane >> 2, tq = lane & 3;      // mma fragment row group, thread in quad
@@ -253,20 +270,46 @@ __device__ __forceinline__ void consumer(const DecodeArgs& a, unsigned char* sme
 
   // Q as the A operand: rows gq and gq + 8 are q heads of this kv head (0
   // past rep); k-step kk takes the columns frag_d(kk, tq, 0..3), standing for
-  // k = 2 tq, 2 tq + 1 | 2 tq + 8, 2 tq + 9
-  uint32_t qa[kD / 16][4];
+  // k = 2 tq, 2 tq + 1 | 2 tq + 8, 2 tq + 9. In registers, or at kQSmem in
+  // shared memory (warp 0 writes them; every warp's lane reads the same).
+  uint32_t qa[L::kQSmem ? 1 : kD / 16][4];
+  const uint32_t qsm = base + L::kQ;
   const bf16* qg = a.q + s * a.sqs + (long long)g * rep * a.sqh;
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk)
+  auto load_q = [&](int kk, uint32_t (&f)[4]) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int h = gq + 8 * r;
       uint2 v = make_uint2(0u, 0u);
       if (h < rep)
         v = *reinterpret_cast<const uint2*>(qg + h * a.sqh + frag_d<L::kQuant>(kk, tq, 0));
-      qa[kk][r] = v.x;
-      qa[kk][2 + r] = v.y;
+      f[r] = v.x;
+      f[2 + r] = v.y;
     }
+  };
+  if constexpr (L::kQSmem) {
+    if (w == 0) {
+#pragma unroll 4
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        uint32_t f[4];
+        load_q(kk, f);
+        sts_u128(qsm + (kk * 32 + lane) * 16, f[0], f[1], f[2], f[3]);
+      }
+    }
+    named_bar_sync(1, 32 * kWarps);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) load_q(kk, qa[kk]);
+  }
+  // c += Q's k-step kk times the B fragment (b0, b1)
+  auto mma_q = [&](float (&c)[4], int kk, uint32_t b0, uint32_t b1) {
+    if constexpr (L::kQSmem) {
+      const uint4 v = lds_u128(qsm + (kk * 32 + lane) * 16);
+      const uint32_t f[4] = {v.x, v.y, v.z, v.w};
+      mma16816(c, f, b0, b1);
+    } else {
+      mma16816(c, qa[kk], b0, b1);
+    }
+  };
 
   float o[kD / 8][4];                 // O: n-tile n holds d 8n + 2tq, +1 of rows gq | gq + 8
 #pragma unroll
@@ -297,12 +340,11 @@ __device__ __forceinline__ void consumer(const DecodeArgs& a, unsigned char* sme
             i8x4_to_bf16(kv.z, b[4], b[5]);
             i8x4_to_bf16(kv.w, b[6], b[7]);
 #pragma unroll
-            for (int e = 0; e < 4; ++e)
-              mma16816(sc[nt][e & 1], qa[4 * c + e], b[2 * e], b[2 * e + 1]);
+            for (int e = 0; e < 4; ++e) mma_q(sc[nt][e & 1], 4 * c + e, b[2 * e], b[2 * e + 1]);
           } else {
             const int kk = 4 * (c / 2) + 2 * (c % 2);
-            mma16816(sc[nt][0], qa[kk], kv.x, kv.y);
-            mma16816(sc[nt][1], qa[kk + 1], kv.z, kv.w);
+            mma_q(sc[nt][0], kk, kv.x, kv.y);
+            mma_q(sc[nt][1], kk + 1, kv.z, kv.w);
           }
         }
       }
@@ -363,12 +405,14 @@ __device__ __forceinline__ void consumer(const DecodeArgs& a, unsigned char* sme
       // matrix lane / 8 of each: keys 0-7 | 8-15 (bit 0) x d 0-7 | 8-15 (bit
       // 1) of a 16-column step
       if constexpr (L::kQuant) {
-        // this warp's 16 int8 rows to bf16: lane -> row lane % 16, d 64 (lane / 16) ..
+        // this warp's 16 int8 rows to bf16: lane -> row lane % 16, d kD / 2
+        // (lane / 16) .., kD / 32 chunks of 16 codes (chunk x: box x / 8)
         const int r = lane & 15, half = lane >> 4;
-        const uint32_t dst = conv + r * L::kConvStride + 128 * half;
+        const uint32_t dst = conv + r * L::kConvStride + kD * half;
 #pragma unroll
-        for (int it = 0; it < 4; ++it) {
-          const uint4 c = lds_u128(swz(stage + L::kV, 16 * wk + r, 4 * half + it));
+        for (int it = 0; it < kD / 32; ++it) {
+          const int x = kD / 32 * half + it;
+          const uint4 c = lds_u128(swz(stage + L::kV + (x / 8) * L::kBox, 16 * wk + r, x % 8));
           uint32_t b[8];
           i8x4_to_bf16(c.x, b[0], b[1]);
           i8x4_to_bf16(c.y, b[2], b[3]);
@@ -456,10 +500,12 @@ __device__ __forceinline__ void consumer(const DecodeArgs& a, unsigned char* sme
   }
 }
 
-template <typename T>
+template <typename T, int kD>
 __global__ void __launch_bounds__(kThreads, 1)
     paged_decode_kernel(const __grid_constant__ DecodeArgs a) {
-  using L = Layout<T>;
+  using L = Layout<T, kD>;
+  constexpr int kStages = L::kStages;
+  constexpr int kAccStride = L::kAccStride;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * kStages];
   cg::cluster_group cluster = cg::this_cluster();
@@ -489,9 +535,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   __syncthreads();
   if (threadIdx.x >= 32 * kWarps) {
-    if (threadIdx.x == 32 * kWarps) producer<T>(a, base, full0, empty0, s, g, j_lo, j_hi);
+    if (threadIdx.x == 32 * kWarps) producer<T, kD>(a, base, full0, empty0, s, g, j_lo, j_hi);
   } else {
-    consumer<T>(a, smem, base, full0, empty0, s, g, len, j_lo, j_hi);
+    consumer<T, kD>(a, smem, base, full0, empty0, s, g, len, j_lo, j_hi);
   }
 
   cluster.sync();                              // every rank's partial state is written
@@ -555,20 +601,20 @@ inline int encode_cache(CUtensorMap* map, const void* ptr, bool quant, const Dec
   return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
 }
 
-template <typename T>
+template <typename T, int kD>
 int launch(const DecodeArgs& a, int S, int n_split, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<T>,
+    cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<T, kD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           Layout<T>::kSmem);
+                                           Layout<T, kD>::kSmem);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_split, a.Hkv, S);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = Layout<T>::kSmem;
+  cfg.dynamicSmemBytes = Layout<T, kD>::kSmem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -581,14 +627,16 @@ int launch(const DecodeArgs& a, int S, int n_split, cudaStream_t stream) {
   attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 2;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, paged_decode_kernel<T>, a);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, paged_decode_kernel<T, kD>, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+// The head dims the kernels are compiled for: 128 and 256, where D % 128 == 0
+// (ops/decode_attention.py KERNEL_HEAD_DIMS).
 inline bool bad_shape(const DecodeShape& sh) {
   const int n = sh.n_split;
-  return sh.S <= 0 || sh.D != kD || sh.Hkv <= 0 || sh.H % sh.Hkv != 0 ||
+  return sh.S <= 0 || (sh.D != 128 && sh.D != 256) || sh.Hkv <= 0 || sh.H % sh.Hkv != 0 ||
          sh.H / sh.Hkv > kMaxRep || sh.Lalloc <= 0 || sh.Lalloc % kBlock != 0 || n < 1 ||
          n > kMaxCluster || (n & (n - 1)) != 0 || sh.n_layers < 1;
 }
@@ -642,5 +690,9 @@ extern "C" int socio_paged_decode(int quant, const void* q, const void* maps, co
   a.soh = sh.soh;
   a.scale = sh.scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return quant ? launch<int8_t>(a, sh.S, sh.n_split, st) : launch<bf16>(a, sh.S, sh.n_split, st);
+  if (sh.D == 256)
+    return quant ? launch<int8_t, 256>(a, sh.S, sh.n_split, st)
+                 : launch<bf16, 256>(a, sh.S, sh.n_split, st);
+  return quant ? launch<int8_t, 128>(a, sh.S, sh.n_split, st)
+               : launch<bf16, 128>(a, sh.S, sh.n_split, st);
 }

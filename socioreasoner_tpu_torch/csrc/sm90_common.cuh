@@ -283,16 +283,19 @@ inline int encode_pair(CUtensorMap* main_map, CUtensorMap* tail_map, const void*
 }
 
 // The head-dim instances each kernel is compiled for (the columns of its
-// tiles): kernels 2 and 4 (launch_gqa) 64, 80 and 128; kernel 1 80 and 128;
-// kernels 5 and 6 64 and 128. A head dim d that is a multiple of 8 (a row of
-// 16-byte units, which a tensor map's stride needs) and at most 128 runs on
-// the smallest instance of at least d columns, its tail zero-filled by TMA
-// and never stored; the host pads any other d <= 128 to the next multiple
-// of 8 first (ops/flash_attention.py head_dim_plan, held to this formula by
-// socio_head_dim_instance). Returns 0 where no instance serves d.
-constexpr int kGqaDims[3] = {64, 80, 128};
-constexpr int kSegDims[2] = {80, 128};
-constexpr int kBwdDims[2] = {64, 128};
+// tiles): kernels 2 and 4 (launch_gqa) 64, 80, 128 and 256; kernel 1 80, 128
+// and 256; kernels 5 and 6 64, 128 and 256. A head dim d that is a multiple
+// of 8 (a row of 16-byte units, which a tensor map's stride needs) and at
+// most 256 runs on the smallest instance of at least d columns, its tail
+// zero-filled by TMA and never stored; the host pads any other d <= 256 to
+// the next multiple of 8 first (ops/flash_attention.py head_dim_plan, held
+// to this formula by socio_head_dim_instance). Returns 0 where no instance
+// serves d. Above 256 the f32 accumulators of a 64-row tile (a 64 x 512 O is
+// 256 registers a thread) no longer fit a thread: D would have to be split
+// over CTAs.
+constexpr int kGqaDims[4] = {64, 80, 128, 256};
+constexpr int kSegDims[3] = {80, 128, 256};
+constexpr int kBwdDims[3] = {64, 128, 256};
 
 template <int N>
 inline int head_dim_instance(const int (&dims)[N], int d) {

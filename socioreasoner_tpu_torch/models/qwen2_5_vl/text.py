@@ -445,7 +445,8 @@ def _decoder_uncached_tp(cfg: TextConfig, rank, x, cos, sin, attention_mask,
             # kernel 6's work list a device of each tp index's all-to-all,
             # from the rank's lengths at the head slice
             lens = None if attention_mask is None else attention_mask.sum(-1)
-            plans = [[dkv_plan(lens, B, L, L, Hu, Hkvu, True, rows[j][t]) for j in range(n)]
+            plans = [[dkv_plan(lens, B, L, L, Hu, Hkvu, True, rows[j][t],
+                               head_dim=cfg.head_dim) for j in range(n)]
                      for t in range(T)]
     elif use_flash:
         lens = None if attention_mask is None else attention_mask.sum(-1)
@@ -453,7 +454,7 @@ def _decoder_uncached_tp(cfg: TextConfig, rank, x, cos, sin, attention_mask,
             a["lens"] = None if lens is None else lens.to(dev)
             # kernel 6's work list from this rank's lengths at the shard's
             # local heads: one host read a shard, and a plan of its own
-            a["plan"] = (dkv_plan(lens, B, L, L, H, Hkv, True, dev)
+            a["plan"] = (dkv_plan(lens, B, L, L, H, Hkv, True, dev, head_dim=cfg.head_dim)
                          if torch.is_grad_enabled() else None)
     else:
         for a, dev in zip(at[0], devices):
@@ -598,7 +599,8 @@ def text_decoder(
             if torch.is_grad_enabled():
                 B, L = inputs_embeds.shape[:2]
                 plan = dkv_plan(lens, B, L, L, cfg.num_attention_heads,
-                                cfg.num_key_value_heads, True, inputs_embeds.device)
+                                cfg.num_key_value_heads, True, inputs_embeds.device,
+                                head_dim=cfg.head_dim)
 
         def layer(i, x):
             p = {key: arrs[i] for key, arrs in layers.items()}

@@ -39,7 +39,10 @@ from .flash_attention import check_shapes
 from .quant import _INV127
 
 KERNEL_BLOCK = 64         # cache rows per kernel block; Lalloc must be a multiple
-KERNEL_HEAD_DIM = 128
+# the head dims kernels 3 and 3q are compiled for (csrc/paged_decode.cu
+# bad_shape): those with D % 128 == 0 up to 256, where the JAX package routes
+# its decode kernel; the models decode other head dims densely
+KERNEL_HEAD_DIMS = (128, 256)
 KERNEL_MAX_REP = 16       # q heads per kv head: the kernel's 16 mma rows
 CLUSTER_LIMIT = 8         # CTAs a (slot, kv head) is split over: the portable cluster size
 
@@ -95,7 +98,9 @@ def split_count(S: int, Hkv: int, Lalloc: int, sms: int) -> int:
     CLUSTER_LIMIT and the cache's Lalloc / 64 blocks with S * Hkv * n_split
     CTAs on no more than the card's `sms` SMs (1 where S * Hkv > sms / 2).
     Clusters of 16 (the non-portable size) measured slower at S = 4 on an
-    H100 SXM: their scheduling cost more than the split saved."""
+    H100 SXM: their scheduling cost more than the split saved. The head dim
+    does not enter: at 256 a block's bytes double, which makes the split no
+    less worth its merge, and the merge's state is still one row a q head."""
     n = 1
     while (2 * n <= CLUSTER_LIMIT and 2 * n * KERNEL_BLOCK <= Lalloc
            and S * Hkv * 2 * n <= sms):
@@ -132,13 +137,13 @@ class DecodePlan:
     buffers it has met (encoded once a buffer: the engine's caches live
     across decode steps)."""
 
-    def __init__(self, quant: bool, S: int, H: int, Hkv: int, Lalloc: int, n_split: int,
-                 n_layers: int, strides, scale_layer_bytes):
+    def __init__(self, quant: bool, S: int, H: int, Hkv: int, D: int, Lalloc: int,
+                 n_split: int, n_layers: int, strides, scale_layer_bytes):
         self.quant, self.n_split, self.n_layers = quant, n_split, n_layers
-        self.out_shape = (S, H, KERNEL_HEAD_DIM)
+        self.out_shape = (S, H, D)
         self.scale_layer_bytes = scale_layer_bytes
-        self.shape = _Shape(S, H, Hkv, KERNEL_HEAD_DIM, Lalloc, n_split, n_layers, *strides,
-                            H * KERNEL_HEAD_DIM, KERNEL_HEAD_DIM, KERNEL_HEAD_DIM ** -0.5)
+        self.shape = _Shape(S, H, Hkv, D, Lalloc, n_split, n_layers, *strides,
+                            H * D, D, D ** -0.5)
         self.shape_ptr = ctypes.addressof(self.shape)
         self.maps: dict = {}
 
@@ -215,10 +220,10 @@ def _make_plan(q, k, v, ks, vs, lengths, stacked) -> DecodePlan:
     S, H, D = q.shape
     lead = 1 if stacked else 0
     _check_decode_shapes(name, q, k, v, lengths, ks, vs, lead)
-    _check_tensors(name, quant, q, (k, v), (ks, vs) if quant else ())
     Lalloc, Hkv = k.shape[lead + 1], k.shape[lead + 2]
-    if D != KERNEL_HEAD_DIM or H % Hkv or H // Hkv > KERNEL_MAX_REP:
+    if D not in KERNEL_HEAD_DIMS or H % Hkv or H // Hkv > KERNEL_MAX_REP:
         raise ValueError(f"{name} kernel: unsupported H={H} Hkv={Hkv} D={D}")
+    _check_tensors(name, quant, q, (k, v), (ks, vs) if quant else ())
     if Lalloc % KERNEL_BLOCK:
         raise ValueError(f"cache length {Lalloc} must be a multiple of {KERNEL_BLOCK}")
     n_split = split_count(S, Hkv, Lalloc, _sm_count(q.get_device()))
@@ -228,7 +233,7 @@ def _make_plan(q, k, v, ks, vs, lengths, stacked) -> DecodePlan:
     strides += ([*_strides(ks)[lead:lead + 2], *_strides(vs)[lead:lead + 2]] if quant
                 else [0] * 4)
     scale_layer_bytes = (layer(ks) * 4, layer(vs) * 4) if quant else (0, 0)
-    return DecodePlan(quant, S, H, Hkv, Lalloc, n_split, k.shape[0] if stacked else 1,
+    return DecodePlan(quant, S, H, Hkv, D, Lalloc, n_split, k.shape[0] if stacked else 1,
                       strides, scale_layer_bytes)
 
 

@@ -10,7 +10,7 @@ The counterpart of socioreasoner_tpu/ops/flash_attention.py:
 
 Both kernels are the persistent TMA + wgmma CTA of csrc/attention_sm90.cuh,
 compiled for a few head-dim instances; head_dim_plan maps any head dim up to
-128 onto one (zero-filled tail columns, a host pad where D is not a multiple
+256 onto one (zero-filled tail columns, a host pad where D is not a multiple
 of 8) and the wrappers raise for a larger one, naming H, Hkv and D.
 Kernel 1 walks a work list built here from the segment ids
 (seg_tile_plan); kernel 2 derives its k ranges on the device from kv_len
@@ -34,13 +34,15 @@ from . import _build
 from .attention import dense_attention
 
 KERNEL_Q_TILE = 128     # query rows per work item of kernels 1, 2, 4 and 5 (2 warpgroups x 64)
-KERNEL_K_TILE = 128     # keys per K/V tile of kernels 1, 2, 4 and 5
+KERNEL_K_TILE = 128     # keys per K/V tile of kernels 1, 2, 4 and 5 (the 256-column
+                        # instances walk each as two 64-key stages)
 # The head-dim instances (the columns of a kernel's tiles) each kernel is
 # compiled for, as csrc/sm90_common.cuh lists them (kGqaDims, kSegDims):
-# kernels 2 and 4 64, 80 and 128, kernel 1 80 and 128. Any head dim up to
-# 128 runs on one of them (head_dim_plan); a larger one raises.
-KERNEL_HEAD_DIMS = (64, 80, 128)
-SEG_HEAD_DIMS = (80, 128)
+# kernels 2 and 4 64, 80, 128 and 256, kernel 1 80, 128 and 256. Any head dim
+# up to 256 runs on one of them (head_dim_plan); a larger one raises (a
+# 64 x 512 f32 accumulator would be 256 registers a thread).
+KERNEL_HEAD_DIMS = (64, 80, 128, 256)
+SEG_HEAD_DIMS = (80, 128, 256)
 HEAD_DIM_ALIGN = 8      # 16-byte rows: what a tensor map's head stride needs
 
 

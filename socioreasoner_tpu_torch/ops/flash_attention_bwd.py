@@ -31,9 +31,9 @@ The counterpart of socioreasoner_tpu/ops/flash_attention_bwd.py:
                              layers over the same kv_lens builds kernel 6's
                              plan once (dkv_plan) and passes it as `plan=`.
 
-Head dims: kernel 4 runs on kernel 2's instances (64, 80, 128 columns),
-kernels 5 and 6 on 64 and 128 (TRAIN_HEAD_DIMS); any head dim up to 128 runs
-on the smallest instance that covers it (head_dim_plan: the tail columns
+Head dims: kernel 4 runs on kernel 2's instances (64, 80, 128, 256 columns),
+kernels 5 and 6 on 64, 128 and 256 (TRAIN_HEAD_DIMS); any head dim up to 256
+runs on the smallest instance that covers it (head_dim_plan: the tail columns
 zero-filled by TMA, q/k/v/dO padded on the host where D is not a multiple of
 8), a larger one raises ValueError naming H, Hkv and D.
 
@@ -63,16 +63,17 @@ from .flash_attention import (KERNEL_HEAD_DIMS, KERNEL_Q_TILE, check_kernel_inpu
 
 # the head-dim instances kernels 5 and 6 are compiled for (csrc/sm90_common.cuh
 # kBwdDims; kernel 4 is kernel 2's CTA, KERNEL_HEAD_DIMS): any head dim up to
-# 128 runs on one of them (head_dim_plan), a larger one raises
-TRAIN_HEAD_DIMS = (64, 128)
+# 256 runs on one of them (head_dim_plan), a larger one raises
+TRAIN_HEAD_DIMS = (64, 128, 256)
 
 DKV_K_TILE = 128    # keys per kernel-6 work item (2 consumer warpgroups x 64)
 DKV_Q_TILE = 64     # query rows per step of kernel 6's loop
 DKV_MIN_CAP = 16    # the smallest share of (key tile, q head, q tile) pairs a CTA gets
-# one piece's f32 dK and dV partials at the widest instance (a launch on the
+# one piece's f32 dK and dV partials at the 128-column instance, a plan's
+# slot unless it names a wider head dim (dkv_slot_floats; a launch on the
 # 64-column one has slots half as long, which fill the first half of the
 # workspace)
-DKV_SLOT_FLOATS = DKV_K_TILE * max(TRAIN_HEAD_DIMS) * 2
+DKV_SLOT_FLOATS = DKV_K_TILE * 128 * 2
 DKV_FIELDS = ("b", "g", "kt", "i_lo", "cnt", "p0", "np", "j", "n", "split", "ws0", "kv_len")
 N_SM = 132          # an H100's SMs: the count a plan for a CPU tensor assumes
 
@@ -204,11 +205,19 @@ def dkv_tile_plan(kv_lens, Lq: int, Lk: int, Hkv: int, rep: int, causal: bool,
     return items, cta_start, n_split, n_slots
 
 
+def dkv_slot_floats(head_dim: Optional[int] = None) -> int:
+    """Floats of one workspace slot of kernel 6 (a piece's f32 dK and dV
+    partials of DKV_K_TILE keys) for head dim `head_dim`: the slot of the
+    instance that serves it, at least DKV_SLOT_FLOATS (None: that)."""
+    plan = None if head_dim is None else head_dim_plan(head_dim, TRAIN_HEAD_DIMS)
+    return max(DKV_SLOT_FLOATS, DKV_K_TILE * plan[1] * 2 if plan else 0)
+
+
 class DkvPlan(NamedTuple):
     """Kernel 6's plan for one (kv_lens, shape) on one device (dkv_plan)."""
     items: torch.Tensor       # (n_items, 12) int32, dkv_tile_plan's rows in CTA order
     cta_start: torch.Tensor   # (n_cta + 1,) int32
-    workspace: torch.Tensor   # (n_slots, DKV_SLOT_FLOATS) f32 partials of split pieces
+    workspace: torch.Tensor   # (n_slots, dkv_slot_floats(head_dim)) f32 partials of split pieces
     counters: torch.Tensor    # (2 x split tiles,) int32 arrival counts, 0 between launches
     key: tuple                # the (B, Lq, Lk, H, Hkv, causal) it was built for
     n_cta: int
@@ -216,9 +225,12 @@ class DkvPlan(NamedTuple):
 
 
 def dkv_plan(kv_lens: Optional[torch.Tensor], B: int, Lq: int, Lk: int, H: int, Hkv: int,
-             causal: bool, device, cap: Optional[int] = None) -> DkvPlan:
+             causal: bool, device, cap: Optional[int] = None,
+             head_dim: Optional[int] = None) -> DkvPlan:
     """Kernel 6's plan (dkv_tile_plan, with its `cap`) for these kv lengths
-    on `device`, with its workspace and zeroed arrival counters. Reads
+    on `device`, with its workspace and zeroed arrival counters. The
+    workspace's slots fit the instance of `head_dim` (dkv_slot_floats; None:
+    any head dim up to 128, the wrapper refusing a plan too narrow). Reads
     kv_lens on the host (a GPU tensor is copied, a synchronisation), so a
     caller that runs many layers over the same lengths builds it once and
     passes it as `plan=`; the kernel reads the lengths from the plan and
@@ -234,7 +246,8 @@ def dkv_plan(kv_lens: Optional[torch.Tensor], B: int, Lq: int, Lk: int, H: int, 
                                                        n_sm, cap)
     return DkvPlan(torch.as_tensor(items, device=device),
                    torch.as_tensor(cta_start, device=device),
-                   torch.empty((n_slots, DKV_SLOT_FLOATS), dtype=torch.float32, device=device),
+                   torch.empty((n_slots, dkv_slot_floats(head_dim)), dtype=torch.float32,
+                               device=device),
                    torch.zeros(2 * n_split, dtype=torch.int32, device=device),
                    (B, Lq, Lk, H, Hkv, bool(causal)), len(cta_start) - 1,
                    tuple(int(n) for n in lens.reshape(-1)))
@@ -398,9 +411,13 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_lens=None, *, causal: bo
         _check_plan(plan, key, q, lens)
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, do, lse, delta, kv_lens, causal)[1:]
-    if plan is None:
-        plan = dkv_plan(kv_lens, *key, q.device)
     Dp = qp.shape[-1]
+    if plan is None:
+        plan = dkv_plan(kv_lens, *key, q.device, head_dim=Dp)
+    if plan.workspace.shape[1] < dkv_slot_floats(Dp):
+        raise ValueError(f"flash_attention_bwd_dkv: a plan's workspace slots of "
+                         f"{plan.workspace.shape[1]} floats, head dim {D} needs "
+                         f"{dkv_slot_floats(Dp)} (dkv_plan(..., head_dim={D}))")
     dk = torch.empty_like(kp, memory_format=torch.contiguous_format)
     dv = torch.empty_like(vp, memory_format=torch.contiguous_format)
     rc = _build.library().socio_flash_train_dkv_bf16(

@@ -350,7 +350,7 @@ def pipeline_decoder(cfg, rank, inputs_embeds: torch.Tensor, cos: torch.Tensor,
         for m in range(n_micro):
             plans[m] = {dev: dkv_plan(lens[m * mb:(m + 1) * mb], mb, L, L,
                                       cfg.num_attention_heads, cfg.num_key_value_heads,
-                                      True, dev) for dev in devs}
+                                      True, dev, head_dim=cfg.head_dim) for dev in devs}
 
     def split(a):
         return a.reshape((n_micro, mb) + a.shape[1:])

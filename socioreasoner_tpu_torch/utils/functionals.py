@@ -48,6 +48,27 @@ def masked_whiten(values: torch.Tensor, mask: torch.Tensor,
     return whitened
 
 
+def masked_normalize(tensor: torch.Tensor, mask: torch.Tensor, axis: int = 1) -> torch.Tensor:
+    """(tensor - mean) / std over `axis` under the mask, the masked-out
+    entries zeroed first and the variance floored at EPS."""
+    tensor = tensor * mask
+    mean = masked_mean(tensor, mask, axis=axis).unsqueeze(-1)
+    var = masked_mean((tensor - mean) ** 2 * mask, mask, axis=axis).unsqueeze(-1)
+    return (tensor - mean) * torch.rsqrt(torch.clamp(var, min=EPS))
+
+
+def get_pad_mask(response_id: torch.Tensor, pad_token: int, dtype=torch.int32) -> torch.Tensor:
+    """1 where token != pad."""
+    return (response_id != pad_token).to(dtype)
+
+
+def get_eos_mask(response_id: torch.Tensor, eos_token: int, dtype=torch.int32) -> torch.Tensor:
+    """1 up to and including the first eos token of each row."""
+    is_eos = (response_id == eos_token).to(torch.int32)
+    seen_before = torch.cumsum(is_eos, dim=1) - is_eos   # eos strictly before the position
+    return (seen_before == 0).to(dtype)
+
+
 # ------------------------------------------------------------- token-level ops
 
 def log_probs_from_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -259,6 +280,11 @@ def apply_kl_penalty(
     return token_level, current_kl
 
 
+def compute_clip_fraction(values: torch.Tensor, clip_max: float, clip_min: float) -> torch.Tensor:
+    """The share of entries above clip_max or below clip_min, in f32."""
+    return ((values > clip_max) | (values < clip_min)).to(torch.float32).mean()
+
+
 # -------------------------------------------------------------- host-side ops
 
 def pad_to_length(arr: np.ndarray, length: int, pad_value, axis: int = -1) -> np.ndarray:
@@ -384,3 +410,14 @@ class RunningMoments:
         self.std = float(np.sqrt(self.var * tot / max(tot - 1, 1e-24)))
         self.count = tot
         return float(xs_mean), float(np.sqrt(xs_var * n / max(n - 1, 1)))
+
+
+def reduce_metrics(metrics: dict, reduce_func=np.mean) -> dict:
+    """Each metric's list of values reduced to one float."""
+    return {k: float(reduce_func(v)) for k, v in metrics.items()}
+
+
+def append_to_dict(data: Dict, new_data: Dict) -> None:
+    """Append each value of new_data to the list under its key in data."""
+    for key, val in new_data.items():
+        data.setdefault(key, []).append(val)

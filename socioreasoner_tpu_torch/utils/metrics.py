@@ -1,7 +1,8 @@
 """Structured metric aggregation: timers, value stats, token throughput,
 per-domain grouping, collected per step and reduced for the tracker.
 
-The port's own copy of MetricsManager from socioreasoner_tpu/utils/metrics.py.
+The port's own copy of MetricsManager and batch_value_metrics from
+socioreasoner_tpu/utils/metrics.py.
 """
 
 from __future__ import annotations
@@ -9,7 +10,7 @@ from __future__ import annotations
 import time
 from collections import defaultdict
 from contextlib import contextmanager
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -76,3 +77,15 @@ class MetricsManager:
             self._domain_values.clear()
         return out
 
+
+def batch_value_metrics(prefix: str, values: np.ndarray,
+                        mask: Optional[np.ndarray] = None) -> Dict[str, float]:
+    """mean/max/min of a (possibly masked) array, in float64; an empty mask
+    gives zeros."""
+    values = np.asarray(values, dtype=np.float64)
+    if mask is not None:
+        m = np.asarray(mask) > 0
+        values = values[m] if m.any() else np.zeros(1)
+    return {f"{prefix}/mean": float(values.mean()),
+            f"{prefix}/max": float(values.max()),
+            f"{prefix}/min": float(values.min())}

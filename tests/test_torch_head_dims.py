@@ -1,12 +1,13 @@
 """Head dims on the port's attention routes.
 
-The host's instance sets (KERNEL_HEAD_DIMS, SEG_HEAD_DIMS, TRAIN_HEAD_DIMS)
-are pinned to the instances the CUDA sources dispatch, and the wrappers
-refuse a head dim above 128 with an error naming H, Hkv and D (every head
-dim up to 128 runs: tests/test_torch_head_dims_any.py). The cached
-decoder routes as the JAX package does: the decode kernel (kernels 3/3q)
-where head_dim is a multiple of 128, dense attention over the layer's cache
-otherwise (an int8 cache dequantized first). At head_dim 64 (Qwen2.5-0.5B,
+The host's instance sets (KERNEL_HEAD_DIMS, SEG_HEAD_DIMS, TRAIN_HEAD_DIMS
+and the decode kernel's KERNEL_HEAD_DIMS) are pinned to the instances the
+CUDA sources dispatch, and the wrappers refuse a head dim above 256 with an
+error naming H, Hkv and D (every head dim up to 256 runs:
+tests/test_torch_head_dims_any.py), the decode kernel any head dim but 128
+and 256. The cached decoder routes as the JAX package does: the decode
+kernel (kernels 3/3q) where head_dim is a multiple of 128, dense attention
+over the layer's cache otherwise (an int8 cache dequantized first). At head_dim 64 (Qwen2.5-0.5B,
 Llama-3.2) a cached prefill and three decode steps of the port equal the
 JAX package's cached model (use_flash=True, f32 weights: rtol/atol 1e-5,
 the float32 rounding of two implementations of the same sums) and never
@@ -32,6 +33,7 @@ from socioreasoner_tpu.ops import flash_attention as j_fa
 from socioreasoner_tpu_torch.models.qwen2_5_vl import model as t_model
 from socioreasoner_tpu_torch.models.qwen2_5_vl import text as t_text
 from socioreasoner_tpu_torch.models.qwen2_5_vl.convert import params_from_numpy
+from socioreasoner_tpu_torch.ops import decode_attention as da
 from socioreasoner_tpu_torch.ops import flash_attention as fa
 from socioreasoner_tpu_torch.ops import flash_attention_bwd as fb
 from tests.test_torch_engine import _port
@@ -79,11 +81,24 @@ def test_host_head_dims_are_the_dispatched_instances(source, entry, host):
     assert 64 in fb.TRAIN_HEAD_DIMS and 64 in fa.KERNEL_HEAD_DIMS
 
 
-@pytest.mark.parametrize("D", [136, 256])
+def test_decode_head_dims_are_the_dispatched_instances():
+    """The decode kernel's head dims (decode_attention.KERNEL_HEAD_DIMS) are
+    those bad_shape admits and socio_paged_decode instantiates, for both
+    the bf16 and the int8 cache, in order."""
+    admitted = re.findall(r"sh\.D != (\d+)", _body("paged_decode.cu", "inline bool bad_shape("))
+    body = _body("paged_decode.cu", 'extern "C" int socio_paged_decode(int quant')
+    launched = {(t, int(d)) for t, d in re.findall(r"launch<(int8_t|bf16), (\d+)>", body)}
+    assert tuple(int(d) for d in admitted) == da.KERNEL_HEAD_DIMS == (128, 256)
+    assert launched == {(t, d) for t in ("int8_t", "bf16") for d in da.KERNEL_HEAD_DIMS}
+
+
+@pytest.mark.parametrize("D", [264, 384])
 def test_wrappers_refuse_other_head_dims_naming_them(D, monkeypatch):
-    """A head dim above 128 (no instance covers it) raises ValueError naming
+    """A head dim above 256 (no instance covers it) raises ValueError naming
     H, Hkv and D before any pointer is passed: the tensors are made to read
-    as CUDA tensors that pass the device and type checks."""
+    as CUDA tensors that pass the device and type checks. The decode kernels
+    (3 and 3q) refuse it too, and 192, which no decode instance takes (the
+    models decode it densely), forced onto them."""
     q = torch.zeros(1, 8, 4, D, dtype=torch.bfloat16)
     k = torch.zeros(1, 8, 2, D, dtype=torch.bfloat16)
     monkeypatch.setattr(torch.Tensor, "is_cpu", property(lambda self: False))
@@ -96,6 +111,14 @@ def test_wrappers_refuse_other_head_dims_naming_them(D, monkeypatch):
     monkeypatch.setattr(torch.Tensor, "device", property(lambda self: dev))
     with pytest.raises(ValueError, match=rf"H=4 Hkv=2 D={D}"):
         fb.flash_attention_fwd_lse(q, k, k)
+    lens = torch.ones(2, dtype=torch.int32)
+    for d in (D, 192):
+        qd = torch.zeros(2, 4, d, dtype=torch.bfloat16)
+        for quant in (False, True):
+            cache = torch.zeros(1, 2, 64, 2, d, dtype=torch.int8 if quant else torch.bfloat16)
+            scales = (torch.zeros(1, 2, 2, 64),) * 2 if quant else ()
+            with pytest.raises(ValueError, match=rf"H=4 Hkv=2 D={d}"):
+                da.paged_decode_attention(qd, cache, cache, lens, *scales, layer=0)
 
 
 def _config(head_dim: int):
@@ -187,3 +210,31 @@ def test_head_dim_128_decodes_through_the_kernel(monkeypatch):
     outs = _cached_steps("port", config, tp, ids, False)
     assert calls == [0, 1] * 3
     assert all(np.isfinite(o).all() for o in outs)
+
+
+def test_dkv_workspace_fits_the_instance(monkeypatch):
+    """Kernel 6's workspace slots hold a piece's f32 dK and dV of 128 keys at
+    its instance's width (`kSlotFloats = kBK * kD * 2` in the source): a
+    plan named for head dim 256 (or 136, on the same instance) has slots
+    twice the default's, which fits every head dim up to 128; the wrapper
+    refuses a default plan at 256, naming the head dim, before any pointer
+    is passed."""
+    assert "kSlotFloats = kBK * kD * 2;" in (CSRC / "flash_train_dkv_sm90.cu").read_text()
+    assert fb.dkv_slot_floats() == fb.DKV_SLOT_FLOATS == 128 * 128 * 2
+    assert fb.dkv_slot_floats(64) == fb.dkv_slot_floats(120) == fb.DKV_SLOT_FLOATS
+    assert fb.dkv_slot_floats(136) == fb.dkv_slot_floats(256) == 128 * 256 * 2
+    lens = torch.tensor([8, 3])
+    wide = fb.dkv_plan(lens, 2, 8, 8, 4, 2, True, "cpu", cap=1, head_dim=256)
+    plain = fb.dkv_plan(lens, 2, 8, 8, 4, 2, True, "cpu", cap=1)
+    assert wide.workspace.shape == (plain.workspace.shape[0], 128 * 256 * 2)
+    assert torch.equal(wide.items, plain.items) and wide.counters.shape == plain.counters.shape
+    q = torch.zeros(2, 8, 4, 256, dtype=torch.bfloat16)
+    k = torch.zeros(2, 8, 2, 256, dtype=torch.bfloat16)
+    stats = torch.zeros(2, 4, 8)
+    monkeypatch.setattr(torch.Tensor, "is_cpu", property(lambda self: False))
+    monkeypatch.setattr(torch.Tensor, "device", property(lambda self: torch.device("cuda")))
+    monkeypatch.setattr(fb, "check_kernel_inputs", lambda *a: None)
+    monkeypatch.setattr(fb, "_lens", lambda kv_lens, *a: kv_lens.to(torch.int32))
+    monkeypatch.setattr(fb._build, "library", lambda: pytest.fail("a pointer was passed"))
+    with pytest.raises(ValueError, match="head dim 256 needs 65536"):
+        fb.flash_attention_bwd_dkv(q, k, k, q, stats, stats, lens, plan=plain)

@@ -1,4 +1,4 @@
-"""Every head dim up to 128 on the port's attention routes, against the
+"""Every head dim up to 256 on the port's attention routes, against the
 JAX package, whose Pallas kernels take any head dim.
 
   * The host's choice of width and instance (head_dim_plan, pad_head_dim)
@@ -9,16 +9,20 @@ JAX package, whose Pallas kernels take any head dim.
     pad): nothing, given the true D^-0.5 scale.
   * The plain versions of kernel 2 and of kernels 4-6 (forward, lse and
     the backward by the kernels' formula, and the autograd of
-    flash_attention_trainable) at head dims 32, 80, 96, 100 and 120 and
-    GQA ratios 1, 2 and 4, against the Pallas kernels in interpret mode,
-    as the JAX package's tests run them (float32, max-abs 1e-5: the float32
-    rounding of softmax sums over at most a few dozen keys).
+    flash_attention_trainable) at head dims 32, 80, 96, 100, 120, 132
+    (padded to 136), 136, 192 and 256 and GQA ratios 1, 2, 3 and 4,
+    against the Pallas kernels in interpret mode, as the JAX package's
+    tests run them (float32, max-abs 1e-5: the float32 rounding of softmax
+    sums over at most a few dozen keys); kernel 1's plain version at 192
+    and 256 against the Pallas segmented kernel; kernels 3/3q's plain
+    versions at 256 against the Pallas decode kernel, bf16 and int8 caches.
   * A tiny Llama-family model at head dims 120 and 100: a cached prefill
     and three decode steps (dense over the cache, as in JAX) against the
-    JAX package's cached model (1e-5), and one GRPO train step against
-    JAX's make_train_step with its flash kernels in interpret mode
-    (metrics rtol 1e-5, params 1e-5 of a leaf's scale, the zero biases'
-    5e-5).
+    JAX package's cached model (1e-5); at 256 the same through the decode
+    kernel's route on both sides; and one GRPO train step at 120, 100 and
+    256 against JAX's make_train_step with its flash kernels in interpret
+    mode (metrics rtol 1e-5, params 1e-5 of a leaf's scale, the zero
+    biases' 5e-5).
   * chip_smoke's head_dims phase rehearsed at tiny widths on the CPU.
 """
 
@@ -43,6 +47,7 @@ from socioreasoner_tpu.pipeline import losses as JL
 from socioreasoner_tpu_torch.distributed import trainer as TT
 from socioreasoner_tpu_torch.models.qwen2_5_vl import text as t_text
 from socioreasoner_tpu_torch.models.qwen2_5_vl.convert import params_from_numpy
+from socioreasoner_tpu_torch.ops import decode_attention as t_dec
 from socioreasoner_tpu_torch.ops import flash_attention as t_fa
 from socioreasoner_tpu_torch.ops import flash_attention_bwd as t_fab
 from socioreasoner_tpu_torch.pipeline import losses as TL
@@ -50,9 +55,9 @@ from tests.test_torch_engine import _port
 from tests.test_torch_head_dims import CSRC, _cached_steps
 
 TOL = 1e-5
-WIDTHS = (32, 80, 96, 100, 120)
+WIDTHS = (32, 80, 96, 100, 120, 132, 136, 192, 256)
 # GQA ratio: (q heads, kv heads)
-REPS = {1: (4, 4), 2: (4, 2), 4: (4, 1)}
+REPS = {1: (4, 4), 2: (4, 2), 3: (6, 2), 4: (4, 1)}
 
 
 def _close(got, want, tol=TOL):
@@ -98,7 +103,7 @@ def test_host_plan_matches_the_kernels_formula():
     """head_dim_plan's instance is the C formula's on the padded width at
     every head dim 1-300 for kernels 1, 2, 4, 5 and 6; the C formula refuses
     what is not a multiple of HEAD_DIM_ALIGN (the host pads it) and every
-    width above 128 (the wrappers raise)."""
+    width above 256 (the wrappers raise)."""
     common = (CSRC / "sm90_common.cuh").read_text()
     fn = common[common.index("inline int head_dim_instance("):]
     fn = fn[:fn.index("\n}\n")]
@@ -111,12 +116,16 @@ def test_host_plan_matches_the_kernels_formula():
         for D in range(1, 301):
             plan = t_fa.head_dim_plan(D, instances)
             width = -(-D // 8) * 8
-            assert (plan is None) == (D > 128), (kernel, D)
+            assert (plan is None) == (D > 256), (kernel, D)
             if plan is not None:
                 assert plan == (width, _c_formula(c[kernel], width)), (kernel, D, plan)
                 assert plan[0] % t_fa.HEAD_DIM_ALIGN == 0 and plan[0] - D < 8
-            assert _c_formula(c[kernel], D) == (0 if D % 8 or D > 128 else plan[1])
+            assert _c_formula(c[kernel], D) == (0 if D % 8 or D > 256 else plan[1])
     assert t_fa.head_dim_plan(120, t_fa.KERNEL_HEAD_DIMS) == (120, 128)
+    assert t_fa.head_dim_plan(132, t_fa.KERNEL_HEAD_DIMS) == (136, 256)
+    assert t_fa.head_dim_plan(192, t_fab.TRAIN_HEAD_DIMS) == (192, 256)
+    assert t_fa.head_dim_plan(256, t_fa.SEG_HEAD_DIMS) == (256, 256)
+    assert t_fa.head_dim_plan(264, t_fa.KERNEL_HEAD_DIMS) is None
     assert t_fa.head_dim_plan(100, t_fab.TRAIN_HEAD_DIMS) == (104, 128)
     assert t_fa.head_dim_plan(80, t_fab.TRAIN_HEAD_DIMS) == (80, 128)
     assert t_fa.head_dim_plan(72, t_fa.KERNEL_HEAD_DIMS) == (72, 80)
@@ -178,8 +187,9 @@ def test_trainable_matches_pallas_vjp_at_any_head_dim(D, rep):
     q, k, v = _randn(rng, B, L, H, D), _randn(rng, B, L, Hkv, D), _randn(rng, B, L, Hkv, D)
     g = _randn(rng, B, L, H, D)
     jlens = jnp.asarray(np.array(lens, np.float32))
-    f = lambda q_, k_, v_: j_fab.flash_attention_trainable(   # noqa: E731
-        q_, k_, v_, jlens, True, 64, 64, True)
+    # jitted: the interpret-mode grids run as one program, not op by op
+    f = jax.jit(lambda q_, k_, v_: j_fab.flash_attention_trainable(
+        q_, k_, v_, jlens, True, 64, 64, True))
     want, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     want_grads = vjp(jnp.asarray(g))
     _, res = j_fab._fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jlens, True,
@@ -200,6 +210,60 @@ def test_trainable_matches_pallas_vjp_at_any_head_dim(D, rep):
     t_fab.flash_attention_trainable(*leaves, tlens).backward(tg)
     for leaf, w in zip(leaves, want_grads):
         _close(leaf.grad, w)
+
+
+@pytest.mark.parametrize("D", [192, 256])
+def test_segmented_matches_pallas_at_wide_head_dims(D):
+    """Kernel 1's plain version (the wrapper on CPU tensors) against the
+    Pallas segmented kernel in interpret mode at head dims on the 256
+    instance: windows of 64 and 48 tokens and a ragged tail, 2 heads,
+    blocks of 64 with the span bound."""
+    rng = np.random.default_rng(D)
+    sizes = (64, 48, 64, 30, 50)
+    seg = np.concatenate([np.full(n, i) for i, n in enumerate(sizes)]).astype(np.int32)
+    S, H = len(seg), 2
+    q, k, v = (_randn(rng, S, H, D) for _ in range(3))
+    span = j_fa.seg_max_span_blocks(seg, block_q=64, block_k=64)
+    want = j_fa.flash_attention_segmented(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(seg),
+        block_q=64, block_k=64, max_span_blocks=span, interpret=True)
+    got = t_fa.flash_attention_segmented(*(torch.as_tensor(x) for x in (q, k, v, seg)),
+                                         block_q=64, block_k=64, max_span_blocks=span)
+    assert got.shape == (S, H, D)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float_cache", "int8_cache"])
+def test_decode_matches_pallas_at_head_dim_256(quant):
+    """Kernels 3 and 3q's plain versions at head dim 256, GQA ratio 3, on a
+    stacked cache of 2 layers (layer 1), lengths 0, 1, a partial block and
+    the full cache, against the Pallas decode kernel in interpret mode (1e-5:
+    f32 softmax over <= 256 keys); the int8 cache's codes and scales from
+    JAX's quantize_kv, per token and head (amax / 127, amax floored at
+    1e-8)."""
+    rng = np.random.default_rng(11)
+    Lyr, S, Lmax, H, Hkv, D = 2, 4, 256, 6, 2, 256
+    q = _randn(rng, S, H, D)
+    k, v = (_randn(rng, Lyr, S, Lmax, Hkv, D) for _ in range(2))
+    lens = np.asarray([0, 1, 97, 256], np.int32)
+    scales = []
+    if quant:
+        caches = []
+        for x in (k, v):
+            code, scale = j_dec.quantize_kv(jnp.asarray(x.reshape(-1, Lmax, Hkv, D)))
+            caches.append(np.asarray(code).reshape(x.shape))
+            scales.append(np.swapaxes(np.asarray(scale), -1, -2).reshape(Lyr, S, Hkv, Lmax))
+        k, v = caches
+    want = j_dec.paged_decode_attention(
+        *(jnp.asarray(x) for x in (q, k, v, lens, *scales)), layer=jnp.int32(1),
+        block_k=128, interpret=True)
+    counts = (t_dec.paged_decode_attention.launches, t_dec.paged_decode_attention_int8.launches)
+    got = t_dec.paged_decode_attention(*(torch.as_tensor(x) for x in (q, k, v, lens, *scales)),
+                                       layer=1)
+    assert got.shape == (S, H, D) and not got[0].any()      # zero length gives 0
+    _close(got, want)
+    assert (t_dec.paged_decode_attention.launches,
+            t_dec.paged_decode_attention_int8.launches) == counts     # CPU: no launch
 
 
 # ------------------------------------------------------------ a model
@@ -251,10 +315,36 @@ def test_llama_head_dim_decodes_as_jax(head_dim, jax_flash, monkeypatch):
         np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
 
 
+def test_llama_head_dim_256_decodes_through_the_kernel_as_jax(jax_flash, monkeypatch):
+    """At head_dim 256, a multiple of 128, both packages decode through
+    their decode kernels: the port's paged_decode_attention (its plain
+    version on the CPU) at every layer of the three decode steps, the JAX
+    package's Pallas decode kernel in interpret mode. The cached prefill
+    (through flash_attention at 256) and the steps equal the JAX package's
+    cached model (f32 weights, 1e-5)."""
+    config = _llama(256)
+    jp = j_model.init_params(config, jax.random.key(5), jnp.float32, with_vision=False)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    monkeypatch.setattr(j_dec, "paged_decode_attention", functools.partial(
+        j_dec.paged_decode_attention, block_k=64, interpret=True))
+    calls, prefill = [], []
+    plain, plain_fa = t_text.paged_decode_attention, t_text.flash_attention
+    monkeypatch.setattr(t_text, "paged_decode_attention",
+                        lambda *a, **k: calls.append(k.get("layer")) or plain(*a, **k))
+    monkeypatch.setattr(t_text, "flash_attention",
+                        lambda q, *a, **k: prefill.append(q.shape[-1]) or plain_fa(q, *a, **k))
+    ids = np.random.default_rng(1).integers(2, 240, (2, 10))
+    want = _cached_steps("jax", config, jp, ids, False)
+    got = _cached_steps("port", _port(config), tp, ids, False)
+    assert calls == [0, 1] * 3 and prefill == [256, 256]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+
+
 LR = 1e-3
 
 
-@pytest.mark.parametrize("head_dim", [120, 100])
+@pytest.mark.parametrize("head_dim", [120, 100, 256])
 def test_llama_head_dim_train_step_matches_jax(head_dim, jax_flash):
     """One GRPO step (remat, the trainable kernels' routes: JAX's Pallas
     kernels in interpret mode, the port's plain versions) from the same f32
@@ -310,6 +400,11 @@ TINY_HEAD_DIM_MODELS = {
     "tiny_100": ({"model_type": "llama", "vocab_size": 512, "hidden_size": 64,
                   "intermediate_size": 128, "num_hidden_layers": 2, "num_attention_heads": 2,
                   "num_key_value_heads": 2, "head_dim": 100, "eos_token_id": 500}, "a tiny llama", 2, None),
+    # Falcon3-7B's: served, served with the int8 KV cache and trained, head
+    # dim 256 (the decode kernel's route), rep 3
+    "tiny_256": ({"model_type": "llama", "vocab_size": 512, "hidden_size": 64,
+                  "intermediate_size": 128, "num_hidden_layers": 2, "num_attention_heads": 6,
+                  "num_key_value_heads": 2, "head_dim": 256, "eos_token_id": 500}, "a tiny llama", 2, 1),
 }
 
 
@@ -323,10 +418,14 @@ def test_chip_smoke_head_dims_phase_on_cpu(tmp_path, monkeypatch):
     kernel."""
     import chip_smoke
     monkeypatch.setattr(chip_smoke, "HEAD_DIM_MODELS", TINY_HEAD_DIM_MODELS)
-    seen = []
-    plain = t_text.flash_attention
+    monkeypatch.setattr(chip_smoke, "HEAD_DIM_INT8_LAYERS", {"tiny_256": 1})
+    seen, decoded = [], []
+    plain, plain_dec = t_text.flash_attention, t_text.paged_decode_attention
     monkeypatch.setattr(t_text, "flash_attention",
                         lambda q, *a, **k: seen.append(q.shape[-1]) or plain(q, *a, **k))
+    monkeypatch.setattr(t_text, "paged_decode_attention", lambda q, k, v, lens, *scales, **kw: (
+        decoded.append((q.shape[-1], any(x is not None for x in scales)))
+        or plain_dec(q, k, v, lens, *scales, **kw)))
     kernels = chip_smoke._family_kernels()
     serve_kw = dict(prompt_lens=(30, 21), bucket=32, max_new=4, decode_chunk=4)
     cpu = torch.device("cpu")
@@ -337,21 +436,34 @@ def test_chip_smoke_head_dims_phase_on_cpu(tmp_path, monkeypatch):
     assert fig["serve"]["cache"] == [2, 2, 256, 1, 120] and not fig["serve"]["failures"]
     assert fig["train"]["shape"] == "B=2 L=64 kv_len=[64, 40]"
     assert all(n == 0 for n in fig["serve"]["launches"].values())      # CPU: no launch
-    assert set(seen) == {120}
+    assert set(seen) == {120} and not decoded
     seen.clear()
     fig = chip_smoke.run_head_dim_model("tiny_100", cpu, str(tmp_path), kernels=kernels,
                                         serve_kw=serve_kw)
     assert "train" not in fig and fig["serve"]["cache"][-2:] == [2, 100]
-    assert set(seen) == {100}
+    assert set(seen) == {100} and not decoded
+    seen.clear()
+    fig = chip_smoke.run_head_dim_model("tiny_256", cpu, str(tmp_path), kernels=kernels,
+                                        serve_kw=serve_kw, train_kw=dict(lens=(64, 40), steps=1))
+    assert fig["checkpoint_gb"] > 0
+    assert fig["serve"]["cache"] == [2, 2, 256, 2, 256] and not fig["serve"]["failures"]
+    assert fig["serve_int8_kv"]["cache"] == [1, 2, 256, 2, 256]
+    assert not fig["serve_int8_kv"]["failures"]
+    assert fig["train"]["shape"] == "B=2 L=64 kv_len=[64, 40]"
+    assert set(seen) == {256} and set(decoded) == {(256, False), (256, True)}
     assert list(tmp_path.iterdir()) == []                 # each checkpoint removed
     monkeypatch.undo()
     hd = {name: chip_smoke._heads(hf)[2] for name, (hf, *_) in chip_smoke.HEAD_DIM_MODELS.items()}
     assert hd == {"danube3_4b": 120, "danube3_500m": 96, "danube2_1_8b": 80,
-                  "open_llama_3b_v2": 100}
+                  "open_llama_3b_v2": 100, "falcon3_7b": 256}
     assert {k: v[2:] for k, v in chip_smoke.HEAD_DIMS_PREFILL.items()} == {
         "danube3_4b": (32, 8, 120), "danube3_500m": (16, 8, 96),
-        "open_llama_3b_v2": (32, 32, 100)}
+        "open_llama_3b_v2": (32, 32, 100), "falcon3_7b": (12, 4, 256)}
     assert {k: (v["H"], v["Hkv"], v["D"], v["L"]) for k, v in
             chip_smoke.HEAD_DIMS_TRAIN.items()} == {
         "danube3_4b": (32, 8, 120, 2048), "danube3_500m": (16, 8, 96, 2048),
-        "danube2_1_8b": (32, 8, 80, 2048)}
+        "danube2_1_8b": (32, 8, 80, 2048), "falcon3_7b": (12, 4, 256, 2048)}
+    # the served Falcon3 cache is the one the kernels phase checks
+    case = chip_smoke.HEAD_DIM_DECODE_CASES[0]
+    assert case[0] == "falcon3_7b" and case[1:3] == (4, chip_smoke.FAMILY_LALLOC)
+    assert case[4:] == (28, 12, 4, 256) and chip_smoke.HEAD_DIM_INT8_LAYERS == {"falcon3_7b": 4}
