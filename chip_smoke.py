@@ -93,8 +93,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 answer without answer tags; encoder ms a tile, decoder ms a
                 prompt batch; one tile in bf16 against f32.
   11b. parallel — serving over several devices, on the one card: (a) the
-                main phase's four stage-1 requests (2016 tokens, 64 greedy
-                tokens) through the tensor-parallel DecodeEngine at full
+                main phase's four stage-1 requests (2016 tokens, 16 greedy
+                tokens: PARALLEL_MAX_NEW) through the tensor-parallel DecodeEngine at full
                 width, tp = 2 with both shards on cuda:0 (8 q heads over 1
                 kv head a shard, its own contiguous cache), with bf16
                 weights, then with int8 single-copy weights and an int8 KV
@@ -123,7 +123,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 1, backward_batch_size 8 over 4 accumulation steps, the k3
                 KL loss, the reward worker_cls) on the main phase's tree, a
                 copy of it as the reference, and SAM2-hiera-large; two 768²
-                tiles, cut to response_length 64, two steps and a validation.
+                tiles, cut to response_length 64, one step and a validation.
                 Pass 1 through the real engine: kernels 1-6 must launch, at
                 the prefill buckets, cache and train shapes the kernels phase
                 checked (GRPO_PREFILL, GRPO_SLOTS/GRPO_LALLOC, GRPO_TRAIN),
@@ -138,7 +138,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 datasets.loader.get_dataset, the dynamic sampler on (4
                 prompts x 8 samples, 256 new tokens, 32 running requests,
                 2 additional prompts, a query filter that rejects the first
-                finished group), two steps through the real engine (kernels
+                finished group), one step through the real engine (kernels
                 2-6), then a step of crafted answers, half of each group
                 right (rewards equal to compute_math_rewards recomputed on
                 the texts, critic/score_mean 0.5, the actor moved, kernels
@@ -777,9 +777,16 @@ def _window_library(q, k, v, seg_np):
     """One library call of segment-wise attention over the window layers'
     segments, with the layout copy it needs: varlen flash attention on
     cu_seqlens from the ids where torch has it, else SDPA on a jagged nested
-    tensor of the windows. Returns (fn, name)."""
+    tensor of the windows; above 256 columns (which no flash backend takes)
+    SDPA under the ids' block-diagonal mask. Returns (fn, name)."""
     import torch
     import torch.nn.functional as F
+    if q.shape[-1] > 256:
+        ids = torch.as_tensor(seg_np, device=q.device)
+        mask = ids[:, None] == ids[None, :]
+        qb, kb, vb = (x.transpose(0, 1)[None] for x in (q, k, v))
+        return (lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask),
+                "scaled_dot_product_attention under the block-diagonal mask of the ids")
     _, counts = np.unique(seg_np, return_counts=True)
     cu = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int32,
                          device=q.device)
@@ -1054,6 +1061,10 @@ PARALLEL_INT8 = {"weight_quant": "int8", "single_copy_quant": True, "kv_quant": 
 # 3B's 2048 / 2 and 11008 / 2 contraction rows hold whole 128-row groups),
 # the int4 head whole on each shard
 PARALLEL_INT4 = {"weight_quant": "int4", "single_copy_quant": True}
+# New tokens a request of the tp engines: one decode chunk (the main path
+# generates 64), so the six engines' decode and teacher-forced tie checks fit
+# the script's time limit; the cache is main's (MAIN_LALLOC) all the same.
+PARALLEL_MAX_NEW = 16
 # The grpo phase's attention shapes, checked in phase_kernels and held to
 # that phase's pass over the real engine. Prefill (B, L) buckets: stage-1
 # prompts of 2016 tokens at L=2048, one or two distinct prompts a prefill
@@ -1261,22 +1272,41 @@ FALCON3_7B = {        # tiiuae/Falcon3-7B-Base: head dim 256, rep 3
     "num_hidden_layers": 28, "num_attention_heads": 12, "num_key_value_heads": 4,
     "head_dim": 256, "intermediate_size": 23040, "vocab_size": 131072,
     "rope_theta": 1000042}
+# Head dims above 256: no published checkpoint of the families llm.py loads
+# has one, so these are regroupings of Falcon3-7B's published config, not
+# published checkpoints. Its 12/4 x 256 attention as 6/2 x 512 (rep 3) keeps
+# every projection's shape (q 3072 x 3072, k and v 1024 x 3072), the
+# parameter count and the work a layer, so the phase reads Falcon3's shards
+# back under this config.json; as 8/2 x 384 (rep 4) the kv projections are
+# 768 wide. The kernels run them in two column slices of 256.
+FALCON3_7B_D512 = dict(FALCON3_7B, num_attention_heads=6, num_key_value_heads=2, head_dim=512)
+FALCON3_7B_D384 = dict(FALCON3_7B, num_attention_heads=8, num_key_value_heads=2, head_dim=384)
 # name: (config, repository, layers served, layers trained; None: not run).
 # Danube3-4B served at full depth and trained at FAMILY_TRAIN_LAYERS,
 # Danube3-500M served and trained at full depth, Danube2-1.8B trained at
 # FAMILY_TRAIN_LAYERS (kernels 4-6 at 80 on the 128 instance of 5 and 6),
 # OpenLLaMA-3B v2 served at FAMILY_TRAIN_LAYERS (kernel 2 through the pad),
 # Falcon3-7B served at full depth (kernels 2 and 3 at 256) and trained at
-# FAMILY_TRAIN_LAYERS (kernels 4-6 at 256).
+# FAMILY_TRAIN_LAYERS (kernels 4-6 at 256); its 6/2 x 512 regrouping the
+# same (kernels 2, 3 and 4-6 at 512), its 8/2 x 384 one served and trained
+# at FAMILY_TRAIN_LAYERS (kernels 2, 3 and 4-6 at 384).
 HEAD_DIM_MODELS = {
     "danube3_4b": (DANUBE3_4B, "h2oai/h2o-danube3-4b-base", 24, FAMILY_TRAIN_LAYERS),
     "danube3_500m": (DANUBE3_500M, "h2oai/h2o-danube3-500m-base", 16, 16),
     "danube2_1_8b": (DANUBE2_1_8B, "h2oai/h2o-danube2-1.8b-base", None, FAMILY_TRAIN_LAYERS),
     "open_llama_3b_v2": (OPEN_LLAMA_3B_V2, "openlm-research/open_llama_3b_v2",
                          FAMILY_TRAIN_LAYERS, None),
-    "falcon3_7b": (FALCON3_7B, "tiiuae/Falcon3-7B-Base", 28, FAMILY_TRAIN_LAYERS)}
+    "falcon3_7b": (FALCON3_7B, "tiiuae/Falcon3-7B-Base", 28, FAMILY_TRAIN_LAYERS),
+    "falcon3_7b_d512": (FALCON3_7B_D512, "tiiuae/Falcon3-7B-Base regrouped 6/2 x 512", 28,
+                        FAMILY_TRAIN_LAYERS),
+    "falcon3_7b_d384": (FALCON3_7B_D384, "tiiuae/Falcon3-7B-Base regrouped 8/2 x 384",
+                        FAMILY_TRAIN_LAYERS, FAMILY_TRAIN_LAYERS)}
 # Models served again with the int8 KV cache (kernel 3q) at these layers.
-HEAD_DIM_INT8_LAYERS = {"falcon3_7b": FAMILY_TRAIN_LAYERS}
+HEAD_DIM_INT8_LAYERS = {"falcon3_7b": FAMILY_TRAIN_LAYERS, "falcon3_7b_d512": FAMILY_TRAIN_LAYERS}
+# A regrouping read back from the shards of the model it regroups (written
+# just before it, in HEAD_DIM_MODELS' order): the same tensors under another
+# config.json.
+HEAD_DIM_REGROUPED = {"falcon3_7b_d512": "falcon3_7b"}
 
 
 def _heads(hf):
@@ -1296,9 +1326,11 @@ HEAD_DIMS_TRAIN = {name: {**FAMILY_TRAIN, **dict(zip(("H", "Hkv", "D"), _heads(h
 # Edge shapes at other head dims: kernel 2's (B, Lq, H, Hkv, D, causal), GQA
 # ratios 4, 1, 2, 3, 5 and 8 at widths 32 (the 64 instance), 72 (the 80
 # one), 96, 100 (padded to 104), 120 (the 128 one), 132 (padded to 136),
-# 136, 192, 200 and 256 (the 256 one); kernels 4-6's TRAIN_EDGES-style
-# cases at each width of HEAD_DIM_TRAIN_WIDTHS (a length-1 row, a split
-# plan, a row of no key, rep 1 and 3).
+# 136, 192, 200 and 256 (the 256 one), and GQA ratios 1, 3 and 4 at 264,
+# 300 (padded to 304), 320, 384, 512 and 640 (the 256 one in column
+# slices); kernels 4-6's TRAIN_EDGES-style cases at each width of
+# HEAD_DIM_TRAIN_WIDTHS (a length-1 row, a split plan, a row of no key, rep
+# 1 and 3).
 HEAD_DIM_EDGES = ((2, 129, 32, 8, 120, True), (1, 1, 32, 8, 120, True),
                   (2, 300, 20, 4, 120, False), (3, 129, 32, 32, 100, True),
                   (2, 63, 16, 8, 96, True), (3, 200, 4, 4, 96, False),
@@ -1307,26 +1339,43 @@ HEAD_DIM_EDGES = ((2, 129, 32, 8, 120, True), (1, 1, 32, 8, 120, True),
                   (3, 200, 16, 4, 256, True), (1, 1, 12, 4, 256, True),
                   (3, 257, 12, 4, 192, True), (2, 129, 16, 4, 192, False),
                   (3, 200, 4, 4, 200, True), (3, 129, 12, 4, 136, True),
-                  (2, 300, 16, 4, 132, True), (2, 63, 4, 4, 132, False))
+                  (2, 300, 16, 4, 132, True), (2, 63, 4, 4, 132, False),
+                  (3, 300, 6, 2, 512, True), (1, 1, 6, 2, 512, True), (2, 129, 4, 4, 512, False),
+                  (3, 200, 8, 2, 384, True), (2, 63, 12, 4, 384, False),
+                  (3, 257, 12, 4, 264, True), (2, 129, 4, 1, 300, True),
+                  (2, 200, 16, 4, 320, False), (3, 150, 6, 2, 640, True),
+                  (1, 63, 4, 4, 640, False))
 HEAD_DIM_TRAIN_EDGES = ((1, 1, 32, 8, True, [1], None), (2, 200, 32, 8, True, [200, 77], 1),
                         (3, 129, 16, 8, True, [129, 1, 0], None),
                         (2, 129, 4, 4, False, [129, 64], None),
                         (2, 300, 32, 32, True, [300, 150], None),
                         (2, 300, 12, 4, True, [300, 150], 2))
-HEAD_DIM_TRAIN_WIDTHS = (120, 96, 80, 100, 32, 132, 136, 192, 200, 256)
+HEAD_DIM_TRAIN_WIDTHS = (120, 96, 80, 100, 32, 132, 136, 192, 200, 256, 264, 300, 320, 384,
+                         512, 640)
 # kernel 1's width cases: one 756² image's ids (the rlvr phase's MathVLM
-# grid) at 16 heads
-HEAD_DIM_SEG_WIDTHS = (96, 120, 132, 136, 192, 200, 256)
-# Kernels 3 and 3q at head dim 256: (case, slots, Lalloc, lengths, layers,
-# q heads, kv heads, head dim) as DECODE_CASES. Falcon3-7B's served cache
-# mid-decode (timed; 3q at its int8 pass's HEAD_DIM_INT8_LAYERS), GQA ratio
-# 8 with zero-length and full slots, ratio 3 at 32 slots.
+# grid) at 16 heads (no ViT is wider than 128: above 256 these are the
+# sliced kernel's only launches)
+HEAD_DIM_SEG_WIDTHS = (96, 120, 132, 136, 192, 200, 256, 264, 300, 320, 384, 512, 640)
+# Kernels 3 and 3q at head dims 256, 512 and 384: (case, slots, Lalloc,
+# lengths, layers, q heads, kv heads, head dim) as DECODE_CASES. Falcon3-7B's
+# served cache and its regroupings' mid-decode (timed; 3q at an int8 pass's
+# HEAD_DIM_INT8_LAYERS), GQA ratio 8 with zero-length and full slots, ratio
+# 3 at 32 slots, at each width.
+_SLOTS32 = (0, 1, 63, 64, 65, 576) + tuple(17 * i for i in range(1, 27))
 HEAD_DIM_DECODE_CASES = (
     ("falcon3_7b", 4, FAMILY_LALLOC, tuple(n + 17 for n in FAMILY_PROMPT_LENS), 28, 12, 4,
      256),
+    ("falcon3_7b_d512", 4, FAMILY_LALLOC, tuple(n + 17 for n in FAMILY_PROMPT_LENS), 28, 6, 2,
+     512),
+    ("falcon3_7b_d384", 4, FAMILY_LALLOC, tuple(n + 17 for n in FAMILY_PROMPT_LENS),
+     FAMILY_TRAIN_LAYERS, 8, 2, 384),
     ("d256_rep8", 4, 640, (0, 1, 337, 640), 3, 16, 2, 256),
-    ("d256_rep3_slots32", 32, 576, (0, 1, 63, 64, 65, 576) + tuple(17 * i for i in range(1, 27)),
-     3, 12, 4, 256))
+    ("d256_rep3_slots32", 32, 576, _SLOTS32, 3, 12, 4, 256),
+    ("d512_rep8", 4, 640, (0, 1, 337, 640), 3, 16, 2, 512),
+    ("d512_rep3_slots32", 32, 576, _SLOTS32, 3, 12, 4, 512),
+    ("d384_rep8", 4, 640, (0, 1, 337, 640), 3, 16, 2, 384),
+    ("d384_rep3_slots32", 32, 576, _SLOTS32, 3, 12, 4, 384))
+HEAD_DIM_DECODE_EDGES = tuple(c[0] for c in HEAD_DIM_DECODE_CASES if not c[0].startswith("falcon"))
 
 
 def _decode_caches(randn, slots, Lalloc, quant, layers=36, Hkv=2, D=128):
@@ -1398,7 +1447,7 @@ def _decode_kernels(randn):
                 err, ratio = _check_rows(tag, got, want)
                 errs.append(err)
                 ratios.append(ratio)
-            if case not in ("edges", "d256_rep8", "d256_rep3_slots32"):
+            if case not in ("edges",) + HEAD_DIM_DECODE_EDGES:
                 sweep = lambda: [da.paged_decode_attention(   # noqa: E731
                     q, k, v, lengths, *scales, layer=i) for i in range(layers)]
                 plain = lambda: [plain_fn(q, k, v, lengths, *scales, layer=i)   # noqa: E731
@@ -1454,11 +1503,13 @@ def _decode_kernels(randn):
                 c[0]: summary(timed[c[0]]) for c in FAMILY_DECODE_CASES}}
         # the parallel phase's local shard: 3 on its bf16 cache, 3q on its int8 one
         extra["parallel_local"] = summary(timed["parallel"])
-        # Falcon3-7B's cache at head dim 256 (the head_dims phase; its int8
-        # pass at HEAD_DIM_INT8_LAYERS) and the edge cases checked with it
-        extra["head_dim_256"] = summary(timed["falcon3_7b"]) | {
-            "shape": timed["falcon3_7b"]["shape"],
-            "edge_cases": [c[0] for c in HEAD_DIM_DECODE_CASES[1:]]}
+        # Falcon3-7B's cache at head dim 256 and its regroupings' at 512 and
+        # 384 (the head_dims phase; an int8 pass at HEAD_DIM_INT8_LAYERS), and
+        # the edge cases checked with them
+        for case, D in (("falcon3_7b", 256), ("falcon3_7b_d512", 512), ("falcon3_7b_d384", 384)):
+            extra[f"head_dim_{D}"] = summary(timed[case]) | {
+                "shape": timed[case]["shape"],
+                "edge_cases": [c for c in HEAD_DIM_DECODE_EDGES if c.startswith(f"d{D}_")]}
         rows.append(_row(
             name, "socioreasoner_tpu_torch/csrc/paged_decode.cu",
             "socioreasoner_tpu/ops/decode_attention.py:36",
@@ -1708,8 +1759,12 @@ def _phase_train_kernels(randn, spec, name_library=False):
         f32_rows = B * H * L * 4
         qkv_bytes = 2 * (q.numel() + k.numel() + v.numel())
         case = "train_micro_batch" if backward else "logprob_chunk"
-        fwd_lib = lambda: torch.ops.aten._scaled_dot_product_flash_attention(   # noqa: E731
-            qt, kt, vt, is_causal=True)
+        if D <= 256:
+            fwd_lib = lambda: torch.ops.aten._scaled_dot_product_flash_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True)
+        else:      # no flash backend takes D > 256: the memory-efficient one, with lse
+            fwd_lib = lambda: torch.ops.aten._scaled_dot_product_efficient_attention(  # noqa: E731
+                qt, kt, vt, None, True, is_causal=True)
         out[0][case] = {
             "shape": tag, "err": err, "ratio": ratio, "lse_err": lse_err,
             "ms": cuda_ms(run_fwd), "device_ms": graph_call_ms(run_fwd),
@@ -1815,10 +1870,11 @@ def library_kernels(fn, top: int = 3) -> list:
 
 
 def _head_dim_instance_check() -> int:
-    """fa.head_dim_plan, the host's choice of width and instance for kernels
-    1, 2, 4, 5 and 6, against the kernels' own formula (socio_head_dim_instance
-    runs head_dim_instance on the host) at every head dim 1-300: the
-    instance of the padded width, and no instance for a width that is no
+    """fa.head_dim_plan, the host's choice of width, instance and column
+    slices for kernels 1, 2, 4, 5 and 6, against the kernels' own formulas
+    (socio_head_dim_instance and socio_head_dim_slices run head_dim_instance
+    and head_dim_slices on the host) at every head dim 1-1100: the instance
+    and slices of the padded width, and no instance for a width that is no
     multiple of HEAD_DIM_ALIGN. Returns the cases compared."""
     from socioreasoner_tpu_torch.ops import _build
     from socioreasoner_tpu_torch.ops import flash_attention as fa
@@ -1828,14 +1884,14 @@ def _head_dim_instance_check() -> int:
     for kernel, instances in ((1, fa.SEG_HEAD_DIMS), (2, fa.KERNEL_HEAD_DIMS),
                               (4, fa.KERNEL_HEAD_DIMS), (5, fb.TRAIN_HEAD_DIMS),
                               (6, fb.TRAIN_HEAD_DIMS)):
-        for D in range(1, 301):
+        for D in range(1, 1101):
             plan = fa.head_dim_plan(D, instances)
-            width = -(-D // fa.HEAD_DIM_ALIGN) * fa.HEAD_DIM_ALIGN
-            got = lib.socio_head_dim_instance(kernel, width)
+            got = (lib.socio_head_dim_instance(kernel, plan.width),
+                   lib.socio_head_dim_slices(kernel, plan.width))
             bare = lib.socio_head_dim_instance(kernel, D)
-            if got != (0 if plan is None else plan[1]) or (D % fa.HEAD_DIM_ALIGN and bare):
+            if got != plan[1:] or (D % fa.HEAD_DIM_ALIGN and bare):
                 raise AssertionError(f"kernel {kernel} D={D}: the host plans {plan}, the "
-                                     f"kernels' formula gives {got} ({bare} unpadded)")
+                                     f"kernels' formulas give {got} ({bare} unpadded)")
             n += 1
     return n
 
@@ -1910,11 +1966,11 @@ def _head_dim_kernels(randn):
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
             qt, kt, vt, is_causal=True, enable_gqa=True)
-        width, inst = fa.head_dim_plan(D, fa.KERNEL_HEAD_DIMS)
+        width, inst, slices = fa.head_dim_plan(D, fa.KERNEL_HEAD_DIMS)
         case = {"shape": f"B={B} L={L} H={H} Hkv={Hkv} D={D} kv_len={list(lens)}",
-                "instance": inst, "width": width, "err": err, "ratio": ratio,
+                "instance": inst, "width": width, "slices": slices, "err": err, "ratio": ratio,
                 "ms": cuda_ms(run), "device_ms": graph_call_ms(run),
-                "kernel_device_ms": device_ms(run, ["attention_sm90_kernel"]),
+                "kernel_device_ms": device_ms(run, ["attention_sm90"]),
                 "host_us": host_us(run),
                 "plain_ms": cuda_ms(lambda: fa.flash_attention_reference(
                     q, k, v, mask, causal=True), n=10),
@@ -1927,10 +1983,12 @@ def _head_dim_kernels(randn):
             case["pad_device_ms"] = graph_call_ms(
                 lambda: [fa.pad_head_dim(x, width) for x in (q, k, v)])
         # beside a narrower head dim its instance's native twin; beside a
-        # 256 one, a D=192 call on the same instance
+        # 256 one, a D=192 call on the same instance; a sliced one stands
+        # beside the model it regroups
         twin = 192 if inst == 256 else 128
-        case[f"d{twin}_device_ms"] = _twin_ms(randn, B, L, H, Hkv, lens, False,
-                                              twin)["flash_attention"]
+        if slices == 1:
+            case[f"d{twin}_device_ms"] = _twin_ms(randn, B, L, H, Hkv, lens, False,
+                                                  twin)["flash_attention"]
         out["flash_attention"][name] = case
         emit({"phase": f"kernel_head_dims_{name}", "name": "flash_attention", **case})
         del q, k, v
@@ -1938,10 +1996,12 @@ def _head_dim_kernels(randn):
     for name, spec in HEAD_DIMS_TRAIN.items():
         B = spec["train_batch"]
         D = 192 if spec["D"] > 128 else 128
-        twin = _twin_ms(randn, B, spec["L"], spec["H"], spec["Hkv"],
-                        [spec["kv_lens"][b % 2] - 3 * (b // 2) for b in range(B)], True, D)
+        twin = {} if spec["D"] > 256 else _twin_ms(
+            randn, B, spec["L"], spec["H"], spec["Hkv"],
+            [spec["kv_lens"][b % 2] - 3 * (b // 2) for b in range(B)], True, D)
         for row, cases in zip(rows, _phase_train_kernels(randn, spec, name_library=True)):
-            cases["train_micro_batch"][f"d{D}_device_ms"] = twin[row]
+            if twin:
+                cases["train_micro_batch"][f"d{D}_device_ms"] = twin[row]
             out[row][name] = cases
             emit({"phase": f"kernel_head_dims_{name}", "name": row, **cases})
     for D in HEAD_DIM_TRAIN_WIDTHS:
@@ -1954,7 +2014,7 @@ def _head_dim_kernels(randn):
     out["flash_attention"]["instance_cases"] = _head_dim_instance_check()
     out["flash_attention_segmented"]["model_path"] = (
         "none above 128: no ViT of the supported families has a wider head dim, so the "
-        "wider instances are launched and checked here only")
+        "wider instances and the sliced kernel are launched and checked here only")
     torch.cuda.empty_cache()
     return out
 
@@ -2248,6 +2308,12 @@ def _clone(tree):
     return {k: _clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
 
 
+def _f32(tree):
+    """An f32 copy of a tree's floating leaves (others shared)."""
+    return {k: _f32(v) if isinstance(v, dict) else v.float() if v.is_floating_point() else v
+            for k, v in tree.items()}
+
+
 # train_parity bounds, kernels against dense attention in bf16. The two
 # paths round attention differently (the kernel rounds unnormalised p to
 # bf16, dense rounds the normalised probabilities; both round the output), a
@@ -2262,10 +2328,10 @@ PARITY_LP_MEAN_TOL = 1e-2   # mean-abs over the response tokens
 PARITY_LENS = (2304, 2080, 1000, 600)   # valid tokens a row; L is the first
 
 
-def parity_batch(config, params, dev, lens=PARITY_LENS, seed=9, L=None):
+def parity_batch(config, params, dev, lens=PARITY_LENS, seed=9, L=None, response=256):
     """A GRPO batch of random tokens as device tensors: rows of `lens` valid
-    tokens right-padded to L (default lens[0]), the last 256 of each the
-    response, old log-probs from a log-prob step on `params`, reference
+    tokens right-padded to L (default lens[0]), the last `response` of each
+    the response, old log-probs from a log-prob step on `params`, reference
     log-probs and advantages drawn around them."""
     import torch
     from socioreasoner_tpu_torch.distributed import trainer as T
@@ -2275,7 +2341,7 @@ def parity_batch(config, params, dev, lens=PARITY_LENS, seed=9, L=None):
     cols = np.arange(L)[None]
     attn = (cols < lens[:, None]).astype(np.int64)
     ids = np.where(attn == 1, rng.integers(2, config.text.vocab_size - 8, (B, L)), 0)
-    resp = ((cols >= lens[:, None] - 256) & (attn == 1)).astype(np.int64)
+    resp = ((cols >= lens[:, None] - response) & (attn == 1)).astype(np.int64)
     pos = np.broadcast_to(np.clip(np.cumsum(attn, -1) - 1, 0, None)[:, None], (B, 3, L))
     batch = {k: torch.as_tensor(np.ascontiguousarray(v), device=dev) for k, v in {
         "input_ids": ids, "attention_mask": attn, "position_ids": pos,
@@ -3448,7 +3514,7 @@ def phase_parallel(config, params):
     for fn in kernels:
         fn.launches = 0
     t0 = time.perf_counter()
-    engines = run_tp_engines(config, params, dev, devices,
+    engines = run_tp_engines(config, params, dev, devices, max_new=PARALLEL_MAX_NEW,
                              profile_len=PARALLEL_PREFILL["kv_len"])
     launches = {fn.__name__: fn.launches for fn in kernels}
     emit({"phase": "parallel_tp", "model": "Qwen2.5-VL-3B (36 layers, 16/2 x 128 heads, "
@@ -3503,8 +3569,10 @@ def phase_parallel(config, params):
 TRAIN_STRATEGY = {"kv_quant": None, "weight_quant": "int8", "single_copy_quant": True,
                   "act_quant": None, "prefix_fork": True}
 # the grpo phase's cuts of the yaml's scale (rollout_batch_size 128,
-# response_length 2048, steps from 10 epochs, eval and save every 20 steps)
-GRPO_CUTS = {"rollout_batch_size": 2, "response_length": 64, "max_steps": 2, "eval_steps": 2}
+# response_length 2048, steps from 10 epochs, eval and save every 20 steps):
+# one step and its validation through the real engine (pass 2 runs a second
+# step after it)
+GRPO_CUTS = {"rollout_batch_size": 2, "response_length": 64, "max_steps": 1, "eval_steps": 1}
 # the yaml's reward worker_cls; the pipeline resolves it by class name
 REWARD_WORKER_CLS = "socioreasoner_tpu.pipeline.base_worker.SocioSegRuleRewardWorker"
 
@@ -3835,7 +3903,7 @@ def phase_grpo(config, params):
           "model": "Qwen2.5-VL-3B (36 layers, ViT depth 32) trained in bf16, rolled out as "
                    "int8 single-copy weights + SAM2-hiera-large, random bf16 weights",
           "cuts": {"rollout_batch_size": "128 -> 2", "response_length": "2048 -> 64",
-                   "max_steps": "10 epochs -> 2", "eval_steps": "20 -> 2",
+                   "max_steps": "10 epochs -> 1", "eval_steps": "20 -> 1",
                    "save_steps": "20 -> -1", "track_with": "tensorboard -> stdout"},
           "strategy_config": TRAIN_STRATEGY, "phase_s": phase_s,
           "max_memory_allocated_gb": peak, **stats})
@@ -3859,11 +3927,11 @@ def phase_grpo(config, params):
 
 # ------------------------------------------------------------- generic RLVR
 
-# the rlvr phase's cuts: RLVRPipeline for 2 steps of 4 prompts x 8 samples at
+# the rlvr phase's cuts: RLVRPipeline for 1 step of 4 prompts x 8 samples at
 # response_length 256, the dynamic sampler with its flow-control knobs and a
 # query filter that rejects the first finished group; MathVLMPipeline for one
 # step of 2 prompts x 4 samples at response_length 128, one 768² image each
-RLVR_CUTS = {"max_steps": 2, "rollout_batch_size": 4, "num_return_sequences_in_group": 8,
+RLVR_CUTS = {"max_steps": 1, "rollout_batch_size": 4, "num_return_sequences_in_group": 8,
              "prompt_length": 256, "response_length": 256, "is_use_additional_prompts": True,
              "max_running_requests": 32, "max_additional_running_prompts": 2}
 MATH_VLM_CUTS = {"max_steps": 1, "rollout_batch_size": 2, "num_return_sequences_in_group": 4,
@@ -5642,18 +5710,60 @@ def serve_family(config, params, dev, *, prompt_lens=FAMILY_PROMPT_LENS,
     return stats
 
 
+# Response tokens a row of train_family's batch. Its first step's loss gap is
+# the mean over the response tokens of advantage x (the dense path's log-prob
+# minus the kernels'), two bf16 computations that each differ from an f32 dense
+# reference by about as much (train_family's `logprobs_at_init`): over 2 x 256
+# tokens that noise read 1.67e-3 at head dim 512 on an H100 against
+# PARITY_LOSS_TOL's 1e-3, over 2 x 1024 it halves. A fault confined to a few
+# positions is diluted in that mean; `logprobs_at_init` reports its largest
+# 256-token window of every row undiluted.
+FAMILY_TRAIN_RESPONSE = 1024
+
+
+LOGPROB_WINDOW = 256   # response tokens a window of logprobs_at_init's excess
+
+
+def logprobs_at_init(config, params, batch):
+    """The response log-probs at `params` by the kernels (parity_batch's old
+    log-probs) and by dense attention, each against dense attention on an
+    f32 copy of the params: the mean-abs error of each over the response
+    tokens, the kernels' max-abs gap from dense, and the largest excess of
+    the kernels' error over dense's in any LOGPROB_WINDOW consecutive response
+    tokens of a row (a fault confined to some positions shows there
+    undiluted). Reported, not checked."""
+    from socioreasoner_tpu_torch.distributed import trainer as T
+    dense = T.make_logprob_step(config, allow_flash=False)
+    lp_k, lp_d = batch["old_log_probs"], dense(params, batch)["log_probs"]
+    lp_f = dense(_f32(params), batch)["log_probs"]
+    mask = batch["response_mask"][:, 1:].bool()
+    err_k, err_d = (lp_k - lp_f).abs(), (lp_d - lp_f).abs()
+    excess = max(((err_k[b][mask[b]] - err_d[b][mask[b]])
+                  .unfold(0, min(LOGPROB_WINDOW, int(mask[b].sum())), 1).mean(-1).max().item())
+                 for b in range(mask.shape[0]))
+    return {"response_tokens": int(mask.sum()),
+            "kernels_vs_f32_mean_abs": err_k[mask].mean().item(),
+            "dense_vs_f32_mean_abs": err_d[mask].mean().item(),
+            "kernels_vs_dense_max_abs": (lp_k - lp_d).abs()[mask].max().item(),
+            f"worst_{LOGPROB_WINDOW}_window_excess": excess}
+
+
 def train_family(config, params, dev, *, lens=FAMILY_TRAIN["kv_lens"], steps=2):
     """`steps` PPO steps with the trainable flash kernels and as many with
     dense attention (allow_flash=False), each from its own copy of the bf16
-    params, on parity_batch's rows of `lens`: the loss and pre-clip grad norm
+    params, on parity_batch's rows of `lens` (the last FAMILY_TRAIN_RESPONSE
+    tokens of each row the response): the loss and pre-clip grad norm
     of every step within PARITY_LOSS_TOL / PARITY_NORM_TOL of dense, and the
     MLP's stacks (an MoE family's router, every expert stack and q/k norms)
     given finite, non-zero gradients (AdamW's first moments after the
-    steps). Returns the figures."""
+    steps). Returns the figures, logprobs_at_init's among them."""
     import torch
     from socioreasoner_tpu_torch.distributed import trainer as T
     from socioreasoner_tpu_torch.pipeline.losses import PPOLossConfig
-    batch = parity_batch(config, params, dev, lens)
+    batch = parity_batch(config, params, dev, lens, response=FAMILY_TRAIN_RESPONSE)
+    at_init = logprobs_at_init(config, params, batch)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     names = [n for n, _ in _named_leaves(params)]
     watched = [n for n in names if n.split("/")[-1] in (
         "router_w", "gate_w", "up_w", "down_w", "s_gate_w", "s_up_w", "s_down_w", "sgate_w",
@@ -5687,7 +5797,7 @@ def train_family(config, params, dev, *, lens=FAMILY_TRAIN["kv_lens"], steps=2):
           and all(k["finite_nonzero_grads"].values())
           and len(watched) >= (6 if config.text.n_experts else 3))
     out = {"shape": f"B={len(lens)} L={lens[0]} kv_len={list(lens)}",
-           "kernels": k, "dense": d}
+           "kernels": k, "dense": d, "logprobs_at_init": at_init}
     if not ok:
         raise AssertionError(f"MoE train step out of parity with dense attention: {out}")
     return out
@@ -6026,6 +6136,27 @@ def written_text_model(hf_config, path, dev, seed):
     return config, params, {"checkpoint_gb": gb, "save_s": write_s, "load_s": read_s}
 
 
+def regrouped_text_model(hf_config, path, dev, want_sums):
+    """The checkpoint at `path` read back through llm.load_text_model under
+    the config.json `hf_config` (another head split of the same projection
+    shapes), as a user loads a regrouped model: (config, tree, figures). The
+    tree's checksums are held to `want_sums`, those of the tree the shards
+    were read back as before."""
+    import torch
+    from socioreasoner_tpu_torch.models import llm
+    t0 = time.perf_counter()
+    with open(Path(path) / "config.json", "w") as f:
+        json.dump(hf_config, f)
+    config, params = llm.load_text_model(str(path), dtype=torch.bfloat16, device=dev)
+    _sync(dev)
+    sums = tree_checksums(params)
+    if sums != want_sums:
+        raise AssertionError(f"regrouped read differs: "
+                             f"{sorted(k for k in want_sums if sums.get(k) != want_sums[k])[:8]}")
+    return config, params, {"checkpoint_gb": _tree_bytes(params) / 1e9, "save_s": 0.0,
+                            "load_s": time.perf_counter() - t0}
+
+
 def _cut_layers(config, params, layers: int):
     """The first `layers` layers of a text tree (views, no copy) and its
     config."""
@@ -6044,15 +6175,30 @@ def run_head_dim_model(name, dev, work_dir, *, kernels=(), serve_kw=None, train_
     these widths pass GAP_TOL's bf16 resolution), served again with the
     int8 KV cache at HEAD_DIM_INT8_LAYERS where named, and trained at its
     trained depth (the first layers of the same tree: train_family, kernels
-    against dense attention), each pass's launches of `kernels` counted.
+    against dense attention), each pass's launches of `kernels` counted. A
+    model that HEAD_DIM_REGROUPED regroups keeps its checkpoint (and its
+    checksums) for the regrouping, which reads the same shards back under
+    its own config.json (regrouped_text_model) and removes them.
     Returns the figures."""
     hf, source, serve_layers, train_layers = HEAD_DIM_MODELS[name]
     H, Hkv, D = _heads(hf)
     layers = max(n for n in (serve_layers, train_layers) if n)
     cut = dict(hf, num_hidden_layers=layers)
-    path = Path(work_dir) / name
-    config, params, io = written_text_model(cut, str(path), dev, seed=len(name))
-    shutil.rmtree(path)
+    if name in HEAD_DIM_REGROUPED:
+        path = Path(work_dir) / HEAD_DIM_REGROUPED[name]
+        with open(path / "sums.json") as f:
+            want = json.load(f)
+        config, params, io = regrouped_text_model(cut, path, dev, want)
+        io["read_from"] = HEAD_DIM_REGROUPED[name]
+        shutil.rmtree(path)
+    else:
+        path = Path(work_dir) / name
+        config, params, io = written_text_model(cut, str(path), dev, seed=len(name))
+        if name in HEAD_DIM_REGROUPED.values():
+            with open(path / "sums.json", "w") as f:
+                json.dump(tree_checksums(params), f)
+        else:
+            shutil.rmtree(path)
     out = {"model": f"{source}, {layers} of {hf['num_hidden_layers']} layers, {H}/{Hkv} "
                     f"heads x {D}, random bf16", "params_gb": _tree_bytes(params) / 1e9, **io}
     if serve_layers:
@@ -6087,12 +6233,17 @@ def phase_head_dims():
     OpenLLaMA-3B v2 (100, rep 1, the host pad) served at
     FAMILY_TRAIN_LAYERS, Falcon3-7B (256, rep 3) served at 28 layers, at
     FAMILY_TRAIN_LAYERS with the int8 KV cache, and trained at
-    FAMILY_TRAIN_LAYERS. Kernel 2 must launch in every served pass and
-    kernels 4-6 in every trained one, at the shapes phase_kernels checked;
-    kernel 3 (3q with the int8 cache) in every served pass of a head dim
-    that is a multiple of 128 and never in the others (they decode densely,
-    as in the JAX package). Peak < 80 GiB. Returns the launches over the
-    phase, and Falcon3-7B's alone."""
+    FAMILY_TRAIN_LAYERS; its 6/2 x 512 regrouping (rep 3, read back from
+    Falcon3's shards) the same, its 8/2 x 384 one (rep 4) served and
+    trained at FAMILY_TRAIN_LAYERS: head dims above 256, which the kernels
+    run in column slices (regroupings of a published config, not published
+    checkpoints). Kernel 2 must launch in every served pass and kernels 4-6
+    in every trained one, at the shapes phase_kernels checked; kernel 3 (3q
+    with the int8 cache) in every served pass of a head dim that is a
+    multiple of 128 and never in the others (they decode densely, as in the
+    JAX package); kernels 2, 3, 3q and 4-6 at a head dim above 256. Peak <
+    80 GiB. Returns the launches over the phase, Falcon3-7B's alone and
+    those at head dims above 256."""
     import gc
     import torch
     from socioreasoner_tpu_torch.ops import decode_attention as da
@@ -6126,11 +6277,17 @@ def phase_head_dims():
     passes = {f"{name}_{p}": out[name][p]["launches"] for name in HEAD_DIM_MODELS
               for p in ("serve", "serve_int8_kv", "train") if p in out[name]}
     launches = {k: sum(c[k] for c in passes.values()) for k in names}
-    falcon = {k: sum(c[k] for p, c in passes.items() if p.startswith("falcon3_7b_"))
-              for k in names}
+
+    def model_launches(models):
+        return {k: sum(out[m][p]["launches"][k] for m in models
+                       for p in ("serve", "serve_int8_kv", "train") if p in out[m])
+                for k in names}
+    falcon = model_launches(["falcon3_7b"])
+    wide = model_launches([n for n, (hf, *_) in HEAD_DIM_MODELS.items() if _heads(hf)[2] > 256])
     out["launches"] = passes
     out["launches_total"] = launches
     out["launches_falcon3_7b"] = falcon
+    out["launches_wide"] = wide
     out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 2**30
     out["phase_s"] = time.perf_counter() - t_phase
     emit({k: v for k, v in out.items() if k not in HEAD_DIM_MODELS})
@@ -6148,12 +6305,14 @@ def phase_head_dims():
                   if k.startswith("paged_decode") and (c[k] > 0) != (
                       p in paged and paged[p][0] and paged[p][1] == k)]
                + [f"falcon3_7b:{k}" for k in names if k != "flash_attention_segmented"
-                  and falcon[k] <= 0])
+                  and falcon[k] <= 0]
+               + [f"above 256:{k}" for k in names if k != "flash_attention_segmented"
+                  and wide[k] <= 0])
     if missing or left or not out["max_memory_allocated_gb"] < 80:
         raise AssertionError(f"head_dims: kernels off the path (or the decode kernel off "
                              f"its head dims) {missing}, unchecked shapes {left}, peak "
                              f"{out['max_memory_allocated_gb']} GiB")
-    return launches, falcon
+    return launches, falcon, wide
 
 
 # ------------------------------------------------------------------ agentic
@@ -7389,7 +7548,7 @@ def main() -> int:
         entry = phase_entry(export_dir, export_stats, sums, work_dir)
     launches.update(phase_row_writer())
     families = phase_families()
-    head_dims, falcon3 = phase_head_dims()
+    head_dims, falcon3, wide = phase_head_dims()
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
         if kern["name"] in two_stage:
@@ -7407,9 +7566,11 @@ def main() -> int:
         # kernels 3q and 7 are on no path of the families phase (bf16 cache)
         kern["launches_families"] = families.get(kern["name"], 0)
         # kernels 1 and 7 are on no path of the head_dims phase (text models);
-        # 3 and 3q run there at Falcon3-7B's head dim 256 only
+        # 3 and 3q run there at Falcon3-7B's head dim 256 and its regroupings'
+        # 512 and 384 only
         kern["launches_head_dims"] = head_dims.get(kern["name"], 0)
         kern["launches_head_dims_falcon3_7b"] = falcon3.get(kern["name"], 0)
+        kern["launches_head_dims_above_256"] = wide.get(kern["name"], 0)
         # kernels 3q and 7 are on no path of the agentic phase (bf16 cache)
         kern["launches_agentic"] = agentic.get(kern["name"], 0)
         # kernels 2, 3, 3q and 7 are on no path of the train_mesh phase (its

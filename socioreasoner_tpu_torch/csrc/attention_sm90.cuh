@@ -49,6 +49,18 @@
 // 64 x 64 S tile (32) and its bf16 P fragments (16). S = Q K^T is then
 // wgmma m64n64k16, PV four n64 products a k16 step.
 //
+// Above 256 columns (attention_sm90_sliced_kernel, SliceLayout) a work item
+// is (q tile, column slice of 256): O of 256 columns would not fit beside the
+// whole head dim's Q tile (a 128 x 512 bf16 tile is 128 KB), and a 64 x 512
+// f32 O is 256 registers a thread. So each 64-key stage of S = Q K^T is summed
+// over d / 64 chunk stages of a ring, each a 64-column chunk of the Q tile
+// and of the K stage (the Q tile re-read from L2 once a stage), in the same
+// chunk order in every slice, so every slice computes the same bits of m and
+// l; then O += P V over the slice's 256 columns of V (its own ring). No
+// slice needs another's result: S is computed once a slice, 1.5x the
+// products at 512 columns. A slice's columns past d are TMA's zeros, never
+// stored, and only slice 0 writes the lse.
+//
 // GQA (kernels 2 and 4) folds the rep = H / Hkv q heads of a kv head into an
 // item: floor(128 / rep) tokens x rep heads, rows r = token * rep + head. For
 // a rep that does not divide 128 (5, 7, ...) rows rep * floor(128 / rep) ..
@@ -116,6 +128,7 @@ struct FwdParams {
   float scale_log2;          // D^-0.5 * log2(e)
   int q_rows;                // rows of a Q tile that TMA fills: 128 (kernel 1), rep * toks
   int d;                     // the tensors' head dim: columns stored (<= the instance's D)
+  int slices;                // column slices of 256 (head_dim_slices): above 1, the sliced CTA
   // kernels 2 and 4 (GQA prefill, training forward): q (B, Lq, H, D), k/v
   // (B, Lk, Hkv, D)
   const int* kv_lens;        // (B,)
@@ -531,6 +544,296 @@ __device__ __forceinline__ void consumer(const FwdParams& p, uint32_t base, int 
   }
 }
 
+// -------------------------------------------- column slices (D > 256)
+
+// Shared-memory layout of the sliced CTA (offsets from a 1024-byte-aligned
+// base). A ring of Q/K chunk stages -- a 64-column chunk of the 128-row Q
+// tile and of a 64-key K stage, 24 KB -- feeds S = Q K^T over all d columns;
+// a ring of V stages holds the 64 keys' 256 columns of the work item's slice
+// (32 KB), for O += P V. The Q tile is re-read from L2 once a key stage.
+struct SliceLayout {
+  static constexpr int kKeys = 64;                 // keys of a stage
+  static constexpr int kSub = kBN / kKeys;         // stages a 128-key tile of the plan takes
+  static constexpr int kCols = kSliceCols;         // O columns of a slice
+  static constexpr int kQK = 6;                    // Q/K chunk ring depth
+  static constexpr int kV = 2;                     // V ring depth
+  static constexpr uint32_t q_chunk = kBM * 64 * 2;           // 16 KB
+  static constexpr uint32_t k_chunk = kKeys * 64 * 2;         // 8 KB
+  static constexpr uint32_t qk_stage = q_chunk + k_chunk;
+  static constexpr uint32_t v_chunk = kKeys * 64 * 2;
+  static constexpr uint32_t v_stage = kCols / 64 * v_chunk;   // 32 KB
+  static constexpr uint32_t off_v = kQK * qk_stage;
+  static constexpr uint32_t off_bar = off_v + kV * v_stage;
+  // barriers: Q/K full[kQK], Q/K empty[kQK], V full[kV], V empty[kV]
+  static constexpr uint32_t n_bars = 2 * kQK + 2 * kV;
+  static constexpr uint32_t smem = off_bar + n_bars * 8 + 1024;   // + alignment slack
+  static_assert(qk_stage % 1024 == 0 && smem <= 232448, "the H100's shared memory a block");
+  __device__ static uint32_t qk_full(uint32_t bars, int st) { return bars + 8 * st; }
+  __device__ static uint32_t qk_empty(uint32_t bars, int st) { return bars + 8 * (kQK + st); }
+  __device__ static uint32_t v_full(uint32_t bars, int st) { return bars + 8 * (2 * kQK + st); }
+  __device__ static uint32_t v_empty(uint32_t bars, int st) {
+    return bars + 8 * (2 * kQK + kV + st);
+  }
+};
+
+// The producer of the sliced CTA: work item w is q tile w / slices, column
+// slice w % slices; for each of its 64-key stages, the d / 64 Q and K chunks
+// (each stage a (Q chunk, K chunk) pair), then the slice's V columns.
+template <bool kSeg>
+__device__ __forceinline__ void producer_sliced(const FwdParams& p, uint32_t base) {
+  using L = SliceLayout;
+  const uint32_t bars = base + L::off_bar;
+  const int nc = (p.d + 63) / 64;
+  int qs = 0, vs = 0;
+  uint32_t qph = 0, vph = 0;
+  for (int w = blockIdx.x; w < p.n_items * p.slices; w += gridDim.x) {
+    const int col0 = L::kCols * (w % p.slices);
+    const Item it = resolve<kSeg>(p, w / p.slices);
+    for (int js = it.lo * L::kSub; js < (it.hi + 1) * L::kSub; ++js) {
+      const int key = js * L::kKeys;
+      for (int c = 0; c < nc; ++c) {
+        const uint32_t full = L::qk_full(bars, qs), dst = base + qs * L::qk_stage;
+        mbar_wait(L::qk_empty(bars, qs), qph ^ 1);
+        mbar_expect_tx(full, p.q_rows * 128 + L::k_chunk);
+        if constexpr (kSeg) {
+          tma_load_3d(dst, &p.q_main, full, 64 * c, it.head, it.t0);
+          tma_load_3d(dst + L::q_chunk, &p.k_main, full, 64 * c, it.head, it.k0 + key);
+        } else {
+          tma_load_4d(dst, &p.q_main, full, 64 * c, it.head * p.rep, it.t0, it.b);
+          tma_load_4d(dst + L::q_chunk, &p.k_main, full, 64 * c, it.head, key, it.b);
+        }
+        if (++qs == L::kQK) { qs = 0; qph ^= 1; }
+      }
+      const uint32_t full = L::v_full(bars, vs), dst = base + L::off_v + vs * L::v_stage;
+      mbar_wait(L::v_empty(bars, vs), vph ^ 1);
+      mbar_expect_tx(full, L::v_stage);
+#pragma unroll
+      for (int c = 0; c < L::kCols / 64; ++c) {
+        if constexpr (kSeg)
+          tma_load_3d(dst + c * L::v_chunk, &p.v_main, full, col0 + 64 * c, it.head, it.k0 + key);
+        else
+          tma_load_4d(dst + c * L::v_chunk, &p.v_main, full, col0 + 64 * c, it.head, key, it.b);
+      }
+      if (++vs == L::kV) { vs = 0; vph ^= 1; }
+    }
+  }
+}
+
+// One consumer warpgroup of the sliced CTA: the consumer above with S = Q K^T
+// accumulated over the Q/K chunk stages (the same chunk order in every slice,
+// so every slice computes the same bits of m and l) and O of its slice's 256
+// columns. Columns of the slice past d read zeros (TMA) and are not stored;
+// only slice 0 writes the lse.
+template <bool kSeg>
+__device__ __forceinline__ void consumer_sliced(const FwdParams& p, uint32_t base, int wg) {
+  using L = SliceLayout;
+  constexpr int kN = L::kKeys;
+  constexpr int kM = L::kCols / 64;
+  const uint32_t bars = base + L::off_bar;
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int row0 = wg * 64 + warp * 16 + (lane >> 2);
+  const int cq = (lane & 3) * 2;
+  const int nc = (p.d + 63) / 64;
+  int qs = 0, vs = 0;
+  uint32_t qph = 0, vph = 0;
+  auto release = [&](uint32_t bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  for (int w = blockIdx.x; w < p.n_items * p.slices; w += gridDim.x) {
+    const int slice = w % p.slices;
+    const int col0 = L::kCols * slice;
+    const Item it = resolve<kSeg>(p, w / p.slices);
+    int rkey[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + 8 * i;
+      if constexpr (kSeg) {
+        const int t = it.t0 + r;
+        rkey[i] = r < it.rows ? p.seg[t] : -1;
+      } else {
+        rkey[i] = it.t0 + r / p.rep;
+      }
+    }
+    float o[kM][32];
+#pragma unroll
+    for (int c = 0; c < kM; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) o[c][e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+    float s[kN / 2];
+    uint32_t pa[kN / 16][4];
+
+    for (int js = it.lo * L::kSub; js < (it.hi + 1) * L::kSub; ++js) {
+      // S = Q K^T, one group a chunk; a chunk's stage is released once the
+      // group after it is issued and it is done (wait_group 1)
+      int prev = 0;
+      for (int c = 0; c < nc; ++c) {
+        mbar_wait(L::qk_full(bars, qs), qph);
+        const uint32_t qb = base + qs * L::qk_stage, kb = qb + L::q_chunk;
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n64(s, make_desc(qb + wg * 8192 + kk * 32, 16, 1024, kSw128),
+                       make_desc(kb + kk * 32, 16, 1024, kSw128), (c | kk) != 0);
+        wg_commit();
+        if (c > 0) {
+          wg_wait1();
+          release(L::qk_empty(bars, prev));
+        }
+        prev = qs;
+        if (++qs == L::kQK) { qs = 0; qph ^= 1; }
+      }
+      wg_wait0();
+      reg_fence(s);
+      release(L::qk_empty(bars, prev));
+      // the mask (outside the known-valid tiles) and the online softmax, as
+      // in consumer()
+      const int j = js / L::kSub;
+      if (j < it.nm_lo || j > it.nm_hi) {
+#pragma unroll
+        for (int g = 0; g < kN / 8; ++g) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = it.k0 + js * kN + 8 * g + cq + e;
+            if constexpr (kSeg) {
+              const int ks_id = key < p.S ? p.seg[key] : -2;
+#pragma unroll
+              for (int i = 0; i < 2; ++i)
+                if (rkey[i] != ks_id) s[4 * g + 2 * i + e] = -INFINITY;
+            } else {
+#pragma unroll
+              for (int i = 0; i < 2; ++i)
+                if (key >= it.kv_len || (p.causal && key > rkey[i]))
+                  s[4 * g + 2 * i + e] = -INFINITY;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int g = 0; g < kN / 8; ++g) mx = fmaxf(mx, fmaxf(s[4 * g + 2 * i], s[4 * g + 2 * i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[i], mx);
+        const float m_sc = m_new == -INFINITY ? 0.f : m_new * p.scale_log2;
+        corr[i] = ex2(m[i] * p.scale_log2 - m_sc);
+        m[i] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int g = 0; g < kN / 8; ++g) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float pe = ex2(s[4 * g + 2 * i + e] * p.scale_log2 - m_sc);
+            s[4 * g + 2 * i + e] = pe;
+            sum += pe;
+          }
+        }
+        l[i] = l[i] * corr[i] + sum;
+#pragma unroll
+        for (int c = 0; c < kM; ++c)
+#pragma unroll
+          for (int g = 0; g < 8; ++g) {
+            o[c][4 * g + 2 * i] *= corr[i];
+            o[c][4 * g + 2 * i + 1] *= corr[i];
+          }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+      // O += P V over the slice's columns
+      mbar_wait(L::v_full(bars, vs), vph);
+      const uint32_t vb = base + L::off_v + vs * L::v_stage;
+      wg_fence();
+#pragma unroll
+      for (int c = 0; c < kM; ++c)
+#pragma unroll
+        for (int kk = 0; kk < kN / 16; ++kk)
+          wgmma_rs_n64(o[c], pa[kk],
+                       make_desc(vb + c * L::v_chunk + kk * 2048, L::v_chunk, 1024, kSw128));
+      wg_commit();
+      wg_wait0();
+#pragma unroll
+      for (int c = 0; c < kM; ++c) reg_fence(o[c]);
+      reg_keep(pa);
+      release(L::v_empty(bars, vs));
+      if (++vs == L::kV) { vs = 0; vph ^= 1; }
+    }
+
+    // epilogue: O / l, 0 where l == 0, the slice's columns below d
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float lsum = l[i];
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+      const float inv = lsum == 0.f ? 0.f : 1.f / lsum;
+      const int r = row0 + 8 * i;
+      bf16* dst = nullptr;
+      if constexpr (kSeg) {
+        if (r < it.rows) dst = p.o + (it.t0 + r) * p.sot + it.head * p.soh;
+      } else {
+        const int t = it.t0 + r / p.rep;
+        const int h = it.head * p.rep + r % p.rep;
+        if (r < p.q_rows && t < p.Lq) {
+          dst = p.o + it.b * p.sob + t * p.sot + h * p.soh;
+          if (p.lse != nullptr && slice == 0 && (lane & 3) == 0)
+            p.lse[((long long)it.b * p.Hkv * p.rep + h) * p.Lq + t] =
+                lsum == 0.f ? kNegInf : m[i] * p.scale_log2 * kLn2 + logf(lsum);
+        }
+      }
+      if (dst == nullptr) continue;
+#pragma unroll
+      for (int c = 0; c < kM; ++c)
+#pragma unroll
+        for (int g = 0; g < 8; ++g)
+          if (col0 + 64 * c + 8 * g < p.d)
+            *reinterpret_cast<uint32_t*>(dst + col0 + 64 * c + 8 * g + cq) =
+                pack_bf16(o[c][4 * g + 2 * i] * inv, o[c][4 * g + 2 * i + 1] * inv);
+    }
+  }
+}
+
+template <bool kSeg>
+__global__ void __launch_bounds__(kThreads, 1)
+    attention_sm90_sliced_kernel(const __grid_constant__ FwdParams p) {
+  using L = SliceLayout;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + L::off_bar;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kQK; ++s) {
+      mbar_init(L::qk_full(bars, s), 1);     // the producer's expect_tx
+      mbar_init(L::qk_empty(bars, s), 8);    // one arrive per consumer warp
+    }
+    for (int s = 0; s < L::kV; ++s) {
+      mbar_init(L::v_full(bars, s), 1);
+      mbar_init(L::v_empty(bars, s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the idle rows of every stage's Q chunk: zeros for good
+  for (int s = 0; s < L::kQK; ++s)
+    zero_smem(base + s * L::qk_stage + p.q_rows * 128, (kBM - p.q_rows) * 128);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) producer_sliced<kSeg>(p, base);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    consumer_sliced<kSeg>(p, base, wg);
+  }
+}
+
 // ---------------------------------------------------------------- kernel
 
 template <int D, bool kSeg, bool kPart>
@@ -596,6 +899,25 @@ int launch(const FwdParams& p, cudaStream_t stream) {
 template <int D, bool kSeg>
 int launch_width(const FwdParams& p, cudaStream_t stream) {
   return p.d < D ? launch<D, kSeg, true>(p, stream) : launch<D, kSeg, false>(p, stream);
+}
+
+// A head dim above 256: p.slices column slices of each item, one persistent
+// CTA per SM (at most one per (item, slice)).
+template <bool kSeg>
+int launch_sliced(const FwdParams& p, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(attention_sm90_sliced_kernel<kSeg>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)SliceLayout::smem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const int work = p.n_items * p.slices;
+  if (work <= 0) return 0;
+  const int grid = work < num_sms() ? work : num_sms();
+  attention_sm90_sliced_kernel<kSeg><<<grid, kThreads, SliceLayout::smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 // Kernels 2 and 4: GQA attention of q (B, Lq, H, D) over k/v (B, Lk, Hkv, D)

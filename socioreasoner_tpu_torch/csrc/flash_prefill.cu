@@ -16,8 +16,9 @@
 // on the smallest instance of at least d columns (H2O-Danube3-500M's 96 and
 // -4B's 120 on the 128 one, 136-248 on the 256 one), its tail columns
 // zero-filled by TMA and never stored (attention_sm90.cuh); the host pads
-// other head dims (OpenLLaMA-3B's 100) to a multiple of 8 first. Any other
-// D is refused (cudaErrorInvalidValue) before a tensor map is encoded.
+// other head dims (OpenLLaMA-3B's 100) to a multiple of 8 first. A wider d
+// runs on the sliced CTA in ceil(d / 256) column slices (Falcon3-7B's widths
+// regrouped as 6/2 x 512 or 8/2 x 384).
 //
 // The design (attention_sm90.cuh): GQA is folded as in the Pallas grid, so a
 // 128-row work item is floor(128 / rep) tokens x the rep q heads of one kv
@@ -52,6 +53,7 @@ int launch_gqa(const void* q, const void* k, const void* v, void* o, float* lse,
   FwdParams p{};
   p.q_rows = rep * toks;
   p.d = D;
+  p.slices = head_dim_slices(D);
   p.o = static_cast<bf16*>(o);
   p.sob = sob;
   p.sot = sot;
@@ -79,6 +81,7 @@ int launch_gqa(const void* q, const void* k, const void* v, void* o, float* lse,
   if (rc == 0) rc = encode_pair(&p.k_main, &p.k_tail, k, 4, kdims, ks, kbox, inst);
   if (rc == 0) rc = encode_pair(&p.v_main, &p.v_tail, v, 4, kdims, vs, vbox, inst);
   if (rc != 0) return rc;
+  if (p.slices > 1) return launch_sliced<false>(p, stream);
   switch (inst) {
     case 64: return launch_width<64, false>(p, stream);
     case 80: return launch_width<80, false>(p, stream);
@@ -145,4 +148,11 @@ extern "C" int socio_head_dim_instance(int kernel, int d) {
     case 6: return head_dim_instance(kBwdDims, d);
     default: return 0;
   }
+}
+
+// The column slices of 256 that kernels 1, 2 and 4-6 run head dim d in (1 up
+// to 256), 0 where no instance serves d: the rule of head_dim_slices, which
+// every entry point applies (the host's copy, head_dim_plan, is held to it).
+extern "C" int socio_head_dim_slices(int kernel, int d) {
+  return socio_head_dim_instance(kernel, d) == 0 ? 0 : socio90::head_dim_slices(d);
 }

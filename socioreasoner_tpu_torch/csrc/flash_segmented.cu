@@ -13,9 +13,10 @@
 // layers (windows of 64, 48, 36 patches) are memory-bound (59.7 MB of
 // Q/K/V/O each, 17.8 us at 3.35 TB/s) and do almost no arithmetic. Instances
 // of 80, 128 and 256 columns; any head dim that is a multiple of 8 up to 256
-// runs on the smallest one that covers it (attention_sm90.cuh). No ViT of
-// the supported families has a head dim above 128: the 256 instance is held
-// to the plain version by chip_smoke's kernels phase alone.
+// runs on the smallest one that covers it, a wider one on the sliced CTA in
+// column slices of 256 (attention_sm90.cuh). No ViT of the supported
+// families has a head dim above 128: the 256 instance and the sliced CTA are
+// held to the plain version by chip_smoke's kernels phase alone.
 //
 // The design (attention_sm90.cuh): persistent warp-specialised CTAs, one per
 // SM, walk a work list of (head, q tile) items that the wrapper builds on the
@@ -43,6 +44,7 @@ extern "C" int socio_flash_segmented_bf16(
   if (inst == 0) return (int)cudaErrorInvalidValue;
   FwdParams p{};
   p.d = D;
+  p.slices = head_dim_slices(D);
   p.o = static_cast<bf16*>(o);
   p.sot = sot;
   p.soh = soh;
@@ -64,6 +66,7 @@ extern "C" int socio_flash_segmented_bf16(
   if (rc == 0) rc = encode_pair(&p.v_main, &p.v_tail, v, 3, dims, vs, vbox, inst);
   if (rc != 0) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.slices > 1) return launch_sliced<true>(p, s);
   switch (inst) {
     case 80: return launch_width<80, true>(p, s);
     case 128: return launch_width<128, true>(p, s);

@@ -31,8 +31,8 @@
 //     runs on the smallest one that covers it (kernel 5's rule): TMA fills the
 //     columns past d with zeros, so dK and dV get 0 there, and neither the
 //     workspace slots nor the outputs take those columns. The host pads
-//     other head dims up to 256 to a multiple of 8; any other D is refused.
-//     The piece order, and so the bits, do not depend on d.
+//     other head dims to a multiple of 8; above 256 the sliced kernel takes
+//     them. The piece order, and so the bits, do not depend on d.
 //   * At 256 columns dK and dV of 64 keys are 256 registers a thread, so the
 //     item's 128 keys are walked as two 64-key passes, each streaming the
 //     item's pairs again, and the two consumer warpgroups split the columns:
@@ -43,6 +43,16 @@
 //     split tile's pieces write both passes' partials to their slots and
 //     count in once, after the second; the last piece adds each pass's
 //     slots in piece order.
+//   * Above 256 columns (SliceSmem) the column slices of 256 go to a grid
+//     axis: CTA c is the plan's CTA c / slices and slice c % slices, which
+//     walks the plan CTA's items as the 256 instance does (two passes, the
+//     warpgroups splitting the slice's columns), summing each pair's S^T
+//     and dP^T over d / 64 chunk stages of a ring (the 64-column chunks of
+//     the pass's K and V and the pair's Q and dO, 32 KB), the same order in
+//     every slice, then taking the pair's Q and dO columns of its slice for
+//     dV and dK. A plan holds a slot region and counters a slice (the host
+//     cuts its share of the SMs for n_sm / slices CTAs); the piece order is
+//     kept, so the bits do not depend on the slice count.
 //   * S^T = K Q^T and dP^T = V dO^T are wgmma with both operands in shared
 //     memory, K-major over D (kernel 2's Q K^T with the roles swapped). P^T
 //     and dS^T are rounded to bf16 in registers -- the accumulator layout is
@@ -131,6 +141,7 @@ struct Params {
   bf16* dv;
   long long sdkb, sdkt, sdkh, sdvb, sdvt, sdvh;
   int d;                     // the tensors' head dim: columns stored (<= kD)
+  int slices;                // column slices of 256 (head_dim_slices): above 1, the sliced kernel
   float* ws;                 // (slots, kSlotFloats) partials of split pieces
   int* counters;             // (2 x split tiles,) arrival counts, 0 between launches
   const int4* items;         // (n_items, 3) int4: dkv_tile_plan's 12 fields, in CTA order
@@ -497,6 +508,340 @@ int launch(const Params& p, int n_cta, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// -------------------------------------------- column slices (D > 256)
+
+// Shared-memory layout of the sliced kernel, whose CTA keeps the 256
+// instance's split: two 64-key passes a work item, each consumer warpgroup
+// holding dK and dV of the pass's 64 keys for its 128 columns of the CTA's
+// slice. A ring of chunk stages -- the 64-column chunk of the pass's K and V
+// and of a pair's 64-row Q and dO tiles, 32 KB -- feeds S^T = K Q^T and dP^T
+// = V dO^T over all d columns; a ring of pair stages holds the pair's Q and
+// dO columns of the slice (64 rows x 256 each) and its lse and delta, for
+// dV += P^T dO and dK += dS^T Q.
+struct SliceSmem {
+  static constexpr int kKeys = kBK / 2;            // keys of a pass
+  static constexpr int kCols = kSliceCols;         // dK/dV columns of a CTA
+  static constexpr int kCS = 3;                    // chunk ring depth
+  static constexpr int kPS = 2;                    // pair ring depth
+  static constexpr uint32_t kChunk = 64 * 64 * 2;  // 8 KB: 64 rows (or keys) x 64 columns
+  static constexpr uint32_t kOffV = kChunk, kOffQ = 2 * kChunk, kOffDO = 3 * kChunk;
+  static constexpr uint32_t kStage = 4 * kChunk;   // 32 KB
+  static constexpr uint32_t kPair = 2 * kCols / 64 * kChunk;   // 64 KB: Q then dO columns
+  static constexpr uint32_t kOffPair = kCS * kStage;
+  static constexpr uint32_t kOffStats = kOffPair + kPS * kPair;   // per pair stage: lse, delta
+  static constexpr uint32_t kOffBar = kOffStats + kPS * 2 * kBQ * 4;
+  // barriers: chunk full[kCS], empty[kCS], pair full[kPS], empty[kPS]
+  static constexpr uint32_t kOffFlag = kOffBar + (2 * kCS + 2 * kPS) * 8;
+  static constexpr uint32_t kBytes = kOffFlag + 16 + 1024;
+  static_assert(kBytes <= 232448, "the H100's shared memory a block");
+  static constexpr int kRegs = kCols / 2 / 64 * 32;   // dK (and dV) registers a thread
+  // a slice's part of a workspace slot: 2 passes x 2 warpgroups x dK and dV
+  static constexpr int kSlotFloats = kBK * kCols * 2;
+  static_assert(kSlotFloats == 2 * 2 * 2 * kRegs * 128, "slot regions");
+  __device__ static uint32_t c_full(uint32_t bars, int st) { return bars + 8 * st; }
+  __device__ static uint32_t c_empty(uint32_t bars, int st) { return bars + 8 * (kCS + st); }
+  __device__ static uint32_t p_full(uint32_t bars, int st) { return bars + 8 * (2 * kCS + st); }
+  __device__ static uint32_t p_empty(uint32_t bars, int st) {
+    return bars + 8 * (2 * kCS + kPS + st);
+  }
+};
+
+// CTA blockIdx.x is plan CTA blockIdx.x / slices, column slice blockIdx.x %
+// slices. For each pass of each item and each of its pairs, lane 0 streams
+// the d / 64 chunk stages, then the pair stage (the slice's Q and dO
+// columns), beside which every lane gathers the pair's lse and delta.
+__device__ __forceinline__ void producer_sliced(const Params& p, uint32_t base, int lane) {
+  using L = SliceSmem;
+  const uint32_t bars = base + L::kOffBar;
+  const int cta = blockIdx.x / p.slices, col0 = L::kCols * (blockIdx.x % p.slices);
+  const int nc = (p.d + 63) / 64;
+  int cs = 0, ps_ = 0;
+  uint32_t cph = 0, pph = 0;
+  for (int idx = p.cta_start[cta]; idx < p.cta_start[cta + 1]; ++idx) {
+    const Item it = load_item(p, idx);
+    for (int ps = 0; ps < 2 && it.np > 0; ++ps) {
+      const int key = it.kt * kBK + ps * L::kKeys;
+      for (int q = it.p0; q < it.p0 + it.np; ++q) {
+        const int h = it.g * p.rep + q / it.cnt;
+        const int t0 = (it.i_lo + q % it.cnt) * kBQ;
+        if (lane == 0) {
+          for (int c = 0; c < nc; ++c) {
+            const uint32_t full = L::c_full(bars, cs), dst = base + cs * L::kStage;
+            mbar_wait(L::c_empty(bars, cs), cph ^ 1);
+            mbar_expect_tx(full, L::kStage);
+            tma_load_4d(dst, &p.k, full, 64 * c, it.g, key, it.b);
+            tma_load_4d(dst + L::kOffV, &p.v, full, 64 * c, it.g, key, it.b);
+            tma_load_4d(dst + L::kOffQ, &p.q, full, 64 * c, h, t0, it.b);
+            tma_load_4d(dst + L::kOffDO, &p.dO, full, 64 * c, h, t0, it.b);
+            if (++cs == L::kCS) { cs = 0; cph ^= 1; }
+          }
+        }
+        const uint32_t full = L::p_full(bars, ps_);
+        const uint32_t dst = base + L::kOffPair + ps_ * L::kPair;
+        mbar_wait(L::p_empty(bars, ps_), pph ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(full, L::kPair);
+#pragma unroll
+          for (int c = 0; c < L::kCols / 64; ++c) {
+            tma_load_4d(dst + c * L::kChunk, &p.q, full, col0 + 64 * c, h, t0, it.b);
+            tma_load_4d(dst + (L::kCols / 64 + c) * L::kChunk, &p.dO, full, col0 + 64 * c, h,
+                        t0, it.b);
+          }
+        }
+        const long long row = ((long long)it.b * p.H + h) * p.Lq;
+        const uint32_t stats = base + L::kOffStats + ps_ * 2 * kBQ * 4;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = lane + 32 * e;
+          const bool in = t0 + r < p.Lq;
+          const long long src = row + (in ? t0 + r : 0);
+          cp_async4(stats + 4 * r, p.lse + src, in ? 4u : 0u);
+          cp_async4(stats + 4 * (kBQ + r), p.delta + src, in ? 4u : 0u);
+        }
+        cp_async_arrive_noinc(full);
+        if (++ps_ == L::kPS) { ps_ = 0; pph ^= 1; }
+      }
+    }
+  }
+}
+
+// One consumer warpgroup of the sliced kernel: consumer<256> with S^T and dP^T
+// accumulated over the chunk stages (the same order in every slice) and dK,
+// dV of the warpgroup's 128 columns of the CTA's slice. Split tiles: each
+// slice adds its own part of the pieces' slots and counts in on its own
+// counters, in piece order as at 256.
+__device__ __forceinline__ void consumer_sliced(const Params& p, uint32_t base,
+                                                volatile int* flag, int wg) {
+  using L = SliceSmem;
+  constexpr int kC = L::kCols / 2 / 64;                // dK/dV column chunks of a warpgroup
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int cq = (lane & 3) * 2;
+  const int krow = warp * 16 + (lane >> 2);
+  const int slice = blockIdx.x % p.slices, cta = blockIdx.x / p.slices;
+  const int c0 = (L::kCols * slice) / 64 + wg * kC;    // the warpgroup's first dK/dV chunk
+  const int nc = (p.d + 63) / 64;
+  const uint32_t bars = base + L::kOffBar;
+  int cs = 0, ps_ = 0;
+  uint32_t cph = 0, pph = 0;
+  auto release = [&](uint32_t bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  for (int idx = p.cta_start[cta]; idx < p.cta_start[cta + 1]; ++idx) {
+    const Item it = load_item(p, idx);
+    if (it.kv_len != min(max(p.kv_lens[it.b], 0), p.Lk)) __trap();   // a plan for other lengths
+    for (int ps = 0; ps < 2; ++ps) {
+      const int kp0 = it.kt * kBK + ps * L::kKeys;
+      const int key0 = kp0 + krow;
+      float dk[kC][32], dv[kC][32];
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) dk[c][e] = dv[c][e] = 0.f;
+
+      for (int q = it.p0; q < it.p0 + it.np; ++q) {
+        const int t0 = (it.i_lo + q % it.cnt) * kBQ;
+        const bool masked = (p.causal && t0 < kp0 + L::kKeys - 1) ||
+                            kp0 + L::kKeys > it.kv_len || t0 + kBQ > p.Lq;
+        float s[32], dp[32];
+        int prev = 0;
+        for (int c = 0; c < nc; ++c) {
+          mbar_wait(L::c_full(bars, cs), cph);
+          const uint32_t st = base + cs * L::kStage;
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss_n64(s, make_desc(st + kk * 32, 16, 1024, kSw128),
+                         make_desc(st + L::kOffQ + kk * 32, 16, 1024, kSw128), (c | kk) != 0);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss_n64(dp, make_desc(st + L::kOffV + kk * 32, 16, 1024, kSw128),
+                         make_desc(st + L::kOffDO + kk * 32, 16, 1024, kSw128), (c | kk) != 0);
+          wg_commit();
+          if (c > 0) {
+            wg_wait1();
+            release(L::c_empty(bars, prev));
+          }
+          prev = cs;
+          if (++cs == L::kCS) { cs = 0; cph ^= 1; }
+        }
+        wg_wait0();
+        reg_fence(s);
+        reg_fence(dp);
+        release(L::c_empty(bars, prev));
+
+        mbar_wait(L::p_full(bars, ps_), pph);
+        const uint32_t qb = base + L::kOffPair + ps_ * L::kPair;
+        const uint32_t ob = qb + L::kCols / 64 * L::kChunk;
+        const uint32_t stats = base + L::kOffStats + ps_ * 2 * kBQ * 4;
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {
+          const float2 l = lds_f2(stats + 4 * (8 * g + cq));
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            s[4 * g + 2 * i] = ex2(fmaf(s[4 * g + 2 * i], p.scale_log2, -l.x * kLog2e));
+            s[4 * g + 2 * i + 1] = ex2(fmaf(s[4 * g + 2 * i + 1], p.scale_log2, -l.y * kLog2e));
+          }
+        }
+        if (masked) {
+#pragma unroll
+          for (int g = 0; g < 8; ++g)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int t = t0 + 8 * g + cq + e;
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                const int key = key0 + 8 * i;
+                if (key >= it.kv_len || t >= p.Lq || (p.causal && key > t))
+                  s[4 * g + 2 * i + e] = 0.f;
+              }
+            }
+        }
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {
+          const float2 d = lds_f2(stats + 4 * (kBQ + 8 * g + cq));
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            dp[4 * g + 2 * i] = s[4 * g + 2 * i] * (dp[4 * g + 2 * i] - d.x) * p.scale;
+            dp[4 * g + 2 * i + 1] = s[4 * g + 2 * i + 1] * (dp[4 * g + 2 * i + 1] - d.y) * p.scale;
+          }
+        }
+        uint32_t pa[4][4], da[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            pa[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+            da[kk][x] = pack_bf16(dp[8 * kk + 2 * x], dp[8 * kk + 2 * x + 1]);
+          }
+        // dV += P^T dO, dK += dS^T Q over the warpgroup's columns of the slice
+        wg_fence();
+#pragma unroll
+        for (int c = 0; c < kC; ++c)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs_n64(dv[c], pa[kk],
+                         make_desc(ob + (wg * kC + c) * L::kChunk + kk * 2048, L::kChunk, 1024,
+                                   kSw128));
+#pragma unroll
+        for (int c = 0; c < kC; ++c)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs_n64(dk[c], da[kk],
+                         make_desc(qb + (wg * kC + c) * L::kChunk + kk * 2048, L::kChunk, 1024,
+                                   kSw128));
+        wg_commit();
+        wg_wait0();
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+          reg_fence(dk[c]);
+          reg_fence(dv[c]);
+        }
+        reg_keep(pa);
+        reg_keep(da);
+        release(L::p_empty(bars, ps_));
+        if (++ps_ == L::kPS) { ps_ = 0; pph ^= 1; }
+      }
+
+      if (it.n == 1) {
+        store_rows<kC, true>(p.dk, p.sdkb, p.sdkt, p.sdkh, it, key0, 64 * c0, p.Lk, p.d, cq, dk);
+        store_rows<kC, true>(p.dv, p.sdvb, p.sdvt, p.sdvh, it, key0, 64 * c0, p.Lk, p.d, cq, dv);
+        continue;
+      }
+      // a piece of a split key tile: the slice's part of slot ws0 + j (a
+      // slot holds every slice's part), then its own counters, as consumer()
+      const long long slot = (long long)L::kSlotFloats * p.slices;
+      auto region = [&](int pass) { return slice * L::kSlotFloats + (pass * 2 + wg) * 2 * L::kRegs * 128; };
+      auto skip = [&](int c, int e) { return 64 * (c0 + c) + 8 * (e >> 2) >= p.d; };
+      float* mine = p.ws + (it.ws0 + it.j) * slot + region(ps);
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          if (skip(c, e)) continue;
+          __stcg(mine + (32 * c + e) * 128 + tid, dk[c][e]);
+          __stcg(mine + (L::kRegs + 32 * c + e) * 128 + tid, dv[c][e]);
+        }
+      if (ps == 0) continue;
+      __threadfence();
+      named_bar_sync(1 + wg, 128);
+      int* counter = p.counters + 2 * (it.split * p.slices + slice) + wg;
+      if (tid == 0) flag[wg] = atomicAdd(counter, 1);
+      named_bar_sync(1 + wg, 128);
+      if (flag[wg] != it.n - 1) continue;
+      __threadfence();
+      for (int pp = ps; pp >= 0; --pp) {
+        const float* first = p.ws + it.ws0 * slot + region(pp);
+#pragma unroll
+        for (int c = 0; c < kC; ++c)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            if (skip(c, e)) continue;
+            float a = 0.f, b = 0.f;
+            for (int piece = 0; piece < it.n; ++piece) {
+              const float* sl = first + piece * slot;
+              const bool own = piece == it.j && pp == ps;
+              a += own ? dk[c][e] : __ldcg(sl + (32 * c + e) * 128 + tid);
+              b += own ? dv[c][e] : __ldcg(sl + (L::kRegs + 32 * c + e) * 128 + tid);
+            }
+            dk[c][e] = a;
+            dv[c][e] = b;
+          }
+        const int kb0 = it.kt * kBK + pp * L::kKeys + krow;
+        store_rows<kC, true>(p.dk, p.sdkb, p.sdkt, p.sdkh, it, kb0, 64 * c0, p.Lk, p.d, cq, dk);
+        store_rows<kC, true>(p.dv, p.sdvb, p.sdvt, p.sdvh, it, kb0, 64 * c0, p.Lk, p.d, cq, dv);
+      }
+      if (tid == 0) *counter = 0;               // ready for the next launch
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_train_dkv_sliced_kernel(const __grid_constant__ Params p) {
+  using L = SliceSmem;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + L::kOffBar;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kCS; ++s) {
+      mbar_init(L::c_full(bars, s), 1);
+      mbar_init(L::c_empty(bars, s), 8);
+    }
+    for (int s = 0; s < L::kPS; ++s) {
+      mbar_init(L::p_full(bars, s), 1 + 32);   // expect_tx + the producer lanes' cp.async
+      mbar_init(L::p_empty(bars, s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x < 256 + 32) producer_sliced(p, base, threadIdx.x & 31);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    volatile int* flag = reinterpret_cast<volatile int*>(smem_raw + (base - smem_u32(smem_raw)) +
+                                                         L::kOffFlag);
+    consumer_sliced(p, base, flag, wg);
+  }
+}
+
+// n_cta plan CTAs x p.slices column slices.
+int launch_sliced(const Params& p, int n_cta, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(flash_train_dkv_sliced_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)SliceSmem::kBytes);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  flash_train_dkv_sliced_kernel<<<n_cta * p.slices, kThreads, SliceSmem::kBytes, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace dkv
 }  // namespace socio90
 
@@ -520,6 +865,7 @@ extern "C" int socio_flash_train_dkv_bf16(
   if (n_cta <= 0) return 0;
   Params p{};
   p.d = D;
+  p.slices = head_dim_slices(D);
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.dk = static_cast<bf16*>(dk);
@@ -555,6 +901,7 @@ extern "C" int socio_flash_train_dkv_bf16(
   if (rc == 0) rc = encode_map(&p.v, v, 4, kdims, vs, kbox, true);
   if (rc != 0) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.slices > 1) return launch_sliced(p, n_cta, s);
   switch (inst) {
     case 64: return D < 64 ? launch<64, true>(p, n_cta, s) : launch<64, false>(p, n_cta, s);
     case 128: return D < 128 ? launch<128, true>(p, n_cta, s) : launch<128, false>(p, n_cta, s);

@@ -53,14 +53,22 @@
 //     H2O-Danube3's 96 and 120 on 128, 136-248 on 256): the tensor maps keep
 //     d as their innermost extent, TMA fills the columns past d with zeros
 //     (Q, dO, K and V alike, so they add nothing to S, dP or dQ) and the
-//     epilogue stores the first d columns. The host pads other head dims up
-//     to 256 to a multiple of 8; any other D is refused.
+//     epilogue stores the first d columns. The host pads other head dims to
+//     a multiple of 8; above 256 the sliced kernel below takes them.
 //   * At 256 columns Q and dO are 64 KB each and a 128-key K/V tile would be
 //     128 KB, so the ring holds one stage of 64-key K and V halves (32 KB
 //     each; 193 KB in all): the producer loads each half that the item's
 //     rows reach as a stage of its own, and the consumers walk the same
 //     halves. dQ is 128 registers a consumer thread beside S and dP (32
 //     each) and the bf16 dS fragments (16).
+//   * Above 256 columns (SliceSmem) a work item is (GQA item, column slice of
+//     256): Q, dO, K and V are 128 KB + 128 KB + 2 x 64 KB at 512 columns, so
+//     every 64-key half sums S = Q K^T and dP = dO V^T over d / 64 chunk
+//     stages of a ring (the 64-column chunks of all four, 48 KB), the same
+//     order in every slice, then takes the half's K columns of its slice
+//     (32 KB, a ring of its own) for dQ += dS K, and keeps dQ of its 256
+//     columns in the 128 registers of the 256 instance. Each slice
+//     recomputes P and dS; no slice needs another's result.
 //   * Any GQA ratio up to 128: where rep does not divide 128, rows past
 //     rep * floor(128 / rep) are idle (zeroed Q and dO rows, zero-filled lse
 //     and delta, so their ds is 0) and never stored. Every mbarrier wait traps
@@ -105,6 +113,7 @@ struct Params {
   bf16* dq;
   long long sdqb, sdqt, sdqh;
   int d;                      // the tensors' head dim: dq columns stored (<= kD)
+  int slices;                 // column slices of 256 (head_dim_slices): above 1, the sliced kernel
   const int* kv_lens;         // (B,)
   int B, Lq, Lk, H, Hkv, rep, causal, n_ttiles, n_items, q_rows;
   float scale, scale_log2;    // D^-0.5 and D^-0.5 * log2(e)
@@ -397,6 +406,284 @@ int launch(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// -------------------------------------------- column slices (D > 256)
+
+// Shared-memory layout of the sliced kernel: a ring of chunk stages, each the
+// 64-column chunk of the item's Q and dO tiles (128 rows) and of a 64-key
+// half's K and V, feeding S = Q K^T and dP = dO V^T over all d columns; a
+// ring of the halves' K columns of the item's slice (64 keys x 256), for
+// dQ += dS K; the item's lse and delta.
+struct SliceSmem {
+  static constexpr int kKeys = 64;
+  static constexpr int kCols = kSliceCols;
+  static constexpr int kCS = 3;                                // chunk ring depth
+  static constexpr int kKS = 2;                                // K-slice ring depth
+  static constexpr uint32_t kQC = kBM * 64 * 2;                // 16 KB: a Q or dO chunk
+  static constexpr uint32_t kKC = kKeys * 64 * 2;              // 8 KB: a K or V chunk
+  static constexpr uint32_t kOffDO = kQC, kOffK = 2 * kQC, kOffV = 2 * kQC + kKC;
+  static constexpr uint32_t kStage = 2 * kQC + 2 * kKC;        // 48 KB
+  static constexpr uint32_t kSlice = kCols / 64 * kKC;         // 32 KB
+  static constexpr uint32_t kOffSlice = kCS * kStage;
+  static constexpr uint32_t kOffStats = kOffSlice + kKS * kSlice;   // lse[128], delta[128]
+  static constexpr uint32_t kOffBar = kOffStats + 2 * kBM * 4;
+  // barriers: chunk full[kCS], empty[kCS], slice full[kKS], empty[kKS],
+  // stats full, stats empty
+  static constexpr uint32_t kBytes = kOffBar + (2 * kCS + 2 * kKS + 2) * 8 + 1024;
+  static_assert(kStage % 1024 == 0 && kBytes <= 232448, "the H100's shared memory a block");
+  __device__ static uint32_t c_full(uint32_t bars, int st) { return bars + 8 * st; }
+  __device__ static uint32_t c_empty(uint32_t bars, int st) { return bars + 8 * (kCS + st); }
+  __device__ static uint32_t k_full(uint32_t bars, int st) { return bars + 8 * (2 * kCS + st); }
+  __device__ static uint32_t k_empty(uint32_t bars, int st) {
+    return bars + 8 * (2 * kCS + kKS + st);
+  }
+  __device__ static uint32_t s_full(uint32_t bars) { return bars + 8 * (2 * kCS + 2 * kKS); }
+  __device__ static uint32_t s_empty(uint32_t bars) { return s_full(bars) + 8; }
+};
+
+// Work item w is GQA item w / slices, column slice w % slices. The producer
+// warp gathers the item's lse and delta (every lane), then lane 0 streams,
+// for each 64-key half the item's rows reach, its d / 64 chunk stages and
+// the slice's K columns.
+__device__ __forceinline__ void producer_sliced(const Params& p, uint32_t base, int lane) {
+  using L = SliceSmem;
+  const uint32_t bars = base + L::kOffBar;
+  const uint32_t stats = base + L::kOffStats;
+  const int nc = (p.d + 63) / 64;
+  int cs = 0, ks = 0;
+  uint32_t cph = 0, kph = 0, sph = 0;
+  for (int w = blockIdx.x; w < p.n_items * p.slices; w += gridDim.x) {
+    const int col0 = L::kCols * (w % p.slices);
+    const Item it = resolve_gqa(p, w / p.slices);
+    mbar_wait(L::s_empty(bars), sph ^ 1);
+#pragma unroll
+    for (int e = 0; e < kBM / 32; ++e) {
+      const int r = lane + 32 * e;
+      const int t = it.t0 + r / p.rep;
+      const bool in = r < p.q_rows && t < p.Lq;
+      const long long src =
+          in ? ((long long)it.b * p.H + it.head * p.rep + r % p.rep) * p.Lq + t : 0;
+      cp_async4(stats + 4 * r, p.lse + src, in ? 4u : 0u);
+      cp_async4(stats + 4 * (kBM + r), p.delta + src, in ? 4u : 0u);
+    }
+    cp_async_arrive_noinc(L::s_full(bars));
+    sph ^= 1;
+    if (lane != 0) continue;
+    const int k_hi = item_k_hi(p, it);
+    for (int j = it.lo; j <= it.hi; ++j) {
+      for (int hf = 0; hf < tile_halves(j, k_hi); ++hf) {
+        const int key = j * kBN + hf * L::kKeys;
+        for (int c = 0; c < nc; ++c) {
+          const uint32_t full = L::c_full(bars, cs), dst = base + cs * L::kStage;
+          mbar_wait(L::c_empty(bars, cs), cph ^ 1);
+          mbar_expect_tx(full, 2 * p.q_rows * 128 + 2 * L::kKC);
+          tma_load_4d(dst, &p.q, full, 64 * c, it.head * p.rep, it.t0, it.b);
+          tma_load_4d(dst + L::kOffDO, &p.dO, full, 64 * c, it.head * p.rep, it.t0, it.b);
+          tma_load_4d(dst + L::kOffK, &p.k, full, 64 * c, it.head, key, it.b);
+          tma_load_4d(dst + L::kOffV, &p.v, full, 64 * c, it.head, key, it.b);
+          if (++cs == L::kCS) { cs = 0; cph ^= 1; }
+        }
+        const uint32_t full = L::k_full(bars, ks), dst = base + L::kOffSlice + ks * L::kSlice;
+        mbar_wait(L::k_empty(bars, ks), kph ^ 1);
+        mbar_expect_tx(full, L::kSlice);
+#pragma unroll
+        for (int c = 0; c < L::kCols / 64; ++c)
+          tma_load_4d(dst + c * L::kKC, &p.k, full, col0 + 64 * c, it.head, key, it.b);
+        if (++ks == L::kKS) { ks = 0; kph ^= 1; }
+      }
+    }
+  }
+}
+
+// One consumer warpgroup of the sliced kernel: consumer<256> with S and dP
+// accumulated over the chunk stages (the same order in every slice) and dQ
+// of the slice's 256 columns.
+__device__ __forceinline__ void consumer_sliced(const Params& p, uint32_t base, int wg) {
+  using L = SliceSmem;
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int row0 = wg * 64 + warp * 16 + (lane >> 2);
+  const int cq = (lane & 3) * 2;
+  const uint32_t bars = base + L::kOffBar;
+  const uint32_t stats = base + L::kOffStats;
+  const int nc = (p.d + 63) / 64;
+  int cs = 0, ks = 0;
+  uint32_t cph = 0, kph = 0, sph = 0;
+  auto release = [&](uint32_t bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  for (int w = blockIdx.x; w < p.n_items * p.slices; w += gridDim.x) {
+    const int col0 = L::kCols * (w % p.slices);
+    const Item it = resolve_gqa(p, w / p.slices);
+    const int k_hi = item_k_hi(p, it);
+    int t[2];
+    float lse2[2], dlt[2];
+    mbar_wait(L::s_full(bars), sph);
+    sph ^= 1;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + 8 * i;
+      t[i] = it.t0 + r / p.rep;
+      float x;
+      asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(stats + 4 * r));
+      lse2[i] = x * kLog2e;
+      asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(stats + 4 * (kBM + r)));
+      dlt[i] = x;
+    }
+    release(L::s_empty(bars));
+    float acc[L::kCols / 64][32];
+#pragma unroll
+    for (int c = 0; c < L::kCols / 64; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
+
+    for (int j = it.lo; j <= it.hi; ++j) {
+      const bool masked = j < it.nm_lo || j > it.nm_hi;
+      const int halves = tile_halves(j, k_hi);
+      for (int hf = 0; hf < halves; ++hf) {
+        // S = Q K^T and dP = dO V^T over all d columns, one group a chunk
+        float s[32], dp[32];
+        int prev = 0;
+        for (int c = 0; c < nc; ++c) {
+          mbar_wait(L::c_full(bars, cs), cph);
+          const uint32_t st = base + cs * L::kStage;
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss_n64(s, make_desc(st + wg * 8192 + kk * 32, 16, 1024, kSw128),
+                         make_desc(st + L::kOffK + kk * 32, 16, 1024, kSw128), (c | kk) != 0);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss_n64(dp, make_desc(st + L::kOffDO + wg * 8192 + kk * 32, 16, 1024, kSw128),
+                         make_desc(st + L::kOffV + kk * 32, 16, 1024, kSw128), (c | kk) != 0);
+          wg_commit();
+          if (c > 0) {
+            wg_wait1();
+            release(L::c_empty(bars, prev));
+          }
+          prev = cs;
+          if (++cs == L::kCS) { cs = 0; cph ^= 1; }
+        }
+        wg_wait0();
+        reg_fence(s);
+        reg_fence(dp);
+        release(L::c_empty(bars, prev));
+#pragma unroll
+        for (int g = 0; g < 8; ++g)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              s[4 * g + 2 * i + e] = ex2(fmaf(s[4 * g + 2 * i + e], p.scale_log2, -lse2[i]));
+        if (masked) {
+          const int key0 = j * kBN + hf * 64 + cq;
+#pragma unroll
+          for (int g = 0; g < 8; ++g)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int key = key0 + 8 * g + e;
+#pragma unroll
+              for (int i = 0; i < 2; ++i)
+                if (key >= it.kv_len || (p.causal && key > t[i])) s[4 * g + 2 * i + e] = 0.f;
+            }
+        }
+        uint32_t da[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int e0 = 8 * kk + 2 * x;
+            da[kk][x] = pack_bf16(s[e0] * (dp[e0] - dlt[x & 1]) * p.scale,
+                                  s[e0 + 1] * (dp[e0 + 1] - dlt[x & 1]) * p.scale);
+          }
+        // dQ += dS K over the slice's columns, K MN-major
+        mbar_wait(L::k_full(bars, ks), kph);
+        const uint32_t kb = base + L::kOffSlice + ks * L::kSlice;
+        wg_fence();
+#pragma unroll
+        for (int c = 0; c < L::kCols / 64; ++c)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs_n64(acc[c], da[kk],
+                         make_desc(kb + c * L::kKC + kk * 2048, L::kKC, 1024, kSw128));
+        wg_commit();
+        wg_wait0();
+#pragma unroll
+        for (int c = 0; c < L::kCols / 64; ++c) reg_fence(acc[c]);
+        reg_keep(da);
+        release(L::k_empty(bars, ks));
+        if (++ks == L::kKS) { ks = 0; kph ^= 1; }
+      }
+    }
+
+    // epilogue: the slice's dq columns below d, bf16 pairs from registers
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + 8 * i;
+      if (r >= p.q_rows || t[i] >= p.Lq) continue;
+      bf16* dst = p.dq + it.b * p.sdqb + t[i] * p.sdqt + (it.head * p.rep + r % p.rep) * p.sdqh;
+#pragma unroll
+      for (int c = 0; c < L::kCols / 64; ++c)
+#pragma unroll
+        for (int g = 0; g < 8; ++g)
+          if (col0 + 64 * c + 8 * g < p.d)
+            *reinterpret_cast<uint32_t*>(dst + col0 + 64 * c + 8 * g + cq) =
+                pack_bf16(acc[c][4 * g + 2 * i], acc[c][4 * g + 2 * i + 1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_train_dq_sliced_kernel(const __grid_constant__ Params p) {
+  using L = SliceSmem;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + L::kOffBar;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kCS; ++s) {
+      mbar_init(L::c_full(bars, s), 1);
+      mbar_init(L::c_empty(bars, s), 8);
+    }
+    for (int s = 0; s < L::kKS; ++s) {
+      mbar_init(L::k_full(bars, s), 1);
+      mbar_init(L::k_empty(bars, s), 8);
+    }
+    mbar_init(L::s_full(bars), 32);    // the producer lanes' cp.async
+    mbar_init(L::s_empty(bars), 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the idle rows of every stage's Q and dO chunks: zeros for good
+  for (int s = 0; s < L::kCS; ++s)
+    for (int c = 0; c < 2; ++c)
+      zero_smem(base + s * L::kStage + c * L::kQC + p.q_rows * 128, (kBM - p.q_rows) * 128);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x < 256 + 32) producer_sliced(p, base, threadIdx.x & 31);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    consumer_sliced(p, base, wg);
+  }
+}
+
+int launch_sliced(const Params& p, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(flash_train_dq_sliced_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)SliceSmem::kBytes);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const int work = p.n_items * p.slices;
+  const int grid = work < num_sms() ? work : num_sms();
+  flash_train_dq_sliced_kernel<<<grid, kThreads, SliceSmem::kBytes, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace dq
 }  // namespace socio90
 
@@ -418,6 +705,7 @@ extern "C" int socio_flash_train_dq_bf16(
     return (int)cudaErrorInvalidValue;
   Params p{};
   p.d = D;
+  p.slices = head_dim_slices(D);
   const int rep = H / Hkv;
   const int toks = kBM / rep;
   p.lse = static_cast<const float*>(lse);
@@ -453,6 +741,7 @@ extern "C" int socio_flash_train_dq_bf16(
   if (rc == 0) rc = encode_map(&p.v, v, 4, kdims, vs, kbox, true);
   if (rc != 0) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.slices > 1) return launch_sliced(p, s);
   switch (inst) {
     case 64: return D < 64 ? launch<64, true>(p, s) : launch<64, false>(p, s);
     case 128: return D < 128 ? launch<128, true>(p, s) : launch<128, false>(p, s);

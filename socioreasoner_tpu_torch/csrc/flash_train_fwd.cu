@@ -31,7 +31,8 @@
 // the TPU wrapper's repeat, transposes and padding are gone. Head dims
 // follow kernel 2's rule: any multiple of 8 up to 256 on the 64-, 80-, 128-
 // or 256-column instance that covers it, the tail zero-filled by TMA and
-// never stored (the host pads other head dims up to 256 to a multiple of 8).
+// never stored, a wider one on the sliced CTA in column slices of 256 (slice
+// 0 writes the lse); the host pads other head dims to a multiple of 8.
 #include "attention_sm90.cuh"
 
 extern "C" int socio_flash_train_fwd_bf16(

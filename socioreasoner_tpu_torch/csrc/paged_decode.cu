@@ -53,14 +53,22 @@
 // permuted (frag_d) so that one 16-byte shared load gives a thread the B
 // fragments of two (bf16) or four (int8) k-steps; Q's A fragments follow.
 //
-// Head dims 128 and 256 (Falcon3), where D % 128 == 0 as the JAX package
-// routes its decode kernel; any other D is refused. At 256 a bf16 stage is
-// 64 KB (4 + 4 boxes), so the ring takes three; the merge workspace (the
-// warps' and the CTA's partial states, ~150 KB) still fits inside the ring
-// it aliases, which is idle once every warp has left the block loop. O is
-// 128 registers a consumer thread there, so Q's fragments (8 KB) are kept
-// in shared memory beside the ring, written once by warp 0 and read per
-// block, instead of 64 more registers.
+// Every head dim with D % 128 == 0, as the JAX package routes its decode
+// kernel; any other D is refused. Instances of 128 and 256 columns: at 256 a
+// bf16 stage is 64 KB (4 + 4 boxes), so the ring takes three; the merge
+// workspace (the warps' and the CTA's partial states, ~150 KB) still fits
+// inside the ring it aliases, which is idle once every warp has left the
+// block loop. O is 128 registers a consumer thread there, so Q's fragments
+// (8 KB) are kept in shared memory beside the ring, written once by warp 0
+// and read per block, instead of 64 more registers. Above 256 (kSliced, the
+// 256 instance's layout) the grid's y axis takes (kv head, column slice of
+// 256): a block is ceil(D / 256) stages of 256 K columns, the last also
+// holding the slice's V columns (and the int8 scales), so S sums every
+// column in the same order in every slice; both consumer groups take every
+// block, each keeping O for 128 of the slice's columns (64 registers), and
+// Q's fragments are read from L1 a k-step at a time. K is read once a
+// slice (from L2 after the first), V once; the merge workspace is the 256
+// instance's.
 #include <cooperative_groups.h>
 #include <stdint.h>
 #include <string.h>
@@ -143,6 +151,7 @@ struct DecodeArgs {
   bf16* o;              // (S, H, D)
   const int* lengths;   // (S,)
   int Hkv, rep, Lalloc, layer;
+  int D, slices;        // the head dim; above 256, its column slices of 256 (sliced kernel)
   long long sqs, sqh, skss, sksh, svss, svsh, sos, soh;
   float scale;          // D^-0.5
 };
@@ -228,65 +237,96 @@ __device__ __forceinline__ uint32_t swz(uint32_t box, int r, int c) {
   return box + r * 128 + ((c ^ (r & 7)) << 4);
 }
 
-template <typename T, int kD>
+// The sliced kernel (kSliced: kD = 256, the head dim a.D above it) walks each
+// block as nk = ceil(D / 256) stages: stage kc holds K's columns 256 kc ..
+// 256 kc + 255, and the last one also the 256 columns of V of the CTA's
+// slice `sl` (and, for int8, the block's scales). TMA fills columns past D
+// with zeros. Without kSliced a block is one stage of all kD columns.
+template <typename T, int kD, bool kSliced>
 __device__ __forceinline__ void producer(const DecodeArgs& a, uint32_t base, uint32_t full0,
-                                         uint32_t empty0, int s, int g, int j_lo, int j_hi) {
+                                         uint32_t empty0, int s, int g, int sl, int j_lo,
+                                         int j_hi) {
   using L = Layout<T, kD>;
   constexpr int kStages = L::kStages;
+  const int nk = kSliced ? (a.D + kD - 1) / kD : 1;
   const float* ksb = a.ks + s * a.skss + g * a.sksh;
   const float* vsb = a.vs + s * a.svss + g * a.svsh;
+  constexpr int kBoxCols = 128 / (int)sizeof(T);
   for (int j = j_lo; j < j_hi; ++j) {
-    const int i = j - j_lo, st = i % kStages;
-    if (i >= kStages) mbar_wait(empty0 + 8 * st, ((i / kStages) - 1) & 1);
-    const uint32_t full = full0 + 8 * st, dst = base + st * L::kStage;
-    mbar_expect_tx(full, L::kTxBytes);
+    for (int kc = 0; kc < nk; ++kc) {
+      const int i = (j - j_lo) * nk + kc, st = i % kStages;
+      const bool last = kc == nk - 1;
+      if (i >= kStages) mbar_wait(empty0 + 8 * st, ((i / kStages) - 1) & 1);
+      const uint32_t full = full0 + 8 * st, dst = base + st * L::kStage;
+      mbar_expect_tx(full, last ? L::kTxBytes : L::kBoxes * L::kBox);
 #pragma unroll
-    for (int b = 0; b < L::kBoxes; ++b) {
-      const int d0 = b * 128 / (int)sizeof(T);
-      tma_load_5d(dst + L::kK + b * L::kBox, &a.kmap, full, d0, g, j * kBlock, s, a.layer);
-      tma_load_5d(dst + L::kV + b * L::kBox, &a.vmap, full, d0, g, j * kBlock, s, a.layer);
-    }
-    if constexpr (L::kQuant) {
-      bulk_g2s(dst + L::kScales, ksb + (long long)j * kBlock, kBlock * 4, full);
-      bulk_g2s(dst + L::kScales + kBlock * 4, vsb + (long long)j * kBlock, kBlock * 4, full);
+      for (int b = 0; b < L::kBoxes; ++b) {
+        tma_load_5d(dst + L::kK + b * L::kBox, &a.kmap, full, kD * kc + b * kBoxCols, g,
+                    j * kBlock, s, a.layer);
+        if constexpr (!kSliced)
+          tma_load_5d(dst + L::kV + b * L::kBox, &a.vmap, full, b * kBoxCols, g, j * kBlock, s,
+                      a.layer);
+      }
+      if constexpr (kSliced) {
+        if (!last) continue;
+#pragma unroll
+        for (int b = 0; b < L::kBoxes; ++b)
+          tma_load_5d(dst + L::kV + b * L::kBox, &a.vmap, full, kD * sl + b * kBoxCols, g,
+                      j * kBlock, s, a.layer);
+      }
+      if constexpr (L::kQuant) {
+        bulk_g2s(dst + L::kScales, ksb + (long long)j * kBlock, kBlock * 4, full);
+        bulk_g2s(dst + L::kScales + kBlock * 4, vsb + (long long)j * kBlock, kBlock * 4, full);
+      }
     }
   }
 }
 
 // One consumer warp: 16 keys of every block of its group (blocks j_lo +
 // group, + kGroups, ...) with its own online softmax; leaves its partial
-// state (log2 domain) in the ring.
-template <typename T, int kD>
+// state (log2 domain) in the ring. Sliced: both groups take every block (a
+// block spans nk stages, and a stage consumed by one group only could be
+// waited for by the other a phase early), S sums the block's nk stages (the
+// same order in every slice and group, so both groups hold the same m and
+// l), and O holds the group's 128 of the slice's 256 columns; Q's fragments
+// are read from global memory (L1) a k-step at a time.
+template <typename T, int kD, bool kSliced>
 __device__ __forceinline__ void consumer(const DecodeArgs& a, unsigned char* smem, uint32_t base,
                                          uint32_t full0, uint32_t empty0, int s, int g,
                                          int len, int j_lo, int j_hi) {
   using L = Layout<T, kD>;
   constexpr int kStages = L::kStages;
+  constexpr bool kQSmem = L::kQSmem && !kSliced;
+  const int nk = kSliced ? (a.D + kD - 1) / kD : 1;
   constexpr int kAccStride = L::kAccStride;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wk = w % 4, group = w / 4;          // key slice, block parity
+  const int wk = w % 4, group = w / 4;          // key slice, block parity (sliced: column half)
   const int gq = lane >> 2, tq = lane & 3;      // mma fragment row group, thread in quad
   const int rep = a.rep;
+  constexpr int kOC = kSliced ? kD / 2 : kD;    // O columns a warp holds
+  const int oc0 = kSliced ? kOC * group : 0;    // their first, within the slice
 
   // Q as the A operand: rows gq and gq + 8 are q heads of this kv head (0
   // past rep); k-step kk takes the columns frag_d(kk, tq, 0..3), standing for
   // k = 2 tq, 2 tq + 1 | 2 tq + 8, 2 tq + 9. In registers, or at kQSmem in
   // shared memory (warp 0 writes them; every warp's lane reads the same).
-  uint32_t qa[L::kQSmem ? 1 : kD / 16][4];
+  uint32_t qa[kQSmem || kSliced ? 1 : kD / 16][4];
   const uint32_t qsm = base + L::kQ;
   const bf16* qg = a.q + s * a.sqs + (long long)g * rep * a.sqh;
+  int kc = 0;                                   // sliced: the stage's first column / kD
   auto load_q = [&](int kk, uint32_t (&f)[4]) {
+    const int d = kD * kc + frag_d<L::kQuant>(kk, tq, 0);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int h = gq + 8 * r;
       uint2 v = make_uint2(0u, 0u);
-      if (h < rep)
-        v = *reinterpret_cast<const uint2*>(qg + h * a.sqh + frag_d<L::kQuant>(kk, tq, 0));
+      if (h < rep && (!kSliced || d < a.D)) v = *reinterpret_cast<const uint2*>(qg + h * a.sqh + d);
       f[r] = v.x;
       f[2 + r] = v.y;
     }
   };
-  if constexpr (L::kQSmem) {
+  if constexpr (kSliced) {
+  } else if constexpr (kQSmem) {
     if (w == 0) {
 #pragma unroll 4
       for (int kk = 0; kk < kD / 16; ++kk) {
@@ -302,7 +342,11 @@ __device__ __forceinline__ void consumer(const DecodeArgs& a, unsigned char* sme
   }
   // c += Q's k-step kk times the B fragment (b0, b1)
   auto mma_q = [&](float (&c)[4], int kk, uint32_t b0, uint32_t b1) {
-    if constexpr (L::kQSmem) {
+    if constexpr (kSliced) {
+      uint32_t f[4];
+      load_q(kk, f);
+      mma16816(c, f, b0, b1);
+    } else if constexpr (kQSmem) {
       const uint4 v = lds_u128(qsm + (kk * 32 + lane) * 16);
       const uint32_t f[4] = {v.x, v.y, v.z, v.w};
       mma16816(c, f, b0, b1);
@@ -311,43 +355,66 @@ __device__ __forceinline__ void consumer(const DecodeArgs& a, unsigned char* sme
     }
   };
 
-  float o[kD / 8][4];                 // O: n-tile n holds d 8n + 2tq, +1 of rows gq | gq + 8
+  float o[kOC / 8][4];                // O: n-tile n holds d oc0 + 8n + 2tq, +1 of rows gq | gq + 8
 #pragma unroll
-  for (int n = 0; n < kD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int n = 0; n < kOC / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   const float qk_scale = a.scale * kLog2e;
   const uint32_t conv = base + L::kConv + w * 16 * L::kConvStride;
   const int vr = 16 * wk + (lane & 7) + ((lane >> 3) & 1) * 8;    // ldmatrix row (key)
 
-  for (int j = j_lo + group; j < j_hi; j += kGroups) {
-    const int i = j - j_lo, st = i % kStages;
-    const uint32_t stage = base + st * L::kStage;
-    mbar_wait(full0 + 8 * st, (i / kStages) & 1);
-    if (j * kBlock + 16 * wk < len) {             // else every p is 0: the state stays
-      // S = Q K^T: n-tile nt holds keys 16 wk + 8 nt + 2 tq, +1 of rows gq |
-      // gq + 8, summed in two chains (even and odd k-steps) for latency
-      float sc[2][2][4] = {};
+  // S += Q K^T over the K columns of `stage`: n-tile nt holds keys 16 wk + 8
+  // nt + 2 tq, +1 of rows gq | gq + 8, summed in two chains (even and odd
+  // k-steps) for latency
+  auto qk = [&](uint32_t stage, float (&sc)[2][2][4]) {
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int kr = 16 * wk + 8 * nt + gq;       // this lane's key row (B column)
+    for (int nt = 0; nt < 2; ++nt) {
+      const int kr = 16 * wk + 8 * nt + gq;       // this lane's key row (B column)
 #pragma unroll
-        for (int c = 0; c < 2 * L::kBoxes; ++c) {   // 16-byte loads: box c / 2, chunk 2 tq + c % 2
-          const uint4 kv = lds_u128(swz(stage + L::kK + (c / 2) * L::kBox, kr, 2 * tq + c % 2));
-          if constexpr (L::kQuant) {
-            uint32_t b[8];
-            i8x4_to_bf16(kv.x, b[0], b[1]);
-            i8x4_to_bf16(kv.y, b[2], b[3]);
-            i8x4_to_bf16(kv.z, b[4], b[5]);
-            i8x4_to_bf16(kv.w, b[6], b[7]);
+      for (int c = 0; c < 2 * L::kBoxes; ++c) {   // 16-byte loads: box c / 2, chunk 2 tq + c % 2
+        const uint4 kv = lds_u128(swz(stage + L::kK + (c / 2) * L::kBox, kr, 2 * tq + c % 2));
+        if constexpr (L::kQuant) {
+          uint32_t b[8];
+          i8x4_to_bf16(kv.x, b[0], b[1]);
+          i8x4_to_bf16(kv.y, b[2], b[3]);
+          i8x4_to_bf16(kv.z, b[4], b[5]);
+          i8x4_to_bf16(kv.w, b[6], b[7]);
 #pragma unroll
-            for (int e = 0; e < 4; ++e) mma_q(sc[nt][e & 1], 4 * c + e, b[2 * e], b[2 * e + 1]);
-          } else {
-            const int kk = 4 * (c / 2) + 2 * (c % 2);
-            mma_q(sc[nt][0], kk, kv.x, kv.y);
-            mma_q(sc[nt][1], kk + 1, kv.z, kv.w);
-          }
+          for (int e = 0; e < 4; ++e) mma_q(sc[nt][e & 1], 4 * c + e, b[2 * e], b[2 * e + 1]);
+        } else {
+          const int kk = 4 * (c / 2) + 2 * (c % 2);
+          mma_q(sc[nt][0], kk, kv.x, kv.y);
+          mma_q(sc[nt][1], kk + 1, kv.z, kv.w);
         }
       }
+    }
+  };
+
+  for (int j = j_lo + (kSliced ? 0 : group); j < j_hi; j += kSliced ? 1 : kGroups) {
+    const bool active = j * kBlock + 16 * wk < len;   // else every p is 0: the state stays
+    float sc[2][2][4] = {};
+    int st;
+    uint32_t stage;
+    if constexpr (kSliced) {             // the block's nk stages, S summed over them
+      for (kc = 0; kc < nk; ++kc) {
+        const int i = (j - j_lo) * nk + kc;
+        st = i % kStages;
+        stage = base + st * L::kStage;
+        mbar_wait(full0 + 8 * st, (i / kStages) & 1);
+        if (active) qk(stage, sc);
+        if (kc + 1 < nk) {               // a K stage before the block's last: done with it
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty0 + 8 * st);
+        }
+      }
+    } else {
+      const int i = j - j_lo;
+      st = i % kStages;
+      stage = base + st * L::kStage;
+      mbar_wait(full0 + 8 * st, (i / kStages) & 1);
+    }
+    if (active) {
+      if constexpr (!kSliced) qk(stage, sc);
       const float* ks_s = reinterpret_cast<const float*>(smem + st * L::kStage + L::kScales);
       const float* vs_s = ks_s + kBlock;
       float x[2][4];                                // logits, log2 domain
@@ -395,7 +462,7 @@ __device__ __forceinline__ void consumer(const DecodeArgs& a, unsigned char* sme
           pa[2 * nt + r] = pack_bf16(p[0], p[1]);
         }
 #pragma unroll
-      for (int n = 0; n < kD / 8; ++n) {
+      for (int n = 0; n < kOC / 8; ++n) {
         o[n][0] *= corr[0];
         o[n][1] *= corr[0];
         o[n][2] *= corr[1];
@@ -405,13 +472,13 @@ __device__ __forceinline__ void consumer(const DecodeArgs& a, unsigned char* sme
       // matrix lane / 8 of each: keys 0-7 | 8-15 (bit 0) x d 0-7 | 8-15 (bit
       // 1) of a 16-column step
       if constexpr (L::kQuant) {
-        // this warp's 16 int8 rows to bf16: lane -> row lane % 16, d kD / 2
-        // (lane / 16) .., kD / 32 chunks of 16 codes (chunk x: box x / 8)
+        // this warp's 16 int8 rows to bf16: lane -> row lane % 16, d oc0 +
+        // kOC / 2 (lane / 16) .., kOC / 32 chunks of 16 codes (chunk x: box x / 8)
         const int r = lane & 15, half = lane >> 4;
-        const uint32_t dst = conv + r * L::kConvStride + kD * half;
+        const uint32_t dst = conv + r * L::kConvStride + kOC * half;
 #pragma unroll
-        for (int it = 0; it < kD / 32; ++it) {
-          const int x = kD / 32 * half + it;
+        for (int it = 0; it < kOC / 32; ++it) {
+          const int x = oc0 / 16 + kOC / 32 * half + it;
           const uint4 c = lds_u128(swz(stage + L::kV + (x / 8) * L::kBox, 16 * wk + r, x % 8));
           uint32_t b[8];
           i8x4_to_bf16(c.x, b[0], b[1]);
@@ -424,7 +491,7 @@ __device__ __forceinline__ void consumer(const DecodeArgs& a, unsigned char* sme
         __syncwarp();
         const uint32_t vaddr = conv + (vr - 16 * wk) * L::kConvStride + (lane >> 4) * 16;
 #pragma unroll
-        for (int p2 = 0; p2 < kD / 16; ++p2) {
+        for (int p2 = 0; p2 < kOC / 16; ++p2) {
           uint32_t b0, b1, b2, b3;
           ldsm_x4_trans(vaddr + 32 * p2, b0, b1, b2, b3);
           mma16816(o[2 * p2], pa, b0, b1);
@@ -432,9 +499,10 @@ __device__ __forceinline__ void consumer(const DecodeArgs& a, unsigned char* sme
         }
       } else {
 #pragma unroll
-        for (int p2 = 0; p2 < kD / 16; ++p2) {
+        for (int p2 = 0; p2 < kOC / 16; ++p2) {
+          const int c16 = oc0 / 16 + p2;            // the step's 16 columns / 16
           uint32_t b0, b1, b2, b3;
-          ldsm_x4_trans(swz(stage + L::kV + (p2 / 4) * L::kBox, vr, 2 * (p2 % 4) + (lane >> 4)),
+          ldsm_x4_trans(swz(stage + L::kV + (c16 / 4) * L::kBox, vr, 2 * (c16 % 4) + (lane >> 4)),
                         b0, b1, b2, b3);
           mma16816(o[2 * p2], pa, b0, b1);
           mma16816(o[2 * p2 + 1], pa, b2, b3);
@@ -459,8 +527,8 @@ __device__ __forceinline__ void consumer(const DecodeArgs& a, unsigned char* sme
     const int h = gq + 8 * r;
     if (h < rep) {
 #pragma unroll
-      for (int n = 0; n < kD / 8; ++n)
-        *reinterpret_cast<float2*>(wacc + h * kAccStride + 8 * n + 2 * tq) =
+      for (int n = 0; n < kOC / 8; ++n)
+        *reinterpret_cast<float2*>(wacc + h * kAccStride + oc0 + 8 * n + 2 * tq) =
             make_float2(o[n][2 * r], o[n][2 * r + 1]);
       if (tq == 0) {
         wm[h] = m[r];
@@ -470,7 +538,8 @@ __device__ __forceinline__ void consumer(const DecodeArgs& a, unsigned char* sme
   }
   named_bar_sync(1, 32 * kWarps);
   // the CTA's partial state: the warps merged in warp order, the (head, dim)
-  // pairs spread over the consumer threads
+  // pairs spread over the consumer threads (sliced: the 4 warps of the
+  // column's group)
   const float* wacc0 = reinterpret_cast<const float*>(smem + L::kWarpAcc);
   const float* wm0 = reinterpret_cast<const float*>(smem + L::kWarpM);
   const float* wl0 = reinterpret_cast<const float*>(smem + L::kWarpL);
@@ -479,18 +548,20 @@ __device__ __forceinline__ void consumer(const DecodeArgs& a, unsigned char* sme
   float* cl = reinterpret_cast<float*>(smem + L::kCtaL);
   for (int idx = threadIdx.x; idx < rep * kD; idx += 32 * kWarps) {
     const int h = idx / kD, d = idx % kD;
-    float mw[kWarps], M = kNegInf;
+    constexpr int kMerged = kSliced ? 4 : kWarps;
+    const int w0 = kSliced ? 4 * (d / kOC) : 0;
+    float mw[kMerged], M = kNegInf;
 #pragma unroll
-    for (int ww = 0; ww < kWarps; ++ww) {
-      mw[ww] = wm0[ww * kMaxRep + h];
-      M = fmaxf(M, mw[ww]);
+    for (int q = 0; q < kMerged; ++q) {
+      mw[q] = wm0[(w0 + q) * kMaxRep + h];
+      M = fmaxf(M, mw[q]);
     }
     float num = 0.f, den = 0.f;
 #pragma unroll
-    for (int ww = 0; ww < kWarps; ++ww) {
-      const float wt = ex2(mw[ww] - M);
-      den += wt * wl0[ww * kMaxRep + h];
-      num += wt * wacc0[(ww * kMaxRep + h) * kAccStride + d];
+    for (int q = 0; q < kMerged; ++q) {
+      const float wt = ex2(mw[q] - M);
+      den += wt * wl0[(w0 + q) * kMaxRep + h];
+      num += wt * wacc0[((w0 + q) * kMaxRep + h) * kAccStride + d];
     }
     cacc[h * kAccStride + d] = num;
     if (d == 0) {
@@ -500,7 +571,7 @@ __device__ __forceinline__ void consumer(const DecodeArgs& a, unsigned char* sme
   }
 }
 
-template <typename T, int kD>
+template <typename T, int kD, bool kSliced>
 __global__ void __launch_bounds__(kThreads, 1)
     paged_decode_kernel(const __grid_constant__ DecodeArgs a) {
   using L = Layout<T, kD>;
@@ -511,14 +582,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();      // the cluster spans grid x
   const int n_split = (int)cluster.num_blocks();
-  const int g = blockIdx.y, s = blockIdx.z;
+  // grid y: kv head g, or (sliced) kv head g's column slice sl
+  const int g = kSliced ? blockIdx.y / a.slices : blockIdx.y, s = blockIdx.z;
+  const int sl = kSliced ? blockIdx.y % a.slices : 0;
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
   const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * kStages;
   if (threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) {
       mbar_init(full0 + 8 * i, 1);            // the producer's expect_tx
-      mbar_init(empty0 + 8 * i, 4);           // one arrive per warp of the consuming group
+      // one arrive per warp of the consuming group (sliced: of both groups)
+      mbar_init(empty0 + 8 * i, kSliced ? kWarps : 4);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -535,13 +609,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   __syncthreads();
   if (threadIdx.x >= 32 * kWarps) {
-    if (threadIdx.x == 32 * kWarps) producer<T, kD>(a, base, full0, empty0, s, g, j_lo, j_hi);
+    if (threadIdx.x == 32 * kWarps)
+      producer<T, kD, kSliced>(a, base, full0, empty0, s, g, sl, j_lo, j_hi);
   } else {
-    consumer<T, kD>(a, smem, base, full0, empty0, s, g, len, j_lo, j_hi);
+    consumer<T, kD, kSliced>(a, smem, base, full0, empty0, s, g, len, j_lo, j_hi);
   }
 
   cluster.sync();                              // every rank's partial state is written
-  if (threadIdx.x < kD) {
+  if (threadIdx.x < kD && (!kSliced || kD * sl + (int)threadIdx.x < a.D)) {
     const int d = threadIdx.x;
     const float* cacc = reinterpret_cast<const float*>(smem + L::kCtaAcc);
     const float* cm = reinterpret_cast<const float*>(smem + L::kCtaM);
@@ -571,7 +646,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         den += wt * lr[r];
         num += wt * ar[r];
       }
-      a.o[s * a.sos + (g * a.rep + h) * a.soh + d] = __float2bfloat16(den == 0.f ? 0.f : num / den);
+      a.o[s * a.sos + (g * a.rep + h) * a.soh + kD * sl + d] =
+          __float2bfloat16(den == 0.f ? 0.f : num / den);
     }
   }
   cluster.sync();                              // no CTA leaves while another reads it
@@ -601,18 +677,18 @@ inline int encode_cache(CUtensorMap* map, const void* ptr, bool quant, const Dec
   return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
 }
 
-template <typename T, int kD>
+template <typename T, int kD, bool kSliced = false>
 int launch(const DecodeArgs& a, int S, int n_split, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<T, kD>,
+    cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<T, kD, kSliced>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            Layout<T, kD>::kSmem);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_split, a.Hkv, S);
+  cfg.gridDim = dim3(n_split, a.Hkv * (kSliced ? a.slices : 1), S);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = Layout<T, kD>::kSmem;
   cfg.stream = stream;
@@ -627,16 +703,17 @@ int launch(const DecodeArgs& a, int S, int n_split, cudaStream_t stream) {
   attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 2;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, paged_decode_kernel<T, kD>, a);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, paged_decode_kernel<T, kD, kSliced>, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// The head dims the kernels are compiled for: 128 and 256, where D % 128 == 0
-// (ops/decode_attention.py KERNEL_HEAD_DIMS).
+// The head dims the kernels take: every multiple of 128, as the JAX package
+// routes its decode kernel (ops/decode_attention.py KERNEL_HEAD_DIM_UNIT);
+// instances of 128 and 256 columns, and above 256 the sliced one.
 inline bool bad_shape(const DecodeShape& sh) {
   const int n = sh.n_split;
-  return sh.S <= 0 || (sh.D != 128 && sh.D != 256) || sh.Hkv <= 0 || sh.H % sh.Hkv != 0 ||
+  return sh.S <= 0 || sh.D <= 0 || sh.D % 128 != 0 || sh.Hkv <= 0 || sh.H % sh.Hkv != 0 ||
          sh.H / sh.Hkv > kMaxRep || sh.Lalloc <= 0 || sh.Lalloc % kBlock != 0 || n < 1 ||
          n > kMaxCluster || (n & (n - 1)) != 0 || sh.n_layers < 1;
 }
@@ -689,7 +766,12 @@ extern "C" int socio_paged_decode(int quant, const void* q, const void* maps, co
   a.sos = sh.sos;
   a.soh = sh.soh;
   a.scale = sh.scale;
+  a.D = sh.D;
+  a.slices = socio90::head_dim_slices(sh.D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (sh.D > 256)
+    return quant ? launch<int8_t, 256, true>(a, sh.S, sh.n_split, st)
+                 : launch<bf16, 256, true>(a, sh.S, sh.n_split, st);
   if (sh.D == 256)
     return quant ? launch<int8_t, 256>(a, sh.S, sh.n_split, st)
                  : launch<bf16, 256>(a, sh.S, sh.n_split, st);

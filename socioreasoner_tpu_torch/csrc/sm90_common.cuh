@@ -287,23 +287,33 @@ inline int encode_pair(CUtensorMap* main_map, CUtensorMap* tail_map, const void*
 // and 256; kernels 5 and 6 64, 128 and 256. A head dim d that is a multiple
 // of 8 (a row of 16-byte units, which a tensor map's stride needs) and at
 // most 256 runs on the smallest instance of at least d columns, its tail
-// zero-filled by TMA and never stored; the host pads any other d <= 256 to
-// the next multiple of 8 first (ops/flash_attention.py head_dim_plan, held
-// to this formula by socio_head_dim_instance). Returns 0 where no instance
-// serves d. Above 256 the f32 accumulators of a 64-row tile (a 64 x 512 O is
-// 256 registers a thread) no longer fit a thread: D would have to be split
-// over CTAs.
+// zero-filled by TMA and never stored; the host pads any other d to the next
+// multiple of 8 first (ops/flash_attention.py head_dim_plan, held to this
+// formula by socio_head_dim_instance and socio_head_dim_slices). Returns 0
+// where d is no such width. Above 256 the f32 accumulators of a 64-row tile
+// (a 64 x 512 O is 256 registers a thread) no longer fit a thread, so d runs
+// on the 256 instance's accumulators in head_dim_slices(d) = ceil(d / 256)
+// column slices: a slice's CTA (or work item) computes S = Q K^T (and dP =
+// dO V^T) over all d columns, streamed in 64-column chunks, and keeps only
+// its own 256 columns of O, dQ, dK or dV, so no slice needs another's result.
+constexpr int kSliceCols = 256;
 constexpr int kGqaDims[4] = {64, 80, 128, 256};
 constexpr int kSegDims[3] = {80, 128, 256};
 constexpr int kBwdDims[3] = {64, 128, 256};
+static_assert(kGqaDims[3] == kSliceCols && kSegDims[2] == kSliceCols &&
+                  kBwdDims[2] == kSliceCols,
+              "the widest instance takes the column slices");
 
 template <int N>
 inline int head_dim_instance(const int (&dims)[N], int d) {
   if (d <= 0 || d % 8 != 0) return 0;
   for (int i = 0; i < N; ++i)
     if (d <= dims[i]) return dims[i];
-  return 0;
+  return dims[N - 1];
 }
+
+// The column slices head dim d (a multiple of 8) runs in: 1 up to 256.
+inline int head_dim_slices(int d) { return d <= kSliceCols ? 1 : (d + kSliceCols - 1) / kSliceCols; }
 
 inline int num_sms() {
   static int n = 0;

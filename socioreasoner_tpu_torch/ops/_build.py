@@ -43,6 +43,8 @@ SIGNATURES = {
         [_I] * 5 + [_P],
     "socio_head_dim_instance":
         [_I] * 2,
+    "socio_head_dim_slices":
+        [_I] * 2,
     "socio_flash_segmented_bf16":
         [_P] * 7 + [_I] * 4 + [_LL] * 8 + [_F, _P],
     "socio_paged_decode_encode":

@@ -35,13 +35,17 @@ import torch
 
 from . import _build
 from .attention import dense_attention
-from .flash_attention import check_shapes
+from .flash_attention import check_shapes, head_dim_plan
 from .quant import _INV127
 
 KERNEL_BLOCK = 64         # cache rows per kernel block; Lalloc must be a multiple
-# the head dims kernels 3 and 3q are compiled for (csrc/paged_decode.cu
-# bad_shape): those with D % 128 == 0 up to 256, where the JAX package routes
-# its decode kernel; the models decode other head dims densely
+# the head dims kernels 3 and 3q take (csrc/paged_decode.cu bad_shape): every
+# multiple of KERNEL_HEAD_DIM_UNIT, where the JAX package routes its decode
+# kernel; the models decode other head dims densely. KERNEL_HEAD_DIMS are the
+# instances compiled for them; a wider head dim runs on the sliced 256 one,
+# ceil(D / 256) column slices a (slot, kv head), each slice's CTAs computing
+# Q K^T over every column and keeping their slice's columns of O.
+KERNEL_HEAD_DIM_UNIT = 128
 KERNEL_HEAD_DIMS = (128, 256)
 KERNEL_MAX_REP = 16       # q heads per kv head: the kernel's 16 mma rows
 CLUSTER_LIMIT = 8         # CTAs a (slot, kv head) is split over: the portable cluster size
@@ -93,17 +97,25 @@ def paged_decode_attention_int8_reference(q, k_cache, v_cache, lengths, k_scale,
 
 # ------------------------------------------------------------------ the plan
 
-def split_count(S: int, Hkv: int, Lalloc: int, sms: int) -> int:
-    """CTAs a (slot, kv head) is split over: the largest power of two up to
-    CLUSTER_LIMIT and the cache's Lalloc / 64 blocks with S * Hkv * n_split
-    CTAs on no more than the card's `sms` SMs (1 where S * Hkv > sms / 2).
+def decode_slices(D: int) -> int:
+    """Column slices the decode kernel runs head dim D in (1 up to 256):
+    head_dim_plan's, the rule of csrc head_dim_slices."""
+    return head_dim_plan(D, KERNEL_HEAD_DIMS).slices
+
+
+def split_count(S: int, Hkv: int, Lalloc: int, sms: int, slices: int = 1) -> int:
+    """CTAs a (slot, kv head, column slice) is split over: the largest power
+    of two up to CLUSTER_LIMIT and the cache's Lalloc / 64 blocks with S *
+    Hkv * slices * n_split CTAs on no more than the card's `sms` SMs (1
+    where S * Hkv * slices > sms / 2).
     Clusters of 16 (the non-portable size) measured slower at S = 4 on an
     H100 SXM: their scheduling cost more than the split saved. The head dim
-    does not enter: at 256 a block's bytes double, which makes the split no
-    less worth its merge, and the merge's state is still one row a q head."""
+    enters only through its slices: at 256 a block's bytes double, which
+    makes the split no less worth its merge, and the merge's state is still
+    one row a q head."""
     n = 1
     while (2 * n <= CLUSTER_LIMIT and 2 * n * KERNEL_BLOCK <= Lalloc
-           and S * Hkv * 2 * n <= sms):
+           and S * Hkv * slices * 2 * n <= sms):
         n *= 2
     return n
 
@@ -221,12 +233,12 @@ def _make_plan(q, k, v, ks, vs, lengths, stacked) -> DecodePlan:
     lead = 1 if stacked else 0
     _check_decode_shapes(name, q, k, v, lengths, ks, vs, lead)
     Lalloc, Hkv = k.shape[lead + 1], k.shape[lead + 2]
-    if D not in KERNEL_HEAD_DIMS or H % Hkv or H // Hkv > KERNEL_MAX_REP:
+    if D <= 0 or D % KERNEL_HEAD_DIM_UNIT or H % Hkv or H // Hkv > KERNEL_MAX_REP:
         raise ValueError(f"{name} kernel: unsupported H={H} Hkv={Hkv} D={D}")
     _check_tensors(name, quant, q, (k, v), (ks, vs) if quant else ())
     if Lalloc % KERNEL_BLOCK:
         raise ValueError(f"cache length {Lalloc} must be a multiple of {KERNEL_BLOCK}")
-    n_split = split_count(S, Hkv, Lalloc, _sm_count(q.get_device()))
+    n_split = split_count(S, Hkv, Lalloc, _sm_count(q.get_device()), decode_slices(D))
     layer = lambda t: _strides(t)[0] if stacked else 0    # noqa: E731
     strides = [*_strides(q)[:2], layer(k), *_strides(k)[lead:lead + 3],
                layer(v), *_strides(v)[lead:lead + 3]]

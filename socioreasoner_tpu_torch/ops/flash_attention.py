@@ -9,9 +9,11 @@ The counterpart of socioreasoner_tpu/ops/flash_attention.py:
                               packed ViT sequence (csrc/flash_segmented.cu)
 
 Both kernels are the persistent TMA + wgmma CTA of csrc/attention_sm90.cuh,
-compiled for a few head-dim instances; head_dim_plan maps any head dim up to
-256 onto one (zero-filled tail columns, a host pad where D is not a multiple
-of 8) and the wrappers raise for a larger one, naming H, Hkv and D.
+compiled for a few head-dim instances; head_dim_plan maps any head dim onto
+one (zero-filled tail columns, a host pad where D is not a multiple of 8),
+a head dim above 256 onto the 256 instance's accumulators in column slices
+of 256 (the sliced CTA: each slice computes Q K^T over all columns and keeps
+its own columns of O).
 Kernel 1 walks a work list built here from the segment ids
 (seg_tile_plan); kernel 2 derives its k ranges on the device from kv_len
 (prefill_tile_bounds is the host copy of that formula).
@@ -39,26 +41,38 @@ KERNEL_K_TILE = 128     # keys per K/V tile of kernels 1, 2, 4 and 5 (the 256-co
 # The head-dim instances (the columns of a kernel's tiles) each kernel is
 # compiled for, as csrc/sm90_common.cuh lists them (kGqaDims, kSegDims):
 # kernels 2 and 4 64, 80, 128 and 256, kernel 1 80, 128 and 256. Any head dim
-# up to 256 runs on one of them (head_dim_plan); a larger one raises (a
-# 64 x 512 f32 accumulator would be 256 registers a thread).
+# up to 256 runs on one of them (head_dim_plan); a wider one on the 256
+# instance's accumulators in column slices of SLICE_COLS (a 64 x 512 f32
+# accumulator would be 256 registers a thread).
 KERNEL_HEAD_DIMS = (64, 80, 128, 256)
 SEG_HEAD_DIMS = (80, 128, 256)
 HEAD_DIM_ALIGN = 8      # 16-byte rows: what a tensor map's head stride needs
+SLICE_COLS = 256        # columns of O (dQ, dK, dV) a slice keeps: csrc kSliceCols
 
 
-def head_dim_plan(D: int, instances) -> Optional["tuple[int, int]"]:
+class HeadDimPlan(NamedTuple):
+    width: int          # the width the wrapper hands the kernel
+    instance: int       # the instance it runs on
+    slices: int         # column slices of SLICE_COLS: 1 up to 256
+
+
+def head_dim_plan(D: int, instances) -> Optional[HeadDimPlan]:
     """How a kernel compiled for `instances` serves head dim D: (the width
-    the wrapper hands it, the instance it runs on), or None where no instance
-    covers D. The width is D, or D padded with zero columns to the next
-    multiple of HEAD_DIM_ALIGN where D is not one (OpenLLaMA-3B's 100 → 104:
-    a row of 200 bytes cannot be a tensor map's stride); the instance is the
-    smallest one of at least that width, whose columns past it TMA fills
-    with zeros and the epilogue never stores. The host copy of
-    head_dim_instance in csrc/sm90_common.cuh (socio_head_dim_instance runs
-    it on the host)."""
+    the wrapper hands it, the instance it runs on, its column slices), or
+    None for D <= 0. The width is D, or D padded with zero columns to the
+    next multiple of HEAD_DIM_ALIGN where D is not one (OpenLLaMA-3B's 100 →
+    104: a row of 200 bytes cannot be a tensor map's stride); the instance
+    is the smallest one of at least that width, whose columns past it TMA
+    fills with zeros and the epilogue never stores; a width above the widest
+    instance (256) runs on it in ceil(width / 256) column slices. The host
+    copy of head_dim_instance and head_dim_slices in csrc/sm90_common.cuh
+    (socio_head_dim_instance and socio_head_dim_slices run them on the
+    host)."""
+    if D <= 0:
+        return None
     width = -(-D // HEAD_DIM_ALIGN) * HEAD_DIM_ALIGN
-    inst = next((n for n in instances if n >= width), None)
-    return None if D <= 0 or inst is None else (width, inst)
+    inst = next((n for n in instances if n >= width), instances[-1])
+    return HeadDimPlan(width, inst, 1 if width <= SLICE_COLS else -(-width // SLICE_COLS))
 
 
 def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -372,7 +386,7 @@ def flash_attention_segmented(
     if S == 0:
         return torch.empty_like(q)
     widths = head_dim_plan(D, SEG_HEAD_DIMS)
-    if widths is None:
+    if widths is None:                    # D = 0
         raise ValueError(f"flash_attention_segmented kernel: unsupported H={H} D={D}")
     Dp = widths[0]
     q, k, v = (pad_head_dim(x, Dp) for x in (q, k, v))

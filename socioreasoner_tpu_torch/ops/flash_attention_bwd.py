@@ -35,7 +35,10 @@ Head dims: kernel 4 runs on kernel 2's instances (64, 80, 128, 256 columns),
 kernels 5 and 6 on 64, 128 and 256 (TRAIN_HEAD_DIMS); any head dim up to 256
 runs on the smallest instance that covers it (head_dim_plan: the tail columns
 zero-filled by TMA, q/k/v/dO padded on the host where D is not a multiple of
-8), a larger one raises ValueError naming H, Hkv and D.
+8), a wider one on the 256 instance in column slices of 256: kernels 4 and 5
+take (item, slice) work items, kernel 6 one CTA a (plan CTA, slice), each
+computing S and dP over every column and keeping its slice of O, dQ, dK or
+dV.
 
 Conventions of the JAX kernels, kept by the kernels and the plain versions:
 the mask is key < kv_len (a contiguous valid prefix per batch row) and, when
@@ -63,7 +66,7 @@ from .flash_attention import (KERNEL_HEAD_DIMS, KERNEL_Q_TILE, check_kernel_inpu
 
 # the head-dim instances kernels 5 and 6 are compiled for (csrc/sm90_common.cuh
 # kBwdDims; kernel 4 is kernel 2's CTA, KERNEL_HEAD_DIMS): any head dim up to
-# 256 runs on one of them (head_dim_plan), a larger one raises
+# 256 runs on one of them (head_dim_plan), a wider one on 256 in slices
 TRAIN_HEAD_DIMS = (64, 128, 256)
 
 DKV_K_TILE = 128    # keys per kernel-6 work item (2 consumer warpgroups x 64)
@@ -208,9 +211,15 @@ def dkv_tile_plan(kv_lens, Lq: int, Lk: int, Hkv: int, rep: int, causal: bool,
 def dkv_slot_floats(head_dim: Optional[int] = None) -> int:
     """Floats of one workspace slot of kernel 6 (a piece's f32 dK and dV
     partials of DKV_K_TILE keys) for head dim `head_dim`: the slot of the
-    instance that serves it, at least DKV_SLOT_FLOATS (None: that)."""
+    instance that serves it, times its column slices (each slice's CTA adds
+    its own part), at least DKV_SLOT_FLOATS (None: that)."""
     plan = None if head_dim is None else head_dim_plan(head_dim, TRAIN_HEAD_DIMS)
-    return max(DKV_SLOT_FLOATS, DKV_K_TILE * plan[1] * 2 if plan else 0)
+    return max(DKV_SLOT_FLOATS, DKV_K_TILE * plan.instance * 2 * plan.slices if plan else 0)
+
+
+def dkv_slices(head_dim: Optional[int] = None) -> int:
+    """Column slices kernel 6 runs head dim `head_dim` in (None: 1)."""
+    return 1 if head_dim is None else head_dim_plan(head_dim, TRAIN_HEAD_DIMS).slices
 
 
 class DkvPlan(NamedTuple):
@@ -218,10 +227,11 @@ class DkvPlan(NamedTuple):
     items: torch.Tensor       # (n_items, 12) int32, dkv_tile_plan's rows in CTA order
     cta_start: torch.Tensor   # (n_cta + 1,) int32
     workspace: torch.Tensor   # (n_slots, dkv_slot_floats(head_dim)) f32 partials of split pieces
-    counters: torch.Tensor    # (2 x split tiles,) int32 arrival counts, 0 between launches
+    counters: torch.Tensor    # (2 x split tiles x slices,) int32 arrival counts, 0 between launches
     key: tuple                # the (B, Lq, Lk, H, Hkv, causal) it was built for
     n_cta: int
     lens: tuple               # the kv lengths it was built for, clipped to [0, Lk], on the host
+    slices: int = 1           # the column slices its workspace and counters hold
 
 
 def dkv_plan(kv_lens: Optional[torch.Tensor], B: int, Lq: int, Lk: int, H: int, Hkv: int,
@@ -230,7 +240,9 @@ def dkv_plan(kv_lens: Optional[torch.Tensor], B: int, Lq: int, Lk: int, H: int, 
     """Kernel 6's plan (dkv_tile_plan, with its `cap`) for these kv lengths
     on `device`, with its workspace and zeroed arrival counters. The
     workspace's slots fit the instance of `head_dim` (dkv_slot_floats; None:
-    any head dim up to 128, the wrapper refusing a plan too narrow). Reads
+    any head dim up to 128, the wrapper refusing a plan too narrow); above
+    256 the slots and counters hold each column slice's, and the share of
+    the SMs is cut for n_sm // slices CTAs, since each runs once a slice. Reads
     kv_lens on the host (a GPU tensor is copied, a synchronisation), so a
     caller that runs many layers over the same lengths builds it once and
     passes it as `plan=`; the kernel reads the lengths from the plan and
@@ -242,15 +254,16 @@ def dkv_plan(kv_lens: Optional[torch.Tensor], B: int, Lq: int, Lk: int, H: int, 
                    else torch.as_tensor(kv_lens).detach().to("cpu").numpy(), 0, Lk)
     n_sm = (torch.cuda.get_device_properties(device).multi_processor_count
             if device.type == "cuda" else N_SM)
+    slices = dkv_slices(head_dim)
     items, cta_start, n_split, n_slots = dkv_tile_plan(lens, Lq, Lk, Hkv, H // Hkv, causal,
-                                                       n_sm, cap)
+                                                       max(n_sm // slices, 1), cap)
     return DkvPlan(torch.as_tensor(items, device=device),
                    torch.as_tensor(cta_start, device=device),
                    torch.empty((n_slots, dkv_slot_floats(head_dim)), dtype=torch.float32,
                                device=device),
-                   torch.zeros(2 * n_split, dtype=torch.int32, device=device),
+                   torch.zeros(2 * n_split * slices, dtype=torch.int32, device=device),
                    (B, Lq, Lk, H, Hkv, bool(causal)), len(cta_start) - 1,
-                   tuple(int(n) for n in lens.reshape(-1)))
+                   tuple(int(n) for n in lens.reshape(-1)), slices)
 
 
 def flash_attention_bwd_dkv_by_plan(q, k, v, do, lse, delta, items, causal: bool = True):
@@ -414,10 +427,11 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_lens=None, *, causal: bo
     Dp = qp.shape[-1]
     if plan is None:
         plan = dkv_plan(kv_lens, *key, q.device, head_dim=Dp)
-    if plan.workspace.shape[1] < dkv_slot_floats(Dp):
+    if plan.workspace.shape[1] < dkv_slot_floats(Dp) or plan.slices < dkv_slices(Dp):
         raise ValueError(f"flash_attention_bwd_dkv: a plan's workspace slots of "
-                         f"{plan.workspace.shape[1]} floats, head dim {D} needs "
-                         f"{dkv_slot_floats(Dp)} (dkv_plan(..., head_dim={D}))")
+                         f"{plan.workspace.shape[1]} floats for {plan.slices} column "
+                         f"slice(s), head dim {D} needs {dkv_slot_floats(Dp)} for "
+                         f"{dkv_slices(Dp)} (dkv_plan(..., head_dim={D}))")
     dk = torch.empty_like(kp, memory_format=torch.contiguous_format)
     dv = torch.empty_like(vp, memory_format=torch.contiguous_format)
     rc = _build.library().socio_flash_train_dkv_bf16(

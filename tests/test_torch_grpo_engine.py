@@ -120,11 +120,12 @@ def test_chip_smoke_grpo_path_on_cpu(tmp_path):
                                      processor=processor, prompt_length=640,
                                      response_length=8)
     p1, p2 = stats["pass1"], stats["pass2"]
-    assert stats["samples_per_step"] == 16 and p1["steps"] == 2
+    assert stats["samples_per_step"] == 16 and p1["steps"] == chip_smoke.GRPO_CUTS["max_steps"]
     assert p1["cache_slots"] == 24 and p1["launches"] == {} == p2["launches"]
     assert p1["train_shapes"] == [(2, 648)] and p1["logprob_shapes"] == [(8, 648)]
     assert p1["forked_requests"] > 0 and p1["engine_steps"] > 0
-    assert {"val_iou/mean"} <= set(p1["metrics"]) and len(p1["train_s_per_stage"]) == 4
+    assert {"val_iou/mean"} <= set(p1["metrics"])
+    assert len(p1["train_s_per_stage"]) == 2 * chip_smoke.GRPO_CUTS["max_steps"]   # map, sat
     assert all(r["s1"][1] <= 8 and r["s2"][1] <= 8 for r in p1["response_lens"])
     assert p2["recomputed_equal"] and p2["reference_logprobs_unchanged"]
     assert min(p2["grad_norm"]) > 0 and p2["actor_logprob_max_abs_move"] > 0

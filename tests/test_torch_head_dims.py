@@ -2,10 +2,11 @@
 
 The host's instance sets (KERNEL_HEAD_DIMS, SEG_HEAD_DIMS, TRAIN_HEAD_DIMS
 and the decode kernel's KERNEL_HEAD_DIMS) are pinned to the instances the
-CUDA sources dispatch, and the wrappers refuse a head dim above 256 with an
-error naming H, Hkv and D (every head dim up to 256 runs:
-tests/test_torch_head_dims_any.py), the decode kernel any head dim but 128
-and 256. The cached decoder routes as the JAX package does: the decode
+CUDA sources dispatch; a head dim above 256 reaches the kernels' sliced
+instances (the wrappers hand them the padded width, kernel 6's plan holds
+every slice's workspace and counters), and the decode kernel refuses any
+head dim that is no multiple of 128, naming H, Hkv and D (the numerics of
+every width: tests/test_torch_head_dims_any.py). The cached decoder routes as the JAX package does: the decode
 kernel (kernels 3/3q) where head_dim is a multiple of 128, dense attention
 over the layer's cache otherwise (an int8 cache dequantized first). At head_dim 64 (Qwen2.5-0.5B,
 Llama-3.2) a cached prefill and three decode steps of the port equal the
@@ -82,43 +83,99 @@ def test_host_head_dims_are_the_dispatched_instances(source, entry, host):
 
 
 def test_decode_head_dims_are_the_dispatched_instances():
-    """The decode kernel's head dims (decode_attention.KERNEL_HEAD_DIMS) are
-    those bad_shape admits and socio_paged_decode instantiates, for both
-    the bf16 and the int8 cache, in order."""
-    admitted = re.findall(r"sh\.D != (\d+)", _body("paged_decode.cu", "inline bool bad_shape("))
+    """The decode kernel takes every head dim that is a multiple of
+    KERNEL_HEAD_DIM_UNIT (128), the rule bad_shape applies, on the instances
+    socio_paged_decode launches for both the bf16 and the int8 cache:
+    KERNEL_HEAD_DIMS, in order, and above 256 the sliced 256 one."""
+    bad = _body("paged_decode.cu", "inline bool bad_shape(")
+    assert f"sh.D % {da.KERNEL_HEAD_DIM_UNIT} != 0" in bad and "sh.D != " not in bad
     body = _body("paged_decode.cu", 'extern "C" int socio_paged_decode(int quant')
-    launched = {(t, int(d)) for t, d in re.findall(r"launch<(int8_t|bf16), (\d+)>", body)}
-    assert tuple(int(d) for d in admitted) == da.KERNEL_HEAD_DIMS == (128, 256)
-    assert launched == {(t, d) for t in ("int8_t", "bf16") for d in da.KERNEL_HEAD_DIMS}
+    launched = set(re.findall(r"launch<(int8_t|bf16), (\d+)(, true)?>", body))
+    assert launched == {(t, str(d), "") for t in ("int8_t", "bf16") for d in da.KERNEL_HEAD_DIMS} \
+        | {(t, "256", ", true") for t in ("int8_t", "bf16")}
+    assert "if (sh.D > 256)" in body and da.KERNEL_HEAD_DIMS == (128, 256)
+    assert [da.decode_slices(d) for d in (128, 256, 384, 512, 640)] == [1, 1, 2, 2, 3]
 
 
-@pytest.mark.parametrize("D", [264, 384])
-def test_wrappers_refuse_other_head_dims_naming_them(D, monkeypatch):
-    """A head dim above 256 (no instance covers it) raises ValueError naming
-    H, Hkv and D before any pointer is passed: the tensors are made to read
-    as CUDA tensors that pass the device and type checks. The decode kernels
-    (3 and 3q) refuse it too, and 192, which no decode instance takes (the
-    models decode it densely), forced onto them."""
+class _Recorder:
+    """A stand-in kernel library: records every entry point's arguments and
+    returns success without launching anything."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.mark.parametrize("D", [264, 384, 512])
+def test_wrappers_hand_wide_head_dims_to_the_kernels(D, monkeypatch):
+    """A head dim above 256 reaches the kernels, which run it on their 256
+    instance in column slices (the calls recorded by a stand-in library;
+    the tensors made to read as CUDA tensors that pass the device and type
+    checks): kernel 2 gets the width D and returns D columns; kernels 4-6's
+    operands keep the width D and kernel 6's plan holds the slices' longer
+    workspace slots and counters, while a plan for the default width is
+    refused; the decode kernels (3 and 3q) take D where it is a multiple of
+    128, with n_split counted over the slices' CTAs."""
+    rec = _Recorder()
     q = torch.zeros(1, 8, 4, D, dtype=torch.bfloat16)
     k = torch.zeros(1, 8, 2, D, dtype=torch.bfloat16)
     monkeypatch.setattr(torch.Tensor, "is_cpu", property(lambda self: False))
     monkeypatch.setattr(fa, "check_kernel_inputs", lambda *a: None)
     monkeypatch.setattr(fb, "check_kernel_inputs", lambda *a: None)
-    monkeypatch.setattr(fa._build, "library", lambda: pytest.fail("a pointer was passed"))
-    with pytest.raises(ValueError, match=rf"H=4 Hkv=2 D={D}"):
-        fa.flash_attention(q, k, k)
+    monkeypatch.setattr(fa._build, "library", lambda: rec)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 0, raising=False)
+    out = fa.flash_attention(q, k, k)
+    (name, args), = rec.calls
+    assert name == "socio_flash_prefill_bf16" and args[5:11] == (1, 8, 8, 4, 2, D)
+    assert out.shape == q.shape
+    assert fa.head_dim_plan(D, fa.KERNEL_HEAD_DIMS) == (D, 256, 2)
     dev = torch.device("cuda")
     monkeypatch.setattr(torch.Tensor, "device", property(lambda self: dev))
-    with pytest.raises(ValueError, match=rf"H=4 Hkv=2 D={D}"):
-        fb.flash_attention_fwd_lse(q, k, k)
+    operands = fb._check("flash_attention_bwd_dq", q, k, k, None, (q, q.shape))
+    assert [t.shape[-1] for t in operands] == [D] * 4
+    plan = fb.dkv_plan(None, 1, 8, 8, 4, 2, True, "cpu", cap=1, head_dim=D)
+    narrow = fb.dkv_plan(None, 1, 8, 8, 4, 2, True, "cpu", cap=1)
+    assert plan.slices == 2 and narrow.slices == 1
+    assert plan.workspace.shape[1] == fb.dkv_slot_floats(D) == 128 * 256 * 2 * 2
+    assert plan.counters.numel() == 2 * narrow.counters.numel()
+    stats = torch.zeros(1, 4, 8)
+    monkeypatch.setattr(fb, "_lens", lambda kv_lens, *a: torch.full((1,), 8, dtype=torch.int32))
+    with pytest.raises(ValueError, match=rf"head dim {D} needs {128 * 256 * 2 * 2} for 2"):
+        fb.flash_attention_bwd_dkv(q, k, k, q, stats, stats, None, plan=narrow)
     lens = torch.ones(2, dtype=torch.int32)
-    for d in (D, 192):
-        qd = torch.zeros(2, 4, d, dtype=torch.bfloat16)
-        for quant in (False, True):
-            cache = torch.zeros(1, 2, 64, 2, d, dtype=torch.int8 if quant else torch.bfloat16)
-            scales = (torch.zeros(1, 2, 2, 64),) * 2 if quant else ()
-            with pytest.raises(ValueError, match=rf"H=4 Hkv=2 D={d}"):
-                da.paged_decode_attention(qd, cache, cache, lens, *scales, layer=0)
+    monkeypatch.setattr(da, "_sm_count", lambda index: 132)
+    rec.calls.clear()
+    if D % 128:
+        return
+    qd = torch.zeros(2, 4, D, dtype=torch.bfloat16)
+    for quant in (False, True):
+        cache = torch.zeros(1, 2, 64, 2, D, dtype=torch.int8 if quant else torch.bfloat16)
+        scales = (torch.zeros(1, 2, 2, 64),) * 2 if quant else ()
+        assert da.paged_decode_attention(qd, cache, cache, lens, *scales,
+                                         layer=0).shape == (2, 4, D)
+        plan = da.decode_plan(qd, cache, cache, lens, *scales, stacked=True)
+        assert plan.shape.D == D and plan.n_split == da.split_count(2, 2, 64, 132, 2) == 1
+    assert [n for n, _ in rec.calls] == ["socio_paged_decode_encode", "socio_paged_decode"] * 2
+
+
+@pytest.mark.parametrize("D", [192, 200])
+def test_decode_kernel_refuses_head_dims_off_its_unit(D, monkeypatch):
+    """A head dim that is no multiple of 128 (192, 200: the models decode
+    them densely, as the JAX package does) forced onto the decode kernels
+    (3 and 3q) raises ValueError naming H, Hkv and D before any pointer is
+    passed: the tensors are made to read as CUDA tensors."""
+    monkeypatch.setattr(torch.Tensor, "is_cpu", property(lambda self: False))
+    monkeypatch.setattr(torch.Tensor, "device", property(lambda self: torch.device("cuda")))
+    monkeypatch.setattr(da._build, "library", lambda: pytest.fail("a pointer was passed"))
+    lens = torch.ones(2, dtype=torch.int32)
+    qd = torch.zeros(2, 4, D, dtype=torch.bfloat16)
+    for quant in (False, True):
+        cache = torch.zeros(1, 2, 64, 2, D, dtype=torch.int8 if quant else torch.bfloat16)
+        scales = (torch.zeros(1, 2, 2, 64),) * 2 if quant else ()
+        with pytest.raises(ValueError, match=rf"H=4 Hkv=2 D={D}"):
+            da.paged_decode_attention(qd, cache, cache, lens, *scales, layer=0)
 
 
 def _config(head_dim: int):

@@ -273,6 +273,8 @@ def test_chip_smoke_families_phase_on_cpu(tmp_path):
                                  with_vision=False)
     train = chip_smoke.train_family(config, params, cpu, lens=(96, 70), steps=2)
     assert len(train["kernels"]["finite_nonzero_grads"]) == 6
+    at_init = train["logprobs_at_init"]
+    assert at_init["response_tokens"] == 95 + 69 and np.isfinite(list(at_init.values())).all()
     write_s, read_s, gb = chip_smoke.text_model_round_trip(config, params, TINY_QWEN3_MOE,
                                                            str(tmp_path / "moe"), cpu)
     assert gb > 0

@@ -387,7 +387,8 @@ def test_chip_smoke_rlvr_phase_on_cpu(tmp_path):
                                     response_length=48, rollout_batch_size=2,
                                     num_return_sequences_in_group=4, max_running_requests=8)
     p1, p2 = rlvr["pass1"], rlvr["pass2"]
-    assert p1["steps"] == 2 and p1["scheduler"][0]["scheduler/query_filter_count"] == 1
+    assert p1["steps"] == chip_smoke.RLVR_CUTS["max_steps"]
+    assert p1["scheduler"][0]["scheduler/query_filter_count"] == 1
     assert p1["cache_slots"] == chip_smoke.RLVR_SLOTS
     assert {tuple(b) for b in p1["prefill_buckets"]} <= set(chip_smoke.RLVR_PREFILL)
     assert p1["train_shapes"] == [(8, 304)] and p1["logprob_shapes"] == [(8, 304)]
