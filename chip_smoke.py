@@ -44,7 +44,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 bounds and of the GQA work items against the C++ formulas;
                 kernel 6's plan, its refusal of other kv lengths (a child
                 process that must fail with a CUDA error) and, with kernel 5,
-                determinism.
+                determinism; kernel 7 bit for bit, and timed in turns beside
+                the launch floor (the library's empty kernel, 36 launches in
+                a CUDA graph, with and without programmatic dependent
+                launch). The phase's wall time: kernels_seconds.
   4. engine   — DecodeEngine greedy stream (kernels) against a teacher-forced
                 uncached forward (dense attention) at Qwen2.5-VL-3B head dims.
   5. train_parity — one GRPO train step with the trainable flash kernels
@@ -180,13 +183,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 on a copy of the main tree (the tree the frozen reference,
                 checksummed): grid_goal in 2 groups x 2 envs, 3 turns of 32
                 sampled tokens, 112² frames, 2 steps with a validation, each
-                episode's response mask exactly the engine's sampled ids and
-                16 image rows a frame, then one AgenticRolloutPipeline step;
+                episode's response mask exactly the engine's sampled ids
+                less the vision special ids (counted: vision_ids_dropped)
+                and 16 image rows and tokens a frame, then one
+                AgenticRolloutPipeline step;
                 kernels 1-6 must launch. (b) Qwen2.5-0.5B-Instruct (head dim
                 64) from its published config: greedy against a
                 teacher-forced dense forward, one PPO step with kernels 4-6
                 against dense attention, then AgenticPipeline on
-                guess_number for two steps; kernels 2 and 4-6 must launch,
+                guess_number for two steps (train_family's log-probs at the
+                initial params held to the LOGPROB_* bounds, as in the
+                families and head_dims phases); kernels 2 and 4-6 must launch,
                 kernel 3 never (head dim 64 decodes densely, as in JAX).
                 Every pass at checked shapes; peak < 80 GiB.
   15b. train_mesh — the train plane over a device mesh on the one card,
@@ -273,8 +280,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 where a layer's k-th and (k+1)-th router probabilities lie
                 within one bf16 ulp); (b) its width at 4 layers: two PPO
                 steps on B=2 rows of 2048 (kv 2048, 1500) with kernels 4-6
-                against dense attention (PARITY_LOSS_TOL, PARITY_NORM_TOL;
-                the router, experts and q/k norms given finite non-zero
+                against dense attention (PARITY_LOSS_TOL, PARITY_NORM_TOL,
+                the log-probs at the initial params within the LOGPROB_*
+                bounds; the router, experts and q/k norms given finite non-zero
                 gradients), then save_pretrained and llm.load_text_model bit
                 for bit; (c) Qwen1.5-MoE-A2.7B (qwen2_moe with its shared
                 expert, 16/16 heads) at 8 of 24 layers serves as (a), 16
@@ -324,6 +332,7 @@ attention, which the engine, trainer and ViT refuse on the card). Imports nothin
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import re
 import shutil
@@ -818,6 +827,7 @@ def phase_kernels():
     from socioreasoner_tpu_torch.ops import decode_attention as da
     from socioreasoner_tpu_torch.ops import flash_attention as fa
 
+    t0 = time.perf_counter()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -1033,6 +1043,7 @@ def phase_kernels():
         if row["name"] in widths:
             row["head_dims"] = widths[row["name"]]
     results.append(_row_writer_kernel(randn))
+    emit({"phase": "kernels_seconds", "seconds": time.perf_counter() - t0})
     return results
 
 
@@ -1534,10 +1545,17 @@ def _row_writer_kernel(randn):
     at positions that include both ends of the cache and three out of
     range, against the plain version (must be equal: it is a copy), and
     every other row untouched; then both timed over all 36 layers for k
-    and v, the script's own comparison."""
+    and v, the script's own comparison. device_ms is the profiler's sum of
+    the kernel's time, as before the kernel was launched with programmatic
+    dependent launch (PDL), which now counts each kernel's wait for the one
+    before it; graph_device_ms a sweep's time from a CUDA graph of ten,
+    taken in turns with the launch floor: 36 launches of the library's
+    empty kernel in a graph, with and without PDL. `seconds` is the
+    check's own wall time."""
     import torch
     from socioreasoner_tpu_torch.ops import cache_write as cw
 
+    t0 = time.perf_counter()
     L, S, Lalloc = ROW_WRITER_SHAPE[:3]
     k0, v0 = randn(*ROW_WRITER_SHAPE), randn(*ROW_WRITER_SHAPE)
     knew, vnew = randn(S, 1, 2, 128), randn(S, 1, 2, 128)
@@ -1570,18 +1588,42 @@ def _row_writer_kernel(randn):
             k0[i, bidx, pos2] = knew
             v0[i, bidx, pos2] = vnew
 
+    def floor_sweep(pdl):
+        for _ in range(L):
+            cw.launch_noop(k0.device, pdl)
+
+    # a sweep from a graph of ten, in turns (a, b, c, c, b, a, ...): the
+    # medians of four timings each
+    sweeps = {"kernel": kernel_sweep, "floor_pdl": functools.partial(floor_sweep, True),
+              "floor_no_pdl": functools.partial(floor_sweep, False)}
+    order = list(sweeps)
+    timed = {key: [] for key in order}
+    for turn in range(4):
+        for key in (order if turn % 2 == 0 else order[::-1]):
+            timed[key].append(graph_call_ms(sweeps[key]))
+    graph_dev = {key: statistics.median(ts) for key, ts in timed.items()}
     # per layer and cache: the new rows read once and written once
+    bound_ms, bound_by = bound(L * 2 * 2 * knew.numel() * 2, 0)
     out = _row("write_rows", "socioreasoner_tpu_torch/csrc/cache_write.cu",
                "scripts/profile_decode2.py:50",
                f"caches {ROW_WRITER_SHAPE} bf16, rows (24, 1, 2, 128), ms per sweep of 36 "
                "layers x (k and v) replayed as one CUDA graph (the script times one jitted "
-               "loop); eager_ms with the host's launches",
-               0.0, graph_ms(kernel_sweep), graph_ms(plain_sweep),
-               *bound(L * 2 * 2 * knew.numel() * 2, 0), None,
+               "loop); eager_ms with the host's launches; device_ms the profiler's sum; "
+               "graph_device_ms a sweep from a graph of ten; launched with PDL",
+               0.0, graph_ms(kernel_sweep), graph_ms(plain_sweep), bound_ms, bound_by, None,
                "none beyond the two index_put_ calls, which are its plain version",
                eager_ms=cuda_ms(kernel_sweep), plain_eager_ms=cuda_ms(plain_sweep),
                device_ms=device_ms(kernel_sweep, ("write_rows",)),
-               plain_device_ms=device_ms(plain_sweep, ("",)))
+               plain_device_ms=device_ms(plain_sweep, ("",)),
+               graph_device_ms=graph_dev["kernel"],
+               plain_graph_device_ms=graph_call_ms(plain_sweep),
+               graph_device_ms_turns=timed,
+               us_per_launch={key: ms / L * 1e3 for key, ms in graph_dev.items()},
+               floor_ms=graph_dev["floor_pdl"], floor_no_pdl_ms=graph_dev["floor_no_pdl"],
+               gap_to_floor_ms=graph_dev["kernel"] - graph_dev["floor_pdl"])
+    out["share_of_bound_device"] = bound_ms / out["device_ms"]
+    out["share_of_bound_graph_device"] = bound_ms / out["graph_device_ms"]
+    out["seconds"] = time.perf_counter() - t0
     emit({"phase": "kernel", **out})
     del k0, v0
     torch.cuda.empty_cache()
@@ -2323,6 +2365,12 @@ PARITY_LOSS_TOL = 1e-3      # max-abs on the PPO loss (terms of size ~1)
 PARITY_NORM_TOL = 2e-2      # relative, on the pre-clip grad norm
 PARITY_LP_TOL = 0.1         # max-abs on a response token's log-prob (~ -9)
 PARITY_LP_MEAN_TOL = 1e-2   # mean-abs over the response tokens
+# logprobs_at_init's bounds, which train_family raises past, set from the
+# readings on an H100 of every caller (Falcon3-7B's rows at head dims 256,
+# 512 and 384, Qwen3-30B-A3B, Qwen2.5-0.5B, the Danube rows):
+LOGPROB_WINDOW_EXCESS_TOL = 5e-3   # the worst 256-token window; read <= 0.0025
+LOGPROB_KERNELS_DENSE_TOL = 0.2    # max-abs; read <= 0.094 (Qwen3-30B-A3B)
+LOGPROB_F32_RATIO_TOL = 1.25       # mean-abs from f32, kernels / dense; read within 10%
 
 
 PARITY_LENS = (2304, 2080, 1000, 600)   # valid tokens a row; L is the first
@@ -5731,7 +5779,7 @@ def logprobs_at_init(config, params, batch):
     tokens, the kernels' max-abs gap from dense, and the largest excess of
     the kernels' error over dense's in any LOGPROB_WINDOW consecutive response
     tokens of a row (a fault confined to some positions shows there
-    undiluted). Reported, not checked."""
+    undiluted). train_family holds them to the LOGPROB_* bounds."""
     from socioreasoner_tpu_torch.distributed import trainer as T
     dense = T.make_logprob_step(config, allow_flash=False)
     lp_k, lp_d = batch["old_log_probs"], dense(params, batch)["log_probs"]
@@ -5762,6 +5810,23 @@ def train_family(config, params, dev, *, lens=FAMILY_TRAIN["kv_lens"], steps=2):
     from socioreasoner_tpu_torch.pipeline.losses import PPOLossConfig
     batch = parity_batch(config, params, dev, lens, response=FAMILY_TRAIN_RESPONSE)
     at_init = logprobs_at_init(config, params, batch)
+    k_f32, d_f32 = at_init["kernels_vs_f32_mean_abs"], at_init["dense_vs_f32_mean_abs"]
+    # the ratio has no meaning for float32 params (the CPU rehearsals): dense
+    # attention on them is the float32 reference itself
+    f32 = all(leaf.dtype == torch.float32 for _, leaf in _named_leaves(params)
+              if leaf.is_floating_point())
+    ratio = None if f32 else (k_f32 / d_f32 if d_f32 > 0 else float("inf"))
+    at_init_bounds = {
+        "worst_window_excess": [at_init[f"worst_{LOGPROB_WINDOW}_window_excess"],
+                                LOGPROB_WINDOW_EXCESS_TOL],
+        "kernels_vs_dense_max_abs": [at_init["kernels_vs_dense_max_abs"],
+                                     LOGPROB_KERNELS_DENSE_TOL],
+        "kernels_over_dense_vs_f32": [ratio, LOGPROB_F32_RATIO_TOL]}
+    if not (at_init_bounds["worst_window_excess"][0] <= LOGPROB_WINDOW_EXCESS_TOL
+            and at_init["kernels_vs_dense_max_abs"] <= LOGPROB_KERNELS_DENSE_TOL
+            and (ratio is None or ratio <= LOGPROB_F32_RATIO_TOL)):
+        raise AssertionError(f"the kernels' log-probs at the initial params pass a bound "
+                             f"([reading, bound]): {at_init_bounds}, {at_init}")
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     names = [n for n, _ in _named_leaves(params)]
@@ -5797,7 +5862,8 @@ def train_family(config, params, dev, *, lens=FAMILY_TRAIN["kv_lens"], steps=2):
           and all(k["finite_nonzero_grads"].values())
           and len(watched) >= (6 if config.text.n_experts else 3))
     out = {"shape": f"B={len(lens)} L={lens[0]} kv_len={list(lens)}",
-           "kernels": k, "dense": d, "logprobs_at_init": at_init}
+           "kernels": k, "dense": d, "logprobs_at_init": at_init,
+           "logprobs_at_init_bounds": at_init_bounds}
     if not ok:
         raise AssertionError(f"MoE train step out of parity with dense attention: {out}")
     return out
@@ -6390,10 +6456,15 @@ def _agentic_recorder(pipe):
 def _episode_checks(group, sampled):
     """Wrap a rollout group's get_batch: each request's sampled ids recorded
     by env, then each episode's response_mask held to cover exactly the
-    engine's sampled ids, and its image rows to 16 a 112² frame (merged
-    8 x 8 patches). Returns the list the episodes are appended to."""
+    engine's sampled ids less the vision special ids, its count of those
+    dropped to their number among the sampled ids, and its image rows and
+    image tokens to 16 a 112² frame (merged 8 x 8 patches). Returns the
+    list the episodes are appended to."""
+    from socioreasoner_tpu_torch.pipeline.agentic.environment_worker import vision_token_ids
     episodes = []
     plain_get, plain_req = group.get_batch, group.scheduler.generate_one_request
+    vision = vision_token_ids(group.processor)
+    image_id = group.model_config.image_token_id
 
     def generate_one_request(req):
         out = plain_req(req)
@@ -6406,14 +6477,19 @@ def _episode_checks(group, sampled):
         eps = plain_get(*a, **k)
         for ep in eps:
             got = ep.input_ids[ep.response_mask == 1].tolist()
-            if got != sampled.get(ep.env_id, []) or not got:
+            ids = sampled.get(ep.env_id, [])
+            kept = [t for t in ids if t not in vision]
+            if got != kept or not ids or ep.vision_ids_dropped != len(ids) - len(kept):
                 raise AssertionError(f"env {ep.env_id}: response_mask covers {len(got)} ids, "
-                                     f"the engine sampled {len(sampled.get(ep.env_id, []))}")
+                                     f"the engine sampled {len(ids)}, {len(ids) - len(kept)} "
+                                     f"of them vision ids ({ep.vision_ids_dropped} dropped)")
             grids = np.asarray(ep.image_grid_thw)
-            if (grids != np.array(AGENTIC_GRID)).any() or \
-                    ep.image_embeds.shape[0] != 16 * len(grids) or len(grids) != len(ep.frames):
+            tokens = int((ep.input_ids == image_id).sum())
+            if (grids != np.array(AGENTIC_GRID)).any() or len(grids) != len(ep.frames) or \
+                    not ep.image_embeds.shape[0] == tokens == 16 * len(grids):
                 raise AssertionError(f"env {ep.env_id}: {len(grids)} frames, grids {grids}, "
-                                     f"{ep.image_embeds.shape[0]} embed rows")
+                                     f"{ep.image_embeds.shape[0]} embed rows, {tokens} image "
+                                     "tokens")
         episodes.extend(eps)
         return eps
     group.scheduler.generate_one_request = generate_one_request
@@ -6474,7 +6550,8 @@ def run_agentic_vlm(config, params, out_dir, dev, *, kernels=(), processor=None,
            "episodes": [{"env": e.env_id, "group": e.group_id, "turns": e.turns,
                          "tokens": len(e.input_ids), "action_tokens": int(e.response_mask.sum()),
                          "frames": len(e.frames), "embed_rows": int(e.image_embeds.shape[0]),
-                         "score": e.score} for e in train_eps],
+                         "score": e.score, "vision_ids_dropped": e.vision_ids_dropped}
+                        for e in train_eps],
            "val_episodes": len(val_eps),
            "prefill_buckets": sorted({(key[0], key[1]) for key in engine.prefill_hist}),
            "cache": list(engine.caches["k"].shape), "engine_steps": engine.steps_executed,
@@ -6494,6 +6571,11 @@ def run_agentic_vlm(config, params, out_dir, dev, *, kernels=(), processor=None,
     _sync(dev)
     _finite_keys("agentic_rollout", rmetrics, ("rollout/score/mean", "rollout/score/max",
                                                "rollout/score/min", "system/samples"))
+    # sampled vision special ids left out of the actions (EnvManager), in
+    # every episode of both pipelines: the train steps', validation's and
+    # the rollout-only step's
+    fig["vision_ids_dropped"] = sum(e.vision_ids_dropped
+                                    for e in train_eps + val_eps + rollout_eps)
     fig["rollout_pipeline"] = {
         "wall_s": time.perf_counter() - t0, "metrics": rmetrics, "episodes": len(rollout_eps),
         "prefill_buckets": sorted({(key[0], key[1])
@@ -6678,6 +6760,8 @@ def phase_agentic(config, params):
           "greedy_tie_flips": len(t["serve"]["tie_flips"]),
           "greedy_checked_tokens": t["serve"]["checked_tokens"],
           "train_parity": {k: t["train_parity"][k] for k in ("kernels", "dense")},
+          "logprobs_at_init_bounds": t["train_parity"]["logprobs_at_init_bounds"],
+          "vision_ids_dropped": v["vision_ids_dropped"],
           "launches": parts})
     missing = ([f"vlm:{k}" for k in names if parts["vlm"][k] <= 0]
                + [f"text:{k}" for k in names[1:2] + names[3:]

@@ -53,6 +53,8 @@ SIGNATURES = {
         [_I] + [_P] * 6 + [_I, _P, _P],
     "socio_write_rows_bf16":
         [_P] * 5 + [_I] * 3 + [_LL] * 6 + [_P],
+    "socio_noop":
+        [_I, _P],
     "socio_flash_train_fwd_bf16":
         [_P] * 6 + [_I] * 6 + [_LL] * 12 + [_I, _F, _P],
     "socio_flash_train_dq_bf16":

@@ -6,6 +6,12 @@ layer of the engine's stacked (layers, S, Lalloc, Hkv, D) bf16 caches, at
 each slot's position (csrc/cache_write.cu). A slot whose position lies
 outside [0, Lalloc) writes nothing, in the kernel and in the plain version.
 
+The kernel is launched with programmatic dependent launch (PDL), so that
+inside a CUDA graph its launch overlaps the kernel before it; a grid of
+64-thread CTAs moves the rows, a 16-byte vector a thread. ``launch_noop``
+launches the library's empty kernel (one CTA, no work, with or without
+PDL): the floor of any per-layer launch.
+
 The decode engine does not call it: like the JAX engine, the text decoder
 writes cache rows with an indexed assignment. The diagnostic comparison of
 the two (all layers, k and v) is the kernel's caller.
@@ -99,3 +105,14 @@ def write_rows(
 
 
 write_rows.launches = 0
+
+
+def launch_noop(device: torch.device, pdl: bool) -> None:
+    """One launch of the library's empty kernel on `device`'s current stream,
+    with or without PDL (a CUDA graph captures it like any kernel)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"launch_noop: the empty kernel runs on a GPU, not on {dev}")
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    rc = _build.library().socio_noop(int(pdl), torch._C._cuda_getCurrentRawStream(index))
+    _build.check(rc, "socio_noop")

@@ -14,7 +14,11 @@ Two loops:
     every turn's prompt holds the whole history (the image placeholders
     expanded to their merged token counts, each image's ViT rows computed
     once, on the turn it arrives, and kept as tensors on the device) and the
-    engine's sampled action ids enter the sequence verbatim.
+    engine's sampled action ids enter the sequence verbatim, but for the
+    vision special ids (see `vision_token_ids`), which are dropped and
+    counted: a sampled <|image_pad|> would be one image token more than the
+    episode has image rows, and the next turn's M-RoPE ids would fail on it.
+    The JAX package appends them and raises IndexError on that turn.
 """
 
 from __future__ import annotations
@@ -204,7 +208,9 @@ class Episode:
     `input_ids` is the whole multi-turn sequence (the system block, the user
     blocks with their image tokens expanded, and the engine's sampled action
     ids, never decoded and encoded again, so the train step's log-probs see
-    the sampled tokens); `response_mask` marks exactly those action ids."""
+    the sampled tokens); `response_mask` marks exactly those action ids.
+    `vision_ids_dropped` counts the sampled vision special ids left out of
+    them."""
     input_ids: np.ndarray                  # (L,)
     response_mask: np.ndarray              # (L,) 1 on the model's action tokens
     image_grid_thw: Optional[np.ndarray]   # (n_images, 3)
@@ -218,6 +224,7 @@ class Episode:
     llm_raw_texts: List[str]
     turns: int
     solved: bool
+    vision_ids_dropped: int = 0
 
 
 def _cat_rows(rows: List[Any]):
@@ -232,7 +239,8 @@ class EnvManager:
     token count, its ViT rows computed once and kept -- and sends the whole
     prompt (every turn, every image) as one request; the scheduler's sticky
     worker and the engine see the prompt grow. The sampled action ids are
-    appended verbatim."""
+    appended verbatim, less any vision special id (counted in the
+    episode's `vision_ids_dropped`)."""
 
     def __init__(self, *, env, processor, scheduler, embed_fn=None,
                  sampling=None, max_turns: int = 8, prompt_length: int = 4096,
@@ -249,6 +257,7 @@ class EnvManager:
         self.group_id, self.env_id, self.tag = group_id, env_id, tag
         self.format_penalty = format_penalty
         self.system = system
+        self.vision_ids = vision_token_ids(processor)
 
     # the sequence is a concatenation of per-segment encodes (the byte-level
     # tokenizer and HF's Qwen tokenizer both round-trip at <|im_start|>)
@@ -271,6 +280,7 @@ class EnvManager:
         raw_texts: List[str] = []
         score = penalty = 0.0
         solved = False
+        dropped = 0
         obs = self.env.reset(seed=seed)
         turns = 0
         for turn in range(self.max_turns):
@@ -322,10 +332,12 @@ class EnvManager:
             out = self.scheduler.generate_one_request(req)
             if out is None:                            # aborted
                 break
-            act_ids = out.meta["output_token_ids"][0]
+            sampled = out.meta["output_token_ids"][0]
+            act_ids = [t for t in sampled if t not in self.vision_ids]
+            dropped += len(sampled) - len(act_ids)
             act_text = proc.decode(act_ids, skip_special_tokens=True)
             raw_texts.append(act_text)
-            ids += list(act_ids)
+            ids += act_ids
             resp_mask += [1] * len(act_ids)
             suffix = self._enc("<|im_end|>\n")
             ids += suffix
@@ -349,14 +361,38 @@ class EnvManager:
             image_grid_thw=np.stack(grids) if grids else None,
             image_embeds=embeds, score=score, penalty=penalty,
             group_id=self.group_id, env_id=self.env_id, tag=self.tag,
-            frames=frames, llm_raw_texts=raw_texts, turns=turns, solved=solved)
+            frames=frames, llm_raw_texts=raw_texts, turns=turns, solved=solved,
+            vision_ids_dropped=dropped)
+
+
+VISION_SPECIAL_TOKENS = ("<|vision_end|>", "<|vision_pad|>")
+
+
+def vision_token_ids(processor) -> frozenset:
+    """The vision special ids no action may hold: the image, video and
+    vision-start ids of the processor's model config, and <|vision_end|>
+    and <|vision_pad|> where its tokenizer defines them (a byte tokenizer's
+    `special` table, or an HF tokenizer's added vocabulary). A processor
+    without a model config is refused, as `proc_config_of` refuses it."""
+    cfg = _model_config(processor)
+    ids = {cfg.image_token_id, cfg.video_token_id, cfg.vision_start_token_id}
+    tok = processor.tokenizer
+    table = getattr(tok, "special", None)
+    if table is None and hasattr(tok, "get_added_vocab"):
+        table = tok.get_added_vocab()
+    ids.update(int(table[name]) for name in VISION_SPECIAL_TOKENS if name in (table or {}))
+    return frozenset(ids)
 
 
 def proc_config_of(mgr: "EnvManager"):
     """The model config get_rope_index needs (the image and vision token ids,
     the merge geometry); an EnvManager reads it from its processor, so it
     stays model-agnostic."""
-    cfg = getattr(mgr.processor, "model_config", None)
+    return _model_config(mgr.processor)
+
+
+def _model_config(processor):
+    cfg = getattr(processor, "model_config", None)
     if cfg is None:
         raise ValueError("EnvManager's processor needs .model_config set "
                          "(Qwen25VLConfig) for M-RoPE position ids")

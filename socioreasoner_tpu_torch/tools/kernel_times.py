@@ -7,9 +7,13 @@ against another's on the same card.
 prints one line, `KERNEL_TIMES {json}`: the device ms (a CUDA graph of ten
 calls, median of 20 replays) of kernel 1 a tile (28 window + 4 full layers
 of the ViT, S=5832, 16 x 80, on the plans the tower builds), kernel 2 (B=2
-L=2048 16/2 x 128, kv 2016 and 1) and kernels 4, 5 and 6 (B=4 L=2304 16/2 x
-128, kv 2304/2080/1000/1, kernel 6 on a plan built once), with the card's
-name and power limit. --root is the directory that holds the checkout's
+L=2048 16/2 x 128, kv 2016 and 1), kernels 4, 5 and 6 (B=4 L=2304 16/2 x
+128, kv 2304/2080/1000/1, kernel 6 on a plan built once) and kernel 7 (a
+sweep of its 36 layers at the diagnostic script's shape, a graph of ten
+sweeps; with the library's empty kernel, where the tree has it, the same
+36 launches with and without programmatic dependent launch; and the wall
+seconds of the checkout's own chip_smoke.py check of kernel 7), with the
+card's name and power limit. --root is the directory that holds the checkout's
 `socioreasoner_tpu_torch/` (default: this one's); the kernels build there on
 first use. Compare two trees in one call to the card, each in its own
 process (two builds of the library in one process refuse the second's
@@ -108,7 +112,58 @@ def kernel_times(seed: int = 0) -> dict:
         lambda: fb.flash_attention_bwd_dq(q, k, v, do, lse, delta, lens))
     out["flash_attention_bwd_dkv"] = graph_call_ms(
         lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, lens, plan=plan))
+    del q, k, v, do, o, lse, delta, plan
+    out.update(row_writer_times(torch, graph_call_ms, randn))
+    out.update(row_writer_check(randn))
     return out
+
+
+def row_writer_times(torch, graph_call_ms, randn) -> dict:
+    """Kernel 7's 36-layer sweep (caches (36, 24, 1536, 2, 128), every slot
+    at row 520) and, where the tree's library has the empty kernel, 36 of
+    its launches with and without PDL: device ms a sweep."""
+    from socioreasoner_tpu_torch.ops import cache_write as cw
+    L, S, Lalloc, Hkv, D = 36, 24, 1536, 2, 128
+    k_all, v_all = randn(L, S, Lalloc, Hkv, D), randn(L, S, Lalloc, Hkv, D)
+    knew, vnew = randn(S, 1, Hkv, D), randn(S, 1, Hkv, D)
+    positions = torch.full((S,), 520, dtype=torch.int32, device=k_all.device)
+
+    def sweep():
+        for i in range(L):
+            cw.write_rows(k_all, v_all, knew, vnew, positions, i)
+    out = {"write_rows_sweep": graph_call_ms(sweep)}
+    if hasattr(cw, "launch_noop"):
+        for key, pdl in (("noop_sweep_pdl", True), ("noop_sweep_no_pdl", False)):
+            out[key] = graph_call_ms(lambda: [cw.launch_noop(k_all.device, pdl)
+                                              for _ in range(L)])
+    return out
+
+
+def row_writer_check(randn) -> dict:
+    """The checkout's own chip_smoke.py check of kernel 7
+    (`_row_writer_kernel`: its bit-for-bit checks and its timings), run
+    twice: each run's wall seconds, and the second run's profiler sum of the
+    kernel's time a sweep (its device_ms) and, where the check takes it, a
+    sweep's time from a graph of ten; empty where the checkout has no such
+    check."""
+    import importlib.util
+    import time
+    from socioreasoner_tpu_torch.ops import _build
+    path = Path(_build.PKG_DIR).parent / "chip_smoke.py"
+    if not path.is_file():
+        return {}
+    spec = importlib.util.spec_from_file_location("chip_smoke_of_checkout", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    if not hasattr(smoke, "_row_writer_kernel"):
+        return {}
+    seconds = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        row = smoke._row_writer_kernel(randn)
+        seconds.append(time.perf_counter() - t0)
+    return {"row_writer_check_s": seconds, "row_writer_device_ms": row["device_ms"],
+            "row_writer_graph_device_ms": row.get("graph_device_ms")}
 
 
 def main(argv=None) -> int:

@@ -179,6 +179,26 @@ class StubScheduler:
         return SimpleNamespace(meta={"output_token_ids": [ids]})
 
 
+class VisionIdScheduler(StubScheduler):
+    """StubScheduler whose answer to every turn t of env e with e + t even
+    holds sampled vision ids in the middle of the move: <|image_pad|>,
+    <|vision_start|>, <|video_pad|> and <|vision_end|>."""
+
+    def generate_one_request(self, req):
+        out = super().generate_one_request(req)
+        env = req.meta["src_rank"]
+        if (env + self.turn[env]) % 2 == 0:
+            ids = out.meta["output_token_ids"][0]
+            mid = len(ids) // 2
+            ids[mid:mid] = vision_ids(self.tok)
+        return out
+
+
+def vision_ids(tokenizer):
+    return [CONFIG.image_token_id, CONFIG.vision_start_token_id, CONFIG.video_token_id,
+            tokenizer.special["<|vision_end|>"]]
+
+
 def _stub_embed(side, calls):
     """16 rows of HIDDEN values a 112² image, from its pixels."""
     def embed(images, grids):
@@ -189,13 +209,13 @@ def _stub_embed(side, calls):
     return embed
 
 
-def _episodes(side, n=4, prompt_length=768, max_turns=3, seed=11):
+def _episodes(side, n=4, prompt_length=768, max_turns=3, seed=11, scheduler=StubScheduler):
     """n grid_goal episodes (two a group, one seed a group) through
-    EnvManager, StubScheduler and the stub ViT. Returns (episodes, the
-    scheduler, the embed calls)."""
+    EnvManager, `scheduler` (a StubScheduler) and the stub ViT. Returns
+    (episodes, the scheduler, the embed calls)."""
     mod = j_env if side == "jax" else t_env
     proc = _processor(side, image=True)
-    sched, calls = StubScheduler(proc.tokenizer), []
+    sched, calls = scheduler(proc.tokenizer), []
     eps = [mod.EnvManager(env=mod.make_env("grid_goal"), processor=proc, scheduler=sched,
                           embed_fn=_stub_embed(side, calls), max_turns=max_turns,
                           prompt_length=prompt_length, group_id=e // 2, env_id=e,
@@ -233,6 +253,88 @@ def test_env_manager_episodes_match_jax(prompt_length):
         assert all(e.turns == 1 and len(e.image_grid_thw) == 1 for e in teps)
     else:
         assert max(e.turns for e in teps) == 3
+
+
+def test_env_manager_drops_sampled_vision_ids():
+    """Actions holding sampled vision ids: the port's episodes run every
+    turn, their ids hold no vision id outside the image blocks, and each
+    equals the episode answered without them (ids, response mask covering
+    exactly the ids kept, texts, score, turns, every request), with the
+    dropped ids counted; the JAX EnvManager raises IndexError on the turn
+    after such an action (its M-RoPE ids count one image too many)."""
+    teps, tsched, _ = _episodes("port", scheduler=VisionIdScheduler)
+    plain, psched, _ = _episodes("port")
+    jeps = _episodes("jax")[0]
+    vision = set(vision_ids(tsched.tok))
+    assert t_env.vision_token_ids(_processor("port", image=True)) == vision
+    assert max(e.turns for e in teps) == 3
+    for te, pe, je in zip(teps, plain, jeps):
+        for f in ("input_ids", "response_mask", "image_grid_thw", "frames", "score",
+                  "penalty", "llm_raw_texts", "turns", "solved"):
+            _same(getattr(pe, f), getattr(te, f), f)
+            _same(getattr(je, f), getattr(te, f), f)
+        acted = te.input_ids[te.response_mask == 1]
+        assert not set(acted.tolist()) & vision
+        sent = sum(len(MOVES[(te.env_id + t) % 5]) + 1 for t in range(te.turns))
+        assert int(te.response_mask.sum()) == sent
+        hit = sum((te.env_id + t) % 2 == 0 for t in range(te.turns))
+        assert te.vision_ids_dropped == len(vision) * hit and pe.vision_ids_dropped == 0
+        n_image = int((te.input_ids == CONFIG.image_token_id).sum())
+        assert n_image == 16 * len(te.image_grid_thw)
+    assert sum(e.vision_ids_dropped for e in teps) > 0
+    assert len(tsched.seen) == len(psched.seen)
+    for got, want in zip(tsched.seen, psched.seen):
+        _same(want[2], got[2])
+        _same(want[3], got[3])
+    with pytest.raises(IndexError):
+        _episodes("jax", scheduler=VisionIdScheduler)
+
+
+def test_vision_token_ids_of_a_hf_tokenizer():
+    """Qwen's own ids from its model config and an HF tokenizer's added
+    vocabulary (<|vision_pad|> included); none from the config's defaults
+    a tokenizer does not define."""
+    from socioreasoner_tpu_torch.models.qwen2_5_vl.config import Qwen25VLConfig as TConfig
+    added = {"<|im_start|>": 151644, "<|vision_start|>": 151652, "<|vision_end|>": 151653,
+             "<|vision_pad|>": 151654, "<|image_pad|>": 151655, "<|video_pad|>": 151656}
+    hf = SimpleNamespace(tokenizer=SimpleNamespace(get_added_vocab=lambda: dict(added)),
+                         model_config=TConfig())
+    assert t_env.vision_token_ids(hf) == frozenset(range(151652, 151657))
+    byte = SimpleNamespace(tokenizer=t_processor.SimpleTokenizer(), model_config=TConfig())
+    assert t_env.vision_token_ids(byte) == frozenset({151652, 151653, 151655, 151656})
+
+
+def test_vision_token_ids_refuse_a_processor_without_config():
+    """Without its model config a processor cannot name its image id, so
+    neither the ids to drop nor an EnvManager is made from it."""
+    proc = _processor("port", image=True)
+    del proc.model_config
+    with pytest.raises(ValueError, match="model_config"):
+        t_env.vision_token_ids(proc)
+    with pytest.raises(ValueError, match="model_config"):
+        t_env.EnvManager(env=t_env.make_env("grid_goal"), processor=proc,
+                         scheduler=None)
+
+
+def test_batch_of_repaired_episodes_takes_one_row_an_image_token():
+    """The VLM pipeline's batch of episodes whose actions held vision ids:
+    its M-RoPE ids equal those of the episodes answered without them, and
+    scatter_image_embeds gives each image token its own row, in order."""
+    from socioreasoner_tpu_torch.models.qwen2_5_vl.model import scatter_image_embeds
+    fake = SimpleNamespace(pipeline_config=t_acfg.AgenticConfig(prompt_length=768,
+                                                                response_length=16),
+                           model_config=_port(CONFIG))
+    got = t_vlm.AgenticVLMPipeline._episodes_to_batch(
+        fake, _episodes("port", scheduler=VisionIdScheduler)[0])
+    want = t_vlm.AgenticVLMPipeline._episodes_to_batch(fake, _episodes("port")[0])
+    _same(dict(want.batch), dict(got.batch))
+    ids = torch.as_tensor(got.batch["input_ids"])
+    rows = got.meta["image_embeds"]
+    is_image = ids == CONFIG.image_token_id
+    assert int(is_image.sum()) == rows.shape[0] == got.meta["image_embeds_rows"].sum()
+    tokens = torch.randn(*ids.shape, HIDDEN, generator=torch.Generator().manual_seed(0))
+    out = scatter_image_embeds(ids, tokens, rows, CONFIG.image_token_id)
+    assert torch.equal(out[is_image], rows) and torch.equal(out[~is_image], tokens[~is_image])
 
 
 # ------------------------------------------------------------- RequestScheduler

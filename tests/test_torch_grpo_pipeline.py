@@ -121,6 +121,17 @@ class ScriptedWorker:
         return out
 
 
+class ImagePadWorker(ScriptedWorker):
+    """ScriptedWorker whose stage-1 answers 0 and 2 and stage-2 answer 1
+    hold a sampled <|image_pad|> after their fifth token."""
+
+    def __init__(self, tokenizer, pad_id: int, n: int = N_SAMPLES):
+        super().__init__(tokenizer, pad_id, n)
+        self.image_pad = tokenizer.special["<|image_pad|>"]
+        for ids in (self.s1[0], self.s1[2], self.s2[1]):
+            ids[5:5] = [self.image_pad]
+
+
 @functools.lru_cache(maxsize=1)
 def _weights():
     """(config, policy numpy tree, SAM2 numpy tree): the SAM2 mask
@@ -181,9 +192,10 @@ def _adam_eps(side, pipe, cfg, eps=1e-4):
 
 
 def _build(side, out_dir, *, scripted=True, val=False, quant=False, same_reference=False,
-           **cfg_kw):
+           decode_worker=None, **cfg_kw):
     """One package's pipeline on the shared weights and the two tiles; with
-    `scripted`, decode goes through ScriptedWorker; with `quant`, the yaml's
+    `scripted`, decode goes through `decode_worker` (ScriptedWorker by
+    default); with `quant`, the yaml's
     int8 single-copy decode weights; with `same_reference` (the port only),
     one tree is passed as the policy and as the reference."""
     config, qwen, sam = _weights()
@@ -218,7 +230,8 @@ def _build(side, out_dir, *, scripted=True, val=False, quant=False, same_referen
         group = LocalGenerateGroup
     _adam_eps(side, pipe, cfg)
     if scripted:
-        worker = ScriptedWorker(pipe.processor.tokenizer, config.pad_token_id)
+        worker = (decode_worker or ScriptedWorker)(pipe.processor.tokenizer,
+                                                   config.pad_token_id)
         pipe.decode_replicas = [worker]
         pipe.decode_group = group([worker])
         pipe.generate_scheduler.cluster = pipe.decode_group
@@ -327,6 +340,37 @@ def test_scripted_metrics_and_params_match_jax(scripted):
         for k in want:
             if k.startswith(("critic/", "map/critic", "sat/critic")):
                 np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6, err_msg=k)
+    _assert_params_close(tpipe.actor_train.params, jax.tree.map(np.asarray,
+                                                                jpipe.actor_train.params))
+
+
+def test_sampled_image_pad_in_responses_runs_as_in_jax(tmp_path):
+    """Responses holding a sampled <|image_pad|> (stage 1's answers 0 and 2,
+    stage 2's answer 1) through one overlapped step: neither package
+    raises, and the rollouts, rewards, stage metrics and trained weights
+    agree as without it. Neither repairs the sequences: a stage-1 row then
+    holds one image token more than its images have rows (the decoded text
+    keeps the token), and the log-prob and train steps' scatter_image_embeds
+    gives that token the next image row in batch order, the last one
+    clamped onto the last row; a reference behaviour the port keeps."""
+    out = _run_pair(tmp_path, decode_worker=ImagePadWorker, max_steps=1)
+    (jpipe, jseen, jm), (tpipe, tseen, tm) = out["jax"], out["port"]
+    got, want = tseen["rollouts"][0], jseen["rollouts"][0]
+    _assert_rollouts_equal(got, want)
+    for k in jseen["rewards"][0]:
+        if k != "metrics":
+            np.testing.assert_array_equal(tseen["rewards"][0][k],
+                                          np.asarray(jseen["rewards"][0][k]), err_msg=k)
+    pad = tpipe.processor.tokenizer.special["<|image_pad|>"]
+    per_row = (np.asarray(got["seqs1"]) == pad).sum(1)
+    assert per_row[0] == per_row[1] + 1 and per_row[2] == per_row[3] + 1
+    assert (np.asarray(got["seqs2"]) == pad).sum(1).tolist() == [0, 1, 0, 0]
+    assert "<|image_pad|>" in got["map_texts"][0]
+    assert set(tm) == set(jm)
+    for stage in ("map", "sat"):
+        for k in STAGE_METRICS:
+            key = f"{stage}/{k}"
+            np.testing.assert_allclose(tm[key], jm[key], rtol=1e-5, atol=1e-6, err_msg=key)
     _assert_params_close(tpipe.actor_train.params, jax.tree.map(np.asarray,
                                                                 jpipe.actor_train.params))
 

@@ -302,6 +302,36 @@ class _Greedy:
     do_sample, num_return_sequences = False, 1
 
 
+@pytest.mark.parametrize("bound", ["window", "max_abs", "ratio"])
+def test_train_family_refuses_logprobs_past_their_bounds(bound, monkeypatch):
+    """train_family raises before any step when logprobs_at_init reads past
+    one of its three bounds (each reading set just above its bound, the
+    others at the worst readings on an H100), and names the bound."""
+    import chip_smoke
+    readings = {"response_tokens": 164, "kernels_vs_f32_mean_abs": 0.0110,
+                "dense_vs_f32_mean_abs": 0.0100, "kernels_vs_dense_max_abs": 0.094,
+                f"worst_{chip_smoke.LOGPROB_WINDOW}_window_excess": 0.0025}
+    if bound == "window":
+        readings[f"worst_{chip_smoke.LOGPROB_WINDOW}_window_excess"] = \
+            chip_smoke.LOGPROB_WINDOW_EXCESS_TOL * 1.01
+    elif bound == "max_abs":
+        readings["kernels_vs_dense_max_abs"] = chip_smoke.LOGPROB_KERNELS_DENSE_TOL * 1.01
+    else:
+        readings["kernels_vs_f32_mean_abs"] = 0.0100 * chip_smoke.LOGPROB_F32_RATIO_TOL * 1.01
+    monkeypatch.setattr(chip_smoke, "logprobs_at_init", lambda *a: dict(readings))
+    monkeypatch.setattr(TT, "make_train_step",
+                        lambda *a, **k: pytest.fail("a train step ran past a bound"))
+    config = t_llm.config_from_hf_dict(TINY_QWEN3_MOE)
+    params = t_model.init_params(config, torch.Generator().manual_seed(2), device="cpu",
+                                 with_vision=False, dtype=torch.bfloat16)
+    with pytest.raises(AssertionError, match="pass a bound") as err:
+        chip_smoke.train_family(config, params, torch.device("cpu"), lens=(96, 70))
+    assert {"window": "worst_window_excess", "max_abs": "kernels_vs_dense_max_abs",
+            "ratio": "kernels_over_dense_vs_f32"}[bound] in str(err.value)
+    assert (chip_smoke.LOGPROB_WINDOW_EXCESS_TOL, chip_smoke.LOGPROB_KERNELS_DENSE_TOL,
+            chip_smoke.LOGPROB_F32_RATIO_TOL) == (5e-3, 0.2, 1.25)
+
+
 def test_moe_tree_through_the_strategies():
     """An MoE tree through TorchTrainStrategy (log-probs, a train step that
     moves the 4-D expert stacks in place), model_update(snapshot=True) to a

@@ -113,6 +113,17 @@ class ScriptedWorker:
         return out
 
 
+class ImagePadWorker(ScriptedWorker):
+    """ScriptedWorker whose sample 0 of each prompt holds a sampled
+    <|image_pad|> after its second token."""
+
+    def _ids(self, prompt_ids, j):
+        ids = super()._ids(prompt_ids, j)
+        if j == 0:
+            ids[2:2] = [self.tok.special["<|image_pad|>"]]
+        return ids
+
+
 @functools.lru_cache(maxsize=2)
 def _weights(with_vision: bool):
     config = Qwen25VLConfig.tiny(VOCAB)
@@ -164,11 +175,11 @@ def _recording(compute, seen):
     return reward
 
 
-def _build(side, out_dir, kind, *, scripted=True, **cfg_kw):
+def _build(side, out_dir, kind, *, scripted=True, decode_worker=ScriptedWorker, **cfg_kw):
     """One package's pipeline on the shared weights: kind "plain" / "dynamic"
-    (RLVRPipeline) or "vlm" (MathVLMPipeline); decode through
-    ScriptedWorker unless `scripted` is off. Returns (pipe, seen): seen
-    records each reward call and each train batch."""
+    (RLVRPipeline) or "vlm" (MathVLMPipeline); decode through `decode_worker`
+    unless `scripted` is off. Returns (pipe, seen): seen records each reward
+    call and each train batch."""
     config, weights = _weights(kind == "vlm")
     seen = {"rewards": [], "train": []}
     jax_side = side == "jax"
@@ -217,8 +228,8 @@ def _build(side, out_dir, kind, *, scripted=True, **cfg_kw):
         seen["rejected"] = rejected
     _adam_eps(side, pipe)
     if scripted:
-        worker = ScriptedWorker(pipe.processor.tokenizer, config.eos_token_id,
-                                config.pad_token_id)
+        worker = decode_worker(pipe.processor.tokenizer, config.eos_token_id,
+                               config.pad_token_id)
         pipe.actor_infer.generate = worker.generate
         if getattr(pipe, "sampler", None) is not None:
             pipe.sampler.cluster = (JGroup if jax_side else LocalGenerateGroup)([worker])
@@ -296,6 +307,39 @@ def test_scripted_metrics_and_params_match_jax(scripted):
         first = tpipe.state.log_history[0]
         assert first["scheduler/query_filter_count"] == 1
         assert first["scheduler/prompt_use_count"] >= 3
+    _assert_params_close(tpipe.actor_train.params,
+                         jax.tree.map(np.asarray, jpipe.actor_train.params))
+
+
+def test_sampled_image_pad_in_math_vlm_responses_runs_as_in_jax(tmp_path):
+    """A sampled <|image_pad|> in sample 0's response of each prompt through
+    MathVLMPipeline's step: neither package raises, and the train batch,
+    log-probs, advantages, metrics and trained weights agree as without it.
+    Neither repairs the batch: those rows hold one image token more than
+    their image has rows, and the log-prob and train steps'
+    scatter_image_embeds gives each extra token the next image row in batch
+    order (the later rows' image tokens shift by one, the last ones clamped
+    onto the last row); a reference behaviour the port keeps."""
+    out = {}
+    for side in ("jax", "port"):
+        pipe, seen = _build(side, str(tmp_path / side), "vlm", decode_worker=ImagePadWorker)
+        out[side] = (pipe, seen, pipe.run())
+    (jpipe, jseen, jm), (tpipe, tseen, tm) = out["jax"], out["port"]
+    got, want = tseen["train"][0], jseen["train"][0]
+    assert sorted(got) == sorted(want)
+    for k in want:
+        if k in ("advantages", "old_log_probs", "ref_log_probs", "response_mask"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-5, err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    pad = tpipe.processor.tokenizer.special["<|image_pad|>"]
+    image, resp = got["input_ids"] == pad, got["response_mask"] == 1
+    assert (image & resp).sum(1).tolist() == [1, 0] * N
+    assert len(set((image & ~resp).sum(1).tolist())) == 1
+    assert set(tm) == set(jm)
+    for k in jm:
+        if k.startswith(("actor_train/", "critic/")):
+            np.testing.assert_allclose(tm[k], jm[k], rtol=1e-5, atol=1e-6, err_msg=k)
     _assert_params_close(tpipe.actor_train.params,
                          jax.tree.map(np.asarray, jpipe.actor_train.params))
 
