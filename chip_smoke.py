@@ -2238,6 +2238,7 @@ def run_main_path(config, params, dev, *, n_tiles=4, tile_px=768, img_cfg=None,
     from socioreasoner_tpu_torch.distributed.torch_strategies import (
         TorchDecodeStrategy, batch_image_embeds)
     from socioreasoner_tpu_torch.generation.sampling import SamplingParams
+    from socioreasoner_tpu_torch.utils import profiling
 
     img_cfg = img_cfg or ImageProcessorConfig(defer_patchify=True)
     batch = _stage1_batch(config, n_tiles, tile_px, img_cfg, buckets[-1])
@@ -2262,7 +2263,8 @@ def run_main_path(config, params, dev, *, n_tiles=4, tile_px=768, img_cfg=None,
         requests = [{"prompt_ids": ids[i][attn[i] == 1].tolist(), "sampling": sp,
                      "image_embeds": embeds[i], "position_ids": pos[i][:, attn[i] == 1]}
                     for i in range(n_tiles)]
-        outs, gen_s, alive = _serve(strategy, requests, dev)
+        with profiling.recording() as rec:
+            outs, gen_s, alive = _serve(strategy, requests, dev)
     if keep is not None:
         keep.update(requests=requests, tree=strategy.param_store.get("rollout"))
     _check_outputs(config, outs)
@@ -2276,11 +2278,11 @@ def run_main_path(config, params, dev, *, n_tiles=4, tile_px=768, img_cfg=None,
              "image_rows": [int(e.shape[0]) for e in embeds],
              "strategy_init_s": t_vit - t_init,
              "vit_ms_per_tile": vit_ms,
-             "prefill_ms": engine.prefill_device_time * 1e3,
+             "prefill_ms": span_s(rec, "engine.prefill") * 1e3,
              "prefill_calls": sum(engine.prefill_hist.values()),
-             "decode_s": engine.decode_time, "generated_tokens": n_tokens,
+             "decode_s": span_s(rec, "engine.decode"), "generated_tokens": n_tokens,
              # the first token of each request comes from its prefill
-             "decode_tok_s": (n_tokens - n_tiles) / max(engine.decode_time, 1e-9),
+             "decode_tok_s": (n_tokens - n_tiles) / max(span_s(rec, "engine.decode"), 1e-9),
              "request_wall_s": gen_s, "steps_executed": engine.steps_executed,
              "host_syncs": engine.host_syncs, "alive": alive,
              "finish": [o.finish_reason for o in outs],
@@ -3004,6 +3006,11 @@ def build_two_stage(config, params, sam_config, sam_params, out_dir, *, n_tiles=
         engine_kwargs=default_engine_kwargs(cfg), devices=devices)
 
 
+def span_s(rec, name: str) -> float:
+    """Seconds in the recorder's `name` spans (utils/profiling.py)."""
+    return rec.totals().get(name, (0.0, 0))[0]
+
+
 def wall_ms(fn, dev, reps=3) -> float:
     """Median wall ms of fn() between device syncs over `reps` calls."""
     times = []
@@ -3027,22 +3034,29 @@ def run_two_stage(pipeline, dev, kernels=()):
     from socioreasoner_tpu_torch.datasets.collator import collate_restage
     from socioreasoner_tpu_torch.datasets.socioseg import format_stage2_prompt
     from socioreasoner_tpu_torch.pipeline.rlvr.parsing import parse_bboxes
+    from socioreasoner_tpu_torch.utils import profiling
 
     cfg = pipeline.pipeline_config
     rows = pipeline.dataset
     n = len(rows)
     engine = pipeline.actor_infer.engine
 
-    def engine_counts():
-        return (engine.prefill_device_time, engine.decode_time, engine.steps_executed,
-                engine.prefill_rows, engine.host_syncs, sum(engine.prefill_hist.values()))
+    def counters():
+        return (engine.steps_executed, engine.prefill_rows, engine.host_syncs,
+                sum(engine.prefill_hist.values()))
 
-    before = engine_counts()
+    def engine_counts(rec, before):
+        """The spans' prefill and decode seconds, then the counters' moves."""
+        return [span_s(rec, "engine.prefill"), span_s(rec, "engine.decode")] + [
+            a - b for a, b in zip(counters(), before)]
+
+    before = counters()
     _sync(dev)
     t0 = time.perf_counter()
-    seq = pipeline._two_stage_sequential(rows)
+    with profiling.recording() as rec:
+        seq = pipeline._two_stage_sequential(rows)
     seq_wall = time.perf_counter() - t0
-    seq_d = [a - b for a, b in zip(engine_counts(), before)]
+    seq_d = engine_counts(rec, before)
 
     s1 = pipeline.collator(rows)
     s2 = collate_restage(pipeline.processor, pipeline.model_config,
@@ -3054,14 +3068,15 @@ def run_two_stage(pipeline, dev, kernels=()):
 
     for fn in kernels:
         fn.launches = 0
-    before = engine_counts()
+    before = counters()
     _sync(dev)
     t0 = time.perf_counter()
-    giou_acc = pipeline.run()
+    with profiling.recording() as rec:
+        giou_acc = pipeline.run()
     _sync(dev)
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in kernels}
-    d = [a - b for a, b in zip(engine_counts(), before)]
+    d = engine_counts(rec, before)
 
     written, n_files = check_infer_outputs(pipeline)
     if written != giou_acc:
@@ -3487,6 +3502,7 @@ def run_dp_pipelines(config, params, sam_config, sam_params, out_dir, dev, devic
     run() calls; with `checked` (prefill buckets, prefill batch sizes,
     Lalloc), every pass held to those shapes. Returns stats."""
     import os
+    from socioreasoner_tpu_torch.utils import profiling
     runs, files = {}, {}
     counts = {fn.__name__: 0 for fn in kernels}
     for dp in (1, 2):
@@ -3502,7 +3518,8 @@ def run_dp_pipelines(config, params, sam_config, sam_params, out_dir, dev, devic
             fn.launches = 0
         _sync(dev)
         t0 = time.perf_counter()
-        giou_acc = pipeline.run()
+        with profiling.recording() as rec:
+            giou_acc = pipeline.run()
         _sync(dev)
         wall = time.perf_counter() - t0
         for fn in kernels:
@@ -3514,8 +3531,8 @@ def run_dp_pipelines(config, params, sam_config, sam_params, out_dir, dev, devic
         if not all(served):
             raise AssertionError(f"dp_size={dp}: a replica served no prefill: {served}")
         fig = {"tiles_per_s": len(pipeline.dataset) / wall, "run_wall_s": wall,
-               "prefill_ms": sum(e.prefill_device_time for e in engines) * 1e3,
-               "decode_s": sum(e.decode_time for e in engines),
+               "prefill_ms": span_s(rec, "engine.prefill") * 1e3,
+               "decode_s": span_s(rec, "engine.decode"),
                "steps_executed": sum(e.steps_executed for e in engines),
                "prefill_buckets": sorted({k[1] for e in engines for k in e.prefill_hist}),
                "prefill_batches": sorted({k[0] for e in engines for k in e.prefill_hist}),
@@ -5714,6 +5731,7 @@ def serve_family(config, params, dev, *, prompt_lens=FAMILY_PROMPT_LENS,
     from socioreasoner_tpu_torch.distributed.torch_strategies import TorchDecodeStrategy
     from socioreasoner_tpu_torch.generation.engine import Request
     from socioreasoner_tpu_torch.generation.sampling import SamplingParams
+    from socioreasoner_tpu_torch.utils import profiling
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(2, config.text.vocab_size - 8, n).tolist() for n in prompt_lens]
     strategy = TorchDecodeStrategy()
@@ -5726,16 +5744,18 @@ def serve_family(config, params, dev, *, prompt_lens=FAMILY_PROMPT_LENS,
     sp = SamplingParams(temperature=0.0, do_sample=False, max_new_tokens=max_new)
     _sync(dev)
     t0 = time.perf_counter()
-    outs = engine.generate([Request(request_id=i, prompt_ids=p, sampling=sp)
-                            for i, p in enumerate(prompts)])
+    with profiling.recording() as rec:
+        outs = engine.generate([Request(request_id=i, prompt_ids=p, sampling=sp)
+                                for i, p in enumerate(prompts)])
     _sync(dev)
     wall = time.perf_counter() - t0
     _check_outputs(config, outs)
+    decode_s = span_s(rec, "engine.decode")
     stats = {"prompt_lens": [len(p) for p in prompts],
              "generated": [len(o.output_ids) for o in outs],
-             "generate_wall_s": wall, "prefill_ms": engine.prefill_device_time * 1e3,
-             "decode_s": engine.decode_time, "steps_executed": engine.steps_executed,
-             "decode_ms_per_step": engine.decode_time * 1e3 / max(engine.steps_executed, 1),
+             "generate_wall_s": wall, "prefill_ms": span_s(rec, "engine.prefill") * 1e3,
+             "decode_s": decode_s, "steps_executed": engine.steps_executed,
+             "decode_ms_per_step": decode_s * 1e3 / max(engine.steps_executed, 1),
              "prefill_buckets": sorted(engine.prefill_hist),
              "cache": list(engine.caches["k"].shape)}
     t1 = time.perf_counter()
@@ -6595,6 +6615,7 @@ def run_agentic_text(config, params, dev, *, kernels=(), processor=None,
     from socioreasoner_tpu_torch.configs.rlvr_config import RLVRConfig
     from socioreasoner_tpu_torch.datasets.processor import SimpleTokenizer, SocioProcessor
     from socioreasoner_tpu_torch.pipeline.agentic.agentic_pipeline import AgenticPipeline
+    from socioreasoner_tpu_torch.utils import profiling
     c = dict(AGENTIC_TEXT_CUTS, **cuts)
     processor = processor or SocioProcessor(SimpleTokenizer(config.text.vocab_size),
                                             image_token_id=config.image_token_id)
@@ -6617,7 +6638,8 @@ def run_agentic_text(config, params, dev, *, kernels=(), processor=None,
         _reset(kernels)
         _sync(dev)
         t0 = time.perf_counter()
-        last = pipe.run()
+        with profiling.recording() as rec:
+            last = pipe.run()
         _sync(dev)
         wall = time.perf_counter() - t0
     launches = _launch_counts(kernels)
@@ -6635,7 +6657,8 @@ def run_agentic_text(config, params, dev, *, kernels=(), processor=None,
             "metrics": last, "prefill_buckets": sorted({(key[0], key[1])
                                                         for key in engine.prefill_hist}),
             "cache": list(engine.caches["k"].shape), "engine_steps": engine.steps_executed,
-            "decode_ms_per_step": engine.decode_time * 1e3 / max(engine.steps_executed, 1),
+            "decode_ms_per_step": (span_s(rec, "engine.decode") * 1e3
+                                   / max(engine.steps_executed, 1)),
             "train_shapes": shapes["train"], "logprob_shapes": shapes["logprob"],
             "launches": launches}
 

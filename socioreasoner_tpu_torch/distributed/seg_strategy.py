@@ -23,6 +23,7 @@ from PIL import Image
 from ..models.sam2.config import Sam2Config
 from ..models.sam2.model import Sam2Predictor
 from ..protocol import BatchProto
+from ..utils import profiling
 from .strategy import InferenceStrategy
 
 SEG_INPUT_SIZE = (756, 756)    # ref seg_strategy.py:38
@@ -45,38 +46,40 @@ class SegStrategy(InferenceStrategy):
         dicts with box/points/labels). Returns [{"mask": (768,768) uint8}].
 
         The image encoder runs once over every tile with prompts that misses
-        the cache, the mask decoder once per sub-batch of tiles × objects."""
-        n = len(batch)
-        results: List[Optional[Dict[str, np.ndarray]]] = [None] * n
-        to_run, sources, images, prompt_lists = [], [], [], []
-        for i in range(n):
-            prompts = batch.non_tensor["visual_prompt"][i]
-            if prompts is None or len(prompts) == 0:
-                results[i] = {"mask": np.zeros(SEG_OUTPUT_SIZE, np.uint8)}
-                continue
-            image = batch.non_tensor["seg_image"][i]
-            if not isinstance(image, Image.Image):
-                image = Image.fromarray(np.asarray(image))
-            to_run.append(i)
-            sources.append(image)
-            images.append(image.resize(SEG_INPUT_SIZE))
-            prompt_lists.append(list(prompts))
-        if not to_run:
-            return results
+        the cache, the mask decoder once per sub-batch of tiles × objects;
+        one seg.segment span while spans are recorded."""
+        with profiling.span("seg.segment", tiles=len(batch)):
+            n = len(batch)
+            results: List[Optional[Dict[str, np.ndarray]]] = [None] * n
+            to_run, sources, images, prompt_lists = [], [], [], []
+            for i in range(n):
+                prompts = batch.non_tensor["visual_prompt"][i]
+                if prompts is None or len(prompts) == 0:
+                    results[i] = {"mask": np.zeros(SEG_OUTPUT_SIZE, np.uint8)}
+                    continue
+                image = batch.non_tensor["seg_image"][i]
+                if not isinstance(image, Image.Image):
+                    image = Image.fromarray(np.asarray(image))
+                to_run.append(i)
+                sources.append(image)
+                images.append(image.resize(SEG_INPUT_SIZE))
+                prompt_lists.append(list(prompts))
+            if not to_run:
+                return results
 
-        embeds = self._resolve_embeddings(sources, images)
-        mb = self._encode_batch()
-        self.predictor._orig_size = (SEG_INPUT_SIZE[1], SEG_INPUT_SIZE[0])
-        for start in range(0, len(to_run), mb):
-            idx = to_run[start:start + mb]
-            group = embeds[start:start + mb]
-            emb = tuple(torch.cat([e[lvl] for e in group], dim=0)
-                        for lvl in range(len(group[0])))
-            masks = self.predictor.predict_objects_mask_batch(
-                prompt_lists[start:start + mb], SEG_OUTPUT_SIZE, embeddings=emb)
-            for i, m in zip(idx, masks):
-                results[i] = {"mask": m}
-        return results
+            embeds = self._resolve_embeddings(sources, images)
+            mb = self._encode_batch()
+            self.predictor._orig_size = (SEG_INPUT_SIZE[1], SEG_INPUT_SIZE[0])
+            for start in range(0, len(to_run), mb):
+                idx = to_run[start:start + mb]
+                group = embeds[start:start + mb]
+                emb = tuple(torch.cat([e[lvl] for e in group], dim=0)
+                            for lvl in range(len(group[0])))
+                masks = self.predictor.predict_objects_mask_batch(
+                    prompt_lists[start:start + mb], SEG_OUTPUT_SIZE, embeddings=emb)
+                for i, m in zip(idx, masks):
+                    results[i] = {"mask": m}
+            return results
 
     # -------------------------------------------------- encoder-output cache
     def _resolve_embeddings(self, sources: List, images: List) -> List[Tuple]:

@@ -67,6 +67,7 @@ from ..parallel.sharding import ShardedTree
 from ..pipeline.losses import PPOLossConfig
 from ..protocol import BatchProto
 from ..utils.checkpoint import CheckpointManager
+from ..utils import profiling
 from .strategy import InferenceStrategy, ParamStore, TrainStrategy
 from .trainer import (TrainState, make_logprob_step, make_optimizer, make_train_step,
                       value_head)
@@ -85,21 +86,23 @@ def batch_image_embeds(config: Qwen25VLConfig, params, batch: BatchProto,
                        prefix: str = "", image_config=None
                        ) -> List[Optional[torch.Tensor]]:
     """Per-sample merged ViT embeddings (one tower call per sample) for every
-    sample in `batch`, as tensors on the parameters' device."""
+    sample in `batch`, as tensors on the parameters' device; one
+    vision.embeds span while spans are recorded."""
     out: List[Optional[torch.Tensor]] = [None] * len(batch)
     pv_col = batch.non_tensor.get(f"{prefix}pixel_values")
     u8_col = batch.non_tensor.get(f"{prefix}pixel_u8")
     grid_col = batch.non_tensor.get(f"{prefix}grid_thw")
-    for i in range(len(batch)):
-        u8 = u8_col[i] if u8_col is not None else None
-        pv = pv_col[i] if pv_col is not None else None
-        if u8 is not None:
-            if image_config is None:
-                raise ValueError("pixel_u8 requires image_config")
-            out[i] = run_vision_u8(config.vision, params["vision"], u8,
-                                   grid_col[i], image_config)
-        elif pv is not None:
-            out[i] = run_vision(config.vision, params["vision"], pv, grid_col[i])
+    with profiling.span("vision.embeds", images=len(batch)):
+        for i in range(len(batch)):
+            u8 = u8_col[i] if u8_col is not None else None
+            pv = pv_col[i] if pv_col is not None else None
+            if u8 is not None:
+                if image_config is None:
+                    raise ValueError("pixel_u8 requires image_config")
+                out[i] = run_vision_u8(config.vision, params["vision"], u8,
+                                       grid_col[i], image_config)
+            elif pv is not None:
+                out[i] = run_vision(config.vision, params["vision"], pv, grid_col[i])
     return out
 
 

@@ -13,7 +13,13 @@ The counterpart of socioreasoner_tpu/generation/engine.py on one device:
     lax.while_loop early exit (every slot hit a stop token or its budget)
     becomes a Python loop whose condition reads one bool per step, so
     `steps_executed` and the emitted tokens equal the JAX engine's.
-    `host_syncs` counts every blocking device→host read.
+    `host_syncs` counts every blocking device→host read; `decode_tokens`
+    the tokens decode chunks append to the requests' outputs.
+  * Host spans (utils/profiling.py) while a caller records them:
+    engine.step, engine.admit (a group), engine.prefill with its blocking
+    engine.prefill.read, engine.fork, engine.decode (a chunk) with each
+    step's engine.decode.launch and every blocking engine.decode.read, and
+    request.wait from a request's receipt to its slot.
   * Prefix fork: a request whose prompt is resident in another slot copies
     that slot's KV rows instead of prefilling.
   * Per-slot sampling parameters as tensors; random draws from one
@@ -48,7 +54,6 @@ cache and raises for an engine on the card.
 from __future__ import annotations
 
 import dataclasses
-import time
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -61,6 +66,7 @@ from ..ops.flags import use_flash_attention
 from ..ops.quant import params_prequantized, quantize_decode_params
 from ..parallel.mesh import tp_devices
 from ..parallel.sharding import shard_params
+from ..utils import profiling
 from .sampling import SamplingParams, sample_tokens
 
 
@@ -88,6 +94,7 @@ class Request:
     output_ids: List[int] = dataclasses.field(default_factory=list)
     finished: bool = False
     aborted: bool = False
+    wait: Any = None            # the open request.wait span, closed at its slot
 
 
 @dataclasses.dataclass
@@ -208,9 +215,7 @@ class DecodeEngine:
         self.slot_req: Dict[int, Request] = {}
         self.steps_executed = 0           # diagnostic: total decode steps run
         self.host_syncs = 0               # diagnostic: blocking device→host reads
-        self.admit_time = 0.0             # s spent admitting (incl. prefill)
-        self.decode_time = 0.0            # s spent in decode chunks
-        self.prefill_device_time = 0.0    # s inside prefill, to the first-token readback
+        self.decode_tokens = 0            # diagnostic: tokens appended by decode chunks
         self.prefill_hist: Dict[Tuple[int, int, int], int] = {}
         self.prefix_fork = prefix_fork
         self._slot_epoch = np.zeros(self.S, np.int64)
@@ -274,11 +279,14 @@ class DecodeEngine:
 
     def add_request(self, request_id, prompt_ids, sampling: SamplingParams,
                     image_embeds=None, position_ids: Optional[np.ndarray] = None,
-                    callback: Optional[Callable] = None, meta: Optional[Dict] = None):
+                    callback: Optional[Callable] = None, meta: Optional[Dict] = None,
+                    wait=None):
+        """`wait`: the request's open request.wait span, begun at its receipt
+        (the server begins it on the submitting thread)."""
         self.waiting.append(Request(
             request_id=request_id, prompt_ids=list(map(int, prompt_ids)),
             sampling=sampling, image_embeds=image_embeds,
-            position_ids=position_ids, callback=callback, meta=meta))
+            position_ids=position_ids, callback=callback, meta=meta, wait=wait))
 
     def abort_request(self, request_id) -> bool:
         for r in self.waiting:
@@ -307,31 +315,36 @@ class DecodeEngine:
         finished outputs. A request that cannot be admitted finishes with
         finish_reason="error" (callback fired) instead of stopping the loop."""
         outputs: List[EngineOutput] = []
-        t0 = time.perf_counter()
-        while self.waiting and self.free_slots:
-            group = self._next_group(outputs)
-            if not group:
-                break
-            try:
-                self._admit_group(group, outputs)
-            except Exception as e:  # noqa: BLE001 — isolate bad batches
-                for req in group:
-                    if req.slot >= 0:
-                        # the slot's KV may never have been written — any
-                        # prefix entry registered against it must die
-                        self._slot_epoch[req.slot] += 1
-                        if req.slot in self.slot_req:
-                            self._release(req.slot)
-                    self._finish_error(req, e, outputs)
-        t1 = time.perf_counter()
-        self.admit_time += t1 - t0
-        if self.slot_req:
-            outputs.extend(self._decode_chunk())
-            self.decode_time += time.perf_counter() - t1
+        with profiling.span("engine.step", waiting=len(self.waiting),
+                            running=len(self.slot_req)):
+            while self.waiting and self.free_slots:
+                with profiling.span("engine.admit") as sp:
+                    forks0 = self.forked_requests
+                    group, why = self._next_group(outputs)
+                    sp.set(rows=len(group), why=why)
+                    if not group:
+                        break
+                    try:
+                        self._admit_group(group, outputs)
+                    except Exception as e:  # noqa: BLE001 — isolate bad batches
+                        for req in group:
+                            if req.slot >= 0:
+                                # the slot's KV may never have been written — any
+                                # prefix entry registered against it must die
+                                self._slot_epoch[req.slot] += 1
+                                if req.slot in self.slot_req:
+                                    self._release(req.slot)
+                            self._finish_error(req, e, outputs)
+                    sp.set(forks=self.forked_requests - forks0)
+            if self.slot_req:
+                outputs.extend(self._decode_chunk())
         return outputs
 
     def generate(self, requests: List[Request]) -> List[EngineOutput]:
         """Batch API: run all requests to completion, in request order."""
+        for r in requests:
+            if r.wait is None:
+                r.wait = profiling.begin("request.wait", request=r.request_id)
         self.waiting.extend(requests)
         done: List[EngineOutput] = []
         while self.has_work():
@@ -349,16 +362,21 @@ class DecodeEngine:
         if req.callback is not None:
             req.callback(out)
 
-    def _next_group(self, outputs: List[EngineOutput]) -> List[Request]:
+    def _next_group(self, outputs: List[EngineOutput]) -> Tuple[List[Request], str]:
         """Pull a FIFO run of waiting requests sharing one prompt bucket,
         bounded by free slots and the total image-row budget. Requests that
-        can never be admitted are errored here."""
+        can never be admitted are errored here. Returns the group and why
+        it ended: "slots", "bucket", "image_budget" or "queue_empty"."""
         group: List[Request] = []
         img_total = 0
         key = None
         seen: Dict = {}                    # in-group fork prediction
         cap = min(len(self.free_slots), self._prefill_batch_buckets[-1])
-        while self.waiting and len(group) < cap:
+        why = "slots"
+        while len(group) < cap:
+            if not self.waiting:
+                why = "queue_empty"
+                break
             req = self.waiting[0]
             try:
                 b = _bucket(len(req.prompt_ids), self.prefill_buckets)
@@ -372,7 +390,8 @@ class DecodeEngine:
             if key is None:
                 key = b
             elif b != key:
-                break                      # keep FIFO order; next step() turn
+                why = "bucket"             # keep FIFO order; next step() turn
+                break
             # a duplicate of an earlier request in THIS group will fork (its
             # leader registers in the same admission pass), so its image rows
             # never enter the prefill
@@ -387,10 +406,11 @@ class DecodeEngine:
                 elif lead_pos is _MISS:
                     seen[pkey] = req.position_ids
             if group and n_img and img_total + n_img > self.image_buckets[-1]:
+                why = "image_budget"
                 break
             group.append(self.waiting.pop(0))
             img_total += n_img
-        return group
+        return group, why
 
     def _release(self, slot: int):
         self.slot_req.pop(slot, None)
@@ -419,6 +439,9 @@ class DecodeEngine:
             self._slot_epoch[slot] += 1
             req.slot = slot
             self.slot_req[slot] = req
+            if req.wait is not None:
+                req.wait.close(slot=slot, how="prefill" if entry is None else "fork")
+                req.wait = None
             if entry is not None:
                 (post_pairs if entry.slot in pass_slots else pre_pairs).append((entry, req))
             else:
@@ -479,17 +502,18 @@ class DecodeEngine:
         """Copy each entry's slot rows to its fork's slot, and stage the fork
         so its next decode step rewrites the identical KV entry at P-1 and
         samples its own first token from the same last-position logits."""
-        srcs, dsts = [], []
-        for e, req in fork_pairs:
-            slot = req.slot
-            self.lengths[slot] = e.P - 1
-            self.next_pos[slot] = e.next_pos - 1
-            self.last_token[slot] = e.last_token
-            srcs.append(e.slot)
-            dsts.append(slot)
-            self.forked_requests += 1
-        self._fork_slots(srcs, dsts)
-        self._dev_dirty = True
+        with profiling.span("engine.fork", pairs=len(fork_pairs)):
+            srcs, dsts = [], []
+            for e, req in fork_pairs:
+                slot = req.slot
+                self.lengths[slot] = e.P - 1
+                self.next_pos[slot] = e.next_pos - 1
+                self.last_token[slot] = e.last_token
+                srcs.append(e.slot)
+                dsts.append(slot)
+                self.forked_requests += 1
+            self._fork_slots(srcs, dsts)
+            self._dev_dirty = True
 
     @torch.no_grad()
     def _fork_slots(self, srcs: List[int], dsts: List[int]):
@@ -508,50 +532,51 @@ class DecodeEngine:
         B = len(reqs)
         Bp = self._batch_bucket(B)
         bucket = _bucket(max(len(r.prompt_ids) for r in reqs), self.prefill_buckets)
-
-        ids = np.full((Bp, bucket), self.config.pad_token_id, np.int64)
-        attn = np.zeros((Bp, bucket), np.int32)
-        attn[B:, 0] = 1                   # padded rows: 1 valid token
-        pos = np.zeros((Bp, 3, bucket), np.int64)
-        Ps = np.ones(Bp, np.int64)
-        temps = np.zeros(Bp, np.float32)
-        top_ps = np.ones(Bp, np.float32)
-        top_ks = np.zeros(Bp, np.int64)
-        next_pos_host = np.zeros(Bp, np.int64)
-        imgs = []
-        n_img_total = 0
-        self.prefill_rows += B
-        for i, req in enumerate(reqs):
-            P = len(req.prompt_ids)
-            ids[i, :P] = req.prompt_ids
-            attn[i, :P] = 1
-            Ps[i] = P
-            s = req.sampling
-            temps[i] = s.temperature if s.do_sample else 0.0
-            top_ps[i] = s.top_p
-            top_ks[i] = s.top_k
-            if req.position_ids is not None:
-                pos[i, :, :P] = req.position_ids
-                next_pos_host[i] = int(req.position_ids.max()) + 1
-            else:
-                pos[i] = np.clip(np.arange(bucket), 0, P - 1)[None]
-                next_pos_host[i] = P
-            if req.image_embeds is not None and req.image_embeds.shape[0]:
-                imgs.append(torch.as_tensor(req.image_embeds, device=self.device)
-                            .to(self._embed_dtype))
-                n_img_total += req.image_embeds.shape[0]
-        img_bucket = _bucket(n_img_total, self.image_buckets) if n_img_total else 0
-        hk = (Bp, bucket, img_bucket)
-        self.prefill_hist[hk] = self.prefill_hist.get(hk, 0) + 1
-        # unlike a compiled graph, nothing needs the image rows padded to the
-        # bucket: scatter_image_embeds reads one row per image token
-        img = torch.cat(imgs, dim=0) if imgs else None
-        slots = [req.slot for req in reqs]
-        tdev = time.perf_counter()
-        first_tok = self._prefill(ids, pos, attn, Ps, img, temps, top_ps, top_ks, slots)
-        toks = first_tok.cpu().numpy()    # blocks → true device prefill time
-        self.host_syncs += 1
-        self.prefill_device_time += time.perf_counter() - tdev
+        with profiling.span("engine.prefill", B=B, Bp=Bp, bucket=bucket) as sp:
+            ids = np.full((Bp, bucket), self.config.pad_token_id, np.int64)
+            attn = np.zeros((Bp, bucket), np.int32)
+            attn[B:, 0] = 1                   # padded rows: 1 valid token
+            pos = np.zeros((Bp, 3, bucket), np.int64)
+            Ps = np.ones(Bp, np.int64)
+            temps = np.zeros(Bp, np.float32)
+            top_ps = np.ones(Bp, np.float32)
+            top_ks = np.zeros(Bp, np.int64)
+            next_pos_host = np.zeros(Bp, np.int64)
+            imgs = []
+            n_img_total = 0
+            self.prefill_rows += B
+            for i, req in enumerate(reqs):
+                P = len(req.prompt_ids)
+                ids[i, :P] = req.prompt_ids
+                attn[i, :P] = 1
+                Ps[i] = P
+                s = req.sampling
+                temps[i] = s.temperature if s.do_sample else 0.0
+                top_ps[i] = s.top_p
+                top_ks[i] = s.top_k
+                if req.position_ids is not None:
+                    pos[i, :, :P] = req.position_ids
+                    next_pos_host[i] = int(req.position_ids.max()) + 1
+                else:
+                    pos[i] = np.clip(np.arange(bucket), 0, P - 1)[None]
+                    next_pos_host[i] = P
+                if req.image_embeds is not None and req.image_embeds.shape[0]:
+                    imgs.append(torch.as_tensor(req.image_embeds, device=self.device)
+                                .to(self._embed_dtype))
+                    n_img_total += req.image_embeds.shape[0]
+            img_bucket = _bucket(n_img_total, self.image_buckets) if n_img_total else 0
+            hk = (Bp, bucket, img_bucket)
+            self.prefill_hist[hk] = self.prefill_hist.get(hk, 0) + 1
+            # unlike a compiled graph, nothing needs the image rows padded to the
+            # bucket: scatter_image_embeds reads one row per image token
+            img = torch.cat(imgs, dim=0) if imgs else None
+            slots = [req.slot for req in reqs]
+            if profiling.active():
+                sp.set(image_rows=n_img_total, requests=[r.request_id for r in reqs])
+            first_tok = self._prefill(ids, pos, attn, Ps, img, temps, top_ps, top_ks, slots)
+            with profiling.span("engine.prefill.read"):
+                toks = first_tok.cpu().numpy()
+            self.host_syncs += 1
         self._dev_dirty = True
         # the cache holds the P prompt tokens; the first sampled token is
         # written at position P (= lengths) by the first decode step
@@ -613,35 +638,41 @@ class DecodeEngine:
         self._dev_dirty = False
 
     def _decode_chunk(self) -> List[EngineOutput]:
-        if self._dev_dirty or self._dev_state is None:
-            self._refresh_dev_state()
-        n = self.decode_chunk
-        inner = self.decode_inner or n
-        # chained inner loops (decode_inner), their tokens concatenated on
-        # the device: the early exit carries over through the device state
-        segs, steps = [], 0
-        for _ in range(-(-n // inner)):
-            seg, s_i = self._decode_loop(inner)
-            segs.append(seg[:, :s_i])
-            steps += s_i
-        toks = torch.cat(segs, dim=1).cpu().numpy()   # the only token download per chunk
-        self.host_syncs += 1
-        self.steps_executed += steps
-        # host mirrors advance arithmetically (the device did lengths+steps);
-        # a released/admitted slot marks the state dirty and forces re-upload
-        outputs: List[EngineOutput] = []
-        for slot, req in list(self.slot_req.items()):
-            emitted = toks[slot][:steps]
-            stop = self._stop_tokens(req)
-            for t in emitted:
-                req.output_ids.append(int(t))
-                if int(t) in stop or len(req.output_ids) >= req.sampling.max_new_tokens:
-                    break
-            self.lengths[slot] += steps
-            self.next_pos[slot] += steps
-            if emitted.size:
-                self.last_token[slot] = int(emitted[-1])
-            self._maybe_finish(req, outputs)
+        with profiling.span("engine.decode", active=len(self.slot_req)) as sp:
+            if self._dev_dirty or self._dev_state is None:
+                self._refresh_dev_state()
+            n = self.decode_chunk
+            inner = self.decode_inner or n
+            # chained inner loops (decode_inner), their tokens concatenated on
+            # the device: the early exit carries over through the device state
+            segs, steps = [], 0
+            for _ in range(-(-n // inner)):
+                seg, s_i = self._decode_loop(inner)
+                segs.append(seg[:, :s_i])
+                steps += s_i
+            toks = torch.cat(segs, dim=1)
+            with profiling.span("engine.decode.read"):
+                toks = toks.cpu().numpy()      # the only token download per chunk
+            self.host_syncs += 1
+            self.steps_executed += steps
+            sp.set(steps=steps)
+            # host mirrors advance arithmetically (the device did lengths+steps);
+            # a released/admitted slot marks the state dirty and forces re-upload
+            outputs: List[EngineOutput] = []
+            for slot, req in list(self.slot_req.items()):
+                emitted = toks[slot][:steps]
+                stop = self._stop_tokens(req)
+                n0 = len(req.output_ids)
+                for t in emitted:
+                    req.output_ids.append(int(t))
+                    if int(t) in stop or len(req.output_ids) >= req.sampling.max_new_tokens:
+                        break
+                self.decode_tokens += len(req.output_ids) - n0
+                self.lengths[slot] += steps
+                self.next_pos[slot] += steps
+                if emitted.size:
+                    self.last_token[slot] = int(emitted[-1])
+                self._maybe_finish(req, outputs)
         return outputs
 
     # ------------------------------------------------------------ device work
@@ -725,26 +756,30 @@ class DecodeEngine:
         steps = 0
         while steps < n_steps:
             self.host_syncs += 1
-            if not bool(running.any()):
+            with profiling.span("engine.decode.read"):
+                go = bool(running.any())
+            if not go:
                 break
-            pos = next_pos[:, None, None].expand(S, 3, 1)
-            kv_valid = (kv_pos[None, :] < (lengths + 1)[:, None]).to(torch.int32)
-            cache = ([dict(c, kv_valid=kv_valid) for c in self.caches]
-                     if self.tp is not None else dict(self.caches, kv_valid=kv_valid))
-            logits, _ = qmodel.forward(cfg, params, last_token[:, None], pos, None,
-                                       cache=cache, cache_positions=lengths[:, None],
-                                       use_flash=use_flash_attention(device=dev), tp=self.tp)
-            tok = sample_tokens(logits[:, 0], self._gen, st["temps"], st["top_ps"],
-                                st["top_ks"])
-            tok = torch.where(active, tok, pad)
-            toks[:, steps] = tok.to(torch.int32)
-            lengths = torch.where(active, lengths + 1, lengths)
-            next_pos = torch.where(active, next_pos + 1, next_pos)
-            budget = torch.where(active, budget - 1, budget)
-            stopped = (st["stops"] == tok[:, None]).any(dim=1)
-            running = running & ~stopped & (budget > 0)
-            last_token = tok
-            steps += 1
+            with profiling.span("engine.decode.launch"):
+                pos = next_pos[:, None, None].expand(S, 3, 1)
+                kv_valid = (kv_pos[None, :] < (lengths + 1)[:, None]).to(torch.int32)
+                cache = ([dict(c, kv_valid=kv_valid) for c in self.caches]
+                         if self.tp is not None else dict(self.caches, kv_valid=kv_valid))
+                logits, _ = qmodel.forward(cfg, params, last_token[:, None], pos, None,
+                                           cache=cache, cache_positions=lengths[:, None],
+                                           use_flash=use_flash_attention(device=dev),
+                                           tp=self.tp)
+                tok = sample_tokens(logits[:, 0], self._gen, st["temps"], st["top_ps"],
+                                    st["top_ks"])
+                tok = torch.where(active, tok, pad)
+                toks[:, steps] = tok.to(torch.int32)
+                lengths = torch.where(active, lengths + 1, lengths)
+                next_pos = torch.where(active, next_pos + 1, next_pos)
+                budget = torch.where(active, budget - 1, budget)
+                stopped = (st["stops"] == tok[:, None]).any(dim=1)
+                running = running & ~stopped & (budget > 0)
+                last_token = tok
+                steps += 1
         st.update(last_token=last_token, lengths=lengths, next_pos=next_pos,
                   budget=budget, running=running)
         return toks, steps

@@ -10,7 +10,10 @@ command contract:
   ALIVE_CHECK — liveness ping
 
 The server loop runs in a thread; responses flow through per-request
-callbacks, which fire on that thread.
+callbacks, which fire on that thread. While spans are recorded
+(utils/profiling.py), an ADD begins its request's request.wait span on the
+submitting thread, and each stretch of the loop with no work is one
+server.idle span.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import time
 import traceback
 from typing import Dict, Optional
 
+from ..utils import profiling
 from .engine import DecodeEngine
 from .sampling import SamplingParams
 
@@ -60,7 +64,7 @@ class GenerateServer:
         self._thread.start()
 
     def stop(self, timeout: float = 60.0):
-        self.command_queue.put((GenerateRequestType.STOP, None))
+        self.command_queue.put((GenerateRequestType.STOP, None, None))
         if self._thread is not None:
             self._thread.join(timeout)
 
@@ -75,7 +79,9 @@ class GenerateServer:
             if not self.is_alive():
                 raise RuntimeError("generate server thread died")
             return {"alive": True, "ts": self._alive_ts}
-        self.command_queue.put((command, data))
+        wait = (profiling.begin("request.wait", request=data["request_id"])
+                if command == GenerateRequestType.ADD else None)
+        self.command_queue.put((command, data, wait))
 
     # -------------------------------------------------------------------- loop
     def _loop(self):
@@ -83,12 +89,16 @@ class GenerateServer:
         still escapes is logged and the loop continues. Only repeated
         failures end the thread (ALIVE_CHECK then reports it)."""
         consecutive_errors = 0
+        idle = None                       # the open server.idle span
         try:
             while self._running:
                 self._alive_ts = time.time()
                 if self._drain_commands():
                     break
                 if self.engine.has_work():
+                    if idle is not None:
+                        idle.close()
+                        idle = None
                     try:
                         with self._lock:
                             self.engine.step()   # callbacks fire inside
@@ -102,14 +112,18 @@ class GenerateServer:
                             raise
                         time.sleep(0.05)
                 else:
+                    if idle is None:
+                        idle = profiling.begin("server.idle")
                     time.sleep(self.idle_sleep)
         finally:
+            if idle is not None:
+                idle.close()
             self._running = False
 
     def _drain_commands(self) -> bool:
         while True:
             try:
-                command, data = self.command_queue.get_nowait()
+                command, data, wait = self.command_queue.get_nowait()
             except queue.Empty:
                 return False
             if command == GenerateRequestType.STOP:
@@ -127,4 +141,5 @@ class GenerateServer:
                     image_embeds=data.get("image_embeds"),
                     position_ids=data.get("position_ids"),
                     callback=data.get("callback"),
-                    meta=data.get("meta"))
+                    meta=data.get("meta"),
+                    wait=wait)

@@ -13,7 +13,10 @@ One resident Qwen2.5-VL serves both stages (TorchDecodeStrategy, its engine
 on the policy tree's device) and SegStrategy runs SAM2 on the SAM2 tree's
 device; image embeddings are computed once per stage per sample. The default
 path overlaps the host restage with device decode by streaming requests
-through the decode server.
+through the decode server. While spans are recorded (utils/profiling.py),
+the pipeline thread records pipeline.chunk (one evaluate_batch),
+pipeline.submit_s1, each pipeline.restage_group with its pipeline.render
+and pipeline.collate, and each pipeline.segment_s2.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from ...models.qwen2_5_vl.config import Qwen25VLConfig
 from ...models.sam2.config import Sam2Config
 from ...protocol import BatchProto
 from ...runtime.generate_scheduler import LocalGenerateGroup
+from ...utils import profiling
 from ..base_pipeline import BasePipeline
 from .evaluation import compute_giou
 from .parsing import parse_visual_prompts_s1, parse_visual_prompts_s2, strip_special_tokens
@@ -86,9 +90,10 @@ class SocioSegInferPipeline(BasePipeline):
     def evaluate_batch(self, rows) -> list:
         """Two-stage decode+segment over `rows`, returning per-tile giou
         (the validation entry; no artifact dumps)."""
-        out = self._two_stage(rows)
-        return [compute_giou(out["s2_masks"][i], _gt_768(row["gt_mask"]))
-                for i, row in enumerate(rows)]
+        with profiling.span("pipeline.chunk", tiles=len(rows)):
+            out = self._two_stage(rows)
+            return [compute_giou(out["s2_masks"][i], _gt_768(row["gt_mask"]))
+                    for i, row in enumerate(rows)]
 
     def _two_stage(self, rows):
         """Two-stage decode+segment: overlapped with the host restage unless
@@ -172,26 +177,28 @@ class SocioSegInferPipeline(BasePipeline):
             w.start_server()
         try:
             # ---- submit every stage-1 request; the engine starts prefilling
-            ids_all = np.asarray(batch.batch["map_input_ids"])
-            attn_all = np.asarray(batch.batch["map_attention_mask"])
-            pos_all = np.asarray(batch.batch["map_position_ids"])
-            embeds = self._embeds(batch, "map_")
-            for i in range(n):
-                valid = attn_all[i] == 1
-                w = int(np.argmin(loads))
-                loads[w] += 1
-                workers[w].add_request(GRT.ADD, {
-                    "request_id": ("s1", i, w),
-                    "prompt_ids": ids_all[i][valid].tolist(),
-                    "sampling": sp,
-                    "position_ids": pos_all[i][:, valid],
-                    "image_embeds": embeds[i],
-                    "callback": s1_q.put})
+            with profiling.span("pipeline.submit_s1", tiles=n):
+                ids_all = np.asarray(batch.batch["map_input_ids"])
+                attn_all = np.asarray(batch.batch["map_attention_mask"])
+                pos_all = np.asarray(batch.batch["map_position_ids"])
+                embeds = self._embeds(batch, "map_")
+                for i in range(n):
+                    valid = attn_all[i] == 1
+                    w = int(np.argmin(loads))
+                    loads[w] += 1
+                    workers[w].add_request(GRT.ADD, {
+                        "request_id": ("s1", i, w),
+                        "prompt_ids": ids_all[i][valid].tolist(),
+                        "sampling": sp,
+                        "position_ids": pos_all[i][:, valid],
+                        "image_embeds": embeds[i],
+                        "callback": s1_q.put})
 
             # ---- phase A: restage stage-1 completions in groups while the
             # engine decodes the rest
             done = 0
             buf = []
+            n_groups = 0
             while done < n:
                 out = s1_q.get()
                 done += 1
@@ -199,8 +206,11 @@ class SocioSegInferPipeline(BasePipeline):
                 buf.append(out)
                 if len(buf) >= group_size or done == n:
                     group, buf = buf, []
-                    self._restage_group(group, rows, batch, sp, workers, loads, s2_q,
-                                        map_texts, s1_masks, s2_images, bbox_texts)
+                    with profiling.span("pipeline.restage_group", group=n_groups,
+                                        tiles=len(group)):
+                        self._restage_group(group, rows, batch, sp, workers, loads, s2_q,
+                                            map_texts, s1_masks, s2_images, bbox_texts)
+                    n_groups += 1
 
             # ---- phase B: stage-2 SAM in groups while later tiles decode
             done = 0
@@ -212,15 +222,16 @@ class SocioSegInferPipeline(BasePipeline):
                 buf.append(out)
                 if len(buf) >= group_size or done == n:
                     group, buf = buf, []
-                    idxs = [o.request_id[1] for o in group]
-                    for o in group:
-                        resp = np.asarray(o.output_ids, np.int64)
-                        sat_texts[o.request_id[1]] = strip_special_tokens(
-                            self.processor.decode(resp[resp != pad]))
-                    masks = self._segment_idxs(batch, idxs,
-                                               [sat_texts[i] for i in idxs], stage=2)
-                    for i, m in zip(idxs, masks):
-                        s2_masks[i] = m
+                    with profiling.span("pipeline.segment_s2", tiles=len(group)):
+                        idxs = [o.request_id[1] for o in group]
+                        for o in group:
+                            resp = np.asarray(o.output_ids, np.int64)
+                            sat_texts[o.request_id[1]] = strip_special_tokens(
+                                self.processor.decode(resp[resp != pad]))
+                        masks = self._segment_idxs(batch, idxs,
+                                                   [sat_texts[i] for i in idxs], stage=2)
+                        for i, m in zip(idxs, masks):
+                            s2_masks[i] = m
         finally:
             for w in workers:
                 w.stop_server()
@@ -242,15 +253,17 @@ class SocioSegInferPipeline(BasePipeline):
                 self.processor.decode(resp[resp != pad]))
         masks = self._segment_idxs(batch, idxs, [map_texts[i] for i in idxs], stage=1)
         s2_prompts, imgs = [], []
-        for i, m in zip(idxs, masks):
-            s1_masks[i] = m
-            bbox_texts[i], s2_images[i], prompt = _restage(
-                map_texts[i], rows[i]["question"], (rows[i]["image_map"], rows[i]["image_sat"]),
-                m)
-            s2_prompts.append(prompt)
-            imgs.append(s2_images[i])
-        s2_batch = collate_restage(self.processor, self.model_config,
-                                   s2_prompts, imgs, cfg.prompt_length)
+        with profiling.span("pipeline.render", tiles=len(idxs)):
+            for i, m in zip(idxs, masks):
+                s1_masks[i] = m
+                bbox_texts[i], s2_images[i], prompt = _restage(
+                    map_texts[i], rows[i]["question"],
+                    (rows[i]["image_map"], rows[i]["image_sat"]), m)
+                s2_prompts.append(prompt)
+                imgs.append(s2_images[i])
+        with profiling.span("pipeline.collate", tiles=len(idxs)):
+            s2_batch = collate_restage(self.processor, self.model_config,
+                                       s2_prompts, imgs, cfg.prompt_length)
         embeds2 = self._embeds(s2_batch, "")
         ids2 = np.asarray(s2_batch.batch["input_ids"])
         attn2 = np.asarray(s2_batch.batch["attention_mask"])
