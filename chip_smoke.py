@@ -3320,7 +3320,9 @@ def _forced_logits(engine, requests, tokens):
     decode step), so the engine's own path (its kernels, weights and cache)
     is teacher-forced along them. Returns, per request, the (len(tokens), V)
     f32 logits that fed each token. Prefix forking is off for the run, so
-    every request is prefilled."""
+    every request is prefilled; the forced sampler reads the logits on the
+    host, so the decode steps run eagerly, not as the engine's CUDA graph
+    (whose replays would sample with the sampler it captured)."""
     import torch
     from socioreasoner_tpu_torch.generation import engine as E
     from socioreasoner_tpu_torch.generation.sampling import SamplingParams
@@ -3351,15 +3353,18 @@ def _forced_logits(engine, requests, tokens):
                 out[row] = int(tokens[j][n])
         return out
 
-    fork, sample = engine.prefix_fork, E.sample_tokens
+    fork, sample, graphed = engine.prefix_fork, E.sample_tokens, engine._graphed
     engine.prefix_fork, engine._prefill_group, E.sample_tokens = False, record_group, forced
+    engine._graphed = False
     try:
         outs = engine.generate(reqs)
     finally:
-        engine.prefix_fork, E.sample_tokens = fork, sample
+        engine.prefix_fork, E.sample_tokens, engine._graphed = fork, sample, graphed
         del engine._prefill_group
     if [list(o.output_ids) for o in outs] != [list(t) for t in tokens]:
         raise AssertionError("the forced run did not emit the forced tokens")
+    if [len(r) for r in rows] != [len(t) for t in tokens]:
+        raise AssertionError("the forced sampler did not see every forced token's logits")
     return [torch.stack(r).numpy() for r in rows]
 
 

@@ -15,10 +15,24 @@ The counterpart of socioreasoner_tpu/generation/engine.py on one device:
     `steps_executed` and the emitted tokens equal the JAX engine's.
     `host_syncs` counts every blocking device→host read; `decode_tokens`
     the tokens decode chunks append to the requests' outputs.
+  * One decode step (`_decode_step`) is a function over device buffers
+    allocated once: the slot state, which admission and release copy into
+    and the step updates in place, and the chunk's token buffer, written
+    at a step index held on the device. An engine on one CUDA device runs
+    its first decode step eagerly and then captures the step as a CUDA
+    graph, which it replays once a step after that, on the stream prefill
+    and fork use; CPU and tp engines call the same function eagerly.
+    `graph_steps` counts the replayed steps, `graph_captures` the captures
+    (so graph_steps + graph_captures == steps_executed on one CUDA
+    device); set_params marks the graph stale, and the next decode step
+    captures again into the stale graph's memory pool.
   * Host spans (utils/profiling.py) while a caller records them:
     engine.step, engine.admit (a group), engine.prefill with its blocking
     engine.prefill.read, engine.fork, engine.decode (a chunk) with each
-    step's engine.decode.launch and every blocking engine.decode.read, and
+    step's engine.decode.launch (replay=1 where a graph runs the step,
+    replay=0 capture=1 on the eager step that precedes a capture) and every
+    blocking
+    engine.decode.read, and
     request.wait from a request's receipt to its slot.
   * Prefix fork: a request whose prompt is resident in another slot copies
     that slot's KV rows instead of prefilling.
@@ -54,6 +68,7 @@ cache and raises for an engine on the card.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -62,6 +77,7 @@ import torch
 
 from ..models.qwen2_5_vl import model as qmodel
 from ..models.qwen2_5_vl.config import Qwen25VLConfig
+from ..ops.decode_attention import paged_decode_attention, paged_decode_attention_int8
 from ..ops.flags import use_flash_attention
 from ..ops.quant import params_prequantized, quantize_decode_params
 from ..parallel.mesh import tp_devices
@@ -205,7 +221,10 @@ class DecodeEngine:
             return c
 
         # under tp, one cache of its kv heads a shard, contiguous on its
-        # device (a view of a whole cache would fail the kernels' strides)
+        # device (a view of a whole cache would fail the kernels' strides).
+        # Allocated once here and never rebound: prefill, fork and decode
+        # write into them in place, and the captured decode step holds
+        # their addresses.
         self.caches = (new_cache(Hkv, self.device) if self.tp is None else
                        [new_cache(Hkv // len(self.tp), dev) for dev in self.tp])
         self.lengths = np.zeros(self.S, np.int32)         # host copy
@@ -224,10 +243,18 @@ class DecodeEngine:
         self.forked_requests = 0          # diagnostic: prompts forked instead
         self.waiting: List[Request] = []
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        # device-resident decode state, refreshed only when admission or
-        # release changes the slot set
-        self._dev_state: Optional[Dict[str, torch.Tensor]] = None
+        # device-resident decode state: allocated once, copied into only
+        # when admission or release changes the slot set
+        self._dev_state = self._new_dev_state()
         self._dev_dirty = True
+        # the decode step as a CUDA graph, on one CUDA device only
+        self._graphed = self.tp is None and self.device.type == "cuda"
+        self._graph = None
+        self._graph_stale = False         # set_params: capture again before a replay
+        self._graph_launches = ()         # (counted kernel, calls a replay launches)
+        self._capture_stream = None
+        self.graph_steps = 0              # diagnostic: decode steps run by replay
+        self.graph_captures = 0           # diagnostic: captures of the decode step
 
     def _to_device(self, params):
         if isinstance(params, dict):
@@ -276,6 +303,8 @@ class DecodeEngine:
         self._install(params)
         # prefixes cached under the OLD weights must never fork under the new
         self._prefix_registry.clear()
+        # the captured step reads the old weight tensors: capture again
+        self._graph_stale = True
 
     def add_request(self, request_id, prompt_ids, sampling: SamplingParams,
                     image_embeds=None, position_ids: Optional[np.ndarray] = None,
@@ -632,27 +661,46 @@ class DecodeEngine:
                 "next_pos": self.next_pos.astype(np.int64),
                 "active": active, "temps": temps, "top_ps": top_ps,
                 "top_ks": top_ks, "budget": budget, "stops": stops,
-                "running": active.copy()}
-        self._dev_state = {k: torch.as_tensor(v, device=self.device)
-                           for k, v in host.items()}
+                "running": active}
+        for k, v in host.items():
+            self._dev_state[k].copy_(torch.from_numpy(v))
         self._dev_dirty = False
+
+    def _new_dev_state(self) -> Dict[str, torch.Tensor]:
+        """The decode step's device buffers: the slot state of
+        _refresh_dev_state, the chunk's (S, decode_chunk) tokens with the
+        step index they are written at, and the step's constants."""
+        S, dev = self.S, self.device
+
+        def zeros(dtype, *shape):
+            return torch.zeros(shape or (S,), dtype=dtype, device=dev)
+        return {"last_token": zeros(torch.int64), "lengths": zeros(torch.int64),
+                "next_pos": zeros(torch.int64), "active": zeros(torch.bool),
+                "temps": zeros(torch.float32), "top_ps": zeros(torch.float32),
+                "top_ks": zeros(torch.int64), "budget": zeros(torch.int32),
+                "stops": zeros(torch.int64, S, self.STOP_SET_K),
+                "running": zeros(torch.bool),
+                "toks": zeros(torch.int32, S, self.decode_chunk),
+                "step": zeros(torch.int64, 1),
+                "kv_pos": torch.arange(self.Lalloc, device=dev),
+                "pad": torch.full((S,), self.config.pad_token_id, dtype=torch.int64,
+                                  device=dev)}
 
     def _decode_chunk(self) -> List[EngineOutput]:
         with profiling.span("engine.decode", active=len(self.slot_req)) as sp:
-            if self._dev_dirty or self._dev_state is None:
+            if self._dev_dirty:
                 self._refresh_dev_state()
             n = self.decode_chunk
             inner = self.decode_inner or n
-            # chained inner loops (decode_inner), their tokens concatenated on
-            # the device: the early exit carries over through the device state
-            segs, steps = [], 0
+            # chained inner loops (decode_inner) append to one token buffer:
+            # the early exit carries over through the device state
+            self._dev_state["step"].zero_()
+            steps = 0
             for _ in range(-(-n // inner)):
-                seg, s_i = self._decode_loop(inner)
-                segs.append(seg[:, :s_i])
-                steps += s_i
-            toks = torch.cat(segs, dim=1)
+                steps += self._decode_loop(inner)
             with profiling.span("engine.decode.read"):
-                toks = toks.cpu().numpy()      # the only token download per chunk
+                # the only token download per chunk
+                toks = self._dev_state["toks"][:, :steps].cpu().numpy()
             self.host_syncs += 1
             self.steps_executed += steps
             sp.set(steps=steps)
@@ -732,27 +780,14 @@ class DecodeEngine:
                     cache[:, slot_idx, :, :bucket] = local[name][:, :B]
         return tok
 
-    @torch.no_grad()
-    def _decode_loop(self, n_steps: int) -> Tuple[torch.Tensor, int]:
-        """Generate up to n_steps tokens for all active slots; returns the
-        (S, n_steps) device tokens and the number of steps run.
+    def _decode_loop(self, n_steps: int) -> int:
+        """Run up to n_steps decode steps for all active slots, each writing
+        its tokens into the chunk's buffer; returns the number of steps run.
 
         The loop exits early once every active slot has emitted a stop token
         or exhausted its budget (the JAX lax.while_loop condition): one bool
-        readback per step. The device state is updated in place for the next
-        chunk."""
-        cfg = self.config
-        st = self._dev_state
-        S = self.S
-        dev = self.device
-        active = st["active"]
-        lengths, next_pos = st["lengths"], st["next_pos"]
-        last_token, budget = st["last_token"], st["budget"]
-        running = st["running"] & active
-        toks = torch.zeros((S, n_steps), dtype=torch.int32, device=dev)
-        kv_pos = torch.arange(self.Lalloc, device=dev)
-        pad = torch.full_like(last_token, cfg.pad_token_id)
-        params = self.params_q if self.params_q is not None else self.params
+        readback per step."""
+        running = self._dev_state["running"]
         steps = 0
         while steps < n_steps:
             self.host_syncs += 1
@@ -760,26 +795,94 @@ class DecodeEngine:
                 go = bool(running.any())
             if not go:
                 break
-            with profiling.span("engine.decode.launch"):
-                pos = next_pos[:, None, None].expand(S, 3, 1)
-                kv_valid = (kv_pos[None, :] < (lengths + 1)[:, None]).to(torch.int32)
-                cache = ([dict(c, kv_valid=kv_valid) for c in self.caches]
-                         if self.tp is not None else dict(self.caches, kv_valid=kv_valid))
-                logits, _ = qmodel.forward(cfg, params, last_token[:, None], pos, None,
-                                           cache=cache, cache_positions=lengths[:, None],
-                                           use_flash=use_flash_attention(device=dev),
-                                           tp=self.tp)
-                tok = sample_tokens(logits[:, 0], self._gen, st["temps"], st["top_ps"],
-                                    st["top_ks"])
-                tok = torch.where(active, tok, pad)
-                toks[:, steps] = tok.to(torch.int32)
-                lengths = torch.where(active, lengths + 1, lengths)
-                next_pos = torch.where(active, next_pos + 1, next_pos)
-                budget = torch.where(active, budget - 1, budget)
-                stopped = (st["stops"] == tok[:, None]).any(dim=1)
-                running = running & ~stopped & (budget > 0)
-                last_token = tok
-                steps += 1
-        st.update(last_token=last_token, lengths=lengths, next_pos=next_pos,
-                  budget=budget, running=running)
-        return toks, steps
+            replay = self._graphed and self._graph is not None and not self._graph_stale
+            with profiling.span("engine.decode.launch", replay=int(replay)) as sp:
+                if replay:
+                    self._graph.replay()
+                    self.graph_steps += 1
+                    for kernel, calls in self._graph_launches:
+                        kernel.launches += calls
+                elif self._graphed:
+                    self._step_and_capture()
+                    sp.set(capture=1)
+                else:
+                    self._decode_step()
+            steps += 1
+        return steps
+
+    @torch.no_grad()
+    def _decode_step(self):
+        """One decode step over the device buffers: the cached forward of
+        every slot's last token at L = 1, sampling, the token written at the
+        step index, and the slot state advanced in place where a slot is
+        active. Nothing here reads the device from the host or copies from
+        host memory, so the step can be captured and replayed."""
+        cfg = self.config
+        st = self._dev_state
+        S = self.S
+        active, lengths, next_pos = st["active"], st["lengths"], st["next_pos"]
+        pos = next_pos[:, None, None].expand(S, 3, 1)
+        kv_valid = (st["kv_pos"][None, :] < (lengths + 1)[:, None]).to(torch.int32)
+        cache = ([dict(c, kv_valid=kv_valid) for c in self.caches]
+                 if self.tp is not None else dict(self.caches, kv_valid=kv_valid))
+        params = self.params_q if self.params_q is not None else self.params
+        logits, _ = qmodel.forward(cfg, params, st["last_token"][:, None], pos, None,
+                                   cache=cache, cache_positions=lengths[:, None],
+                                   use_flash=use_flash_attention(device=self.device),
+                                   tp=self.tp)
+        tok = sample_tokens(logits[:, 0], self._gen, st["temps"], st["top_ps"],
+                            st["top_ks"])
+        tok = torch.where(active, tok, st["pad"])
+        st["toks"].index_copy_(1, st["step"], tok[:, None].to(torch.int32))
+        st["step"].add_(1)
+        one = active.to(torch.int32)
+        lengths.add_(one)
+        next_pos.add_(one)
+        st["budget"].sub_(one)
+        stopped = (st["stops"] == tok[:, None]).any(dim=1)
+        st["running"].logical_and_(~stopped & (st["budget"] > 0))
+        st["last_token"].copy_(tok)
+
+    def _step_and_capture(self):
+        """Run one decode step eagerly, then capture _decode_step as this
+        engine's CUDA graph; capturing runs nothing, so the state stays as
+        the eager step left it. The eager step also builds what the step
+        builds on its first call (kernel 3's plan and tensor maps, the GEMMs'
+        workspaces). Both run on one side stream, kept for the engine's
+        later captures. The capture is thread-local, so another thread may
+        launch work on the card meanwhile (the pipeline's ViT). The engine's
+        generator is registered with the graph: each replay draws fresh
+        uniforms. A capture after set_params goes into the stale graph's
+        memory pool, which that graph holds until the new one shares it, so
+        recapturing takes no more device memory and empties no cache."""
+        dev = self.device
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(dev)
+        side = self._capture_stream
+        stale = self._graph
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self._gen)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.device(dev), torch.cuda.stream(side):
+            self._decode_step()
+            with _CAPTURE_LOCK:
+                recorded = [k.recorded for k in _STEP_KERNELS]
+                graph.capture_begin(pool=None if stale is None else stale.pool(),
+                                    capture_error_mode="thread_local")
+                try:
+                    self._decode_step()
+                finally:
+                    graph.capture_end()
+                self._graph_launches = tuple((k, k.recorded - r)
+                                             for k, r in zip(_STEP_KERNELS, recorded))
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self._graph, self._graph_stale = graph, False
+        self.graph_captures += 1
+
+
+# the counted kernels a decode step launches: a capture records their calls,
+# and each replay adds those calls to their launch counts. The recordings of
+# every thread go to the same counters, so the engines of one process (dp
+# replicas, each served from its own thread) capture one at a time.
+_STEP_KERNELS = (paged_decode_attention, paged_decode_attention_int8)
+_CAPTURE_LOCK = threading.Lock()

@@ -23,6 +23,7 @@ rows, under pipeline parallelism the layers over its pp stages.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -77,6 +78,18 @@ def head_logits_tp(shards, hidden: torch.Tensor) -> torch.Tensor:
         return head_logits(shards[0], hidden)
     return torch.cat([head_logits(p, hidden.to(p["embed"].device)).to(home)
                       for p in shards], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def rope_tables(head_dim: int, theta: float, mrope_section: Tuple[int, ...],
+                device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The text rotary's f32 inverse frequencies and its (head_dim,) channel
+    → M-RoPE axis map on `device`, copied from the host once: a decode step
+    that copies from host memory cannot be captured as a CUDA graph."""
+    inv_freq = torch.as_tensor(make_inv_freq(head_dim, theta), device=device)
+    axis = torch.as_tensor(mrope_channel_axis(head_dim, mrope_section), dtype=torch.long,
+                           device=device)
+    return inv_freq, axis
 
 
 def forward(
@@ -143,9 +156,8 @@ def forward(
         embeds = scatter_image_embeds(input_ids, embeds, image_embeds.to(embeds.dtype),
                                       config.image_token_id)
 
-    inv_freq = torch.as_tensor(make_inv_freq(tcfg.head_dim, tcfg.rope_theta),
-                               device=embeds.device)
-    chan_axis = mrope_channel_axis(tcfg.head_dim, tcfg.mrope_section)
+    inv_freq, chan_axis = rope_tables(tcfg.head_dim, tcfg.rope_theta,
+                                      tuple(tcfg.mrope_section), embeds.device)
     cos, sin = mrope_cos_sin(position_ids, inv_freq, chan_axis)
 
     # Causality follows SEQUENCE order, not M-RoPE values: image tokens share

@@ -106,9 +106,11 @@ def mrope_channel_axis(head_dim: int, mrope_section: Sequence[int]) -> np.ndarra
 
 
 def mrope_cos_sin(position_ids: torch.Tensor, inv_freq: torch.Tensor,
-                  channel_axis: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+                  channel_axis) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, 3, L) ids → (B, L, head_dim) float32 cos/sin with the mrope
-    interleave folded in (channel c takes rope axis channel_axis[c])."""
+    interleave folded in (channel c takes rope axis channel_axis[c]).
+    channel_axis: mrope_channel_axis's array, or that map as a long tensor
+    on the ids' device, which is used without a copy."""
     freqs = position_ids[..., None].float() * inv_freq.float()[None, None, None, :]
     emb = torch.cat([freqs, freqs], dim=-1)                # (B, 3, L, head_dim)
     axis = torch.as_tensor(channel_axis, dtype=torch.long, device=emb.device)

@@ -21,7 +21,10 @@ A wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its kernel for tensors on a GPU, or raises. There is no fallback
 from a GPU tensor to the plain version. ``paged_decode_attention.launches``
 and ``paged_decode_attention_int8.launches`` count the launches of the two
-kernels.
+kernels. A call made while the current stream captures a CUDA graph
+launches nothing: it counts in ``recorded`` instead, and whoever replays
+the graph adds the calls it recorded to ``launches`` at each replay (the
+decode engine does).
 """
 
 from __future__ import annotations
@@ -301,6 +304,15 @@ def _launch(plan: DecodePlan, q, k, v, ks, vs, lengths, layer) -> torch.Tensor:
     return out
 
 
+def _count(wrapper) -> None:
+    """One call of `wrapper`'s kernel: a launch, or a recording while the
+    current stream captures a CUDA graph."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        wrapper.recorded += 1
+    else:
+        wrapper.launches += 1
+
+
 # --------------------------------------------------------------- the wrappers
 
 def paged_decode_attention(
@@ -323,11 +335,11 @@ def paged_decode_attention(
         return paged_decode_attention_reference(q, k_cache, v_cache, lengths)
     plan = decode_plan(q, k_cache, v_cache, lengths, None, None, stacked=layer is not None)
     out = _launch(plan, q, k_cache, v_cache, None, None, lengths, layer)
-    paged_decode_attention.launches += 1
+    _count(paged_decode_attention)
     return out
 
 
-paged_decode_attention.launches = 0
+paged_decode_attention.launches = paged_decode_attention.recorded = 0
 
 
 def paged_decode_attention_int8(q, k_cache, v_cache, lengths, k_scale, v_scale, *,
@@ -346,11 +358,11 @@ def paged_decode_attention_int8(q, k_cache, v_cache, lengths, k_scale, v_scale, 
     plan = decode_plan(q, k_cache, v_cache, lengths, k_scale, v_scale,
                        stacked=layer is not None)
     out = _launch(plan, q, k_cache, v_cache, k_scale, v_scale, lengths, layer)
-    paged_decode_attention_int8.launches += 1
+    _count(paged_decode_attention_int8)
     return out
 
 
-paged_decode_attention_int8.launches = 0
+paged_decode_attention_int8.launches = paged_decode_attention_int8.recorded = 0
 
 
 # ------------------------------------------------------- tensor parallelism

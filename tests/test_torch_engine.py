@@ -129,6 +129,24 @@ def test_engine_early_exit_and_stop_token_match_jax(setup):
     _assert_same(*_run_both(config, jp, tp, [("s", prompts[1], _greedy(50, (stop,)), None)], kw))
 
 
+@pytest.mark.parametrize("inner,syncs", [(0, 22), (2, 25)])
+def test_engine_decode_step_matches_jax(setup, inner, syncs):
+    """The decode step over the engine's fixed device buffers, run eagerly
+    on the CPU: the JAX engine's greedy tokens and steps, with chained inner
+    loops too; the host reads of the earlier step loop, which reassigned its
+    state each step (one a prefill group, one a step, one more where a loop
+    exits early, one token read a chunk); and no graph."""
+    config, jp, tp = setup
+    rng = np.random.default_rng(5)
+    specs = [(i, rng.integers(2, 200, size=n).tolist(), _greedy(m), None)
+             for i, (n, m) in enumerate(((5, 7), (9, 3), (12, 10)))]
+    je, te, jo, to = _run_both(config, jp, tp, specs, dict(
+        max_slots=2, max_len=64, decode_chunk=8, decode_inner=inner, prefill_buckets=(16,)))
+    _assert_same(je, te, jo, to)
+    assert te.steps_executed == 15 and te.host_syncs == syncs
+    assert te.graph_captures == te.graph_steps == 0
+
+
 def test_engine_prefix_fork_matches_jax(setup):
     config, jp, tp = setup
     rng = np.random.default_rng(1)

@@ -205,6 +205,8 @@ def test_engine_spans_match_its_counters(tiny):
     # a chunk (and the read that ends a chunk early) are the decode reads
     launches = _named(ev, "engine.decode.launch")
     assert len(launches) == engine.steps_executed - steps0
+    # a CPU engine runs its steps eagerly: no replay, no capture
+    assert all(e["attrs"] == {"replay": 0} for e in launches)
     assert len(_named(ev, "engine.decode.read")) >= len(launches) + len(decode)
     by_id = {e["id"]: e for e in ev}
     for e in launches:
