@@ -55,7 +55,9 @@
 //
 // Every head dim with D % 128 == 0, as the JAX package routes its decode
 // kernel; any other D is refused. Instances of 128 and 256 columns: at 256 a
-// bf16 stage is 64 KB (4 + 4 boxes), so the ring takes three; the merge
+// bf16 stage is 64 KB (4 + 4 boxes), so the ring takes three, which pass
+// between the consumer groups (one full barrier a stage and group, `Ring`,
+// so that a group never takes a stage's earlier load for its own); the merge
 // workspace (the warps' and the CTA's partial states, ~150 KB) still fits
 // inside the ring it aliases, which is idle once every warp has left the
 // block loop. O is 128 registers a consumer thread there, so Q's fragments
@@ -129,6 +131,32 @@ struct Layout {
   static_assert(kCtaL + kMaxRep * 4 <= kWork, "partials exceed the ring");
   static_assert(kStage % 1024 == 0, "swizzled boxes start on 1024-byte boundaries");
   static_assert(kSmem <= 232448, "the H100's shared memory a block");
+};
+
+// The ring's full barriers. Without kSliced the two consumer groups take
+// alternate blocks, so a ring of an odd depth (bf16 at 256: three stages)
+// hands each stage from one group to the other: stage 0 holds block 0 for
+// group 0, block 3 for group 1, block 6 for group 0. With one full barrier a
+// stage, a group could reach block i + 3 while the load of block i into the
+// stage was still in flight, and its wait would take the barrier's earlier
+// phase, of the same parity, for the one it wants: it would read a stale
+// stage and release it early, and the producer would overwrite a block the
+// other group was still reading (until a wait ran past mbar_wait's 2^35
+// clocks and trapped). So such a ring keeps one full barrier a (stage,
+// group): each is met by every sixth block, all of one group, which waits
+// for its phases in order. An even ring, or the sliced kernel (both groups
+// take every block), keeps one a stage.
+template <typename T, int kD, bool kSliced>
+struct Ring {
+  static constexpr int kStages = Layout<T, kD>::kStages;
+  static constexpr int kSets = !kSliced && kStages % kGroups ? kGroups : 1;
+  static constexpr int kFull = kStages * kSets;      // full barriers, then kStages empty ones
+  // the full barrier of the CTA's i-th stage load, and the parity of the
+  // phase that load completes
+  __device__ __forceinline__ static uint32_t full(uint32_t full0, int i) {
+    return full0 + 8 * (i % kStages + kStages * (i % kSets));
+  }
+  __device__ __forceinline__ static uint32_t parity(int i) { return (i / kFull) & 1; }
 };
 
 // The d column that thread tq of a quad supplies as element e (0-3) of mma
@@ -257,7 +285,7 @@ __device__ __forceinline__ void producer(const DecodeArgs& a, uint32_t base, uin
       const int i = (j - j_lo) * nk + kc, st = i % kStages;
       const bool last = kc == nk - 1;
       if (i >= kStages) mbar_wait(empty0 + 8 * st, ((i / kStages) - 1) & 1);
-      const uint32_t full = full0 + 8 * st, dst = base + st * L::kStage;
+      const uint32_t full = Ring<T, kD, kSliced>::full(full0, i), dst = base + st * L::kStage;
       mbar_expect_tx(full, last ? L::kTxBytes : L::kBoxes * L::kBox);
 #pragma unroll
       for (int b = 0; b < L::kBoxes; ++b) {
@@ -400,7 +428,7 @@ __device__ __forceinline__ void consumer(const DecodeArgs& a, unsigned char* sme
         const int i = (j - j_lo) * nk + kc;
         st = i % kStages;
         stage = base + st * L::kStage;
-        mbar_wait(full0 + 8 * st, (i / kStages) & 1);
+        mbar_wait(Ring<T, kD, kSliced>::full(full0, i), Ring<T, kD, kSliced>::parity(i));
         if (active) qk(stage, sc);
         if (kc + 1 < nk) {               // a K stage before the block's last: done with it
           __syncwarp();
@@ -411,7 +439,7 @@ __device__ __forceinline__ void consumer(const DecodeArgs& a, unsigned char* sme
       const int i = j - j_lo;
       st = i % kStages;
       stage = base + st * L::kStage;
-      mbar_wait(full0 + 8 * st, (i / kStages) & 1);
+      mbar_wait(Ring<T, kD, kSliced>::full(full0, i), Ring<T, kD, kSliced>::parity(i));
     }
     if (active) {
       if constexpr (!kSliced) qk(stage, sc);
@@ -578,7 +606,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kStages = L::kStages;
   constexpr int kAccStride = L::kAccStride;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t bars[2 * kStages];
+  using R = Ring<T, kD, kSliced>;
+  __shared__ __align__(8) uint64_t bars[R::kFull + kStages];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();      // the cluster spans grid x
   const int n_split = (int)cluster.num_blocks();
@@ -587,13 +616,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int sl = kSliced ? blockIdx.y % a.slices : 0;
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
-  const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * kStages;
+  const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * R::kFull;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < kStages; ++i) {
-      mbar_init(full0 + 8 * i, 1);            // the producer's expect_tx
-      // one arrive per warp of the consuming group (sliced: of both groups)
-      mbar_init(empty0 + 8 * i, kSliced ? kWarps : 4);
-    }
+    for (int i = 0; i < R::kFull; ++i) mbar_init(full0 + 8 * i, 1);   // the producer's expect_tx
+    // one arrive per warp of the consuming group (sliced: of both groups)
+    for (int i = 0; i < kStages; ++i) mbar_init(empty0 + 8 * i, kSliced ? kWarps : 4);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   // launched as a programmatic dependent of the stream's previous kernel:

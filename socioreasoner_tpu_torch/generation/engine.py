@@ -25,7 +25,9 @@ The counterpart of socioreasoner_tpu/generation/engine.py on one device:
     `graph_steps` counts the replayed steps, `graph_captures` the captures
     (so graph_steps + graph_captures == steps_executed on one CUDA
     device); set_params marks the graph stale, and the next decode step
-    captures again into the stale graph's memory pool.
+    captures again into the stale graph's memory pool. While spans are
+    recorded, each replay also adds the kernel-3 calls its capture recorded
+    to their counters (ops/decode_attention.py, by instance and split).
   * Host spans (utils/profiling.py) while a caller records them:
     engine.step, engine.admit (a group), engine.prefill with its blocking
     engine.prefill.read, engine.fork, engine.decode (a chunk) with each
@@ -251,7 +253,7 @@ class DecodeEngine:
         self._graphed = self.tp is None and self.device.type == "cuda"
         self._graph = None
         self._graph_stale = False         # set_params: capture again before a replay
-        self._graph_launches = ()         # (counted kernel, calls a replay launches)
+        self._graph_calls = ()            # (counted kernel, its counter, calls a replay launches)
         self._capture_stream = None
         self.graph_steps = 0              # diagnostic: decode steps run by replay
         self.graph_captures = 0           # diagnostic: captures of the decode step
@@ -800,8 +802,9 @@ class DecodeEngine:
                 if replay:
                     self._graph.replay()
                     self.graph_steps += 1
-                    for kernel, calls in self._graph_launches:
+                    for kernel, name, calls in self._graph_calls:
                         kernel.launches += calls
+                        profiling.count(name, calls)
                 elif self._graphed:
                     self._step_and_capture()
                     sp.set(capture=1)
@@ -866,15 +869,16 @@ class DecodeEngine:
         with torch.cuda.device(dev), torch.cuda.stream(side):
             self._decode_step()
             with _CAPTURE_LOCK:
-                recorded = [k.recorded for k in _STEP_KERNELS]
+                before = [dict(k.recorded) for k in _STEP_KERNELS]
                 graph.capture_begin(pool=None if stale is None else stale.pool(),
                                     capture_error_mode="thread_local")
                 try:
                     self._decode_step()
                 finally:
                     graph.capture_end()
-                self._graph_launches = tuple((k, k.recorded - r)
-                                             for k, r in zip(_STEP_KERNELS, recorded))
+                self._graph_calls = tuple(
+                    (k, name, n - b.get(name, 0)) for k, b in zip(_STEP_KERNELS, before)
+                    for name, n in k.recorded.items() if n > b.get(name, 0))
         torch.cuda.current_stream(dev).wait_stream(side)
         self._graph, self._graph_stale = graph, False
         self.graph_captures += 1

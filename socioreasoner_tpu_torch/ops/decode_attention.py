@@ -21,9 +21,13 @@ A wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its kernel for tensors on a GPU, or raises. There is no fallback
 from a GPU tensor to the plain version. ``paged_decode_attention.launches``
 and ``paged_decode_attention_int8.launches`` count the launches of the two
-kernels. A call made while the current stream captures a CUDA graph
-launches nothing: it counts in ``recorded`` instead, and whoever replays
-the graph adds the calls it recorded to ``launches`` at each replay (the
+kernels. While spans are recorded (utils/profiling.py), each launch also
+adds one to the recorder's counter of its instance and cluster split,
+``DecodePlan.counter`` (``k3.bf16_256.split1``: the kernel, bf16 or int8,
+its instance, 128, 256 or sliced, and n_split). A call made while the
+current stream captures a CUDA graph launches nothing: it counts in
+``recorded[counter]`` instead, and whoever replays the graph adds the calls
+it recorded to ``launches`` and to their counters at each replay (the
 decode engine does).
 """
 
@@ -36,6 +40,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import profiling
 from . import _build
 from .attention import dense_attention
 from .flash_attention import check_shapes, head_dim_plan
@@ -161,6 +166,8 @@ class DecodePlan:
                             H * D, D, D ** -0.5)
         self.shape_ptr = ctypes.addressof(self.shape)
         self.maps: dict = {}
+        instance = "sliced" if D > 256 else "256" if D > 128 else "128"
+        self.counter = f"k3.{'int8' if quant else 'bf16'}_{instance}.split{n_split}"
 
     def tensor_maps(self, k_ptr: int, v_ptr: int) -> int:
         """Address of the K and V tensor maps of the buffers at k_ptr, v_ptr."""
@@ -304,13 +311,14 @@ def _launch(plan: DecodePlan, q, k, v, ks, vs, lengths, layer) -> torch.Tensor:
     return out
 
 
-def _count(wrapper) -> None:
+def _count(wrapper, plan: DecodePlan) -> None:
     """One call of `wrapper`'s kernel: a launch, or a recording while the
     current stream captures a CUDA graph."""
     if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
-        wrapper.recorded += 1
+        wrapper.recorded[plan.counter] = wrapper.recorded.get(plan.counter, 0) + 1
     else:
         wrapper.launches += 1
+        profiling.count(plan.counter)
 
 
 # --------------------------------------------------------------- the wrappers
@@ -335,11 +343,12 @@ def paged_decode_attention(
         return paged_decode_attention_reference(q, k_cache, v_cache, lengths)
     plan = decode_plan(q, k_cache, v_cache, lengths, None, None, stacked=layer is not None)
     out = _launch(plan, q, k_cache, v_cache, None, None, lengths, layer)
-    _count(paged_decode_attention)
+    _count(paged_decode_attention, plan)
     return out
 
 
-paged_decode_attention.launches = paged_decode_attention.recorded = 0
+paged_decode_attention.launches = 0
+paged_decode_attention.recorded = {}
 
 
 def paged_decode_attention_int8(q, k_cache, v_cache, lengths, k_scale, v_scale, *,
@@ -358,11 +367,12 @@ def paged_decode_attention_int8(q, k_cache, v_cache, lengths, k_scale, v_scale, 
     plan = decode_plan(q, k_cache, v_cache, lengths, k_scale, v_scale,
                        stacked=layer is not None)
     out = _launch(plan, q, k_cache, v_cache, k_scale, v_scale, lengths, layer)
-    _count(paged_decode_attention_int8)
+    _count(paged_decode_attention_int8, plan)
     return out
 
 
-paged_decode_attention_int8.launches = paged_decode_attention_int8.recorded = 0
+paged_decode_attention_int8.launches = 0
+paged_decode_attention_int8.recorded = {}
 
 
 # ------------------------------------------------------- tensor parallelism

@@ -17,7 +17,12 @@ LocalGenerateGroup from socioreasoner_tpu/runtime/generate_scheduler.py:
     rollout: prompt groups streamed into the servers under flow control,
     rewards per group as it completes, query and response filters whose
     rejected groups are replaced by further pulls, and the ABORT of what is
-    still in flight once the target is met.
+    still in flight once the target is met. A dataset row may carry its own
+    `max_new_tokens` and `temperature` over the batch's generating_args.
+    While spans are recorded (utils/profiling.py): `rollout.batch` (one
+    get_batch), `rollout.group` (a group's first submission to its n-th
+    response: n, prompt_len, tokens), `rollout.reward` (a finished group's
+    reward call), and the counters `responses_done` and `groups_done`.
 
 Several decode replicas (actor_infer dp_size) serve side by side, each on
 its own device or sharing one, and each behind its own server thread. The
@@ -28,16 +33,18 @@ the request callbacks fire there.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 
 from ..generation.sampling import SamplingParams
 from ..generation.server import GenerateRequestType
 from ..protocol import BatchProto
+from ..utils import profiling
 
 
 class GlobalCounter:
@@ -200,6 +207,22 @@ class LocalGenerateGroup:
         return np.concatenate(full, axis=0)
 
 
+def row_sampling(sp: SamplingParams, row, generating_args) -> SamplingParams:
+    """The sampling of one dataset row: the batch's `sp`, with the row's
+    own `max_new_tokens` and `temperature` where it sets them (a
+    temperature of 0 or less decodes greedily, as in generating_args)."""
+    if not isinstance(row, Mapping):
+        return sp
+    over = {}
+    if "max_new_tokens" in row:
+        over["max_new_tokens"] = int(row["max_new_tokens"])
+    if "temperature" in row:
+        t = float(row["temperature"])
+        over["temperature"] = max(t, 1e-5)
+        over["do_sample"] = bool(getattr(generating_args, "do_sample", True)) and t > 0
+    return dataclasses.replace(sp, **over) if over else sp
+
+
 class DynamicSamplingScheduler:
     """Concurrent dataset-pulling rollout with flow control.
 
@@ -254,6 +277,10 @@ class DynamicSamplingScheduler:
         output, (N * n, P + max_out) right-padded sequences ordered by
         (prompt, sample); scores and response_level_rewards, (N * n,), when
         reward_fns are set; metrics, the scheduler's."""
+        with profiling.span("rollout.batch", target=target_prompts):
+            return self._get_batch(dataset_iter, target_prompts, generating_args)
+
+    def _get_batch(self, dataset_iter, target_prompts: int, generating_args) -> BatchProto:
         n = generating_args.num_return_sequences
         sp = SamplingParams.from_generating_args(generating_args)
         workers = self.cluster.workers
@@ -280,7 +307,11 @@ class DynamicSamplingScheduler:
                 g["pending"].discard((gid, j, w))
                 if out.finish_reason != "abort":
                     g["outs"].append(out)
+                    profiling.count("responses_done")
                 if not g["pending"]:
+                    profiling.count("groups_done")
+                    if g["span"] is not None:
+                        g["span"].close(tokens=sum(len(o.output_ids) for o in g["outs"]))
                     ready.append(gid)
                     cond.notify_all()
 
@@ -320,8 +351,12 @@ class DynamicSamplingScheduler:
                     if "position_ids" in batch.batch:
                         pos = np.asarray(batch.batch["position_ids"][0])[:, valid]
                     embeds = (batch.meta.get("image_embeds_list") or [None])[0]
+                    prompt_ids = ids[valid].tolist()
+                    row_sp = row_sampling(sp, row, generating_args)
                     with lock:
-                        g = {"row": row, "batch": batch, "outs": [], "pending": set()}
+                        g = {"row": row, "batch": batch, "outs": [], "pending": set(),
+                             "span": profiling.begin("rollout.group", group=gid, n=n,
+                                                     prompt_len=len(prompt_ids))}
                         groups[gid] = g
                         stats["max_inflight_prompts"] = max(stats["max_inflight_prompts"],
                                                             len(groups))
@@ -330,8 +365,8 @@ class DynamicSamplingScheduler:
                         g["pending"].update(rids)
                     for rid in rids:
                         workers[rid[2]].add_request(GenerateRequestType.ADD, {
-                            "request_id": rid, "prompt_ids": ids[valid].tolist(),
-                            "sampling": sp, "position_ids": pos,
+                            "request_id": rid, "prompt_ids": prompt_ids,
+                            "sampling": row_sp, "position_ids": pos,
                             "image_embeds": embeds, "callback": on_done})
 
                 # ---- wait for a completed group (decoding goes on meanwhile)
@@ -359,8 +394,9 @@ class DynamicSamplingScheduler:
                     reward_out = None
                     if self.reward_fns:
                         fn_ = self.reward_fns.get(domain) or next(iter(self.reward_fns.values()))
-                        texts = [self.detokenize(o.output_ids) for o in outs]
-                        reward_out = fn_(texts, [g["row"]] * n)
+                        with profiling.span("rollout.reward", group=gid, domain=domain):
+                            texts = [self.detokenize(o.output_ids) for o in outs]
+                            reward_out = fn_(texts, [g["row"]] * n)
                         scores = np.asarray(reward_out.get(
                             "scores", reward_out["response_level_rewards"]), np.float32)
                         domain_scores.setdefault(domain, []).extend(scores.tolist())

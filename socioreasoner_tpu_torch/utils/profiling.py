@@ -10,9 +10,11 @@ returns the same rows as the JAX package: {"plane", "name", "total_us",
 "count", "avg_us"}, sorted by total time, device planes only unless there
 are none (a CPU run).
 
-It also holds the port's host spans. A caller switches them on with
-`recording()`, the only switch; while it is off, `span` hands out one
-shared no-op object, reads no clock and records nothing. While it is on,
+It also holds the port's host spans and counters. A caller switches them
+on with `recording()`, the only switch; while it is off, `span` hands out
+one shared no-op object, reads no clock and records nothing, and `count`
+returns at once. While it is on, `count(name, n)` adds n to the recorder's
+counter `name`, and
 each span appends one record (id, parent id, thread, name, start, end,
 attributes) to the recorder's list, and `Recorder.events()` gives start and
 end in epoch nanoseconds, the clock of a torch.profiler trace's
@@ -113,6 +115,17 @@ class Recorder:
         self._records: List[tuple] = []
         self._ids = itertools.count(1)
         self._local = threading.local()
+        self._counts: Dict[str, int] = {}
+        self._count_lock = threading.Lock()
+
+    def add(self, name: str, n: int = 1):
+        with self._count_lock:
+            self._counts[name] = self._counts.get(name, 0) + n
+
+    def counters(self) -> Dict[str, int]:
+        """The counters' values so far (a copy)."""
+        with self._count_lock:
+            return dict(self._counts)
 
     def _stack(self) -> List["_Span"]:
         """The calling thread's open spans (the parents of new ones)."""
@@ -218,6 +231,14 @@ def span(name: str, **attrs):
     the thread's innermost open span; its `set(**attrs)` adds attributes."""
     rec = _ACTIVE
     return _OFF if rec is None else _Span(rec, name, attrs)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the active recorder's counter `name` (nothing while
+    recording is off)."""
+    rec = _ACTIVE
+    if rec is not None:
+        rec.add(name, n)
 
 
 def begin(name: str, **attrs) -> Optional[_Span]:
